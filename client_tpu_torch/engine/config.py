@@ -1,0 +1,95 @@
+"""Model configuration: the engine-side analog of Triton's ``config.pbtxt``.
+
+The port's own copy of ``client_tpu/engine/config.py``, trimmed to what
+this slice serves: batched models with optional dynamic batching, built
+in code (no ``config.pbtxt`` parsing yet). Field names match the
+reference's model-config schema.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any
+
+
+@dataclass
+class TensorConfig:
+    name: str
+    data_type: str  # v2 wire name, e.g. "INT32"
+    dims: list[int]
+
+
+@dataclass
+class DynamicBatchingConfig:
+    preferred_batch_size: list[int] = field(default_factory=list)
+    max_queue_delay_microseconds: int = 0
+
+
+@dataclass
+class ModelConfig:
+    name: str
+    platform: str = "pytorch"
+    max_batch_size: int = 0         # 0 = the model handles full shapes itself
+    input: list[TensorConfig] = field(default_factory=list)
+    output: list[TensorConfig] = field(default_factory=list)
+    dynamic_batching: DynamicBatchingConfig | None = None
+    instance_count: int = 1
+    version: int = 1
+
+    def scheduler_kind(self) -> str:
+        """DYNAMIC or NONE: the only kinds this slice schedules."""
+        return "DYNAMIC" if self.dynamic_batching is not None else "NONE"
+
+    def axis_capacity(self) -> int:
+        """Ceiling of the bucket ladder (rows)."""
+        return self.max_batch_size
+
+    def effective_buckets(self) -> list[int]:
+        """Row buckets a batch pads up to: powers of two up to
+        max_batch_size."""
+        cap = self.axis_capacity()
+        if cap <= 0:
+            return [0]
+        buckets, b = [], 1
+        while b < cap:
+            buckets.append(b)
+            b *= 2
+        buckets.append(cap)
+        return buckets
+
+    def metadata_dict(self) -> dict:
+        """v2 model-metadata JSON (GET /v2/models/<name>)."""
+        def io_md(tc: TensorConfig) -> dict:
+            dims = ([-1] if self.max_batch_size > 0 else []) + list(tc.dims)
+            return {"name": tc.name, "datatype": tc.data_type, "shape": dims}
+
+        return {
+            "name": self.name,
+            "versions": [str(self.version)],
+            "platform": self.platform,
+            "inputs": [io_md(t) for t in self.input],
+            "outputs": [io_md(t) for t in self.output],
+        }
+
+    def config_dict(self) -> dict:
+        """v2 model-config JSON (GET /v2/models/<name>/config)."""
+        out: dict[str, Any] = {
+            "name": self.name,
+            "platform": self.platform,
+            "backend": self.platform,
+            "max_batch_size": self.max_batch_size,
+            "input": [{"name": t.name, "data_type": f"TYPE_{t.data_type}",
+                       "dims": t.dims} for t in self.input],
+            "output": [{"name": t.name, "data_type": f"TYPE_{t.data_type}",
+                        "dims": t.dims} for t in self.output],
+        }
+        if self.dynamic_batching is not None:
+            db = self.dynamic_batching
+            out["dynamic_batching"] = {
+                "preferred_batch_size": db.preferred_batch_size,
+                "max_queue_delay_microseconds":
+                    db.max_queue_delay_microseconds,
+            }
+        if self.instance_count != 1:
+            out["instance_group"] = [{"count": self.instance_count}]
+        return out

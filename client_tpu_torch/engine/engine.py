@@ -1,0 +1,151 @@
+"""TorchEngine: the in-process serving façade.
+
+Counterpart of ``TpuEngine`` (``client_tpu/engine/engine.py``) with the
+method surface the HTTP frontend calls: health, server and model metadata,
+model config and statistics, ``infer`` / ``async_infer`` and ``shutdown``.
+Load/unload at run time and the admission, QoS, shm, tracing, profiling
+and cost planes are not ported yet.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Callable
+
+import torch
+
+import client_tpu_torch
+from client_tpu_torch.engine.backend_init import resolve_device
+from client_tpu_torch.engine.repository import ModelRepository
+from client_tpu_torch.engine.scheduler import DefaultScheduler, make_scheduler
+from client_tpu_torch.engine.stats import ModelStats
+from client_tpu_torch.engine.types import (
+    EngineError,
+    InferRequest,
+    InferResponse,
+)
+
+SERVER_NAME = "client_tpu_torch"
+SERVER_EXTENSIONS = ["model_configuration", "binary_tensor_data",
+                     "statistics"]
+
+
+class TorchEngine:
+    def __init__(self, repository: ModelRepository | None = None, *,
+                 device: str | torch.device | None = None):
+        """Builds every registered model on ``device`` and starts its
+        scheduler. ``device=None`` means cuda, and raises when CUDA is
+        unavailable; pass ``device="cpu"`` to serve on the CPU."""
+        self.device = resolve_device(device)
+        self.repository = repository or ModelRepository()
+        self._schedulers: dict[str, DefaultScheduler] = {}
+        self._stats: dict[str, ModelStats] = {}
+        self._lock = threading.Lock()
+        self._live = True
+        for name in self.repository.names():
+            model = self.repository.load(name, self.device)
+            stats = ModelStats(name, str(model.config.version))
+            with self._lock:
+                self._stats[name] = stats
+                self._schedulers[name] = make_scheduler(model, stats)
+
+    # -- health / metadata ---------------------------------------------------
+
+    def is_live(self) -> bool:
+        return self._live
+
+    def is_ready(self) -> bool:
+        return self._live
+
+    def server_metadata(self) -> dict:
+        return {"name": SERVER_NAME, "version": client_tpu_torch.__version__,
+                "extensions": list(SERVER_EXTENSIONS)}
+
+    def _model(self, name: str, version: str = ""):
+        model = self.repository.get(name)
+        if model is None:
+            if name in self.repository.names():
+                raise EngineError(f"model '{name}' is not ready", 400)
+            raise EngineError(f"unknown model '{name}'", 404)
+        v = str(version or "").strip()
+        if v and v != str(model.config.version):
+            raise EngineError(f"model '{name}' has no version '{v}'", 404)
+        return model
+
+    def model_is_ready(self, name: str, version: str = "") -> bool:
+        try:
+            self._model(name, version)
+        except EngineError:
+            return False
+        return True
+
+    def model_metadata(self, name: str, version: str = "") -> dict:
+        return self._model(name, version).config.metadata_dict()
+
+    def model_config(self, name: str, version: str = "") -> dict:
+        return self._model(name, version).config.config_dict()
+
+    def model_statistics(self, name: str = "", version: str = "") -> dict:
+        if name:
+            self._model(name, version)
+        with self._lock:
+            stats = [s.to_dict() for n, s in sorted(self._stats.items())
+                     if not name or n == name]
+        return {"model_stats": stats}
+
+    def repository_index(self) -> list[dict]:
+        return self.repository.index()
+
+    # -- inference -----------------------------------------------------------
+
+    def async_infer(self, req: InferRequest,
+                    callback: Callable[[InferResponse], None] | None = None
+                    ) -> None:
+        """Submit; the response arrives on ``callback`` (or
+        ``req.response_callback``), errors included."""
+        if callback is not None:
+            req.response_callback = callback
+        if req.response_callback is None:
+            raise EngineError("async_infer requires a response callback", 400)
+        try:
+            model = self._model(req.model_name, req.model_version)
+            with self._lock:
+                sched = self._schedulers.get(req.model_name)
+            if sched is None:
+                raise EngineError(
+                    f"model '{req.model_name}' is not ready", 400)
+            model.validate_inputs(req.inputs)
+        except EngineError as exc:
+            req.response_callback(InferResponse.make_error(req, exc))
+            return
+        sched.submit(req)
+
+    def infer(self, req: InferRequest,
+              timeout_s: float | None = None) -> InferResponse:
+        """Blocking inference; raises EngineError on failure."""
+        done = threading.Event()
+        box: list[InferResponse] = []
+
+        def _cb(resp: InferResponse) -> None:
+            box.append(resp)
+            done.set()
+
+        self.async_infer(req, _cb)
+        if not done.wait(timeout=timeout_s):
+            raise EngineError(
+                f"inference timed out after {timeout_s}s "
+                f"(model '{req.model_name}')", 504)
+        resp = box[0]
+        if resp.error is not None:
+            raise resp.error
+        return resp
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def shutdown(self) -> None:
+        self._live = False
+        with self._lock:
+            scheds = list(self._schedulers.values())
+            self._schedulers.clear()
+        for s in scheds:
+            s.stop()

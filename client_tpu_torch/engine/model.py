@@ -1,0 +1,168 @@
+"""Model execution: an ``nn.Module`` backend run per padded batch bucket.
+
+Counterpart of ``client_tpu/engine/model.py``. A backend is an
+``nn.Module`` whose ``forward`` maps a dict of input tensors to a dict of
+output tensors; its weights live on the model's device. PyTorch runs
+eagerly, so there is no jit and nothing compiles on a first call. A batch
+still pads up to a bucket of the model's ladder, which keeps the shapes
+the kernels see to a small set.
+
+Each scheduler worker thread runs its batches on its own CUDA stream, so
+two instances of one model overlap on the card, and every phase boundary
+waits on that stream alone, never on the whole device.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+from torch import nn
+
+from client_tpu_torch.engine.backend_init import resolve_device
+from client_tpu_torch.engine.config import ModelConfig
+from client_tpu_torch.engine.types import EngineError, now_ns
+from client_tpu_torch.protocol.dtypes import wire_to_np_dtype
+
+
+@dataclass
+class ExecPhases:
+    """Absolute-ns boundaries of one execution's three phases.
+
+    ``input_end`` bounds the host work (pad, pin, enqueue of the H2D
+    copies); ``infer_end`` waits on a CUDA event recorded after the forward
+    pass on the executing stream; ``output_end`` follows the D2H copies.
+    """
+
+    start: int = 0
+    input_end: int = 0
+    infer_end: int = 0
+    output_end: int = 0
+
+
+class ModelBackend(nn.Module):
+    """A servable model: a ``config`` attribute and a ``forward(inputs)``
+    from a dict of batched tensors on the model's device to a dict of
+    output tensors."""
+
+    config: ModelConfig
+
+
+class Model:
+    """A loaded model: backend on its device, bucket padding, timed
+    execution."""
+
+    def __init__(self, backend: ModelBackend,
+                 device: str | torch.device | None = None):
+        self.device = resolve_device(device)
+        self.backend = backend.to(self.device).eval()
+        self.config = backend.config
+        # Per-input validation metadata, built once: the config is fixed
+        # after load.
+        self._input_meta = {
+            t.name: (t, np.dtype(wire_to_np_dtype(t.data_type)), tuple(t.dims))
+            for t in self.config.input
+        }
+        self._local = threading.local()  # one CUDA stream per worker thread
+
+    def _stream(self) -> torch.cuda.Stream:
+        stream = getattr(self._local, "stream", None)
+        if stream is None:
+            stream = torch.cuda.Stream(device=self.device)
+            self._local.stream = stream
+        return stream
+
+    def validate_inputs(self, inputs: dict[str, np.ndarray]) -> int:
+        """Check names, dtypes and shapes; returns the request's batch size
+        (1 when the model is unbatched)."""
+        cfg = self.config
+        batch = 1
+        for name in self._input_meta:
+            if name not in inputs:
+                raise EngineError(
+                    f"missing input '{name}' for model '{cfg.name}'")
+        for name, arr in inputs.items():
+            entry = self._input_meta.get(name)
+            if entry is None:
+                raise EngineError(
+                    f"unexpected input '{name}' for model '{cfg.name}'")
+            tc, np_dt, dims = entry
+            if np_dt != arr.dtype:
+                raise EngineError(
+                    f"input '{name}': dtype {arr.dtype} != declared "
+                    f"{tc.data_type}")
+            shape = list(arr.shape)
+            if cfg.max_batch_size > 0:
+                if len(shape) != len(dims) + 1:
+                    raise EngineError(
+                        f"input '{name}': expected batched rank "
+                        f"{len(dims) + 1}, got shape {shape}")
+                batch = shape[0]
+                shape = shape[1:]
+            if len(shape) != len(dims) or any(
+                    want != -1 and got != want
+                    for got, want in zip(shape, dims)):
+                raise EngineError(
+                    f"input '{name}': shape {shape} incompatible with dims "
+                    f"{list(dims)}")
+        if cfg.max_batch_size > 0 and not 1 <= batch <= cfg.max_batch_size:
+            raise EngineError(
+                f"batch size {batch} outside 1..{cfg.max_batch_size} for "
+                f"'{cfg.name}'")
+        return batch
+
+    def pick_bucket(self, batch: int) -> int:
+        """Smallest ladder bucket that holds ``batch`` rows."""
+        for b in self.config.effective_buckets():
+            if b >= batch:
+                return b
+        return self.config.axis_capacity()
+
+    def execute_timed(self, inputs: dict[str, np.ndarray],
+                      batch_size: int | None = None,
+                      ) -> tuple[dict[str, np.ndarray], ExecPhases]:
+        """Pad to the bucket, stage to the device, run the forward pass,
+        fetch to the host and slice back to ``batch_size`` rows. Returns
+        the outputs and the measured :class:`ExecPhases`."""
+        cfg = self.config
+        phases = ExecPhases(start=now_ns())
+        pad_to = (self.pick_bucket(batch_size)
+                  if cfg.axis_capacity() > 0 and batch_size is not None
+                  else None)
+        cuda = self.device.type == "cuda"
+        stream = self._stream() if cuda else None
+        with torch.cuda.stream(stream) if cuda else contextlib.nullcontext():
+            staged = {}
+            for name, arr in inputs.items():
+                if pad_to is not None and arr.shape[0] < pad_to:
+                    arr = np.pad(arr, [(0, pad_to - arr.shape[0])]
+                                 + [(0, 0)] * (arr.ndim - 1))
+                t = torch.from_numpy(arr if arr.flags.writeable
+                                     else arr.copy())
+                if cuda:
+                    t = t.pin_memory().to(self.device, non_blocking=True)
+                staged[name] = t
+            phases.input_end = now_ns()
+            with torch.inference_mode():
+                outputs = self.backend(staged)
+            if not isinstance(outputs, dict):
+                raise EngineError(
+                    f"model '{cfg.name}' returned {type(outputs)}, "
+                    "expected dict", 500)
+            if cuda:
+                done = torch.cuda.Event()
+                done.record(stream)
+                done.synchronize()
+            phases.infer_end = now_ns()
+            host: dict[str, np.ndarray] = {}
+            for name, val in outputs.items():
+                arr = val.cpu().numpy()  # waits on this stream only
+                if pad_to is not None and arr.ndim >= 1 \
+                        and arr.shape[0] == pad_to:
+                    arr = arr[:batch_size]
+                host[name] = arr
+        phases.output_end = now_ns()
+        return host, phases

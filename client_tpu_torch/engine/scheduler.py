@@ -1,0 +1,241 @@
+"""Request scheduling: a per-model queue, worker threads, dynamic batching.
+
+Counterpart of ``Scheduler`` / ``DefaultScheduler`` / ``make_scheduler`` in
+``client_tpu/engine/scheduler.py``, for NONE and DYNAMIC models. Each of
+the model's ``instance_count`` workers pops a request, gathers compatible
+requests within the queue-delay window up to the preferred batch size,
+concatenates them on the host and runs one execution for the batch.
+Priority levels, queue policies, QoS lanes, dispatch overrides and
+preemption are not ported yet.
+"""
+
+from __future__ import annotations
+
+import collections
+import logging
+import queue
+import threading
+import time
+
+import numpy as np
+
+from client_tpu_torch.engine.model import Model
+from client_tpu_torch.engine.stats import ModelStats
+from client_tpu_torch.engine.types import (
+    EngineError,
+    InferRequest,
+    InferResponse,
+    now_ns,
+)
+
+_SHUTDOWN = object()
+
+_log = logging.getLogger("client_tpu_torch")
+
+
+class _ReqQueue:
+    """FIFO with front-pushback: a request that does not fit the batch being
+    gathered returns to the head, so mixed shapes keep arrival order.
+    ``get_many`` blocks like ``queue.Queue.get`` and raises ``queue.Empty``
+    on timeout."""
+
+    def __init__(self):
+        self._q: collections.deque = collections.deque()
+        self._cv = threading.Condition()
+
+    def put(self, item) -> None:
+        with self._cv:
+            self._q.append(item)
+            self._cv.notify()
+
+    def put_front(self, item) -> None:
+        with self._cv:
+            self._q.appendleft(item)
+            self._cv.notify()
+
+    def get_many(self, max_items: int, timeout: float | None = None) -> list:
+        """Pop up to ``max_items`` under one lock acquisition; blocks
+        (bounded by ``timeout``) for the first item only."""
+        with self._cv:
+            if not self._cv.wait_for(lambda: len(self._q) > 0,
+                                     timeout=timeout):
+                raise queue.Empty
+            out = []
+            while self._q and len(out) < max_items:
+                out.append(self._q.popleft())
+            return out
+
+
+def _request_batch(req: InferRequest) -> int:
+    for arr in req.inputs.values():
+        return int(arr.shape[0])
+    return 1
+
+
+def _compatible(a: InferRequest, b: InferRequest) -> bool:
+    """Batchable together: same inputs, same non-batch dims and dtypes."""
+    if a.inputs.keys() != b.inputs.keys():
+        return False
+    return all(a.inputs[n].shape[1:] == b.inputs[n].shape[1:]
+               and a.inputs[n].dtype == b.inputs[n].dtype for n in a.inputs)
+
+
+def _concat_batch(arrs: list[np.ndarray]) -> np.ndarray:
+    """Concatenate request tensors along the batch axis (host arrays)."""
+    return arrs[0] if len(arrs) == 1 else np.concatenate(arrs, axis=0)
+
+
+class DefaultScheduler:
+    """NONE and DYNAMIC scheduling over one model's worker threads."""
+
+    def __init__(self, model: Model, stats: ModelStats):
+        self.model = model
+        self.stats = stats
+        self.queue = _ReqQueue()
+        self.workers: list[threading.Thread] = []
+        for i in range(max(1, model.config.instance_count)):
+            t = threading.Thread(target=self._worker_loop,
+                                 name=f"sched-{model.config.name}-{i}",
+                                 daemon=True)
+            t.start()
+            self.workers.append(t)
+
+    def submit(self, req: InferRequest) -> None:
+        req.times.queue_start = now_ns()
+        self.queue.put(req)
+
+    def stop(self, timeout_s: float = 5.0) -> None:
+        """Let the workers finish what is queued ahead of the shutdown
+        markers, then fail anything left; ``timeout_s`` bounds the total
+        wait."""
+        deadline = time.monotonic() + max(0.0, timeout_s)
+        for _ in self.workers:
+            self.queue.put(_SHUTDOWN)
+        for t in self.workers:
+            t.join(timeout=max(0.0, deadline - time.monotonic()))
+        while True:
+            try:
+                items = self.queue.get_many(64, timeout=0)
+            except queue.Empty:
+                break
+            for item in items:
+                if isinstance(item, InferRequest):
+                    self._fail(item, EngineError(
+                        "model unloaded before the request was processed",
+                        503))
+
+    def _worker_loop(self) -> None:
+        cfg = self.model.config
+        dyn = cfg.dynamic_batching
+        while True:
+            item = self.queue.get_many(1)[0]
+            if item is _SHUTDOWN:
+                return
+            batch = [item]
+            if cfg.scheduler_kind() == "DYNAMIC" and cfg.max_batch_size > 0:
+                batch, stop = self._gather(item, dyn)
+            else:
+                stop = False
+            try:
+                self._execute_batch(batch)
+            except Exception as exc:  # noqa: BLE001 — the worker must live
+                _log.exception("model '%s': batch of %d failed",
+                               cfg.name, len(batch))
+                for r in batch:
+                    self._fail(r, exc)
+            if stop:
+                return
+
+    def _gather(self, first: InferRequest, dyn
+                ) -> tuple[list[InferRequest], bool]:
+        """Requests to run with ``first``, and whether a shutdown marker
+        was reached. Within the delay window this waits for arrivals; past
+        it, it only drains what is already queued."""
+        max_batch = self.model.config.max_batch_size
+        prefer = (max(dyn.preferred_batch_size) if dyn.preferred_batch_size
+                  else max_batch)
+        deadline_ns = now_ns() + dyn.max_queue_delay_microseconds * 1000
+        batch = [first]
+        total = _request_batch(first)
+        while total < prefer:
+            timeout = max((deadline_ns - now_ns()) / 1e9, 0.0)
+            try:
+                items = self.queue.get_many(prefer - total, timeout=timeout)
+            except queue.Empty:
+                break
+            for idx, item in enumerate(items):
+                if item is _SHUTDOWN:
+                    for later in reversed(items[idx + 1:]):
+                        self.queue.put_front(later)
+                    return batch, True
+                if total >= prefer \
+                        or total + _request_batch(item) > max_batch \
+                        or not _compatible(first, item):
+                    # Full, or doesn't fit: it and everything behind it go
+                    # back to the head, in order, to lead the next gather.
+                    for later in reversed(items[idx:]):
+                        self.queue.put_front(later)
+                    return batch, False
+                batch.append(item)
+                total += _request_batch(item)
+        return batch, False
+
+    def _execute_batch(self, batch: list[InferRequest]) -> None:
+        cfg = self.model.config
+        start = now_ns()
+        for r in batch:
+            r.times.compute_start = start
+        if cfg.max_batch_size > 0:
+            sizes = [_request_batch(r) for r in batch]
+            merged = {name: _concat_batch([r.inputs[name] for r in batch])
+                      for name in batch[0].inputs}
+            outputs, phases = self.model.execute_timed(
+                merged, batch_size=sum(sizes))
+        else:
+            sizes = [None]
+            outputs, phases = self.model.execute_timed(batch[0].inputs)
+        self.stats.record_execution(
+            sum(sizes) if cfg.max_batch_size > 0 else 1,
+            compute_ns=phases.infer_end - phases.input_end)
+        offset = 0
+        for r, sz in zip(batch, sizes):
+            if sz is None:
+                per = outputs
+            else:
+                per = {k: v[offset:offset + sz] for k, v in outputs.items()}
+                offset += sz
+            self._finish(r, per, phases)
+
+    def _finish(self, req: InferRequest, outputs: dict, phases) -> None:
+        req.times.compute_input_end = phases.input_end
+        req.times.compute_infer_end = phases.infer_end
+        req.times.compute_output_end = now_ns()
+        if req.outputs:
+            requested = {o.name for o in req.outputs}
+            outputs = {k: v for k, v in outputs.items() if k in requested}
+        self.stats.record_request(req.times, success=True)
+        self._respond(req, InferResponse(
+            model_name=req.model_name,
+            model_version=req.model_version or str(self.model.config.version),
+            request_id=req.request_id, outputs=outputs, times=req.times))
+
+    def _fail(self, req: InferRequest, exc: Exception) -> None:
+        req.times.compute_output_end = now_ns()
+        self.stats.record_request(req.times, success=False)
+        self._respond(req, InferResponse.make_error(req, exc))
+
+    def _respond(self, req: InferRequest, resp: InferResponse) -> None:
+        if req.response_callback is None:
+            return
+        try:
+            req.response_callback(resp)
+        except Exception:  # noqa: BLE001 — one caller's broken callback
+            # must not fail the batch it shares
+            _log.exception("response callback raised (model '%s')",
+                           self.model.config.name)
+
+
+def make_scheduler(model: Model, stats: ModelStats) -> DefaultScheduler:
+    """The scheduler for ``model``. The port's configs have only the NONE
+    and DYNAMIC kinds so far, and :class:`DefaultScheduler` runs both."""
+    return DefaultScheduler(model, stats)

@@ -1,0 +1,92 @@
+"""Per-model server-side statistics in the v2 statistics JSON shape.
+
+The port's own copy of ``client_tpu/engine/stats.py``, trimmed to the
+counts ``/v2/models/<m>/stats`` reports: the queue / compute_input /
+compute_infer / compute_output phase sums and the executions per batch
+size.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from dataclasses import dataclass, field
+
+from client_tpu_torch.engine.types import RequestTimes
+
+
+@dataclass
+class _DurationStat:
+    count: int = 0
+    ns: int = 0
+
+    def add(self, ns: int) -> None:
+        self.count += 1
+        self.ns += ns
+
+    def to_dict(self) -> dict:
+        return {"count": self.count, "ns": self.ns}
+
+
+@dataclass
+class ModelStats:
+    model_name: str
+    model_version: str = "1"
+    success: _DurationStat = field(default_factory=_DurationStat)
+    fail: _DurationStat = field(default_factory=_DurationStat)
+    queue: _DurationStat = field(default_factory=_DurationStat)
+    compute_input: _DurationStat = field(default_factory=_DurationStat)
+    compute_infer: _DurationStat = field(default_factory=_DurationStat)
+    compute_output: _DurationStat = field(default_factory=_DurationStat)
+    inference_count: int = 0
+    execution_count: int = 0
+    last_inference_ms: int = 0  # wall-clock ms of the latest success
+    # batch_size -> [executions, cumulative compute-infer ns]
+    batch_hist: dict[int, list[int]] = field(default_factory=dict)
+    _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
+
+    def record_request(self, times: RequestTimes, success: bool) -> None:
+        total = max(0, times.compute_output_end - times.queue_start)
+        with self._lock:
+            if success:
+                self.success.add(total)
+                self.queue.add(times.queue_ns)
+                self.compute_input.add(times.compute_input_ns)
+                self.compute_infer.add(times.compute_infer_ns)
+                self.compute_output.add(times.compute_output_ns)
+                self.inference_count += 1
+                self.last_inference_ms = int(time.time() * 1000)
+            else:
+                self.fail.add(total)
+
+    def record_execution(self, batch_size: int, compute_ns: int) -> None:
+        """One device execution of ``batch_size`` rows that took
+        ``compute_ns`` in the forward pass."""
+        with self._lock:
+            self.execution_count += 1
+            entry = self.batch_hist.setdefault(batch_size, [0, 0])
+            entry[0] += 1
+            entry[1] += max(0, compute_ns)
+
+    def to_dict(self) -> dict:
+        """v2 ``GET /v2/models/<m>/stats`` entry."""
+        with self._lock:
+            return {
+                "name": self.model_name,
+                "version": self.model_version,
+                "last_inference": self.last_inference_ms,
+                "inference_count": self.inference_count,
+                "execution_count": self.execution_count,
+                "inference_stats": {
+                    "success": self.success.to_dict(),
+                    "fail": self.fail.to_dict(),
+                    "queue": self.queue.to_dict(),
+                    "compute_input": self.compute_input.to_dict(),
+                    "compute_infer": self.compute_infer.to_dict(),
+                    "compute_output": self.compute_output.to_dict(),
+                },
+                "batch_stats": [
+                    {"batch_size": bs, "compute_infer": {"count": n, "ns": ns}}
+                    for bs, (n, ns) in sorted(self.batch_hist.items())
+                ],
+            }

@@ -1,0 +1,5 @@
+"""Network frontends over :class:`client_tpu_torch.engine.TorchEngine`."""
+
+from client_tpu_torch.server.http_server import HttpInferenceServer
+
+__all__ = ["HttpInferenceServer"]

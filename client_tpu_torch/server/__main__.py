@@ -1,0 +1,62 @@
+"""Server launcher: ``python -m client_tpu_torch.server``.
+
+    python -m client_tpu_torch.server --zoo bert_base,bert_long --http-port 8000
+    python -m client_tpu_torch.server --zoo bert_base --device cpu
+
+Serves on the card unless ``--device cpu`` is given; without CUDA and
+without that flag it exits with an error. SIGTERM or Ctrl-C stops it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import signal
+import sys
+import threading
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="client_tpu_torch.server",
+        description="PyTorch/CUDA inference server (KServe v2 HTTP)")
+    ap.add_argument("--zoo", metavar="NAMES", default=None,
+                    help="comma-separated zoo models to serve (default: "
+                         "every default model)")
+    ap.add_argument("--http-port", type=int, default=8000)
+    ap.add_argument("--host", default="0.0.0.0")
+    ap.add_argument("--device", default=None,
+                    help="torch device to serve on (default: cuda)")
+    ap.add_argument("--verbose", action="store_true")
+    args = ap.parse_args(argv)
+
+    from client_tpu_torch.engine import TorchEngine
+    from client_tpu_torch.models import build_repository
+    from client_tpu_torch.server import HttpInferenceServer
+
+    names = ([n.strip() for n in args.zoo.split(",") if n.strip()]
+             if args.zoo else None)
+    try:
+        repo = build_repository(names)
+    except KeyError as exc:
+        ap.error(str(exc))
+    engine = TorchEngine(repo, device=args.device)
+    for entry in engine.repository_index():
+        print(f"model {entry['name']}: {entry['state']}", file=sys.stderr,
+              flush=True)
+    server = HttpInferenceServer(engine, host=args.host, port=args.http_port,
+                                 verbose=args.verbose).start()
+    print(f"serving http at {server.url}", file=sys.stderr, flush=True)
+    stop = threading.Event()
+    signal.signal(signal.SIGTERM, lambda *_: stop.set())
+    try:
+        stop.wait()
+    except KeyboardInterrupt:
+        pass
+    print("shutting down", file=sys.stderr, flush=True)
+    server.stop()
+    engine.shutdown()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

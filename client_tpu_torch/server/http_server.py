@@ -1,0 +1,223 @@
+"""HTTP/REST frontend: the KServe v2 routes this slice serves.
+
+Counterpart of ``client_tpu/server/http_server.py``: health, server and
+model metadata, model ready/config/stats, and
+``POST /v2/models/<m>[/versions/<v>]/infer`` with JSON tensors and the
+binary-tensor extension (head and tail split by
+``Inference-Header-Content-Length``). A malformed body or input answers
+400, an unknown model 404. Compression, shared memory, classification,
+generate, tracing and the control-plane routes are not ported yet.
+
+A stdlib ThreadingHTTPServer: each connection gets a thread that only
+frames; the engine's per-model schedulers batch and run the work.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import re
+import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+import numpy as np
+
+from client_tpu_torch.engine.engine import TorchEngine
+from client_tpu_torch.engine.types import (
+    EngineError,
+    InferRequest,
+    InferResponse,
+    OutputRequest,
+)
+from client_tpu_torch.protocol import rest
+from client_tpu_torch.protocol.dtypes import np_to_wire_dtype
+
+_log = logging.getLogger("client_tpu_torch")
+
+_MODEL = r"^/v2/models/([^/]+)(?:/versions/([^/]+))?"
+_ROUTES: list[tuple[str, re.Pattern, str]] = [
+    ("GET", re.compile(r"^/v2/health/live$"), "health_live"),
+    ("GET", re.compile(r"^/v2/health/ready$"), "health_ready"),
+    ("GET", re.compile(r"^/v2/?$"), "server_metadata"),
+    ("GET", re.compile(r"^/v2/models/stats$"), "all_stats"),
+    ("GET", re.compile(_MODEL + r"/ready$"), "model_ready"),
+    ("GET", re.compile(_MODEL + r"/config$"), "model_config"),
+    ("GET", re.compile(_MODEL + r"/stats$"), "model_stats"),
+    ("GET", re.compile(_MODEL + r"$"), "model_metadata"),
+    ("POST", re.compile(_MODEL + r"/infer$"), "infer"),
+]
+
+
+class _Handler(BaseHTTPRequestHandler):
+    protocol_version = "HTTP/1.1"
+    # Nagle against the client's delayed ACK stalls each response ~40 ms.
+    disable_nagle_algorithm = True
+    wbufsize = 64 * 1024  # header and body leave in one segment
+    engine: TorchEngine = None  # set on the subclass by HttpInferenceServer
+    verbose = False
+
+    def log_message(self, fmt, *args):  # noqa: A003
+        if self.verbose:
+            super().log_message(fmt, *args)
+
+    def _dispatch(self, method: str) -> None:
+        try:
+            # Read the whole body first: unread bytes would prefix the next
+            # request line on this keep-alive connection.
+            length = int(self.headers.get("Content-Length", 0) or 0)
+            self._raw_body = self.rfile.read(length) if method == "POST" else b""
+            path = self.path.split("?")[0]
+            for m, pat, name in _ROUTES:
+                match = pat.match(path) if m == method else None
+                if match:
+                    getattr(self, "h_" + name)(*match.groups())
+                    return
+            self._send_error(404, f"no route for {method} {self.path}")
+        except EngineError as exc:
+            self._send_error(exc.status, str(exc))
+        except (ValueError, KeyError, TypeError) as exc:
+            # json.JSONDecodeError and UnicodeDecodeError are ValueErrors.
+            self._send_error(400, f"malformed request: {exc!r}")
+        except BrokenPipeError:
+            pass
+        except Exception as exc:  # noqa: BLE001 — the frontend must answer
+            _log.exception("HTTP %s %s failed", method, self.path)
+            self._send_error(500, f"internal error: {exc}")
+
+    def do_GET(self):  # noqa: N802
+        self._dispatch("GET")
+
+    def do_POST(self):  # noqa: N802
+        self._dispatch("POST")
+
+    def _send(self, status: int, body: bytes,
+              content_type: str = "application/json",
+              extra_headers: dict | None = None) -> None:
+        self.send_response(status)
+        self.send_header("Content-Type", content_type)
+        self.send_header("Content-Length", str(len(body)))
+        for k, v in (extra_headers or {}).items():
+            self.send_header(k, v)
+        self.end_headers()
+        if body:
+            self.wfile.write(body)
+
+    def _send_json(self, obj, status: int = 200) -> None:
+        self._send(status, json.dumps(obj).encode("utf-8"))
+
+    def _send_error(self, status: int, msg: str) -> None:
+        try:
+            self._send_json({"error": msg}, status)
+        except OSError:
+            pass  # the peer went away
+
+    # -- handlers -----------------------------------------------------------
+
+    def h_health_live(self):
+        self._send(200 if self.engine.is_live() else 400, b"")
+
+    def h_health_ready(self):
+        self._send(200 if self.engine.is_ready() else 503, b"")
+
+    def h_server_metadata(self):
+        self._send_json(self.engine.server_metadata())
+
+    def h_model_ready(self, name, version=None):
+        ready = self.engine.model_is_ready(name, version or "")
+        self._send(200 if ready else 400, b"")
+
+    def h_model_metadata(self, name, version=None):
+        self._send_json(self.engine.model_metadata(name, version or ""))
+
+    def h_model_config(self, name, version=None):
+        self._send_json(self.engine.model_config(name, version or ""))
+
+    def h_model_stats(self, name, version=None):
+        self._send_json(self.engine.model_statistics(name, version or ""))
+
+    def h_all_stats(self):
+        self._send_json(self.engine.model_statistics())
+
+    def h_infer(self, name, version=None):
+        req = self._parse_infer_request(name, version)
+        resp = self.engine.infer(req)
+        self._send_infer_response(req, resp)
+
+    def _parse_infer_request(self, name, version) -> InferRequest:
+        if self.headers.get("Content-Encoding"):
+            raise EngineError("compressed request bodies are not supported",
+                              415)
+        header_len = self.headers.get(rest.HEADER_INFERENCE_CONTENT_LENGTH)
+        head, tail = rest.split_body(
+            self._raw_body, int(header_len) if header_len is not None else None)
+        inputs: dict[str, np.ndarray] = {}
+        for wire in rest.parse_tensors(head.get("inputs", []), tail):
+            inputs[wire.name] = wire.to_numpy()
+        params = head.get("parameters") or {}
+        binary_all = bool(params.get("binary_data_output", False))
+        outputs = [OutputRequest(
+            name=o["name"],
+            binary=bool((o.get("parameters") or {}).get("binary_data",
+                                                        binary_all)))
+            for o in head.get("outputs") or []]
+        return InferRequest(model_name=name, model_version=version or "",
+                            request_id=str(head.get("id", "")),
+                            inputs=inputs, outputs=outputs, parameters=params)
+
+    def _send_infer_response(self, req: InferRequest,
+                             resp: InferResponse) -> None:
+        # Binary output is opt-in per output (`binary_data`) or for every
+        # unlisted output (`binary_data_output`), as in the v2 extension.
+        out_req = {o.name: o for o in req.outputs}
+        binary_all = bool(req.parameters.get("binary_data_output", False))
+        entries = []
+        for out_name, arr in resp.outputs.items():
+            o = out_req.get(out_name)
+            entries.append(rest.build_tensor_json(
+                out_name, arr, np_to_wire_dtype(arr.dtype), arr.shape,
+                binary=o.binary if o is not None else binary_all))
+        body, jlen = rest.build_infer_response_body(
+            entries, model_name=resp.model_name,
+            model_version=resp.model_version, request_id=resp.request_id)
+        if any(raw is not None for _, raw in entries):
+            self._send(200, body, content_type="application/octet-stream",
+                       extra_headers={
+                           rest.HEADER_INFERENCE_CONTENT_LENGTH: str(jlen)})
+        else:
+            self._send(200, body)
+
+
+class HttpInferenceServer:
+    """Threaded v2 REST server over a :class:`TorchEngine`."""
+
+    def __init__(self, engine: TorchEngine, host: str = "127.0.0.1",
+                 port: int = 8000, verbose: bool = False):
+        handler = type("BoundHandler", (_Handler,),
+                       {"engine": engine, "verbose": verbose})
+        self.engine = engine
+        # The default accept backlog (5) drops connections under bursts.
+        server_cls = type("_Httpd", (ThreadingHTTPServer,),
+                          {"request_queue_size": 128})
+        self.httpd = server_cls((host, port), handler)
+        self.httpd.daemon_threads = True
+        self._thread: threading.Thread | None = None
+
+    @property
+    def port(self) -> int:
+        return self.httpd.server_address[1]
+
+    @property
+    def url(self) -> str:
+        return f"{self.httpd.server_address[0]}:{self.port}"
+
+    def start(self) -> "HttpInferenceServer":
+        self._thread = threading.Thread(target=self.httpd.serve_forever,
+                                        name="http-server", daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        if self._thread is not None:
+            self._thread.join(timeout=5)

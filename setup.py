@@ -8,7 +8,9 @@ the shm C extensions and perf_analyzer). Here one setup.py builds:
   the shared-memory data plane is pure Python (mmap), so the wheel stays
   platform-independent; the C shm library (libcshm) is a CMake target in
   native/ for non-Python consumers,
-- the deprecation compat shims (tpuhttpclient, tpugrpcclient, ...).
+- the deprecation compat shims (tpuhttpclient, tpugrpcclient, ...),
+- the PyTorch/CUDA port `client_tpu_torch` (needs torch; its CUDA kernel
+  sources ship as package data and are compiled by nvcc at first use).
 
 Usage: python setup.py bdist_wheel   (or: pip wheel .)
 """
@@ -22,7 +24,8 @@ setup(
         "TPU-native inference client libraries and serving engine "
         "(KServe v2 protocol: HTTP, gRPC, shared-memory data planes)"
     ),
-    packages=find_packages(include=["client_tpu", "client_tpu.*"]),
+    packages=find_packages(include=["client_tpu", "client_tpu.*",
+                                    "client_tpu_torch", "client_tpu_torch.*"]),
     py_modules=[
         "tpuhttpclient",
         "tpugrpcclient",
@@ -31,6 +34,7 @@ setup(
     ],
     package_data={
         "client_tpu.protocol": ["protos/*.proto"],
+        "client_tpu_torch": ["csrc/*.cu"],
     },
     python_requires=">=3.10",
     install_requires=[
@@ -40,5 +44,6 @@ setup(
     ],
     extras_require={
         "engine": ["jax>=0.4"],
+        "torch": ["torch>=2.1"],
     },
 )

@@ -1,0 +1,85 @@
+"""The port stands alone: no file of ``client_tpu_torch`` and not
+``chip_smoke.py`` imports JAX or the JAX package, and ``chip_smoke.py``
+refuses to run (and prints no result) without a card or outside a
+checkout."""
+
+import ast
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted(str(p.relative_to(REPO))
+                    for p in (REPO / "client_tpu_torch").rglob("*.py"))
+FORBIDDEN = ("jax", "jaxlib", "client_tpu")
+
+
+def _imported_modules(path: pathlib.Path) -> list[str]:
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "id", getattr(node.func, "attr", "")) in (
+                "__import__", "import_module") and node.args \
+                and isinstance(node.args[0], ast.Constant):
+            names.append(str(node.args[0].value))
+    return names
+
+
+def _forbidden(name: str) -> bool:
+    root = name.split(".")[0]
+    return root in FORBIDDEN
+
+
+def test_port_has_files():
+    assert "client_tpu_torch/ops/flash_attention.py" in PORT_FILES
+    assert len(PORT_FILES) >= 15
+
+
+@pytest.mark.parametrize("relpath", PORT_FILES + ["chip_smoke.py"])
+def test_imports_neither_jax_nor_the_jax_package(relpath):
+    bad = [n for n in _imported_modules(REPO / relpath) if _forbidden(n)]
+    assert not bad, f"{relpath} imports {bad}"
+
+
+def test_importing_the_server_loads_no_jax():
+    code = (
+        "import sys\n"
+        "import client_tpu_torch.server, client_tpu_torch.server.__main__\n"
+        "import client_tpu_torch.models.bert, client_tpu_torch.engine\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'client_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def _chip_smoke(cwd, env=None) -> subprocess.CompletedProcess:
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          capture_output=True, text=True, timeout=120,
+                          env=env)
+
+
+def test_chip_smoke_fails_without_a_card():
+    proc = _chip_smoke(REPO, dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout and '"kernels"' not in proc.stdout
+
+
+def test_chip_smoke_fails_outside_a_checkout(tmp_path):
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    proc = _chip_smoke(tmp_path)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+    if torch.cuda.is_available():  # then it got past the card check
+        assert "checkout" in proc.stderr
