@@ -1,4 +1,5 @@
-// Flash attention forward for Hopper (sm_90a), bf16 in, fp32 accumulate.
+// Flash attention forward for Hopper (sm_90a), bf16 in, fp32 accumulate;
+// an fp32 instantiation (flash_fwd_f32_kernel) follows the bf16 one.
 //
 // Replaces the Pallas TPU kernel `_fa_kernel` / `flash_attention` in
 // client_tpu/ops/flash_attention.py. Same function: tiled online-softmax
@@ -300,7 +301,252 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The fp32 instantiation: fp32 q/k/v/o and fp32 accumulation, the same
+// masking, guards and causal tile skip as above, with nothing rounded.
+//
+// Design. mma.sync has no fp32 form, and TF32 (m16n8k8) rounds inputs to
+// 10 mantissa bits, which can flip greedy tokens of the fp32 generative
+// models that run this path, so both products are SIMT FMAs. One CTA of
+// 128 threads owns one (batch, head, 64-row query tile); thread (ty, tx)
+// with ty in 0..15 and tx in 0..7 holds 4 query rows (ty*4..) x 4 keys
+// (tx*4..) of each score tile and 4 rows x 8 dims (tx*8..) of the output.
+// The 8 threads of one row group are neighbouring lanes, so row max and
+// row sum are 3 shuffles. Q and K sit transposed in shared memory
+// ([d][row]), so each step of Q.K^T reads one 16-byte vector of 4 rows and
+// one of 4 keys for 16 FMAs; P goes through shared memory transposed
+// ([key][row]) into P.V. expf, not __expf.
+//
+// Shared memory: fp32 64 x 64 K and V tiles, double-buffered, would need
+// 64 KB, above the 48 KB static limit. This kernel shrinks the key tile to
+// 32 and loads single-buffered instead of opting in to dynamic shared
+// memory: Q^T 17,408 + K^T 9,216 + V 8,192 + P^T 8,704 + bias 128 =
+// 43,648 bytes, static.
+//
+// What bounds it: at tiny_gpt_long's prefill (B=8, S=2048, H=4, D=64,
+// causal) one call does 1.7e10 FLOP on 34 MB: about 500 FLOP per byte, so
+// it is bound by the fp32 FMA rate (67 TFLOP/s outside the tensor cores),
+// which a SIMT kernel without software pipelining does not approach.
+
+namespace f32 {
+
+constexpr int kBlockM = 64;   // query rows per CTA
+constexpr int kBlockN = 32;   // keys per tile
+constexpr int kThreads = 128;
+constexpr int kPad = 4;       // keeps 16-byte rows and spreads banks
+
+__device__ __forceinline__ float4 load4(const float* p, bool valid) {
+  return valid ? *reinterpret_cast<const float4*>(p)
+               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+
+__device__ __forceinline__ float group_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
+}
+
+__device__ __forceinline__ float group_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  x += __shfl_xor_sync(0xffffffffu, x, 2);
+  return x + __shfl_xor_sync(0xffffffffu, x, 4);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_f32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ bias,
+                         float* __restrict__ o, int seq, int64_t q_sb,
+                         int64_t q_ss, int64_t q_sh, int64_t k_sb,
+                         int64_t k_ss, int64_t k_sh, int64_t v_sb,
+                         int64_t v_ss, int64_t v_sh, int64_t o_sb,
+                         int64_t o_ss, int64_t o_sh, int64_t bias_sb,
+                         float sm_scale, int causal) {
+  __shared__ __align__(16) float sQt[kHeadDim][kBlockM + kPad];
+  __shared__ __align__(16) float sKt[kHeadDim][kBlockN + kPad];
+  __shared__ __align__(16) float sV[kBlockN][kHeadDim];
+  __shared__ __align__(16) float sPt[kBlockN][kBlockM + kPad];
+  __shared__ float sBias[kBlockN];
+
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int tx = lane % 8;                  // key / dim group
+  const int ty = (tid / 32) * 4 + lane / 8;  // row group, 0..15
+  const int q0 = blockIdx.x * kBlockM;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+
+  const float* qb = q + b * q_sb + h * q_sh;
+  const float* kb = k + b * k_sb + h * k_sh;
+  const float* vb = v + b * v_sb + h * v_sh;
+  const float* biasb = bias != nullptr ? bias + b * bias_sb : nullptr;
+
+  // Q tile, transposed; rows past the sequence are zero.
+  for (int i = tid; i < kBlockM * (kHeadDim / 4); i += kThreads) {
+    const int r = i % kBlockM;
+    const int c = (i / kBlockM) * 4;
+    const int row = q0 + r;
+    const float4 x = load4(qb + (int64_t)(row < seq ? row : 0) * q_ss + c,
+                           row < seq);
+    sQt[c][r] = x.x;
+    sQt[c + 1][r] = x.y;
+    sQt[c + 2][r] = x.z;
+    sQt[c + 3][r] = x.w;
+  }
+
+  int n_tiles = (seq + kBlockN - 1) / kBlockN;
+  if (causal) {
+    n_tiles = min(n_tiles, (q0 + kBlockM - 1) / kBlockN + 1);
+  }
+
+  float acc[4][8];
+  float row_max[4], row_sum[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    row_max[i] = kNegInf;
+    row_sum[i] = 0.0f;
+#pragma unroll
+    for (int d = 0; d < 8; ++d) acc[i][d] = 0.0f;
+  }
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int key0 = j * kBlockN;
+    __syncthreads();  // the previous tile is no longer read
+    for (int i = tid; i < kBlockN * (kHeadDim / 4); i += kThreads) {
+      const int r = i % kBlockN;  // K, transposed
+      const int c = (i / kBlockN) * 4;
+      const int key = key0 + r;
+      const float4 x = load4(kb + (int64_t)(key < seq ? key : 0) * k_ss + c,
+                             key < seq);
+      sKt[c][r] = x.x;
+      sKt[c + 1][r] = x.y;
+      sKt[c + 2][r] = x.z;
+      sKt[c + 3][r] = x.w;
+      const int vr = i / (kHeadDim / 4);  // V, row-major
+      const int vc = (i % (kHeadDim / 4)) * 4;
+      const int vkey = key0 + vr;
+      *reinterpret_cast<float4*>(&sV[vr][vc]) = load4(
+          vb + (int64_t)(vkey < seq ? vkey : 0) * v_ss + vc, vkey < seq);
+    }
+    if (tid < kBlockN) {
+      const int key = key0 + tid;
+      float x = __int_as_float(0xff800000);  // -inf: past the sequence end
+      if (key < seq) x = biasb != nullptr ? biasb[key] : 0.0f;
+      sBias[tid] = x;
+    }
+    __syncthreads();
+
+    // S = Q K^T: 4 rows x 4 keys per thread.
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[i][c] = 0.0f;
+    }
+#pragma unroll 8
+    for (int d = 0; d < kHeadDim; ++d) {
+      const float4 qv = *reinterpret_cast<const float4*>(&sQt[d][ty * 4]);
+      const float4 kv = *reinterpret_cast<const float4*>(&sKt[d][tx * 4]);
+      const float qa[4] = {qv.x, qv.y, qv.z, qv.w};
+      const float ka[4] = {kv.x, kv.y, kv.z, kv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[i][c] = fmaf(qa[i], ka[c], s[i][c]);
+      }
+    }
+
+    // Scale, bias, causal mask; the online-softmax update per row.
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qrow = q0 + ty * 4 + i;
+      float m_cur = kNegInf;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float x = s[i][c] * sm_scale + sBias[tx * 4 + c];
+        if (causal && key0 + tx * 4 + c > qrow) x = kNegInf;
+        s[i][c] = x;
+        m_cur = fmaxf(m_cur, x);
+      }
+      m_cur = group_max(m_cur);
+      const float m_prev = row_max[i];
+      const float m_new = fmaxf(m_prev, m_cur);
+      // Fully masked so far: exp(-inf - -inf) would be NaN.
+      const float safe_m = m_new <= kNegInf ? 0.0f : m_new;
+      const float corr = m_prev <= kNegInf ? 0.0f : expf(m_prev - safe_m);
+      float part = 0.0f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float p = s[i][c] <= kNegInf ? 0.0f : expf(s[i][c] - safe_m);
+        s[i][c] = p;
+        part += p;
+      }
+      row_sum[i] = row_sum[i] * corr + group_sum(part);
+      row_max[i] = m_new;
+#pragma unroll
+      for (int d = 0; d < 8; ++d) acc[i][d] *= corr;
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      *reinterpret_cast<float4*>(&sPt[tx * 4 + c][ty * 4]) =
+          make_float4(s[0][c], s[1][c], s[2][c], s[3][c]);
+    }
+    __syncthreads();
+
+    // O += P V: 4 rows x 8 dims per thread.
+#pragma unroll 4
+    for (int c = 0; c < kBlockN; ++c) {
+      const float4 pv = *reinterpret_cast<const float4*>(&sPt[c][ty * 4]);
+      const float4 v0 = *reinterpret_cast<const float4*>(&sV[c][tx * 8]);
+      const float4 v1 = *reinterpret_cast<const float4*>(&sV[c][tx * 8 + 4]);
+      const float pa[4] = {pv.x, pv.y, pv.z, pv.w};
+      const float va[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int d = 0; d < 8; ++d) acc[i][d] = fmaf(pa[i], va[d], acc[i][d]);
+      }
+    }
+  }
+
+  float* ob = o + b * o_sb + h * o_sh;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty * 4 + i;
+    if (row >= seq) continue;
+    const float denom = row_sum[i] == 0.0f ? 1.0f : row_sum[i];
+    float* orow = ob + row * o_ss + tx * 8;
+    *reinterpret_cast<float4*>(orow) =
+        make_float4(acc[i][0] / denom, acc[i][1] / denom, acc[i][2] / denom,
+                    acc[i][3] / denom);
+    *reinterpret_cast<float4*>(orow + 4) =
+        make_float4(acc[i][4] / denom, acc[i][5] / denom, acc[i][6] / denom,
+                    acc[i][7] / denom);
+  }
+}
+
+}  // namespace f32
+
 }  // namespace
+
+// Launch the fp32 instantiation; arguments and return as for the bf16 one
+// below, with fp32 q/k/v/o whose rows are 16-byte aligned.
+extern "C" int client_tpu_flash_attention_fwd_f32(
+    const void* q, const void* k, const void* v, const void* bias, void* o,
+    int batch, int seq, int heads, int64_t q_sb, int64_t q_ss, int64_t q_sh,
+    int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
+    int64_t v_sh, int64_t o_sb, int64_t o_ss, int64_t o_sh, int64_t bias_sb,
+    float sm_scale, int causal, void* stream) {
+  dim3 grid((seq + f32::kBlockM - 1) / f32::kBlockM, heads, batch);
+  f32::flash_fwd_f32_kernel<<<grid, f32::kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(bias),
+      static_cast<float*>(o), seq, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
+      v_ss, v_sh, o_sb, o_ss, o_sh, bias_sb, sm_scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // Launch on `stream`; returns cudaGetLastError() (0 = launched). Strides are
 // in elements; each of q/k/v/o has unit stride along D, and rows 16-byte

@@ -1,8 +1,9 @@
 """Model configuration: the engine-side analog of Triton's ``config.pbtxt``.
 
 The port's own copy of ``client_tpu/engine/config.py``, trimmed to what
-this slice serves: batched models with optional dynamic batching, built
-in code (no ``config.pbtxt`` parsing yet). Field names match the
+the port serves: batched models with optional dynamic batching, and
+decoupled (streaming) models, built in code (no ``config.pbtxt`` parsing
+yet). Field names match the
 reference's model-config schema.
 """
 
@@ -34,6 +35,9 @@ class ModelConfig:
     output: list[TensorConfig] = field(default_factory=list)
     dynamic_batching: DynamicBatchingConfig | None = None
     instance_count: int = 1
+    # Decoupled transaction policy: one request, any number of responses,
+    # the last flagged final (Triton's ``model_transaction_policy``).
+    decoupled: bool = False
     version: int = 1
 
     def scheduler_kind(self) -> str:
@@ -92,4 +96,6 @@ class ModelConfig:
             }
         if self.instance_count != 1:
             out["instance_group"] = [{"count": self.instance_count}]
+        if self.decoupled:
+            out["model_transaction_policy"] = {"decoupled": True}
         return out

@@ -3,6 +3,8 @@
 Counterpart of ``TpuEngine`` (``client_tpu/engine/engine.py``) with the
 method surface the HTTP frontend calls: health, server and model metadata,
 model config and statistics, ``infer`` / ``async_infer`` and ``shutdown``.
+A decoupled (streaming) model answers only through ``async_infer``, once
+per response; a blocking ``infer`` on one is a 400.
 Load/unload at run time and the admission, QoS, shm, tracing, profiling
 and cost planes are not ported yet.
 """
@@ -17,7 +19,7 @@ import torch
 import client_tpu_torch
 from client_tpu_torch.engine.backend_init import resolve_device
 from client_tpu_torch.engine.repository import ModelRepository
-from client_tpu_torch.engine.scheduler import DefaultScheduler, make_scheduler
+from client_tpu_torch.engine.scheduler import Scheduler, make_scheduler
 from client_tpu_torch.engine.stats import ModelStats
 from client_tpu_torch.engine.types import (
     EngineError,
@@ -27,7 +29,7 @@ from client_tpu_torch.engine.types import (
 
 SERVER_NAME = "client_tpu_torch"
 SERVER_EXTENSIONS = ["model_configuration", "binary_tensor_data",
-                     "statistics"]
+                     "statistics", "generate"]
 
 
 class TorchEngine:
@@ -38,7 +40,7 @@ class TorchEngine:
         unavailable; pass ``device="cpu"`` to serve on the CPU."""
         self.device = resolve_device(device)
         self.repository = repository or ModelRepository()
-        self._schedulers: dict[str, DefaultScheduler] = {}
+        self._schedulers: dict[str, Scheduler] = {}
         self._stats: dict[str, ModelStats] = {}
         self._lock = threading.Lock()
         self._live = True
@@ -122,7 +124,16 @@ class TorchEngine:
 
     def infer(self, req: InferRequest,
               timeout_s: float | None = None) -> InferResponse:
-        """Blocking inference; raises EngineError on failure."""
+        """Blocking inference; raises EngineError on failure. A decoupled
+        model is refused with 400, as Triton refuses it over HTTP infer:
+        its responses stream through :meth:`async_infer` (``/generate``,
+        ``/generate_stream``)."""
+        model = self.repository.get(req.model_name)
+        if model is not None and model.config.decoupled:
+            raise EngineError(
+                f"model '{req.model_name}' is decoupled; use streaming "
+                "(async_infer / generate_stream) to receive its responses",
+                400)
         done = threading.Event()
         box: list[InferResponse] = []
 

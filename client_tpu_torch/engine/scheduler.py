@@ -1,12 +1,15 @@
 """Request scheduling: a per-model queue, worker threads, dynamic batching.
 
 Counterpart of ``Scheduler`` / ``DefaultScheduler`` / ``make_scheduler`` in
-``client_tpu/engine/scheduler.py``, for NONE and DYNAMIC models. Each of
+``client_tpu/engine/scheduler.py``. For NONE and DYNAMIC models each of
 the model's ``instance_count`` workers pops a request, gathers compatible
 requests within the queue-delay window up to the preferred batch size,
 concatenates them on the host and runs one execution for the batch.
-Priority levels, queue policies, QoS lanes, dispatch overrides and
-preemption are not ported yet.
+Decoupled generative models get the continuous-batching
+``GenerativeScheduler`` (``engine/generative.py``). Priority levels, queue
+policies, QoS lanes, dispatch overrides, preemption and the
+``DecoupledScheduler`` for non-generative streaming models are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -66,6 +69,31 @@ class _ReqQueue:
             return out
 
 
+def _backpressured(req: InferRequest) -> bool:
+    """True while the request's frontend reports a backlogged response
+    path (``InferRequest.backpressure``). Fail-open: a probe that raises
+    throttles nothing; the frontend's slow-consumer cancel stays the
+    backstop."""
+    bp = req.backpressure
+    if bp is None:
+        return False
+    try:
+        return bool(bp())
+    except Exception:  # noqa: BLE001 — fail open, see above
+        return False
+
+
+def power_buckets(n: int) -> list[int]:
+    """Power-of-two sizes up to and including ``n``: the generative
+    scheduler's prompt and wave bucket ladders."""
+    out, b = [], 1
+    while b < n:
+        out.append(b)
+        b *= 2
+    out.append(n)
+    return out
+
+
 def _request_batch(req: InferRequest) -> int:
     for arr in req.inputs.values():
         return int(arr.shape[0])
@@ -85,15 +113,22 @@ def _concat_batch(arrs: list[np.ndarray]) -> np.ndarray:
     return arrs[0] if len(arrs) == 1 else np.concatenate(arrs, axis=0)
 
 
-class DefaultScheduler:
-    """NONE and DYNAMIC scheduling over one model's worker threads."""
+class Scheduler:
+    """Base scheduler: the request queue, the worker threads, submit, stop
+    and the response path. Subclasses set their state up before calling
+    ``super().__init__``, which starts the workers."""
+
+    # A scheduler that owns exclusive mutable state (the generative KV
+    # arena) runs one worker whatever the instance count.
+    single_instance = False
 
     def __init__(self, model: Model, stats: ModelStats):
         self.model = model
         self.stats = stats
         self.queue = _ReqQueue()
         self.workers: list[threading.Thread] = []
-        for i in range(max(1, model.config.instance_count)):
+        n = 1 if self.single_instance else max(1, model.config.instance_count)
+        for i in range(n):
             t = threading.Thread(target=self._worker_loop,
                                  name=f"sched-{model.config.name}-{i}",
                                  daemon=True)
@@ -123,6 +158,36 @@ class DefaultScheduler:
                     self._fail(item, EngineError(
                         "model unloaded before the request was processed",
                         503))
+
+    def _worker_loop(self) -> None:
+        raise NotImplementedError
+
+    def _fail(self, req: InferRequest, exc: Exception) -> None:
+        req.times.compute_output_end = now_ns()
+        self.stats.record_request(req.times, success=False)
+        self._respond(req, InferResponse.make_error(req, exc))
+
+    def _check_cancelled(self, req: InferRequest) -> bool:
+        """Fail a client-abandoned request with 499 before it costs device
+        time."""
+        if req.cancelled:
+            self._fail(req, EngineError("request cancelled", 499))
+            return True
+        return False
+
+    def _respond(self, req: InferRequest, resp: InferResponse) -> None:
+        if req.response_callback is None:
+            return
+        try:
+            req.response_callback(resp)
+        except Exception:  # noqa: BLE001 — one caller's broken callback
+            # must not fail the batch it shares (or kill a sole worker)
+            _log.exception("response callback raised (model '%s')",
+                           self.model.config.name)
+
+
+class DefaultScheduler(Scheduler):
+    """NONE and DYNAMIC scheduling over one model's worker threads."""
 
     def _worker_loop(self) -> None:
         cfg = self.model.config
@@ -219,23 +284,17 @@ class DefaultScheduler:
             model_version=req.model_version or str(self.model.config.version),
             request_id=req.request_id, outputs=outputs, times=req.times))
 
-    def _fail(self, req: InferRequest, exc: Exception) -> None:
-        req.times.compute_output_end = now_ns()
-        self.stats.record_request(req.times, success=False)
-        self._respond(req, InferResponse.make_error(req, exc))
 
-    def _respond(self, req: InferRequest, resp: InferResponse) -> None:
-        if req.response_callback is None:
-            return
-        try:
-            req.response_callback(resp)
-        except Exception:  # noqa: BLE001 — one caller's broken callback
-            # must not fail the batch it shares
-            _log.exception("response callback raised (model '%s')",
-                           self.model.config.name)
+def make_scheduler(model: Model, stats: ModelStats) -> Scheduler:
+    """The scheduler for ``model``: the continuous-batching
+    ``GenerativeScheduler`` for a decoupled generative backend, else
+    :class:`DefaultScheduler` (NONE and DYNAMIC)."""
+    if model.config.decoupled:
+        if getattr(model.backend, "generative", False):
+            from client_tpu_torch.engine.generative import GenerativeScheduler
 
-
-def make_scheduler(model: Model, stats: ModelStats) -> DefaultScheduler:
-    """The scheduler for ``model``. The port's configs have only the NONE
-    and DYNAMIC kinds so far, and :class:`DefaultScheduler` runs both."""
+            return GenerativeScheduler(model, stats)
+        raise EngineError(
+            f"model '{model.config.name}': decoupled models other than "
+            "generative ones are not served by the port yet", 500)
     return DefaultScheduler(model, stats)

@@ -59,9 +59,10 @@ class ModelStats:
             else:
                 self.fail.add(total)
 
-    def record_execution(self, batch_size: int, compute_ns: int) -> None:
+    def record_execution(self, batch_size: int, compute_ns: int = 0) -> None:
         """One device execution of ``batch_size`` rows that took
-        ``compute_ns`` in the forward pass."""
+        ``compute_ns`` in the forward pass (0 where it is not measured: a
+        generative dispatch is counted before it runs)."""
         with self._lock:
             self.execution_count += 1
             entry = self.batch_hist.setdefault(batch_size, [0, 0])

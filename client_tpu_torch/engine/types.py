@@ -1,7 +1,8 @@
 """Engine request/response types and the server-side phase timing.
 
 The port's own copy of ``client_tpu/engine/types.py``, trimmed to this
-slice: no sequence, deadline, tenant, QoS, shm or tracing fields yet.
+slices: cancellation and the streaming backpressure probe are in; no
+sequence, deadline, tenant, QoS, shm or tracing fields yet.
 """
 
 from __future__ import annotations
@@ -69,8 +70,21 @@ class InferRequest:
     outputs: list[OutputRequest] = field(default_factory=list)
     parameters: dict[str, Any] = field(default_factory=dict)
     times: RequestTimes = field(default_factory=RequestTimes)
-    # Called once with the final response (the engine's async surface).
+    # Called with each response; a decoupled model calls it once per
+    # streamed response and last with ``final=True``.
     response_callback: Callable[["InferResponse"], None] | None = None
+    # Cooperative cancellation: a frontend sets this when its client goes
+    # away; the generative scheduler drops the stream at the next wave and
+    # fails it with 499. A plain bool: a stale read delays the cancel by
+    # one wave.
+    cancelled: bool = False
+    # Streaming flow control: a frontend with a bounded response path sets
+    # a zero-argument probe that returns True while it is backlogged; the
+    # generative scheduler then skips this stream's waves until it drains.
+    backpressure: Callable[[], bool] | None = None
+
+    def cancel(self) -> None:
+        self.cancelled = True
 
 
 @dataclass
@@ -79,7 +93,9 @@ class InferResponse:
     model_version: str
     request_id: str = ""
     outputs: dict[str, np.ndarray] = field(default_factory=dict)
+    parameters: dict[str, Any] = field(default_factory=dict)
     error: EngineError | None = None
+    final: bool = True  # False for the non-terminal responses of a stream
     times: RequestTimes | None = None
 
     @classmethod

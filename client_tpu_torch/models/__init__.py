@@ -26,7 +26,7 @@ def register_model(name: str, default: bool = True
 
 
 def _import_all() -> None:
-    from client_tpu_torch.models import bert  # noqa: F401
+    from client_tpu_torch.models import bert, generate  # noqa: F401
 
 
 def model_names() -> list[str]:

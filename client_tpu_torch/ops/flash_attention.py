@@ -9,9 +9,10 @@ exactly 0 and a row with nothing to attend to outputs 0, never NaN.
 :func:`flash_attention` launches the CUDA kernel in
 ``client_tpu_torch/csrc/flash_attention.cu`` for tensors on the card and
 takes :func:`flash_attention_plain` only for tensors on the CPU. The kernel
-takes bf16 with head dim 64 and raises on anything else. ``launches``
-counts kernel launches, so a run can show that its path went through the
-kernel.
+has a bf16 instantiation (the BERTs) and an fp32 one (the generative
+models' prefill), both with head dim 64, and raises on anything else.
+``launches`` counts bf16 launches and ``launches_fp32`` fp32 ones, so a
+run can show that its path went through the kernel.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ _NEG_INF = -1e30
 _HEAD_DIM = 64  # the only head dim the kernel is built for
 
 launches = 0
+launches_fp32 = 0
 _count_lock = threading.Lock()
 _fwd = None
 _bind_lock = threading.Lock()
@@ -62,22 +64,30 @@ def load_kernel():
     with _bind_lock:
         if _fwd is None:
             lib = cuda_build.load("flash_attention")
-            fn = lib.client_tpu_flash_attention_fwd
-            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-                           + [ctypes.c_int64] * 13
-                           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-            fn.restype = ctypes.c_int
+            fns = {}
+            for dtype, sym in ((torch.bfloat16,
+                                "client_tpu_flash_attention_fwd"),
+                               (torch.float32,
+                                "client_tpu_flash_attention_fwd_f32")):
+                fn = getattr(lib, sym)
+                fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                               + [ctypes.c_int64] * 13
+                               + [ctypes.c_float, ctypes.c_int,
+                                  ctypes.c_void_p])
+                fn.restype = ctypes.c_int
+                fns[dtype] = fn
             lib.client_tpu_cuda_error_string.argtypes = [ctypes.c_int]
             lib.client_tpu_cuda_error_string.restype = ctypes.c_char_p
-            _fwd = (fn, lib.client_tpu_cuda_error_string)
+            _fwd = (fns, lib.client_tpu_cuda_error_string)
         return _fwd
 
 
 def check_kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       bias: torch.Tensor | None) -> None:
     """Raise ValueError for inputs the kernel does not take: anything but
-    bf16 ``[B, S, H, 64]`` q/k/v of one shape with unit stride along D and
-    16-byte aligned rows, and an fp32 contiguous ``[B, S]`` bias."""
+    bf16 or fp32 ``[B, S, H, 64]`` q/k/v of one shape and one dtype with
+    unit stride along D and 16-byte aligned rows, and an fp32 contiguous
+    ``[B, S]`` bias."""
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(
             f"q/k/v must share one [B, S, H, D] shape, got {tuple(q.shape)}, "
@@ -88,12 +98,16 @@ def check_kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.shape[0] > 65535 or q.shape[2] > 65535:
         raise ValueError(f"batch and heads map to grid dims of at most 65535, "
                          f"got {tuple(q.shape)}")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"q must be bfloat16 or float32, got {q.dtype}")
+    per_16_bytes = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"{name} must be bfloat16, got {t.dtype}")
+        if t.dtype != q.dtype:
+            raise ValueError(f"{name} is {t.dtype}, q {q.dtype}")
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if t.stride(-1) != 1 or any(st % 8 for st in t.stride()[:-1]) \
+        if t.stride(-1) != 1 \
+                or any(st % per_16_bytes for st in t.stride()[:-1]) \
                 or t.data_ptr() % 16:
             raise ValueError(
                 f"{name} needs unit stride along D and 16-byte aligned rows, "
@@ -123,7 +137,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    fwd, err_str = load_kernel()
+    fns, err_str = load_kernel()
+    fwd = fns[q.dtype]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -136,7 +151,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(
             f"flash attention kernel launch failed: {err_str(err).decode()}")
-    global launches
+    global launches, launches_fp32
     with _count_lock:
-        launches += 1
+        if q.dtype == torch.float32:
+            launches_fp32 += 1
+        else:
+            launches += 1
     return out

@@ -4,9 +4,12 @@ Counterpart of ``client_tpu/server/http_server.py``: health, server and
 model metadata, model ready/config/stats, and
 ``POST /v2/models/<m>[/versions/<v>]/infer`` with JSON tensors and the
 binary-tensor extension (head and tail split by
-``Inference-Header-Content-Length``). A malformed body or input answers
-400, an unknown model 404. Compression, shared memory, classification,
-generate, tracing and the control-plane routes are not ported yet.
+``Inference-Header-Content-Length``), and the generate extension:
+``POST .../generate`` collects a (decoupled) model's responses into one
+JSON body, ``POST .../generate_stream`` sends each as a server-sent event.
+A malformed body or input answers 400, an unknown model 404. Compression,
+shared memory, classification, response coalescing, tracing and the
+control-plane routes are not ported yet.
 
 A stdlib ThreadingHTTPServer: each connection gets a thread that only
 frames; the engine's per-model schedulers batch and run the work.
@@ -16,12 +19,15 @@ from __future__ import annotations
 
 import json
 import logging
+import queue
 import re
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
+from client_tpu_torch.config import env_int
 from client_tpu_torch.engine.engine import TorchEngine
 from client_tpu_torch.engine.types import (
     EngineError,
@@ -45,6 +51,8 @@ _ROUTES: list[tuple[str, re.Pattern, str]] = [
     ("GET", re.compile(_MODEL + r"/stats$"), "model_stats"),
     ("GET", re.compile(_MODEL + r"$"), "model_metadata"),
     ("POST", re.compile(_MODEL + r"/infer$"), "infer"),
+    ("POST", re.compile(_MODEL + r"/generate$"), "generate"),
+    ("POST", re.compile(_MODEL + r"/generate_stream$"), "generate_stream"),
 ]
 
 
@@ -142,6 +150,147 @@ class _Handler(BaseHTTPRequestHandler):
         req = self._parse_infer_request(name, version)
         resp = self.engine.infer(req)
         self._send_infer_response(req, resp)
+
+    # Stall guard of the generate routes: how long to wait for the next
+    # response of a stream before cancelling it.
+    GENERATE_STALL_TIMEOUT_S = 300.0
+
+    def h_generate(self, name, version=None):
+        """Non-streaming generate: every response of the request as one
+        JSON array (the curl-friendly collector of the streaming route)."""
+        req = self._parse_generate_request(name, version)
+        out = []
+        for resp in self._stream_responses(req):
+            if resp.error is not None:
+                raise resp.error
+            if resp.final and not resp.outputs:
+                continue
+            out.append(self._json_response_dict(resp))
+        self._send_json({"model_name": name, "responses": out})
+
+    def h_generate_stream(self, name, version=None):
+        """Server-sent events: one ``data: <v2 response JSON>`` event per
+        response, in chunked transfer, ended by the final-flag response. A
+        dead client cancels the request (the generative scheduler then
+        frees its arena row)."""
+        req = self._parse_generate_request(name, version)
+        responses = self._stream_responses(req)
+        self.send_response(200)
+        self.send_header("Content-Type", "text/event-stream")
+        self.send_header("Transfer-Encoding", "chunked")
+        self.send_header("Cache-Control", "no-cache")
+        self.end_headers()
+        self.wfile.flush()  # time to first header, not to first token
+
+        def chunk(payload: bytes) -> None:
+            self.wfile.write(f"{len(payload):X}\r\n".encode() + payload
+                             + b"\r\n")
+            self.wfile.flush()
+
+        # Headers are out: every outcome stays inside the chunked body (a
+        # second status line would desync the stream), and an abandoned
+        # request must stop generating.
+        try:
+            for resp in responses:
+                if resp.error is not None:
+                    chunk(b"data: " + json.dumps(
+                        {"error": str(resp.error)}).encode() + b"\n\n")
+                    break
+                if resp.outputs or not resp.final:
+                    chunk(b"data: " + json.dumps(
+                        self._json_response_dict(resp),
+                        separators=(",", ":")).encode() + b"\n\n")
+            chunk(b"")  # terminal chunk
+        except (BrokenPipeError, ConnectionResetError):
+            req.cancel()  # dead client: stop generating for it
+        except Exception as exc:  # noqa: BLE001 — mid-stream failure
+            req.cancel()
+            try:
+                chunk(b"data: " + json.dumps(
+                    {"error": str(exc)}).encode() + b"\n\n")
+                chunk(b"")
+            except OSError:
+                pass
+
+    def _parse_generate_request(self, name, version) -> InferRequest:
+        req = self._parse_infer_request(name, version)
+        if any(o.binary for o in req.outputs):
+            raise EngineError(
+                "generate endpoints return JSON tensors only; binary_data "
+                "output parameters are not supported", 400)
+        return req
+
+    def _stream_responses(self, req: InferRequest):
+        """Submit and yield responses until the final one. A stall cancels
+        the request and raises 504. A backlog past the pending limit
+        (``CLIENT_TPU_STREAM_PENDING_LIMIT``) with a reader that stopped
+        draining cancels it too (logged)."""
+        out_q: queue.Queue = queue.Queue()
+        choked = [False]
+        limit = max(1, env_int("CLIENT_TPU_STREAM_PENDING_LIMIT"))
+        # Progress-gated cancel: the pipelined decoder legitimately
+        # delivers the waves already in flight when backpressure paused it,
+        # so crossing the mark only arms the cancel; it fires when a later
+        # enqueue finds the writer advanced nothing for the grace window,
+        # or at 8x the mark (a memory bound if a producer ignores the
+        # probe).
+        progress = [0]   # responses handed to the writer
+        armed = [None]   # (progress, monotonic) at the backlog crossing
+
+        def enqueue(resp):
+            out_q.put(resp)
+            if choked[0]:
+                return
+            size = out_q.qsize()
+            if size < limit:
+                armed[0] = None
+                return
+            if size < 8 * limit:
+                now = time.monotonic()
+                if armed[0] is None or armed[0][0] != progress[0]:
+                    armed[0] = (progress[0], now)
+                    return
+                if now - armed[0][1] < 0.25:
+                    return
+            choked[0] = True
+            _log.warning(
+                "generate stream backlog at %d pending responses (mark %d) "
+                "with a stalled reader; cancelling request (slow consumer)",
+                size, limit)
+            req.cancel()
+
+        # Flow control: decode waves pause for this stream at half the
+        # cancel mark, so a slow but live reader is writer-paced (TCP
+        # backpressure reaches here through the blocking chunk write) and
+        # never reaches the cancel.
+        bp_mark = max(1, limit // 2)
+        req.backpressure = lambda: out_q.qsize() >= bp_mark
+        self.engine.async_infer(req, enqueue)
+        while True:
+            try:
+                resp = out_q.get(timeout=self.GENERATE_STALL_TIMEOUT_S)
+            except queue.Empty:
+                req.cancel()
+                raise EngineError("generation stalled", 504) from None
+            yield resp
+            progress[0] += 1
+            if resp.error is not None or resp.final:
+                return
+
+    def _json_response_dict(self, resp: InferResponse) -> dict:
+        """A v2 response head with every tensor as JSON data (SSE events
+        and the collected array are text)."""
+        head: dict = {"model_name": resp.model_name,
+                      "model_version": str(resp.model_version)}
+        if resp.request_id:
+            head["id"] = resp.request_id
+        if resp.parameters:
+            head["parameters"] = dict(resp.parameters)
+        head["outputs"] = [
+            rest.build_tensor_json(out_name, arr, np_to_wire_dtype(arr.dtype),
+                                   arr.shape, binary=False)[0]
+            for out_name, arr in resp.outputs.items()]
+        return head
 
     def _parse_infer_request(self, name, version) -> InferRequest:
         if self.headers.get("Content-Encoding"):

@@ -147,7 +147,8 @@ def test_unknown_attention_impl_raises():
 def test_zoo_registry_is_the_ports_own():
     jax_before = jax_model_names()
     assert {"bert_base", "bert_long"} <= set(model_names())
-    assert build_repository().names() == ["bert_base"]  # bert_long: by name
+    # bert_long and tiny_gpt_long load by name only, as in the JAX zoo.
+    assert build_repository().names() == ["bert_base", "tiny_gpt"]
     assert build_repository(["bert_long"]).names() == ["bert_long"]
     with pytest.raises(KeyError, match="no_such_model"):
         build_repository(["no_such_model"])

@@ -55,6 +55,8 @@ def test_importing_the_server_loads_no_jax():
         "import sys\n"
         "import client_tpu_torch.server, client_tpu_torch.server.__main__\n"
         "import client_tpu_torch.models.bert, client_tpu_torch.engine\n"
+        "import client_tpu_torch.models.generate\n"
+        "import client_tpu_torch.engine.generative\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'client_tpu'))\n"
         "assert not bad, bad\n"

@@ -301,3 +301,178 @@ def test_codec_round_trip(wire):
     assert back.shape == arr.shape and (back == arr).all()
     entry, _ = rest.build_tensor_json("t", arr, wire, arr.shape, binary=False)
     assert (rest.parse_tensors([entry], b"")[0].to_numpy() == arr).all()
+
+
+# -- the generate extension ---------------------------------------------------
+
+GPT = dict(n_layers=2, d_model=64, n_heads=2, d_ff=128, vocab=128,
+           max_seq_len=32, max_streams=4)
+
+
+@pytest.fixture(scope="module")
+def gen_served():
+    """The port and the JAX package each serving the same small tiny_gpt
+    as "tg" (plus, on the port, a BERT for the single-response case)."""
+    from client_tpu.engine import TpuEngine
+    from client_tpu.engine.repository import ModelRepository as JaxRepository
+    from client_tpu.models.generate import TinyGptBackend as JaxGpt
+    from client_tpu.server import HttpInferenceServer as JaxServer
+    from client_tpu_torch.models.generate import TinyGptBackend
+
+    repo = ModelRepository()
+    repo.register("tg", lambda device: TinyGptBackend(
+        name="tg", device=device, **GPT))
+    repo.register("tg_long", lambda device: TinyGptBackend(
+        name="tg_long", device=device, **{**GPT, "max_seq_len": 1024}))
+    repo.register("bert_small", _small("bert_small"))
+    engine = TorchEngine(repo, device="cpu")
+    server = HttpInferenceServer(engine, port=0).start()
+    jax_repo = JaxRepository()
+    jax_repo.register_backend(JaxGpt(name="tg", attn_impl="reference", **GPT))
+    jax_engine = TpuEngine(jax_repo)
+    jax_server = JaxServer(jax_engine, port=0).start()
+    yield engine, server, int(jax_server.url.split(":")[1])
+    jax_server.stop()
+    jax_engine.shutdown()
+    server.stop()
+    engine.shutdown()
+
+
+def _post(port, path, body):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request("POST", path, body)
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read()
+    finally:
+        conn.close()
+
+
+def _gen_body(prompt, n, **params):
+    return json.dumps({
+        "inputs": [{"name": "INPUT_IDS", "datatype": "INT32",
+                    "shape": [len(prompt)], "data": prompt}],
+        "parameters": {"max_tokens": n, **params}})
+
+
+def _events(raw: bytes) -> list[dict]:
+    text = raw.decode()
+    assert text.endswith("\n\n")
+    blocks = text.split("\n\n")[:-1]
+    assert all(b.startswith("data: ") for b in blocks), text
+    return [json.loads(b[len("data: "):]) for b in blocks]
+
+
+def _tokens(events):
+    return [{o["name"]: o["data"] for o in e["outputs"]}["TOKEN"][0]
+            for e in events]
+
+
+@pytest.mark.parametrize("params", [{}, {"temperature": 0.8, "seed": 7,
+                                         "top_k": 24, "top_p": 0.9}])
+def test_generate_stream_events_equal_the_jax_servers(gen_served, params):
+    _, server, jax_port = gen_served
+    body = _gen_body([1, 2, 3], 6, **params)
+    status, headers, raw = _post(server.port,
+                                 "/v2/models/tg/generate_stream", body)
+    assert status == 200
+    assert headers["Content-Type"] == "text/event-stream"
+    assert headers["Transfer-Encoding"] == "chunked"
+    events = _events(raw)  # http.client has taken the chunks apart
+    assert len(events) == 6  # no event for the final flag: the stream ends
+    assert [e["outputs"][1]["data"] for e in events] == [[i] for i in range(6)]
+    assert all(e["parameters"] == {"triton_final_response": False}
+               for e in events)
+    jax_status, _, jax_raw = _post(jax_port, "/v2/models/tg/generate_stream",
+                                   body)
+    assert jax_status == 200
+    assert events == _events(jax_raw)
+    assert raw == jax_raw  # the same bytes, framing included
+
+
+def test_generate_collects_the_streamed_tokens(gen_served):
+    _, server, jax_port = gen_served
+    body = _gen_body([9, 9, 4], 5)
+    status, _, raw = _post(server.port, "/v2/models/tg/generate", body)
+    assert status == 200
+    data = json.loads(raw)
+    assert data["model_name"] == "tg" and len(data["responses"]) == 5
+    _, _, stream_raw = _post(server.port, "/v2/models/tg/generate_stream",
+                             body)
+    assert data["responses"] == _events(stream_raw)
+    assert data == json.loads(_post(jax_port, "/v2/models/tg/generate",
+                                    body)[2])
+
+
+def test_generate_for_a_single_response_model(gen_served):
+    engine, server, _ = gen_served
+    ids, mask = _rows(1, seed=8)
+    status, _, raw = _post(server.port, "/v2/models/bert_small/generate",
+                           _json_body(ids, mask))
+    assert status == 200
+    (resp,) = json.loads(raw)["responses"]
+    got = {o["name"]: np.array(o["data"], np.float32) for o in resp["outputs"]}
+    want = _direct(engine, "bert_small", ids, mask)
+    np.testing.assert_allclose(got["logits"], want["logits"].ravel(),
+                               atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("case", ["too_long", "binary_output",
+                                  "bad_temperature"])
+def test_generate_errors_are_400(gen_served, case):
+    _, server, _ = gen_served
+    if case == "too_long":
+        body = _gen_body([1] * 30, 5)
+    elif case == "bad_temperature":
+        body = _gen_body([1], 2, temperature=-1)
+    else:
+        body = json.dumps({**json.loads(_gen_body([1], 2)), "outputs": [
+            {"name": "TOKEN", "parameters": {"binary_data": True}}]})
+    status, _, raw = _post(server.port, "/v2/models/tg/generate", body)
+    assert status == 400, raw
+    status, _, raw = _post(server.port, "/v2/models/tg/infer",
+                           _gen_body([1], 2))
+    assert status == 400 and b"decoupled" in raw
+
+
+def test_generate_stream_error_is_an_event(gen_served):
+    _, server, _ = gen_served
+    status, _, raw = _post(server.port, "/v2/models/tg/generate_stream",
+                           _gen_body([1] * 30, 5))
+    assert status == 200  # the headers leave before the scheduler answers
+    (event,) = _events(raw)
+    assert "max_seq_len" in event["error"]
+
+
+def test_dead_client_cancels_the_stream(gen_served):
+    import socket
+    import struct
+    import time
+
+    engine, server, _ = gen_served
+    sched = engine._schedulers["tg_long"]
+    before = engine.model_statistics("tg_long")["model_stats"][0]
+    body = _gen_body([1, 2], 1000).encode()
+    sock = socket.create_connection(("127.0.0.1", server.port), timeout=60)
+    sock.sendall(b"POST /v2/models/tg_long/generate_stream HTTP/1.1\r\n"
+                 b"Host: x\r\nContent-Length: " + str(len(body)).encode()
+                 + b"\r\n\r\n" + body)
+    assert sock.recv(64).startswith(b"HTTP/1.1 200")
+    # Close with a reset: the server's next write fails at once.
+    sock.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER,
+                    struct.pack("ii", 1, 0))
+    sock.close()
+    deadline = time.monotonic() + 60
+    stats = before
+    while time.monotonic() < deadline:
+        stats = engine.model_statistics("tg_long")["model_stats"][0]
+        if stats["inference_stats"]["fail"]["count"] > \
+                before["inference_stats"]["fail"]["count"]:
+            break
+        time.sleep(0.02)
+    assert stats["inference_stats"]["fail"]["count"] == \
+        before["inference_stats"]["fail"]["count"] + 1
+    assert stats["inference_count"] == before["inference_count"]
+    while sched._streams and time.monotonic() < deadline:
+        time.sleep(0.02)
+    assert len(sched._free) == GPT["max_streams"]
