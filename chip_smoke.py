@@ -11,8 +11,9 @@
    tolerance stated below; then time kernel, plain version and the one
    PyTorch call that computes the same function, and work out the least
    time the card could take (the bound). The kernels: flash attention in
-   bf16 (BERT) and in fp32 causal (the generative prefill), and the fused
-   decode wave.
+   bf16 (BERT) and in fp32 causal (the generative prefill), the fused
+   decode wave, and the ring all-reduce of the row-sharded KV arena (2 and
+   4 shards on the one card, bit for bit against its plain version).
 4. Serve phase: starts ``client_tpu_torch``'s HTTP server with ``bert_base``
    and ``bert_long`` on the card (full BERT-base width and depth, random
    weights from a fixed seed), sets every kernel's launch count to 0, sends
@@ -32,7 +33,15 @@
    the launch counts must show the kernels ran; ``/generate`` must match
    the stream; the 400s and a stop token are checked. Wall time, tokens/s
    and the median inter-token gap are printed, not claimed.
-6. Prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
+6. Sharded generate phase: ``tiny_gpt_long`` at its registered size with
+   its KV arena split by rows over 2 shards on the card (``kv_shards=2``),
+   served over HTTP as ``tiny_gpt_long_kv2``; launch counts set to 0, then
+   8 concurrent ``/generate_stream`` streams of 32 tokens (prompts of 3 to
+   1,500 tokens, two sampled). Every stream must equal the same prompt run
+   directly on the plain unsharded path; every decode step must have
+   launched the ring all-reduce once per layer and the decode kernel once
+   per layer and shard.
+7. Prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
    limit line, and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -68,6 +77,9 @@ FP32_ATOL = 1e-4
 # Decode-wave kernel vs plain version: fp32 throughout, one query over up
 # to 2048 keys, sums in another order; the scatter is compared exactly.
 DECODE_ATOL = 2e-5
+# Ring all-reduce vs plain version: none. Both add in the ring's order, so
+# every shard's sum must be equal bit for bit.
+RING_SHAPES = ((1, 4, 64), (3, 4, 64), (16, 4, 64))  # decode wave buckets
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (data sheet)
 PEAK_FP32_FLOPS = 67e12    # H100 SXM fp32 outside the tensor cores
@@ -103,6 +115,29 @@ def _time_ms(torch, fn) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def _queued_ms(torch, fn, reps: int = 20) -> float:
+    """Device time per call of a call too short to time alone: ``reps``
+    calls queued back to back behind a sleeping kernel, so the device never
+    waits on the host between them, over one pair of CUDA events. Median of
+    five such runs. ``reps`` stays small enough that the launches of the
+    plain ring at 4 shards (~28 a call) do not fill the launch queue."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)  # ~10 ms at the H100's clocks
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
     return float(np.median(times))
 
 
@@ -365,6 +400,83 @@ def kernel_phase_decode(torch) -> dict:
     }
 
 
+def kernel_phase_ring(torch) -> dict:
+    """The ring all-reduce at the decode wave's partial outputs [B, 4, 64],
+    2 and 4 shards on the one card."""
+    from client_tpu_torch.parallel import kv_shard as ks
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def partials(n, shape):
+        return [torch.randn(shape, device="cuda", generator=gen) * 4
+                for _ in range(n)]
+
+    for n in (2, 4):
+        for shape in RING_SHAPES:
+            parts = partials(n, shape)
+            got = ks.ring_all_reduce(parts)
+            torch.cuda.synchronize()
+            want = ks.ring_all_reduce_plain(parts)
+            _check(len(got) == n, f"ring n={n}: {len(got)} outputs")
+            for i, (g, w) in enumerate(zip(got, want)):
+                _check(g.shape == shape and bool(torch.equal(g, w)),
+                       f"ring n={n} {shape} shard {i}: differs from the "
+                       f"plain version by {float((g - w).abs().max())}")
+            print(f"kernel case ring n={n} {list(shape)}: every shard's sum "
+                  "equals the plain version bit for bit", flush=True)
+    one = partials(1, RING_SHAPES[0])
+    before = ks.launches
+    _check(ks.ring_all_reduce(one)[0] is one[0] and ks.launches == before,
+           "ring n=1 launched or copied")
+    if torch.cuda.device_count() >= 2:
+        try:
+            ks.kv_mesh(2)
+        except NotImplementedError as exc:
+            print(f"ring on distinct cards: not run ({exc})", flush=True)
+    else:
+        print("ring on distinct cards: not run (1 card visible)", flush=True)
+
+    # Each call is a few microseconds of device work behind tens of host
+    # work, so a call timed alone measures the host: the device time is
+    # taken with calls queued back to back (_queued_ms), and the time of a
+    # call alone, the host's included (_time_ms), is printed beside it.
+    timed = {}
+    for n in (2, 4):
+        parts = partials(n, RING_SHAPES[-1])
+        calls = {"kernel": lambda: ks.ring_all_reduce(parts),
+                 "plain": lambda: ks.ring_all_reduce_plain(parts),
+                 "torch.stack(...).sum(0)": lambda: torch.stack(parts).sum(0)}
+        queued = {k: _queued_ms(torch, f) for k, f in calls.items()}
+        alone = {k: _time_ms(torch, f) for k, f in calls.items()}
+        numel = parts[0].numel()
+        timed[n] = (*queued.values(), numel)
+        nbytes = 2 * n * numel * 4  # n partials read, n sums written
+        flops = (n - 1) * n * numel
+        print(f"ring_all_reduce n={n} at {list(RING_SHAPES[-1])} fp32, device "
+              f"ms per call queued back to back {queued}, one call alone "
+              f"{alone}; bound "
+              f"{max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOPS) * 1e3}"
+              f" ms ({nbytes} bytes, {flops} additions)", flush=True)
+    ms, plain_ms, library_ms, numel = timed[2]  # the main path: 2 shards
+    nbytes, flops = 2 * 2 * numel * 4, 2 * numel
+    byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    flop_ms = flops / PEAK_FP32_FLOPS * 1e3
+    return {
+        "name": "ring_all_reduce",
+        "route": "cuda",
+        "source": "client_tpu_torch/csrc/ring_all_reduce.cu",
+        "replaces": "client_tpu/parallel/kv_shard.py:84",
+        "launches": None,  # from the sharded generate phase
+        "max_abs_err": 0.0,  # checked bit for bit above
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(byte_ms, flop_ms),
+        "bound_by": "bytes" if byte_ms >= flop_ms else "operations",
+        "library_ms": library_ms,
+        "library_call": "torch.stack(partials).sum(0) on the one card",
+    }
+
+
 # -- serve phase ------------------------------------------------------------
 
 def _post(port: int, path: str, body: bytes, headers: dict | None = None):
@@ -584,7 +696,8 @@ def _wave_split(torch, backend, smi: str) -> None:
     time: a sampled wave's ~500 launches fill most of the launch queue)."""
     arena = backend.init_arena(backend.max_streams)
     rng = np.random.default_rng(4)
-    rows = list(range(12)) + [backend.max_streams] * 4
+    free, dummy = backend.arena_rows()
+    rows = free[:12] + [dummy] * 4
     lens = rng.integers(100, 1600, 12).tolist() + [0] * 4
     index = backend.wave_index(arena, rows, lens)
     for label, temps in (("greedy", [0.0] * 16),
@@ -611,8 +724,8 @@ def _wave_split(torch, backend, smi: str) -> None:
             end.record()
             end.synchronize()
             device.append(start.elapsed_time(end))
-        print(f"generate: tiny_gpt_long wave, 12 lanes in a 16 bucket, "
-              f"{label}: host dispatch {1e3 * float(np.median(host)):.3f} "
+        print(f"generate: {backend.config.name} wave, 12 lanes in a 16 "
+              f"bucket, {label}: host dispatch {1e3 * float(np.median(host)):.3f} "
               f"ms (median of {N_TIMED}), device "
               f"{float(np.median(device)):.3f} ms (median of 5); {smi}",
               flush=True)
@@ -755,6 +868,107 @@ def generate_phase(torch, smi: str) -> dict:
         engine.shutdown()
 
 
+def sharded_phase(torch, smi: str) -> dict:
+    """tiny_gpt_long with its arena split over 2 shards on the one card,
+    served over HTTP, every stream checked against the plain unsharded
+    path run directly."""
+    from client_tpu_torch.engine import TorchEngine
+    from client_tpu_torch.engine.repository import ModelRepository
+    from client_tpu_torch.models.generate import TinyGptBackend
+    from client_tpu_torch.ops import decode_attention as da
+    from client_tpu_torch.ops import flash_attention as fa
+    from client_tpu_torch.parallel import kv_shard as ks
+    from client_tpu_torch.server import HttpInferenceServer
+
+    name, shards, n_layers, max_tokens = "tiny_gpt_long_kv2", 2, 4, 32
+
+    def build(device):
+        # tiny_gpt_long's registered size; every shard on this card.
+        backend = TinyGptBackend(name=name, max_seq_len=2048, max_streams=16,
+                                 attention_impl="flash", attn_impl="fused",
+                                 kv_shards=shards, device=device)
+        backend._kv_mesh = ks.kv_mesh(shards, [device] * shards)
+        return backend
+
+    repo = ModelRepository()
+    repo.register(name, build)
+    t0 = time.monotonic()
+    engine = TorchEngine(repo)
+    server = HttpInferenceServer(engine, port=0).start()
+    sched = engine._schedulers[name]
+    backend = engine.repository.get(name).backend
+    _check(sched.arena_shards() == shards and sched._chunk == 1,
+           f"scheduler: {sched.arena_shards()} shards, chunk {sched._chunk}")
+    arena_mb = sum(t.numel() * 4 for t in sched._arena.k + sched._arena.v) / 1e6
+    print(f"sharded: engine and server up in {time.monotonic() - t0:.1f} s; "
+          f"arena {arena_mb:.1f} MB in {shards} shards of "
+          f"{list(sched._arena.k[0].shape)} on "
+          f"{[str(d) for d in backend._mesh().devices]}", flush=True)
+    rng = np.random.default_rng(6)
+    sampled = {"temperature": 0.8, "top_k": 24, "top_p": 0.9}
+    requests = []  # (prompt, params)
+    for i, n in enumerate((3, 40, 150, 400, 700, 1000, 1300, 1500)):
+        params = {**sampled, "seed": 300 + i} if i in (2, 5) else {}
+        requests.append((rng.integers(0, 512, n).tolist(), params))
+    try:
+        fa.launches_fp32 = da.launches = ks.launches = 0
+        t0 = time.monotonic()
+        with concurrent.futures.ThreadPoolExecutor(len(requests)) as pool:
+            results = list(pool.map(lambda r: _stream(server.port, name, {
+                "inputs": [{"name": "INPUT_IDS", "datatype": "INT32",
+                            "shape": [len(r[0])], "data": r[0]}],
+                "parameters": {"max_tokens": max_tokens, **r[1]}}),
+                requests))
+        wall = time.monotonic() - t0
+        k1, k2, k3 = fa.launches_fp32, da.launches, ks.launches
+        executions = engine.model_statistics(name)["model_stats"][0][
+            "execution_count"]
+        prefills = k1 // n_layers
+        steps = executions - prefills  # wave dispatches of one step each
+        n_tokens = sum(len(toks) for toks, _ in results)
+        gaps = [b - a for _, times in results
+                for a, b in zip(times, times[1:])]
+        print(f"sharded: {len(requests)} concurrent streams, {n_tokens} "
+              f"tokens in {wall:.3f} s ({n_tokens / wall:.1f} tokens/s), "
+              f"median inter-token gap {1e3 * float(np.median(gaps)):.2f} ms; "
+              f"{executions} executions: {prefills} prefill chunks, {steps} "
+              f"decode steps; {smi} (printed, not claimed)", flush=True)
+        _check(all(len(toks) == max_tokens for toks, _ in results),
+               f"stream lengths {[len(t) for t, _ in results]}")
+        _check(k1 == n_layers * prefills and prefills >= 1,
+               f"fp32 flash launches {k1}: not {n_layers} per prefill chunk")
+        _check(steps >= max_tokens - 1, f"{steps} decode steps")
+        _check(k3 == n_layers * steps,
+               f"ring launches {k3} != {n_layers} x {steps} decode steps")
+        _check(k2 == shards * n_layers * steps,
+               f"decode launches {k2} != {shards} x {n_layers} x {steps}")
+        print(f"sharded: ring all-reduce launched {k3} = {n_layers} x {steps} "
+              f"times, decode kernel {k2} = {shards} x {n_layers} x {steps}, "
+              f"fp32 flash {k1} = {n_layers} x {prefills}", flush=True)
+
+        oracle = TinyGptBackend(name=name, max_seq_len=2048, max_streams=16,
+                                attention_impl="einsum",
+                                attn_impl="reference", device="cuda")
+        arena = oracle.init_arena(1)
+        t0 = time.monotonic()
+        for (prompt, params), (toks, _) in zip(requests, results):
+            want = _direct_stream(torch, oracle, arena, prompt, max_tokens,
+                                  params)
+            _check(toks == want, f"{name} prompt of {len(prompt)} "
+                   f"{params or 'greedy'}: served {toks} != direct {want}")
+        _check((fa.launches_fp32, da.launches, ks.launches) == (k1, k2, k3),
+               "the plain-path oracle launched a kernel")
+        print(f"sharded: all {len(requests)} streams equal the plain "
+              f"unsharded path run directly, token for token "
+              f"({time.monotonic() - t0:.1f} s)", flush=True)
+        _wave_split(torch, backend, smi)
+        return {"ring_all_reduce": k3, "decode_wave_attention": k2,
+                "wall_s": wall, "tokens": n_tokens}
+    finally:
+        server.stop()
+        engine.shutdown()
+
+
 def main() -> int:
     import torch
 
@@ -776,17 +990,19 @@ def main() -> int:
     print(f"device: {name}, {torch.cuda.device_count()} visible; torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     t0 = time.monotonic()
-    built = cuda_build.build(["flash_attention", "decode_attention"])
+    built = cuda_build.build(["flash_attention", "decode_attention",
+                              "ring_all_reduce"])
     print(f"set-up: kernels built in {time.monotonic() - t0:.1f} s {built}",
           flush=True)
 
     kernels = [kernel_phase(torch), kernel_phase_fp32(torch),
-               kernel_phase_decode(torch)]
+               kernel_phase_decode(torch), kernel_phase_ring(torch)]
     torch.cuda.empty_cache()
     kernels[0]["launches"], _ = serve_phase(torch)
     generated = generate_phase(torch, smi)
     kernels[1]["launches"] = generated["flash_attention_fp32"]
     kernels[2]["launches"] = generated["decode_wave_attention"]
+    kernels[3]["launches"] = sharded_phase(torch, smi)["ring_all_reduce"]
     for kernel in kernels:
         # Shorter aliases of the two keys above.
         kernel["launched"] = kernel["launches"]

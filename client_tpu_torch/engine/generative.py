@@ -26,7 +26,11 @@ behaviour: every decode step is shared by all live generation streams.
 Every arena operation (prefill, waves, re-init after a failure) runs on
 one CUDA stream that this scheduler owns. That stream's order is what
 makes a row safe to reuse the moment its stream retires: work already
-dispatched with the row runs before any later prefill into it.
+dispatched with the row runs before any later prefill into it. A
+row-sharded arena (``kv_shards > 1``) keeps every shard on the scheduler's
+card, so its per-shard work is ordered on that one stream too; the free
+rows then skip each shard's junk row, and nothing here assumes that a row
+is its lane's number.
 
 Not ported yet: warmup (nothing compiles in eager PyTorch, and the kernels
 are built at model load), and the HBM census, cost ledger, profiler and
@@ -213,6 +217,11 @@ class GenerativeScheduler(Scheduler):
         self._inflight_waves = 0
         self._free = list(self._rows_init)
         super().__init__(model, stats)
+
+    def arena_shards(self) -> int:
+        """KV arena shard count (1 = one device): how many ways the
+        backend splits the arena's rows (``kv_shards``)."""
+        return int(getattr(self._backend, "kv_shards", 1) or 1)
 
     def _on_stream(self):
         """The context every arena operation runs in: this scheduler's

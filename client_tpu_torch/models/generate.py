@@ -8,6 +8,8 @@ continuous-batching ``GenerativeScheduler`` (``engine/generative.py``) over
 a KV arena ``[n_layers, capacity + 1, max_seq_len, heads, head_dim]`` on
 the device: the +1 dummy row absorbs padded lanes. The arena also keeps
 each row's latest token, so consecutive decode waves chain on the device.
+With ``kv_shards = n > 1`` the arena's rows are split over a ``"kv"`` mesh
+of ``n`` shards, one junk row per shard (``parallel/kv_shard.py``).
 
 - ``prefill`` runs a batch of prompts (padded to one lane count and one
   prompt bucket) through the full causal stack, writes each prompt's K/V
@@ -18,7 +20,9 @@ each row's latest token, so consecutive decode waves chain on the device.
   ``attn_impl="fused"`` (the port's default) each layer's scatter and
   attention is one launch of kernel K2 (``ops/decode_attention.py``);
   ``"reference"`` runs K2's plain version, the oracle. Streams are
-  token-identical either way, up to fp32 summation order.
+  token-identical either way, up to fp32 summation order. Over a sharded
+  arena each layer runs K2 once per shard and sums the partial outputs
+  with kernel K3, the ring all-reduce (``kv_combine = "ring"``).
 - ``decode_chunk`` runs K waves back to back with no host sync.
 
 Weights are random from ``np.random.default_rng(seed)`` in the JAX
@@ -45,16 +49,9 @@ from client_tpu_torch.models.sampling import sample_tokens
 from client_tpu_torch.ops import decode_attention as _decode
 from client_tpu_torch.ops import flash_attention as _flash
 from client_tpu_torch.ops.decode_attention import WaveIndex, stage
+from client_tpu_torch.parallel import kv_shard
 
 _NEG_INF = -1e30
-
-
-def arena_row_layout(capacity: int) -> tuple[int, list[int], int]:
-    """(total_rows, free_rows, dummy_row) of a single-device arena:
-    ``capacity`` stream rows and the trailing dummy row that padded lanes
-    point at. (The JAX package's row-sharded layout comes with multi-GPU
-    serving.)"""
-    return capacity + 1, list(range(capacity)), capacity
 
 
 @dataclass
@@ -106,8 +103,13 @@ class TinyGptBackend(ModelBackend):
     INT32[1], ``INDEX`` UINT32[1]) responses, the last flagged final.
 
     ``attention_impl`` ("einsum" | "flash") picks the prefill attention,
-    ``attn_impl`` ("fused" | "reference") the decode-wave attention. The
-    ``max_tokens`` request parameter bounds a stream (default 16)."""
+    ``attn_impl`` ("fused" | "reference") the decode-wave attention.
+    ``kv_shards > 1`` splits the arena's rows over a ``"kv"`` mesh (fused
+    decode only; ``max_streams`` must divide evenly): by default the first
+    ``kv_shards`` CUDA devices, or, on the CPU, the CPU repeated. A caller
+    may set ``_kv_mesh`` (``parallel.kv_mesh``) before the first arena, for
+    example to put every shard on one card. The ``max_tokens`` request
+    parameter bounds a stream (default 16)."""
 
     generative = True
 
@@ -126,10 +128,21 @@ class TinyGptBackend(ModelBackend):
         if attn_impl not in ("reference", "fused"):
             raise ValueError(f"attn_impl must be 'reference' or 'fused', "
                              f"got {attn_impl!r}")
-        if int(kv_shards) != 1:
-            raise ValueError(
-                f"kv_shards={kv_shards}: the row-sharded KV arena comes with "
-                "multi-GPU serving; the port serves one device")
+        self.kv_shards = int(kv_shards)
+        if self.kv_shards < 1:
+            raise ValueError(f"kv_shards must be >= 1, got {kv_shards}")
+        if self.kv_shards > 1:
+            if attn_impl != "fused":
+                raise ValueError(
+                    "kv_shards > 1 requires attn_impl='fused' (the sharded "
+                    "arena is served by the per-shard fused kernel)")
+            if max_streams % self.kv_shards:
+                raise ValueError(
+                    f"max_streams ({max_streams}) must be divisible by "
+                    f"kv_shards ({self.kv_shards})")
+        # The cross-shard sum: "ring" (K3) or "psum" (a plain sum).
+        self.kv_combine = "ring"
+        self._kv_mesh = None
         self.attention_impl, self.attn_impl = attention_impl, attn_impl
         self.n_layers, self.d_model = n_layers, d_model
         self.n_heads, self.d_ff = n_heads, d_ff
@@ -163,6 +176,8 @@ class TinyGptBackend(ModelBackend):
                 _flash.load_kernel()
             if attn_impl == "fused":
                 _decode.load_kernel()
+            if self.kv_shards > 1:
+                kv_shard.load_kernel()
 
     @property
     def device(self) -> torch.device:
@@ -252,25 +267,50 @@ class TinyGptBackend(ModelBackend):
     # -- generative interface (GenerativeScheduler) ----------------------------
 
     def arena_rows(self, capacity: int | None = None) -> tuple[list[int], int]:
-        """(free_rows, dummy_row) of the arena :meth:`init_arena` builds."""
+        """(free_rows, dummy_row) of the arena :meth:`init_arena` builds.
+        Sharded, the free rows skip each shard's junk row: the scheduler
+        must not assume ``row == lane``."""
         cap = self.max_streams if capacity is None else int(capacity)
-        _total, free, dummy = arena_row_layout(cap)
+        _total, free, dummy = kv_shard.arena_row_layout(cap, self.kv_shards)
         return free, dummy
 
-    def init_arena(self, capacity: int) -> KvArena:
-        total, _free, _dummy = arena_row_layout(capacity)
+    def _mesh(self) -> kv_shard.KvMesh:
+        if self._kv_mesh is None:
+            devices = ([self.device] * self.kv_shards
+                       if self.device.type == "cpu" else None)
+            self._kv_mesh = kv_shard.kv_mesh(self.kv_shards, devices)
+        mesh = self._kv_mesh
+        if mesh.size != self.kv_shards or mesh.devices[0] != self.device:
+            raise ValueError(
+                f"the kv mesh {[str(d) for d in mesh.devices]} must have "
+                f"{self.kv_shards} shards, the first on {self.device}")
+        return mesh
+
+    def init_arena(self, capacity: int) -> KvArena | kv_shard.ShardedKvArena:
+        """The arena on the device: k / v ``[L, R, S, H, D]`` zeros and
+        ``tok`` ``[R]``; with ``kv_shards > 1`` split by rows over the mesh
+        (``tok`` stays on this backend's device)."""
+        total, _free, _dummy = kv_shard.arena_row_layout(capacity,
+                                                         self.kv_shards)
         shape = (self.n_layers, total, self.max_seq_len, self.n_heads,
                  self.head_dim)
-        return KvArena(k=torch.zeros(shape, device=self.device),
-                       v=torch.zeros(shape, device=self.device),
-                       tok=torch.zeros(total, dtype=torch.int32,
-                                       device=self.device))
+        arena = KvArena(k=torch.zeros(shape, device=self.device),
+                        v=torch.zeros(shape, device=self.device),
+                        tok=torch.zeros(total, dtype=torch.int32,
+                                        device=self.device))
+        if self.kv_shards > 1:
+            return kv_shard.shard_arena(arena, self._mesh())
+        return arena
 
-    def wave_index(self, arena: KvArena, rows, lens) -> WaveIndex:
+    def wave_index(self, arena, rows, lens
+                   ) -> WaveIndex | kv_shard.ShardedWaveIndex:
         """Check ``rows`` / ``lens`` (host arrays) against ``arena`` and
-        stage them to the device."""
-        return WaveIndex(rows, lens, arena.k.shape[1], arena.k.shape[2],
-                         self.device)
+        stage them to the device; sharded, with each shard's local index."""
+        index = WaveIndex(rows, lens, arena.tok.shape[0], self.max_seq_len,
+                          self.device)
+        if self.kv_shards > 1:
+            return kv_shard.ShardedWaveIndex(index, self._mesh())
+        return index
 
     def lane_params(self, seeds, temps, top_ks, top_ps) -> LaneParams:
         """Stage one dispatch's per-lane sampling parameters (host
@@ -289,8 +329,16 @@ class TinyGptBackend(ModelBackend):
         n = ids.shape[1]
 
         def on_kv(li, k, v):
-            arena.k[li, rows, :n] = k
-            arena.v[li, rows, :n] = v
+            if self.kv_shards == 1:
+                arena.k[li, rows, :n] = k
+                arena.v[li, rows, :n] = v
+                return
+            # Every shard takes every lane; the lanes it does not own land
+            # on its junk row, which is never read.
+            for k_sh, v_sh, local in zip(arena.k, arena.v, index.shards):
+                loc = local.rows.long()
+                k_sh[li, loc, :n] = k.to(k_sh.device)
+                v_sh[li, loc, :n] = v.to(v_sh.device)
 
         x = self._stack(self._embed(ids), on_kv)
         lens = index.lens.long()
@@ -310,14 +358,25 @@ class TinyGptBackend(ModelBackend):
         rows, lens = index.rows.long(), index.lens.long()
         b = rows.shape[0]
         shape = (b, self.n_heads, self.head_dim)
-        attend = (_decode.decode_wave_attention if self.attn_impl == "fused"
-                  else _decode.decode_wave_attention_plain)
+        if self.kv_shards > 1:
+            mesh = self._mesh()
+
+            def attend(q, k, v, layer):
+                return kv_shard.sharded_decode_attention(
+                    mesh, arena, q, k, v, index, layer=layer,
+                    combine=self.kv_combine)
+        else:
+            wave = (_decode.decode_wave_attention if self.attn_impl == "fused"
+                    else _decode.decode_wave_attention_plain)
+
+            def attend(q, k, v, layer):
+                return wave(arena.k, arena.v, q, k, v, index, layer=layer)
         x = self.embed[arena.tok[rows].long()] + self.pos[lens]
         for li, lp in enumerate(self.layers):
             h = lp.ln1(x)
             q, k, v = (lp.wq(h).view(shape), lp.wk(h).view(shape),
                        lp.wv(h).view(shape))
-            o = attend(arena.k, arena.v, q, k, v, index, layer=li)
+            o = attend(q, k, v, li)
             x = x + lp.wo(o.reshape(b, self.d_model))
             x = x + lp.ffn(x)
         logits = self.head(self.lnf(x))

@@ -59,10 +59,14 @@ class WaveIndex:
     and ``seq`` first (ValueError otherwise), so no kernel launch can be
     handed an index outside the arena. On the card the pinned host copies
     are kept here, referenced until the object is dropped, so the
-    asynchronous copies never read a buffer that was reused."""
+    asynchronous copies never read a buffer that was reused.
+
+    A shard's view of a wave over a row-sharded arena (:meth:`local`) also
+    carries ``owned``, bool ``[B]`` on ``device``: the lanes whose row the
+    shard holds. The others point at the shard's junk row with length 0."""
 
     def __init__(self, rows, lens, n_rows: int, seq: int,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cpu", owned=None):
         rows_np = np.ascontiguousarray(rows, dtype=np.int32)
         lens_np = np.ascontiguousarray(lens, dtype=np.int32)
         if rows_np.ndim != 1 or rows_np.shape != lens_np.shape:
@@ -75,15 +79,37 @@ class WaveIndex:
             raise ValueError(f"lens {lens_np.tolist()} outside [0, {seq})")
         self.n_rows, self.seq = int(n_rows), int(seq)
         self.rows_host, self.lens_host = rows_np, lens_np
-        self._pinned, staged = stage(np.stack([rows_np, lens_np]),
-                                     torch.device(device))
+        host = [rows_np, lens_np]
+        self.owned_host = None
+        if owned is not None:
+            self.owned_host = np.ascontiguousarray(owned, dtype=bool)
+            if self.owned_host.shape != rows_np.shape:
+                raise ValueError(f"owned must be [B], got "
+                                 f"{self.owned_host.shape}")
+            host.append(self.owned_host.astype(np.int32))
+        self._pinned, staged = stage(np.stack(host), torch.device(device))
         self.rows, self.lens = staged[0], staged[1]
+        self.owned = None if owned is None else staged[2] != 0
 
     def shifted(self, k: int) -> "WaveIndex":
         """The same lanes ``k`` positions further on (chunked decode's step
-        ``k``), checked again on the host."""
-        return WaveIndex(self.rows_host, self.lens_host + k, self.n_rows,
-                         self.seq, self.rows.device)
+        ``k``), checked again on the host. Lanes a shard does not own stay
+        at length 0."""
+        step = k if self.owned_host is None else k * self.owned_host
+        return WaveIndex(self.rows_host, self.lens_host + step, self.n_rows,
+                         self.seq, self.rows.device, self.owned_host)
+
+    def local(self, lo: int, n_local: int,
+              device: torch.device | str) -> "WaveIndex":
+        """This wave as the shard holding global rows ``[lo, lo + n_local)``
+        sees it: an owned lane keeps its length and gets row ``row - lo``;
+        any other lane gets the shard's junk row ``n_local - 1`` and length
+        0. JAX computes this on the device in every layer; here it is done
+        once per wave on the host, and checked like any index."""
+        owned = (self.rows_host >= lo) & (self.rows_host < lo + n_local)
+        return WaveIndex(np.where(owned, self.rows_host - lo, n_local - 1),
+                         np.where(owned, self.lens_host, 0), n_local,
+                         self.seq, device, owned)
 
 
 def decode_wave_attention_plain(k_arena: torch.Tensor, v_arena: torch.Tensor,

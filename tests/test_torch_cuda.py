@@ -8,7 +8,8 @@ conftest):
 Tolerances: the bf16 flash kernel against its plain version at 2e-2 (bf16
 output; the kernel rounds P to bf16 under a running tile max and sums in
 another order); the fp32 flash kernel at 1e-4 and the decode-wave kernel at
-2e-5 (fp32 throughout, sums in another order, outputs of magnitude ~1).
+2e-5 (fp32 throughout, sums in another order, outputs of magnitude ~1); the
+ring all-reduce bit for bit (it adds in the plain version's order).
 """
 
 import math
@@ -22,6 +23,7 @@ from client_tpu_torch.models.bert import BertBackend
 from client_tpu_torch.models.generate import TinyGptBackend
 from client_tpu_torch.ops import decode_attention as da
 from client_tpu_torch.ops import flash_attention as fa
+from client_tpu_torch.parallel import kv_shard as ks
 
 pytestmark = pytest.mark.cuda
 
@@ -169,3 +171,62 @@ def test_tiny_gpt_long_fused_stream_equals_reference(card):
     fused = stream("flash", "fused")
     assert fa.launches_fp32 - f0 == 4 and da.launches - d0 == 4 * 23
     assert fused == stream("einsum", "reference")
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("shape", [(1, 4, 64), (3, 4, 64), (16, 4, 64)])
+def test_ring_all_reduce_equals_plain_bit_for_bit(card, n, shape):
+    gen = torch.Generator(device=card).manual_seed(n)
+    parts = [torch.randn(shape, device=card, generator=gen) * 4
+             for _ in range(n)]
+    before = ks.launches
+    got = ks.ring_all_reduce(parts)
+    torch.cuda.synchronize()
+    assert ks.launches == before + 1
+    for g, w in zip(got, ks.ring_all_reduce_plain(parts)):
+        assert torch.equal(g, w)
+
+
+def test_ring_all_reduce_refuses_what_it_was_not_built_for(card):
+    x = torch.zeros(4, device=card)
+    with pytest.raises(ValueError, match="float32"):
+        ks.ring_all_reduce([x.half(), x.half()])
+    with pytest.raises(ValueError, match="at most 8"):
+        ks.ring_all_reduce([x] * 9)
+    with pytest.raises(ValueError, match="one card"):
+        ks.ring_all_reduce([x, x.cpu()])
+
+
+def test_tiny_gpt_long_sharded_stream_equals_unsharded(card):
+    """One greedy and one sampled stream of tiny_gpt_long over 2 shards on
+    the card (K2 per shard, K3 per layer) equal the unsharded fused path
+    token for token, in rows on both shards."""
+    prompt = np.random.default_rng(1).integers(0, 512, 300).astype(np.int32)
+
+    def stream(shards, row_pick, temp, n=16):
+        backend = TinyGptBackend(name="t", max_seq_len=2048, max_streams=16,
+                                 attention_impl="flash", attn_impl="fused",
+                                 kv_shards=shards, device=card)
+        if shards > 1:
+            backend._kv_mesh = ks.kv_mesh(shards, [card] * shards)
+        free, _dummy = backend.arena_rows()
+        row = free[row_pick]
+        arena = backend.init_arena(16)
+        lanes = backend.lane_params([5], [temp], [24], [0.9])
+        ids = torch.from_numpy(prompt[None]).to(card)
+        tokens = [int(backend.prefill(
+            arena, backend.wave_index(arena, [row], [len(prompt)]), ids,
+            lanes, sample=temp > 0)[0])]
+        for i in range(n - 1):
+            index = backend.wave_index(arena, [row], [len(prompt) + i])
+            tokens.append(int(backend.decode(arena, index, lanes,
+                                             sample=temp > 0)[0]))
+        return tokens
+
+    for temp in (0.0, 0.8):
+        want = stream(1, 0, temp)
+        for row_pick in (0, 15):  # the first row of shard 0, last of shard 1
+            k3, k2 = ks.launches, da.launches
+            assert stream(2, row_pick, temp) == want
+            assert ks.launches - k3 == 4 * 15
+            assert da.launches - k2 == 2 * 4 * 15

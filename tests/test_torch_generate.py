@@ -160,8 +160,15 @@ def test_invalid_configs_raise():
         gen.TinyGptBackend(attention_impl="ring", device="cpu", **KW)
     with pytest.raises(ValueError, match="attn_impl"):
         gen.TinyGptBackend(attn_impl="xla", device="cpu", **KW)
-    with pytest.raises(ValueError, match="kv_shards"):
-        gen.TinyGptBackend(kv_shards=2, device="cpu", **KW)
+    # kv_shards: the three checks of the JAX constructor, in its words.
+    with pytest.raises(ValueError, match=">= 1"):
+        gen.TinyGptBackend(kv_shards=0, device="cpu", **KW)
+    with pytest.raises(ValueError, match="fused"):
+        gen.TinyGptBackend(attn_impl="reference", kv_shards=2, device="cpu",
+                           **KW)
+    with pytest.raises(ValueError, match="divisible"):
+        gen.TinyGptBackend(attn_impl="fused", kv_shards=3, device="cpu",
+                           **{**KW, "max_streams": 4})
 
 
 def test_backend_needs_cuda_unless_cpu_is_asked_for(monkeypatch):
