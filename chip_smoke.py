@@ -6,14 +6,19 @@
 1. Prints the card (``torch.cuda.get_device_name``) and its power limit.
 2. Builds every kernel of the path from ``client_tpu_torch/csrc`` with
    ``nvcc`` (one process per source, all at once) and prints the seconds.
+   Counts the flash-attention kernels' instructions (``cuobjdump -sass``)
+   and fails unless the bf16 kernel runs on wgmma fed by TMA and the fp32
+   one on TF32 mma.sync.
 3. Kernel phases: hold each kernel against its plain PyTorch version on the
    card at the shapes the main path gives it, plus its edge cases, with the
    tolerance stated below; then time kernel, plain version and the one
-   PyTorch call that computes the same function, and work out the least
-   time the card could take (the bound). The kernels: flash attention in
-   bf16 (BERT) and in fp32 causal (the generative prefill), the fused
-   decode wave, and the ring all-reduce of the row-sharded KV arena (2 and
-   4 shards on the one card, bit for bit against its plain version).
+   PyTorch call that computes the same function (flash attention: kernel
+   and call in turns, and the call's own kernels named from one
+   ``torch.profiler`` pass), and work out the least time the card could
+   take (the bound). The kernels: flash attention in bf16 (BERT) and in
+   fp32 causal (the generative prefill), the fused decode wave, and the
+   ring all-reduce of the row-sharded KV arena (2 and 4 shards on the one
+   card, bit for bit against its plain version).
 4. Serve phase: starts ``client_tpu_torch``'s HTTP server with ``bert_base``
    and ``bert_long`` on the card (full BERT-base width and depth, random
    weights from a fixed seed), sets every kernel's launch count to 0, sends
@@ -50,14 +55,17 @@ It exits non-zero as well without CUDA, or outside a checkout of the repo.
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
 import http.client
+from pathlib import Path
 
 import numpy as np
 
@@ -74,6 +82,10 @@ SERVED_ATOL = 6e-2
 # fp32 flash kernel vs plain version: fp32 throughout, outputs of
 # magnitude <= ~3, sums over up to 2048 keys in another order.
 FP32_ATOL = 1e-4
+# fp32 flash kernel vs attention in float64, inputs scaled x8 (scores up to
+# a few hundred, outputs up to ~35): the fp32 plain version itself misses
+# by ~6e-4 there, plain TF32 products by ~0.5 (both printed beside it).
+FP32_F64_ATOL = 2e-3
 # Decode-wave kernel vs plain version: fp32 throughout, one query over up
 # to 2048 keys, sums in another order; the scatter is compared exactly.
 DECODE_ATOL = 2e-5
@@ -82,6 +94,7 @@ DECODE_ATOL = 2e-5
 RING_SHAPES = ((1, 4, 64), (3, 4, 64), (16, 4, 64))  # decode wave buckets
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (data sheet)
+PEAK_TF32_FLOPS = 495e12   # H100 SXM dense TF32 on the tensor cores
 PEAK_FP32_FLOPS = 67e12    # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 
@@ -101,8 +114,8 @@ def _nvidia_smi() -> str:
     return out.strip().splitlines()[0]
 
 
-def _time_ms(torch, fn) -> float:
-    """Median over N_TIMED launches, each bracketed by CUDA events."""
+def _samples_ms(torch, fn) -> list[float]:
+    """N_TIMED launches after a warm-up, each bracketed by CUDA events."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -115,7 +128,44 @@ def _time_ms(torch, fn) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    return times
+
+
+def _time_ms(torch, fn) -> float:
+    """Median over N_TIMED launches, each bracketed by CUDA events."""
+    return float(np.median(_samples_ms(torch, fn)))
+
+
+def _time_turns(torch, kernel, library) -> tuple[float, float]:
+    """Medians of a kernel and its library call timed in turns (kernel,
+    library, library, kernel; N_TIMED launches a turn), so that drift in
+    the card's clocks falls on both alike."""
+    samples = {"kernel": [], "library": []}
+    for name in ("kernel", "library", "library", "kernel"):
+        samples[name] += _samples_ms(
+            torch, kernel if name == "kernel" else library)
+    return (float(np.median(samples["kernel"])),
+            float(np.median(samples["library"])))
+
+
+def _device_kernels(torch, fn) -> str:
+    """The kernels one call of ``fn`` ran on the card, longest first, from
+    one ``torch.profiler`` pass; "not measured" where the profiler saw no
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = sorted(
+        (e for e in prof.key_averages()
+         if e.device_type == torch.autograd.DeviceType.CUDA
+         and e.self_device_time_total > 0),
+        key=lambda e: -e.self_device_time_total)
+    return "; ".join(e.key for e in kernels) or "not measured"
 
 
 def _queued_ms(torch, fn, reps: int = 20) -> float:
@@ -139,6 +189,46 @@ def _queued_ms(torch, fn, reps: int = 20) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return float(np.median(times))
+
+
+def _sass_census(cuda_build) -> dict:
+    """Instruction counts of the two flash-attention kernels in the built
+    library, from ``cuobjdump -sass``: wgmma (HGMMA), TMA loads (UTMALDG)
+    and mma.sync (HMMA, and those with TF32 operands). Fails unless the
+    bf16 kernel runs its products on wgmma, loads with TMA and has no
+    mma.sync, and every HMMA of the fp32 kernel is TF32."""
+    tool = Path(cuda_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run(
+        [str(tool), "-sass", str(cuda_build.library_path("flash_attention"))],
+        capture_output=True, text=True, timeout=120, check=True).stdout
+    census, kernel = {}, None
+    for line in sass.splitlines():
+        found = re.search(
+            r"Function : \S*(flash_fwd_f32_kernel|flash_fwd_kernel)", line)
+        if found:
+            kernel = "fp32" if "f32" in found.group(1) else "bf16"
+            census[kernel] = collections.Counter(
+                {"HGMMA": 0, "UTMALDG": 0, "HMMA": 0, "HMMA_TF32": 0})
+            continue
+        op = re.search(
+            r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]+)", line)
+        if kernel is None or op is None:
+            continue
+        for family in ("HGMMA", "UTMALDG", "HMMA"):
+            if op.group(1).startswith(family):
+                census[kernel][family] += 1
+        if op.group(1).startswith("HMMA") and "TF32" in op.group(1):
+            census[kernel]["HMMA_TF32"] += 1
+    census = {k: dict(c) for k, c in census.items()}
+    print(f"set-up: SASS census of flash_attention (cuobjdump -sass): "
+          f"{census}", flush=True)
+    _check(set(census) == {"bf16", "fp32"}, f"kernels in the library: {census}")
+    bf16, fp32 = census["bf16"], census["fp32"]
+    _check(bf16["HGMMA"] > 0 and bf16["UTMALDG"] > 0 and bf16["HMMA"] == 0,
+           f"bf16 kernel is not wgmma fed by TMA: {bf16}")
+    _check(fp32["HMMA_TF32"] > 0 and fp32["HMMA_TF32"] == fp32["HMMA"],
+           f"fp32 kernel is not TF32 mma.sync: {fp32}")
+    return census
 
 
 # -- kernel phase -----------------------------------------------------------
@@ -197,16 +287,18 @@ def kernel_phase(torch) -> dict:
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             attn_mask=bias[:, None, None, :].to(q.dtype))
 
-    ms = _time_ms(torch, lambda: fa.flash_attention(q, k, v, bias))
+    ms, library_ms = _time_turns(
+        torch, lambda: fa.flash_attention(q, k, v, bias), library)
     plain_ms = _time_ms(torch, lambda: fa.flash_attention_plain(q, k, v, bias))
-    library_ms = _time_ms(torch, library)
+    library_kernel = _device_kernels(torch, library)
     flops = 4.0 * B * H * S * S * D       # QK^T and PV, 2 FLOP per MAC
     nbytes = 4 * B * S * H * D * 2 + B * S * 4  # q, k, v, out (bf16), bias
     flop_ms = flops / PEAK_BF16_FLOPS * 1e3
     byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     print(f"flash_attention at B{B} S{S} H{H} D{D}: kernel {ms} ms "
           f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms} ms, "
-          f"scaled_dot_product_attention {library_ms} ms; bound "
+          f"scaled_dot_product_attention {library_ms} ms (timed in turns "
+          f"with the kernel; it ran {library_kernel}); bound "
           f"{max(flop_ms, byte_ms)} ms ({flops:.3e} FLOP, {nbytes} bytes)",
           flush=True)
     return {
@@ -221,7 +313,48 @@ def kernel_phase(torch) -> dict:
         "bound_ms": max(flop_ms, byte_ms),
         "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
         "library_ms": library_ms,
+        "library_call": "scaled_dot_product_attention, float mask",
+        "library_kernel": library_kernel,
     }
+
+
+def _fp32_accuracy(torch, fa) -> None:
+    """The fp32 kernel against attention computed in float64, with inputs
+    scaled x8 so that the rounding of each product shows; the plain
+    version in fp32 and with TF32 products, and the library call, beside
+    it. TF32 is switched on for that one call only."""
+    for causal in (False, True):
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        fused = torch.randn(2, 512, 3, 2, 64, device="cuda",
+                            generator=gen) * 8
+        q, k, v = fused[:, :, 0], fused[:, :, 1], fused[:, :, 2]
+        scores = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double()) / 8
+        if causal:
+            keep = torch.ones(512, 512, dtype=torch.bool,
+                              device="cuda").tril()
+            scores = scores.masked_fill(~keep, -math.inf)
+        ref = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(scores, -1),
+                           v.double())
+        errs = {"kernel": fa.flash_attention(q, k, v, causal=causal),
+                "plain fp32": fa.flash_attention_plain(q, k, v,
+                                                       causal=causal),
+                "library": torch.nn.functional.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    is_causal=causal).transpose(1, 2)}
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            errs["plain TF32"] = fa.flash_attention_plain(q, k, v,
+                                                          causal=causal)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        errs = {name: float((out.double() - ref).abs().max())
+                for name, out in errs.items()}
+        print(f"kernel case fp32 x8 inputs {'causal' if causal else 'full'} "
+              f"B2 S512 H2 against float64 (|out| up to "
+              f"{float(ref.abs().max()):.1f}): max_abs_err {errs} "
+              f"(kernel tolerance {FP32_F64_ATOL})", flush=True)
+        _check(errs["kernel"] <= FP32_F64_ATOL,
+               f"fp32 x8 against float64: {errs}")
 
 
 def kernel_phase_fp32(torch) -> dict:
@@ -260,26 +393,36 @@ def kernel_phase_fp32(torch) -> dict:
     compare("tail-masked ragged S=200", qr, kr, vr, tail, False)
     out = fa.flash_attention(qr, kr, vr, tail)
     _check(bool((out[2] == 0).all()), "fp32: fully masked row is not 0")
+    _fp32_accuracy(torch, fa)
 
     def library():
         return torch.nn.functional.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             is_causal=True)
 
-    ms = _time_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True))
+    ms, library_ms = _time_turns(
+        torch, lambda: fa.flash_attention(q, k, v, causal=True), library)
     plain_ms = _time_ms(
         torch, lambda: fa.flash_attention_plain(q, k, v, causal=True))
-    library_ms = _time_ms(torch, library)
+    library_kernel = _device_kernels(torch, library)
     # Causal: only the S(S+1)/2 (query, key) pairs on or below the diagonal.
     flops = 4.0 * B * H * D * S * (S + 1) / 2
     nbytes = 4 * B * S * H * D * 4  # q, k, v read, out written (fp32)
-    flop_ms = flops / PEAK_FP32_FLOPS * 1e3
+    # The faster of the two fp32-accurate routes: SIMT FMAs, or three TF32
+    # products per product on the tensor cores (the 3xTF32 split).
+    simt_ms = flops / PEAK_FP32_FLOPS * 1e3
+    tf32x3_ms = 3 * flops / PEAK_TF32_FLOPS * 1e3
+    flop_ms = min(simt_ms, tf32x3_ms)
     byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    route = ("3xTF32 on the tensor cores: 3 x FLOP / 495 TFLOP/s"
+             if tf32x3_ms <= simt_ms else "SIMT fp32: FLOP / 67 TFLOP/s")
     print(f"flash_attention fp32 causal at B{B} S{S} H{H} D{D}: kernel {ms} "
           f"ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms} ms, "
-          f"scaled_dot_product_attention {library_ms} ms; bound "
-          f"{max(flop_ms, byte_ms)} ms ({flops:.3e} FLOP, {nbytes} bytes)",
-          flush=True)
+          f"scaled_dot_product_attention {library_ms} ms (timed in turns "
+          f"with the kernel; it ran {library_kernel}); bound "
+          f"{max(flop_ms, byte_ms)} ms "
+          f"({flops:.3e} FLOP, {nbytes} bytes; {route}; SIMT alone "
+          f"{simt_ms} ms)", flush=True)
     return {
         "name": "flash_attention_fp32",
         "route": "cuda",
@@ -291,7 +434,10 @@ def kernel_phase_fp32(torch) -> dict:
         "plain_ms": plain_ms,
         "bound_ms": max(flop_ms, byte_ms),
         "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+        "bound_route": route,
         "library_ms": library_ms,
+        "library_call": "scaled_dot_product_attention, is_causal",
+        "library_kernel": library_kernel,
     }
 
 
@@ -994,9 +1140,11 @@ def main() -> int:
                               "ring_all_reduce"])
     print(f"set-up: kernels built in {time.monotonic() - t0:.1f} s {built}",
           flush=True)
+    census = _sass_census(cuda_build)
 
     kernels = [kernel_phase(torch), kernel_phase_fp32(torch),
                kernel_phase_decode(torch), kernel_phase_ring(torch)]
+    kernels[0]["sass"], kernels[1]["sass"] = census["bf16"], census["fp32"]
     torch.cuda.empty_cache()
     kernels[0]["launches"], _ = serve_phase(torch)
     generated = generate_phase(torch, smi)

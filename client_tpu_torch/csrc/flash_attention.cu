@@ -1,114 +1,106 @@
-// Flash attention forward for Hopper (sm_90a), bf16 in, fp32 accumulate;
-// an fp32 instantiation (flash_fwd_f32_kernel) follows the bf16 one.
+// Flash attention forward for Hopper (sm_90a): a bf16 kernel (the BERTs)
+// and an fp32 kernel (the generative models' prefill), head dim 64.
 //
-// Replaces the Pallas TPU kernel `_fa_kernel` / `flash_attention` in
+// Both replace the Pallas TPU kernel `_fa_kernel` / `flash_attention` in
 // client_tpu/ops/flash_attention.py. Same function: tiled online-softmax
 // attention over q/k/v laid out [B, S, H, D], an additive per-key fp32 bias
 // [B, S] (or none) and an optional causal mask. Scores at or below -1e30
 // get probability exactly 0, and a row whose denominator is 0 outputs 0,
-// never NaN. P is rounded to bf16 before the P.V product, as the TPU
-// kernel rounds it to v's dtype.
+// never NaN. In bf16, P is rounded to bf16 before the P.V product, as the
+// TPU kernel rounds it to v's dtype.
 //
-// Design. The Pallas grid carried the softmax state across key blocks in
-// VMEM scratch, because a TPU grid runs in order on one core. Here blocks
-// run in parallel, so one CTA owns one (batch, head, 64-row query tile) and
-// loops over 64-key tiles itself, with the running max, denominator and
-// output accumulator in fp32 registers. Four warps each own 16 query rows.
-// Q.K^T and P.V are mma.sync m16n8k16 bf16 products; P never leaves
-// registers (the score accumulator fragment is the A fragment of P.V).
-// K/V tiles are double-buffered in shared memory with cp.async, so the next
-// tile loads while this one computes. Rows are padded to 72 elements so
-// fragment loads hit 32 distinct banks. q/k/v are read through their
-// strides, so BERT's fused-QKV slices need no copy; the ragged last tile is
-// masked (keys past S get bias -inf and zero-filled rows).
+// The Pallas grid carried the softmax state across key blocks in VMEM
+// scratch, because a TPU grid runs in order on one core. Here blocks run
+// in parallel, so one CTA owns one (batch, head, query tile) and loops over
+// key tiles itself, with the running max, denominator and output
+// accumulator in fp32 registers. Keys past S get bias -inf. Under the
+// causal flag, key tiles wholly above the diagonal are skipped and only the
+// diagonal tile is masked element by element; the grid's second dimension
+// runs the query tiles in reverse, so the CTAs with the most key tiles (the
+// last query tiles) start first and the light ones fill the tail.
 //
-// What bounds it on an H100: at bert_long's shape (B=4, S=2048, H=12, D=64)
-// one call does 4*B*H*S*S*D = 5.2e10 FLOP on 50 MB of input and output:
-// about 1000 FLOP per byte, far above the card's ~295 bf16 FLOP/byte ridge,
-// so it is bound by tensor-core operations, not memory. The design keeps
-// the S x S scores out of device memory (O(S*D) traffic) and runs both
-// products on the tensor cores; it uses mma.sync rather than wgmma/TMA,
-// which a later change can add to approach the 989 TFLOP/s peak.
+// bf16 kernel (flash_fwd_kernel). What bounds it: at bert_long's shape
+// (B=4, S=2048, H=12, D=64) one call does 4*B*H*S*S*D = 5.2e10 FLOP on
+// 50 MB: about 1000 FLOP per byte, above the card's ~295 bf16 FLOP/byte
+// ridge, so the bound is the tensor cores' 989 TFLOP/s, which only wgmma
+// reaches; at head dim 64 the softmax's exponentials (16 a clock on an
+// SM's MUFU units) take about as long as the products, so they have to
+// overlap. Design: a CTA of four warpgroups owns 192 query rows.
+// Warpgroups 0 to 2 are consumers of 64 rows each; warpgroup 3 is the
+// producer, one warp of which issues every load, and gives its registers
+// to the consumers (setmaxnreg: 24 for it, 160 for them). Three consumers
+// put three warps on each of the SM's schedulers to hide the softmax's
+// latencies; two ran measurably slower. The producer loads the Q tile once
+// and 128-key K and V tiles into a ring of kStages stages with TMA (4-D
+// tensor maps over the strided [B, S, H, D] views, so BERT's fused-QKV
+// slices need no copy; rows past S arrive as zeros), and the stage's 128 bias
+// values with ordinary loads, all signalled on the stage's full mbarrier;
+// consumers free a stage on its empty mbarrier. The 128-byte swizzle that
+// TMA writes (a 64-element bf16 row is exactly 128 bytes) is the layout
+// wgmma reads without bank conflicts. S = Q.K^T is 4 wgmma m64n128k16 with
+// both operands in shared memory; O += P.V is 8 wgmma m64n64k16 with P as
+// the register A operand: the fp32 accumulator of a 16-key slice of S,
+// packed pairwise to bf16x2, is exactly the A fragment, so P never touches
+// shared memory. V is stored [key][d], which makes it the MN-major B
+// operand (transpose bit set). Each consumer issues S of tile j together
+// with P.V of tile j - 1 and runs the online softmax of tile j (in
+// registers, two rows a thread, in the log2 domain so that each
+// exponential is one ex2) while P.V of j - 1 is still on the tensor
+// cores; the consumers run independently, so one's softmax also overlaps
+// another's products. The output goes through the consumer's own Q rows
+// in shared memory to 16-byte stores.
+//
+// fp32 kernel (flash_fwd_f32_kernel). What bounds it: at tiny_gpt_long's
+// prefill (B=8, S=2048, H=4, D=64, causal) one call does 1.7e10 FLOP on
+// 34 MB. Computed in plain fp32 that is bound by the 67 TFLOP/s of SIMT
+// FMAs (0.257 ms); on the tensor cores through the 3xTF32 split below it
+// takes three TF32 products per product at 495 TFLOP/s (0.104 ms), the
+// lesser of the two. Plain TF32 (10 mantissa bits) can flip greedy tokens
+// of the fp32 generative models; the split keeps fp32 accuracy. Each fp32
+// operand x becomes big = rna_tf32(x) and small = rna_tf32(x - big), and
+// each product is a_small*b_big + a_big*b_small + a_big*b_big into one fp32
+// accumulator (small*small, about 2^-22 relative, is dropped), with
+// mma.sync m16n8k8 tf32. TF32 wgmma takes only K-major operands, and V, the
+// B operand of P.V, is [key][d]: MN-major, so wgmma would need a
+// transposing pass over V first; this kernel stays on mma.sync. A CTA of
+// four warps owns 64 query rows (16 a warp). The Q tile sits in shared
+// memory and each 8-wide step of it is split once for the 8 key slices it
+// meets. 64-key K and V tiles are double-buffered with cp.async in dynamic
+// shared memory, rows padded to 68 floats so that every fragment load of
+// Q and K (rows g, columns t) and of V (rows 2t and 2t+1, columns g) hits
+// 32 distinct banks. The tensor cores' fp32 accumulation truncates, so
+// each key tile's P.V starts from zero and joins the running output in one
+// rounded fp32 add: the bias of truncation then does not grow with S.
+// Each of the three products is issued for all 8 slices that share an A
+// fragment before the next, so products into one accumulator are not back
+// to back. P needs no shuffle into the A fragment: the accumulator holds
+// P(g, 2t) and P(g, 2t+1) of each 8-key slice, and the P.V product reads
+// them as A columns t and t+4 with V's rows permuted to match (row 2t as
+// B row t, row 2t+1 as B row t+4), which leaves the sum over keys
+// unchanged. expf, not __expf.
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
-constexpr int kBlockM = 64;   // query rows per CTA
-constexpr int kBlockN = 64;   // keys per tile
 constexpr int kHeadDim = 64;
-constexpr int kWarps = 4;     // 16 query rows each
-constexpr int kThreads = kWarps * 32;
-constexpr int kRow = kHeadDim + 8;  // padded shared-memory row (144 bytes)
-constexpr float kNegInf = -1e30f;   // the TPU kernel's mask value
+constexpr float kNegInf = -1e30f;  // the TPU kernel's mask value
+constexpr float kLog2e = 1.4426950408889634f;
 
 typedef __nv_bfloat16 bf16;
 
-__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem,
-                                            bool valid) {
-  unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int src_bytes = valid ? 16 : 0;  // 0 -> the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(src_bytes));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// One 64 x 64 bf16 tile, rows [row0, row0 + 64) of a [S, *] view with row
-// stride `row_stride` elements; rows at or past `seq` are zero-filled.
-__device__ __forceinline__ void load_tile(bf16 (*dst)[kRow], const bf16* base,
-                                          int64_t row_stride, int row0,
-                                          int seq, int tid) {
-#pragma unroll
-  for (int i = 0; i < (kBlockN * kHeadDim / 8) / kThreads; ++i) {
-    int chunk = tid + i * kThreads;
-    int r = chunk / (kHeadDim / 8);
-    int col = (chunk % (kHeadDim / 8)) * 8;
-    int row = row0 + r;
-    bool valid = row < seq;
-    const bf16* src = base + (int64_t)(valid ? row : 0) * row_stride + col;
-    cp_async_16(&dst[r][col], src, valid);
-  }
-}
-
-__device__ __forceinline__ uint32_t ld_b32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// c += a * b for one m16n8k16 tile: bf16 operands, fp32 accumulator.
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four transposed 8x8 bf16 matrices from shared memory: the B fragments of
-// two n8 tiles of V for one 16-key step.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
-                                                  const bf16* smem) {
-  unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
+__device__ __forceinline__ float neg_inf() {
+  return __int_as_float(0xff800000);
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -121,71 +113,607 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v,
+// ---------------------------------------------------------------------------
+// bf16: wgmma fed by TMA.
+
+namespace sm90 {
+
+constexpr int kBlockN = 128;    // keys per stage
+constexpr int kStages = 4;
+constexpr int kConsumers = 3;   // warpgroups of 64 query rows
+constexpr int kBlockM = kConsumers * 64;  // query rows per CTA
+constexpr int kThreads = (kConsumers + 1) * 128;
+// Registers a thread after setmaxnreg: the producer warpgroup gives up
+// what the consumers take, within the SM's 65,536.
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 160;
+static_assert(128 * kProducerRegs + 128 * kConsumers * kConsumerRegs <= 65536,
+              "register split exceeds the SM");
+constexpr int kTileBytes = kBlockN * kHeadDim * 2;  // 16 KB
+
+struct Smem {  // at a 1024-byte boundary, as the 128-byte swizzle needs
+  bf16 q[kBlockM * kHeadDim];
+  bf16 k[kStages][kBlockN * kHeadDim];
+  bf16 v[kStages][kBlockN * kHeadDim];
+  float bias[kStages][kBlockN];
+  uint64_t q_full;
+  uint64_t full[kStages];
+  uint64_t empty[kStages];
+};
+constexpr int kSmemBytes = sizeof(Smem) + 1024;  // + room to align
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of a 4-D tensor map, coordinates (d, s, h, b), into `dst`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int s, int h, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0), "r"(s),
+      "r"(h), "r"(b)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor of a tile written by TMA with the 128-byte
+// swizzle: 8-row groups of 128-byte rows, 1024 bytes apart (the stride byte
+// offset); the leading byte offset is unused for these layouts.
+__device__ __forceinline__ uint64_t sw128_desc(const void* smem) {
+  const uint64_t addr = smem_u32(smem);
+  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups of this warpgroup are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of an accumulator across
+// the asynchronous product that owns it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d[64 x 128] (+)= A[64 x 16] * B[16 x 128]: A and B K-major in shared
+// memory, fp32 accumulator in registers.
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
+                                                    uint64_t desc_a,
+                                                    uint64_t desc_b,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d[64 x 64] += A[64 x 16] * B[16 x 64]: A in registers (bf16x2 pairs in
+// the accumulator's row layout), B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// 2^x in one MUFU op; 2^-inf and anything below 2^-126 give exactly 0.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
                      const float* __restrict__ bias, bf16* __restrict__ o,
-                     int seq, int64_t q_sb, int64_t q_ss, int64_t q_sh,
-                     int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb,
-                     int64_t v_ss, int64_t v_sh, int64_t o_sb, int64_t o_ss,
+                     int seq, int heads, int64_t o_sb, int64_t o_ss,
                      int64_t o_sh, int64_t bias_sb, float sm_scale,
                      int causal) {
-  __shared__ __align__(16) bf16 sQ[kBlockM][kRow];
-  __shared__ __align__(16) bf16 sK[2][kBlockN][kRow];
-  __shared__ __align__(16) bf16 sV[2][kBlockN][kRow];
-  __shared__ float sBias[2][kBlockN];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int h = blockIdx.x % heads;
+  const int b = blockIdx.x / heads;
+  const int q_tile = gridDim.y - 1 - blockIdx.y;  // heaviest first
+  const int q0 = q_tile * kBlockM;
+  int n_tiles = (seq + kBlockN - 1) / kBlockN;
+  if (causal) n_tiles = min(n_tiles, (q0 + kBlockM - 1) / kBlockN + 1);
+
+  if (tid == 0) {
+    mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.full[s], 32);                   // the producer warp
+      mbar_init(&sm.empty[s], kConsumers * 128);    // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    // Producer. One warp issues everything; the others only hand over
+    // their registers.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (tid % 128 < 32) {
+      const int lane = tid % 32;
+      const float* biasb = bias != nullptr ? bias + b * bias_sb : nullptr;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&sm.q_full, kBlockM * kHeadDim * 2);
+        tma_load(sm.q, &tm_q, &sm.q_full, q0, h, b);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int stage = j % kStages;
+        mbar_wait(&sm.empty[stage], ((j / kStages) & 1) ^ 1);
+        const int key0 = j * kBlockN;
+        if (lane == 0) {
+          mbar_expect_tx(&sm.full[stage], 2 * kTileBytes);
+          tma_load(sm.k[stage], &tm_k, &sm.full[stage], key0, h, b);
+          tma_load(sm.v[stage], &tm_v, &sm.full[stage], key0, h, b);
+        }
+#pragma unroll
+        for (int e = 0; e < kBlockN / 32; ++e) {
+          const int key = key0 + lane + 32 * e;
+          float x = neg_inf();  // past the sequence end
+          if (key < seq) x = biasb != nullptr ? biasb[key] * kLog2e : 0.0f;
+          sm.bias[stage][lane + 32 * e] = x;
+        }
+        mbar_arrive(&sm.full[stage]);
+      }
+    }
+  } else {
+    // Consumer warpgroup `wg`: query rows q0 + 64 * wg ... + 63. Scores
+    // are kept in the log2 domain (exp2 is one MUFU op): x2 = log2(e) * x.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int wtid = tid % 128;
+    const int warp = wtid / 32;
+    const int lane = tid % 32;
+    const int g = lane / 4;
+    const int t = lane % 4;
+    const int row0 = 16 * warp + g;             // rows row0 and row0 + 8
+    const int qrow = q0 + 64 * wg + row0;       // absolute query row
+    const float scale2 = sm_scale * kLog2e;
+    const float neg_inf2 = kNegInf * kLog2e;    // the mask value, log2 domain
+
+    float acc[32];  // O: 8 n8 slices over D, rows row0 / row0 + 8
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+    float row_max[2] = {neg_inf2, neg_inf2};
+    float row_sum[2] = {0.0f, 0.0f};
+    float s[64];                 // S of one key tile, then its P in fp32
+    uint32_t pa[kBlockN / 16][4];  // P of the previous tile, bf16 A fragments
+    const uint64_t desc_q = sw128_desc(sm.q + 64 * wg * kHeadDim);
+
+    // S = Q K^T of tile j: 64 rows x 128 keys, 4 k-steps of 16 over D (32
+    // bytes along the swizzled 128-byte rows each).
+    auto issue_s = [&](int stage) {
+      const uint64_t desc_k = sw128_desc(sm.k[stage]);
+#pragma unroll
+      for (int kk = 0; kk < kHeadDim / 16; ++kk) {
+        wgmma_m64n128k16_ss(s, desc_q + 2 * kk, desc_k + 2 * kk, kk > 0);
+      }
+      wgmma_commit();
+    };
+    // O += P V of the tile in `stage`: 8 k-steps of 16 keys, each 16 V rows
+    // of 128 bytes further on.
+    auto issue_pv = [&](int stage) {
+      const uint64_t desc_v = sw128_desc(sm.v[stage]);
+#pragma unroll
+      for (int kk = 0; kk < kBlockN / 16; ++kk) {
+        wgmma_m64n64k16_rs(acc, pa[kk], desc_v + kk * (16 * 128 >> 4));
+      }
+      wgmma_commit();
+    };
+    // Scale, bias (stored times log2(e)), causal mask on the diagonal tile;
+    // the online-softmax update of the row statistics; s becomes P. A score
+    // at or below -1e30 needs no test: exp2 of it minus a finite max is
+    // exactly 0. Maxima and sums run in 4 independent chains (a scheduler
+    // holds only three consumer warps to hide their latency), and each
+    // thread keeps its own part of the row sum until the epilogue. Returns
+    // the rescale factors of O through `corr`.
+    auto softmax = [&](int j, float (&corr)[2]) {
+      const int stage = j % kStages;
+      const int key0 = j * kBlockN;
+#pragma unroll
+      for (int jn = 0; jn < kBlockN / 8; ++jn) {
+        const float2 bv =
+            *reinterpret_cast<const float2*>(&sm.bias[stage][jn * 8 + 2 * t]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[4 * jn + e] = fmaf(s[4 * jn + e], scale2, (e & 1) ? bv.y : bv.x);
+        }
+      }
+      if (causal && key0 + kBlockN - 1 > q0) {  // the diagonal tile
+#pragma unroll
+        for (int jn = 0; jn < kBlockN / 8; ++jn) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (key0 + jn * 8 + 2 * t + (e & 1) > qrow + (e >> 1) * 8) {
+              s[4 * jn + e] = neg_inf();
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float m4[4] = {neg_inf2, neg_inf2, neg_inf2, neg_inf2};
+#pragma unroll
+        for (int jn = 0; jn < kBlockN / 8; ++jn) {
+          m4[jn % 4] = fmaxf(m4[jn % 4],
+                             fmaxf(s[4 * jn + 2 * r], s[4 * jn + 2 * r + 1]));
+        }
+        const float m_cur =
+            quad_max(fmaxf(fmaxf(m4[0], m4[1]), fmaxf(m4[2], m4[3])));
+        const float m_prev = row_max[r];
+        const float m_new = fmaxf(m_prev, m_cur);
+        // Nothing attended yet: keep the max finite (0) so no NaN appears.
+        const float safe_m = m_new <= neg_inf2 ? 0.0f : m_new;
+        corr[r] = m_prev <= neg_inf2 ? 0.0f : fast_exp2(m_prev - safe_m);
+        float part4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int jn = 0; jn < kBlockN / 8; ++jn) {
+#pragma unroll
+          for (int e = 2 * r; e < 2 * r + 2; ++e) {
+            const float p = fast_exp2(s[4 * jn + e] - safe_m);
+            s[4 * jn + e] = p;
+            part4[jn % 4] += p;
+          }
+        }
+        row_sum[r] = row_sum[r] * corr[r] +
+                     ((part4[0] + part4[1]) + (part4[2] + part4[3]));
+        row_max[r] = m_new;
+      }
+    };
+    // Rescale O, and round P to bf16: the accumulator of key slices 2kk and
+    // 2kk + 1, packed pairwise, is the A fragment of P.V step kk.
+    auto rescale_and_pack = [&](const float (&corr)[2]) {
+#pragma unroll
+      for (int dn = 0; dn < kHeadDim / 8; ++dn) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[4 * dn + e] *= corr[e >> 1];
+      }
+#pragma unroll
+      for (int kk = 0; kk < kBlockN / 16; ++kk) {
+        pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+      }
+    };
+
+    // Tile 0 alone; then, for each further tile j, S of j and P.V of j - 1
+    // go to the tensor cores together, and the softmax of j runs while
+    // P.V of j - 1 is still in flight.
+    float corr[2];
+    mbar_wait(&sm.q_full, 0);
+    mbar_wait(&sm.full[0], 0);
+    wgmma_fence();
+    issue_s(0);
+    wgmma_wait<0>();
+    fence_regs(s);
+    softmax(0, corr);
+    rescale_and_pack(corr);
+    for (int j = 1; j < n_tiles; ++j) {
+      const int stage = j % kStages;
+      const int prev = (j - 1) % kStages;
+      mbar_wait(&sm.full[stage], (j / kStages) & 1);
+      fence_regs(acc);
+      wgmma_fence();
+      issue_s(stage);
+      issue_pv(prev);
+      wgmma_wait<1>();  // S of j is in; P.V of j - 1 may still run
+      fence_regs(s);
+      softmax(j, corr);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(&sm.empty[prev]);
+      rescale_and_pack(corr);
+    }
+    const int last = (n_tiles - 1) % kStages;
+    fence_regs(acc);
+    wgmma_fence();
+    issue_pv(last);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(&sm.empty[last]);
+
+    // Epilogue: normalise, round to bf16, stage through this warpgroup's
+    // own Q rows (read by no one now) with the same 16-byte-chunk swizzle,
+    // then 16-byte stores of whole 128-byte rows.
+    unsigned char* stage_o =
+        reinterpret_cast<unsigned char*>(sm.q + 64 * wg * kHeadDim);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float sum = quad_sum(row_sum[r]);
+      const float denom = sum == 0.0f ? 1.0f : sum;
+      const int row = row0 + 8 * r;
+#pragma unroll
+      for (int dn = 0; dn < kHeadDim / 8; ++dn) {
+        *reinterpret_cast<uint32_t*>(stage_o + row * 128 +
+                                     ((dn ^ (row & 7)) * 16) + 4 * t) =
+            pack_bf16(acc[4 * dn + 2 * r] / denom,
+                      acc[4 * dn + 2 * r + 1] / denom);
+      }
+    }
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    bf16* ob = o + b * o_sb + h * o_sh;
+#pragma unroll
+    for (int i = 0; i < 64 * 8 / 128; ++i) {
+      const int c = wtid + 128 * i;
+      const int row = c / 8;
+      const int chunk = c % 8;
+      const int srow = q0 + 64 * wg + row;
+      if (srow < seq) {
+        *reinterpret_cast<uint4*>(ob + srow * o_ss + chunk * 8) =
+            *reinterpret_cast<const uint4*>(stage_o + row * 128 +
+                                            ((chunk ^ (row & 7)) * 16));
+      }
+    }
+  }
+}
+
+}  // namespace sm90
+
+// ---------------------------------------------------------------------------
+// fp32: the tensor cores through the 3xTF32 split.
+
+namespace f32 {
+
+constexpr int kBlockM = 64;   // query rows per CTA, 16 a warp
+constexpr int kBlockN = 64;   // keys per tile
+constexpr int kThreads = 128;
+constexpr int kPitch = 68;    // K and V rows in shared memory, in floats
+
+struct Smem {
+  float q[kBlockM][kPitch];
+  float k[2][kBlockN][kPitch];
+  float v[2][kBlockN][kPitch];
+  float bias[2][kBlockN];
+};
+constexpr int kSmemBytes = sizeof(Smem);
+
+__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem,
+                                            bool valid) {
+  const int src_bytes = valid ? 16 : 0;  // 0: the 16 bytes are zero-filled
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(smem)),
+               "l"(gmem), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Rows [row0, row0 + kRows) of a [S, *] fp32 view into a padded tile; rows
+// at or past `seq` are zero-filled.
+template <int kRows>
+__device__ __forceinline__ void load_tile(float (*dst)[kPitch],
+                                          const float* base,
+                                          int64_t row_stride, int row0,
+                                          int seq, int tid) {
+#pragma unroll
+  for (int i = 0; i < kRows * (kHeadDim / 4) / kThreads; ++i) {
+    const int chunk = tid + i * kThreads;
+    const int r = chunk / (kHeadDim / 4);
+    const int col = (chunk % (kHeadDim / 4)) * 4;
+    const int row = row0 + r;
+    const bool valid = row < seq;
+    cp_async_16(&dst[r][col],
+                base + (int64_t)(valid ? row : 0) * row_stride + col, valid);
+  }
+}
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = big + small to about 2^-22: both halves rounded to TF32.
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  big = to_tf32(x);
+  small = to_tf32(x - __uint_as_float(big));
+}
+
+// c += a * b for one m16n8k8 tile, TF32 operands, fp32 accumulator.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c[n] += a * b[n] in 3xTF32 for N n8 slices that share the A fragment:
+// small*big, big*small, then big*big into each accumulator. Each term is
+// issued for all N slices before the next, so that two products into the
+// same accumulator are N issues apart, not back to back.
+template <int N>
+__device__ __forceinline__ void mma_3xtf32(float (&c)[N][4],
+                                           const uint32_t (&a_big)[4],
+                                           const uint32_t (&a_small)[4],
+                                           const float (&b)[N][2]) {
+  uint32_t b_big[N][2], b_small[N][2];
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    split(b[n][0], b_big[n][0], b_small[n][0]);
+    split(b[n][1], b_big[n][1], b_small[n][1]);
+  }
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(c[n], a_small, b_big[n][0], b_big[n][1]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    mma_tf32(c[n], a_big, b_small[n][0], b_small[n][1]);
+  }
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(c[n], a_big, b_big[n][0], b_big[n][1]);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_f32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ bias,
+                         float* __restrict__ o, int seq, int heads,
+                         int64_t q_sb, int64_t q_ss, int64_t q_sh,
+                         int64_t k_sb, int64_t k_ss, int64_t k_sh,
+                         int64_t v_sb, int64_t v_ss, int64_t v_sh,
+                         int64_t o_sb, int64_t o_ss, int64_t o_sh,
+                         int64_t bias_sb, float sm_scale, int causal) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int g = lane / 4;  // fragment row group
-  const int t = lane % 4;  // thread within the group
-  const int q0 = blockIdx.x * kBlockM;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int h = blockIdx.x % heads;
+  const int b = blockIdx.x / heads;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockM;  // heaviest first
 
-  const bf16* qb = q + b * q_sb + h * q_sh;
-  const bf16* kb = k + b * k_sb + h * k_sh;
-  const bf16* vb = v + b * v_sb + h * v_sh;
+  const float* qb = q + b * q_sb + h * q_sh;
+  const float* kb = k + b * k_sb + h * k_sh;
+  const float* vb = v + b * v_sb + h * v_sh;
   const float* biasb = bias != nullptr ? bias + b * bias_sb : nullptr;
 
   int n_tiles = (seq + kBlockN - 1) / kBlockN;
-  if (causal) {
-    // Tiles wholly above the diagonal contribute nothing: skip them.
-    n_tiles = min(n_tiles, (q0 + kBlockM - 1) / kBlockN + 1);
-  }
+  if (causal) n_tiles = min(n_tiles, (q0 + kBlockM - 1) / kBlockN + 1);
 
   auto load_bias = [&](int buf, int key0) {
     if (tid < kBlockN) {
-      int key = key0 + tid;
-      float x = __int_as_float(0xff800000);  // -inf: past the sequence end
+      const int key = key0 + tid;
+      float x = neg_inf();  // past the sequence end
       if (key < seq) x = biasb != nullptr ? biasb[key] : 0.0f;
-      sBias[buf][tid] = x;
+      sm.bias[buf][tid] = x;
     }
   };
 
-  load_tile(sQ, qb, q_ss, q0, seq, tid);
-  load_tile(sK[0], kb, k_ss, 0, seq, tid);
-  load_tile(sV[0], vb, v_ss, 0, seq, tid);
+  load_tile<kBlockM>(sm.q, qb, q_ss, q0, seq, tid);
+  load_tile<kBlockN>(sm.k[0], kb, k_ss, 0, seq, tid);
+  load_tile<kBlockN>(sm.v[0], vb, v_ss, 0, seq, tid);
   cp_async_commit();
   load_bias(0, 0);
 
-  uint32_t qf[kHeadDim / 16][4];  // this warp's 16 query rows, as A fragments
-  float acc[kHeadDim / 8][4];     // output accumulator, 8 n8 tiles over D
-  float row_max[2] = {kNegInf, kNegInf};  // rows g and g + 8
-  float row_sum[2] = {0.0f, 0.0f};
+  const int qrow = q0 + 16 * warp + g;  // absolute row of fragment row g
+  const float* q_g = sm.q[16 * warp + g];
+  const float* q_g8 = sm.q[16 * warp + g + 8];
+
+  float acc[kHeadDim / 8][4];  // O: 8 n8 slices over D
 #pragma unroll
   for (int i = 0; i < kHeadDim / 8; ++i) {
     acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
   }
-
-  const int qrow = q0 + warp * 16 + g;  // absolute query row of fragment row g
+  float row_max[2] = {kNegInf, kNegInf};  // rows g and g + 8
+  float row_sum[2] = {0.0f, 0.0f};
 
   for (int j = 0; j < n_tiles; ++j) {
     const int cur = j & 1;
     if (j + 1 < n_tiles) {
-      load_tile(sK[cur ^ 1], kb, k_ss, (j + 1) * kBlockN, seq, tid);
-      load_tile(sV[cur ^ 1], vb, v_ss, (j + 1) * kBlockN, seq, tid);
+      load_tile<kBlockN>(sm.k[cur ^ 1], kb, k_ss, (j + 1) * kBlockN, seq, tid);
+      load_tile<kBlockN>(sm.v[cur ^ 1], vb, v_ss, (j + 1) * kBlockN, seq, tid);
       cp_async_commit();
       load_bias(cur ^ 1, (j + 1) * kBlockN);
       cp_async_wait<1>();
@@ -194,362 +722,220 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
 
-    if (j == 0) {
-      const bf16* r0 = sQ[warp * 16 + g];
-      const bf16* r8 = sQ[warp * 16 + g + 8];
-#pragma unroll
-      for (int kk = 0; kk < kHeadDim / 16; ++kk) {
-        qf[kk][0] = ld_b32(r0 + kk * 16 + t * 2);
-        qf[kk][1] = ld_b32(r8 + kk * 16 + t * 2);
-        qf[kk][2] = ld_b32(r0 + kk * 16 + 8 + t * 2);
-        qf[kk][3] = ld_b32(r8 + kk * 16 + 8 + t * 2);
-      }
-    }
-
-    // S = Q K^T for 16 rows x 64 keys: 8 n8 tiles of fp32.
+    // S = Q K^T for 16 rows x 64 keys: 8 k-steps over D, 8 n8 slices. Q's
+    // A fragment of step kk: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4),
+    // a3 (g + 8, t + 4), split once for the 8 slices.
     float s[kBlockN / 8][4];
 #pragma unroll
     for (int nt = 0; nt < kBlockN / 8; ++nt) {
       s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.0f;
-      const bf16* krow = sK[cur][nt * 8 + g];
+    }
 #pragma unroll
-      for (int kk = 0; kk < kHeadDim / 16; ++kk) {
-        mma_bf16(s[nt], qf[kk], ld_b32(krow + kk * 16 + t * 2),
-                 ld_b32(krow + kk * 16 + 8 + t * 2));
+    for (int kk = 0; kk < kHeadDim / 8; ++kk) {
+      uint32_t qa_big[4], qa_small[4];
+      split(q_g[kk * 8 + t], qa_big[0], qa_small[0]);
+      split(q_g8[kk * 8 + t], qa_big[1], qa_small[1]);
+      split(q_g[kk * 8 + t + 4], qa_big[2], qa_small[2]);
+      split(q_g8[kk * 8 + t + 4], qa_big[3], qa_small[3]);
+      float kf[kBlockN / 8][2];  // B fragments: K rows nt * 8 + g
+#pragma unroll
+      for (int nt = 0; nt < kBlockN / 8; ++nt) {
+        kf[nt][0] = sm.k[cur][nt * 8 + g][kk * 8 + t];
+        kf[nt][1] = sm.k[cur][nt * 8 + g][kk * 8 + t + 4];
       }
+      mma_3xtf32(s, qa_big, qa_small, kf);
     }
 
-    // Scale, bias, causal mask; then the online-softmax update per row.
+    // Scale, bias, causal mask (the diagonal tile only); then the
+    // online-softmax update per row.
     const int key0 = j * kBlockN;
+    float row_corr[2];
 #pragma unroll
     for (int nt = 0; nt < kBlockN / 8; ++nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        int col = nt * 8 + t * 2 + (e & 1);
-        float x = s[nt][e] * sm_scale + sBias[cur][col];
-        if (causal && key0 + col > qrow + (e >> 1) * 8) x = kNegInf;
-        s[nt][e] = x;
+        s[nt][e] = s[nt][e] * sm_scale + sm.bias[cur][nt * 8 + 2 * t + (e & 1)];
       }
     }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float m_cur = kNegInf;
+    if (causal && key0 + kBlockN - 1 > q0) {  // the diagonal tile
 #pragma unroll
       for (int nt = 0; nt < kBlockN / 8; ++nt) {
-        m_cur = fmaxf(m_cur, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (key0 + nt * 8 + 2 * t + (e & 1) > qrow + (e >> 1) * 8) {
+            s[nt][e] = kNegInf;
+          }
+        }
       }
-      m_cur = quad_max(m_cur);
+    }
+    // As in the bf16 kernel: a score at or below -1e30 needs no test (expf
+    // of it minus a finite max is exactly 0), maxima and sums run in 4
+    // independent chains, and the row sum stays per thread until the end.
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float m4[4] = {kNegInf, kNegInf, kNegInf, kNegInf};
+#pragma unroll
+      for (int nt = 0; nt < kBlockN / 8; ++nt) {
+        m4[nt % 4] = fmaxf(m4[nt % 4], fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
+      }
+      const float m_cur =
+          quad_max(fmaxf(fmaxf(m4[0], m4[1]), fmaxf(m4[2], m4[3])));
       const float m_prev = row_max[r];
       const float m_new = fmaxf(m_prev, m_cur);
-      // Fully masked so far: exp(-inf - -inf) would be NaN.
+      // Nothing attended yet: keep the max finite (0) so no NaN appears.
       const float safe_m = m_new <= kNegInf ? 0.0f : m_new;
-      const float corr = m_prev <= kNegInf ? 0.0f : __expf(m_prev - safe_m);
-      float part = 0.0f;
+      const float corr = m_prev <= kNegInf ? 0.0f : expf(m_prev - safe_m);
+      float part4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
       for (int nt = 0; nt < kBlockN / 8; ++nt) {
 #pragma unroll
         for (int e = 2 * r; e < 2 * r + 2; ++e) {
-          float p = s[nt][e] <= kNegInf ? 0.0f : __expf(s[nt][e] - safe_m);
+          const float p = expf(s[nt][e] - safe_m);
           s[nt][e] = p;
-          part += p;
+          part4[nt % 4] += p;
         }
       }
-      row_sum[r] = row_sum[r] * corr + quad_sum(part);
+      row_sum[r] = row_sum[r] * corr +
+                   ((part4[0] + part4[1]) + (part4[2] + part4[3]));
       row_max[r] = m_new;
-#pragma unroll
-      for (int dt = 0; dt < kHeadDim / 8; ++dt) {
-        acc[dt][2 * r] *= corr;
-        acc[dt][2 * r + 1] *= corr;
-      }
+      row_corr[r] = corr;
     }
 
-    // O += P V. The fp32 score fragments of key tiles 2kc and 2kc+1 are,
-    // rounded to bf16, the A fragment of the 16-key step kc.
-    const int mat = lane / 8;  // which 8x8 matrix this lane addresses
-    const int mrow = lane % 8;
+    // O = O * corr + P V, 8 k-steps of 8 keys. The tensor cores' fp32
+    // accumulation truncates; summed into the running O across all key
+    // tiles that bias would grow with S, so each tile's P V starts from 0
+    // and joins O in one rounded add. Step kk's A fragment is the
+    // accumulator of key slice kk as it lies: P(g, 2t) and P(g + 8, 2t) as
+    // columns t, P(g, 2t + 1) and P(g + 8, 2t + 1) as columns t + 4; the B
+    // fragment reads V rows 2t and 2t + 1 to match.
+    float pv[kHeadDim / 8][4];
 #pragma unroll
-    for (int kc = 0; kc < kBlockN / 16; ++kc) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
-      pa[1] = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
-      pa[2] = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-      pa[3] = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
+    for (int dn = 0; dn < kHeadDim / 8; ++dn) {
+      pv[dn][0] = pv[dn][1] = pv[dn][2] = pv[dn][3] = 0.0f;
+    }
 #pragma unroll
-      for (int dp = 0; dp < kHeadDim / 16; ++dp) {
-        uint32_t vb4[4];
-        ldmatrix_x4_trans(
-            vb4, &sV[cur][kc * 16 + (mat & 1) * 8 + mrow][dp * 16 + (mat >> 1) * 8]);
-        mma_bf16(acc[2 * dp], pa, vb4[0], vb4[1]);
-        mma_bf16(acc[2 * dp + 1], pa, vb4[2], vb4[3]);
+    for (int kk = 0; kk < kBlockN / 8; ++kk) {
+      uint32_t pa_big[4], pa_small[4];
+      split(s[kk][0], pa_big[0], pa_small[0]);
+      split(s[kk][2], pa_big[1], pa_small[1]);
+      split(s[kk][1], pa_big[2], pa_small[2]);
+      split(s[kk][3], pa_big[3], pa_small[3]);
+      float vf[kHeadDim / 8][2];  // B fragments: V rows 2t, 2t + 1
+#pragma unroll
+      for (int dn = 0; dn < kHeadDim / 8; ++dn) {
+        vf[dn][0] = sm.v[cur][kk * 8 + 2 * t][dn * 8 + g];
+        vf[dn][1] = sm.v[cur][kk * 8 + 2 * t + 1][dn * 8 + g];
+      }
+      mma_3xtf32(pv, pa_big, pa_small, vf);
+    }
+#pragma unroll
+    for (int dn = 0; dn < kHeadDim / 8; ++dn) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[dn][e] = acc[dn][e] * row_corr[e >> 1] + pv[dn][e];
       }
     }
     __syncthreads();  // this tile's buffers are refilled next iteration
   }
 
-  bf16* ob = o + b * o_sb + h * o_sh;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = qrow + r * 8;
-    if (row >= seq) continue;
-    const float denom = row_sum[r] == 0.0f ? 1.0f : row_sum[r];
-    bf16* orow = ob + row * o_ss;
-#pragma unroll
-    for (int dt = 0; dt < kHeadDim / 8; ++dt) {
-      *reinterpret_cast<uint32_t*>(orow + dt * 8 + t * 2) =
-          pack_bf16(acc[dt][2 * r] / denom, acc[dt][2 * r + 1] / denom);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The fp32 instantiation: fp32 q/k/v/o and fp32 accumulation, the same
-// masking, guards and causal tile skip as above, with nothing rounded.
-//
-// Design. mma.sync has no fp32 form, and TF32 (m16n8k8) rounds inputs to
-// 10 mantissa bits, which can flip greedy tokens of the fp32 generative
-// models that run this path, so both products are SIMT FMAs. One CTA of
-// 128 threads owns one (batch, head, 64-row query tile); thread (ty, tx)
-// with ty in 0..15 and tx in 0..7 holds 4 query rows (ty*4..) x 4 keys
-// (tx*4..) of each score tile and 4 rows x 8 dims (tx*8..) of the output.
-// The 8 threads of one row group are neighbouring lanes, so row max and
-// row sum are 3 shuffles. Q and K sit transposed in shared memory
-// ([d][row]), so each step of Q.K^T reads one 16-byte vector of 4 rows and
-// one of 4 keys for 16 FMAs; P goes through shared memory transposed
-// ([key][row]) into P.V. expf, not __expf.
-//
-// Shared memory: fp32 64 x 64 K and V tiles, double-buffered, would need
-// 64 KB, above the 48 KB static limit. This kernel shrinks the key tile to
-// 32 and loads single-buffered instead of opting in to dynamic shared
-// memory: Q^T 17,408 + K^T 9,216 + V 8,192 + P^T 8,704 + bias 128 =
-// 43,648 bytes, static.
-//
-// What bounds it: at tiny_gpt_long's prefill (B=8, S=2048, H=4, D=64,
-// causal) one call does 1.7e10 FLOP on 34 MB: about 500 FLOP per byte, so
-// it is bound by the fp32 FMA rate (67 TFLOP/s outside the tensor cores),
-// which a SIMT kernel without software pipelining does not approach.
-
-namespace f32 {
-
-constexpr int kBlockM = 64;   // query rows per CTA
-constexpr int kBlockN = 32;   // keys per tile
-constexpr int kThreads = 128;
-constexpr int kPad = 4;       // keeps 16-byte rows and spreads banks
-
-__device__ __forceinline__ float4 load4(const float* p, bool valid) {
-  return valid ? *reinterpret_cast<const float4*>(p)
-               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-}
-
-__device__ __forceinline__ float group_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
-}
-
-__device__ __forceinline__ float group_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  return x + __shfl_xor_sync(0xffffffffu, x, 4);
-}
-
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_f32_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v,
-                         const float* __restrict__ bias,
-                         float* __restrict__ o, int seq, int64_t q_sb,
-                         int64_t q_ss, int64_t q_sh, int64_t k_sb,
-                         int64_t k_ss, int64_t k_sh, int64_t v_sb,
-                         int64_t v_ss, int64_t v_sh, int64_t o_sb,
-                         int64_t o_ss, int64_t o_sh, int64_t bias_sb,
-                         float sm_scale, int causal) {
-  __shared__ __align__(16) float sQt[kHeadDim][kBlockM + kPad];
-  __shared__ __align__(16) float sKt[kHeadDim][kBlockN + kPad];
-  __shared__ __align__(16) float sV[kBlockN][kHeadDim];
-  __shared__ __align__(16) float sPt[kBlockN][kBlockM + kPad];
-  __shared__ float sBias[kBlockN];
-
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int tx = lane % 8;                  // key / dim group
-  const int ty = (tid / 32) * 4 + lane / 8;  // row group, 0..15
-  const int q0 = blockIdx.x * kBlockM;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-
-  const float* qb = q + b * q_sb + h * q_sh;
-  const float* kb = k + b * k_sb + h * k_sh;
-  const float* vb = v + b * v_sb + h * v_sh;
-  const float* biasb = bias != nullptr ? bias + b * bias_sb : nullptr;
-
-  // Q tile, transposed; rows past the sequence are zero.
-  for (int i = tid; i < kBlockM * (kHeadDim / 4); i += kThreads) {
-    const int r = i % kBlockM;
-    const int c = (i / kBlockM) * 4;
-    const int row = q0 + r;
-    const float4 x = load4(qb + (int64_t)(row < seq ? row : 0) * q_ss + c,
-                           row < seq);
-    sQt[c][r] = x.x;
-    sQt[c + 1][r] = x.y;
-    sQt[c + 2][r] = x.z;
-    sQt[c + 3][r] = x.w;
-  }
-
-  int n_tiles = (seq + kBlockN - 1) / kBlockN;
-  if (causal) {
-    n_tiles = min(n_tiles, (q0 + kBlockM - 1) / kBlockN + 1);
-  }
-
-  float acc[4][8];
-  float row_max[4], row_sum[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    row_max[i] = kNegInf;
-    row_sum[i] = 0.0f;
-#pragma unroll
-    for (int d = 0; d < 8; ++d) acc[i][d] = 0.0f;
-  }
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int key0 = j * kBlockN;
-    __syncthreads();  // the previous tile is no longer read
-    for (int i = tid; i < kBlockN * (kHeadDim / 4); i += kThreads) {
-      const int r = i % kBlockN;  // K, transposed
-      const int c = (i / kBlockN) * 4;
-      const int key = key0 + r;
-      const float4 x = load4(kb + (int64_t)(key < seq ? key : 0) * k_ss + c,
-                             key < seq);
-      sKt[c][r] = x.x;
-      sKt[c + 1][r] = x.y;
-      sKt[c + 2][r] = x.z;
-      sKt[c + 3][r] = x.w;
-      const int vr = i / (kHeadDim / 4);  // V, row-major
-      const int vc = (i % (kHeadDim / 4)) * 4;
-      const int vkey = key0 + vr;
-      *reinterpret_cast<float4*>(&sV[vr][vc]) = load4(
-          vb + (int64_t)(vkey < seq ? vkey : 0) * v_ss + vc, vkey < seq);
-    }
-    if (tid < kBlockN) {
-      const int key = key0 + tid;
-      float x = __int_as_float(0xff800000);  // -inf: past the sequence end
-      if (key < seq) x = biasb != nullptr ? biasb[key] : 0.0f;
-      sBias[tid] = x;
-    }
-    __syncthreads();
-
-    // S = Q K^T: 4 rows x 4 keys per thread.
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[i][c] = 0.0f;
-    }
-#pragma unroll 8
-    for (int d = 0; d < kHeadDim; ++d) {
-      const float4 qv = *reinterpret_cast<const float4*>(&sQt[d][ty * 4]);
-      const float4 kv = *reinterpret_cast<const float4*>(&sKt[d][tx * 4]);
-      const float qa[4] = {qv.x, qv.y, qv.z, qv.w};
-      const float ka[4] = {kv.x, kv.y, kv.z, kv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[i][c] = fmaf(qa[i], ka[c], s[i][c]);
-      }
-    }
-
-    // Scale, bias, causal mask; the online-softmax update per row.
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qrow = q0 + ty * 4 + i;
-      float m_cur = kNegInf;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float x = s[i][c] * sm_scale + sBias[tx * 4 + c];
-        if (causal && key0 + tx * 4 + c > qrow) x = kNegInf;
-        s[i][c] = x;
-        m_cur = fmaxf(m_cur, x);
-      }
-      m_cur = group_max(m_cur);
-      const float m_prev = row_max[i];
-      const float m_new = fmaxf(m_prev, m_cur);
-      // Fully masked so far: exp(-inf - -inf) would be NaN.
-      const float safe_m = m_new <= kNegInf ? 0.0f : m_new;
-      const float corr = m_prev <= kNegInf ? 0.0f : expf(m_prev - safe_m);
-      float part = 0.0f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float p = s[i][c] <= kNegInf ? 0.0f : expf(s[i][c] - safe_m);
-        s[i][c] = p;
-        part += p;
-      }
-      row_sum[i] = row_sum[i] * corr + group_sum(part);
-      row_max[i] = m_new;
-#pragma unroll
-      for (int d = 0; d < 8; ++d) acc[i][d] *= corr;
-    }
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      *reinterpret_cast<float4*>(&sPt[tx * 4 + c][ty * 4]) =
-          make_float4(s[0][c], s[1][c], s[2][c], s[3][c]);
-    }
-    __syncthreads();
-
-    // O += P V: 4 rows x 8 dims per thread.
-#pragma unroll 4
-    for (int c = 0; c < kBlockN; ++c) {
-      const float4 pv = *reinterpret_cast<const float4*>(&sPt[c][ty * 4]);
-      const float4 v0 = *reinterpret_cast<const float4*>(&sV[c][tx * 8]);
-      const float4 v1 = *reinterpret_cast<const float4*>(&sV[c][tx * 8 + 4]);
-      const float pa[4] = {pv.x, pv.y, pv.z, pv.w};
-      const float va[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int d = 0; d < 8; ++d) acc[i][d] = fmaf(pa[i], va[d], acc[i][d]);
-      }
-    }
-  }
-
   float* ob = o + b * o_sb + h * o_sh;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int r = 0; r < 2; ++r) {
+    const float sum = quad_sum(row_sum[r]);  // every lane, before any exit
+    const int row = qrow + r * 8;
     if (row >= seq) continue;
-    const float denom = row_sum[i] == 0.0f ? 1.0f : row_sum[i];
-    float* orow = ob + row * o_ss + tx * 8;
-    *reinterpret_cast<float4*>(orow) =
-        make_float4(acc[i][0] / denom, acc[i][1] / denom, acc[i][2] / denom,
-                    acc[i][3] / denom);
-    *reinterpret_cast<float4*>(orow + 4) =
-        make_float4(acc[i][4] / denom, acc[i][5] / denom, acc[i][6] / denom,
-                    acc[i][7] / denom);
+    const float denom = sum == 0.0f ? 1.0f : sum;
+    float* orow = ob + row * o_ss;
+#pragma unroll
+    for (int dn = 0; dn < kHeadDim / 8; ++dn) {
+      *reinterpret_cast<float2*>(orow + dn * 8 + 2 * t) = make_float2(
+          acc[dn][2 * r] / denom, acc[dn][2 * r + 1] / denom);
+    }
   }
 }
 
 }  // namespace f32
 
+// Error codes of this file beyond cudaError_t's range.
+constexpr int kErrNoEncoder = 100001;  // no cuTensorMapEncodeTiled
+constexpr int kErrTensorMap = 100002;  // it refused a tensor map
+
+PFN_cuTensorMapEncodeTiled tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled fn = []() -> PFN_cuTensorMapEncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess) {
+      return nullptr;
+    }
+    return reinterpret_cast<PFN_cuTensorMapEncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A 4-D (d, s, h, b) bf16 map over a strided [B, S, H, 64] view (strides in
+// elements), boxes of `box_rows` rows of one head, 128-byte swizzle.
+bool encode_qkv_map(CUtensorMap* map, const void* base, int batch, int seq,
+                    int heads, int64_t sb, int64_t ss, int64_t sh,
+                    cuuint32_t box_rows) {
+  // The stride of a dimension of size 1 is never stepped: any valid one.
+  const cuuint64_t row_bytes = kHeadDim * sizeof(bf16);
+  cuuint64_t dims[4] = {kHeadDim, (cuuint64_t)seq, (cuuint64_t)heads,
+                        (cuuint64_t)batch};
+  cuuint64_t strides[3] = {
+      seq > 1 ? (cuuint64_t)ss * sizeof(bf16) : row_bytes,
+      heads > 1 ? (cuuint64_t)sh * sizeof(bf16) : row_bytes,
+      batch > 1 ? (cuuint64_t)sb * sizeof(bf16) : row_bytes};
+  cuuint32_t box[4] = {kHeadDim, box_rows, 1, 1};
+  cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  return tensor_map_encoder()(
+             map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+             dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Opt the kernel in to its dynamic shared memory, once per device (two
+// threads may both do it; that is harmless).
+template <typename Kernel>
+cudaError_t opt_in(Kernel kernel, int bytes, std::atomic<bool> (&done)[64]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 64 && done[dev].load())) return err;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev < 64) done[dev].store(true);
+  return err;
+}
+
 }  // namespace
 
-// Launch the fp32 instantiation; arguments and return as for the bf16 one
-// below, with fp32 q/k/v/o whose rows are 16-byte aligned.
+// Launch the fp32 kernel; arguments and return as for the bf16 one below,
+// with fp32 q/k/v/o whose rows are 16-byte aligned.
 extern "C" int client_tpu_flash_attention_fwd_f32(
     const void* q, const void* k, const void* v, const void* bias, void* o,
     int batch, int seq, int heads, int64_t q_sb, int64_t q_ss, int64_t q_sh,
     int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
     int64_t v_sh, int64_t o_sb, int64_t o_ss, int64_t o_sh, int64_t bias_sb,
     float sm_scale, int causal, void* stream) {
-  dim3 grid((seq + f32::kBlockM - 1) / f32::kBlockM, heads, batch);
-  f32::flash_fwd_f32_kernel<<<grid, f32::kThreads, 0,
+  static std::atomic<bool> opted_in[64];
+  cudaError_t err =
+      opt_in(f32::flash_fwd_f32_kernel, f32::kSmemBytes, opted_in);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(batch * heads, (seq + f32::kBlockM - 1) / f32::kBlockM);
+  f32::flash_fwd_f32_kernel<<<grid, f32::kThreads, f32::kSmemBytes,
                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(bias),
-      static_cast<float*>(o), seq, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
-      v_ss, v_sh, o_sb, o_ss, o_sh, bias_sb, sm_scale, causal);
+      static_cast<float*>(o), seq, heads, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+      v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, bias_sb, sm_scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launch on `stream`; returns cudaGetLastError() (0 = launched). Strides are
-// in elements; each of q/k/v/o has unit stride along D, and rows 16-byte
+// Launch on `stream`; returns 0 when launched, else a cudaError_t or one of
+// this file's codes (client_tpu_cuda_error_string names both). Strides are
+// in elements; each of q/k/v/o has unit stride along D, rows 16-byte
 // aligned (the Python wrapper checks both). `bias` may be null.
 extern "C" int client_tpu_flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* bias, void* o,
@@ -557,15 +943,35 @@ extern "C" int client_tpu_flash_attention_fwd(
     int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
     int64_t v_sh, int64_t o_sb, int64_t o_ss, int64_t o_sh, int64_t bias_sb,
     float sm_scale, int causal, void* stream) {
-  dim3 grid((seq + kBlockM - 1) / kBlockM, heads, batch);
-  flash_fwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const float*>(bias),
-      static_cast<bf16*>(o), seq, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
-      v_ss, v_sh, o_sb, o_ss, o_sh, bias_sb, sm_scale, causal);
+  if (tensor_map_encoder() == nullptr) return kErrNoEncoder;
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!encode_qkv_map(&tm_q, q, batch, seq, heads, q_sb, q_ss, q_sh,
+                      sm90::kBlockM) ||
+      !encode_qkv_map(&tm_k, k, batch, seq, heads, k_sb, k_ss, k_sh,
+                      sm90::kBlockN) ||
+      !encode_qkv_map(&tm_v, v, batch, seq, heads, v_sb, v_ss, v_sh,
+                      sm90::kBlockN)) {
+    return kErrTensorMap;
+  }
+  static std::atomic<bool> opted_in[64];
+  cudaError_t err =
+      opt_in(sm90::flash_fwd_kernel, sm90::kSmemBytes, opted_in);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(batch * heads, (seq + sm90::kBlockM - 1) / sm90::kBlockM);
+  sm90::flash_fwd_kernel<<<grid, sm90::kThreads, sm90::kSmemBytes,
+                           static_cast<cudaStream_t>(stream)>>>(
+      tm_q, tm_k, tm_v, static_cast<const float*>(bias),
+      static_cast<bf16*>(o), seq, heads, o_sb, o_ss, o_sh, bias_sb, sm_scale,
+      causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* client_tpu_cuda_error_string(int code) {
+  if (code == kErrNoEncoder) {
+    return "the CUDA driver has no cuTensorMapEncodeTiled (TMA needs CUDA 12)";
+  }
+  if (code == kErrTensorMap) {
+    return "cuTensorMapEncodeTiled refused a q/k/v tensor map";
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

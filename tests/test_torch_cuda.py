@@ -9,7 +9,8 @@ Tolerances: the bf16 flash kernel against its plain version at 2e-2 (bf16
 output; the kernel rounds P to bf16 under a running tile max and sums in
 another order); the fp32 flash kernel at 1e-4 and the decode-wave kernel at
 2e-5 (fp32 throughout, sums in another order, outputs of magnitude ~1); the
-ring all-reduce bit for bit (it adds in the plain version's order).
+ring all-reduce bit for bit (it adds in the plain version's order). The fp32
+flash kernel's accuracy case against float64 states its own.
 """
 
 import math
@@ -101,6 +102,84 @@ def test_fp32_causal_kernel_matches_plain(card, s):
     ref = fa.flash_attention_plain(q, k, v, causal=True)
     assert out.dtype == torch.float32
     assert float((out - ref).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("with_bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("s", [1, 63, 127, 128, 129, 191, 192, 193, 200,
+                               2048])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_kernel_tile_edges(card, dtype, s, causal, with_bias):
+    """Both kernels against the plain version at the edges of their tiles
+    (bf16: 192 query rows a CTA, 128 keys a stage; fp32: 64 and 64), on
+    strided slices of one fused [B, S, 3, H, 64] tensor as BERT hands them
+    over. With a bias, batch row 1 masks every key and must be exactly 0."""
+    gen = torch.Generator(device=card).manual_seed(s)
+    fused = torch.randn(2, s, 3, 3, 64, device=card, generator=gen).to(dtype)
+    q, k, v = fused[:, :, 0], fused[:, :, 1], fused[:, :, 2]
+    bias = None
+    if with_bias:
+        bias = torch.zeros(2, s, device=card)
+        bias[0, s * 3 // 4:] = -1e9
+        bias[1] = -math.inf
+    counts = (fa.launches, fa.launches_fp32)
+    out = fa.flash_attention(q, k, v, bias, causal=causal)
+    torch.cuda.synchronize()
+    bf16 = dtype == torch.bfloat16
+    assert (fa.launches, fa.launches_fp32) == (counts[0] + bf16,
+                                               counts[1] + (not bf16))
+    ref = fa.flash_attention_plain(q, k, v, bias, causal=causal)
+    assert out.shape == q.shape and out.dtype == dtype
+    assert bool(torch.isfinite(out).all())
+    err = float((out.float() - ref.float()).abs().max())
+    assert err <= (2e-2 if bf16 else 1e-4), err
+    if with_bias:
+        assert bool((out[1] == 0).all())
+
+
+def _attention_float64(q, k, v, causal):
+    """Attention computed in float64 throughout, no masking tricks."""
+    q, k, v = q.double(), k.double(), v.double()
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(q.shape[-1])
+    if causal:
+        n = q.shape[1]
+        keep = torch.ones(n, n, dtype=torch.bool, device=q.device).tril()
+        scores = scores.masked_fill(~keep, -math.inf)
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(scores, dim=-1), v)
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_fp32_kernel_keeps_fp32_accuracy(card, causal):
+    """Inputs scaled x8 make the scores ~64x larger (up to a few hundred),
+    so the rounding of each product shows in the softmax. Tolerance 2e-3
+    against float64, outputs reaching ~35: on an H100 the fp32 plain
+    version (cuBLAS, TF32 off) lands 5.6e-4 to 5.8e-4 away and the kernel
+    6.8e-4 to 7.2e-4, while plain TF32 products (10-bit mantissas) miss by
+    0.53 to 0.63, as would a split that lost a term (chip_smoke.py prints
+    all four for these inputs)."""
+    gen = torch.Generator(device=card).manual_seed(7)
+    fused = torch.randn(2, 512, 3, 2, 64, device=card, generator=gen) * 8
+    q, k, v = fused[:, :, 0], fused[:, :, 1], fused[:, :, 2]
+    out = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    ref = _attention_float64(q, k, v, causal)
+    assert float((out.double() - ref).abs().max()) <= 2e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_refused_launch_raises(card, dtype):
+    """A grid the card cannot launch (65,536 query tiles in the grid's
+    second dimension, whose limit is 65,535) is refused by the runtime:
+    the wrapper raises with the runtime's message, counts no launch and
+    does not fall back to the plain version."""
+    rows = 192 if dtype == torch.bfloat16 else 64  # query rows a CTA
+    q = torch.zeros(1, 65535 * rows + 1, 1, 64, dtype=dtype, device=card)
+    counts = (fa.launches, fa.launches_fp32)
+    with pytest.raises(RuntimeError, match="launch failed: invalid config"):
+        fa.flash_attention(q, q, q)
+    assert (fa.launches, fa.launches_fp32) == counts
 
 
 def _tiny_gpt_long_arena(card, seed=0):
