@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path once on an NVIDIA GPU.
 
-    python3 chip_smoke.py          # from the root of a checkout, one card
+    python3 chip_smoke.py            # from the root of a checkout, one card
+    python3 chip_smoke.py --kernels  # steps 1 to 3 and the wave split only
 
 1. Prints the card (``torch.cuda.get_device_name``) and its power limit.
 2. Builds every kernel of the path from ``client_tpu_torch/csrc`` with
@@ -16,9 +17,16 @@
    and call in turns, and the call's own kernels named from one
    ``torch.profiler`` pass), and work out the least time the card could
    take (the bound). The kernels: flash attention in bf16 (BERT) and in
-   fp32 causal (the generative prefill), the fused decode wave, and the
-   ring all-reduce of the row-sharded KV arena (2 and 4 shards on the one
-   card, bit for bit against its plain version).
+   fp32 causal (the generative prefill), the fused decode wave (its split
+   and tile edges, repeated calls bit for bit), and the ring all-reduce of
+   the row-sharded KV arena (2 to 8 shards on the one card, bit for bit
+   against its plain version). The decode wave and the all-reduce are a
+   few microseconds of device work behind tens of host work, so their
+   device time is taken with calls queued back to back behind a sleeping
+   kernel, in turns with the library call, and the decode wave cycles
+   over the 4 layers as a decode step does; a call alone, host included,
+   is printed beside it. Each prints its launch plan and the registers
+   and shared memory of its build (``cuobjdump -res-usage``).
 4. Serve phase: starts ``client_tpu_torch``'s HTTP server with ``bert_base``
    and ``bert_long`` on the card (full BERT-base width and depth, random
    weights from a fixed seed), sets every kernel's launch count to 0, sends
@@ -49,6 +57,13 @@
 7. Prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
    limit line, and last ``{"ok": true, "device": {...}}``.
 
+``--kernels`` stops after step 3, prints the per-wave host/device split of
+``tiny_gpt_long`` over one arena and over 2 shards (built directly, no
+engine), then the ``{"kernels": [...]}`` line (launches null) and the
+``nvidia-smi`` line, and no ``ok`` line. Copied into an older checkout, it
+times that checkout's kernels by the same method, so that two commits can
+be compared in one call.
+
 Any failed check raises, so the script exits non-zero and prints no result.
 It exits non-zero as well without CUDA, or outside a checkout of the repo.
 """
@@ -57,6 +72,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import itertools
 import json
 import math
 import os
@@ -168,12 +184,12 @@ def _device_kernels(torch, fn) -> str:
     return "; ".join(e.key for e in kernels) or "not measured"
 
 
-def _queued_ms(torch, fn, reps: int = 20) -> float:
+def _queued_samples(torch, fn, reps: int = 20) -> list[float]:
     """Device time per call of a call too short to time alone: ``reps``
     calls queued back to back behind a sleeping kernel, so the device never
-    waits on the host between them, over one pair of CUDA events. Median of
-    five such runs. ``reps`` stays small enough that the launches of the
-    plain ring at 4 shards (~28 a call) do not fill the launch queue."""
+    waits on the host between them, over one pair of CUDA events; five such
+    runs. ``reps`` stays small enough that the launches of the plain ring
+    at 4 shards (~28 a call) do not fill the launch queue."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -188,7 +204,50 @@ def _queued_ms(torch, fn, reps: int = 20) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
-    return float(np.median(times))
+    return times
+
+
+def _queued_ms(torch, fn, reps: int = 20) -> float:
+    """Median of :func:`_queued_samples`."""
+    return float(np.median(_queued_samples(torch, fn, reps)))
+
+
+def _queued_turns(torch, kernel: list, library: list) -> tuple[float, float]:
+    """Device ms per call of a kernel and its library call, each given as a
+    list of calls that are cycled through (one per layer), queued back to
+    back (:func:`_queued_samples`) in turns: kernel, library, library,
+    kernel. Medians of the ten runs of each."""
+    samples = {"kernel": [], "library": []}
+    for name in ("kernel", "library", "library", "kernel"):
+        calls = itertools.cycle(kernel if name == "kernel" else library)
+        samples[name] += _queued_samples(torch, lambda: next(calls)())
+    return (float(np.median(samples["kernel"])),
+            float(np.median(samples["library"])))
+
+
+def _resource_usage(cuda_build, name: str) -> str:
+    """Registers, static shared memory and local memory of each kernel in
+    the library built from ``csrc/<name>.cu`` (``cuobjdump -res-usage``,
+    the figures ``ptxas`` reports)."""
+    tool = Path(cuda_build._nvcc()).parent / "cuobjdump"
+    out = subprocess.run(
+        [str(tool), "-res-usage", str(cuda_build.library_path(name))],
+        capture_output=True, text=True, timeout=120, check=True).stdout
+    usage, kernel = [], None
+    for line in out.splitlines():
+        found = re.search(r"Function (\S+):", line)
+        if found:
+            short = re.search(r"\d+([a-z][a-z0-9_]*_kernel)(?:ILi(\d+)E)?",
+                              found.group(1))
+            kernel = (short.group(1) + (f"<{short.group(2)}>"
+                                        if short.group(2) else "")
+                      if short else found.group(1))
+            continue
+        fields = re.findall(r"(REG|SHARED|LOCAL|STACK):(\d+)", line)
+        if kernel and fields:
+            usage.append(f"{kernel} " + " ".join(f"{k}:{v}" for k, v in fields))
+            kernel = None
+    return "; ".join(usage) or "no resource usage found"
 
 
 def _sass_census(cuda_build) -> dict:
@@ -441,7 +500,25 @@ def kernel_phase_fp32(torch) -> dict:
     }
 
 
-def kernel_phase_decode(torch) -> dict:
+def _decode_occupancy(cuda_build, b: int, h: int, n_split: int) -> str:
+    """The decode kernel's dynamic shared memory per CTA and the clusters
+    of ``n_split`` CTAs the card holds at once
+    (``cudaOccupancyMaxActiveClusters``)."""
+    import ctypes
+
+    lib = cuda_build.load("decode_attention")
+    fn = getattr(lib, "client_tpu_decode_wave_occupancy", None)
+    if fn is None:  # a tree from before the clustered kernel
+        return "occupancy not reported by this build"
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+    smem, clusters = ctypes.c_int(0), ctypes.c_int(0)
+    err = fn(b, h, n_split, ctypes.byref(smem), ctypes.byref(clusters))
+    _check(err == 0, f"cudaOccupancyMaxActiveClusters failed: error {err}")
+    return (f"{smem.value} bytes of dynamic shared memory a CTA, at most "
+            f"{clusters.value} clusters of {n_split} resident at once")
+
+
+def kernel_phase_decode(torch, cuda_build) -> dict:
     """The fused decode wave at tiny_gpt_long's arena shape."""
     from client_tpu_torch.ops import decode_attention as da
 
@@ -451,16 +528,23 @@ def kernel_phase_decode(torch) -> dict:
     k_arena = torch.randn(L, R, S, H, D, device="cuda", generator=gen)
     v_arena = torch.randn(L, R, S, H, D, device="cuda", generator=gen)
     rng = np.random.default_rng(2)
-    cases = {  # B: (rows, lens); lanes on the dummy row are padding
-        1: ([5], [2047]),
-        3: ([2, 9, dummy], [1, 777, 0]),
-        16: (list(range(12)) + [dummy] * 4,
-             [0, 1, 2047] + rng.integers(2, 1600, 9).tolist() + [0] * 4),
+    cases = {  # label: (rows, lens); lanes on the dummy row are padding
+        "B1": ([5], [2047]),
+        "B3": ([2, 9, dummy], [1, 777, 0]),
+        "B16": (list(range(12)) + [dummy] * 4,
+                [0, 1, 2047] + rng.integers(2, 1600, 9).tolist() + [0] * 4),
+        # Split and tile edges: 32-key tiles, a new CTA every 256 keys.
+        "edges": (list(range(16)),
+                  [1, 31, 32, 33, 255, 256, 257, 511, 512, 513, 1791, 1792,
+                   1793, 2046, 2047, 0]),
+        "B16 all 2047": (list(range(16)), [2047] * 16),
     }
     errors = []
-    for layer, (b, (rows, lens)) in enumerate(sorted(cases.items())):
+    for layer, (label, (rows, lens)) in enumerate(cases.items()):
+        layer %= L
         rows_np = np.asarray(rows, np.int32)
         lens_np = np.asarray(lens, np.int32)
+        b = len(rows_np)
         real = rows_np != dummy
         q, kn, vn = (torch.randn(b, H, D, device="cuda", generator=gen)
                      for _ in range(3))
@@ -472,51 +556,68 @@ def kernel_phase_decode(torch) -> dict:
         o_ref = da.decode_wave_attention_plain(k_ref, v_ref, q, kn, vn,
                                                index, layer=layer)
         err = float((o[real] - o_ref[real]).abs().max())
-        print(f"kernel case decode B{b} lens {lens}: max_abs_err {err} "
+        print(f"kernel case decode {label} lens {lens}: max_abs_err {err} "
               f"(tolerance {DECODE_ATOL})", flush=True)
-        _check(err <= DECODE_ATOL, f"decode B{b}: max_abs_err {err}")
-        _check(bool(torch.isfinite(o).all()), f"decode B{b}: non-finite")
+        _check(err <= DECODE_ATOL, f"decode {label}: max_abs_err {err}")
+        _check(bool(torch.isfinite(o).all()), f"decode {label}: non-finite")
         errors.append(err)
         for i in np.flatnonzero(real & (lens_np == 0)):
             _check(bool(torch.equal(o[i], vn[i])),
-                   f"decode B{b} lane {i}: lens 0 is not exactly v_new")
+                   f"decode {label} lane {i}: lens 0 is not exactly v_new")
         # Untouched rows bit-identical, scattered slots equal to the
         # inputs: every row but the dummy equals the plain version's.
         _check(bool(torch.equal(k_arena[:, :dummy], k_ref[:, :dummy])
                     and torch.equal(v_arena[:, :dummy], v_ref[:, :dummy])),
-               f"decode B{b}: arena differs from the plain scatter")
+               f"decode {label}: arena differs from the plain scatter")
         r = torch.from_numpy(rows_np[real]).long().cuda()
         n = torch.from_numpy(lens_np[real]).long().cuda()
         _check(bool(torch.equal(k_arena[layer, r, n], kn[real])
                     and torch.equal(v_arena[layer, r, n], vn[real])),
-               f"decode B{b}: scattered slots differ from the inputs")
+               f"decode {label}: scattered slots differ from the inputs")
+        # The merge runs in a fixed order: a second call gives the same bits.
+        again = da.decode_wave_attention(k_arena, v_arena, q, kn, vn, index,
+                                         layer=layer)
+        _check(bool(torch.equal(again, o)),
+               f"decode {label}: two identical calls differ")
         del k_ref, v_ref
     print("decode kernel: lens 0 gives exactly v_new; untouched rows and "
-          "scattered slots bit-identical", flush=True)
+          "scattered slots bit-identical; repeated calls bit-identical",
+          flush=True)
 
-    # Timing at B=16, the largest wave bucket of tiny_gpt_long.
-    rows_np = np.asarray(cases[16][0], np.int32)
-    lens_np = np.asarray(cases[16][1], np.int32)
+    # Timing at B=16, the largest wave bucket of tiny_gpt_long, over all 4
+    # layers in turn, as a decode step walks them: one layer's valid
+    # prefix (16 MB) fits the 50 MB L2, four do not.
+    rows_np = np.asarray(cases["B16"][0], np.int32)
+    lens_np = np.asarray(cases["B16"][1], np.int32)
     index = da.WaveIndex(rows_np, lens_np, R, S, "cuda")
     b = len(rows_np)
+    # A tree from before the split plan launches one CTA per (lane, head).
+    n_split = getattr(index, "n_split", 1)
+    longest = int(lens_np.max())
+    share = min(longest, (-(-longest // n_split) + 31) // 32 * 32)  # tiles
+    print(f"decode split plan at B{b}: n_split {n_split}, {n_split * H * b} "
+          f"CTAs, at most {share} keys per CTA (longest lane {longest}); "
+          f"{_decode_occupancy(cuda_build, b, H, n_split)}; "
+          f"{_resource_usage(cuda_build, 'decode_attention')}", flush=True)
     q, kn, vn = (torch.randn(b, H, D, device="cuda", generator=gen)
                  for _ in range(3))
     k_ref, v_ref = k_arena.clone(), v_arena.clone()
     rows_t = index.rows.long()
     lens_t = index.lens.long()
-    ck, cv = k_ref[0, rows_t], v_ref[0, rows_t]  # gathered beforehand
+    gathered = [(k_ref[layer, rows_t].transpose(1, 2),  # beforehand
+                 v_ref[layer, rows_t].transpose(1, 2)) for layer in range(L)]
     mask = (torch.arange(S, device="cuda")[None, :] <= lens_t[:, None])
-
-    def library():
-        return torch.nn.functional.scaled_dot_product_attention(
-            q[:, :, None], ck.transpose(1, 2), cv.transpose(1, 2),
-            attn_mask=mask[:, None, None, :])
-
-    ms = _time_ms(torch, lambda: da.decode_wave_attention(
-        k_arena, v_arena, q, kn, vn, index, layer=0))
-    plain_ms = _time_ms(torch, lambda: da.decode_wave_attention_plain(
+    kernel = [lambda layer=layer: da.decode_wave_attention(
+        k_arena, v_arena, q, kn, vn, index, layer=layer) for layer in range(L)]
+    library = [lambda ck=ck, cv=cv: torch.nn.functional
+               .scaled_dot_product_attention(q[:, :, None], ck, cv,
+                                             attn_mask=mask[:, None, None, :])
+               for ck, cv in gathered]
+    ms, library_ms = _queued_turns(torch, kernel, library)
+    alone_ms = _time_ms(torch, kernel[0])
+    plain_ms = _queued_ms(torch, lambda: da.decode_wave_attention_plain(
         k_ref, v_ref, q, kn, vn, index, layer=0))
-    library_ms = _time_ms(torch, library)
+    library_kernel = _device_kernels(torch, library[0])
     lane_bytes = H * D * 4
     nbytes = (2 * int(lens_np.sum()) * lane_bytes  # valid K/V prefix
               + 4 * b * lane_bytes                 # q, k_new, v_new, o
@@ -525,10 +626,15 @@ def kernel_phase_decode(torch) -> dict:
     flops = 4.0 * H * D * (int(lens_np.sum()) + b)
     byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     flop_ms = flops / PEAK_FP32_FLOPS * 1e3
+    bound_ms = max(byte_ms, flop_ms)
     print(f"decode_wave_attention at B{b} (sum of lens {int(lens_np.sum())}"
-          f"): kernel {ms} ms ({nbytes / ms / 1e6:.1f} GB/s), plain "
-          f"{plain_ms} ms, scaled_dot_product_attention {library_ms} ms; "
-          f"bound {max(byte_ms, flop_ms)} ms ({nbytes} bytes)", flush=True)
+          f"), device ms per call queued back to back over the {L} layers, "
+          f"in turns with the library call: kernel {ms} ms "
+          f"({nbytes / ms / 1e6:.1f} GB/s, {100 * bound_ms / ms:.1f}% of the "
+          f"bound), scaled_dot_product_attention {library_ms} ms (it ran "
+          f"{library_kernel}); one kernel call alone, host included, "
+          f"{alone_ms} ms; plain {plain_ms} ms; bound {bound_ms} ms "
+          f"({nbytes} bytes)", flush=True)
     return {
         "name": "decode_wave_attention",
         "route": "cuda",
@@ -538,17 +644,20 @@ def kernel_phase_decode(torch) -> dict:
         "max_abs_err": max(errors),
         "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(byte_ms, flop_ms),
+        "bound_ms": bound_ms,
         "bound_by": "bytes" if byte_ms >= flop_ms else "operations",
         "library_ms": library_ms,
         "library_call": "scaled_dot_product_attention over rows gathered "
                         "beforehand, boolean mask; no scatter, no gather",
+        "library_kernel": library_kernel,
+        "alone_ms": alone_ms,
+        "n_split": n_split,
     }
 
 
-def kernel_phase_ring(torch) -> dict:
-    """The ring all-reduce at the decode wave's partial outputs [B, 4, 64],
-    2 and 4 shards on the one card."""
+def kernel_phase_ring(torch, cuda_build) -> dict:
+    """The ring all-reduce at the decode wave's partial outputs [B, 4, 64]
+    (and an odd element count), 2 to 8 shards on the one card."""
     from client_tpu_torch.parallel import kv_shard as ks
 
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -557,8 +666,8 @@ def kernel_phase_ring(torch) -> dict:
         return [torch.randn(shape, device="cuda", generator=gen) * 4
                 for _ in range(n)]
 
-    for n in (2, 4):
-        for shape in RING_SHAPES:
+    for n in (2, 3, 4, 8):
+        for shape in RING_SHAPES + ((5,),):
             parts = partials(n, shape)
             got = ks.ring_all_reduce(parts)
             torch.cuda.synchronize()
@@ -584,18 +693,27 @@ def kernel_phase_ring(torch) -> dict:
 
     # Each call is a few microseconds of device work behind tens of host
     # work, so a call timed alone measures the host: the device time is
-    # taken with calls queued back to back (_queued_ms), and the time of a
-    # call alone, the host's included (_time_ms), is printed beside it.
+    # taken with calls queued back to back, kernel and library call in
+    # turns (_queued_turns), and the time of a call alone, the host's
+    # included (_time_ms), is printed beside it.
+    numel = math.prod(RING_SHAPES[-1])
+    print(f"ring plan at {list(RING_SHAPES[-1])}: one launch of "
+          f"{-(-numel // 4 // 128)} CTAs of 128 threads, one 16-byte group of "
+          f"every partial a thread; {_resource_usage(cuda_build, 'ring_all_reduce')}",
+          flush=True)
     timed = {}
     for n in (2, 4):
         parts = partials(n, RING_SHAPES[-1])
         calls = {"kernel": lambda: ks.ring_all_reduce(parts),
                  "plain": lambda: ks.ring_all_reduce_plain(parts),
                  "torch.stack(...).sum(0)": lambda: torch.stack(parts).sum(0)}
-        queued = {k: _queued_ms(torch, f) for k, f in calls.items()}
+        kernel_ms, library_ms = _queued_turns(
+            torch, [calls["kernel"]], [calls["torch.stack(...).sum(0)"]])
+        queued = {"kernel": kernel_ms,
+                  "plain": _queued_ms(torch, calls["plain"]),
+                  "torch.stack(...).sum(0)": library_ms}
         alone = {k: _time_ms(torch, f) for k, f in calls.items()}
-        numel = parts[0].numel()
-        timed[n] = (*queued.values(), numel)
+        timed[n] = tuple(queued.values())
         nbytes = 2 * n * numel * 4  # n partials read, n sums written
         flops = (n - 1) * n * numel
         print(f"ring_all_reduce n={n} at {list(RING_SHAPES[-1])} fp32, device "
@@ -603,7 +721,7 @@ def kernel_phase_ring(torch) -> dict:
               f"{alone}; bound "
               f"{max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOPS) * 1e3}"
               f" ms ({nbytes} bytes, {flops} additions)", flush=True)
-    ms, plain_ms, library_ms, numel = timed[2]  # the main path: 2 shards
+    ms, plain_ms, library_ms = timed[2]  # the main path: 2 shards
     nbytes, flops = 2 * 2 * numel * 4, 2 * numel
     byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     flop_ms = flops / PEAK_FP32_FLOPS * 1e3
@@ -1115,8 +1233,30 @@ def sharded_phase(torch, smi: str) -> dict:
         engine.shutdown()
 
 
-def main() -> int:
+def wave_phase(torch, smi: str) -> None:
+    """``--kernels``: the per-wave host/device split (:func:`_wave_split`)
+    of ``tiny_gpt_long`` at its registered size, built directly, over one
+    arena and over 2 shards on the card, without the engine."""
+    from client_tpu_torch.models.generate import TinyGptBackend
+    from client_tpu_torch.parallel import kv_shard as ks
+
+    for shards in (1, 2):
+        backend = TinyGptBackend(
+            name="tiny_gpt_long" if shards == 1 else "tiny_gpt_long_kv2",
+            max_seq_len=2048, max_streams=16, attention_impl="flash",
+            attn_impl="fused", kv_shards=shards, device="cuda")
+        if shards > 1:
+            backend._kv_mesh = ks.kv_mesh(shards, ["cuda"] * shards)
+        _wave_split(torch, backend, smi)
+
+
+def main(argv: list[str]) -> int:
     import torch
+
+    kernels_only = argv == ["--kernels"]
+    if argv and not kernels_only:
+        print("usage: python3 chip_smoke.py [--kernels]", file=sys.stderr)
+        return 2
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -1143,9 +1283,15 @@ def main() -> int:
     census = _sass_census(cuda_build)
 
     kernels = [kernel_phase(torch), kernel_phase_fp32(torch),
-               kernel_phase_decode(torch), kernel_phase_ring(torch)]
+               kernel_phase_decode(torch, cuda_build),
+               kernel_phase_ring(torch, cuda_build)]
     kernels[0]["sass"], kernels[1]["sass"] = census["bf16"], census["fp32"]
     torch.cuda.empty_cache()
+    if kernels_only:
+        wave_phase(torch, smi)
+        print(json.dumps({"kernels": kernels}), flush=True)
+        print(smi, flush=True)
+        return 0
     kernels[0]["launches"], _ = serve_phase(torch)
     generated = generate_phase(torch, smi)
     kernels[1]["launches"] = generated["flash_attention_fp32"]
@@ -1166,4 +1312,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

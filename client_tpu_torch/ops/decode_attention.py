@@ -15,7 +15,9 @@ counts kernel launches.
 
 A wave's ``rows`` and ``lens`` come as a :class:`WaveIndex`: checked on the
 host, where the scheduler holds them as numpy, then staged to the device
-once and shared by every layer's launch.
+once and shared by every layer's launch, with the kernel's split plan
+(:func:`split_plan`: how many CTAs share each lane's prefix), computed
+from the host's lengths so that no launch waits on a device read.
 """
 
 from __future__ import annotations
@@ -31,6 +33,8 @@ from client_tpu_torch.ops import cuda_build
 
 _NEG_INF = -1e30
 _HEAD_DIM = 64  # the only head dim the kernel is built for
+_SPLIT_KEYS = 256  # keys per CTA the split plan aims at
+_MAX_SPLIT = 8     # CTAs per (lane, head): the portable cluster size
 
 launches = 0
 _count_lock = threading.Lock()
@@ -51,6 +55,16 @@ def stage(host: np.ndarray, device: torch.device
     return pinned, pinned.to(device, non_blocking=True)
 
 
+def split_plan(lens) -> int:
+    """CTAs that share each (lane, head) of a wave whose lanes have prefix
+    lengths ``lens``: ceil(longest / 256), at least 1 and at most 8 (the
+    portable cluster size). The same for every lane of the wave: it is the
+    launch's cluster size."""
+    lens = np.asarray(lens)
+    longest = int(lens.max()) if lens.size else 0
+    return min(_MAX_SPLIT, max(1, -(-longest // _SPLIT_KEYS)))
+
+
 class WaveIndex:
     """The lanes of one wave: ``rows`` (arena row per lane) and ``lens``
     (valid prefix length per lane), int32 ``[B]`` on ``device``.
@@ -60,6 +74,10 @@ class WaveIndex:
     handed an index outside the arena. On the card the pinned host copies
     are kept here, referenced until the object is dropped, so the
     asynchronous copies never read a buffer that was reused.
+
+    ``n_split`` is the kernel's split plan for these lengths
+    (:func:`split_plan`); :meth:`shifted` and :meth:`local` compute their
+    own.
 
     A shard's view of a wave over a row-sharded arena (:meth:`local`) also
     carries ``owned``, bool ``[B]`` on ``device``: the lanes whose row the
@@ -79,6 +97,7 @@ class WaveIndex:
             raise ValueError(f"lens {lens_np.tolist()} outside [0, {seq})")
         self.n_rows, self.seq = int(n_rows), int(seq)
         self.rows_host, self.lens_host = rows_np, lens_np
+        self.n_split = split_plan(lens_np)
         host = [rows_np, lens_np]
         self.owned_host = None
         if owned is not None:
@@ -141,7 +160,7 @@ def load_kernel():
         if _fwd is None:
             lib = cuda_build.load("decode_attention")
             fn = lib.client_tpu_decode_wave_fwd
-            fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+            fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
                            + [ctypes.c_float, ctypes.c_void_p])
             fn.restype = ctypes.c_int
             lib.client_tpu_cuda_error_string.argtypes = [ctypes.c_int]
@@ -155,9 +174,9 @@ def check_kernel_args(k_arena: torch.Tensor, v_arena: torch.Tensor,
                       v_new: torch.Tensor, index: WaveIndex,
                       layer: int) -> None:
     """Raise ValueError for what the kernel does not take: anything but
-    contiguous fp32 ``[L, R, S, H, 64]`` arenas and ``[B, H, 64]`` lanes on
-    one device, an index checked for another arena, or a layer out of
-    range."""
+    contiguous fp32 ``[L, R, S, H, 64]`` arenas at 16-byte aligned addresses
+    (the kernel's TMA loads need it) and ``[B, H, 64]`` lanes on one
+    device, an index checked for another arena, or a layer out of range."""
     if k_arena.dim() != 5 or k_arena.shape != v_arena.shape:
         raise ValueError(f"k/v arenas must share one [L, R, S, H, D] shape, "
                          f"got {tuple(k_arena.shape)}, {tuple(v_arena.shape)}")
@@ -176,6 +195,9 @@ def check_kernel_args(k_arena: torch.Tensor, v_arena: torch.Tensor,
     if dim != _HEAD_DIM:
         raise ValueError(
             f"the kernel is built for head dim {_HEAD_DIM}, got {dim}")
+    for name, t in (("k_arena", k_arena), ("v_arena", v_arena)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start at a 16-byte aligned address")
     if (index.n_rows, index.seq) != (n_rows, seq):
         raise ValueError(
             f"the wave index was checked for {index.n_rows} rows of "
@@ -183,6 +205,9 @@ def check_kernel_args(k_arena: torch.Tensor, v_arena: torch.Tensor,
     if index.rows.device != k_arena.device:
         raise ValueError(f"the wave index is on {index.rows.device}, the "
                          f"arena on {k_arena.device}")
+    if n_layers * n_rows * seq >= 2**31:
+        raise ValueError(f"the kernel indexes at most 2^31 arena positions, "
+                         f"got {n_layers} x {n_rows} x {seq}")
     if not 0 <= layer < n_layers:
         raise ValueError(f"layer {layer} outside [0, {n_layers})")
     if b > 65535:
@@ -195,7 +220,9 @@ def decode_wave_attention(k_arena: torch.Tensor, v_arena: torch.Tensor,
                           layer: int) -> torch.Tensor:
     """One layer's fused decode wave; returns ``o`` ``[B, H, D]`` and
     updates the arenas in place. On the card this launches the Hopper
-    kernel (or raises); on the CPU it is the plain version."""
+    kernel as ``B * H`` clusters of ``index.n_split`` CTAs (or raises with
+    the runtime's message, for a cluster the card refuses too); on the CPU
+    it is the plain version."""
     if k_arena.device.type == "cpu":
         return decode_wave_attention_plain(k_arena, v_arena, q, k_new, v_new,
                                            index, layer=layer)
@@ -212,9 +239,10 @@ def decode_wave_attention(k_arena: torch.Tensor, v_arena: torch.Tensor,
         stream = torch.cuda.current_stream(k_arena.device).cuda_stream
         err = fwd(k_arena.data_ptr(), v_arena.data_ptr(), q.data_ptr(),
                   k_new.data_ptr(), v_new.data_ptr(), index.rows.data_ptr(),
-                  index.lens.data_ptr(), out.data_ptr(), b, heads, layer,
-                  k_arena.shape[1], k_arena.shape[2], 1.0 / math.sqrt(dim),
-                  stream)
+                  index.lens.data_ptr(), out.data_ptr(), b, heads,
+                  k_arena.shape[0], layer, k_arena.shape[1],
+                  k_arena.shape[2], index.n_split,
+                  1.0 / math.sqrt(dim), stream)
     if err != 0:
         raise RuntimeError(
             f"decode wave kernel launch failed: {err_str(err).decode()}")

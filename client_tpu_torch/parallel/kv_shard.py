@@ -195,7 +195,7 @@ def load_kernel():
         if _fwd is None:
             lib = cuda_build.load("ring_all_reduce")
             fn = lib.client_tpu_ring_all_reduce
-            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int,
+            fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int,
                                                    ctypes.c_int64,
                                                    ctypes.c_void_p]
             fn.restype = ctypes.c_int
@@ -207,10 +207,10 @@ def load_kernel():
 
 def ring_all_reduce(partials: Sequence[torch.Tensor]) -> list[torch.Tensor]:
     """All-reduce-sum of ``n`` same-shaped partials, one per shard; returns
-    the ``n`` sums (replicated). ``n == 1`` returns the input without a
-    launch. On the card this launches K3 (or raises): every partial
-    contiguous fp32 on one card, at most 8 of them. On the CPU it is the
-    plain version."""
+    the ``n`` sums (replicated), each in the ring's order of additions.
+    ``n == 1`` returns the input without a launch. On the card this
+    launches K3, one-shot (or raises): every partial contiguous fp32 on
+    one card, at most 8 of them. On the CPU it is the plain version."""
     parts = list(partials)
     _check_partials(parts)
     n = len(parts)
@@ -235,7 +235,6 @@ def ring_all_reduce(partials: Sequence[torch.Tensor]) -> list[torch.Tensor]:
                       device=device)
     if numel == 0:
         return list(out.unbind(0))
-    slots = torch.empty((n, 2, numel), dtype=torch.float32, device=device)
 
     def ptrs(tensors):
         return (ctypes.c_void_p * n)(*[t.data_ptr() for t in tensors])
@@ -243,8 +242,7 @@ def ring_all_reduce(partials: Sequence[torch.Tensor]) -> list[torch.Tensor]:
     fwd, err_str = load_kernel()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fwd(ptrs(parts), ptrs(out.unbind(0)), ptrs(slots.unbind(0)), n,
-                  numel, stream)
+        err = fwd(ptrs(parts), ptrs(out.unbind(0)), n, numel, stream)
     if err != 0:
         raise RuntimeError(
             f"ring all-reduce kernel launch failed: {err_str(err).decode()}")

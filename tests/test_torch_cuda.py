@@ -21,7 +21,7 @@ import torch
 
 from client_tpu_torch.engine.model import Model
 from client_tpu_torch.models.bert import BertBackend
-from client_tpu_torch.models.generate import TinyGptBackend
+from client_tpu_torch.models.generate import KvArena, TinyGptBackend
 from client_tpu_torch.ops import decode_attention as da
 from client_tpu_torch.ops import flash_attention as fa
 from client_tpu_torch.parallel import kv_shard as ks
@@ -216,6 +216,100 @@ def test_decode_wave_kernel_matches_plain(card):
     assert torch.equal(v_a[2, r, n], vn[real])
 
 
+def _decode_against_plain(k_a, v_a, gen, rows, lens, layer, n_rows):
+    """One kernel call against the plain version on clones of the arena:
+    output within 2e-5 on the real lanes, exactly v_new where lens is 0,
+    every row but the last (the dummy or junk row) bit-identical, one
+    launch. Returns the kernel's output and the call's inputs."""
+    b = len(rows)
+    rows, lens = np.asarray(rows, np.int32), np.asarray(lens, np.int32)
+    real = rows != n_rows - 1
+    q, kn, vn = (torch.randn(b, 4, 64, device=k_a.device, generator=gen)
+                 for _ in range(3))
+    index = da.WaveIndex(rows, lens, n_rows, k_a.shape[2], k_a.device)
+    k_ref, v_ref = k_a.clone(), v_a.clone()
+    before = da.launches
+    o = da.decode_wave_attention(k_a, v_a, q, kn, vn, index, layer=layer)
+    torch.cuda.synchronize()
+    assert da.launches == before + 1
+    o_ref = da.decode_wave_attention_plain(k_ref, v_ref, q, kn, vn, index,
+                                           layer=layer)
+    assert float((o[real] - o_ref[real]).abs().max()) <= 2e-5
+    for i in np.flatnonzero(real & (lens == 0)):
+        assert torch.equal(o[i], vn[i])
+    assert torch.equal(k_a[:, :-1], k_ref[:, :-1])
+    assert torch.equal(v_a[:, :-1], v_ref[:, :-1])
+    return o, (q, kn, vn, index)
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 255, 256, 257, 511, 512, 513,
+                               1791, 1792, 1793, 2047])
+def test_decode_wave_split_edges(card, n):
+    """Prefix lengths at the kernel's 32-key tile edges and the split
+    plan's 256-key steps (n_split 1 to 8), beside a padded lane."""
+    k_a, v_a, gen = _tiny_gpt_long_arena(card, seed=n)
+    _decode_against_plain(k_a, v_a, gen, [7, 16], [n, 0], 1, 17)
+    assert da.split_plan([n, 0]) == min(8, -(-n // 256))
+
+
+def test_decode_wave_every_lane_at_2047(card):
+    k_a, v_a, gen = _tiny_gpt_long_arena(card, seed=1)
+    _decode_against_plain(k_a, v_a, gen, list(range(16)), [2047] * 16, 3, 17)
+
+
+def test_decode_wave_mixes_padded_lanes_and_lens_zero(card):
+    k_a, v_a, gen = _tiny_gpt_long_arena(card, seed=2)
+    _decode_against_plain(k_a, v_a, gen, [0, 16, 4, 16, 9, 16, 2],
+                          [0, 0, 1500, 0, 0, 0, 300], 0, 17)
+
+
+def test_decode_wave_on_a_shard_local_index(card):
+    """Each shard's K2 call of a sharded wave (owned lanes at their
+    lengths, the others on the shard's junk row at length 0) against the
+    plain version."""
+    total, free, _dummy = ks.arena_row_layout(16, 2)
+    gen = torch.Generator(device=card).manual_seed(3)
+    arena = ks.shard_arena(
+        KvArena(k=torch.randn(2, total, 512, 4, 64, device=card,
+                              generator=gen),
+                v=torch.randn(2, total, 512, 4, 64, device=card,
+                              generator=gen),
+                tok=torch.zeros(total, dtype=torch.int32, device=card)),
+        ks.kv_mesh(2, [card] * 2))
+    rows = [free[0], free[9], free[3], free[15]]
+    index = ks.ShardedWaveIndex(da.WaveIndex(rows, [511, 40, 0, 300], total,
+                                             512, card),
+                                ks.kv_mesh(2, [card] * 2))
+    for k_sh, v_sh, local in zip(arena.k, arena.v, index.shards):
+        _decode_against_plain(k_sh, v_sh, gen, local.rows_host,
+                              local.lens_host, 1, local.n_rows)
+
+
+def test_decode_wave_repeats_bit_for_bit(card):
+    """The cluster merges its CTAs' partials in rank order, so two
+    identical calls give the same bits."""
+    k_a, v_a, gen = _tiny_gpt_long_arena(card, seed=4)
+    o, (q, kn, vn, index) = _decode_against_plain(
+        k_a, v_a, gen, list(range(8)), [2047, 1000, 513, 7, 0, 1, 256, 1800],
+        2, 17)
+    again = da.decode_wave_attention(k_a, v_a, q, kn, vn, index, layer=2)
+    assert torch.equal(again, o)
+
+
+def test_decode_wave_refused_cluster_raises(card):
+    """A cluster of 16 CTAs (above the portable 8, not opted in) is refused
+    by the runtime: the wrapper raises with its message, counts no launch
+    and does not fall back to the plain version."""
+    k_a, v_a, gen = _tiny_gpt_long_arena(card)
+    q = torch.randn(1, 4, 64, device=card, generator=gen)
+    index = da.WaveIndex([0], [2047], 17, 2048, card)
+    index.n_split = 16
+    before = da.launches
+    with pytest.raises(RuntimeError, match="decode wave kernel launch failed"):
+        da.decode_wave_attention(k_a, v_a, q, q, q, index, layer=0)
+    assert da.launches == before
+
+
 def test_decode_wave_refuses_what_it_was_not_built_for(card):
     k_a = torch.zeros(1, 3, 8, 2, 32, device=card)
     q = torch.zeros(1, 2, 32, device=card)
@@ -252,8 +346,8 @@ def test_tiny_gpt_long_fused_stream_equals_reference(card):
     assert fused == stream("einsum", "reference")
 
 
-@pytest.mark.parametrize("n", [2, 4])
-@pytest.mark.parametrize("shape", [(1, 4, 64), (3, 4, 64), (16, 4, 64)])
+@pytest.mark.parametrize("n", [2, 3, 4, 8])
+@pytest.mark.parametrize("shape", [(1, 4, 64), (3, 4, 64), (16, 4, 64), (5,)])
 def test_ring_all_reduce_equals_plain_bit_for_bit(card, n, shape):
     gen = torch.Generator(device=card).manual_seed(n)
     parts = [torch.randn(shape, device=card, generator=gen) * 4

@@ -163,3 +163,47 @@ def test_other_devices_raise():
     with pytest.raises(ValueError, match="cuda or cpu"):
         da.decode_wave_attention(k_a, k_a, q, q, q,
                                  da.WaveIndex([0], [0], R, S), layer=0)
+
+
+@pytest.mark.parametrize("lens,want", [
+    ([], 1), ([0, 0, 0], 1), ([1], 1), ([256], 1), ([257], 2),
+    ([2047], 8), ([5, 300, 0, 513], 3), ([2047, 0, 0, 1], 8),
+    ([100_000], 8),
+])
+def test_split_plan_is_a_function_of_the_lengths(lens, want):
+    """CTAs per (lane, head): ceil(longest / 256), at least 1, at most 8
+    (the portable cluster size), whatever the other lanes hold."""
+    assert da.split_plan(np.asarray(lens, np.int32)) == want
+    assert da.split_plan(lens) == want
+
+
+def test_wave_index_carries_its_split_plan():
+    seq = 2048
+    index = da.WaveIndex([0, 1, 2], [250, 3, 0], 4, seq)
+    assert index.n_split == 1
+    assert index.shifted(10).n_split == 2  # 260 keys: a second CTA
+    assert da.WaveIndex([0], [2047], 4, seq).n_split == 8
+    assert da.WaveIndex([], [], 4, seq).n_split == 1
+
+
+def test_local_index_plans_for_its_own_lanes():
+    """A shard's view keeps only the lengths of the lanes it owns, so its
+    plan follows them, not the wave's longest lane."""
+    index = da.WaveIndex([0, 5, 6], [1800, 100, 600], 8, 2048)
+    assert index.n_split == 8
+    low, high = index.local(0, 4, "cpu"), index.local(4, 4, "cpu")
+    assert low.lens_host.tolist() == [1800, 0, 0] and low.n_split == 8
+    assert high.lens_host.tolist() == [0, 100, 600] and high.n_split == 3
+    assert high.shifted(2).n_split == 3  # unowned lanes stay at 0
+    assert high.shifted(170).n_split == 4  # 770 keys
+
+
+def test_kernel_argument_checks_refuse_a_misaligned_arena():
+    """The kernel's bulk copies need a 16-byte aligned arena: a view that
+    starts one float in is refused before any launch."""
+    args = _kernel_args()
+    numel = args["k_arena"].numel()
+    shifted = torch.zeros(numel + 1)[1:].view(args["k_arena"].shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        da.check_kernel_args(shifted, args["v_arena"], args["q"],
+                             args["k_new"], args["v_new"], args["index"], 0)

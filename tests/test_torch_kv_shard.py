@@ -144,6 +144,24 @@ def test_ring_wrapper_on_the_cpu_is_the_plain_version():
         ks.ring_all_reduce([])
 
 
+@pytest.mark.parametrize("n", [2, 3, 4, 8])
+@pytest.mark.parametrize("shape", [(1, 4, 64), (16, 4, 64), (5,)])
+def test_ring_wrapper_on_the_cpu_sums_in_ring_order(n, shape):
+    """The CPU wrapper returns the plain version's sums, each shard's in
+    its own ring order ((x_i + x_{i-1}) + ...) + x_{i+1}, the order the
+    card's one-shot kernel adds in, bit for bit."""
+    rng = np.random.default_rng(10 + n)
+    parts = [torch.from_numpy((rng.standard_normal(shape) * 10)
+                              .astype(np.float32)) for _ in range(n)]
+    got = ks.ring_all_reduce(parts)
+    assert len(got) == n
+    for i, (g, w) in enumerate(zip(got, ks.ring_all_reduce_plain(parts))):
+        want = parts[i].clone()
+        for j in range(1, n):
+            want += parts[(i - j) % n]
+        assert torch.equal(g, w) and torch.equal(g, want)
+
+
 # -- the sharded decode wave ---------------------------------------------------
 
 CAP, N = 4, 2
