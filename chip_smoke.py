@@ -54,7 +54,30 @@
    directly on the plain unsharded path; every decode step must have
    launched the ring all-reduce once per layer and the decode kernel once
    per layer and shard.
-7. Prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
+7. Vision phase: ``resnet50``, ``densenet_onnx``,
+   ``ssd_mobilenet_v2_coco_quantized``, ``ssd_mobilenet_v2_tpu``,
+   ``image_preprocess``, ``ensemble_image``, ``bert_preprocess``,
+   ``bert_base``, ``bert_postprocess`` and ``ensemble_bert`` (10 models)
+   at their registered full size, random weights from the
+   port's seeds, served over HTTP; 98 concurrent requests, JSON and
+   binary, two of them asking ``resnet50`` for ``classification: 3``,
+   built and parsed by the phase's own wire code, not the server's.
+   Checks every status, shape and dtype; that dynamic batching put more
+   than one request in an execution of ``resnet50`` and of
+   ``ssd_mobilenet_v2_tpu``; every SSD output bit for bit against the
+   same module run directly on the request's rows at a bucket of its
+   ladder; classifier logits within ``CLASSIFIER_RTOL`` (exactness
+   printed); the classification strings against the direct top 3; each
+   ensemble bit for bit against its steps run by hand; the 400 for a
+   shared-memory output. Then prints each model's device time for one
+   forward at its largest bucket (queued behind a sleeping kernel, so the
+   card never waits on the host), images/s and the share of the bf16 peak
+   from it, the wall time of one forward with the card waiting on the
+   host's launches, and the
+   batched NMS alone at B=16 (host, device, launches). No hand-written
+   kernel runs on this path: convolutions and matmuls are cuDNN's and
+   cuBLAS's.
+8. Prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
    limit line, and last ``{"ok": true, "device": {...}}``.
 
 ``--kernels`` stops after step 3, prints the per-wave host/device split of
@@ -1233,6 +1256,462 @@ def sharded_phase(torch, smi: str) -> dict:
         engine.shutdown()
 
 
+# -- vision phase -------------------------------------------------------------
+
+VISION_MODELS = ("resnet50", "densenet_onnx", "ssd_mobilenet_v2_coco_quantized",
+                 "ssd_mobilenet_v2_tpu", "image_preprocess", "ensemble_image",
+                 "bert_preprocess", "bert_base", "bert_postprocess",
+                 "ensemble_bert")
+SSD_MODELS = ("ssd_mobilenet_v2_coco_quantized", "ssd_mobilenet_v2_tpu")
+# Served classifier logits vs the same module run directly on the request's
+# rows padded to a ladder bucket, relative to the request's max |logit|:
+# the served rows sat elsewhere in their batch, which cuDNN need not sum
+# alike in bf16 (a few bf16 ulps). Whether they were exact is printed; on
+# the H100 every request was (PERF.md).
+CLASSIFIER_RTOL = 2e-2
+
+
+# The vision phase's own v2 wire client: built from the protocol's text
+# (little-endian tensors; a BYTES element is a 4-byte little-endian length,
+# then its bytes), never from the server's codec, so that a fault shared by
+# the server's encoder and decoder cannot pass unseen.
+_WIRE_DTYPES = {"FP32": np.float32, "INT32": np.int32, "UINT8": np.uint8}
+
+
+def _wire_bytes(arr: np.ndarray) -> bytes:
+    if arr.dtype == np.object_:
+        return b"".join(len(x).to_bytes(4, "little") + x for x in arr.ravel())
+    return arr.astype(arr.dtype.newbyteorder("<")).tobytes()
+
+
+def _infer_body(inputs: dict[str, np.ndarray], outputs: list | None,
+                binary: bool) -> tuple[bytes, dict]:
+    """A v2 infer body with every input as JSON data or as binary."""
+    names = {np.dtype(v): k for k, v in _WIRE_DTYPES.items()}
+    entries, tails = [], []
+    for name, arr in inputs.items():
+        entry = {"name": name, "shape": list(arr.shape),
+                 "datatype": ("BYTES" if arr.dtype == np.object_
+                              else names[arr.dtype])}
+        if binary:
+            raw = _wire_bytes(arr)
+            entry["parameters"] = {"binary_data_size": len(raw)}
+            tails.append(raw)
+        elif arr.dtype == np.object_:
+            entry["data"] = [x.decode() for x in arr.ravel()]
+        else:
+            entry["data"] = arr.ravel().tolist()
+        entries.append(entry)
+    head = {"inputs": entries}
+    if outputs is not None:
+        head["outputs"] = outputs
+    if binary:
+        head["parameters"] = {"binary_data_output": True}
+    data = json.dumps(head).encode()
+    if not binary:
+        return data, {}
+    return data + b"".join(tails), {
+        "Inference-Header-Content-Length": str(len(data))}
+
+
+def _any_outputs(headers: dict, data: bytes) -> dict[str, np.ndarray]:
+    """Every output of a v2 infer response, FP32, INT32, UINT8 or BYTES,
+    from JSON data or from the binary tail."""
+    jlen = headers.get("Inference-Header-Content-Length")
+    head = json.loads(data[:int(jlen)] if jlen else data)
+    tail = data[int(jlen):] if jlen else b""
+    out, offset = {}, 0
+    for o in head["outputs"]:
+        size = (o.get("parameters") or {}).get("binary_data_size")
+        raw = None
+        if size is not None:
+            raw = tail[offset:offset + size]
+            offset += size
+        if o["datatype"] == "BYTES":
+            if raw is None:
+                items = [x.encode() for x in o["data"]]
+            else:
+                items, i = [], 0
+                while i < len(raw):
+                    n = int.from_bytes(raw[i:i + 4], "little")
+                    items.append(raw[i + 4:i + 4 + n])
+                    i += 4 + n
+            arr = np.empty(len(items), np.object_)
+            arr[:] = items
+        else:
+            dtype = np.dtype(_WIRE_DTYPES[o["datatype"]])
+            arr = (np.array(o["data"], dtype) if raw is None else
+                   np.frombuffer(raw, dtype.newbyteorder("<")).astype(dtype))
+        out[o["name"]] = arr.reshape(o["shape"])
+    return out
+
+
+def _vision_requests(rng) -> list[tuple[str, dict, list | None, bool]]:
+    """(model, inputs, requested outputs, binary) for the vision phase."""
+    reqs = []
+
+    def images(n, size):
+        return rng.standard_normal((n, size, size, 3)).astype(np.float32)
+
+    def uint8(n, h, w):
+        return rng.integers(0, 256, (n, h, w, 3)).astype(np.uint8)
+
+    for i in range(40):
+        rows = 1 if i % 4 == 0 else int(rng.integers(1, 5))
+        reqs.append(("resnet50", {"INPUT": images(rows, 224)}, None,
+                     i % 4 != 0))
+    for i in range(16):
+        rows = 1 + i % 2
+        reqs.append(("densenet_onnx", {"INPUT": images(rows, 224)}, None,
+                     i % 3 != 0))
+    for i in range(8):
+        reqs.append(("ssd_mobilenet_v2_coco_quantized",
+                     {"normalized_input_image_tensor": uint8(1, 300, 300)},
+                     None, i % 2 == 0))
+    for i in range(24):
+        reqs.append(("ssd_mobilenet_v2_tpu",
+                     {"normalized_input_image_tensor": uint8(1 + i % 2, 300,
+                                                             300)},
+                     None, i % 3 != 0))
+    for i, (h, w) in enumerate(((480, 640), (333, 500), (480, 640),
+                                (333, 500))):
+        reqs.append(("ensemble_image", {"RAW_IMAGE": uint8(1, h, w)}, None,
+                     i % 2 == 0))
+    texts = [b"a great movie", b"the plot falls apart in the last act",
+             b"i would watch it again", b"not for me"]
+    for i, text in enumerate(texts):
+        reqs.append(("ensemble_bert",
+                     {"TEXT": np.array([[text]] * (1 + i % 2),
+                                       dtype=np.object_)}, None, i % 2 == 1))
+    for i in range(2):
+        reqs.append(("resnet50", {"INPUT": images(2, 224)},
+                     [{"name": "OUTPUT", "parameters": {"classification": 3}}],
+                     i == 0))
+    return reqs
+
+
+def _direct_buckets(torch, model, inputs: dict[str, np.ndarray]):
+    """The module run directly on the card on the request's rows padded to
+    each bucket of the model's ladder that holds them, smallest first."""
+    rows = next(iter(inputs.values())).shape[0]
+    with torch.inference_mode():
+        for bucket in model.config.effective_buckets():
+            if bucket < rows:
+                continue
+            staged = {k: torch.from_numpy(np.pad(
+                v, [(0, bucket - rows)] + [(0, 0)] * (v.ndim - 1))).cuda()
+                for k, v in inputs.items()}
+            out = model.backend(staged)
+            yield bucket, {k: v[:rows].cpu().numpy() for k, v in out.items()}
+
+
+def _match_logits(torch, model, inputs, got: np.ndarray
+                  ) -> tuple[float, int | None]:
+    """(smallest max |served - direct| over the ladder, the first bucket
+    where it is 0, else None)."""
+    best = math.inf
+    for bucket, out in _direct_buckets(torch, model, inputs):
+        best = min(best, float(np.abs(got - next(iter(out.values()))).max()))
+        if best == 0:
+            return 0.0, bucket
+    return best, None
+
+
+def _forward_profile(torch, backend, inputs) -> dict:
+    """One forward pass at a bucket: its wall ms (median of N_TIMED calls
+    bracketed by CUDA events, after a warm-up, the card waiting on the
+    host's launches), the host's ms to launch it (no sync; median of
+    N_TIMED), its device ms (median of N_TIMED calls, each queued behind a
+    sleeping kernel that outlasts twice the host's launch time, so the
+    card never waits on the host), the card's busy ms (the sum of its
+    kernels' device time in one ``torch.profiler`` pass), the three
+    kernels that take longest, and the FLOPs ``torch.utils.flop_counter``
+    counts."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
+
+    def forward():
+        return backend(inputs)
+
+    with torch.inference_mode():
+        wall = _time_ms(torch, forward)
+        host = []
+        for _ in range(N_TIMED):
+            t = time.perf_counter()
+            forward()
+            host.append(time.perf_counter() - t)
+            torch.cuda.synchronize()
+        host_ms = 1e3 * float(np.median(host))
+        # ~2e6 sleep cycles per ms at the H100's clocks.
+        cycles = int(max(20e6, 4e6 * host_ms))
+        device = []
+        for _ in range(N_TIMED):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(cycles)
+            start.record()
+            forward()
+            end.record()
+            end.synchronize()
+            device.append(start.elapsed_time(end))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            forward()
+            torch.cuda.synchronize()
+        counter = FlopCounterMode(display=False)
+        with counter:
+            forward()
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and e.self_device_time_total > 0),
+                     key=lambda e: -e.self_device_time_total)
+    return {"ms": float(np.median(device)), "wall_ms": wall, "host_ms": host_ms,
+            "busy_ms": sum(e.self_device_time_total for e in kernels) / 1e3,
+            "top": [(e.key[:60], e.self_device_time_total / 1e3, e.count)
+                    for e in kernels[:3]],
+            "launches": sum(e.count for e in kernels),
+            "flops": float(counter.get_total_flops())}
+
+
+def _nms_split(torch, smi: str) -> None:
+    """The batched NMS alone at B=16: host time per call (enqueue, no
+    sync), device time (CUDA events, the call queued behind a sleeping
+    kernel), and the kernels it launches (one ``torch.profiler`` pass)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from client_tpu_torch.models import ssd
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    enc = torch.randn(16, 1917, 4, device="cuda", generator=gen)
+    scores = torch.rand(16, 1917, 91, device="cuda", generator=gen)
+    anchors = torch.from_numpy(ssd.make_anchors()).cuda()
+
+    def call():
+        return ssd.decode_and_nms(enc, scores, anchors)
+
+    with torch.inference_mode():
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+        host = []
+        for _ in range(N_TIMED):
+            t = time.perf_counter()
+            call()
+            host.append(time.perf_counter() - t)
+            torch.cuda.synchronize()
+        device = []
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(20_000_000)
+            start.record()
+            call()
+            end.record()
+            end.synchronize()
+            device.append(start.elapsed_time(end))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+    launches = sum(1 for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    print(f"vision: batched NMS at B=16 (1,917 anchors, 91 classes, 10 "
+          f"steps): host {1e3 * float(np.median(host)):.3f} ms per call "
+          f"(median of {N_TIMED}), device {float(np.median(device)):.3f} ms "
+          f"(median of 5, queued), {launches} kernel launches; {smi}",
+          flush=True)
+
+
+def vision_phase(torch, smi: str) -> None:
+    """resnet50, densenet_onnx, both SSDs and both ensembles with their
+    composing models, all ten at full size, served over HTTP on the card; every
+    output checked against the same modules run directly."""
+    from client_tpu_torch.engine import TorchEngine
+    from client_tpu_torch.models import build_repository
+    from client_tpu_torch.models.ensembles import (
+        BertPostprocessBackend,
+        BertPreprocessBackend,
+        ImagePreprocessBackend,
+    )
+    from client_tpu_torch.server import HttpInferenceServer
+
+    _check(not torch.backends.cudnn.benchmark,
+           "cuDNN benchmark mode is on: served-vs-direct needs the same "
+           "algorithm for a shape every time")
+    print(f"vision: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
+          f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+          "(every convolution on this path is bf16)", flush=True)
+    t0 = time.monotonic()
+    engine = TorchEngine(build_repository(list(VISION_MODELS)))
+    server = HttpInferenceServer(engine, port=0).start()
+    served = engine.repository.names()
+    print(f"vision: {len(served)} models up in "
+          f"{time.monotonic() - t0:.1f} s: {served}", flush=True)
+    _check(len(served) == 10, f"served {served}")
+    try:
+        requests = _vision_requests(np.random.default_rng(6))
+
+        def send(item):
+            model, inputs, outputs, binary = item
+            body, headers = _infer_body(inputs, outputs, binary)
+            t = time.monotonic()
+            status, rheaders, data = _post(
+                server.port, f"/v2/models/{model}/infer", body, headers)
+            _check(status == 200, f"{model}: HTTP {status}: {data[:300]!r}")
+            return _any_outputs(rheaders, data), time.monotonic() - t
+
+        t0 = time.monotonic()
+        with concurrent.futures.ThreadPoolExecutor(len(requests)) as pool:
+            results = list(pool.map(send, requests))
+        wall = time.monotonic() - t0
+        n_images = sum(next(iter(r[1].values())).shape[0] for r in requests)
+        print(f"vision: {len(requests)} concurrent requests ({n_images} "
+              f"images or texts) in {wall:.3f} s; latency max "
+              f"{max(t for _, t in results):.3f} s", flush=True)
+        stats = {s["name"]: s for s in engine.model_statistics()["model_stats"]}
+        for name in served:
+            st = stats[name]
+            print(f"vision: {name}: {st['inference_count']} requests in "
+                  f"{st['execution_count']} executions, batch sizes "
+                  f"{[(b['batch_size'], b['compute_infer']['count']) for b in st['batch_stats']]}",
+                  flush=True)
+        for name in ("resnet50", "ssd_mobilenet_v2_tpu"):
+            _check(stats[name]["execution_count"]
+                   < stats[name]["inference_count"],
+                   f"{name}: dynamic batching formed no batch of more than "
+                   "one request")
+
+        # Every output: status, declared shape and dtype, then against the
+        # same module run directly on the card.
+        errs = {"resnet50": 0.0, "densenet_onnx": 0.0}
+        exact = {"resnet50": [], "densenet_onnx": [], "ssd": [],
+                 "ensemble_image": [], "ensemble_bert": []}
+        image_pre = ImagePreprocessBackend()
+        for (model, inputs, outputs, _), (out, _) in zip(requests, results):
+            cfg = engine.repository.get(model).config
+            rows = next(iter(inputs.values())).shape[0]
+            for tc in cfg.output:
+                got = out[tc.name]
+                if outputs is not None:  # classification: [rows, 3] BYTES
+                    _check(got.shape == (rows, 3) and got.dtype == np.object_,
+                           f"{model} classification {got.shape} {got.dtype}")
+                    continue
+                want_dt = np.object_ if tc.data_type == "BYTES" else np.float32
+                _check(got.shape == (rows, *tc.dims) and got.dtype == want_dt,
+                       f"{model} {tc.name}: {got.shape} {got.dtype}")
+                _check(want_dt == np.object_ or bool(np.isfinite(got).all()),
+                       f"{model} {tc.name} not finite")
+            if model in SSD_MODELS:
+                m = engine.repository.get(model)
+                hit = None
+                for bucket, ref in _direct_buckets(torch, m, inputs):
+                    if all(out[k].tobytes() == ref[k].tobytes() for k in ref):
+                        hit = bucket
+                        break
+                _check(hit is not None, f"{model}: served outputs equal the "
+                       "direct run at no bucket of the ladder")
+                exact["ssd"].append(hit)
+            elif model in ("resnet50", "densenet_onnx"):
+                m = engine.repository.get(model)
+                if outputs is None:
+                    err, hit = _match_logits(torch, m, inputs, out["OUTPUT"])
+                    scale = float(np.abs(out["OUTPUT"]).max())
+                    errs[model] = max(errs[model], err / scale)
+                    exact[model].append(hit)
+                    continue
+                # Classification: "score:idx" strings, the direct top 3.
+                logits = next(_direct_buckets(torch, m, inputs))[1]["OUTPUT"]
+                top3 = np.argsort(-logits, axis=1)[:, :3]
+                for r in range(rows):
+                    parts = [e.decode().split(":") for e in out["OUTPUT"][r]]
+                    _check(all(len(p) == 2 for p in parts),
+                           f"classification entries {out['OUTPUT'][r]}")
+                    _check([int(p[1]) for p in parts] == top3[r].tolist(),
+                           f"classification {parts} != top 3 {top3[r]}")
+                    _check(all(abs(float(p[0]) - logits[r, int(p[1])])
+                               <= CLASSIFIER_RTOL * np.abs(logits[r]).max()
+                               for p in parts), f"classification {parts}")
+            elif model == "ensemble_image":
+                image = image_pre(inputs)["IMAGE"]
+                err, hit = _match_logits(
+                    torch, engine.repository.get("resnet50"),
+                    {"INPUT": image}, out["CLASS_LOGITS"])
+                _check(hit is not None,
+                       f"ensemble_image off its steps by {err}")
+                exact["ensemble_image"].append(hit)
+            elif model == "ensemble_bert":
+                pre = BertPreprocessBackend()(inputs)
+                hit = None
+                for bucket, logits in _direct_buckets(
+                        torch, engine.repository.get("bert_base"), pre):
+                    post = BertPostprocessBackend()(
+                        {"logits": logits["logits"]})
+                    if post["LABEL"].tolist() == out["LABEL"].tolist() \
+                            and post["SCORE"].tobytes() == \
+                            out["SCORE"].tobytes():
+                        hit = bucket
+                        break
+                _check(hit is not None, "ensemble_bert equals its steps run "
+                       "by hand at no bucket of bert_base's ladder")
+                exact["ensemble_bert"].append(hit)
+        print(f"vision: classifier logits, max |served - direct| / max|logit| "
+              f"{errs} (tolerance {CLASSIFIER_RTOL}); exact at a ladder "
+              f"bucket: resnet50 {sum(h is not None for h in exact['resnet50'])}"
+              f"/{len(exact['resnet50'])}, densenet_onnx "
+              f"{sum(h is not None for h in exact['densenet_onnx'])}/"
+              f"{len(exact['densenet_onnx'])}", flush=True)
+        _check(max(errs.values()) <= CLASSIFIER_RTOL,
+               f"served logits off: {errs}")
+        print(f"vision: SSD outputs bit for bit at buckets {exact['ssd']}; "
+              f"ensembles equal to their steps run by hand (at a "
+              f"bucket, bit for bit: ensemble_image "
+              f"{exact['ensemble_image']}, ensemble_bert "
+              f"{exact['ensemble_bert']}); classification "
+              "strings parse as score:idx with the direct top 3", flush=True)
+
+        body, _ = _infer_body(
+            {"INPUT": np.zeros((1, 224, 224, 3), np.float32)},
+            [{"name": "OUTPUT", "parameters": {
+                "shared_memory_region": "r0",
+                "shared_memory_byte_size": 4000}}], binary=False)
+        status, _, data = _post(server.port, "/v2/models/resnet50/infer", body)
+        _check(status == 400 and b"not registered" in data,
+               f"shared-memory output answered {status} {data!r}")
+        print(f"vision: shared-memory output answered 400: "
+              f"{json.loads(data)['error']}", flush=True)
+    finally:
+        server.stop()
+        engine.shutdown()
+
+    # Device time of one forward of each model at its largest bucket, on the
+    # modules the engine served (random inputs, no engine).
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for name, bucket in (("resnet50", 32), ("densenet_onnx", 16),
+                         ("ssd_mobilenet_v2_tpu", 16),
+                         ("ssd_mobilenet_v2_coco_quantized", 1)):
+        backend = engine.repository.get(name).backend
+        if name in SSD_MODELS:
+            inputs = {"normalized_input_image_tensor": torch.randint(
+                0, 256, (bucket, 300, 300, 3), dtype=torch.uint8,
+                device="cuda", generator=gen)}
+        else:
+            inputs = {"INPUT": torch.randn(bucket, 224, 224, 3,
+                                           device="cuda", generator=gen)}
+        f = _forward_profile(torch, backend, inputs)
+        ms = f["ms"]
+        print(f"vision: {name} forward at batch {bucket}: device "
+              f"{ms:.3f} ms (median of {N_TIMED}, CUDA events, queued "
+              f"behind a sleeping kernel), {bucket / ms * 1e3:.1f} images/s, "
+              f"{f['flops'] / 1e9:.1f} GFLOP "
+              f"({f['flops'] / (ms / 1e3) / PEAK_BF16_FLOPS * 100:.2f}% of "
+              f"the {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s dense bf16 peak); "
+              f"card busy {f['busy_ms']:.3f} ms in {f['launches']} kernels "
+              f"({f['busy_ms'] / ms * 100:.1f}% of the device time); wall "
+              f"{f['wall_ms']:.3f} ms with the card waiting on the host, "
+              f"which launches it in {f['host_ms']:.3f} ms; longest kernels "
+              f"(name, ms, calls) {f['top']}; {smi}", flush=True)
+    _nms_split(torch, smi)
+
+
 def wave_phase(torch, smi: str) -> None:
     """``--kernels``: the per-wave host/device split (:func:`_wave_split`)
     of ``tiny_gpt_long`` at its registered size, built directly, over one
@@ -1297,6 +1776,8 @@ def main(argv: list[str]) -> int:
     kernels[1]["launches"] = generated["flash_attention_fp32"]
     kernels[2]["launches"] = generated["decode_wave_attention"]
     kernels[3]["launches"] = sharded_phase(torch, smi)["ring_all_reduce"]
+    torch.cuda.empty_cache()
+    vision_phase(torch, smi)
     for kernel in kernels:
         # Shorter aliases of the two keys above.
         kernel["launched"] = kernel["launches"]

@@ -1,10 +1,10 @@
 """Model configuration: the engine-side analog of Triton's ``config.pbtxt``.
 
 The port's own copy of ``client_tpu/engine/config.py``, trimmed to what
-the port serves: batched models with optional dynamic batching, and
-decoupled (streaming) models, built in code (no ``config.pbtxt`` parsing
-yet). Field names match the
-reference's model-config schema.
+the port serves: batched models with optional dynamic batching,
+decoupled (streaming) models and ensembles, built in code (no
+``config.pbtxt`` parsing yet). Field names match the reference's
+model-config schema.
 """
 
 from __future__ import annotations
@@ -27,13 +27,25 @@ class DynamicBatchingConfig:
 
 
 @dataclass
+class EnsembleStep:
+    """One composing model of an ensemble and how its tensors map onto
+    the ensemble's."""
+
+    model_name: str
+    model_version: int = -1
+    input_map: dict[str, str] = field(default_factory=dict)   # model input -> ensemble tensor
+    output_map: dict[str, str] = field(default_factory=dict)  # model output -> ensemble tensor
+
+
+@dataclass
 class ModelConfig:
     name: str
-    platform: str = "pytorch"
+    platform: str = "pytorch"       # 'pytorch' | 'ensemble'
     max_batch_size: int = 0         # 0 = the model handles full shapes itself
     input: list[TensorConfig] = field(default_factory=list)
     output: list[TensorConfig] = field(default_factory=list)
     dynamic_batching: DynamicBatchingConfig | None = None
+    ensemble_scheduling: list[EnsembleStep] = field(default_factory=list)
     instance_count: int = 1
     # Decoupled transaction policy: one request, any number of responses,
     # the last flagged final (Triton's ``model_transaction_policy``).
@@ -41,7 +53,9 @@ class ModelConfig:
     version: int = 1
 
     def scheduler_kind(self) -> str:
-        """DYNAMIC or NONE: the only kinds this slice schedules."""
+        """ENSEMBLE, DYNAMIC or NONE: the kinds the port schedules."""
+        if self.ensemble_scheduling:
+            return "ENSEMBLE"
         return "DYNAMIC" if self.dynamic_batching is not None else "NONE"
 
     def axis_capacity(self) -> int:
@@ -96,6 +110,11 @@ class ModelConfig:
             }
         if self.instance_count != 1:
             out["instance_group"] = [{"count": self.instance_count}]
+        if self.ensemble_scheduling:
+            out["ensemble_scheduling"] = {"step": [
+                {"model_name": s.model_name, "model_version": s.model_version,
+                 "input_map": s.input_map, "output_map": s.output_map}
+                for s in self.ensemble_scheduling]}
         if self.decoupled:
             out["model_transaction_policy"] = {"decoupled": True}
         return out

@@ -49,7 +49,8 @@ class TorchEngine:
             stats = ModelStats(name, str(model.config.version))
             with self._lock:
                 self._stats[name] = stats
-                self._schedulers[name] = make_scheduler(model, stats)
+                self._schedulers[name] = make_scheduler(model, stats,
+                                                        engine=self)
 
     # -- health / metadata ---------------------------------------------------
 

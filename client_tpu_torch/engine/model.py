@@ -46,9 +46,17 @@ class ExecPhases:
 class ModelBackend(nn.Module):
     """A servable model: a ``config`` attribute and a ``forward(inputs)``
     from a dict of batched tensors on the model's device to a dict of
-    output tensors."""
+    output tensors.
+
+    A backend with ``host_side = True`` is a pre/post-process model that
+    is host-side in the JAX package too (its ``jittable = False``): its
+    ``forward`` maps numpy arrays to numpy arrays, BYTES included, on the
+    host whatever the model's device, and its batch is neither padded to
+    a bucket nor staged to the card. An ensemble's backend carries only
+    its config and is never executed."""
 
     config: ModelConfig
+    host_side = False
 
 
 class Model:
@@ -129,6 +137,8 @@ class Model:
         the outputs and the measured :class:`ExecPhases`."""
         cfg = self.config
         phases = ExecPhases(start=now_ns())
+        if self.backend.host_side:
+            return self._execute_host(inputs, phases)
         pad_to = (self.pick_bucket(batch_size)
                   if cfg.axis_capacity() > 0 and batch_size is not None
                   else None)
@@ -166,3 +176,17 @@ class Model:
                 host[name] = arr
         phases.output_end = now_ns()
         return host, phases
+
+    def _execute_host(self, inputs: dict[str, np.ndarray],
+                      phases: ExecPhases
+                      ) -> tuple[dict[str, np.ndarray], ExecPhases]:
+        """A host-side backend's execution: numpy in, numpy out, no
+        padding and no staging, so ``input_end`` is ``start``."""
+        phases.input_end = phases.start
+        outputs = self.backend(inputs)
+        if not isinstance(outputs, dict):
+            raise EngineError(
+                f"model '{self.config.name}' returned {type(outputs)}, "
+                "expected dict", 500)
+        phases.infer_end = phases.output_end = now_ns()
+        return outputs, phases

@@ -47,6 +47,7 @@ class ModelRepository:
             self._state[name] = ("LOADING", "")
         try:
             model = Model(builder(device), device=device)
+            self._check_steps(model.config)
         except Exception as exc:
             with self._lock:
                 self._state[name] = ("UNAVAILABLE", str(exc))
@@ -55,6 +56,18 @@ class ModelRepository:
             self._loaded[name] = model
             self._state[name] = ("READY", "")
         return model
+
+    def _check_steps(self, cfg) -> None:
+        """An ensemble loads only when every composing model it names is
+        registered: a missing step is a load error, not a failure of the
+        first request."""
+        with self._lock:
+            missing = sorted({s.model_name for s in cfg.ensemble_scheduling}
+                             - set(self._builders))
+        if missing:
+            raise EngineError(
+                f"ensemble '{cfg.name}' names model(s) {missing} that are "
+                "not in the repository", 400)
 
     def get(self, name: str) -> Model | None:
         with self._lock:

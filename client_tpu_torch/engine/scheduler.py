@@ -6,7 +6,8 @@ the model's ``instance_count`` workers pops a request, gathers compatible
 requests within the queue-delay window up to the preferred batch size,
 concatenates them on the host and runs one execution for the batch.
 Decoupled generative models get the continuous-batching
-``GenerativeScheduler`` (``engine/generative.py``). Priority levels, queue
+``GenerativeScheduler`` (``engine/generative.py``), ensembles the
+``EnsembleScheduler`` (``engine/ensemble.py``). Priority levels, queue
 policies, QoS lanes, dispatch overrides, preemption and the
 ``DecoupledScheduler`` for non-generative streaming models are not ported
 yet.
@@ -285,10 +286,16 @@ class DefaultScheduler(Scheduler):
             request_id=req.request_id, outputs=outputs, times=req.times))
 
 
-def make_scheduler(model: Model, stats: ModelStats) -> Scheduler:
-    """The scheduler for ``model``: the continuous-batching
+def make_scheduler(model: Model, stats: ModelStats,
+                   engine=None) -> Scheduler:
+    """The scheduler for ``model``: the ``EnsembleScheduler`` for an
+    ensemble (it calls back into ``engine``), the continuous-batching
     ``GenerativeScheduler`` for a decoupled generative backend, else
     :class:`DefaultScheduler` (NONE and DYNAMIC)."""
+    if model.config.scheduler_kind() == "ENSEMBLE":
+        from client_tpu_torch.engine.ensemble import EnsembleScheduler
+
+        return EnsembleScheduler(model, stats, engine)
     if model.config.decoupled:
         if getattr(model.backend, "generative", False):
             from client_tpu_torch.engine.generative import GenerativeScheduler

@@ -55,10 +55,13 @@ class RequestTimes:
 
 @dataclass
 class OutputRequest:
-    """What the client asked for one output: its name and its encoding."""
+    """What the client asked for one output: its name, its encoding, and
+    for the classification extension the number of top classes (0: raw
+    values)."""
 
     name: str
     binary: bool = False
+    classification_count: int = 0
 
 
 @dataclass

@@ -26,7 +26,13 @@ def register_model(name: str, default: bool = True
 
 
 def _import_all() -> None:
-    from client_tpu_torch.models import bert, generate  # noqa: F401
+    from client_tpu_torch.models import (  # noqa: F401
+        bert,
+        ensembles,
+        generate,
+        ssd,
+        vision,
+    )
 
 
 def model_names() -> list[str]:

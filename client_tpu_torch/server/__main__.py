@@ -3,10 +3,12 @@
     python -m client_tpu_torch.server --zoo bert_base,bert_long --http-port 8000
     python -m client_tpu_torch.server --zoo tiny_gpt,tiny_gpt_long
     python -m client_tpu_torch.server --zoo bert_base --device cpu
+    python -m client_tpu_torch.server --zoo image_preprocess,resnet50,ensemble_image
 
 ``tiny_gpt`` and ``tiny_gpt_long`` stream tokens through
 ``POST /v2/models/<m>/generate_stream`` (server-sent events) and
-``/generate``.
+``/generate``. An ensemble is served only beside the composing models
+it names.
 
 Serves on the card unless ``--device cpu`` is given; without CUDA and
 without that flag it exits with an error. SIGTERM or Ctrl-C stops it.

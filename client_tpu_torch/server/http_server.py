@@ -7,9 +7,13 @@ binary-tensor extension (head and tail split by
 ``Inference-Header-Content-Length``), and the generate extension:
 ``POST .../generate`` collects a (decoupled) model's responses into one
 JSON body, ``POST .../generate_stream`` sends each as a server-sent event.
-A malformed body or input answers 400, an unknown model 404. Compression,
-shared memory, classification, response coalescing, tracing and the
-control-plane routes are not ported yet.
+An output may ask for its top-K classes (the classification extension,
+``"classification": K`` in its parameters) as BYTES ``"score:index"``
+strings. A malformed body or input answers 400, an unknown model 404.
+No shared-memory region is ever registered, so an input or output that
+names one answers 400 as the JAX server does for an unregistered region.
+Compression, shared-memory registration, response coalescing, tracing
+and the control-plane routes are not ported yet.
 
 A stdlib ThreadingHTTPServer: each connection gets a thread that only
 frames; the engine's per-model schedulers batch and run the work.
@@ -37,6 +41,7 @@ from client_tpu_torch.engine.types import (
 )
 from client_tpu_torch.protocol import rest
 from client_tpu_torch.protocol.dtypes import np_to_wire_dtype
+from client_tpu_torch.server.classification import classify_output
 
 _log = logging.getLogger("client_tpu_torch")
 
@@ -301,14 +306,17 @@ class _Handler(BaseHTTPRequestHandler):
             self._raw_body, int(header_len) if header_len is not None else None)
         inputs: dict[str, np.ndarray] = {}
         for wire in rest.parse_tensors(head.get("inputs", []), tail):
+            _refuse_shm(wire.parameters)
             inputs[wire.name] = wire.to_numpy()
         params = head.get("parameters") or {}
         binary_all = bool(params.get("binary_data_output", False))
-        outputs = [OutputRequest(
-            name=o["name"],
-            binary=bool((o.get("parameters") or {}).get("binary_data",
-                                                        binary_all)))
-            for o in head.get("outputs") or []]
+        outputs = []
+        for o in head.get("outputs") or []:
+            p = o.get("parameters") or {}
+            _refuse_shm(p)
+            outputs.append(OutputRequest(
+                name=o["name"], binary=bool(p.get("binary_data", binary_all)),
+                classification_count=int(p.get("classification", 0))))
         return InferRequest(model_name=name, model_version=version or "",
                             request_id=str(head.get("id", "")),
                             inputs=inputs, outputs=outputs, parameters=params)
@@ -322,6 +330,8 @@ class _Handler(BaseHTTPRequestHandler):
         entries = []
         for out_name, arr in resp.outputs.items():
             o = out_req.get(out_name)
+            if o is not None and o.classification_count > 0:
+                arr = classify_output(arr, o.classification_count, None)
             entries.append(rest.build_tensor_json(
                 out_name, arr, np_to_wire_dtype(arr.dtype), arr.shape,
                 binary=o.binary if o is not None else binary_all))
@@ -334,6 +344,16 @@ class _Handler(BaseHTTPRequestHandler):
                            rest.HEADER_INFERENCE_CONTENT_LENGTH: str(jlen)})
         else:
             self._send(200, body)
+
+
+def _refuse_shm(params: dict) -> None:
+    """The port registers no shared-memory region, so a tensor that names
+    one is refused with the JAX server's words for an unregistered
+    region."""
+    region = params.get("shared_memory_region")
+    if region is not None:
+        raise EngineError(
+            f"shared memory region '{region}' not registered", 400)
 
 
 class HttpInferenceServer:

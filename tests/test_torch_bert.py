@@ -147,8 +147,17 @@ def test_unknown_attention_impl_raises():
 def test_zoo_registry_is_the_ports_own():
     jax_before = jax_model_names()
     assert {"bert_base", "bert_long"} <= set(model_names())
-    # bert_long and tiny_gpt_long load by name only, as in the JAX zoo.
-    assert build_repository().names() == ["bert_base", "tiny_gpt"]
+    # bert_long and tiny_gpt_long load by name only, as in the JAX zoo;
+    # the default set is the JAX zoo's, less what the port lacks.
+    from client_tpu.models import _NON_DEFAULT as jax_non_default
+
+    defaults = build_repository().names()
+    assert defaults == [
+        "bert_base", "bert_postprocess", "bert_preprocess", "densenet_onnx",
+        "ensemble_bert", "ensemble_image", "image_preprocess", "resnet50",
+        "ssd_mobilenet_v2_coco_quantized", "ssd_mobilenet_v2_tpu",
+        "tiny_gpt"]
+    assert set(defaults) == set(model_names()) - jax_non_default
     assert build_repository(["bert_long"]).names() == ["bert_long"]
     with pytest.raises(KeyError, match="no_such_model"):
         build_repository(["no_such_model"])

@@ -10,7 +10,11 @@ output; the kernel rounds P to bf16 under a running tile max and sums in
 another order); the fp32 flash kernel at 1e-4 and the decode-wave kernel at
 2e-5 (fp32 throughout, sums in another order, outputs of magnitude ~1); the
 ring all-reduce bit for bit (it adds in the plain version's order). The fp32
-flash kernel's accuracy case against float64 states its own.
+flash kernel's accuracy case against float64 states its own. The image
+models run cuDNN and cuBLAS (no hand-written kernel): each fp32 route on
+the card against its CPU run with TF32 off, at 1e-4 relative; the batched
+NMS against its CPU run on identical inputs, decisions exactly; SSD at
+batch 1 bit for bit from call to call.
 """
 
 import math
@@ -20,8 +24,11 @@ import pytest
 import torch
 
 from client_tpu_torch.engine.model import Model
+from client_tpu_torch.models import ssd
 from client_tpu_torch.models.bert import BertBackend
 from client_tpu_torch.models.generate import KvArena, TinyGptBackend
+from client_tpu_torch.models.ssd import SsdMobileNetV2Backend
+from client_tpu_torch.models.vision import DenseNet121Backend, ResNet50Backend
 from client_tpu_torch.ops import decode_attention as da
 from client_tpu_torch.ops import flash_attention as fa
 from client_tpu_torch.parallel import kv_shard as ks
@@ -403,3 +410,99 @@ def test_tiny_gpt_long_sharded_stream_equals_unsharded(card):
             assert stream(2, row_pick, temp) == want
             assert ks.launches - k3 == 4 * 15
             assert da.launches - k2 == 2 * 4 * 15
+
+
+# -- image models: cuDNN and cuBLAS, no hand-written kernel ----------------
+
+CLASSIFIERS = {
+    "resnet": lambda device: ResNet50Backend(
+        name="r", image_size=64, stages=((1, 16), (2, 32)), device=device),
+    "densenet": lambda device: DenseNet121Backend(
+        name="d", image_size=64, blocks=(2, 3), growth=8, device=device),
+}
+
+
+@pytest.fixture
+def no_tf32():
+    """fp32 convolutions and matmuls in full fp32 on the card."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def _nms_inputs(seed):
+    gen = torch.Generator().manual_seed(seed)
+    enc = torch.randn(3, 1917, 4, generator=gen)
+    scores = torch.rand(3, 1917, 91, generator=gen)
+    scores[1] *= 0.06  # most under the score threshold
+    scores[2, 100:600, 7] = 0.99  # ties: the first index wins
+    return enc, scores
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_batched_nms_on_cuda_picks_what_cpu_picks(card, seed):
+    """Identical fp32 inputs: the same picks (scores and classes exactly;
+    boxes to 1e-6, since ``exp`` may differ by an ulp between the two)."""
+    enc, scores = _nms_inputs(seed)
+    anchors = torch.from_numpy(ssd.make_anchors())
+    cpu = ssd.decode_and_nms(enc, scores, anchors)
+    gpu = ssd.decode_and_nms(enc.to(card), scores.to(card), anchors.to(card))
+    for name, c, g in zip(("boxes", "classes", "scores", "count"), cpu, gpu):
+        g = g.cpu()
+        assert g.shape == c.shape and g.dtype == c.dtype, name
+        if name == "boxes":
+            assert float((g - c).abs().max()) <= 1e-6
+        else:
+            assert torch.equal(g, c), name
+
+
+@pytest.mark.parametrize("name", list(CLASSIFIERS))
+def test_classifier_on_cuda_matches_its_cpu_fp32_run(card, no_tf32, name):
+    """fp32 route on both: logits within 1e-4 x max|logit| (another
+    summation order in cuDNN)."""
+    cpu = CLASSIFIERS[name]("cpu").float()
+    gpu = CLASSIFIERS[name](card).float()
+    x = torch.randn(3, 64, 64, 3, generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        want = cpu({"INPUT": x})["OUTPUT"]
+        got = gpu({"INPUT": x.to(card)})["OUTPUT"].cpu()
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-4 * scale
+
+
+def test_ssd_heads_on_cuda_match_their_cpu_fp32_run(card, no_tf32):
+    """fp32 route on both: box encodings within 1e-4 x max|enc|, class
+    scores within 1e-4, as against JAX on the CPU."""
+    cpu = SsdMobileNetV2Backend(device="cpu").float()
+    gpu = SsdMobileNetV2Backend(device=card).float()
+    img = torch.randint(0, 256, (2, 300, 300, 3), dtype=torch.uint8,
+                        generator=torch.Generator().manual_seed(2))
+    with torch.inference_mode():
+        want_b, want_s = cpu.head_outputs(img)
+        got_b, got_s = (t.cpu() for t in gpu.head_outputs(img.to(card)))
+    assert float((got_b - want_b).abs().max()) \
+        <= 1e-4 * float(want_b.abs().max())
+    assert float((got_s - want_s).abs().max()) <= 1e-4
+
+
+def test_ssd_batch1_repeats_bit_for_bit(card):
+    """bf16 at batch 1, directly and through the model's stream: every
+    output equal bit for bit, call after call."""
+    backend = SsdMobileNetV2Backend(device=card)
+    model = Model(backend, device=card)
+    img = np.random.default_rng(3).integers(0, 256, (1, 300, 300, 3)).astype(
+        np.uint8)
+    runs = [model.execute_timed({"normalized_input_image_tensor": img},
+                                batch_size=1)[0] for _ in range(3)]
+    with torch.inference_mode():
+        direct = backend({"normalized_input_image_tensor":
+                          torch.from_numpy(img).to(card)})
+    for name, want in runs[0].items():
+        assert want.shape[0] == 1
+        for run in runs[1:]:
+            assert run[name].tobytes() == want.tobytes(), name
+        assert direct[name].cpu().numpy().tobytes() == want.tobytes(), name

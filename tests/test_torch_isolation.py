@@ -57,6 +57,10 @@ def test_importing_the_server_loads_no_jax():
         "import client_tpu_torch.models.bert, client_tpu_torch.engine\n"
         "import client_tpu_torch.models.generate\n"
         "import client_tpu_torch.engine.generative\n"
+        "import client_tpu_torch.models.vision, client_tpu_torch.models.ssd\n"
+        "import client_tpu_torch.models.ensembles\n"
+        "import client_tpu_torch.engine.ensemble\n"
+        "import client_tpu_torch.server.classification\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'client_tpu'))\n"
         "assert not bad, bad\n"

@@ -3,7 +3,9 @@
 A ``TorchEngine(device="cpu")`` serves a small BERT behind the port's HTTP
 server on port 0; requests are hand-built v2 bodies over ``http.client``.
 Served outputs are compared with a direct call of the same module: the
-same arithmetic on the same rows, so to 1e-5.
+same arithmetic on the same rows, so to 1e-5. The generate extension and
+the image path (classification, shared-memory refusals, the example
+clients) are also held against a live JAX server.
 """
 
 import concurrent.futures
@@ -22,6 +24,7 @@ from client_tpu_torch.protocol import codec, rest
 from client_tpu_torch.protocol.dtypes import np_to_wire_dtype, wire_to_np_dtype
 from client_tpu_torch.server import HttpInferenceServer
 from client_tpu_torch.server.__main__ import main as server_main
+from client_tpu_torch.server.classification import classify_output
 
 SEQ = 64
 SMALL = dict(seq_len=SEQ, hidden=64, n_layers=2, n_heads=4, ffn=128,
@@ -338,10 +341,10 @@ def gen_served():
     engine.shutdown()
 
 
-def _post(port, path, body):
+def _post(port, path, body, headers=None):
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
     try:
-        conn.request("POST", path, body)
+        conn.request("POST", path, body, headers or {})
         resp = conn.getresponse()
         return resp.status, dict(resp.getheaders()), resp.read()
     finally:
@@ -476,3 +479,156 @@ def test_dead_client_cancels_the_stream(gen_served):
     while sched._streams and time.monotonic() < deadline:
         time.sleep(0.02)
     assert len(sched._free) == GPT["max_streams"]
+
+
+# -- image models: classification and shared memory ---------------------------
+
+RESNET = dict(stages=((1, 8), (1, 16)))
+
+
+@pytest.fixture(scope="module")
+def image_served():
+    """The port and the JAX package each serving ``image_preprocess``,
+    ``ensemble_image`` and a small ``resnet50`` (224x224 in, 1000 classes)
+    with the same weights."""
+    import jax
+
+    from client_tpu.engine import TpuEngine
+    from client_tpu.engine.repository import ModelRepository as JaxRepository
+    from client_tpu.models import ensembles as jax_ens
+    from client_tpu.models import vision as jax_vision
+    from client_tpu.server import HttpInferenceServer as JaxServer
+    from client_tpu_torch.models import build_repository
+    from client_tpu_torch.models.vision import ResNet50Backend
+
+    jax_resnet = jax_vision.ResNet50Backend(**RESNET)
+    params = jax.tree_util.tree_map(np.asarray,
+                                    jax_resnet.make_apply_params()[1])
+
+    def resnet(device):
+        backend = ResNet50Backend(device=device, **RESNET)
+        backend.load_jax_params(params)
+        return backend
+
+    repo = build_repository(["image_preprocess", "ensemble_image"])
+    repo.register("resnet50", resnet)
+    engine = TorchEngine(repo, device="cpu")
+    server = HttpInferenceServer(engine, port=0).start()
+    jax_repo = JaxRepository()
+    for backend in (jax_vision.ResNet50Backend(**RESNET),
+                    jax_ens.ImagePreprocessBackend(),
+                    jax_ens.EnsembleImageBackend()):
+        jax_repo.register_backend(backend)
+    jax_engine = TpuEngine(jax_repo)
+    jax_server = JaxServer(jax_engine, port=0).start()
+    yield engine, server, int(jax_server.url.split(":")[1])
+    jax_server.stop()
+    jax_engine.shutdown()
+    server.stop()
+    engine.shutdown()
+
+
+def _tensor_body(name, arr, outputs, binary=False):
+    wire = np_to_wire_dtype(arr.dtype)
+    if not binary:
+        return json.dumps({"inputs": [{
+            "name": name, "datatype": wire, "shape": list(arr.shape),
+            "data": arr.ravel().tolist()}], "outputs": outputs}), {}
+    head = json.dumps({"inputs": [{
+        "name": name, "datatype": wire, "shape": list(arr.shape),
+        "parameters": {"binary_data_size": arr.nbytes}}],
+        "outputs": outputs}).encode()
+    return head + arr.tobytes(), {
+        "Inference-Header-Content-Length": str(len(head))}
+
+
+def _post_both(image_served, model, body, headers):
+    _, server, jax_port = image_served
+    path = f"/v2/models/{model}/infer"
+    return (_post(server.port, path, body, headers),
+            _post(jax_port, path, body, headers))
+
+
+@pytest.mark.parametrize("binary", [False, True])
+def test_classification_bytes_equal_the_jax_servers(image_served, binary):
+    """Top-3 of a host-side model's FP32 output, identical on both sides
+    by construction, so the BYTES strings must be equal."""
+    raw = np.random.default_rng(3).integers(0, 256, (2, 40, 50, 3)).astype(
+        np.uint8)
+    body, headers = _tensor_body(
+        "RAW_IMAGE", raw,
+        [{"name": "IMAGE", "parameters": {"classification": 3,
+                                          "binary_data": binary}}], binary)
+    (status, rh, data), (jstatus, jrh, jdata) = _post_both(
+        image_served, "image_preprocess", body, headers)
+    assert status == jstatus == 200, (data, jdata)
+    got, want = _outputs(rh, data)["IMAGE"], _outputs(jrh, jdata)["IMAGE"]
+    assert got.shape == want.shape == (2, 3)
+    assert got.tolist() == want.tolist()
+    assert got[0, 0].decode().split(":")[1].isdigit()
+
+
+def test_classification_of_resnet50_logits(image_served):
+    """Each ``score:idx`` string is the port's own logits formatted by
+    ``classify_output``; the indices equal the JAX server's top 3."""
+    engine, _, _ = image_served
+    x = np.random.default_rng(4).standard_normal((2, 224, 224, 3)).astype(
+        np.float32)
+    body, headers = _tensor_body(
+        "INPUT", x, [{"name": "OUTPUT", "parameters": {"classification": 3}}],
+        binary=True)
+    (status, rh, data), (jstatus, jrh, jdata) = _post_both(
+        image_served, "resnet50", body, headers)
+    assert status == jstatus == 200
+    got, want = _outputs(rh, data)["OUTPUT"], _outputs(jrh, jdata)["OUTPUT"]
+    logits, _ = engine.repository.get("resnet50").execute_timed(
+        {"INPUT": x}, batch_size=2)
+    assert got.tolist() == classify_output(logits["OUTPUT"], 3, None).tolist()
+    top3 = np.argsort(-logits["OUTPUT"], axis=1)[:, :3]
+    idx = [[int(e.decode().split(":")[1]) for e in row] for row in got]
+    assert idx == top3.tolist()
+    assert idx == [[int(e.decode().split(":")[1]) for e in row]
+                   for row in want]
+
+
+@pytest.mark.parametrize("where", ["output", "input"])
+def test_shared_memory_region_is_400_on_both(image_served, where):
+    x = np.zeros((1, 224, 224, 3), np.float32)
+    shm = {"shared_memory_region": "no_such_region",
+           "shared_memory_byte_size": 4000}
+    if where == "output":
+        body = json.dumps({
+            "inputs": [{"name": "INPUT", "datatype": "FP32",
+                        "shape": list(x.shape), "data": x.ravel().tolist()}],
+            "outputs": [{"name": "OUTPUT", "parameters": shm}]})
+    else:
+        body = json.dumps({"inputs": [{
+            "name": "INPUT", "datatype": "FP32", "shape": list(x.shape),
+            "parameters": {**shm, "shared_memory_byte_size": x.nbytes}}]})
+    (status, _, data), (jstatus, _, jdata) = _post_both(
+        image_served, "resnet50", body, {})
+    assert status == jstatus == 400
+    assert json.loads(data)["error"] == json.loads(jdata)["error"] \
+        == "shared memory region 'no_such_region' not registered"
+
+
+@pytest.mark.parametrize("script,extra", [
+    ("image_client.py", ["--synthetic", "-c", "3"]),
+    ("ensemble_image_client.py", [])])
+def test_example_clients_pass_against_the_port(image_served, script, extra):
+    import os
+    import subprocess
+    import sys
+
+    _, server, _ = image_served
+    repo_root = os.path.join(os.path.dirname(__file__), "..")
+    cmd = [sys.executable, os.path.join(repo_root, "examples", "python",
+                                        script), "-u", server.url, *extra]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                          env=dict(os.environ, PYTHONPATH=repo_root))
+    assert proc.returncode == 0, f"{proc.stdout}{proc.stderr}"
+    assert "PASS" in proc.stdout, proc.stdout
+    if script == "image_client.py":
+        lines = [ln.strip() for ln in proc.stdout.splitlines()
+                 if ln.startswith("    ")]
+        assert len(lines) == 3 and all(":" in ln for ln in lines)
