@@ -34,7 +34,12 @@
    forms batches, and checks status, shapes, finite values, agreement with
    the same module run directly with its attention swapped for the plain
    version, that each ``bert_long`` batch launched the flash kernel once per
-   layer, and the 404 / 400 error paths.
+   layer, and the 404 / 400 error paths. Then every other request again
+   over gRPC ``ModelInfer`` on the same engine (a ``GrpcInferenceServer``),
+   raw and typed ``int_contents``, held as the HTTP answers are; the flash
+   kernel's count must rise by one per layer for each gRPC ``bert_long``
+   batch; NOT_FOUND and INVALID_ARGUMENT for an unknown model and a
+   wrong shape.
 5. Generate phase: an engine and HTTP server with ``tiny_gpt`` and
    ``tiny_gpt_long`` at their registered sizes (decode waves through the
    fused kernel, ``tiny_gpt_long``'s prefill through the fp32 flash kernel),
@@ -44,8 +49,15 @@
    equal, token for token, the same model run directly on the card one
    stream at a time on the plain path (einsum prefill, reference decode);
    the launch counts must show the kernels ran; ``/generate`` must match
-   the stream; the 400s and a stop token are checked. Wall time, tokens/s
-   and the median inter-token gap are printed, not claimed.
+   the stream; the 400s and a stop token are checked. The same 20 streams
+   then go over gRPC ``ModelStreamInfer`` on the same engine (5 RPCs side
+   by side, 4 requests multiplexed on each, every third with
+   ``response_coalesce``), every token against the plain path, and the
+   counts must rise. Wall time, tokens/s and the median inter-token gap
+   are printed, not claimed, and so is one observation line: the same 8
+   greedy streams over SSE and over gRPC, with and without
+   ``response_coalesce``, their median inter-token gap, messages and
+   tokens/s.
 6. Sharded generate phase: ``tiny_gpt_long`` at its registered size with
    its KV arena split by rows over 2 shards on the card (``kv_shards=2``),
    served over HTTP as ``tiny_gpt_long_kv2``; launch counts set to 0, then
@@ -53,13 +65,15 @@
    1,500 tokens, two sampled). Every stream must equal the same prompt run
    directly on the plain unsharded path; every decode step must have
    launched the ring all-reduce once per layer and the decode kernel once
-   per layer and shard.
+   per layer and shard. Then 4 of the streams over gRPC (2 RPCs of 2),
+   with the same checks.
 7. Vision phase: ``resnet50``, ``densenet_onnx``,
    ``ssd_mobilenet_v2_coco_quantized``, ``ssd_mobilenet_v2_tpu``,
    ``image_preprocess``, ``ensemble_image``, ``bert_preprocess``,
    ``bert_base``, ``bert_postprocess`` and ``ensemble_bert`` (10 models)
    at their registered full size, random weights from the
-   port's seeds, served over HTTP; 98 concurrent requests, JSON and
+   port's seeds, and the four ``simple`` models, served over HTTP and
+   gRPC from one engine; 98 concurrent HTTP requests, JSON and
    binary, two of them asking ``resnet50`` for ``classification: 3``,
    built and parsed by the phase's own wire code, not the server's.
    Checks every status, shape and dtype; that dynamic batching put more
@@ -69,7 +83,11 @@
    ladder; classifier logits within ``CLASSIFIER_RTOL`` (exactness
    printed); the classification strings against the direct top 3; each
    ensemble bit for bit against its steps run by hand; the 400 for a
-   shared-memory output. Then prints each model's device time for one
+   shared-memory output. Over gRPC, one request at a time, each answer
+   against the same request's HTTP answer: the ``simple`` models byte for
+   byte (and against numpy), raw and typed, ``resnet50``'s classification
+   strings, ``ensemble_image`` and ``ensemble_bert``; INVALID_ARGUMENT for
+   an input that names a shared-memory region. Then prints each model's device time for one
    forward at its largest bucket (queued behind a sleeping kernel, so the
    card never waits on the host), images/s and the share of the bf16 peak
    from it, the wall time of one forward with the card waiting on the
@@ -77,8 +95,15 @@
    batched NMS alone at B=16 (host, device, launches). No hand-written
    kernel runs on this path: convolutions and matmuls are cuDNN's and
    cuBLAS's.
-8. Prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
-   limit line, and last ``{"ok": true, "device": {...}}``.
+8. Prints one ``{"kernels": [...]}`` line (each kernel's ``launches`` over
+   HTTP and gRPC, beside ``http_launches`` over HTTP alone, which must be
+   fewer), the ``nvidia-smi`` name and power limit line, and last
+   ``{"ok": true, "device": {...}}``.
+
+The gRPC client code is the script's own (tensors as ``tobytes`` and
+``np.frombuffer``, BYTES with a hand-written length prefix); it uses the
+port's ``grpc_service_pb2`` and ``grpc_stub`` only, the wire schema.
+Without ``grpc`` the script fails.
 
 ``--kernels`` stops after step 3, prints the per-wave host/device split of
 ``tiny_gpt_long`` over one arena and over 2 shards (built directly, no
@@ -764,6 +789,144 @@ def kernel_phase_ring(torch, cuda_build) -> dict:
     }
 
 
+# -- gRPC client ------------------------------------------------------------
+# The phases' own gRPC tensor code, built from the protocol's text as the
+# vision phase's HTTP wire code is: raw contents are little-endian
+# ``arr.tobytes()``, a BYTES element a 4-byte little-endian length and then
+# its bytes, read back with ``np.frombuffer``; never the server's codec, so
+# that a fault shared by the server's encoder and decoder cannot pass. The
+# messages are the port's ``grpc_service_pb2``: the wire schema itself.
+
+# The wire dtypes of both clients, HTTP's and gRPC's.
+_WIRE_DTYPES = {"FP32": np.float32, "INT32": np.int32, "UINT32": np.uint32,
+                "INT8": np.int8, "UINT8": np.uint8}
+GRPC_TIMEOUT_S = 600
+
+
+def _grpc_channel(url: str):
+    """(channel, stub) for the server at ``url``; close the channel."""
+    import grpc
+
+    from client_tpu_torch.protocol.grpc_stub import GRPCInferenceServiceStub
+
+    channel = grpc.insecure_channel(url)
+    return channel, GRPCInferenceServiceStub(channel)
+
+
+def _set_param(param_map, key: str, value) -> None:
+    p = param_map[key]
+    if isinstance(value, bool):
+        p.bool_param = value
+    elif isinstance(value, int):
+        p.int64_param = value
+    elif isinstance(value, float):
+        p.double_param = value
+    else:
+        p.string_param = str(value)
+
+
+def _grpc_request(model: str, inputs: dict[str, np.ndarray],
+                  outputs: list | None = None, typed: bool = False,
+                  request_id: str = "", parameters: dict | None = None):
+    """A ModelInferRequest: every input as raw contents, or when ``typed``
+    with the INT32 and INT8 ones as ``int_contents`` and the BYTES ones as
+    ``bytes_contents``."""
+    from client_tpu_torch.protocol import grpc_service_pb2 as pb
+
+    names = {np.dtype(v): k for k, v in _WIRE_DTYPES.items()}
+    req = pb.ModelInferRequest(model_name=model, id=request_id)
+    for name, arr in inputs.items():
+        wire = "BYTES" if arr.dtype == np.object_ else names[arr.dtype]
+        tensor = req.inputs.add(name=name, datatype=wire,
+                                shape=list(arr.shape))
+        if typed and wire in ("INT32", "INT8"):
+            tensor.contents.int_contents.extend(int(x) for x in arr.ravel())
+        elif typed and wire == "BYTES":
+            tensor.contents.bytes_contents.extend(arr.ravel().tolist())
+        else:
+            req.raw_input_contents.append(_wire_bytes(arr))
+    for o in outputs or []:
+        out = req.outputs.add(name=o["name"])
+        for k, v in (o.get("parameters") or {}).items():
+            _set_param(out.parameters, k, v)
+    for k, v in (parameters or {}).items():
+        _set_param(req.parameters, k, v)
+    return req
+
+
+def _grpc_outputs(resp) -> dict[str, np.ndarray]:
+    """Every output of a ModelInferResponse from its raw contents."""
+    _check(len(resp.outputs) == len(resp.raw_output_contents),
+           f"{len(resp.outputs)} outputs, {len(resp.raw_output_contents)} "
+           "raw contents")
+    out = {}
+    for tensor, raw in zip(resp.outputs, resp.raw_output_contents):
+        if tensor.datatype == "BYTES":
+            arr = _bytes_elements(raw)
+        else:
+            dtype = np.dtype(_WIRE_DTYPES[tensor.datatype])
+            arr = np.frombuffer(raw, dtype.newbyteorder("<")).astype(dtype)
+        out[tensor.name] = arr.reshape([int(d) for d in tensor.shape])
+    return out
+
+
+def _grpc_final(resp) -> bool:
+    p = resp.parameters
+    return ("triton_final_response" in p
+            and p["triton_final_response"].bool_param)
+
+
+def _grpc_streams(url: str, streams: list) -> dict[str, tuple]:
+    """One ModelStreamInfer RPC carrying every ``(request_id, model,
+    prompt, parameters)`` of ``streams``, multiplexed. Per request: its
+    tokens, the arrival time of each (monotonic seconds; the tokens of one
+    coalesced message share it) and its count of messages. Checks that no
+    message is an error, that INDEX runs on without a gap, and that each
+    request ends with one final message that carries no tokens."""
+    channel, stub = _grpc_channel(url)
+    try:
+        requests = [_grpc_request(model, {"INPUT_IDS": np.asarray(
+            prompt, np.int32)}, request_id=rid, parameters=params)
+            for rid, model, prompt, params in streams]
+        got = {rid: ([], [], [0]) for rid, *_ in streams}
+        finals = set()
+        for msg in stub.ModelStreamInfer(iter(requests),
+                                         timeout=GRPC_TIMEOUT_S):
+            t = time.monotonic()
+            resp = msg.infer_response
+            _check(not msg.error_message,
+                   f"stream {resp.id}: {msg.error_message}")
+            _check(resp.id in got and resp.id not in finals,
+                   f"stream message for {resp.id!r} after its final")
+            tokens, times, count = got[resp.id]
+            if _grpc_final(resp):
+                _check(not resp.outputs, f"{resp.id}: final with tokens")
+                finals.add(resp.id)
+                continue
+            outs = _grpc_outputs(resp)
+            k = len(outs["TOKEN"])
+            _check(outs["INDEX"].tolist()
+                   == list(range(len(tokens), len(tokens) + k)),
+                   f"{resp.id}: INDEX {outs['INDEX']} after {len(tokens)}")
+            tokens += outs["TOKEN"].tolist()
+            times += [t] * k
+            count[0] += 1
+        _check(finals == set(got), f"no final for {set(got) - finals}")
+        return {rid: (tokens, times, count[0])
+                for rid, (tokens, times, count) in got.items()}
+    finally:
+        channel.close()
+
+
+def _grpc_stream_rpcs(url: str, rpcs: list[list]) -> dict[str, tuple]:
+    """Several ModelStreamInfer RPCs side by side (:func:`_grpc_streams`
+    on each), their results merged."""
+    with concurrent.futures.ThreadPoolExecutor(len(rpcs)) as pool:
+        parts = list(pool.map(lambda streams: _grpc_streams(url, streams),
+                              rpcs))
+    return {rid: res for part in parts for rid, res in part.items()}
+
+
 # -- serve phase ------------------------------------------------------------
 
 def _post(port: int, path: str, body: bytes, headers: dict | None = None):
@@ -818,15 +981,19 @@ def _parse_response(headers: dict, data: bytes) -> dict[str, np.ndarray]:
     return out
 
 
-def serve_phase(torch) -> tuple[int, dict]:
+def serve_phase(torch) -> dict:
     from client_tpu_torch.engine import TorchEngine
     from client_tpu_torch.models import build_repository
     from client_tpu_torch.ops import flash_attention as fa
-    from client_tpu_torch.server import HttpInferenceServer
+    from client_tpu_torch.server import (
+        GrpcInferenceServer,
+        HttpInferenceServer,
+    )
 
     t0 = time.monotonic()
     engine = TorchEngine(build_repository(["bert_base", "bert_long"]))
     server = HttpInferenceServer(engine, port=0).start()
+    grpc_server = GrpcInferenceServer(engine, port=0).start()
     print(f"serve: engine and server up in {time.monotonic() - t0:.1f} s "
           f"on {engine.device}", flush=True)
     rng = np.random.default_rng(0)
@@ -878,11 +1045,44 @@ def serve_phase(torch) -> tuple[int, dict]:
                    < sum(1 for r in requests if r[0] == m)
                    for m in stats), "dynamic batching formed no batch > 1")
 
+        # The same engine over gRPC ModelInfer: every other request again,
+        # concurrently, half as raw contents and half as typed int_contents.
+        grpc_requests = requests[::2]
+        channel, stub = _grpc_channel(grpc_server.url)
+
+        def send_grpc(item):
+            i, (model, ids, mask, _) = item
+            resp = stub.ModelInfer(_grpc_request(
+                model, {"input_ids": ids, "attention_mask": mask},
+                typed=i % 2 == 1), timeout=GRPC_TIMEOUT_S)
+            return _grpc_outputs(resp)
+
+        try:
+            with concurrent.futures.ThreadPoolExecutor(
+                    len(grpc_requests)) as pool:
+                grpc_results = list(pool.map(send_grpc,
+                                             enumerate(grpc_requests)))
+        finally:
+            channel.close()
+        total = fa.launches
+        grpc_batches = engine.model_statistics("bert_long")["model_stats"][
+            0]["execution_count"] - long_batches
+        print(f"serve: gRPC ModelInfer: {len(grpc_requests)} concurrent "
+              f"requests ({sum(1 for r in grpc_requests if r[0] == 'bert_long')}"
+              f" bert_long in {grpc_batches} batches), raw and typed "
+              f"contents; flash launches {launches} over HTTP, {total} "
+              "with gRPC", flush=True)
+        _check(grpc_batches >= 1 and total - launches == n_layers
+               * grpc_batches, f"flash launches {total - launches} over "
+               f"gRPC != {n_layers} x {grpc_batches} bert_long batches")
+
         # Served outputs against the same module run directly on the card,
         # its attention swapped for the plain version (bert_long) or as is.
         errs = {"bert_base": 0.0, "bert_long": 0.0}
+        served = [(r, out) for r, (out, _) in zip(requests, results)]
+        served += list(zip(grpc_requests, grpc_results))
         with torch.inference_mode():
-            for (model, ids, mask, _), (out, _) in zip(requests, results):
+            for (model, ids, mask, _), out in served:
                 backend = engine.repository.get(model).backend
                 inputs = {"input_ids": torch.from_numpy(ids).cuda(),
                           "attention_mask": torch.from_numpy(mask).cuda()}
@@ -897,10 +1097,10 @@ def serve_phase(torch) -> tuple[int, dict]:
                            f"{model} {name} not finite")
                     err = float(np.abs(got - ref[name].cpu().numpy()).max())
                     errs[model] = max(errs[model], err)
-        print(f"serve: max |served - direct| {errs} (tolerance "
-              f"{SERVED_ATOL})", flush=True)
+        print(f"serve: max |served - direct| over HTTP and gRPC {errs} "
+              f"(tolerance {SERVED_ATOL})", flush=True)
         _check(max(errs.values()) <= SERVED_ATOL, f"served outputs off: {errs}")
-        _check(launches == fa.launches, "the reference run launched the kernel")
+        _check(total == fa.launches, "the reference run launched the kernel")
 
         ids = np.zeros((1, 128), np.int32)
         mask = np.ones((1, 128), np.int32)
@@ -913,19 +1113,42 @@ def serve_phase(torch) -> tuple[int, dict]:
         status, _, _ = _post(server.port, "/v2/models/bert_base/infer",
                              _json_request(ids[:, :100], mask[:, :100]))
         _check(status == 400, f"wrong input shape answered {status}")
+        import grpc
+
+        channel, stub = _grpc_channel(grpc_server.url)
+        try:
+            for model, inputs, want in (
+                    ("no_such_model", {"input_ids": ids},
+                     grpc.StatusCode.NOT_FOUND),
+                    ("bert_base", {"input_ids": ids[:, :100],
+                                   "attention_mask": mask[:, :100]},
+                     grpc.StatusCode.INVALID_ARGUMENT)):
+                try:
+                    stub.ModelInfer(_grpc_request(model, inputs),
+                                    timeout=GRPC_TIMEOUT_S)
+                    code = None
+                except grpc.RpcError as exc:
+                    code = exc.code()
+                _check(code == want, f"gRPC {model}: {code}, not {want}")
+        finally:
+            channel.close()
         print("serve: 404 for an unknown model, 400 for a malformed body "
-              "and a wrong shape", flush=True)
-        return launches, errs
+              "and a wrong shape; over gRPC NOT_FOUND and INVALID_ARGUMENT",
+              flush=True)
+        return {"launches": total, "http_launches": launches, "errs": errs}
     finally:
+        grpc_server.stop()
         server.stop()
         engine.shutdown()
 
 
 # -- generate phase ---------------------------------------------------------
 
-def _stream(port: int, model: str, body: dict) -> tuple[list[int], list[float]]:
-    """One /generate_stream request: its tokens and the arrival time of
-    each (monotonic seconds), read event by event as they come."""
+def _stream(port: int, model: str, body: dict
+            ) -> tuple[list[int], list[float], int]:
+    """One /generate_stream request: its tokens, the arrival time of each
+    (monotonic seconds; the tokens of one coalesced event share it) and
+    its count of events, read event by event as they come."""
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
     try:
         conn.request("POST", f"/v2/models/{model}/generate_stream",
@@ -935,7 +1158,7 @@ def _stream(port: int, model: str, body: dict) -> tuple[list[int], list[float]]:
                f"{resp.status}")
         _check(resp.getheader("Content-Type") == "text/event-stream",
                f"{model}: not an event stream")
-        tokens, times, buf = [], [], b""
+        tokens, times, events, buf = [], [], 0, b""
         while True:
             data = resp.read1(65536)
             if not data:
@@ -947,12 +1170,16 @@ def _stream(port: int, model: str, body: dict) -> tuple[list[int], list[float]]:
                 head = json.loads(event[len(b"data: "):])
                 _check("error" not in head, f"{model}: {head}")
                 outs = {o["name"]: o["data"] for o in head["outputs"]}
-                _check(outs["INDEX"] == [len(tokens)], f"{model}: INDEX "
-                       f"{outs['INDEX']} after {len(tokens)} tokens")
-                tokens.append(outs["TOKEN"][0])
-                times.append(time.monotonic())
+                k = len(outs["TOKEN"])
+                _check(outs["INDEX"] == list(range(len(tokens),
+                                                   len(tokens) + k)),
+                       f"{model}: INDEX {outs['INDEX']} after {len(tokens)} "
+                       "tokens")
+                tokens += outs["TOKEN"]
+                times += [time.monotonic()] * k
+                events += 1
         _check(not buf, f"{model}: trailing bytes {buf[:80]!r}")
-        return tokens, times
+        return tokens, times, events
     finally:
         conn.close()
 
@@ -1018,21 +1245,69 @@ def _wave_split(torch, backend, smi: str) -> None:
               flush=True)
 
 
+def _frontend_observation(port: int, grpc_url: str, streams: list,
+                          max_tokens: int, smi: str) -> None:
+    """The same greedy streams (``(model, prompt)``, all at once, one
+    connection or RPC each) over SSE and over gRPC on one engine, with and
+    without ``response_coalesce``: the median inter-token gap (tokens of
+    one coalesced message arrive together), the messages sent and the
+    tokens/s. Printed as an observation, not a cell; every run must carry
+    the same tokens."""
+    parts, first = [], None
+    for frontend in ("sse", "grpc"):
+        for coalesce in (False, True):
+            params = {"max_tokens": max_tokens,
+                      **({"response_coalesce": True} if coalesce else {})}
+            t0 = time.monotonic()
+            if frontend == "sse":
+                with concurrent.futures.ThreadPoolExecutor(
+                        len(streams)) as pool:
+                    res = list(pool.map(lambda r: _stream(port, r[0], {
+                        "inputs": [{"name": "INPUT_IDS", "datatype": "INT32",
+                                    "shape": [len(r[1])], "data": r[1]}],
+                        "parameters": params}), streams))
+            else:
+                got = _grpc_stream_rpcs(grpc_url, [
+                    [(f"o{i}", model, prompt, params)]
+                    for i, (model, prompt) in enumerate(streams)])
+                res = [got[f"o{i}"] for i in range(len(streams))]
+            wall = time.monotonic() - t0
+            tokens = [r[0] for r in res]
+            first = tokens if first is None else first
+            _check(tokens == first, f"{frontend} coalesce={coalesce}: other "
+                   "tokens than the first run")
+            gaps = [b - a for _, times, _ in res
+                    for a, b in zip(times, times[1:])]
+            n_tok = sum(len(t) for t in tokens)
+            parts.append(
+                f"{frontend}{' coalesced' if coalesce else ''}: median "
+                f"inter-token gap {1e3 * float(np.median(gaps)):.3f} ms, "
+                f"{sum(r[2] for r in res)} messages for {n_tok} tokens, "
+                f"{n_tok / wall:.1f} tokens/s")
+    print(f"frontends: {len(streams)} greedy tiny_gpt_long streams of "
+          f"{max_tokens} tokens, one engine (observation, not a cell): "
+          + "; ".join(parts) + f"; {smi}", flush=True)
+
+
 def generate_phase(torch, smi: str) -> dict:
     from client_tpu_torch.engine import TorchEngine
     from client_tpu_torch.models import build_repository
     from client_tpu_torch.models.generate import TinyGptBackend
     from client_tpu_torch.ops import decode_attention as da
     from client_tpu_torch.ops import flash_attention as fa
-    from client_tpu_torch.server import HttpInferenceServer
+    from client_tpu_torch.server import (
+        GrpcInferenceServer,
+        HttpInferenceServer,
+    )
 
     _check(not torch.backends.cuda.matmul.allow_tf32,
            "TF32 matmuls are on: fp32 parity needs them off")
     t0 = time.monotonic()
     engine = TorchEngine(build_repository(["tiny_gpt", "tiny_gpt_long"]))
     server = HttpInferenceServer(engine, port=0).start()
-    print(f"generate: engine and server up in {time.monotonic() - t0:.1f} s",
-          flush=True)
+    grpc_server = GrpcInferenceServer(engine, port=0).start()
+    print(f"generate: engine and both servers up in "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
     rng = np.random.default_rng(3)
     sampled = {"temperature": 0.8, "top_k": 24, "top_p": 0.9}
     requests = []  # (model, prompt, params)
@@ -1069,8 +1344,8 @@ def generate_phase(torch, smi: str) -> dict:
         results = send_all(max_tokens)
         wall = time.monotonic() - t0
         k1, k2 = fa.launches_fp32, da.launches
-        n_tokens = sum(len(toks) for toks, _ in results)
-        gaps = [b - a for _, times in results
+        n_tokens = sum(len(toks) for toks, _, _ in results)
+        gaps = [b - a for _, times, _ in results
                 for a, b in zip(times, times[1:])]
         stats = {s["name"]: s for s in engine.model_statistics()["model_stats"]}
         print(f"generate: {len(requests)} concurrent streams, {n_tokens} "
@@ -1079,8 +1354,8 @@ def generate_phase(torch, smi: str) -> dict:
               f"p90 {1e3 * float(np.percentile(gaps, 90)):.2f} ms; "
               f"executions {[(m, s['execution_count']) for m, s in sorted(stats.items())]}; "
               f"{smi} (printed, not claimed)", flush=True)
-        _check(all(len(toks) == max_tokens for toks, _ in results),
-               f"stream lengths {[len(t) for t, _ in results]}")
+        _check(all(len(toks) == max_tokens for toks, _, _ in results),
+               f"stream lengths {[len(t) for t, _, _ in results]}")
         n_layers = 4
         _check(k2 % n_layers == 0 and k2 >= n_layers * (max_tokens - 1),
                f"decode kernel launches {k2}: not a multiple of {n_layers} "
@@ -1088,8 +1363,34 @@ def generate_phase(torch, smi: str) -> dict:
         _check(k1 % n_layers == 0 and k1 >= n_layers,
                f"fp32 flash launches {k1}: not a multiple of {n_layers}")
         print(f"generate: decode kernel launched {k2} times, fp32 flash "
-              f"{k1} times ({k1 // n_layers} tiny_gpt_long prefill chunks)",
-              flush=True)
+              f"{k1} times ({k1 // n_layers} tiny_gpt_long prefill chunks) "
+              "over HTTP", flush=True)
+
+        # The same streams over gRPC ModelStreamInfer on the same engine:
+        # 5 RPCs side by side, 4 requests multiplexed on each, every third
+        # with response_coalesce.
+        streams = [(f"s{i}", model, prompt, {
+            "max_tokens": max_tokens, **params,
+            **({"response_coalesce": True} if i % 3 == 0 else {})})
+            for i, (model, prompt, params) in enumerate(requests)]
+        t0 = time.monotonic()
+        by_id = _grpc_stream_rpcs(grpc_server.url,
+                                  [streams[i::5] for i in range(5)])
+        grpc_wall = time.monotonic() - t0
+        grpc_results = [by_id[rid] for rid, *_ in streams]
+        k1_all, k2_all = fa.launches_fp32, da.launches
+        _check(all(len(toks) == max_tokens for toks, _, _ in grpc_results),
+               f"gRPC stream lengths {[len(t) for t, _, _ in grpc_results]}")
+        _check(k2_all - k2 >= n_layers * (max_tokens - 1)
+               and (k2_all - k2) % n_layers == 0,
+               f"decode kernel launches over gRPC {k2_all - k2}")
+        _check(k1_all - k1 >= n_layers and (k1_all - k1) % n_layers == 0,
+               f"fp32 flash launches over gRPC {k1_all - k1}")
+        print(f"generate: gRPC: {len(streams)} streams on 5 RPCs in "
+              f"{grpc_wall:.3f} s, {sum(r[2] for r in grpc_results)} "
+              f"messages for {sum(len(r[0]) for r in grpc_results)} tokens; "
+              f"decode kernel launched {k2_all} times ({k2} over HTTP), fp32 "
+              f"flash {k1_all} ({k1} over HTTP)", flush=True)
 
         # Oracle: the same weights on the plain path, one stream at a time.
         oracles = {}
@@ -1101,17 +1402,21 @@ def generate_phase(torch, smi: str) -> dict:
                 attn_impl="reference", device="cuda")
             oracles[model] = (oracle, oracle.init_arena(1))
         t0 = time.monotonic()
-        for (model, prompt, params), (toks, _) in zip(requests, results):
+        for (model, prompt, params), (toks, _, _), (grpc_toks, _, _) in zip(
+                requests, results, grpc_results):
             oracle, arena = oracles[model]
             want = _direct_stream(torch, oracle, arena, prompt, max_tokens,
                                   params)
             _check(toks == want, f"{model} prompt of {len(prompt)} "
                    f"{params or 'greedy'}: served {toks} != direct {want}")
-        _check((fa.launches_fp32, da.launches) == (k1, k2),
+            _check(grpc_toks == want, f"{model} prompt of {len(prompt)} "
+                   f"{params or 'greedy'} over gRPC: {grpc_toks} != direct "
+                   f"{want}")
+        _check((fa.launches_fp32, da.launches) == (k1_all, k2_all),
                "the plain-path oracle launched a kernel")
-        print(f"generate: all {len(requests)} streams equal the plain path "
-              f"run directly, token for token ({time.monotonic() - t0:.1f} "
-              "s)", flush=True)
+        print(f"generate: all {len(requests)} streams over HTTP and all "
+              f"{len(streams)} over gRPC equal the plain path run directly, "
+              f"token for token ({time.monotonic() - t0:.1f} s)", flush=True)
 
         # /generate collects what the stream sent.
         model, prompt, _ = requests[5]
@@ -1127,7 +1432,7 @@ def generate_phase(torch, smi: str) -> dict:
         # A stop token ends the stream without being emitted.
         full = results[5][0]
         stop = full[4]
-        stopped, _ = _stream(server.port, model, {
+        stopped, _, _ = _stream(server.port, model, {
             **body, "parameters": {"max_tokens": max_tokens,
                                    "stop_token_ids": stop}})
         _check(stopped == full[:full.index(stop)],
@@ -1145,12 +1450,19 @@ def generate_phase(torch, smi: str) -> dict:
         print("generate: /generate equals the stream; a stop token ends it "
               "unemitted; 400 for prompt + max_tokens > max_seq and for a "
               "sync infer", flush=True)
+        _frontend_observation(
+            server.port, grpc_server.url,
+            [(m, p) for m, p, params in requests
+             if m == "tiny_gpt_long" and not params][:8], max_tokens, smi)
         _wave_split(torch, engine.repository.get("tiny_gpt_long").backend,
                     smi)
-        return {"flash_attention_fp32": k1, "decode_wave_attention": k2,
+        return {"flash_attention_fp32": k1_all, "decode_wave_attention": k2_all,
+                "http_launches": {"flash_attention_fp32": k1,
+                                  "decode_wave_attention": k2},
                 "wall_s": wall, "tokens": n_tokens,
                 "median_gap_ms": 1e3 * float(np.median(gaps))}
     finally:
+        grpc_server.stop()
         server.stop()
         engine.shutdown()
 
@@ -1165,7 +1477,10 @@ def sharded_phase(torch, smi: str) -> dict:
     from client_tpu_torch.ops import decode_attention as da
     from client_tpu_torch.ops import flash_attention as fa
     from client_tpu_torch.parallel import kv_shard as ks
-    from client_tpu_torch.server import HttpInferenceServer
+    from client_tpu_torch.server import (
+        GrpcInferenceServer,
+        HttpInferenceServer,
+    )
 
     name, shards, n_layers, max_tokens = "tiny_gpt_long_kv2", 2, 4, 32
 
@@ -1182,6 +1497,7 @@ def sharded_phase(torch, smi: str) -> dict:
     t0 = time.monotonic()
     engine = TorchEngine(repo)
     server = HttpInferenceServer(engine, port=0).start()
+    grpc_server = GrpcInferenceServer(engine, port=0).start()
     sched = engine._schedulers[name]
     backend = engine.repository.get(name).backend
     _check(sched.arena_shards() == shards and sched._chunk == 1,
@@ -1212,16 +1528,16 @@ def sharded_phase(torch, smi: str) -> dict:
             "execution_count"]
         prefills = k1 // n_layers
         steps = executions - prefills  # wave dispatches of one step each
-        n_tokens = sum(len(toks) for toks, _ in results)
-        gaps = [b - a for _, times in results
+        n_tokens = sum(len(toks) for toks, _, _ in results)
+        gaps = [b - a for _, times, _ in results
                 for a, b in zip(times, times[1:])]
         print(f"sharded: {len(requests)} concurrent streams, {n_tokens} "
               f"tokens in {wall:.3f} s ({n_tokens / wall:.1f} tokens/s), "
               f"median inter-token gap {1e3 * float(np.median(gaps)):.2f} ms; "
               f"{executions} executions: {prefills} prefill chunks, {steps} "
               f"decode steps; {smi} (printed, not claimed)", flush=True)
-        _check(all(len(toks) == max_tokens for toks, _ in results),
-               f"stream lengths {[len(t) for t, _ in results]}")
+        _check(all(len(toks) == max_tokens for toks, _, _ in results),
+               f"stream lengths {[len(t) for t, _, _ in results]}")
         _check(k1 == n_layers * prefills and prefills >= 1,
                f"fp32 flash launches {k1}: not {n_layers} per prefill chunk")
         _check(steps >= max_tokens - 1, f"{steps} decode steps")
@@ -1231,37 +1547,65 @@ def sharded_phase(torch, smi: str) -> dict:
                f"decode launches {k2} != {shards} x {n_layers} x {steps}")
         print(f"sharded: ring all-reduce launched {k3} = {n_layers} x {steps} "
               f"times, decode kernel {k2} = {shards} x {n_layers} x {steps}, "
-              f"fp32 flash {k1} = {n_layers} x {prefills}", flush=True)
+              f"fp32 flash {k1} = {n_layers} x {prefills} over HTTP",
+              flush=True)
+
+        # Four of the streams again over gRPC: 2 RPCs, 2 requests each.
+        streams = [(f"k{i}", name, prompt, {"max_tokens": max_tokens,
+                                            **params})
+                   for i, (prompt, params) in enumerate(requests[2:6])]
+        by_id = _grpc_stream_rpcs(grpc_server.url, [streams[0::2],
+                                                    streams[1::2]])
+        grpc_results = [by_id[rid] for rid, *_ in streams]
+        g1, g2, g3 = (fa.launches_fp32 - k1, da.launches - k2,
+                      ks.launches - k3)
+        g_prefills = g1 // n_layers
+        g_steps = (engine.model_statistics(name)["model_stats"][0][
+            "execution_count"] - executions - g_prefills)
+        _check(g1 == n_layers * g_prefills and g_prefills >= 1,
+               f"fp32 flash launches over gRPC {g1}")
+        _check(g_steps >= max_tokens - 1 and g3 == n_layers * g_steps
+               and g2 == shards * n_layers * g_steps,
+               f"over gRPC: ring {g3}, decode {g2}, {g_steps} decode steps")
+        print(f"sharded: gRPC: {len(streams)} streams on 2 RPCs; ring "
+              f"all-reduce launched {k3 + g3} times ({k3} over HTTP), decode "
+              f"kernel {k2 + g2} ({k2} over HTTP)", flush=True)
 
         oracle = TinyGptBackend(name=name, max_seq_len=2048, max_streams=16,
                                 attention_impl="einsum",
                                 attn_impl="reference", device="cuda")
         arena = oracle.init_arena(1)
         t0 = time.monotonic()
-        for (prompt, params), (toks, _) in zip(requests, results):
+        served = list(zip(requests, results))
+        served += list(zip(requests[2:6], grpc_results))
+        for (prompt, params), (toks, _, _) in served:
             want = _direct_stream(torch, oracle, arena, prompt, max_tokens,
                                   params)
             _check(toks == want, f"{name} prompt of {len(prompt)} "
                    f"{params or 'greedy'}: served {toks} != direct {want}")
-        _check((fa.launches_fp32, da.launches, ks.launches) == (k1, k2, k3),
+        _check((fa.launches_fp32, da.launches, ks.launches)
+               == (k1 + g1, k2 + g2, k3 + g3),
                "the plain-path oracle launched a kernel")
-        print(f"sharded: all {len(requests)} streams equal the plain "
-              f"unsharded path run directly, token for token "
-              f"({time.monotonic() - t0:.1f} s)", flush=True)
+        print(f"sharded: all {len(requests)} streams over HTTP and "
+              f"{len(streams)} over gRPC equal the plain unsharded path run "
+              f"directly, token for token ({time.monotonic() - t0:.1f} s)",
+              flush=True)
         _wave_split(torch, backend, smi)
-        return {"ring_all_reduce": k3, "decode_wave_attention": k2,
+        return {"ring_all_reduce": k3 + g3, "http_launches": k3,
                 "wall_s": wall, "tokens": n_tokens}
     finally:
+        grpc_server.stop()
         server.stop()
         engine.shutdown()
 
 
 # -- vision phase -------------------------------------------------------------
 
+SIMPLE_MODELS = ("simple", "simple_int8", "simple_string", "simple_identity")
 VISION_MODELS = ("resnet50", "densenet_onnx", "ssd_mobilenet_v2_coco_quantized",
                  "ssd_mobilenet_v2_tpu", "image_preprocess", "ensemble_image",
                  "bert_preprocess", "bert_base", "bert_postprocess",
-                 "ensemble_bert")
+                 "ensemble_bert") + SIMPLE_MODELS
 SSD_MODELS = ("ssd_mobilenet_v2_coco_quantized", "ssd_mobilenet_v2_tpu")
 # Served classifier logits vs the same module run directly on the request's
 # rows padded to a ladder bucket, relative to the request's max |logit|:
@@ -1274,10 +1618,8 @@ CLASSIFIER_RTOL = 2e-2
 # The vision phase's own v2 wire client: built from the protocol's text
 # (little-endian tensors; a BYTES element is a 4-byte little-endian length,
 # then its bytes), never from the server's codec, so that a fault shared by
-# the server's encoder and decoder cannot pass unseen.
-_WIRE_DTYPES = {"FP32": np.float32, "INT32": np.int32, "UINT8": np.uint8}
-
-
+# the server's encoder and decoder cannot pass unseen. Its dtypes are
+# ``_WIRE_DTYPES``, the gRPC client's.
 def _wire_bytes(arr: np.ndarray) -> bytes:
     if arr.dtype == np.object_:
         return b"".join(len(x).to_bytes(4, "little") + x for x in arr.ravel())
@@ -1314,6 +1656,19 @@ def _infer_body(inputs: dict[str, np.ndarray], outputs: list | None,
         "Inference-Header-Content-Length": str(len(data))}
 
 
+def _bytes_elements(raw: bytes) -> np.ndarray:
+    """The elements of a BYTES tensor's raw bytes, as a 1-D object array."""
+    items, i = [], 0
+    while i < len(raw):
+        n = int.from_bytes(raw[i:i + 4], "little")
+        _check(i + 4 + n <= len(raw), "BYTES element overruns its tensor")
+        items.append(raw[i + 4:i + 4 + n])
+        i += 4 + n
+    arr = np.empty(len(items), np.object_)
+    arr[:] = items
+    return arr
+
+
 def _any_outputs(headers: dict, data: bytes) -> dict[str, np.ndarray]:
     """Every output of a v2 infer response, FP32, INT32, UINT8 or BYTES,
     from JSON data or from the binary tail."""
@@ -1329,15 +1684,10 @@ def _any_outputs(headers: dict, data: bytes) -> dict[str, np.ndarray]:
             offset += size
         if o["datatype"] == "BYTES":
             if raw is None:
-                items = [x.encode() for x in o["data"]]
+                arr = np.empty(len(o["data"]), np.object_)
+                arr[:] = [x.encode() for x in o["data"]]
             else:
-                items, i = [], 0
-                while i < len(raw):
-                    n = int.from_bytes(raw[i:i + 4], "little")
-                    items.append(raw[i + 4:i + 4 + n])
-                    i += 4 + n
-            arr = np.empty(len(items), np.object_)
-            arr[:] = items
+                arr = _bytes_elements(raw)
         else:
             dtype = np.dtype(_WIRE_DTYPES[o["datatype"]])
             arr = (np.array(o["data"], dtype) if raw is None else
@@ -1521,10 +1871,135 @@ def _nms_split(torch, smi: str) -> None:
           flush=True)
 
 
+def _simple_requests(rng) -> dict[str, dict[str, np.ndarray]]:
+    """One request's inputs for each ``simple`` model: integers over their
+    whole range (sums wrap), decimal strings, arbitrary bytes."""
+    def ints(dtype, rows):
+        info = np.iinfo(dtype)
+        return rng.integers(info.min, info.max, (rows, 16),
+                            dtype=np.int64).astype(dtype)
+
+    def decimal():
+        arr = np.empty((1, 16), np.object_)
+        arr[0] = [str(v).encode() for v in rng.integers(-10**6, 10**6, 16)]
+        return arr
+
+    raw = np.empty((2, 3), np.object_)
+    raw[:] = [[b"", b"\x00\xffz", b"abc"], ["\u00e9".encode(), b"1", b"22"]]
+    return {"simple": {"INPUT0": ints(np.int32, 3),
+                       "INPUT1": ints(np.int32, 3)},
+            "simple_int8": {"INPUT0": ints(np.int8, 2),
+                            "INPUT1": ints(np.int8, 2)},
+            "simple_string": {"INPUT0": decimal(), "INPUT1": decimal()},
+            "simple_identity": {"INPUT0": raw}}
+
+
+def _simple_expected(name: str, inputs: dict) -> dict[str, np.ndarray]:
+    """What each ``simple`` model must answer, in numpy."""
+    if name == "simple_identity":
+        return {"OUTPUT0": inputs["INPUT0"]}
+    a, b = inputs["INPUT0"], inputs["INPUT1"]
+    if name == "simple_string":
+        a, b = (np.array([[int(x) for x in row] for row in t])
+                for t in (a, b))
+        out = {}
+        for key, val in (("OUTPUT0", a + b), ("OUTPUT1", a - b)):
+            arr = np.empty(val.shape, np.object_)
+            arr[:] = [[str(int(v)).encode() for v in row] for row in val]
+            out[key] = arr
+        return out
+    return {"OUTPUT0": a + b, "OUTPUT1": a - b}  # wrapping, as on the card
+
+
+def _same_tensor(a: np.ndarray, b: np.ndarray) -> bool:
+    """Byte-identical: dtype, shape and every element's bytes."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == np.object_:
+        return a.tolist() == b.tolist()
+    return a.tobytes() == b.tobytes()
+
+
+def _grpc_vision_checks(http_port: int, grpc_url: str) -> None:
+    """The vision phase's engine over gRPC, each answer held against the
+    same request's HTTP answer: the four ``simple`` models byte for byte
+    (raw and typed contents) and against numpy, ``resnet50``'s
+    classification strings, both ensembles (a UINT8 and a BYTES input),
+    and INVALID_ARGUMENT for an input that names a shared-memory
+    region. Requests go one at a time, so each runs alone in its batch."""
+    import grpc
+
+    channel, stub = _grpc_channel(grpc_url)
+    rng = np.random.default_rng(8)
+
+    def both(model, inputs, outputs=None, typed=False):
+        body, headers = _infer_body(inputs, outputs, binary=True)
+        status, rh, data = _post(http_port, f"/v2/models/{model}/infer",
+                                 body, headers)
+        _check(status == 200, f"{model}: HTTP {status}: {data[:300]!r}")
+        resp = stub.ModelInfer(_grpc_request(model, inputs, outputs, typed),
+                               timeout=GRPC_TIMEOUT_S)
+        return _any_outputs(rh, data), _grpc_outputs(resp)
+
+    try:
+        for name, inputs in _simple_requests(rng).items():
+            want = _simple_expected(name, inputs)
+            for typed in (False, True):
+                http_out, grpc_out = both(name, inputs, typed=typed)
+                for key, arr in want.items():
+                    _check(_same_tensor(grpc_out[key], http_out[key]),
+                           f"{name} {key}: gRPC {grpc_out[key]} != HTTP "
+                           f"{http_out[key]}")
+                    _check(_same_tensor(grpc_out[key], arr),
+                           f"{name} {key}: {grpc_out[key]} != {arr}")
+        images = rng.standard_normal((2, 224, 224, 3)).astype(np.float32)
+        http_out, grpc_out = both(
+            "resnet50", {"INPUT": images},
+            [{"name": "OUTPUT", "parameters": {"classification": 3}}])
+        _check(grpc_out["OUTPUT"].shape == (2, 3)
+               and _same_tensor(grpc_out["OUTPUT"], http_out["OUTPUT"]),
+               f"classification: gRPC {grpc_out['OUTPUT']} != HTTP "
+               f"{http_out['OUTPUT']}")
+        raw = rng.integers(0, 256, (1, 333, 500, 3)).astype(np.uint8)
+        http_out, grpc_out = both("ensemble_image", {"RAW_IMAGE": raw})
+        _check(_same_tensor(grpc_out["CLASS_LOGITS"],
+                            http_out["CLASS_LOGITS"]),
+               "ensemble_image: gRPC logits differ from HTTP's")
+        text = np.empty((2, 1), np.object_)
+        text[:, 0] = [b"a great movie", b"not for me"]
+        for typed in (False, True):
+            http_out, grpc_out = both("ensemble_bert", {"TEXT": text},
+                                      typed=typed)
+            _check(all(_same_tensor(grpc_out[k], http_out[k])
+                       for k in ("LABEL", "SCORE")),
+                   f"ensemble_bert: gRPC {grpc_out} != HTTP {http_out}")
+        req = _grpc_request("resnet50", {"INPUT": images[:1]})
+        _set_param(req.inputs[0].parameters, "shared_memory_region", "r0")
+        _set_param(req.inputs[0].parameters, "shared_memory_byte_size",
+                   images[:1].nbytes)
+        try:
+            stub.ModelInfer(req, timeout=GRPC_TIMEOUT_S)
+            code, details = None, ""
+        except grpc.RpcError as exc:
+            code, details = exc.code(), exc.details()
+        _check(code == grpc.StatusCode.INVALID_ARGUMENT
+               and "not registered" in details,
+               f"shared-memory input over gRPC answered {code} {details!r}")
+    finally:
+        channel.close()
+    print(f"vision: gRPC answers equal HTTP's: {', '.join(SIMPLE_MODELS)} "
+          "byte for byte over raw and typed contents (and equal to numpy), "
+          "resnet50 classification strings, ensemble_image and "
+          "ensemble_bert; a shared-memory input answered INVALID_ARGUMENT: "
+          f"{details}", flush=True)
+
+
 def vision_phase(torch, smi: str) -> None:
     """resnet50, densenet_onnx, both SSDs and both ensembles with their
-    composing models, all ten at full size, served over HTTP on the card; every
-    output checked against the same modules run directly."""
+    composing models, all ten at full size, and the four ``simple``
+    models, served over HTTP and gRPC on the card; every output checked
+    against the same modules run directly, and the gRPC answers against
+    the HTTP ones."""
     from client_tpu_torch.engine import TorchEngine
     from client_tpu_torch.models import build_repository
     from client_tpu_torch.models.ensembles import (
@@ -1532,7 +2007,10 @@ def vision_phase(torch, smi: str) -> None:
         BertPreprocessBackend,
         ImagePreprocessBackend,
     )
-    from client_tpu_torch.server import HttpInferenceServer
+    from client_tpu_torch.server import (
+        GrpcInferenceServer,
+        HttpInferenceServer,
+    )
 
     _check(not torch.backends.cudnn.benchmark,
            "cuDNN benchmark mode is on: served-vs-direct needs the same "
@@ -1543,10 +2021,11 @@ def vision_phase(torch, smi: str) -> None:
     t0 = time.monotonic()
     engine = TorchEngine(build_repository(list(VISION_MODELS)))
     server = HttpInferenceServer(engine, port=0).start()
+    grpc_server = GrpcInferenceServer(engine, port=0).start()
     served = engine.repository.names()
     print(f"vision: {len(served)} models up in "
           f"{time.monotonic() - t0:.1f} s: {served}", flush=True)
-    _check(len(served) == 10, f"served {served}")
+    _check(len(served) == 14, f"served {served}")
     try:
         requests = _vision_requests(np.random.default_rng(6))
 
@@ -1678,7 +2157,9 @@ def vision_phase(torch, smi: str) -> None:
                f"shared-memory output answered {status} {data!r}")
         print(f"vision: shared-memory output answered 400: "
               f"{json.loads(data)['error']}", flush=True)
+        _grpc_vision_checks(server.port, grpc_server.url)
     finally:
+        grpc_server.stop()
         server.stop()
         engine.shutdown()
 
@@ -1771,11 +2252,25 @@ def main(argv: list[str]) -> int:
         print(json.dumps({"kernels": kernels}), flush=True)
         print(smi, flush=True)
         return 0
-    kernels[0]["launches"], _ = serve_phase(torch)
+    # Each path's counts: the HTTP requests alone ("http_launches"), then
+    # with the same path's gRPC requests on the same engine ("launches").
+    served = serve_phase(torch)
+    kernels[0]["launches"] = served["launches"]
+    kernels[0]["http_launches"] = served["http_launches"]
     generated = generate_phase(torch, smi)
     kernels[1]["launches"] = generated["flash_attention_fp32"]
     kernels[2]["launches"] = generated["decode_wave_attention"]
-    kernels[3]["launches"] = sharded_phase(torch, smi)["ring_all_reduce"]
+    kernels[1]["http_launches"] = generated["http_launches"][
+        "flash_attention_fp32"]
+    kernels[2]["http_launches"] = generated["http_launches"][
+        "decode_wave_attention"]
+    sharded = sharded_phase(torch, smi)
+    kernels[3]["launches"] = sharded["ring_all_reduce"]
+    kernels[3]["http_launches"] = sharded["http_launches"]
+    for kernel in kernels:
+        _check(kernel["launches"] > kernel["http_launches"] > 0,
+               f"{kernel['name']}: {kernel['launches']} launches with gRPC, "
+               f"{kernel['http_launches']} over HTTP alone")
     torch.cuda.empty_cache()
     vision_phase(torch, smi)
     for kernel in kernels:

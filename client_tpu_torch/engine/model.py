@@ -110,16 +110,23 @@ class Model:
                         f"{len(dims) + 1}, got shape {shape}")
                 batch = shape[0]
                 shape = shape[1:]
-            if len(shape) != len(dims) or any(
-                    want != -1 and got != want
-                    for got, want in zip(shape, dims)):
+            # The JAX package's words, so both frontends answer as the JAX
+            # package's frontends do.
+            if len(shape) != len(dims):
                 raise EngineError(
-                    f"input '{name}': shape {shape} incompatible with dims "
-                    f"{list(dims)}")
-        if cfg.max_batch_size > 0 and not 1 <= batch <= cfg.max_batch_size:
+                    f"input '{name}': rank mismatch, {shape} vs dims {dims}")
+            if any(want != -1 and got != want
+                   for got, want in zip(shape, dims)):
+                raise EngineError(
+                    f"input '{name}': shape {shape} incompatible with "
+                    f"dims {dims}")
+        if cfg.max_batch_size > 0 and batch > cfg.max_batch_size:
             raise EngineError(
-                f"batch size {batch} outside 1..{cfg.max_batch_size} for "
-                f"'{cfg.name}'")
+                f"batch size {batch} exceeds max_batch_size "
+                f"{cfg.max_batch_size} for '{cfg.name}'")
+        if cfg.max_batch_size > 0 and batch < 1:
+            raise EngineError(f"batch size {batch} is below 1 for "
+                              f"'{cfg.name}'")
         return batch
 
     def pick_bucket(self, batch: int) -> int:

@@ -30,6 +30,7 @@ def _import_all() -> None:
         bert,
         ensembles,
         generate,
+        simple,
         ssd,
         vision,
     )

@@ -1,1 +1,2 @@
-"""KServe v2 wire protocol: dtypes, tensor codec, REST framing."""
+"""KServe v2 wire protocol: dtypes, tensor codec, REST framing, and the
+gRPC schema, stub, codec and model-config conversion."""

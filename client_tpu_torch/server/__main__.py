@@ -1,14 +1,16 @@
 """Server launcher: ``python -m client_tpu_torch.server``.
 
     python -m client_tpu_torch.server --zoo bert_base,bert_long --http-port 8000
-    python -m client_tpu_torch.server --zoo tiny_gpt,tiny_gpt_long
-    python -m client_tpu_torch.server --zoo bert_base --device cpu
+    python -m client_tpu_torch.server --zoo tiny_gpt,tiny_gpt_long --grpc-port 8001
+    python -m client_tpu_torch.server --zoo simple,simple_string --device cpu
     python -m client_tpu_torch.server --zoo image_preprocess,resnet50,ensemble_image
 
-``tiny_gpt`` and ``tiny_gpt_long`` stream tokens through
-``POST /v2/models/<m>/generate_stream`` (server-sent events) and
-``/generate``. An ensemble is served only beside the composing models
-it names.
+One engine serves both frontends: HTTP (``--http-port``, default 8000) and
+gRPC (``--grpc-port``, default 8001); ``--no-http`` or ``--no-grpc`` leaves
+one out. ``tiny_gpt`` and ``tiny_gpt_long`` stream tokens through
+``POST /v2/models/<m>/generate_stream`` (server-sent events),
+``/generate`` and the gRPC ``ModelStreamInfer`` stream. An ensemble is
+served only beside the composing models it names.
 
 Serves on the card unless ``--device cpu`` is given; without CUDA and
 without that flag it exits with an error. SIGTERM or Ctrl-C stops it.
@@ -25,20 +27,28 @@ import threading
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(
         prog="client_tpu_torch.server",
-        description="PyTorch/CUDA inference server (KServe v2 HTTP)")
+        description="PyTorch/CUDA inference server (KServe v2 HTTP + gRPC)")
     ap.add_argument("--zoo", metavar="NAMES", default=None,
                     help="comma-separated zoo models to serve (default: "
                          "every default model)")
     ap.add_argument("--http-port", type=int, default=8000)
+    ap.add_argument("--grpc-port", type=int, default=8001)
     ap.add_argument("--host", default="0.0.0.0")
+    ap.add_argument("--no-http", action="store_true")
+    ap.add_argument("--no-grpc", action="store_true")
     ap.add_argument("--device", default=None,
                     help="torch device to serve on (default: cuda)")
     ap.add_argument("--verbose", action="store_true")
     args = ap.parse_args(argv)
+    if args.no_http and args.no_grpc:
+        ap.error("nothing to serve (--no-http and --no-grpc)")
 
     from client_tpu_torch.engine import TorchEngine
     from client_tpu_torch.models import build_repository
-    from client_tpu_torch.server import HttpInferenceServer
+    from client_tpu_torch.server import (
+        GrpcInferenceServer,
+        HttpInferenceServer,
+    )
 
     names = ([n.strip() for n in args.zoo.split(",") if n.strip()]
              if args.zoo else None)
@@ -50,9 +60,16 @@ def main(argv: list[str] | None = None) -> int:
     for entry in engine.repository_index():
         print(f"model {entry['name']}: {entry['state']}", file=sys.stderr,
               flush=True)
-    server = HttpInferenceServer(engine, host=args.host, port=args.http_port,
-                                 verbose=args.verbose).start()
-    print(f"serving http at {server.url}", file=sys.stderr, flush=True)
+    servers = []
+    if not args.no_http:
+        servers.append(("http", HttpInferenceServer(
+            engine, host=args.host, port=args.http_port,
+            verbose=args.verbose).start()))
+    if not args.no_grpc:
+        servers.append(("grpc", GrpcInferenceServer(
+            engine, host=args.host, port=args.grpc_port).start()))
+    for kind, server in servers:
+        print(f"serving {kind} at {server.url}", file=sys.stderr, flush=True)
     stop = threading.Event()
     signal.signal(signal.SIGTERM, lambda *_: stop.set())
     try:
@@ -60,7 +77,8 @@ def main(argv: list[str] | None = None) -> int:
     except KeyboardInterrupt:
         pass
     print("shutting down", file=sys.stderr, flush=True)
-    server.stop()
+    for _, server in servers:
+        server.stop()
     engine.shutdown()
     return 0
 

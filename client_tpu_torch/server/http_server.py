@@ -12,8 +12,10 @@ An output may ask for its top-K classes (the classification extension,
 strings. A malformed body or input answers 400, an unknown model 404.
 No shared-memory region is ever registered, so an input or output that
 names one answers 400 as the JAX server does for an unregistered region.
-Compression, shared-memory registration, response coalescing, tracing
-and the control-plane routes are not ported yet.
+A stream request with the ``response_coalesce`` parameter may get its
+backlogged tokens merged into one event (``server/coalesce.py``).
+Compression, shared-memory registration, tracing and the control-plane
+routes are not ported yet.
 
 A stdlib ThreadingHTTPServer: each connection gets a thread that only
 frames; the engine's per-model schedulers batch and run the work.
@@ -31,8 +33,9 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
-from client_tpu_torch.config import env_int
+from client_tpu_torch.config import env_float, env_int
 from client_tpu_torch.engine.engine import TorchEngine
+from client_tpu_torch.engine.shm import refuse_shm
 from client_tpu_torch.engine.types import (
     EngineError,
     InferRequest,
@@ -42,6 +45,7 @@ from client_tpu_torch.engine.types import (
 from client_tpu_torch.protocol import rest
 from client_tpu_torch.protocol.dtypes import np_to_wire_dtype
 from client_tpu_torch.server.classification import classify_output
+from client_tpu_torch.server.coalesce import drain_run
 
 _log = logging.getLogger("client_tpu_torch")
 
@@ -271,16 +275,32 @@ class _Handler(BaseHTTPRequestHandler):
         bp_mark = max(1, limit // 2)
         req.backpressure = lambda: out_q.qsize() >= bp_mark
         self.engine.async_infer(req, enqueue)
+
+        def get_nowait():
+            try:
+                return out_q.get_nowait()
+            except queue.Empty:
+                return None
+
+        # With `response_coalesce` set, rows already backlogged behind a
+        # slow chunk write merge into one [k]-row event, as on the gRPC
+        # stream; off backlog every response ships alone.
+        delay_s = env_float("CLIENT_TPU_STREAM_WRITER_DELAY_MS") / 1e3
         while True:
             try:
                 resp = out_q.get(timeout=self.GENERATE_STALL_TIMEOUT_S)
             except queue.Empty:
                 req.cancel()
                 raise EngineError("generation stalled", 504) from None
-            yield resp
-            progress[0] += 1
-            if resp.error is not None or resp.final:
-                return
+            merged, leftover = drain_run(resp, get_nowait, req)
+            for resp in ((merged,) if leftover is None
+                         else (merged, leftover)):
+                yield resp
+                progress[0] += 1  # the writer took an event
+                if delay_s:
+                    time.sleep(delay_s)
+                if resp.error is not None or resp.final:
+                    return
 
     def _json_response_dict(self, resp: InferResponse) -> dict:
         """A v2 response head with every tensor as JSON data (SSE events
@@ -306,14 +326,14 @@ class _Handler(BaseHTTPRequestHandler):
             self._raw_body, int(header_len) if header_len is not None else None)
         inputs: dict[str, np.ndarray] = {}
         for wire in rest.parse_tensors(head.get("inputs", []), tail):
-            _refuse_shm(wire.parameters)
+            refuse_shm(wire.parameters)
             inputs[wire.name] = wire.to_numpy()
         params = head.get("parameters") or {}
         binary_all = bool(params.get("binary_data_output", False))
         outputs = []
         for o in head.get("outputs") or []:
             p = o.get("parameters") or {}
-            _refuse_shm(p)
+            refuse_shm(p)
             outputs.append(OutputRequest(
                 name=o["name"], binary=bool(p.get("binary_data", binary_all)),
                 classification_count=int(p.get("classification", 0))))
@@ -344,16 +364,6 @@ class _Handler(BaseHTTPRequestHandler):
                            rest.HEADER_INFERENCE_CONTENT_LENGTH: str(jlen)})
         else:
             self._send(200, body)
-
-
-def _refuse_shm(params: dict) -> None:
-    """The port registers no shared-memory region, so a tensor that names
-    one is refused with the JAX server's words for an unregistered
-    region."""
-    region = params.get("shared_memory_region")
-    if region is not None:
-        raise EngineError(
-            f"shared memory region '{region}' not registered", 400)
 
 
 class HttpInferenceServer:

@@ -155,6 +155,7 @@ def test_zoo_registry_is_the_ports_own():
     assert defaults == [
         "bert_base", "bert_postprocess", "bert_preprocess", "densenet_onnx",
         "ensemble_bert", "ensemble_image", "image_preprocess", "resnet50",
+        "simple", "simple_identity", "simple_int8", "simple_string",
         "ssd_mobilenet_v2_coco_quantized", "ssd_mobilenet_v2_tpu",
         "tiny_gpt"]
     assert set(defaults) == set(model_names()) - jax_non_default

@@ -412,6 +412,77 @@ def test_tiny_gpt_long_sharded_stream_equals_unsharded(card):
             assert da.launches - k2 == 2 * 4 * 15
 
 
+def test_tiny_gpt_streams_over_grpc_equal_the_plain_path(card):
+    """A small tiny_gpt on the card (prefill through the fp32 flash kernel,
+    waves through the decode kernel) behind a local GrpcInferenceServer:
+    two greedy streams and a sampled one, multiplexed on one
+    ModelStreamInfer RPC (one with response_coalesce), each token for
+    token against the same weights on the plain path run directly."""
+    import grpc
+
+    from client_tpu_torch.engine import TorchEngine
+    from client_tpu_torch.engine.repository import ModelRepository
+    from client_tpu_torch.protocol import grpc_codec, grpc_stub
+    from client_tpu_torch.protocol import grpc_service_pb2 as pb
+    from client_tpu_torch.server import GrpcInferenceServer
+
+    cfg = dict(name="tg", n_layers=2, d_model=128, n_heads=2, d_ff=256,
+               vocab=256, max_seq_len=256, max_streams=4)
+    rng = np.random.default_rng(2)
+    streams = [(rng.integers(0, 256, n).tolist(), params) for n, params in (
+        (5, {}), (90, {"response_coalesce": True}),
+        (40, {"temperature": 0.8, "top_k": 24, "top_p": 0.9, "seed": 11}))]
+    n_tok = 20
+    repo = ModelRepository()
+    repo.register("tg", lambda device: TinyGptBackend(
+        attention_impl="flash", attn_impl="fused", device=device, **cfg))
+    engine = TorchEngine(repo, device=card)
+    server = GrpcInferenceServer(engine, port=0).start()
+    f0, d0 = fa.launches_fp32, da.launches
+    try:
+        requests = []
+        for i, (prompt, params) in enumerate(streams):
+            req = pb.ModelInferRequest(model_name="tg", id=f"s{i}")
+            req.inputs.add(name="INPUT_IDS", datatype="INT32",
+                           shape=[len(prompt)])
+            req.raw_input_contents.append(
+                np.asarray(prompt, np.int32).tobytes())
+            for k, v in {"max_tokens": n_tok, **params}.items():
+                grpc_codec.set_param(req.parameters, k, v)
+            requests.append(req)
+        got = {f"s{i}": [] for i in range(len(streams))}
+        with grpc.insecure_channel(server.url) as channel:
+            stub = grpc_stub.GRPCInferenceServiceStub(channel)
+            for msg in stub.ModelStreamInfer(iter(requests), timeout=300):
+                assert not msg.error_message, msg.error_message
+                r = msg.infer_response
+                for t, raw in zip(r.outputs, r.raw_output_contents):
+                    if t.name == "TOKEN":
+                        got[r.id] += np.frombuffer(raw, np.int32).tolist()
+    finally:
+        server.stop()
+        engine.shutdown()
+    assert fa.launches_fp32 > f0 and da.launches - d0 >= 2 * (n_tok - 1)
+
+    oracle = TinyGptBackend(attention_impl="einsum", attn_impl="reference",
+                            device=card, **cfg)
+    arena = oracle.init_arena(1)
+    for i, (prompt, params) in enumerate(streams):
+        lanes = oracle.lane_params([params.get("seed", 0)],
+                                   [params.get("temperature", 0.0)],
+                                   [params.get("top_k", 0)],
+                                   [params.get("top_p", 1.0)])
+        sample = params.get("temperature", 0.0) > 0
+        ids = torch.tensor([prompt], dtype=torch.int32, device=card)
+        want = [int(oracle.prefill(
+            arena, oracle.wave_index(arena, [0], [len(prompt)]), ids, lanes,
+            sample)[0])]
+        for j in range(n_tok - 1):
+            index = oracle.wave_index(arena, [0], [len(prompt) + j])
+            want.append(int(oracle.decode(arena, index, lanes, sample)[0]))
+        assert got[f"s{i}"] == want, (i, params)
+
+
 # -- image models: cuDNN and cuBLAS, no hand-written kernel ----------------
 
 CLASSIFIERS = {

@@ -61,6 +61,14 @@ def test_importing_the_server_loads_no_jax():
         "import client_tpu_torch.models.ensembles\n"
         "import client_tpu_torch.engine.ensemble\n"
         "import client_tpu_torch.server.classification\n"
+        "import client_tpu_torch.server.grpc_server\n"
+        "import client_tpu_torch.server.coalesce\n"
+        "import client_tpu_torch.engine.shm\n"
+        "import client_tpu_torch.protocol.grpc_service_pb2\n"
+        "import client_tpu_torch.protocol.grpc_stub\n"
+        "import client_tpu_torch.protocol.grpc_codec\n"
+        "import client_tpu_torch.protocol.model_config\n"
+        "import client_tpu_torch.models.simple\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'client_tpu'))\n"
         "assert not bad, bad\n"
