@@ -20,7 +20,8 @@
    fp32 causal (the generative prefill), the fused decode wave (its split
    and tile edges, repeated calls bit for bit), and the ring all-reduce of
    the row-sharded KV arena (2 to 8 shards on the one card, bit for bit
-   against its plain version). The decode wave and the all-reduce are a
+   against its plain version) and of DLRM's pooled bags ([832, 128], 2
+   and 4 shards). The decode wave and the all-reduce are a
    few microseconds of device work behind tens of host work, so their
    device time is taken with calls queued back to back behind a sleeping
    kernel, in turns with the library call, and the decode wave cycles
@@ -95,9 +96,28 @@
    batched NMS alone at B=16 (host, device, launches). No hand-written
    kernel runs on this path: convolutions and matmuls are cuDNN's and
    cuBLAS's.
-8. Prints one ``{"kernels": [...]}`` line (each kernel's ``launches`` over
+8. Stateful phase: one engine behind HTTP and gRPC with ``dlrm``,
+   ``dlrm_cached``, ``simple_sequence``, ``simple_sequence_oldest``,
+   ``simple_repeat`` at their registered sizes and an MLPerf-shaped DLRM
+   (``MLPERF_DLRM``: 26 tables of 65,536 rows x 128, 2 shards on the one
+   card combined by the ring all-reduce). Launch counts set to 0, then 96
+   concurrent one-row CSR requests (Zipf ids, bags of 1 to 4) over HTTP,
+   JSON and binary, and gRPC: the ragged scheduler must batch them, the
+   ring all-reduce must launch once per execution, every score must equal
+   the request run alone (``DLRM_ATOL``; exactness printed). Then sharded
+   against unsharded bag sums bit for bit, ``dlrm`` against its direct run
+   and ``dlrm_cached`` (hit rate above 0), the 400s of malformed CSR on
+   both transports, and an observation: requests/s and p50/p99 at
+   concurrency 32, rows and lookups per execution, the /stats split, and
+   one execution's device time at the 4,096-lookup bucket. 64 sequences of
+   8 steps on each sequence model (half over HTTP, half on gRPC streams),
+   every running sum exact, the oldest strategy's waves wider than one;
+   a restart; the 400s; ``simple_repeat`` over SSE and ``ModelStreamInfer``.
+9. Prints one ``{"kernels": [...]}`` line (each kernel's ``launches`` over
    HTTP and gRPC, beside ``http_launches`` over HTTP alone, which must be
-   fewer), the ``nvidia-smi`` name and power limit line, and last
+   fewer; the ring all-reduce's include the stateful phase's, and its
+   entry carries ``dlrm_shape``, its times at [832, 128]), the
+   ``nvidia-smi`` name and power limit line, and last
    ``{"ok": true, "device": {...}}``.
 
 The gRPC client code is the script's own (tensors as ``tobytes`` and
@@ -156,6 +176,7 @@ DECODE_ATOL = 2e-5
 # Ring all-reduce vs plain version: none. Both add in the ring's order, so
 # every shard's sum must be equal bit for bit.
 RING_SHAPES = ((1, 4, 64), (3, 4, 64), (16, 4, 64))  # decode wave buckets
+DLRM_POOLED = (832, 128)  # 32 rows x 26 tables of 128: the DLRM partials
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (data sheet)
 PEAK_TF32_FLOPS = 495e12   # H100 SXM dense TF32 on the tensor cores
@@ -769,6 +790,7 @@ def kernel_phase_ring(torch, cuda_build) -> dict:
               f"{alone}; bound "
               f"{max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOPS) * 1e3}"
               f" ms ({nbytes} bytes, {flops} additions)", flush=True)
+    dlrm_shape = _ring_dlrm_shape(torch, ks, partials)
     ms, plain_ms, library_ms = timed[2]  # the main path: 2 shards
     nbytes, flops = 2 * 2 * numel * 4, 2 * numel
     byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -786,7 +808,52 @@ def kernel_phase_ring(torch, cuda_build) -> dict:
         "bound_by": "bytes" if byte_ms >= flop_ms else "operations",
         "library_ms": library_ms,
         "library_call": "torch.stack(partials).sum(0) on the one card",
+        # The second call site: the pooled bags of the row-sharded DLRM
+        # tables (stateful phase), 2 shards on the one card.
+        "dlrm_shape": dlrm_shape,
     }
+
+
+def _ring_bound(n: int, numel: int) -> tuple[float, str]:
+    """(ms, what bounds it) for an all-reduce of ``n`` fp32 partials of
+    ``numel``: each partial read once and each of the ``n`` sums written
+    once, against ``(n - 1) * n * numel`` additions."""
+    nbytes, flops = 2 * n * numel * 4, (n - 1) * n * numel
+    byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    flop_ms = flops / PEAK_FP32_FLOPS * 1e3
+    return max(byte_ms, flop_ms), ("bytes" if byte_ms >= flop_ms
+                                   else "operations")
+
+
+def _ring_dlrm_shape(torch, ks, partials) -> dict:
+    """K3 at DLRM's pooled shape, ``[max_batch_size * num_tables,
+    emb_dim]`` = [832, 128] of the MLPerf-shaped model: 2 and 4 shards,
+    every shard's sum bit for bit against the plain version, then timed
+    queued in turns with ``torch.stack(partials).sum(0)``."""
+    shape = DLRM_POOLED
+    out = {}
+    for n in (2, 4):
+        parts = partials(n, shape)
+        got = ks.ring_all_reduce(parts)
+        torch.cuda.synchronize()
+        for i, (g, w) in enumerate(zip(got, ks.ring_all_reduce_plain(parts))):
+            _check(g.shape == shape and bool(torch.equal(g, w)),
+                   f"ring n={n} {list(shape)} shard {i} differs from the plain "
+                   f"version by {float((g - w).abs().max())}")
+        ms, library_ms = _queued_turns(
+            torch, [lambda: ks.ring_all_reduce(parts)],
+            [lambda: torch.stack(parts).sum(0)])
+        plain_ms = _queued_ms(torch, lambda: ks.ring_all_reduce_plain(parts))
+        bound_ms, bound_by = _ring_bound(n, math.prod(shape))
+        print(f"ring_all_reduce n={n} at {list(shape)} fp32 (DLRM's pooled "
+              f"bags): every shard's sum equals the plain version bit for "
+              f"bit; device ms per call queued back to back: kernel {ms}, "
+              f"plain {plain_ms}, torch.stack(...).sum(0) {library_ms}; "
+              f"bound {bound_ms} ms ({bound_by})", flush=True)
+        out[f"n{n}"] = {"shape": list(shape), "ms": ms, "plain_ms": plain_ms,
+                        "library_ms": library_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "max_abs_err": 0.0}
+    return out
 
 
 # -- gRPC client ------------------------------------------------------------
@@ -2193,6 +2260,478 @@ def vision_phase(torch, smi: str) -> None:
     _nms_split(torch, smi)
 
 
+# -- stateful phase -----------------------------------------------------------
+
+STATEFUL_MODELS = ("dlrm", "dlrm_cached", "simple_sequence",
+                   "simple_sequence_oldest", "simple_repeat")
+DLRM_MODEL = "dlrm_mlperf"
+# MLPerf Inference's DLRM (Criteo) shape: 26 tables of 128, 13 dense
+# features, bottom MLP 512-256, top MLP 1024-1024-512-256; the tables cut
+# to 65,536 rows each (0.87 GB stacked, fp32). Row-sharded over 2 shards on
+# the one card, combined by K3. Not a registered model: the JAX zoo has no
+# such entry; the arguments are the JAX DlrmBackend's.
+MLPERF_DLRM = dict(num_tables=26, table_rows=65_536, emb_dim=128,
+                   dense_dim=13, bottom_units=(512, 256),
+                   top_units=(1024, 1024, 512, 256), max_batch_size=32,
+                   max_lookups=4096, emb_shards=2, combine="ring", seed=26)
+# Served DLRM scores vs the same request run alone through
+# Model.execute_timed: rows always pad to max_batch_size, so both run the
+# same products on the same shapes and should agree bit for bit; where
+# cuBLAS picks another order of additions, fp32 scores of magnitude ~1 may
+# differ by a few ulps. Whether they were exact is printed.
+DLRM_ATOL = 1e-5
+DLRM_CONCURRENCY = 32
+SEQ_MODELS = ("simple_sequence", "simple_sequence_oldest")
+N_SEQ, SEQ_STEPS = 64, 8
+
+
+def _mlperf_csr(rng, rows: int = 1) -> dict[str, np.ndarray]:
+    """One CSR request of ``rows`` rows: bags of 1 to 4 ids in each of the
+    26 tables, Zipf(1.3)-skewed ids (bench.py's DLRM traffic)."""
+    t, table_rows = MLPERF_DLRM["num_tables"], MLPERF_DLRM["table_rows"]
+    counts = rng.integers(1, 5, size=rows * t)
+    nnz = int(counts.sum())
+    idx = ((rng.zipf(1.3, size=nnz) - 1) % table_rows).astype(np.int32)
+    off = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    dense = rng.standard_normal((rows, MLPERF_DLRM["dense_dim"])).astype(
+        np.float32)
+    return {"DENSE": dense, "INDICES": idx, "OFFSETS": off}
+
+
+def _small_csr(rng, rows: int = 1) -> dict[str, np.ndarray]:
+    """A CSR request for the registered ``dlrm`` / ``dlrm_cached`` (4
+    tables of 64 rows, 8 dense features), Zipf-skewed ids."""
+    counts = rng.integers(0, 5, size=rows * 4)
+    idx = ((rng.zipf(1.3, size=int(counts.sum())) - 1) % 64).astype(np.int32)
+    off = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    return {"DENSE": rng.standard_normal((rows, 8)).astype(np.float32),
+            "INDICES": idx, "OFFSETS": off}
+
+
+def _http_infer(port: int, model: str, inputs: dict, binary: bool,
+                parameters: dict | None = None):
+    """(status, outputs or error words) of one /infer request."""
+    body, headers = _infer_body(inputs, None, binary)
+    if parameters:
+        head_len = headers.get("Inference-Header-Content-Length")
+        head = json.loads(body[:int(head_len)] if head_len else body)
+        head.setdefault("parameters", {}).update(parameters)
+        new = json.dumps(head).encode()
+        if head_len:
+            body = new + body[int(head_len):]
+            headers = {"Inference-Header-Content-Length": str(len(new))}
+        else:
+            body = new
+    status, rheaders, data = _post(port, f"/v2/models/{model}/infer", body,
+                                   headers)
+    if status != 200:
+        return status, json.loads(data)["error"]
+    return status, _any_outputs(rheaders, data)
+
+
+def _grpc_infer(stub, model: str, inputs: dict, parameters=None,
+                request_id: str = ""):
+    """(code, outputs or error words) of one ModelInfer call."""
+    import grpc
+
+    try:
+        resp = stub.ModelInfer(_grpc_request(
+            model, inputs, request_id=request_id, parameters=parameters),
+            timeout=GRPC_TIMEOUT_S)
+    except grpc.RpcError as exc:
+        return exc.code(), exc.details()
+    return grpc.StatusCode.OK, _grpc_outputs(resp)
+
+
+def _dlrm_checks(torch, engine, http_port: int, grpc_url: str,
+                 smi: str, device) -> dict:
+    """The MLPerf-shaped DLRM (and the registered two) over HTTP and gRPC;
+    returns K3's launches over HTTP and over both."""
+    import grpc
+
+    from client_tpu_torch.parallel import emb_shard as es
+    from client_tpu_torch.parallel import kv_shard as ks
+
+    model = engine.repository.get(DLRM_MODEL)
+    backend = model.backend
+
+    def executions(name):
+        return engine.model_statistics(name)["model_stats"][0][
+            "execution_count"]
+
+    rng = np.random.default_rng(26)
+    reqs = [_mlperf_csr(rng) for _ in range(96)]
+    http_reqs, grpc_reqs = reqs[:64], reqs[64:]
+    channel, stub = _grpc_channel(grpc_url)
+    try:
+        # Counted: K3 launches once per sharded execution.
+        e0 = executions(DLRM_MODEL)
+        ks.launches = 0
+        with concurrent.futures.ThreadPoolExecutor(DLRM_CONCURRENCY) as pool:
+            http_out = list(pool.map(
+                lambda ir: _http_infer(http_port, DLRM_MODEL, ir[1],
+                                       binary=ir[0] % 2 == 1),
+                enumerate(http_reqs)))
+        http_launches, http_execs = ks.launches, executions(DLRM_MODEL) - e0
+        with concurrent.futures.ThreadPoolExecutor(DLRM_CONCURRENCY) as pool:
+            grpc_out = list(pool.map(
+                lambda r: _grpc_infer(stub, DLRM_MODEL, r), grpc_reqs))
+        launches, execs = ks.launches, executions(DLRM_MODEL) - e0
+        for status, out in http_out:
+            _check(status == 200, f"{DLRM_MODEL}: HTTP {status}: {out}")
+        for code, out in grpc_out:
+            _check(code == grpc.StatusCode.OK, f"{DLRM_MODEL}: gRPC {code}: "
+                   f"{out}")
+        on_card = device.type == "cuda"  # the CPU wrapper launches nothing
+        _check((http_launches, launches) == ((http_execs, execs) if on_card
+                                             else (0, 0)),
+               f"K3 launched {http_launches} / {launches} times for "
+               f"{http_execs} / {execs} sharded executions")
+        _check(execs < len(reqs), f"{execs} executions for {len(reqs)} "
+               "requests: the ragged scheduler batched nothing")
+        print(f"stateful: {DLRM_MODEL}: {len(reqs)} one-row CSR requests "
+              f"(64 over HTTP, JSON and binary, 32 over gRPC; "
+              f"{DLRM_CONCURRENCY} at a time) in {execs} executions; K3 "
+              f"launched {launches} times ({http_launches} over HTTP), one "
+              "per execution", flush=True)
+
+        # Every score against the same request run alone.
+        exact, worst = 0, 0.0
+        for r, out in zip(reqs, [o for _, o in http_out + grpc_out]):
+            got = out["OUTPUT0"]
+            _check(got.shape == (1, 1) and got.dtype == np.float32
+                   and bool(np.isfinite(got).all()),
+                   f"{DLRM_MODEL}: {got.shape} {got.dtype}")
+            want, _ = model.execute_timed(dict(r), batch_size=int(
+                r["INDICES"].shape[0]))
+            want = want["OUTPUT0"][:1]
+            exact += got.tobytes() == want.tobytes()
+            worst = max(worst, float(np.abs(got - want).max()))
+        _check(worst <= DLRM_ATOL, f"served scores off the direct run by "
+               f"{worst} (tolerance {DLRM_ATOL})")
+        print(f"stateful: {DLRM_MODEL}: every score equals the request run "
+              f"alone through Model.execute_timed: {exact}/{len(reqs)} bit "
+              f"for bit, max |served - direct| {worst} (tolerance "
+              f"{DLRM_ATOL})", flush=True)
+
+        # Sharded against unsharded bag sums, a full batch of 32 rows at
+        # the largest lookup bucket.
+        batch = _mlperf_csr(np.random.default_rng(27), rows=32)
+        staged = {k: torch.from_numpy(v).to(device) for k, v in
+                  backend.pre_stage(batch, MLPERF_DLRM["max_lookups"]).items()}
+        num_seg = MLPERF_DLRM["max_batch_size"] * MLPERF_DLRM["num_tables"]
+        with torch.inference_mode():
+            sharded = backend.pooled(staged)
+            whole = torch.from_numpy(backend.table_host).to(device)
+            oracle = es.bag_sum_oracle(whole, staged["INDICES"],
+                                       staged["SEG_IDS"], num_seg)
+        _check(bool(torch.equal(sharded, oracle)),
+               "sharded bag sums differ from the unsharded ones by "
+               f"{float((sharded - oracle).abs().max())}")
+        del whole, oracle
+        print(f"stateful: {DLRM_MODEL}: pooled {list(sharded.shape)} over 2 "
+              f"shards (ring) equals the unsharded table's bit for bit, "
+              f"{int(batch['INDICES'].shape[0])} lookups in a bucket of "
+              f"{MLPERF_DLRM['max_lookups']}", flush=True)
+
+        # The registered two: dlrm over both transports against the direct
+        # run, dlrm_cached until its row cache hits.
+        small = engine.repository.get("dlrm")
+        srng = np.random.default_rng(4)
+        for i in range(6):
+            r = _small_csr(srng, rows=1 + i % 3)
+            status, out = _http_infer(http_port, "dlrm", r, binary=i % 2 == 0)
+            code, gout = _grpc_infer(stub, "dlrm", r)
+            _check(status == 200 and code == grpc.StatusCode.OK,
+                   f"dlrm: {status} {out} / {code} {gout}")
+            want, _ = small.execute_timed(dict(r), batch_size=int(
+                r["INDICES"].shape[0]))
+            for got in (out["OUTPUT0"], gout["OUTPUT0"]):
+                _check(got.tobytes() == want["OUTPUT0"][:len(got)].tobytes(),
+                       "dlrm: served score differs from the direct run")
+            status, out = _http_infer(http_port, "dlrm_cached", r, True)
+            _check(status == 200 and out["OUTPUT0"].tobytes()
+                   == want["OUTPUT0"][:len(got)].tobytes(),
+                   f"dlrm_cached: {status}, not equal to dlrm's score")
+        cache = engine.repository.get("dlrm_cached").backend.row_cache
+        snap = cache.snapshot()
+        _check(snap["hit_rate"] > 0, f"dlrm_cached row cache: {snap}")
+        print(f"stateful: dlrm over HTTP and gRPC bit for bit against the "
+              f"direct run; dlrm_cached equal to dlrm, row cache {snap}",
+              flush=True)
+
+        # validate_ragged's 400s on both transports.
+        r = _mlperf_csr(np.random.default_rng(5))
+        over = {"DENSE": r["DENSE"], "INDICES": np.zeros(4097, np.int32),
+                "OFFSETS": np.array([0] + [4097] * 26, np.int32)}
+        cases = {
+            "OFFSETS[-1]": {**r, "OFFSETS": np.concatenate(
+                [r["OFFSETS"][:-1], [r["OFFSETS"][-1] + 1]]).astype(
+                    np.int32)},
+            "OFFSETS length": {**r, "OFFSETS": r["OFFSETS"][:-1]},
+            "exceeding max_lookups": over,
+            "out of range": {**r, "INDICES": np.full_like(
+                r["INDICES"], MLPERF_DLRM["table_rows"])},
+        }
+        for words, bad in cases.items():
+            status, err = _http_infer(http_port, DLRM_MODEL, bad, True)
+            code, gerr = _grpc_infer(stub, DLRM_MODEL, bad)
+            _check(status == 400 and words in err and err == gerr
+                   and code == grpc.StatusCode.INVALID_ARGUMENT,
+                   f"{words}: HTTP {status} {err!r}, gRPC {code} {gerr!r}")
+        print(f"stateful: {len(cases)} malformed CSR requests answered 400 "
+              "and INVALID_ARGUMENT with the same words", flush=True)
+
+        # Printed, not claimed: throughput at a fixed concurrency, fill, and
+        # one execution's device time at the largest lookup bucket.
+        obs_rng = np.random.default_rng(28)
+        pool_reqs = [_mlperf_csr(obs_rng) for _ in range(256)]
+        e1 = executions(DLRM_MODEL)
+        st1 = engine.model_statistics(DLRM_MODEL)["model_stats"][0]
+
+        def client(k):
+            lat = []
+            for r in pool_reqs[k::DLRM_CONCURRENCY]:
+                t = time.monotonic()
+                status, out = _http_infer(http_port, DLRM_MODEL, r, True)
+                _check(status == 200, f"{DLRM_MODEL}: {status} {out}")
+                lat.append(time.monotonic() - t)
+            return lat
+
+        t0 = time.monotonic()
+        with concurrent.futures.ThreadPoolExecutor(DLRM_CONCURRENCY) as pool:
+            lats = [x for part in pool.map(client, range(DLRM_CONCURRENCY))
+                    for x in part]
+        wall = time.monotonic() - t0
+        n_exec = executions(DLRM_MODEL) - e1
+        split = _stats_split(
+            st1, engine.model_statistics(DLRM_MODEL)["model_stats"][0])
+        nnz = sum(int(r["INDICES"].shape[0]) for r in pool_reqs)
+        device_ms = None
+        if device.type == "cuda":
+            with torch.inference_mode():
+                device_ms = _queued_ms(torch, lambda: backend(staged),
+                                       reps=10)
+        print(f"stateful: {DLRM_MODEL} at concurrency {DLRM_CONCURRENCY} over "
+              f"HTTP (binary, client threads in this process): "
+              f"{len(pool_reqs) / wall} requests/s, latency p50 "
+              f"{1e3 * float(np.percentile(lats, 50))} ms, p99 "
+              f"{1e3 * float(np.percentile(lats, 99))} ms; {n_exec} "
+              f"executions, {len(pool_reqs) / n_exec} rows and {nnz / n_exec}"
+              f" lookups per execution; server-side ms per request "
+              f"{split}; one execution of 32 rows at the "
+              f"{MLPERF_DLRM['max_lookups']}-lookup bucket: device "
+              f"{device_ms} ms (queued behind a sleeping kernel); {smi} "
+              "(printed, not claimed)", flush=True)
+        return {"ring_all_reduce": launches, "http_launches": http_launches}
+    finally:
+        channel.close()
+
+
+def _stats_split(before: dict, after: dict) -> dict:
+    """Mean server-side ms per request of each /stats phase between two
+    snapshots of one model's statistics."""
+    b, a = before["inference_stats"], after["inference_stats"]
+    n = max(1, a["success"]["count"] - b["success"]["count"])
+    return {k: (a[k]["ns"] - b[k]["ns"]) / n / 1e6
+            for k in ("success", "queue", "compute_input", "compute_infer",
+                      "compute_output")}
+
+
+def _seq_expected(sid: int) -> list[int]:
+    return np.cumsum([sid * 100 + i for i in range(SEQ_STEPS)]).tolist()
+
+
+def _seq_over_http(port: int, model: str, sid: int) -> list:
+    sums = []
+    for i in range(SEQ_STEPS):
+        status, out = _http_infer(
+            port, model, {"INPUT": np.array([sid * 100 + i], np.int32)},
+            binary=i % 2 == 1, parameters={
+                "sequence_id": sid, "sequence_start": i == 0,
+                "sequence_end": i == SEQ_STEPS - 1})
+        _check(status == 200, f"{model} sequence {sid}: {status} {out}")
+        sums.append(int(out["OUTPUT"][0]))
+    return sums
+
+
+def _seq_over_stream(url: str, model: str, sids: list[int]) -> dict:
+    """Every step of ``sids`` on one ModelStreamInfer RPC, interleaved and
+    sent at once; each sequence's sums by request id."""
+    channel, stub = _grpc_channel(url)
+    try:
+        reqs = [_grpc_request(
+            model, {"INPUT": np.array([sid * 100 + i], np.int32)},
+            request_id=f"{sid}:{i}", parameters={
+                "sequence_id": sid, "sequence_start": i == 0,
+                "sequence_end": i == SEQ_STEPS - 1})
+            for i in range(SEQ_STEPS) for sid in sids]
+        got = {sid: [None] * SEQ_STEPS for sid in sids}
+        for msg in stub.ModelStreamInfer(iter(reqs), timeout=GRPC_TIMEOUT_S):
+            _check(not msg.error_message, f"{model}: {msg.error_message}")
+            sid, i = map(int, msg.infer_response.id.split(":"))
+            got[sid][i] = int(_grpc_outputs(msg.infer_response)["OUTPUT"][0])
+        return got
+    finally:
+        channel.close()
+
+
+def _sequence_checks(engine, http_port: int, grpc_url: str) -> None:
+    """64 sequences of 8 steps side by side on each sequence model, half
+    over HTTP and half over gRPC streams; restarts and the 400s."""
+    import grpc
+
+    for model in SEQ_MODELS:
+        st0 = engine.model_statistics(model)["model_stats"][0]
+        sids = list(range(1, N_SEQ + 1))
+        t0 = time.monotonic()
+        with concurrent.futures.ThreadPoolExecutor(N_SEQ // 2 + 8) as pool:
+            http_f = {sid: pool.submit(_seq_over_http, http_port, model, sid)
+                      for sid in sids[:N_SEQ // 2]}
+            groups = [sids[N_SEQ // 2 + k::8] for k in range(8)]
+            grpc_f = [pool.submit(_seq_over_stream, grpc_url, model, g)
+                      for g in groups]
+            got = {sid: f.result() for sid, f in http_f.items()}
+            for f in grpc_f:
+                got.update(f.result())
+        wall = time.monotonic() - t0
+        for sid in sids:
+            _check(got[sid] == _seq_expected(sid),
+                   f"{model} sequence {sid}: {got[sid]} != "
+                   f"{_seq_expected(sid)}")
+        st = engine.model_statistics(model)["model_stats"][0]
+        steps = st["inference_count"] - st0["inference_count"]
+        execs = st["execution_count"] - st0["execution_count"]
+        widest = max(b["batch_size"] for b in st["batch_stats"])
+        _check(steps == N_SEQ * SEQ_STEPS, f"{model}: {steps} steps")
+        if model == "simple_sequence_oldest":
+            _check(widest > 1, f"{model}: no wave held two sequences")
+        print(f"stateful: {model}: {N_SEQ} sequences of {SEQ_STEPS} steps "
+              f"({N_SEQ // 2} over HTTP, {N_SEQ // 2} on 8 gRPC streams), "
+              f"every running sum exact; {steps} steps in {execs} executions "
+              f"({steps / execs} sequences per execution, widest {widest}), "
+              f"{steps / wall} steps/s, server-side ms per step "
+              f"{_stats_split(st0, st)} (printed, not claimed)", flush=True)
+
+        # A restart resets the sum; the 400s on both transports.
+        sid = 9001
+        sums = []
+        for value, params in ((5, {"sequence_start": True}), (3, {}),
+                              (10, {"sequence_start": True}),
+                              (1, {"sequence_end": True})):
+            status, out = _http_infer(http_port, model, {"INPUT": np.array(
+                [value], np.int32)}, False, {"sequence_id": sid, **params})
+            _check(status == 200, f"{model} restart: {status} {out}")
+            sums.append(int(out["OUTPUT"][0]))
+        _check(sums == [5, 8, 10, 11], f"{model} restart: {sums}")
+        channel, stub = _grpc_channel(grpc_url)
+        try:
+            for params, words in (
+                    ({"sequence_id": 0, "sequence_start": True},
+                     "non-zero sequence id"),
+                    ({"sequence_id": 9002}, "without start flag")):
+                one = {"INPUT": np.array([1], np.int32)}
+                status, err = _http_infer(http_port, model, one, False,
+                                          params)
+                code, gerr = _grpc_infer(stub, model, one, params)
+                _check(status == 400 and words in err and err == gerr
+                       and code == grpc.StatusCode.INVALID_ARGUMENT,
+                       f"{model} {params}: HTTP {status} {err!r}, gRPC "
+                       f"{code} {gerr!r}")
+        finally:
+            channel.close()
+    print("stateful: a restart resets the sum; sequence id 0 and a step "
+          "without a start answer 400 and INVALID_ARGUMENT on both "
+          "sequence models", flush=True)
+
+
+def _repeat_checks(http_port: int, grpc_url: str) -> None:
+    """simple_repeat over /generate_stream and ModelStreamInfer: every OUT
+    and IDX in order, then the end (SSE) or the final flag (gRPC)."""
+    values = list(range(100, 124))
+    body = {"inputs": [{"name": "IN", "datatype": "INT32",
+                        "shape": [len(values)], "data": values}]}
+    conn = http.client.HTTPConnection("127.0.0.1", http_port, timeout=600)
+    try:
+        conn.request("POST", "/v2/models/simple_repeat/generate_stream",
+                     json.dumps(body).encode())
+        resp = conn.getresponse()
+        _check(resp.status == 200, f"simple_repeat SSE: {resp.status}")
+        events = [json.loads(e[len(b"data: "):])
+                  for e in resp.read().split(b"\n\n") if e]
+    finally:
+        conn.close()
+    outs = [{o["name"]: o["data"] for o in e["outputs"]} for e in events]
+    _check([o["OUT"] for o in outs] == [[v] for v in values]
+           and [o["IDX"] for o in outs] == [[i] for i in range(len(values))]
+           and all(e["parameters"] == {"triton_final_response": False}
+                   for e in events),
+           f"simple_repeat SSE events {events[:3]}...")
+    channel, stub = _grpc_channel(grpc_url)
+    try:
+        reqs = [_grpc_request("simple_repeat", {"IN": np.array(
+            values[k::2], np.int32)}, request_id=f"r{k}") for k in (0, 1)]
+        got = {"r0": [], "r1": []}
+        finals = set()
+        for msg in stub.ModelStreamInfer(iter(reqs), timeout=GRPC_TIMEOUT_S):
+            r = msg.infer_response
+            _check(not msg.error_message and r.id not in finals,
+                   f"simple_repeat stream: {msg.error_message or r.id}")
+            if _grpc_final(r):
+                _check(not r.outputs, "final message with outputs")
+                finals.add(r.id)
+                continue
+            o = _grpc_outputs(r)
+            got[r.id].append((int(o["OUT"][0]), int(o["IDX"][0])))
+        _check(finals == {"r0", "r1"}, f"finals {finals}")
+        for k in (0, 1):
+            want = list(zip(values[k::2], range(len(values[k::2]))))
+            _check(got[f"r{k}"] == want, f"simple_repeat r{k}: {got}")
+    finally:
+        channel.close()
+    print(f"stateful: simple_repeat: {len(values)} responses over SSE and "
+          "2 requests multiplexed on one ModelStreamInfer RPC, OUT and IDX "
+          "in order, each gRPC request ended by its final flag", flush=True)
+
+
+def stateful_phase(torch, smi: str, device: str = "cuda") -> dict:
+    """DLRM (ragged batching, the row cache, row-sharded tables combined
+    by K3), both sequence strategies and the decoupled simple_repeat, on
+    one engine behind HTTP and gRPC. ``device`` is for a dry run of the
+    phase's logic on the CPU at a cut size; the script runs it on cuda."""
+    from client_tpu_torch.engine import TorchEngine
+    from client_tpu_torch.models import build_repository
+    from client_tpu_torch.models.dlrm import DlrmBackend
+    from client_tpu_torch.server import (
+        GrpcInferenceServer,
+        HttpInferenceServer,
+    )
+
+    device = torch.device(device)
+    repo = build_repository(list(STATEFUL_MODELS))
+    repo.register(DLRM_MODEL, lambda dev: DlrmBackend(
+        name=DLRM_MODEL, device=dev, emb_devices=[dev] * 2, **MLPERF_DLRM))
+    t0 = time.monotonic()
+    engine = TorchEngine(repo, device=device)
+    server = HttpInferenceServer(engine, port=0).start()
+    grpc_server = GrpcInferenceServer(engine, port=0).start()
+    served = engine.repository.names()
+    table_gb = engine.repository.get(DLRM_MODEL).backend.table_host.nbytes / 1e9
+    print(f"stateful: {len(served)} models up in {time.monotonic() - t0:.1f}"
+          f" s: {served}; {DLRM_MODEL}'s stacked table {table_gb:.2f} GB in "
+          f"2 shards on {device}", flush=True)
+    try:
+        counts = _dlrm_checks(torch, engine, server.port, grpc_server.url,
+                              smi, device)
+        _sequence_checks(engine, server.port, grpc_server.url)
+        _repeat_checks(server.port, grpc_server.url)
+        return counts
+    finally:
+        grpc_server.stop()
+        server.stop()
+        engine.shutdown()
+
+
 def wave_phase(torch, smi: str) -> None:
     """``--kernels``: the per-wave host/device split (:func:`_wave_split`)
     of ``tiny_gpt_long`` at its registered size, built directly, over one
@@ -2273,6 +2812,13 @@ def main(argv: list[str]) -> int:
                f"{kernel['http_launches']} over HTTP alone")
     torch.cuda.empty_cache()
     vision_phase(torch, smi)
+    torch.cuda.empty_cache()
+    # K3's second call site: the row-sharded DLRM's pooled bags.
+    stateful = stateful_phase(torch, smi)
+    kernels[3]["launches"] += stateful["ring_all_reduce"]
+    kernels[3]["http_launches"] += stateful["http_launches"]
+    _check(stateful["ring_all_reduce"] > stateful["http_launches"] > 0,
+           f"ring_all_reduce in the stateful phase: {stateful}")
     for kernel in kernels:
         # Shorter aliases of the two keys above.
         kernel["launched"] = kernel["launches"]

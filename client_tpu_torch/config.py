@@ -15,6 +15,9 @@ _DEFAULTS = {
     # Generative dispatch-ahead depth, in waves, before the worker blocks
     # on the oldest token fetch.
     "CLIENT_TPU_GEN_PIPELINE": "32",
+    # Oldest-sequence batcher dispatch-ahead depth, in waves, before the
+    # worker blocks on the oldest wave's outputs.
+    "CLIENT_TPU_SEQ_PIPELINE": "2",
     # Per-stream pending-response backlog (HTTP generate_stream, gRPC
     # stream RPC) before the slow-consumer shed; SSE backpressure starts
     # at half of it, the gRPC stream's at the mark itself.

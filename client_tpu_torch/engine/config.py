@@ -1,10 +1,11 @@
 """Model configuration: the engine-side analog of Triton's ``config.pbtxt``.
 
 The port's own copy of ``client_tpu/engine/config.py``, trimmed to what
-the port serves: batched models with optional dynamic batching,
-decoupled (streaming) models and ensembles, built in code (no
-``config.pbtxt`` parsing yet). Field names match the reference's
-model-config schema.
+the port serves: batched models with optional dynamic batching, ragged
+models batched along a lookups axis (DLRM), stateful models with
+sequence batching, decoupled (streaming) models and ensembles, built in
+code (no ``config.pbtxt`` parsing yet). Field names match the
+reference's model-config schema.
 """
 
 from __future__ import annotations
@@ -18,12 +19,31 @@ class TensorConfig:
     name: str
     data_type: str  # v2 wire name, e.g. "INT32"
     dims: list[int]
+    optional: bool = False
+    # A ragged tensor (DLRM's CSR indices and offsets) carries its own
+    # variable leading dim instead of the implicit [-1] batch dim: its
+    # wire shape is exactly ``dims``.
+    ragged: bool = False
 
 
 @dataclass
 class DynamicBatchingConfig:
     preferred_batch_size: list[int] = field(default_factory=list)
     max_queue_delay_microseconds: int = 0
+
+
+@dataclass
+class SequenceBatchingConfig:
+    # 'direct' (a slot per sequence) or 'oldest' (steps of distinct live
+    # sequences batched into one execution), Triton's two strategies.
+    strategy: str = "direct"
+    # Triton's default idle window, 1 s; a sequence with a step queued or
+    # running is never evicted, whatever this value.
+    max_sequence_idle_microseconds: int = 1_000_000
+    # 'oldest': the state arena's capacity in live sequences, and how long
+    # a forming wave waits for more candidates.
+    max_candidate_sequences: int = 64
+    max_queue_delay_microseconds: int = 1000
 
 
 @dataclass
@@ -45,26 +65,38 @@ class ModelConfig:
     input: list[TensorConfig] = field(default_factory=list)
     output: list[TensorConfig] = field(default_factory=list)
     dynamic_batching: DynamicBatchingConfig | None = None
+    sequence_batching: SequenceBatchingConfig | None = None
     ensemble_scheduling: list[EnsembleStep] = field(default_factory=list)
     instance_count: int = 1
     # Decoupled transaction policy: one request, any number of responses,
     # the last flagged final (Triton's ``model_transaction_policy``).
     decoupled: bool = False
     version: int = 1
+    # The quantity the bucket ladder pads: "rows" (batch rows) or
+    # "lookups" (the summed embedding lookups of a ragged DLRM batch; rows
+    # still cap at max_batch_size).
+    padding_axis: str = "rows"
+    max_lookups: int = 0  # the ladder's ceiling along "lookups"
 
     def scheduler_kind(self) -> str:
-        """ENSEMBLE, DYNAMIC or NONE: the kinds the port schedules."""
+        """ENSEMBLE, SEQUENCE, DYNAMIC or NONE: the kinds the port
+        schedules."""
         if self.ensemble_scheduling:
             return "ENSEMBLE"
+        if self.sequence_batching is not None:
+            return "SEQUENCE"
         return "DYNAMIC" if self.dynamic_batching is not None else "NONE"
 
     def axis_capacity(self) -> int:
-        """Ceiling of the bucket ladder (rows)."""
+        """Ceiling of the bucket ladder along the padding axis:
+        max_lookups for lookup-bucketed models, else max_batch_size."""
+        if self.padding_axis == "lookups":
+            return self.max_lookups
         return self.max_batch_size
 
     def effective_buckets(self) -> list[int]:
-        """Row buckets a batch pads up to: powers of two up to
-        max_batch_size."""
+        """Buckets a batch pads up to: powers of two up to the axis
+        capacity."""
         cap = self.axis_capacity()
         if cap <= 0:
             return [0]
@@ -78,7 +110,9 @@ class ModelConfig:
     def metadata_dict(self) -> dict:
         """v2 model-metadata JSON (GET /v2/models/<name>)."""
         def io_md(tc: TensorConfig) -> dict:
-            dims = ([-1] if self.max_batch_size > 0 else []) + list(tc.dims)
+            # A ragged tensor owns its variable leading dim: no batch dim.
+            dims = (([-1] if self.max_batch_size > 0 and not tc.ragged
+                     else []) + list(tc.dims))
             return {"name": tc.name, "datatype": tc.data_type, "shape": dims}
 
         return {
@@ -97,10 +131,15 @@ class ModelConfig:
             "backend": self.platform,
             "max_batch_size": self.max_batch_size,
             "input": [{"name": t.name, "data_type": f"TYPE_{t.data_type}",
-                       "dims": t.dims} for t in self.input],
+                       "dims": t.dims,
+                       **({"ragged": True} if t.ragged else {})}
+                      for t in self.input],
             "output": [{"name": t.name, "data_type": f"TYPE_{t.data_type}",
                         "dims": t.dims} for t in self.output],
         }
+        if self.padding_axis != "rows":
+            out["padding_axis"] = self.padding_axis
+            out["max_lookups"] = self.max_lookups
         if self.dynamic_batching is not None:
             db = self.dynamic_batching
             out["dynamic_batching"] = {
@@ -110,6 +149,9 @@ class ModelConfig:
             }
         if self.instance_count != 1:
             out["instance_group"] = [{"count": self.instance_count}]
+        if self.sequence_batching is not None:
+            out["sequence_batching"] = {
+                "strategy": self.sequence_batching.strategy}
         if self.ensemble_scheduling:
             out["ensemble_scheduling"] = {"step": [
                 {"model_name": s.model_name, "model_version": s.model_version,

@@ -4,7 +4,10 @@ Counterpart of ``TpuEngine`` (``client_tpu/engine/engine.py``) with the
 method surface the HTTP frontend calls: health, server and model metadata,
 model config and statistics, ``infer`` / ``async_infer`` and ``shutdown``.
 A decoupled (streaming) model answers only through ``async_infer``, once
-per response; a blocking ``infer`` on one is a 400.
+per response; a blocking ``infer`` on one is a 400. Each model gets the
+scheduler its config asks for (``scheduler.make_scheduler``): dynamic
+batching, ragged (lookups-axis) batching, sequence batching, generative
+or other decoupled streaming, or an ensemble.
 Load/unload at run time and the admission, QoS, shm, tracing, profiling
 and cost planes are not ported yet.
 """
@@ -133,7 +136,7 @@ class TorchEngine:
         if model is not None and model.config.decoupled:
             raise EngineError(
                 f"model '{req.model_name}' is decoupled; use streaming "
-                "(async_infer / generate_stream) to receive its responses",
+                "(async_infer / gRPC stream) to receive its responses",
                 400)
         done = threading.Event()
         box: list[InferResponse] = []

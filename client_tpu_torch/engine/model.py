@@ -10,6 +10,13 @@ the kernels see to a small set.
 Each scheduler worker thread runs its batches on its own CUDA stream, so
 two instances of one model overlap on the card, and every phase boundary
 waits on that stream alone, never on the whole device.
+
+Three hooks a backend may define, as in the JAX package: a ragged backend
+(DLRM) checks the structure of its CSR tensors in ``validate_ragged`` and
+stages them itself in ``pre_stage`` (no generic row padding then); a
+stateful backend (sequence batching) defines ``initial_state()`` and
+``step(state, inputs) -> (state, outputs)``, run by
+:meth:`Model.execute_stateful`.
 """
 
 from __future__ import annotations
@@ -88,8 +95,8 @@ class Model:
         (1 when the model is unbatched)."""
         cfg = self.config
         batch = 1
-        for name in self._input_meta:
-            if name not in inputs:
+        for name, (tc, _, _) in self._input_meta.items():
+            if name not in inputs and not tc.optional:
                 raise EngineError(
                     f"missing input '{name}' for model '{cfg.name}'")
         for name, arr in inputs.items():
@@ -103,7 +110,7 @@ class Model:
                     f"input '{name}': dtype {arr.dtype} != declared "
                     f"{tc.data_type}")
             shape = list(arr.shape)
-            if cfg.max_batch_size > 0:
+            if cfg.max_batch_size > 0 and not tc.ragged:
                 if len(shape) != len(dims) + 1:
                     raise EngineError(
                         f"input '{name}': expected batched rank "
@@ -127,10 +134,16 @@ class Model:
         if cfg.max_batch_size > 0 and batch < 1:
             raise EngineError(f"batch size {batch} is below 1 for "
                               f"'{cfg.name}'")
+        # A ragged backend checks what the per-tensor loop cannot see:
+        # offsets against indices, the lookup ceiling, the id range.
+        check = getattr(self.backend, "validate_ragged", None)
+        if check is not None and cfg.max_batch_size > 0:
+            check(inputs, batch)
         return batch
 
     def pick_bucket(self, batch: int) -> int:
-        """Smallest ladder bucket that holds ``batch`` rows."""
+        """Smallest ladder bucket that holds ``batch`` units of the padding
+        axis (rows, or summed lookups for a ragged DLRM batch)."""
         for b in self.config.effective_buckets():
             if b >= batch:
                 return b
@@ -141,7 +154,10 @@ class Model:
                       ) -> tuple[dict[str, np.ndarray], ExecPhases]:
         """Pad to the bucket, stage to the device, run the forward pass,
         fetch to the host and slice back to ``batch_size`` rows. Returns
-        the outputs and the measured :class:`ExecPhases`."""
+        the outputs and the measured :class:`ExecPhases`. A backend with a
+        ``pre_stage`` hook pads for itself (a lookups-axis model: indices
+        to the lookup bucket, rows to ``max_batch_size``), and its outputs
+        keep their rows."""
         cfg = self.config
         phases = ExecPhases(start=now_ns())
         if self.backend.host_side:
@@ -149,12 +165,16 @@ class Model:
         pad_to = (self.pick_bucket(batch_size)
                   if cfg.axis_capacity() > 0 and batch_size is not None
                   else None)
+        pre_stage = getattr(self.backend, "pre_stage", None)
+        if pre_stage is not None:
+            inputs = pre_stage(inputs, pad_to)
+        trim = pad_to is not None and pre_stage is None
         cuda = self.device.type == "cuda"
         stream = self._stream() if cuda else None
         with torch.cuda.stream(stream) if cuda else contextlib.nullcontext():
             staged = {}
             for name, arr in inputs.items():
-                if pad_to is not None and arr.shape[0] < pad_to:
+                if trim and arr.shape[0] < pad_to:
                     arr = np.pad(arr, [(0, pad_to - arr.shape[0])]
                                  + [(0, 0)] * (arr.ndim - 1))
                 t = torch.from_numpy(arr if arr.flags.writeable
@@ -177,12 +197,35 @@ class Model:
             host: dict[str, np.ndarray] = {}
             for name, val in outputs.items():
                 arr = val.cpu().numpy()  # waits on this stream only
-                if pad_to is not None and arr.ndim >= 1 \
-                        and arr.shape[0] == pad_to:
+                if trim and arr.ndim >= 1 and arr.shape[0] == pad_to:
                     arr = arr[:batch_size]
                 host[name] = arr
         phases.output_end = now_ns()
         return host, phases
+
+    def execute_stateful(self, state, inputs: dict[str, np.ndarray]):
+        """One sequence step, the backend's ``step(state, staged_inputs)
+        -> (state, outputs)``, on the worker's stream. The state stays on
+        the device; the outputs come back as host arrays. Returns
+        ``(new_state, outputs)``."""
+        cuda = self.device.type == "cuda"
+        stream = self._stream() if cuda else None
+        with torch.cuda.stream(stream) if cuda else contextlib.nullcontext():
+            staged = {}
+            for name, arr in inputs.items():
+                t = torch.from_numpy(arr if arr.flags.writeable
+                                     else arr.copy())
+                if cuda:
+                    t = t.pin_memory().to(self.device, non_blocking=True)
+                staged[name] = t
+            with torch.inference_mode():
+                new_state, outputs = self.backend.step(state, staged)
+            if not isinstance(outputs, dict):
+                raise EngineError(
+                    f"model '{self.config.name}' returned {type(outputs)}, "
+                    "expected dict", 500)
+            host = {name: val.cpu().numpy() for name, val in outputs.items()}
+        return new_state, host
 
     def _execute_host(self, inputs: dict[str, np.ndarray],
                       phases: ExecPhases

@@ -6,11 +6,12 @@ the model's ``instance_count`` workers pops a request, gathers compatible
 requests within the queue-delay window up to the preferred batch size,
 concatenates them on the host and runs one execution for the batch.
 Decoupled generative models get the continuous-batching
-``GenerativeScheduler`` (``engine/generative.py``), ensembles the
-``EnsembleScheduler`` (``engine/ensemble.py``). Priority levels, queue
-policies, QoS lanes, dispatch overrides, preemption and the
-``DecoupledScheduler`` for non-generative streaming models are not ported
-yet.
+``GenerativeScheduler`` (``engine/generative.py``), other decoupled models
+the :class:`DecoupledScheduler`, stateful models the sequence batcher
+(``engine/sequence.py``), lookups-axis models the ``RaggedScheduler``
+(``engine/ragged.py``) and ensembles the ``EnsembleScheduler``
+(``engine/ensemble.py``). Priority levels, queue policies, QoS lanes,
+dispatch overrides and preemption are not ported yet.
 """
 
 from __future__ import annotations
@@ -82,6 +83,18 @@ def _backpressured(req: InferRequest) -> bool:
         return bool(bp())
     except Exception:  # noqa: BLE001 — fail open, see above
         return False
+
+
+def _wait_while_backpressured(req: InferRequest, poll_s: float = 0.001,
+                              max_wait_s: float = 60.0) -> None:
+    """Writer-paced production for a decoupled emit loop: park while the
+    frontend is backlogged, until the request is cancelled or
+    ``max_wait_s`` passes (then production resumes and the frontend's
+    slow-consumer shed owns the outcome)."""
+    deadline = time.monotonic() + max_wait_s
+    while (_backpressured(req) and not req.cancelled
+           and time.monotonic() < deadline):
+        time.sleep(poll_s)
 
 
 def power_buckets(n: int) -> list[int]:
@@ -286,22 +299,88 @@ class DefaultScheduler(Scheduler):
             request_id=req.request_id, outputs=outputs, times=req.times))
 
 
+class DecoupledScheduler(Scheduler):
+    """Decoupled (streaming) models that are not generative: one request,
+    any number of responses. A worker drives the backend's ``generate``
+    iterator and emits one response per item, then an empty response
+    flagged final (``triton_final_response``), as Triton's decoupled
+    backends end a stream. Emits are writer-paced: a backlogged frontend
+    (``req.backpressure``) holds the next one, for at most
+    ``BACKPRESSURE_TIMEOUT_S``; a cancelled request stops with 499."""
+
+    # How long one emit may wait on a backlogged frontend. Short, because
+    # the wait holds one of the model's few workers and every request
+    # queued behind it; past it, a stalled consumer is the frontend's
+    # slow-consumer shed's to handle.
+    BACKPRESSURE_TIMEOUT_S = 5.0
+
+    def _worker_loop(self) -> None:
+        while True:
+            req = self.queue.get_many(1)[0]
+            if req is _SHUTDOWN:
+                return
+            if self._check_cancelled(req):
+                continue
+            req.times.compute_start = now_ns()
+            try:
+                self._stream(req)
+            except Exception as exc:  # noqa: BLE001 — the worker must live
+                self._fail(req, exc)
+
+    def _stream(self, req: InferRequest) -> None:
+        gen = self.model.backend.generate(req.inputs, req.parameters)
+        count = 0
+        for outputs in gen:
+            _wait_while_backpressured(
+                req, max_wait_s=self.BACKPRESSURE_TIMEOUT_S)
+            if req.cancelled:
+                gen.close()
+                raise EngineError("request cancelled", 499)
+            self._emit(req, outputs, final=False)
+            count += 1
+        req.times.compute_input_end = req.times.compute_start
+        req.times.compute_infer_end = now_ns()
+        req.times.compute_output_end = req.times.compute_infer_end
+        self.stats.record_execution(max(1, count),
+                                    compute_ns=req.times.compute_infer_ns)
+        self.stats.record_request(req.times, success=True)
+        self._emit(req, {}, final=True)
+
+    def _emit(self, req: InferRequest, outputs: dict, final: bool) -> None:
+        self._respond(req, InferResponse(
+            model_name=req.model_name,
+            model_version=req.model_version or str(self.model.config.version),
+            request_id=req.request_id, outputs=dict(outputs),
+            parameters={"triton_final_response": final}, final=final,
+            times=req.times))
+
+
 def make_scheduler(model: Model, stats: ModelStats,
                    engine=None) -> Scheduler:
     """The scheduler for ``model``: the ``EnsembleScheduler`` for an
-    ensemble (it calls back into ``engine``), the continuous-batching
-    ``GenerativeScheduler`` for a decoupled generative backend, else
+    ensemble (it calls back into ``engine``), the sequence batcher for a
+    stateful model (its strategy picked by ``make_sequence_scheduler``),
+    the continuous-batching ``GenerativeScheduler`` for a decoupled
+    generative backend, :class:`DecoupledScheduler` for any other
+    decoupled one, the ``RaggedScheduler`` for a lookups-axis model, else
     :class:`DefaultScheduler` (NONE and DYNAMIC)."""
-    if model.config.scheduler_kind() == "ENSEMBLE":
+    kind = model.config.scheduler_kind()
+    if kind == "ENSEMBLE":
         from client_tpu_torch.engine.ensemble import EnsembleScheduler
 
         return EnsembleScheduler(model, stats, engine)
+    if kind == "SEQUENCE":
+        from client_tpu_torch.engine.sequence import make_sequence_scheduler
+
+        return make_sequence_scheduler(model, stats)
     if model.config.decoupled:
         if getattr(model.backend, "generative", False):
             from client_tpu_torch.engine.generative import GenerativeScheduler
 
             return GenerativeScheduler(model, stats)
-        raise EngineError(
-            f"model '{model.config.name}': decoupled models other than "
-            "generative ones are not served by the port yet", 500)
+        return DecoupledScheduler(model, stats)
+    if model.config.padding_axis == "lookups":
+        from client_tpu_torch.engine.ragged import RaggedScheduler
+
+        return RaggedScheduler(model, stats)
     return DefaultScheduler(model, stats)

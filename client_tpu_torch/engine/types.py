@@ -1,8 +1,9 @@
 """Engine request/response types and the server-side phase timing.
 
-The port's own copy of ``client_tpu/engine/types.py``, trimmed to this
-slices: cancellation and the streaming backpressure probe are in; no
-sequence, deadline, tenant, QoS, shm or tracing fields yet.
+The port's own copy of ``client_tpu/engine/types.py``, trimmed to what
+the port serves: sequence routing, cancellation and the streaming
+backpressure probe are in; no deadline, tenant, QoS, shm or tracing
+fields yet.
 """
 
 from __future__ import annotations
@@ -72,6 +73,11 @@ class InferRequest:
     request_id: str = ""
     outputs: list[OutputRequest] = field(default_factory=list)
     parameters: dict[str, Any] = field(default_factory=dict)
+    # Stateful-model sequence routing (the ``sequence_id``,
+    # ``sequence_start`` and ``sequence_end`` request parameters).
+    sequence_id: int = 0
+    sequence_start: bool = False
+    sequence_end: bool = False
     times: RequestTimes = field(default_factory=RequestTimes)
     # Called with each response; a decoupled model calls it once per
     # streamed response and last with ``final=True``.
@@ -83,7 +89,8 @@ class InferRequest:
     cancelled: bool = False
     # Streaming flow control: a frontend with a bounded response path sets
     # a zero-argument probe that returns True while it is backlogged; the
-    # generative scheduler then skips this stream's waves until it drains.
+    # generative scheduler then skips this stream's waves until it drains,
+    # and the decoupled scheduler holds its next emit.
     backpressure: Callable[[], bool] | None = None
 
     def cancel(self) -> None:

@@ -28,6 +28,7 @@ def register_model(name: str, default: bool = True
 def _import_all() -> None:
     from client_tpu_torch.models import (  # noqa: F401
         bert,
+        dlrm,
         ensembles,
         generate,
         simple,

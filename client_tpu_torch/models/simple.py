@@ -7,15 +7,22 @@ Counterpart of ``client_tpu/models/simple.py``:
 - ``simple_int8``      the same in INT8 (the explicit-content clients)
 - ``simple_string``    BYTES decimal-string add/sub, host-side
 - ``simple_identity``  BYTES passthrough, host-side
+- ``simple_sequence``  stateful INT32 running sum, direct strategy
+- ``simple_sequence_oldest``  the same through the oldest-sequence arena
+- ``simple_repeat``    decoupled: one response per element of IN
 
-``simple`` and ``simple_int8`` run as tensor ops on the model's device;
-integer sums wrap as the JAX package's do. The BYTES models are host-side
-(``host_side = True``; ``jittable = False`` in the JAX package): object
-arrays cannot go to the card. ``simple_sequence*`` waits for sequence
-batching and ``simple_repeat`` for the non-generative decoupled scheduler.
+``simple``, ``simple_int8`` and the sequence models run as tensor ops on
+the model's device; integer sums wrap as the JAX package's do. The BYTES
+models are host-side (``host_side = True``; ``jittable = False`` in the
+JAX package): object arrays cannot go to the card. ``simple_repeat`` runs
+on the host too, in the ``DecoupledScheduler``'s worker: it has no device
+work.
 """
 
 from __future__ import annotations
+
+import time
+from typing import Any, Iterator
 
 import numpy as np
 import torch
@@ -23,6 +30,7 @@ import torch
 from client_tpu_torch.engine.config import (
     DynamicBatchingConfig,
     ModelConfig,
+    SequenceBatchingConfig,
     TensorConfig,
 )
 from client_tpu_torch.engine.model import ModelBackend
@@ -97,9 +105,71 @@ class IdentityBackend(_HostBackend):
         return {"OUTPUT0": inputs["INPUT0"]}
 
 
+class SequenceAccumulateBackend(ModelBackend):
+    """Stateful accumulator: OUTPUT is the running sum of INPUT over the
+    sequence; the state is an INT32 [1] tensor on the model's device.
+    ``strategy="oldest"`` serves it through the arena-batched
+    oldest-sequence scheduler."""
+
+    def __init__(self, name: str = "simple_sequence",
+                 strategy: str = "direct",
+                 max_candidate_sequences: int = 64):
+        super().__init__()
+        self.config = ModelConfig(
+            name=name,
+            max_batch_size=0,  # a sequence request is shape [1]
+            input=[TensorConfig("INPUT", "INT32", [1])],
+            output=[TensorConfig("OUTPUT", "INT32", [1])],
+            sequence_batching=SequenceBatchingConfig(
+                strategy=strategy,
+                max_candidate_sequences=max_candidate_sequences),
+        )
+
+    def initial_state(self) -> torch.Tensor:
+        return torch.zeros(1, dtype=torch.int32)
+
+    def step(self, state: torch.Tensor, inputs: dict[str, torch.Tensor]
+             ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+        acc = state + inputs["INPUT"]
+        return acc, {"OUTPUT": acc}
+
+
+class RepeatBackend(_HostBackend):
+    """Decoupled: one response per element of IN (OUT the element, IDX its
+    index), DELAY microseconds before each where given."""
+
+    def __init__(self, name: str = "simple_repeat"):
+        super().__init__()
+        self.config = ModelConfig(
+            name=name,
+            max_batch_size=0,
+            input=[TensorConfig("IN", "INT32", [-1]),
+                   TensorConfig("DELAY", "UINT32", [-1], optional=True)],
+            output=[TensorConfig("OUT", "INT32", [1]),
+                    TensorConfig("IDX", "UINT32", [1])],
+            decoupled=True,
+        )
+
+    def generate(self, inputs: dict[str, np.ndarray],
+                 parameters: dict[str, Any]
+                 ) -> Iterator[dict[str, np.ndarray]]:
+        data = np.ravel(inputs["IN"]).astype(np.int32)
+        delays = np.ravel(inputs.get("DELAY", np.zeros(0, np.uint32)))
+        for i, v in enumerate(data):
+            if i < len(delays) and delays[i]:
+                time.sleep(int(delays[i]) / 1e6)
+            yield {"OUT": np.array([v], dtype=np.int32),
+                   "IDX": np.array([i], dtype=np.uint32)}
+
+
 register_model("simple")(lambda device: AddSubBackend())
 register_model("simple_int8")(
     lambda device: AddSubBackend(name="simple_int8", max_batch_size=8,
                                  datatype="INT8"))
 register_model("simple_string")(lambda device: StringAddSubBackend())
 register_model("simple_identity")(lambda device: IdentityBackend())
+register_model("simple_sequence")(lambda device: SequenceAccumulateBackend())
+register_model("simple_sequence_oldest")(
+    lambda device: SequenceAccumulateBackend(name="simple_sequence_oldest",
+                                             strategy="oldest"))
+register_model("simple_repeat")(lambda device: RepeatBackend())

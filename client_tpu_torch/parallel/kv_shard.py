@@ -56,32 +56,36 @@ class KvMesh:
 
 
 def kv_mesh(n_shards: int,
-            devices: Sequence[torch.device | str] | None = None) -> KvMesh:
+            devices: Sequence[torch.device | str] | None = None, *,
+            axis: str = "kv") -> KvMesh:
     """A ``"kv"`` mesh of ``n_shards``: by default the first ``n_shards``
     CUDA devices (ValueError when there are fewer), else ``devices``, which
     may repeat one device. Raises NotImplementedError for distinct devices:
-    shards on several cards are not built yet."""
+    shards on several cards are not built yet. ``axis`` names the mesh in
+    the error messages (``parallel.emb_shard`` builds its ``"emb"`` mesh
+    here)."""
     n = int(n_shards)
     if n < 1:
-        raise ValueError(f"kv_shards must be >= 1, got {n_shards}")
+        raise ValueError(f"{axis}_shards must be >= 1, got {n_shards}")
     if devices is None:
         count = torch.cuda.device_count()
         if n > count:
             raise ValueError(
-                f"kv_shards={n} but runtime has {count} device(s)")
+                f"{axis}_shards={n} but runtime has {count} device(s)")
         picked = [torch.device("cuda", i) for i in range(n)]
     else:
         picked = [torch.device(d) for d in devices]
         if len(picked) != n:
-            raise ValueError(f"kv_shards={n} but {len(picked)} device(s) "
-                             "were given")
+            raise ValueError(f"{axis}_shards={n} but {len(picked)} "
+                             "device(s) were given")
         picked = [torch.device("cuda", torch.cuda.current_device())
                   if d.type == "cuda" and d.index is None else d
                   for d in picked]
     if len(set(picked)) > 1:
         raise NotImplementedError(
-            f"a kv mesh over distinct devices {sorted(map(str, set(picked)))}"
-            " is not built yet; place every shard on one device")
+            f"a {axis} mesh over distinct devices "
+            f"{sorted(map(str, set(picked)))} is not built yet; place every "
+            "shard on one device")
     return KvMesh(picked)
 
 

@@ -13,7 +13,6 @@ import numpy as np
 
 from client_tpu_torch.protocol.dtypes import (
     DataType,
-    dtype_byte_size,
     np_to_wire_dtype,
     wire_to_np_dtype,
 )
@@ -65,17 +64,15 @@ def serialize_tensor(tensor: np.ndarray, wire_dtype: str | None = None) -> bytes
 
 
 def deserialize_tensor(raw: bytes, wire_dtype: str, shape) -> np.ndarray:
-    """Raw wire bytes -> ndarray of the given v2 dtype and shape; raises
-    ValueError when the bytes do not fill the shape exactly."""
+    """Raw wire bytes -> ndarray of the given v2 dtype and shape. Bytes
+    that do not fill the shape exactly raise numpy's own ValueError
+    (``frombuffer`` or ``reshape``), as in the JAX package, so both
+    servers answer with the same words."""
     shape = tuple(int(d) for d in shape)
-    count = int(np.prod(shape, dtype=np.int64))
     if wire_dtype == DataType.BYTES:
+        count = int(np.prod(shape, dtype=np.int64))
         return deserialize_bytes_tensor(raw, count).reshape(shape)
     np_dtype = wire_to_np_dtype(wire_dtype)
     if np_dtype is None:
         raise ValueError(f"unknown datatype '{wire_dtype}'")
-    if len(raw) != count * dtype_byte_size(wire_dtype):
-        raise ValueError(
-            f"{len(raw)} bytes do not hold a {wire_dtype} tensor of shape "
-            f"{list(shape)}")
     return np.frombuffer(raw, dtype=np_dtype).reshape(shape)

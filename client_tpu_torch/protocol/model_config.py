@@ -6,9 +6,9 @@ The port's own copy of ``config_dict_to_proto`` from
 written ``TYPE_BYTES`` (as every engine config dict writes it) becomes
 ``TYPE_STRING``, where the JAX package raises. Only the blocks a port
 config dict holds are converted: the name, platform and IO, the preferred
-sizes and delay of dynamic batching, instance groups, ensemble scheduling
-and the decoupled policy. Queue policies, priority levels, sequence
-batching and parameters come with the slices that add them to the
+sizes and delay of dynamic batching, sequence batching, instance groups,
+ensemble scheduling and the decoupled policy. Queue policies, priority
+levels and parameters come with the slices that add them to the
 engine. The reverse direction and ``config.pbtxt`` loading are not
 ported: nothing in the port reads a config file yet.
 """
@@ -44,6 +44,21 @@ def config_dict_to_proto(d: dict) -> "pb.ModelConfig":
             int(x) for x in db.get("preferred_batch_size", []))
         cfg.dynamic_batching.max_queue_delay_microseconds = int(
             db.get("max_queue_delay_microseconds", 0))
+    if "sequence_batching" in d:
+        sb = d["sequence_batching"] or {}
+        if sb.get("strategy") == "oldest":
+            oldest = sb.get("oldest") or {}
+            cfg.sequence_batching.oldest.SetInParent()
+            cfg.sequence_batching.oldest.max_candidate_sequences = int(
+                oldest.get("max_candidate_sequences",
+                           sb.get("max_candidate_sequences", 0)))
+            cfg.sequence_batching.oldest.max_queue_delay_microseconds = int(
+                oldest.get("max_queue_delay_microseconds",
+                           sb.get("max_queue_delay_microseconds", 0)))
+        else:
+            cfg.sequence_batching.direct.SetInParent()
+        cfg.sequence_batching.max_sequence_idle_microseconds = int(
+            sb.get("max_sequence_idle_microseconds", 0))
     if d.get("ensemble_scheduling"):
         for s in d["ensemble_scheduling"].get("step", []):
             step = cfg.ensemble_scheduling.step.add(

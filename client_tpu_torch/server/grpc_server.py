@@ -5,7 +5,10 @@ model metadata, model config and statistics, the repository index, unary
 ``ModelInfer`` and the bidirectional ``ModelStreamInfer``, on which one RPC
 carries many requests and their responses (several per request for a
 decoupled model) come back correlated by request id, each request ended
-by the ``triton_final_response`` parameter.
+by the ``triton_final_response`` parameter. A stateful model's requests
+carry the ``sequence_id``, ``sequence_start`` and ``sequence_end``
+parameters; a stream's requests of one sequence reach the sequence
+batcher in the order they were sent.
 
 An output may ask for its top-K classes (``classification`` in its
 parameters). No shared-memory region is ever registered, so a tensor that
@@ -95,13 +98,17 @@ def _proto_to_request(request: "pb.ModelInferRequest") -> InferRequest:
         outputs.append(OutputRequest(
             name=o.name, classification_count=int(p.get("classification", 0))))
 
+    params = grpc_codec.params_to_dict(request.parameters)
     return InferRequest(
         model_name=request.model_name,
         model_version=request.model_version,
         request_id=request.id,
         inputs=inputs,
         outputs=outputs,
-        parameters=grpc_codec.params_to_dict(request.parameters),
+        parameters=params,
+        sequence_id=int(params.get("sequence_id", 0)),
+        sequence_start=bool(params.get("sequence_start", False)),
+        sequence_end=bool(params.get("sequence_end", False)),
     )
 
 

@@ -7,6 +7,9 @@ binary-tensor extension (head and tail split by
 ``Inference-Header-Content-Length``), and the generate extension:
 ``POST .../generate`` collects a (decoupled) model's responses into one
 JSON body, ``POST .../generate_stream`` sends each as a server-sent event.
+A stateful model's requests carry the ``sequence_id``, ``sequence_start``
+and ``sequence_end`` parameters; a ragged input (DLRM's CSR tensors) is
+sent with its own shape, no batch dimension.
 An output may ask for its top-K classes (the classification extension,
 ``"classification": K`` in its parameters) as BYTES ``"score:index"``
 strings. A malformed body or input answers 400, an unknown model 404.
@@ -337,9 +340,13 @@ class _Handler(BaseHTTPRequestHandler):
             outputs.append(OutputRequest(
                 name=o["name"], binary=bool(p.get("binary_data", binary_all)),
                 classification_count=int(p.get("classification", 0))))
-        return InferRequest(model_name=name, model_version=version or "",
-                            request_id=str(head.get("id", "")),
-                            inputs=inputs, outputs=outputs, parameters=params)
+        return InferRequest(
+            model_name=name, model_version=version or "",
+            request_id=str(head.get("id", "")), inputs=inputs,
+            outputs=outputs, parameters=params,
+            sequence_id=int(params.get("sequence_id", 0)),
+            sequence_start=bool(params.get("sequence_start", False)),
+            sequence_end=bool(params.get("sequence_end", False)))
 
     def _send_infer_response(self, req: InferRequest,
                              resp: InferResponse) -> None:

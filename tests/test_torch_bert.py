@@ -147,18 +147,19 @@ def test_unknown_attention_impl_raises():
 def test_zoo_registry_is_the_ports_own():
     jax_before = jax_model_names()
     assert {"bert_base", "bert_long"} <= set(model_names())
-    # bert_long and tiny_gpt_long load by name only, as in the JAX zoo;
-    # the default set is the JAX zoo's, less what the port lacks.
-    from client_tpu.models import _NON_DEFAULT as jax_non_default
+    # bert_long, tiny_gpt_long and dlrm_cached load by name only, as in
+    # the JAX zoo; the default set is the JAX zoo's.
+    from client_tpu.models import build_repository as jax_build_repository
 
     defaults = build_repository().names()
     assert defaults == [
         "bert_base", "bert_postprocess", "bert_preprocess", "densenet_onnx",
-        "ensemble_bert", "ensemble_image", "image_preprocess", "resnet50",
-        "simple", "simple_identity", "simple_int8", "simple_string",
-        "ssd_mobilenet_v2_coco_quantized", "ssd_mobilenet_v2_tpu",
-        "tiny_gpt"]
-    assert set(defaults) == set(model_names()) - jax_non_default
+        "dlrm", "ensemble_bert", "ensemble_image", "image_preprocess",
+        "resnet50", "simple", "simple_identity", "simple_int8",
+        "simple_repeat", "simple_sequence", "simple_sequence_oldest",
+        "simple_string", "ssd_mobilenet_v2_coco_quantized",
+        "ssd_mobilenet_v2_tpu", "tiny_gpt"]
+    assert defaults == sorted(jax_build_repository().names())
     assert build_repository(["bert_long"]).names() == ["bert_long"]
     with pytest.raises(KeyError, match="no_such_model"):
         build_repository(["no_such_model"])

@@ -17,20 +17,26 @@ NMS against its CPU run on identical inputs, decisions exactly; SSD at
 batch 1 bit for bit from call to call.
 """
 
+import concurrent.futures
 import math
 
 import numpy as np
 import pytest
 import torch
 
+from client_tpu_torch.engine import InferRequest, TorchEngine
 from client_tpu_torch.engine.model import Model
+from client_tpu_torch.engine.repository import ModelRepository
 from client_tpu_torch.models import ssd
 from client_tpu_torch.models.bert import BertBackend
+from client_tpu_torch.models.dlrm import DlrmBackend
+from client_tpu_torch.models.simple import SequenceAccumulateBackend
 from client_tpu_torch.models.generate import KvArena, TinyGptBackend
 from client_tpu_torch.models.ssd import SsdMobileNetV2Backend
 from client_tpu_torch.models.vision import DenseNet121Backend, ResNet50Backend
 from client_tpu_torch.ops import decode_attention as da
 from client_tpu_torch.ops import flash_attention as fa
+from client_tpu_torch.parallel import emb_shard as es
 from client_tpu_torch.parallel import kv_shard as ks
 
 pytestmark = pytest.mark.cuda
@@ -354,7 +360,8 @@ def test_tiny_gpt_long_fused_stream_equals_reference(card):
 
 
 @pytest.mark.parametrize("n", [2, 3, 4, 8])
-@pytest.mark.parametrize("shape", [(1, 4, 64), (3, 4, 64), (16, 4, 64), (5,)])
+@pytest.mark.parametrize("shape", [(1, 4, 64), (3, 4, 64), (16, 4, 64), (5,),
+                                   (832, 128)])
 def test_ring_all_reduce_equals_plain_bit_for_bit(card, n, shape):
     gen = torch.Generator(device=card).manual_seed(n)
     parts = [torch.randn(shape, device=card, generator=gen) * 4
@@ -577,3 +584,113 @@ def test_ssd_batch1_repeats_bit_for_bit(card):
         for run in runs[1:]:
             assert run[name].tobytes() == want.tobytes(), name
         assert direct[name].cpu().numpy().tobytes() == want.tobytes(), name
+
+
+# -- DLRM and the sequence arena (the stateful phase's path) ------------------
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_sharded_bag_sum_ring_equals_psum_and_cpu(card, n):
+    """The pooled [832, 128] of 26 tables at max_batch_size 32: ring (K3)
+    and psum on the card equal the CPU oracle bit for bit (quantized
+    table: every sum exact whatever the order of index_add_'s atomics)."""
+    rng = np.random.default_rng(n)
+    table = es.quantize_table(rng.standard_normal((4096, 128)) * 0.5)
+    rows = torch.from_numpy(rng.integers(0, 4096, 4096).astype(np.int32))
+    seg = torch.from_numpy(rng.integers(0, 840, 4096).astype(np.int32))
+    want = es.bag_sum_oracle(torch.from_numpy(table), rows, seg, 832)
+    mesh = es.emb_mesh(n, [card] * n)
+    shards = es.shard_table(table, mesh)
+    before = ks.launches
+    ring = es.sharded_bag_sum(mesh, shards, rows.to(card), seg.to(card), 832,
+                              combine="ring")
+    psum = es.sharded_bag_sum(mesh, shards, rows.to(card), seg.to(card), 832,
+                              combine="psum")
+    torch.cuda.synchronize()
+    assert ks.launches == before + 1
+    assert torch.equal(ring.cpu(), want) and torch.equal(psum.cpu(), want)
+    one = es.bag_sum_oracle(torch.from_numpy(table).to(card), rows.to(card),
+                            seg.to(card), 832)
+    assert torch.equal(one.cpu(), want)
+
+
+@pytest.mark.parametrize("host_tables", [False, True])
+def test_small_dlrm_served_equals_direct(card, host_tables):
+    """Concurrent CSR requests through the ragged scheduler on the card,
+    each equal bit for bit to the same request run alone (rows always pad
+    to max_batch_size, so the products have one shape); sharded over 2
+    shards with the ring combine, K3 launched once per execution."""
+    kw = (dict(host_tables=True, cache_budget_bytes=4096) if host_tables
+          else dict(emb_shards=2, combine="ring", emb_devices=[card] * 2))
+    repo = ModelRepository()
+    repo.register("d", lambda device: DlrmBackend(name="d", device=device,
+                                                  **kw))
+    eng = TorchEngine(repo, device=card)
+    try:
+        rng = np.random.default_rng(3)
+        reqs = []
+        for _ in range(12):
+            b = int(rng.integers(1, 4))
+            counts = rng.integers(0, 6, size=b * 4)
+            reqs.append({
+                "DENSE": rng.standard_normal((b, 8)).astype(np.float32),
+                "INDICES": rng.integers(0, 64, int(counts.sum())).astype(
+                    np.int32),
+                "OFFSETS": np.concatenate([[0], np.cumsum(counts)]).astype(
+                    np.int32)})
+        before = ks.launches
+        with concurrent.futures.ThreadPoolExecutor(12) as pool:
+            served = list(pool.map(lambda x: eng.infer(InferRequest(
+                model_name="d", inputs=x), timeout_s=120).outputs["OUTPUT0"],
+                reqs))
+        execs = eng.model_statistics("d")["model_stats"][0]["execution_count"]
+        assert ks.launches - before == (0 if host_tables else execs)
+        model = eng.repository.get("d")
+        for x, got in zip(reqs, served):
+            want, _ = model.execute_timed(dict(x), batch_size=int(
+                x["INDICES"].shape[0]))
+            assert got.tobytes() == want["OUTPUT0"][:len(got)].tobytes()
+    finally:
+        eng.shutdown()
+
+
+@pytest.mark.parametrize("strategy", ["direct", "oldest"])
+def test_sequence_arena_on_card_equals_cpu(card, strategy):
+    """32 sequences of 6 steps side by side on the card and on the CPU:
+    the same running sums; the oldest arena's rows equal after each run."""
+    def run(device):
+        backend = SequenceAccumulateBackend(name="s", strategy=strategy)
+        backend.config.sequence_batching.max_queue_delay_microseconds = 20_000
+        repo = ModelRepository()
+        repo.register("s", lambda d: backend)
+        eng = TorchEngine(repo, device=device)
+        out = {}
+
+        def seq(sid):
+            sums = []
+            for i in range(6):
+                resp = eng.infer(InferRequest(
+                    model_name="s", inputs={"INPUT": np.array(
+                        [sid * 7 + i], np.int32)}, sequence_id=sid,
+                    sequence_start=i == 0, sequence_end=i == 5),
+                    timeout_s=120)
+                sums.append(int(resp.outputs["OUTPUT"][0]))
+            return sums
+
+        try:
+            with concurrent.futures.ThreadPoolExecutor(32) as pool:
+                for sid, sums in zip(range(1, 33),
+                                     pool.map(seq, range(1, 33))):
+                    out[sid] = sums
+            stats = eng.model_statistics("s")["model_stats"][0]
+        finally:
+            eng.shutdown()
+        return out, stats
+
+    on_card, stats = run(card)
+    on_cpu, _ = run("cpu")
+    assert on_card == on_cpu
+    assert all(s == list(np.cumsum([sid * 7 + i for i in range(6)]))
+               for sid, s in on_card.items())
+    if strategy == "oldest":
+        assert stats["execution_count"] < 32 * 6

@@ -69,6 +69,11 @@ def test_importing_the_server_loads_no_jax():
         "import client_tpu_torch.protocol.grpc_codec\n"
         "import client_tpu_torch.protocol.model_config\n"
         "import client_tpu_torch.models.simple\n"
+        "import client_tpu_torch.models.dlrm\n"
+        "import client_tpu_torch.engine.rowcache\n"
+        "import client_tpu_torch.engine.ragged\n"
+        "import client_tpu_torch.engine.sequence\n"
+        "import client_tpu_torch.parallel.emb_shard\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'client_tpu'))\n"
         "assert not bad, bad\n"

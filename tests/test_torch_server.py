@@ -612,6 +612,25 @@ def test_shared_memory_region_is_400_on_both(image_served, where):
         == "shared memory region 'no_such_region' not registered"
 
 
+@pytest.mark.parametrize("size", [4 * 224 * 224 * 3 - 4,
+                                  4 * 224 * 224 * 3 - 2],
+                         ids=["short", "ragged"])
+def test_binary_bytes_that_miss_the_shape_are_400_on_both(image_served,
+                                                          size):
+    """Raw bytes that do not fill the declared shape: both servers answer
+    400 with numpy's own error (reshape, or frombuffer for a partial
+    element), word for word."""
+    head = json.dumps({"inputs": [{
+        "name": "INPUT", "datatype": "FP32", "shape": [1, 224, 224, 3],
+        "parameters": {"binary_data_size": size}}]}).encode()
+    (status, _, data), (jstatus, _, jdata) = _post_both(
+        image_served, "resnet50", head + b"\0" * size,
+        {"Inference-Header-Content-Length": str(len(head))})
+    assert status == jstatus == 400
+    assert json.loads(data)["error"] == json.loads(jdata)["error"]
+    assert "ValueError" in json.loads(data)["error"]
+
+
 @pytest.mark.parametrize("script,extra", [
     ("image_client.py", ["--synthetic", "-c", "3"]),
     ("ensemble_image_client.py", [])])
