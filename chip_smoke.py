@@ -113,11 +113,37 @@
    8 steps on each sequence model (half over HTTP, half on gRPC streams),
    every running sum exact, the oldest strategy's waves wider than one;
    a restart; the 400s; ``simple_repeat`` over SSE and ``ModelStreamInfer``.
-9. Prints one ``{"kernels": [...]}`` line (each kernel's ``launches`` over
+9. Shm phase: one engine behind HTTP and gRPC with ``simple``,
+   ``simple_string``, ``bert_base``, ``bert_long`` and ``resnet50`` at
+   full size, K1's count set to 0. Over the system plane (regions by shm
+   key) and the device planes (host-staged regions by handle, on the
+   ``cudasharedmemory`` and ``tpusharedmemory`` routes and the ``Cuda*``
+   and ``Tpu*`` RPCs), on both frontends: a ``simple``,
+   ``simple_string`` (BYTES), ``bert_long`` and ``resnet50`` request
+   with its inputs and outputs in a region, every output bit for bit
+   against the same request sent inline as binary; status,
+   unregister-one and unregister-all; 400 / INVALID_ARGUMENT for an
+   unregistered region, a double register and an offset past the region.
+   The segments are made and read by the script's own ``mmap`` code and
+   handle JSON, not the port's. Then regions made with the port's client
+   utilities, served and read back; then, in process, 4 ``bert_long``
+   and 16 ``resnet50`` requests at once on device regions of tensors on
+   the card with ``keep_outputs_on_device``: every output bit for bit
+   against the same rows through the host path at the bucket its batch
+   used, each region sharing its batch's output storage, no ``Memcpy
+   HtoD`` or ``DtoH`` in a ``torch.profiler`` window around them, K1
+   launched 12 times a ``bert_long`` batch; a region filled on a side
+   stream just before its request; and one observation line
+   (``resnet50``, 64 one-image requests at concurrency 16 over binary
+   HTTP, system shm over HTTP and host-staged regions over gRPC:
+   requests/s, p50, bytes on the wire and ``compute_input`` a request;
+   ``bert_long`` in process on device regions against host arrays).
+10. Prints one ``{"kernels": [...]}`` line (each kernel's ``launches`` over
    HTTP and gRPC, beside ``http_launches`` over HTTP alone, which must be
    fewer; the ring all-reduce's include the stateful phase's, and its
-   entry carries ``dlrm_shape``, its times at [832, 128]), the
-   ``nvidia-smi`` name and power limit line, and last
+   entry carries ``dlrm_shape``, its times at [832, 128]; flash
+   attention's include the shm phase's, also given as ``shm_launches``),
+   the ``nvidia-smi`` name and power limit line, and last
    ``{"ok": true, "device": {...}}``.
 
 The gRPC client code is the script's own (tensors as ``tobytes`` and
@@ -145,8 +171,10 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import threading
 import time
 import http.client
 from pathlib import Path
@@ -2732,6 +2760,777 @@ def stateful_phase(torch, smi: str, device: str = "cuda") -> dict:
         engine.shutdown()
 
 
+# -- shm phase ----------------------------------------------------------------
+
+SHM_MODELS = ("simple", "simple_string", "bert_base", "bert_long",
+              "resnet50")
+SHM_BYTES_ROOM = 512  # placement bytes of a BYTES output
+SHM_PLANES = ("system", "cuda", "tpu")
+OBS_REQUESTS, OBS_CONCURRENCY = 64, 16
+
+
+class _Segment:
+    """A POSIX shm segment made, written and read by the script's own
+    ``mmap`` code (not the port's utilities), unlinked on close."""
+
+    def __init__(self, key: str, size: int):
+        import mmap
+
+        self.key, self.size = key, size
+        self.path = "/dev/shm/" + key.lstrip("/")
+        fd = os.open(self.path, os.O_CREAT | os.O_EXCL | os.O_RDWR, 0o600)
+        try:
+            os.ftruncate(fd, size)
+            self.map = mmap.mmap(fd, size)
+        finally:
+            os.close(fd)
+
+    def write(self, offset: int, raw: bytes) -> None:
+        self.map[offset:offset + len(raw)] = raw
+
+    def read(self, offset: int, size: int) -> bytes:
+        return bytes(self.map[offset:offset + size])
+
+    def close(self) -> None:
+        self.map.close()
+        os.unlink(self.path)
+
+
+def _get(port: int, path: str):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read() or b"null")
+    finally:
+        conn.close()
+
+
+def _handle(key: str, size: int) -> bytes:
+    """A host-staged device region's handle, written by the script from
+    the protocol: JSON with the kind, shm key, byte size and device id."""
+    return json.dumps({"kind": "host_staged", "key": key, "byte_size": size,
+                       "device_id": 0}).encode()
+
+
+class _Plane:
+    """Register, status and unregister of one shm plane ("system", "cuda"
+    or "tpu") over one transport ("http" or "grpc")."""
+
+    def __init__(self, plane: str, wire: str, http_port: int, stub):
+        self.plane, self.wire = plane, wire
+        self.port, self.stub = http_port, stub
+        self.rpc = {"system": "SystemSharedMemory", "cuda":
+                    "CudaSharedMemory", "tpu": "TpuSharedMemory"}[plane]
+
+    def _call(self, verb: str, **fields):
+        """(ok, answer): the RPC's response, or its code and words."""
+        import grpc
+
+        from client_tpu_torch.protocol import grpc_service_pb2 as pb
+
+        request = getattr(pb, f"{self.rpc}{verb}Request")(**fields)
+        try:
+            return True, getattr(self.stub, f"{self.rpc}{verb}")(
+                request, timeout=GRPC_TIMEOUT_S)
+        except grpc.RpcError as exc:
+            return False, (exc.code(), exc.details())
+
+    def register(self, name: str, seg: _Segment):
+        """(ok, error answer or None)."""
+        if self.wire == "grpc":
+            if self.plane == "system":
+                ok, ans = self._call("Register", name=name, key=seg.key,
+                                     offset=0, byte_size=seg.size)
+            else:
+                ok, ans = self._call(
+                    "Register", name=name, raw_handle=_handle(
+                        seg.key, seg.size), device_id=0, byte_size=seg.size)
+            return ok, None if ok else ans
+        import base64
+
+        body = ({"key": seg.key, "offset": 0, "byte_size": seg.size}
+                if self.plane == "system" else
+                {"raw_handle": {"b64": base64.b64encode(_handle(
+                    seg.key, seg.size)).decode()}, "device_id": 0,
+                 "byte_size": seg.size})
+        status, _, data = _post(
+            self.port, f"/v2/{self.plane}sharedmemory/region/{name}/register",
+            json.dumps(body).encode())
+        return status == 200, None if status == 200 else (
+            status, json.loads(data)["error"])
+
+    def status(self) -> set[str]:
+        if self.wire == "grpc":
+            ok, resp = self._call("Status")
+            _check(ok, f"{self.rpc}Status: {resp}")
+            return set(resp.regions)
+        status, body = _get(self.port, f"/v2/{self.plane}sharedmemory/status")
+        _check(status == 200, f"{self.plane} status: HTTP {status}")
+        return set(body)
+
+    def unregister(self, name: str | None = None) -> None:
+        if self.wire == "grpc":
+            ok, resp = self._call("Unregister", name=name or "")
+            _check(ok, f"{self.rpc}Unregister: {resp}")
+            return
+        path = (f"/v2/{self.plane}sharedmemory"
+                + (f"/region/{name}" if name else "") + "/unregister")
+        status, _, data = _post(self.port, path, b"{}")
+        _check(status == 200, f"{path}: HTTP {status}: {data!r}")
+
+
+def _wire_dtype(arr: np.ndarray) -> str:
+    names = {np.dtype(v): k for k, v in _WIRE_DTYPES.items()}
+    return "BYTES" if arr.dtype == np.object_ else names[arr.dtype]
+
+
+def _shm_params(region: str, offset: int, size: int) -> dict:
+    return {"shared_memory_region": region, "shared_memory_offset": offset,
+            "shared_memory_byte_size": size}
+
+
+def _out_rooms(config, rows: int) -> tuple:
+    """(output, placement bytes) of one request of ``rows`` rows: the exact
+    size of a fixed-size output, room to spare for a BYTES one."""
+    return tuple(
+        (t.name, SHM_BYTES_ROOM if t.data_type == "BYTES" else
+         rows * int(np.prod(t.dims)) * np.dtype(
+             _WIRE_DTYPES[t.data_type]).itemsize)
+        for t in config.output)
+
+
+def _shm_layout(inputs: dict, outputs) -> tuple[dict, dict, int]:
+    """Offsets of the inputs (back to back) and then of the outputs in one
+    segment, and its size."""
+    at, pos = {}, 0
+    for name, arr in inputs.items():
+        at[name] = (pos, len(_wire_bytes(arr)))
+        pos += len(_wire_bytes(arr))
+    out_at = {}
+    for name, size in outputs:
+        out_at[name] = (pos, size)
+        pos += size
+    return at, out_at, pos
+
+
+def _shm_infer(plane: _Plane, model: str, region: str, seg: _Segment,
+               inputs: dict, rooms: tuple, offsets: dict | None = None):
+    """One request with every input read from ``region`` and every output
+    written into it; (ok, outputs read back from the segment, or the error
+    answer). ``offsets`` overrides input offsets (the 400 cases)."""
+    import grpc
+
+    from client_tpu_torch.protocol import grpc_service_pb2 as pb
+
+    at, out_at, _ = _shm_layout(inputs, rooms)
+    for name, arr in inputs.items():
+        seg.write(at[name][0], _wire_bytes(arr))
+    if offsets:
+        at = {**at, **offsets}
+    if plane.wire == "http":
+        head = {"inputs": [{
+            "name": name, "datatype": _wire_dtype(arr),
+            "shape": list(arr.shape),
+            "parameters": _shm_params(region, *at[name])}
+            for name, arr in inputs.items()],
+            "outputs": [{"name": name, "parameters": _shm_params(
+                region, *out_at[name])} for name in out_at]}
+        status, headers, data = _post(
+            plane.port, f"/v2/models/{model}/infer", json.dumps(head).encode())
+        if status != 200:
+            return False, (status, json.loads(data)["error"])
+        _check("Inference-Header-Content-Length" not in headers,
+               f"{model}: a binary tail beside shm outputs")
+        entries = [(o["name"], o["datatype"], o["shape"], o["parameters"])
+                   for o in json.loads(data)["outputs"]]
+    else:
+        req = pb.ModelInferRequest(model_name=model)
+        for name, arr in inputs.items():
+            t = req.inputs.add(name=name, datatype=_wire_dtype(arr),
+                               shape=list(arr.shape))
+            for k, v in _shm_params(region, *at[name]).items():
+                _set_param(t.parameters, k, v)
+        for name in out_at:
+            o = req.outputs.add(name=name)
+            for k, v in _shm_params(region, *out_at[name]).items():
+                _set_param(o.parameters, k, v)
+        try:
+            resp = plane.stub.ModelInfer(req, timeout=GRPC_TIMEOUT_S)
+        except grpc.RpcError as exc:
+            return False, (exc.code(), exc.details())
+        _check(not resp.raw_output_contents,
+               f"{model}: raw contents beside shm outputs")
+        entries = [(t.name, t.datatype, list(t.shape), {
+            k: (v.string_param or v.int64_param)
+            for k, v in t.parameters.items()}) for t in resp.outputs]
+    out = {}
+    for name, dtype, shape, params in entries:
+        offset, room = out_at[name]
+        written = int(params["shared_memory_byte_size"])
+        _check(params["shared_memory_region"] == region
+               and int(params.get("shared_memory_offset", 0)) == offset
+               and 0 < written <= room, f"{model} {name}: {params}")
+        raw = seg.read(offset, written)
+        if dtype == "BYTES":
+            arr = _bytes_elements(raw)
+        else:
+            arr = np.frombuffer(raw, np.dtype(_WIRE_DTYPES[dtype])
+                                .newbyteorder("<")).astype(_WIRE_DTYPES[dtype])
+        out[name] = arr.reshape(shape)
+    return True, out
+
+
+def _bert_feed(rng, seq: int, valid: int) -> dict[str, np.ndarray]:
+    """One ``bert_long`` row: random ids, ``valid`` tokens attended."""
+    mask = np.zeros((1, seq), np.int32)
+    mask[0, :valid] = 1
+    return {"input_ids": rng.integers(0, 512, (1, seq)).astype(np.int32),
+            "attention_mask": mask}
+
+
+def _shm_requests(rng, seq: int) -> dict[str, dict[str, np.ndarray]]:
+    """One request's inputs for each model the planes carry."""
+    simple = _simple_requests(rng)
+    return {
+        "simple": {k: v[:2] for k, v in simple["simple"].items()},
+        "simple_string": simple["simple_string"],
+        "bert_long": _bert_feed(rng, seq, seq * 3 // 4),
+        "resnet50": {"INPUT": rng.standard_normal((1, 224, 224, 3)).astype(
+            np.float32)},
+    }
+
+
+def _planes_checks(http_port: int, stub, requests: dict, rooms: dict,
+                   inline: dict, tag: str) -> int:
+    """Every plane over both transports: register the four models' regions,
+    status, each request with inputs and outputs in its region (bit for bit
+    against the same request inline), unregister one, unregister all, and
+    the 400s. Returns the requests sent."""
+    import grpc
+
+    sent = 0
+    bad_arg = {"http": 400, "grpc": grpc.StatusCode.INVALID_ARGUMENT}
+    for plane_name in SHM_PLANES:
+        for wire in ("http", "grpc"):
+            plane = _Plane(plane_name, wire, http_port, stub)
+            segs = {}
+            try:
+                for model, inputs in requests.items():
+                    size = _shm_layout(inputs, rooms[model])[2]
+                    segs[model] = _Segment(
+                        f"/{tag}_{plane_name}_{wire}_{model}", size)
+                    ok, err = plane.register(model, segs[model])
+                    _check(ok, f"{plane_name}/{wire} register {model}: {err}")
+                _check(plane.status() == set(requests),
+                       f"{plane_name}/{wire} status {plane.status()}")
+                for model, inputs in requests.items():
+                    ok, got = _shm_infer(plane, model, model, segs[model],
+                                         inputs, rooms[model])
+                    _check(ok, f"{plane_name}/{wire} {model}: {got}")
+                    sent += 1
+                    for name, want in inline[model].items():
+                        _check(_same_tensor(got[name], want),
+                               f"{plane_name}/{wire} {model} {name}: shm "
+                               "output differs from the inline answer")
+                # The 400s: an unregistered region, a double register, an
+                # input offset past the region.
+                simple = requests["simple"]
+                ok, ans = _shm_infer(plane, "simple", "no_such_region",
+                                     segs["simple"], simple, rooms["simple"])
+                _check(not ok and ans == (
+                    bad_arg[wire],
+                    "shared memory region 'no_such_region' not registered"),
+                    f"{plane_name}/{wire} unregistered: {ans}")
+                ok, ans = plane.register("simple", segs["simple"])
+                _check(not ok and ans == (
+                    bad_arg[wire],
+                    "shared memory region 'simple' already registered"),
+                    f"{plane_name}/{wire} double register: {ans}")
+                size = segs["simple"].size
+                ok, ans = _shm_infer(plane, "simple", "simple",
+                                     segs["simple"], simple, rooms["simple"],
+                                     offsets={"INPUT1": (size + 64, 128)})
+                _check(not ok and ans == (
+                    bad_arg[wire],
+                    f"offset {size + 64} outside region 'simple' "
+                    f"({size}B)"), f"{plane_name}/{wire} offset: {ans}")
+                plane.unregister("simple")
+                _check(plane.status() == set(requests) - {"simple"},
+                       f"{plane_name}/{wire} after unregister-one: "
+                       f"{plane.status()}")
+                plane.unregister()
+                _check(plane.status() == set(),
+                       f"{plane_name}/{wire} after unregister-all")
+            finally:
+                plane.unregister()
+                for seg in segs.values():
+                    seg.close()
+    return sent
+
+
+def _utils_checks(http_port: int, stub) -> None:
+    """Regions made with the port's client utilities, one of each kind,
+    registered over HTTP and gRPC and served; the outputs read back with
+    ``get_contents_as_numpy``."""
+    from client_tpu_torch.protocol import grpc_service_pb2 as pb
+    from client_tpu_torch.utils import cuda_shared_memory as cudashm
+    from client_tpu_torch.utils import shared_memory as sysshm
+
+    a = np.arange(16, dtype=np.int32).reshape(1, 16)
+    b = np.full((1, 16), 7, np.int32)
+    key = f"/chip_smoke_utils_{os.getpid()}"
+    sys_h = sysshm.create_shared_memory_region("u_sys", key, 192)
+    dev_h = cudashm.create_shared_memory_region("u_dev", 64)
+    try:
+        sysshm.set_shared_memory_region(sys_h, [a, b])
+        status, _, data = _post(
+            http_port, "/v2/systemsharedmemory/region/u_sys/register",
+            json.dumps({"key": key, "byte_size": 192}).encode())
+        _check(status == 200, f"utils register: {data!r}")
+        stub.CudaSharedMemoryRegister(pb.CudaSharedMemoryRegisterRequest(
+            name="u_dev", raw_handle=cudashm.get_raw_handle(dev_h),
+            device_id=0, byte_size=64), timeout=GRPC_TIMEOUT_S)
+        head = {"inputs": [
+            {"name": f"INPUT{i}", "datatype": "INT32", "shape": [1, 16],
+             "parameters": _shm_params("u_sys", 64 * i, 64)}
+            for i in range(2)], "outputs": [
+            {"name": "OUTPUT0", "parameters": _shm_params("u_sys", 128, 64)},
+            {"name": "OUTPUT1", "parameters": _shm_params("u_dev", 0, 64)}]}
+        status, _, data = _post(http_port, "/v2/models/simple/infer",
+                                json.dumps(head).encode())
+        _check(status == 200, f"utils infer: {data!r}")
+        got0 = sysshm.get_contents_as_numpy(sys_h, np.int32, (1, 16), 128)
+        got1 = cudashm.get_contents_as_numpy(dev_h, np.int32, (1, 16))
+        _check(got0.tolist() == (a + b).tolist()
+               and got1.tolist() == (a - b).tolist(),
+               f"utils: {got0} {got1}")
+        for path in ("/v2/systemsharedmemory/unregister",
+                     "/v2/cudasharedmemory/unregister"):
+            _post(http_port, path, b"{}")
+    finally:
+        sysshm.destroy_shared_memory_region(sys_h)
+        cudashm.destroy_shared_memory_region(dev_h)
+    print("shm: the port's client utilities: a system region and a device "
+          "region served, outputs read back with get_contents_as_numpy",
+          flush=True)
+
+
+def _group_batches(resps: list, name: str) -> list[tuple[int, list]]:
+    """The executions behind ``resps`` (keep_outputs_on_device): requests
+    whose output ``name`` shares one storage ran in one batch. Per batch,
+    its bucket and its requests in row order."""
+    groups = collections.defaultdict(list)
+    for i, resp in enumerate(resps):
+        t = resp.outputs[name]
+        groups[t.untyped_storage().data_ptr()].append(i)
+    batches = []
+    for ptr, members in groups.items():
+        t = resps[members[0]].outputs[name]
+        row = t[0].nbytes
+        nbytes = t.untyped_storage().nbytes()
+        _check(nbytes % row == 0, f"{name}: storage of {nbytes} B")
+        rows = {(resps[i].outputs[name].data_ptr() - ptr) // row: i
+                for i in members}
+        _check(sorted(rows) == list(range(len(members))),
+               f"{name}: request rows {sorted(rows)}")
+        batches.append((nbytes // row, [rows[k] for k in sorted(rows)]))
+    return batches
+
+
+def _inline_rows(model, feeds: list[dict], bucket: int) -> dict:
+    """The same rows through the host path at the same bucket: a lone
+    request padded with zeros (as the executor pads it), several with the
+    first repeated (as the device concatenation pads them)."""
+    rows = feeds + ([feeds[0]] * (bucket - len(feeds)) if len(feeds) > 1
+                    else [])
+    host = {name: np.concatenate([f[name] for f in rows])
+            for name in feeds[0]}
+    out, _ = model.execute_timed(host, batch_size=len(rows))
+    return out
+
+
+def _device_region_checks(torch, engine, rng) -> dict:
+    """In process, on the card: 4 ``bert_long`` and 16 ``resnet50``
+    requests at once, inputs and outputs in device regions of tensors on
+    the card, with ``keep_outputs_on_device``. Returns K1's launches and
+    the ``bert_long`` batches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from client_tpu_torch.engine import InferRequest, OutputRequest
+    from client_tpu_torch.ops import flash_attention as fa
+
+    device = engine.device
+    cuda = device.type == "cuda"
+    seq = engine.repository.get("bert_long").config.input[0].dims[0]
+    feeds = {"bert_long": [_bert_feed(rng, seq, seq // 2 + k * seq // 8)
+                           for k in range(4)],
+             "resnet50": [{"INPUT": rng.standard_normal(
+                 (1, 224, 224, 3)).astype(np.float32)} for _ in range(16)]}
+    out_shapes = {model: {t.name: (1, *t.dims) for t in
+                          engine.repository.get(model).config.output}
+                  for model in feeds}
+    reqs = []
+    for model, rows in feeds.items():
+        for k, feed in enumerate(rows):
+            for name, arr in feed.items():
+                engine.cuda_shm.register_device_tensor(
+                    f"{model}_{k}_{name}", torch.from_numpy(arr).to(device))
+            for name, shape in out_shapes[model].items():
+                engine.cuda_shm.register_device_tensor(
+                    f"{model}_{k}_out_{name}",
+                    torch.zeros(shape, device=device))
+            reqs.append((model, k))
+    if cuda:
+        torch.cuda.synchronize()
+    done = threading.Event()
+    resps, lock = {}, threading.Lock()
+
+    def submit():
+        for model, k in reqs:
+            def cb(resp, key=(model, k)):
+                with lock:
+                    resps[key] = resp
+                    if len(resps) == len(reqs):
+                        done.set()
+            engine.async_infer(InferRequest(
+                model_name=model, inputs={
+                    name: engine.read_shm_tensor(
+                        f"{model}_{k}_{name}", 0, arr.nbytes,
+                        _wire_dtype(arr), arr.shape)
+                    for name, arr in feeds[model][k].items()},
+                outputs=[OutputRequest(name=n) for n in out_shapes[model]],
+                keep_outputs_on_device=True), cb)
+        _check(done.wait(600), "device-region requests timed out")
+        for (model, k), resp in resps.items():
+            _check(resp.error is None, f"{model} {k}: {resp.error}")
+            for name, t in resp.outputs.items():
+                engine.write_shm_tensor(f"{model}_{k}_out_{name}", 0, 0, t)
+        if cuda:
+            torch.cuda.synchronize()
+
+    before = fa.launches
+    t0 = time.monotonic()
+    if cuda:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            submit()
+        names = collections.Counter()
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                names[e.key] += e.count
+        copies = {k: n for k, n in names.items()
+                  if "Memcpy HtoD" in k or "Memcpy DtoH" in k}
+        _check(sum(names.values()) > 0, "the profiler saw no device work")
+        _check(not copies, f"host/card copies on the device-region path: "
+                           f"{copies}")
+        print(f"shm: device regions: {sum(names.values())} device events "
+              f"in the profiler window, no Memcpy HtoD / DtoH "
+              f"({len(names)} kinds)", flush=True)
+    else:
+        submit()
+    wall = time.monotonic() - t0
+    launches = fa.launches - before
+    batches = {}
+    for model in feeds:
+        model_resps = [resps[(model, k)] for k in range(len(feeds[model]))]
+        first = next(iter(out_shapes[model]))
+        batches[model] = _group_batches(model_resps, first)
+        served = engine.repository.get(model)
+        for bucket, members in batches[model]:
+            want = _inline_rows(served, [feeds[model][k] for k in members],
+                                bucket)
+            for row, k in enumerate(members):
+                for name, t in model_resps[k].outputs.items():
+                    _check(t.device.type == device.type,
+                           f"{model} {k} {name} on {t.device}")
+                    back = engine.cuda_shm.read_back(f"{model}_{k}_out_{name}")
+                    _check(back.untyped_storage().data_ptr()
+                           == model_resps[members[0]].outputs[name]
+                           .untyped_storage().data_ptr(),
+                           f"{model} {k} {name}: the region does not share "
+                           "its batch's output storage")
+                    _check(back.cpu().numpy().tobytes()
+                           == want[name][row:row + 1].tobytes(),
+                           f"{model} {k} {name}: device-region output "
+                           "differs from the inline run at bucket "
+                           f"{bucket}")
+    n_bert = len(batches["bert_long"])
+    if cuda:
+        _check(launches == 12 * n_bert,
+               f"K1 launched {launches} times for {n_bert} bert_long "
+               "batches (12 a batch)")
+    print(f"shm: device regions: 4 bert_long in {n_bert} batches "
+          f"{batches['bert_long']}, 16 resnet50 in "
+          f"{len(batches['resnet50'])} batches (buckets "
+          f"{sorted(b for b, _ in batches['resnet50'])}), in {wall:.2f} s; "
+          f"every output bit for bit against the inline run at its bucket; "
+          f"K1 launches {launches}", flush=True)
+    engine.cuda_shm.unregister(None)
+    return {"launches": launches, "bert_batches": n_bert}
+
+
+def _side_stream_check(torch, engine, rng) -> None:
+    """A ``bert_long`` input region filled on a side stream behind a
+    ~10 ms sleep and registered there: the request reads the filled rows
+    (the batch's stream waits on the region's event)."""
+    from client_tpu_torch.engine import InferRequest
+
+    device = engine.device
+    seq = engine.repository.get("bert_long").config.input[0].dims[0]
+    feed = _bert_feed(rng, seq, seq // 3)
+    side = torch.cuda.Stream(device=device)
+    inputs = {}
+    for name, arr in feed.items():
+        t = torch.zeros(arr.shape, dtype=torch.int32, device=device)
+        src = torch.from_numpy(arr).to(device)
+        torch.cuda.synchronize()
+        with torch.cuda.stream(side):
+            torch.cuda._sleep(20_000_000)
+            t.copy_(src)
+            engine.cuda_shm.register_device_tensor(f"side_{name}", t)
+        inputs[name] = engine.read_shm_tensor(f"side_{name}", 0, arr.nbytes,
+                                              "INT32", arr.shape)
+    resp = engine.infer(InferRequest(
+        model_name="bert_long", inputs=inputs, keep_outputs_on_device=True),
+        timeout_s=600)
+    want = _inline_rows(engine.repository.get("bert_long"), [feed], 1)
+    for name, t in resp.outputs.items():
+        _check(t.cpu().numpy().tobytes() == want[name].tobytes(),
+               f"side stream: {name} differs from the filled rows' answer")
+    engine.cuda_shm.unregister(None)
+    print("shm: a device region filled on a side stream just before its "
+          "request: answered from the filled rows", flush=True)
+
+
+def _shm_observation(torch, engine, http_port: int, stub, smi: str,
+                     rng) -> None:
+    """One observation line: ``resnet50``, 64 one-image requests at
+    concurrency 16 over binary HTTP, system shm over HTTP and host-staged
+    regions over gRPC (requests/s, p50, bytes on the wire per request,
+    compute_input per request from /stats); and ``bert_long`` in process,
+    compute_input and compute_output on device regions against host
+    arrays. Observations, not claims."""
+    import queue as queue_mod
+
+    from client_tpu_torch.engine import InferRequest
+    from client_tpu_torch.protocol import grpc_service_pb2 as pb
+
+    images = [rng.standard_normal((1, 224, 224, 3)).astype(np.float32)
+              for _ in range(8)]
+    in_size, out_size = images[0].nbytes, 4000
+    slots = queue_mod.Queue()
+    segs = [_Segment(f"/chip_smoke_obs_{os.getpid()}_{i}", in_size + out_size)
+            for i in range(OBS_CONCURRENCY)]
+    try:
+        for i, seg in enumerate(segs):
+            status, _, data = _post(
+                http_port, f"/v2/systemsharedmemory/region/obs{i}/register",
+                json.dumps({"key": seg.key, "byte_size": seg.size}).encode())
+            _check(status == 200, f"obs register: {data!r}")
+            stub.CudaSharedMemoryRegister(pb.CudaSharedMemoryRegisterRequest(
+                name=f"obs{i}", raw_handle=_handle(seg.key, seg.size),
+                device_id=0, byte_size=seg.size), timeout=GRPC_TIMEOUT_S)
+            slots.put(i)
+
+        def binary_http(img):
+            body, headers = _infer_body({"INPUT": img}, None, True)
+            status, rh, data = _post(http_port, "/v2/models/resnet50/infer",
+                                     body, headers)
+            _check(status == 200, f"binary: {data[:200]!r}")
+            out = _any_outputs(rh, data)["OUTPUT"]
+            return out, len(body) + len(data)
+
+        def shm_http(img):
+            i = slots.get()
+            try:
+                segs[i].write(0, img.tobytes())
+                head = {"inputs": [{
+                    "name": "INPUT", "datatype": "FP32", "shape": [1, 224,
+                                                                   224, 3],
+                    "parameters": _shm_params(f"obs{i}", 0, in_size)}],
+                    "outputs": [{"name": "OUTPUT", "parameters": _shm_params(
+                        f"obs{i}", in_size, out_size)}]}
+                body = json.dumps(head).encode()
+                status, _, data = _post(
+                    http_port, "/v2/models/resnet50/infer", body)
+                _check(status == 200, f"shm: {data[:200]!r}")
+                out = np.frombuffer(segs[i].read(in_size, out_size),
+                                    np.float32).reshape(1, 1000)
+                return out, len(body) + len(data)
+            finally:
+                slots.put(i)
+
+        def staged_grpc(img):
+            i = slots.get()
+            try:
+                segs[i].write(0, img.tobytes())
+                req = pb.ModelInferRequest(model_name="resnet50")
+                t = req.inputs.add(name="INPUT", datatype="FP32",
+                                   shape=[1, 224, 224, 3])
+                for k, v in _shm_params(f"obs{i}", 0, in_size).items():
+                    _set_param(t.parameters, k, v)
+                o = req.outputs.add(name="OUTPUT")
+                for k, v in _shm_params(f"obs{i}", in_size,
+                                        out_size).items():
+                    _set_param(o.parameters, k, v)
+                resp = stub.ModelInfer(req, timeout=GRPC_TIMEOUT_S)
+                out = np.frombuffer(segs[i].read(in_size, out_size),
+                                    np.float32).reshape(1, 1000)
+                return out, req.ByteSize() + resp.ByteSize()
+            finally:
+                slots.put(i)
+
+        def stats(model):
+            status, body = _get(http_port, f"/v2/models/{model}/stats")
+            _check(status == 200, f"{model} stats: HTTP {status}")
+            return body["model_stats"][0]
+
+        routes = {}
+        for route, fn in (("binary_http", binary_http),
+                          ("system_shm_http", shm_http),
+                          ("host_staged_grpc", staged_grpc)):
+            def timed(img, fn=fn):
+                t = time.monotonic()
+                out, wire = fn(img)
+                return out, wire, time.monotonic() - t
+
+            before = stats("resnet50")
+            t0 = time.monotonic()
+            with concurrent.futures.ThreadPoolExecutor(
+                    OBS_CONCURRENCY) as pool:
+                results = list(pool.map(
+                    timed, [images[k % len(images)]
+                            for k in range(OBS_REQUESTS)]))
+            wall = time.monotonic() - t0
+            split = _stats_split(before, stats("resnet50"))
+            for out, _, _ in results:
+                _check(out.shape == (1, 1000) and np.isfinite(out).all(),
+                       f"{route}: resnet50 output {out.shape}")
+            routes[route] = {
+                "requests_per_s": OBS_REQUESTS / wall,
+                "p50_ms": float(np.median([r[2] for r in results])) * 1e3,
+                "wire_bytes_per_request": float(np.mean(
+                    [r[1] for r in results])),
+                "compute_input_ms": split["compute_input"]}
+    finally:
+        _post(http_port, "/v2/systemsharedmemory/unregister", b"{}")
+        _post(http_port, "/v2/cudasharedmemory/unregister", b"{}")
+        for seg in segs:
+            seg.close()
+
+    # bert_long in process: device regions against host arrays, 4 at once.
+    seq = engine.repository.get("bert_long").config.input[0].dims[0]
+    feeds = [_bert_feed(rng, seq, seq // 2 + k * seq // 8) for k in range(4)]
+    bert = {}
+    for path in ("device_regions", "host_arrays"):
+        reqs = []
+        for k, feed in enumerate(feeds):
+            if path == "host_arrays":
+                inputs = dict(feed)
+            else:
+                inputs = {}
+                for name, arr in feed.items():
+                    engine.cuda_shm.register_device_tensor(
+                        f"obs_{k}_{name}",
+                        torch.from_numpy(arr).to(engine.device))
+                    inputs[name] = engine.read_shm_tensor(
+                        f"obs_{k}_{name}", 0, arr.nbytes, "INT32", arr.shape)
+            reqs.append(InferRequest(
+                model_name="bert_long", inputs=inputs,
+                keep_outputs_on_device=path == "device_regions"))
+        before = stats("bert_long")
+        with concurrent.futures.ThreadPoolExecutor(4) as pool:
+            list(pool.map(lambda r: engine.infer(r, timeout_s=600), reqs))
+        split = _stats_split(before, stats("bert_long"))
+        bert[path] = {"compute_input_ms": split["compute_input"],
+                      "compute_output_ms": split["compute_output"]}
+        engine.cuda_shm.unregister(None)
+    print("shm observation: " + json.dumps({
+        "card": smi, "resnet50": {
+            "requests": OBS_REQUESTS, "concurrency": OBS_CONCURRENCY,
+            **routes}, "bert_long_in_process": bert}), flush=True)
+
+
+def shm_phase(torch, smi: str, device: str = "cuda") -> dict:
+    """The shared-memory data planes: system regions and host-staged device
+    regions over HTTP and gRPC for ``simple``, ``simple_string``,
+    ``bert_long`` and ``resnet50``, every output bit for bit against the
+    same request inline; in-process device regions of tensors on the card;
+    the port's client utilities; an observation line. ``device`` is for a
+    dry run of the phase's logic on the CPU; the script runs it on
+    cuda."""
+    from client_tpu_torch.engine import TorchEngine
+    from client_tpu_torch.models import build_repository
+    from client_tpu_torch.ops import flash_attention as fa
+    from client_tpu_torch.server import (
+        GrpcInferenceServer,
+        HttpInferenceServer,
+    )
+
+    t_phase = time.monotonic()
+    usage = shutil.disk_usage("/dev/shm")
+    print(f"shm: /dev/shm {usage.total / 2**20:.0f} MiB, "
+          f"{usage.free / 2**20:.0f} MiB free", flush=True)
+    t0 = time.monotonic()
+    engine = TorchEngine(build_repository(list(SHM_MODELS)),
+                         device=torch.device(device))
+    server = HttpInferenceServer(engine, port=0).start()
+    grpc_server = GrpcInferenceServer(engine, port=0).start()
+    channel, stub = _grpc_channel(grpc_server.url)
+    print(f"shm: {engine.repository.names()} up in "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(10)
+    try:
+        status, md = _get(server.port, "/v2")
+        _check({"system_shared_memory", "cuda_shared_memory",
+                "tpu_shared_memory"} <= set(md["extensions"]),
+               f"server metadata: {md}")
+        fa.launches = 0
+        seq = engine.repository.get("bert_long").config.input[0].dims[0]
+        requests = _shm_requests(rng, seq)
+        rooms = {model: _out_rooms(engine.repository.get(model).config,
+                                   len(next(iter(inputs.values()))))
+                 for model, inputs in requests.items()}
+        t0 = time.monotonic()
+        inline = {}
+        for model, inputs in requests.items():
+            status, got = _http_infer(server.port, model, inputs, True)
+            _check(status == 200, f"inline {model}: {got}")
+            code, via_grpc = _grpc_infer(stub, model, inputs)
+            _check(all(_same_tensor(via_grpc[n], got[n]) for n in got),
+                   f"inline {model}: gRPC and HTTP differ")
+            inline[model] = got
+        want = _simple_expected("simple", requests["simple"])
+        _check(all(_same_tensor(inline["simple"][n], want[n]) for n in want),
+               "simple: inline answer against numpy")
+        sent = _planes_checks(server.port, stub, requests, rooms, inline,
+                              f"chip_smoke_{os.getpid()}")
+        print(f"shm: system, cuda and tpu planes over HTTP and gRPC: {sent} "
+              "requests with inputs and outputs in regions, each bit for "
+              "bit against the inline answer; status, unregister-one and "
+              "-all, and the 400s / INVALID_ARGUMENTs, in "
+              f"{time.monotonic() - t0:.1f} s", flush=True)
+        _utils_checks(server.port, stub)
+        region = _device_region_checks(torch, engine, rng)
+        if engine.device.type == "cuda":
+            _side_stream_check(torch, engine, rng)
+        _shm_observation(torch, engine, server.port, stub, smi, rng)
+        launches = fa.launches
+        if engine.device.type == "cuda":
+            _check(launches > region["launches"] > 0,
+                   f"K1 in the shm phase: {launches} launches, "
+                   f"{region['launches']} in process")
+        print(f"shm: phase passed in {time.monotonic() - t_phase:.1f} s; "
+              f"K1 launches {launches}", flush=True)
+        return {"launches": launches}
+    finally:
+        channel.close()
+        grpc_server.stop()
+        server.stop()
+        engine.shutdown()
+
+
 def wave_phase(torch, smi: str) -> None:
     """``--kernels``: the per-wave host/device split (:func:`_wave_split`)
     of ``tiny_gpt_long`` at its registered size, built directly, over one
@@ -2819,6 +3618,11 @@ def main(argv: list[str]) -> int:
     kernels[3]["http_launches"] += stateful["http_launches"]
     _check(stateful["ring_all_reduce"] > stateful["http_launches"] > 0,
            f"ring_all_reduce in the stateful phase: {stateful}")
+    torch.cuda.empty_cache()
+    # K1 again: bert_long with its inputs and outputs in shm regions.
+    shm = shm_phase(torch, smi)
+    kernels[0]["launches"] += shm["launches"]
+    kernels[0]["shm_launches"] = shm["launches"]
     for kernel in kernels:
         # Shorter aliases of the two keys above.
         kernel["launched"] = kernel["launches"]

@@ -7,9 +7,12 @@ A decoupled (streaming) model answers only through ``async_infer``, once
 per response; a blocking ``infer`` on one is a 400. Each model gets the
 scheduler its config asks for (``scheduler.make_scheduler``): dynamic
 batching, ragged (lookups-axis) batching, sequence batching, generative
-or other decoupled streaming, or an ensemble.
-Load/unload at run time and the admission, QoS, shm, tracing, profiling
-and cost planes are not ported yet.
+or other decoupled streaming, or an ensemble. Two shared-memory
+managers serve both frontends and in-process callers: ``system_shm``
+(regions by shm key) and ``cuda_shm`` (host-staged regions by handle, and
+in-process regions of tensors on the card; ``engine/shm.py``).
+Load/unload at run time, the shm slot ring and staged datasets, and the
+admission, QoS, tracing, profiling and cost planes are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import client_tpu_torch
 from client_tpu_torch.engine.backend_init import resolve_device
 from client_tpu_torch.engine.repository import ModelRepository
 from client_tpu_torch.engine.scheduler import Scheduler, make_scheduler
+from client_tpu_torch.engine.shm import CudaShmManager, SystemShmManager
 from client_tpu_torch.engine.stats import ModelStats
 from client_tpu_torch.engine.types import (
     EngineError,
@@ -31,8 +35,11 @@ from client_tpu_torch.engine.types import (
 )
 
 SERVER_NAME = "client_tpu_torch"
+# The device regions answer on the tpu and cuda routes alike, as in the
+# JAX package.
 SERVER_EXTENSIONS = ["model_configuration", "binary_tensor_data",
-                     "statistics", "generate"]
+                     "statistics", "generate", "system_shared_memory",
+                     "tpu_shared_memory", "cuda_shared_memory"]
 
 
 class TorchEngine:
@@ -47,6 +54,12 @@ class TorchEngine:
         self._stats: dict[str, ModelStats] = {}
         self._lock = threading.Lock()
         self._live = True
+        self.system_shm = SystemShmManager()
+        # A region's device_id indexes the visible cards (the engine's own
+        # device alone on the CPU).
+        self.cuda_shm = CudaShmManager(devices=(
+            [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+            if self.device.type == "cuda" else [self.device]))
         for name in self.repository.names():
             model = self.repository.load(name, self.device)
             stats = ModelStats(name, str(model.config.version))
@@ -155,6 +168,30 @@ class TorchEngine:
             raise resp.error
         return resp
 
+    # -- shared-memory data plane --------------------------------------------
+
+    def read_shm_tensor(self, region: str, offset: int, byte_size: int,
+                        datatype: str, shape):
+        """An input tensor named by region: a host view, or a device
+        region's tensor. A device region shadows a system one of the same
+        name. Both frontends and in-process callers read through here."""
+        for mgr in (self.cuda_shm, self.system_shm):
+            if mgr.has_region(region):
+                return mgr.read_tensor(region, offset, byte_size, datatype,
+                                       shape)
+        raise EngineError(
+            f"shared memory region '{region}' not registered", 400)
+
+    def write_shm_tensor(self, region: str, offset: int, byte_size: int,
+                         arr) -> int:
+        """Place an output tensor into a registered region; returns the
+        bytes written."""
+        for mgr in (self.cuda_shm, self.system_shm):
+            if mgr.has_region(region):
+                return mgr.write_tensor(region, offset, byte_size, arr)
+        raise EngineError(
+            f"shared memory region '{region}' not registered", 400)
+
     # -- lifecycle -----------------------------------------------------------
 
     def shutdown(self) -> None:
@@ -164,3 +201,7 @@ class TorchEngine:
             self._schedulers.clear()
         for s in scheds:
             s.stop()
+        # After the work in flight: a request with outputs placed in a
+        # region may still complete during the stop above.
+        self.system_shm.unregister(None)
+        self.cuda_shm.unregister(None)

@@ -9,7 +9,10 @@ the kernels see to a small set.
 
 Each scheduler worker thread runs its batches on its own CUDA stream, so
 two instances of one model overlap on the card, and every phase boundary
-waits on that stream alone, never on the whole device.
+waits on that stream alone, never on the whole device. An input may be a
+tensor already on the card (a device shared-memory region): it is padded
+there and never staged through the host, and a batch whose requests all
+keep their outputs on the device skips the fetch (``fetch_outputs``).
 
 Three hooks a backend may define, as in the JAX package: a ragged backend
 (DLRM) checks the structure of its CSR tensors in ``validate_ragged`` and
@@ -31,8 +34,19 @@ from torch import nn
 
 from client_tpu_torch.engine.backend_init import resolve_device
 from client_tpu_torch.engine.config import ModelConfig
+from client_tpu_torch.engine.shm import wait_for_writer
 from client_tpu_torch.engine.types import EngineError, now_ns
 from client_tpu_torch.protocol.dtypes import wire_to_np_dtype
+
+
+def np_dtype_of(arr) -> np.dtype | None:
+    """The numpy dtype of a host array, or of a tensor read from a device
+    region (None for bfloat16 without ``ml_dtypes``)."""
+    if not isinstance(arr, torch.Tensor):
+        return arr.dtype
+    if arr.dtype == torch.bfloat16:
+        return wire_to_np_dtype("BF16")
+    return torch.empty(0, dtype=arr.dtype).numpy().dtype
 
 
 @dataclass
@@ -90,6 +104,21 @@ class Model:
             self._local.stream = stream
         return stream
 
+    def _on_stream(self):
+        """The calling worker's own stream as the current one (nothing on
+        the CPU)."""
+        if self.device.type != "cuda":
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._stream())
+
+    def concat_rows(self, tensors: list[torch.Tensor]) -> torch.Tensor:
+        """Request tensors joined along the batch axis on the device, on
+        the worker's stream, each after the write that filled it."""
+        with self._on_stream():
+            for t in tensors:
+                wait_for_writer(t)
+            return torch.cat(tensors, dim=0)
+
     def validate_inputs(self, inputs: dict[str, np.ndarray]) -> int:
         """Check names, dtypes and shapes; returns the request's batch size
         (1 when the model is unbatched)."""
@@ -105,9 +134,10 @@ class Model:
                 raise EngineError(
                     f"unexpected input '{name}' for model '{cfg.name}'")
             tc, np_dt, dims = entry
-            if np_dt != arr.dtype:
+            got = np_dtype_of(arr)
+            if np_dt != got:
                 raise EngineError(
-                    f"input '{name}': dtype {arr.dtype} != declared "
+                    f"input '{name}': dtype {got} != declared "
                     f"{tc.data_type}")
             shape = list(arr.shape)
             if cfg.max_batch_size > 0 and not tc.ragged:
@@ -149,15 +179,22 @@ class Model:
                 return b
         return self.config.axis_capacity()
 
-    def execute_timed(self, inputs: dict[str, np.ndarray],
+    def execute_timed(self, inputs: dict,
                       batch_size: int | None = None,
-                      ) -> tuple[dict[str, np.ndarray], ExecPhases]:
+                      fetch_outputs: bool = True) -> tuple[dict, ExecPhases]:
         """Pad to the bucket, stage to the device, run the forward pass,
         fetch to the host and slice back to ``batch_size`` rows. Returns
         the outputs and the measured :class:`ExecPhases`. A backend with a
         ``pre_stage`` hook pads for itself (a lookups-axis model: indices
         to the lookup bucket, rows to ``max_batch_size``), and its outputs
-        keep their rows."""
+        keep their rows.
+
+        An input may be a tensor read from a device region: it is padded
+        on its device and never goes through the host. With
+        ``fetch_outputs=False`` (every output of the batch goes into a
+        device region) the outputs stay on the device, untrimmed: the
+        caller takes each request's rows as a slice, and the padding rows
+        lie past every request's."""
         cfg = self.config
         phases = ExecPhases(start=now_ns())
         if self.backend.host_side:
@@ -170,10 +207,17 @@ class Model:
             inputs = pre_stage(inputs, pad_to)
         trim = pad_to is not None and pre_stage is None
         cuda = self.device.type == "cuda"
-        stream = self._stream() if cuda else None
-        with torch.cuda.stream(stream) if cuda else contextlib.nullcontext():
+        with self._on_stream():
             staged = {}
             for name, arr in inputs.items():
+                if isinstance(arr, torch.Tensor):
+                    wait_for_writer(arr)
+                    t = arr.to(self.device, non_blocking=True)
+                    if trim and t.shape[0] < pad_to:
+                        t = torch.cat([t, t.new_zeros(
+                            (pad_to - t.shape[0],) + tuple(t.shape[1:]))])
+                    staged[name] = t
+                    continue
                 if trim and arr.shape[0] < pad_to:
                     arr = np.pad(arr, [(0, pad_to - arr.shape[0])]
                                  + [(0, 0)] * (arr.ndim - 1))
@@ -191,9 +235,12 @@ class Model:
                     "expected dict", 500)
             if cuda:
                 done = torch.cuda.Event()
-                done.record(stream)
+                done.record(self._stream())
                 done.synchronize()
             phases.infer_end = now_ns()
+            if not fetch_outputs:
+                phases.output_end = now_ns()
+                return outputs, phases
             host: dict[str, np.ndarray] = {}
             for name, val in outputs.items():
                 arr = val.cpu().numpy()  # waits on this stream only
@@ -209,8 +256,7 @@ class Model:
         the device; the outputs come back as host arrays. Returns
         ``(new_state, outputs)``."""
         cuda = self.device.type == "cuda"
-        stream = self._stream() if cuda else None
-        with torch.cuda.stream(stream) if cuda else contextlib.nullcontext():
+        with self._on_stream():
             staged = {}
             for name, arr in inputs.items():
                 t = torch.from_numpy(arr if arr.flags.writeable

@@ -4,7 +4,10 @@ Counterpart of ``Scheduler`` / ``DefaultScheduler`` / ``make_scheduler`` in
 ``client_tpu/engine/scheduler.py``. For NONE and DYNAMIC models each of
 the model's ``instance_count`` workers pops a request, gathers compatible
 requests within the queue-delay window up to the preferred batch size,
-concatenates them on the host and runs one execution for the batch.
+concatenates them (on the host, or on the card when every request's input
+is a tensor from a device region) and runs one execution for the batch;
+when every request keeps its outputs on the device, each gets its rows of
+the batch's output tensors as a slice.
 Decoupled generative models get the continuous-batching
 ``GenerativeScheduler`` (``engine/generative.py``), other decoupled models
 the :class:`DecoupledScheduler`, stateful models the sequence batcher
@@ -23,8 +26,10 @@ import threading
 import time
 
 import numpy as np
+import torch
 
-from client_tpu_torch.engine.model import Model
+from client_tpu_torch.engine.model import Model, np_dtype_of
+from client_tpu_torch.engine.shm import wait_for_writer
 from client_tpu_torch.engine.stats import ModelStats
 from client_tpu_torch.engine.types import (
     EngineError,
@@ -118,13 +123,42 @@ def _compatible(a: InferRequest, b: InferRequest) -> bool:
     """Batchable together: same inputs, same non-batch dims and dtypes."""
     if a.inputs.keys() != b.inputs.keys():
         return False
-    return all(a.inputs[n].shape[1:] == b.inputs[n].shape[1:]
-               and a.inputs[n].dtype == b.inputs[n].dtype for n in a.inputs)
+    return all(tuple(a.inputs[n].shape[1:]) == tuple(b.inputs[n].shape[1:])
+               and np_dtype_of(a.inputs[n]) == np_dtype_of(b.inputs[n])
+               for n in a.inputs)
 
 
-def _concat_batch(arrs: list[np.ndarray]) -> np.ndarray:
-    """Concatenate request tensors along the batch axis (host arrays)."""
-    return arrs[0] if len(arrs) == 1 else np.concatenate(arrs, axis=0)
+def _concat_batch(arrs: list, model: Model):
+    """Concatenate request tensors along the batch axis.
+
+    Tensors from device regions of one shape and dtype are joined on their
+    device (``Model.concat_rows``), never through the host. When the
+    padding divides evenly, the first operand is repeated up to the
+    model's bucket, as in the JAX package (whose concat then compiles once
+    per bucket); request windows start at row 0 and never reach the
+    repeated rows. Host arrays, and mixed inputs, are joined in numpy, a
+    device tensor fetched to the host first."""
+    if len(arrs) == 1:
+        return arrs[0]
+    if all(isinstance(a, torch.Tensor) for a in arrs) and \
+            len({(tuple(a.shape), a.dtype, a.device) for a in arrs}) == 1:
+        per = int(arrs[0].shape[0]) if arrs[0].dim() else 1
+        total = per * len(arrs)
+        if model.config.max_batch_size > 0 and per > 0:
+            extra = model.pick_bucket(total) - total
+            if extra > 0 and extra % per == 0:
+                arrs = list(arrs) + [arrs[0]] * (extra // per)
+        return model.concat_rows(arrs)
+    return np.concatenate([_host(a) for a in arrs], axis=0)
+
+
+def _host(a):
+    """A device tensor's values on the host, after the write that filled
+    it; a host array as it is."""
+    if not isinstance(a, torch.Tensor):
+        return a
+    wait_for_writer(a)
+    return a.cpu().numpy()
 
 
 class Scheduler:
@@ -266,10 +300,16 @@ class DefaultScheduler(Scheduler):
             r.times.compute_start = start
         if cfg.max_batch_size > 0:
             sizes = [_request_batch(r) for r in batch]
-            merged = {name: _concat_batch([r.inputs[name] for r in batch])
+            merged = {name: _concat_batch([r.inputs[name] for r in batch],
+                                          self.model)
                       for name in batch[0].inputs}
+            # Every request keeps every output on the device: no fetch, and
+            # each gets its rows of the untrimmed outputs as a slice (a
+            # view: nothing launches per request).
             outputs, phases = self.model.execute_timed(
-                merged, batch_size=sum(sizes))
+                merged, batch_size=sum(sizes),
+                fetch_outputs=not all(r.keep_outputs_on_device
+                                      for r in batch))
         else:
             sizes = [None]
             outputs, phases = self.model.execute_timed(batch[0].inputs)

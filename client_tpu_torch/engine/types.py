@@ -1,9 +1,9 @@
 """Engine request/response types and the server-side phase timing.
 
 The port's own copy of ``client_tpu/engine/types.py``, trimmed to what
-the port serves: sequence routing, cancellation and the streaming
-backpressure probe are in; no deadline, tenant, QoS, shm or tracing
-fields yet.
+the port serves: sequence routing, cancellation, the streaming
+backpressure probe and shared-memory placement are in; no deadline,
+tenant, QoS or tracing fields yet.
 """
 
 from __future__ import annotations
@@ -56,13 +56,17 @@ class RequestTimes:
 
 @dataclass
 class OutputRequest:
-    """What the client asked for one output: its name, its encoding, and
-    for the classification extension the number of top classes (0: raw
-    values)."""
+    """What the client asked for one output: its name, its encoding, for
+    the classification extension the number of top classes (0: raw
+    values), and the shared-memory region (with offset and byte size) the
+    output is written into instead of the response body."""
 
     name: str
     binary: bool = False
     classification_count: int = 0
+    shm_region: str | None = None
+    shm_offset: int = 0
+    shm_byte_size: int = 0
 
 
 @dataclass
@@ -92,6 +96,11 @@ class InferRequest:
     # generative scheduler then skips this stream's waves until it drains,
     # and the decoupled scheduler holds its next emit.
     backpressure: Callable[[], bool] | None = None
+    # Set by an in-process caller whose every requested output goes into a
+    # device region: the batch executor then skips the D2H fetch and each
+    # response carries its window of the batch's output tensors on the
+    # device (a basic slice, a view; the region stores it as it is).
+    keep_outputs_on_device: bool = False
 
     def cancel(self) -> None:
         self.cancelled = True

@@ -7,6 +7,7 @@ are row-major raw bytes in their dtype; a BYTES tensor is each element as a
 
 from __future__ import annotations
 
+import base64
 import struct
 
 import numpy as np
@@ -32,16 +33,19 @@ def serialize_bytes_tensor(tensor: np.ndarray) -> bytes:
     return bytes(out)
 
 
-def deserialize_bytes_tensor(encoded: bytes, count: int) -> np.ndarray:
-    """Inverse of :func:`serialize_bytes_tensor`: ``count`` elements as a
-    1-D object array; raises ValueError on a malformed buffer."""
+def deserialize_bytes_tensor(encoded: bytes,
+                             count: int | None = None) -> np.ndarray:
+    """Inverse of :func:`serialize_bytes_tensor`: a 1-D object array of
+    the elements up to the end of the buffer, or up to ``count`` of them
+    (a shared-memory region may hold more bytes than its tensor). An
+    element whose length overruns the buffer raises ValueError; a buffer
+    that ends early gives fewer elements, and the caller's reshape says
+    so, as in the JAX package."""
     items = []
     offset = 0
-    for _ in range(count):
-        if offset + 4 > len(encoded):
-            raise ValueError(
-                f"malformed BYTES tensor: {len(items)} of {count} elements "
-                f"in {len(encoded)} bytes")
+    while offset + 4 <= len(encoded):
+        if count is not None and len(items) >= count:
+            break
         (length,) = struct.unpack_from("<I", encoded, offset)
         offset += 4
         if offset + length > len(encoded):
@@ -76,3 +80,13 @@ def deserialize_tensor(raw: bytes, wire_dtype: str, shape) -> np.ndarray:
     if np_dtype is None:
         raise ValueError(f"unknown datatype '{wire_dtype}'")
     return np.frombuffer(raw, dtype=np_dtype).reshape(shape)
+
+
+def b64_encode_handle(raw: bytes) -> str:
+    """An opaque region handle as base64 text, for the JSON control plane
+    (gRPC carries the raw bytes)."""
+    return base64.b64encode(raw).decode("ascii")
+
+
+def b64_decode_handle(encoded: str) -> bytes:
+    return base64.b64decode(encoded)

@@ -11,12 +11,15 @@ parameters; a stream's requests of one sequence reach the sequence
 batcher in the order they were sent.
 
 An output may ask for its top-K classes (``classification`` in its
-parameters). No shared-memory region is ever registered, so a tensor that
-names one answers INVALID_ARGUMENT with the JAX server's words for an
-unregistered region. Repository load and unload, the shared-memory RPCs,
-the operational RPCs, fault sites, trace adoption, deadlines, tenants,
-priorities and the load-report and health-state trailers are not ported:
-an RPC with no handler answers UNIMPLEMENTED.
+parameters). The shared-memory RPCs: ``SystemSharedMemory*`` on the
+engine's system regions, and the ``TpuSharedMemory*`` and
+``CudaSharedMemory*`` RPCs alike on its device regions (a raw handle), as
+in the JAX server. A tensor may be read from a region and an output
+written into one (it then takes no ``raw_output_contents`` slot); a region
+that is not registered answers INVALID_ARGUMENT. Repository load and
+unload, the operational RPCs, fault sites, trace adoption, deadlines,
+tenants, priorities and the load-report and health-state trailers are not
+ported: an RPC with no handler answers UNIMPLEMENTED.
 """
 
 from __future__ import annotations
@@ -32,7 +35,6 @@ import numpy as np
 
 from client_tpu_torch.config import env_float, env_int
 from client_tpu_torch.engine.engine import TorchEngine
-from client_tpu_torch.engine.shm import refuse_shm
 from client_tpu_torch.engine.types import (
     EngineError,
     InferRequest,
@@ -78,13 +80,20 @@ def _abort(context, exc: Exception):
     context.abort(grpc.StatusCode.INTERNAL, str(exc))
 
 
-def _proto_to_request(request: "pb.ModelInferRequest") -> InferRequest:
+def _proto_to_request(engine: TorchEngine,
+                      request: "pb.ModelInferRequest") -> InferRequest:
     inputs: dict[str, np.ndarray] = {}
     raw = list(request.raw_input_contents)
     raw_idx = 0
     for tensor in request.inputs:
-        refuse_shm(grpc_codec.params_to_dict(tensor.parameters))
-        if raw_idx < len(raw) and not grpc_codec.tensor_has_contents(tensor):
+        p = grpc_codec.params_to_dict(tensor.parameters)
+        if p.get("shared_memory_region") is not None:
+            arr = engine.read_shm_tensor(
+                p["shared_memory_region"],
+                int(p.get("shared_memory_offset", 0)),
+                int(p.get("shared_memory_byte_size", 0)),
+                tensor.datatype, tensor.shape)
+        elif raw_idx < len(raw) and not grpc_codec.tensor_has_contents(tensor):
             arr = grpc_codec.tensor_to_ndarray(tensor, raw[raw_idx])
             raw_idx += 1
         else:
@@ -94,9 +103,11 @@ def _proto_to_request(request: "pb.ModelInferRequest") -> InferRequest:
     outputs = []
     for o in request.outputs:
         p = grpc_codec.params_to_dict(o.parameters)
-        refuse_shm(p)
         outputs.append(OutputRequest(
-            name=o.name, classification_count=int(p.get("classification", 0))))
+            name=o.name, classification_count=int(p.get("classification", 0)),
+            shm_region=p.get("shared_memory_region"),
+            shm_offset=int(p.get("shared_memory_offset", 0)),
+            shm_byte_size=int(p.get("shared_memory_byte_size", 0))))
 
     params = grpc_codec.params_to_dict(request.parameters)
     return InferRequest(
@@ -112,7 +123,7 @@ def _proto_to_request(request: "pb.ModelInferRequest") -> InferRequest:
     )
 
 
-def _response_to_proto(req: InferRequest,
+def _response_to_proto(engine: TorchEngine, req: InferRequest,
                        resp: InferResponse) -> "pb.ModelInferResponse":
     out = pb.ModelInferResponse(
         model_name=resp.model_name,
@@ -127,7 +138,15 @@ def _response_to_proto(req: InferRequest,
         if o is not None and o.classification_count > 0:
             arr = classify_output(arr, o.classification_count, None)
         dt = np_to_wire_dtype(arr.dtype)
-        out.outputs.add(name=name, datatype=dt, shape=list(arr.shape))
+        tensor = out.outputs.add(name=name, datatype=dt, shape=list(arr.shape))
+        if o is not None and o.shm_region and o.classification_count <= 0:
+            written = engine.write_shm_tensor(o.shm_region, o.shm_offset,
+                                              o.shm_byte_size, arr)
+            for key, value in (("shared_memory_region", o.shm_region),
+                               ("shared_memory_offset", o.shm_offset),
+                               ("shared_memory_byte_size", written)):
+                grpc_codec.set_param(tensor.parameters, key, value)
+            continue
         out.raw_output_contents.append(grpc_codec.ndarray_to_raw(arr, dt))
     return out
 
@@ -224,11 +243,82 @@ class _Servicer(GRPCInferenceServiceServicer):
                             reason=e.get("reason", ""))
         return resp
 
+    # -- shared memory -------------------------------------------------------
+
+    def SystemSharedMemoryStatus(self, request, context):  # noqa: N802
+        resp = pb.SystemSharedMemoryStatusResponse()
+        for name, info in self.engine.system_shm.status(
+                request.name or None).items():
+            region = resp.regions[name]
+            region.name = name
+            region.key = info["key"]
+            region.offset = info["offset"]
+            region.byte_size = info["byte_size"]
+        return resp
+
+    def SystemSharedMemoryRegister(self, request, context):  # noqa: N802
+        try:
+            self.engine.system_shm.register(
+                request.name, request.key, request.offset, request.byte_size)
+        except Exception as exc:  # noqa: BLE001 — the RPC must answer
+            _abort(context, exc)
+        return pb.SystemSharedMemoryRegisterResponse()
+
+    def SystemSharedMemoryUnregister(self, request, context):  # noqa: N802
+        self.engine.system_shm.unregister(request.name or None)
+        return pb.SystemSharedMemoryUnregisterResponse()
+
+    def _device_status(self, request, resp):
+        for name, info in self.engine.cuda_shm.status(
+                request.name or None).items():
+            region = resp.regions[name]
+            region.name = name
+            region.device_id = info["device_id"]
+            region.byte_size = info["byte_size"]
+        return resp
+
+    def _device_register(self, request, context, resp):
+        try:
+            self.engine.cuda_shm.register_handle(
+                request.name, request.raw_handle, request.device_id,
+                request.byte_size)
+        except Exception as exc:  # noqa: BLE001 — the RPC must answer
+            _abort(context, exc)
+        return resp
+
+    def _device_unregister(self, request, resp):
+        self.engine.cuda_shm.unregister(request.name or None)
+        return resp
+
+    # The Tpu and Cuda RPCs reach the same device regions.
+    def TpuSharedMemoryStatus(self, request, context):  # noqa: N802
+        return self._device_status(request, pb.TpuSharedMemoryStatusResponse())
+
+    def TpuSharedMemoryRegister(self, request, context):  # noqa: N802
+        return self._device_register(request, context,
+                                     pb.TpuSharedMemoryRegisterResponse())
+
+    def TpuSharedMemoryUnregister(self, request, context):  # noqa: N802
+        return self._device_unregister(
+            request, pb.TpuSharedMemoryUnregisterResponse())
+
+    def CudaSharedMemoryStatus(self, request, context):  # noqa: N802
+        return self._device_status(request,
+                                   pb.CudaSharedMemoryStatusResponse())
+
+    def CudaSharedMemoryRegister(self, request, context):  # noqa: N802
+        return self._device_register(request, context,
+                                     pb.CudaSharedMemoryRegisterResponse())
+
+    def CudaSharedMemoryUnregister(self, request, context):  # noqa: N802
+        return self._device_unregister(
+            request, pb.CudaSharedMemoryUnregisterResponse())
+
     # -- inference -----------------------------------------------------------
 
     def ModelInfer(self, request, context):  # noqa: N802
         try:
-            req = _proto_to_request(request)
+            req = _proto_to_request(self.engine, request)
             # A client that goes away marks the request, so the scheduler
             # skips it instead of spending device time on it; add_callback
             # returns False when the RPC already ended (the callback would
@@ -236,7 +326,7 @@ class _Servicer(GRPCInferenceServiceServicer):
             if not context.add_callback(req.cancel):
                 req.cancel()
             resp = self.engine.infer(req)
-            return _response_to_proto(req, resp)
+            return _response_to_proto(self.engine, req, resp)
         except Exception as exc:  # noqa: BLE001 — the RPC must answer
             _abort(context, exc)
 
@@ -345,7 +435,7 @@ class _Servicer(GRPCInferenceServiceServicer):
             try:
                 for request in request_iterator:
                     try:
-                        req = _proto_to_request(request)
+                        req = _proto_to_request(self.engine, request)
                     except Exception as exc:  # noqa: BLE001
                         out_q.put(("err", str(exc), ""))
                         continue
@@ -389,7 +479,7 @@ class _Servicer(GRPCInferenceServiceServicer):
                     error_message=str(resp.error))
                 msg.infer_response.id = req.request_id
                 return msg
-            proto = _response_to_proto(req, resp)
+            proto = _response_to_proto(self.engine, req, resp)
             if resp.final:
                 grpc_codec.set_param(proto.parameters,
                                      "triton_final_response", True)

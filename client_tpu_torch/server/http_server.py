@@ -13,12 +13,16 @@ sent with its own shape, no batch dimension.
 An output may ask for its top-K classes (the classification extension,
 ``"classification": K`` in its parameters) as BYTES ``"score:index"``
 strings. A malformed body or input answers 400, an unknown model 404.
-No shared-memory region is ever registered, so an input or output that
-names one answers 400 as the JAX server does for an unregistered region.
+The shared-memory extensions: ``/v2/{system,cuda,tpu}sharedmemory``
+``[/region/<name>]/{status,register,unregister}`` (the cuda and tpu
+routes both reach the engine's device regions, as in the JAX server); an
+input may be read from a region and an output written into one (its
+response entry then carries the ``shared_memory_*`` parameters and no
+data); a region that is not registered answers 400.
 A stream request with the ``response_coalesce`` parameter may get its
 backlogged tokens merged into one event (``server/coalesce.py``).
-Compression, shared-memory registration, tracing and the control-plane
-routes are not ported yet.
+Compression, the shm slot ring, staged datasets, tracing and the
+control-plane routes are not ported yet.
 
 A stdlib ThreadingHTTPServer: each connection gets a thread that only
 frames; the engine's per-model schedulers batch and run the work.
@@ -38,7 +42,6 @@ import numpy as np
 
 from client_tpu_torch.config import env_float, env_int
 from client_tpu_torch.engine.engine import TorchEngine
-from client_tpu_torch.engine.shm import refuse_shm
 from client_tpu_torch.engine.types import (
     EngineError,
     InferRequest,
@@ -65,6 +68,15 @@ _ROUTES: list[tuple[str, re.Pattern, str]] = [
     ("POST", re.compile(_MODEL + r"/infer$"), "infer"),
     ("POST", re.compile(_MODEL + r"/generate$"), "generate"),
     ("POST", re.compile(_MODEL + r"/generate_stream$"), "generate_stream"),
+    ("GET", re.compile(r"^/v2/(systemsharedmemory|cudasharedmemory|"
+                       r"tpusharedmemory)(?:/region/([^/]+))?/status$"),
+     "shm_status"),
+    ("POST", re.compile(r"^/v2/(systemsharedmemory|cudasharedmemory|"
+                        r"tpusharedmemory)/region/([^/]+)/register$"),
+     "shm_register"),
+    ("POST", re.compile(r"^/v2/(systemsharedmemory|cudasharedmemory|"
+                        r"tpusharedmemory)(?:/region/([^/]+))?/unregister$"),
+     "shm_unregister"),
 ]
 
 
@@ -163,6 +175,24 @@ class _Handler(BaseHTTPRequestHandler):
         resp = self.engine.infer(req)
         self._send_infer_response(req, resp)
 
+    # -- shared-memory control plane ------------------------------------------
+
+    def _shm_manager(self, kind: str):
+        return (self.engine.system_shm if kind == "systemsharedmemory"
+                else self.engine.cuda_shm)
+
+    def h_shm_status(self, kind, region=None):
+        self._send_json(self._shm_manager(kind).status(region))
+
+    def h_shm_register(self, kind, region):
+        body = json.loads(self._raw_body or b"{}")
+        self._shm_manager(kind).register_from_json(region, body)
+        self._send_json({})
+
+    def h_shm_unregister(self, kind, region=None):
+        self._shm_manager(kind).unregister(region)
+        self._send_json({})
+
     # Stall guard of the generate routes: how long to wait for the next
     # response of a stream before cancelling it.
     GENERATE_STALL_TIMEOUT_S = 300.0
@@ -226,10 +256,12 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _parse_generate_request(self, name, version) -> InferRequest:
         req = self._parse_infer_request(name, version)
-        if any(o.binary for o in req.outputs):
-            raise EngineError(
-                "generate endpoints return JSON tensors only; binary_data "
-                "output parameters are not supported", 400)
+        for o in req.outputs:
+            if o.shm_region or o.classification_count > 0 or o.binary:
+                raise EngineError(
+                    "generate endpoints return JSON tensors only; output "
+                    "parameters (shared memory, classification, "
+                    "binary_data) are not supported", 400)
         return req
 
     def _stream_responses(self, req: InferRequest):
@@ -329,17 +361,26 @@ class _Handler(BaseHTTPRequestHandler):
             self._raw_body, int(header_len) if header_len is not None else None)
         inputs: dict[str, np.ndarray] = {}
         for wire in rest.parse_tensors(head.get("inputs", []), tail):
-            refuse_shm(wire.parameters)
-            inputs[wire.name] = wire.to_numpy()
+            p = wire.parameters
+            if p.get("shared_memory_region") is not None:
+                inputs[wire.name] = self.engine.read_shm_tensor(
+                    p["shared_memory_region"],
+                    int(p.get("shared_memory_offset", 0)),
+                    int(p.get("shared_memory_byte_size", 0)),
+                    wire.datatype, wire.shape)
+            else:
+                inputs[wire.name] = wire.to_numpy()
         params = head.get("parameters") or {}
         binary_all = bool(params.get("binary_data_output", False))
         outputs = []
         for o in head.get("outputs") or []:
             p = o.get("parameters") or {}
-            refuse_shm(p)
             outputs.append(OutputRequest(
                 name=o["name"], binary=bool(p.get("binary_data", binary_all)),
-                classification_count=int(p.get("classification", 0))))
+                classification_count=int(p.get("classification", 0)),
+                shm_region=p.get("shared_memory_region"),
+                shm_offset=int(p.get("shared_memory_offset", 0)),
+                shm_byte_size=int(p.get("shared_memory_byte_size", 0))))
         return InferRequest(
             model_name=name, model_version=version or "",
             request_id=str(head.get("id", "")), inputs=inputs,
@@ -359,6 +400,18 @@ class _Handler(BaseHTTPRequestHandler):
             o = out_req.get(out_name)
             if o is not None and o.classification_count > 0:
                 arr = classify_output(arr, o.classification_count, None)
+            elif o is not None and o.shm_region:
+                written = self.engine.write_shm_tensor(
+                    o.shm_region, o.shm_offset, o.shm_byte_size, arr)
+                entries.append(({
+                    "name": out_name,
+                    "datatype": np_to_wire_dtype(arr.dtype),
+                    "shape": list(arr.shape),
+                    "parameters": {
+                        "shared_memory_region": o.shm_region,
+                        "shared_memory_offset": o.shm_offset,
+                        "shared_memory_byte_size": written}}, None))
+                continue
             entries.append(rest.build_tensor_json(
                 out_name, arr, np_to_wire_dtype(arr.dtype), arr.shape,
                 binary=o.binary if o is not None else binary_all))

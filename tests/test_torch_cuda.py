@@ -14,7 +14,9 @@ flash kernel's accuracy case against float64 states its own. The image
 models run cuDNN and cuBLAS (no hand-written kernel): each fp32 route on
 the card against its CPU run with TF32 off, at 1e-4 relative; the batched
 NMS against its CPU run on identical inputs, decisions exactly; SSD at
-batch 1 bit for bit from call to call.
+batch 1 bit for bit from call to call. Device regions (in-process
+shared memory on the card): each request's outputs bit for bit against
+the same rows run through the host path at the same bucket.
 """
 
 import concurrent.futures
@@ -24,7 +26,7 @@ import numpy as np
 import pytest
 import torch
 
-from client_tpu_torch.engine import InferRequest, TorchEngine
+from client_tpu_torch.engine import InferRequest, OutputRequest, TorchEngine
 from client_tpu_torch.engine.model import Model
 from client_tpu_torch.engine.repository import ModelRepository
 from client_tpu_torch.models import ssd
@@ -694,3 +696,186 @@ def test_sequence_arena_on_card_equals_cpu(card, strategy):
                for sid, s in on_card.items())
     if strategy == "oldest":
         assert stats["execution_count"] < 32 * 6
+
+
+# -- device regions: in-process shared memory on the card ----------------------
+
+def _region_engine(card):
+    repo = ModelRepository()
+    repo.register("b", lambda device: BertBackend(
+        name="b", device=device, attention_impl="flash", **SMALL))
+    return TorchEngine(repo, device=card)
+
+
+def _bert_feeds(n, seed=0):
+    rng = np.random.default_rng(seed)
+    feeds = []
+    for k in range(n):
+        mask = np.ones((1, 200), np.int32)
+        mask[0, 150 + 10 * k:] = 0
+        feeds.append({"input_ids": rng.integers(0, 512, (1, 200)).astype(
+            np.int32), "attention_mask": mask})
+    return feeds
+
+
+def _region_requests(eng, feeds, tag="r"):
+    """Each input registered as a device region of a tensor on the card,
+    each request reading its regions and keeping its outputs there."""
+    reqs = []
+    for k, feed in enumerate(feeds):
+        inputs = {}
+        for name, arr in feed.items():
+            region = f"{tag}_{name}_{k}"
+            eng.cuda_shm.register_device_tensor(
+                region, torch.from_numpy(arr).to(eng.device))
+            inputs[name] = eng.read_shm_tensor(region, 0, arr.nbytes,
+                                               "INT32", arr.shape)
+        reqs.append(InferRequest(
+            model_name="b", inputs=inputs,
+            outputs=[OutputRequest(name="logits"),
+                     OutputRequest(name="pooled_output")],
+            keep_outputs_on_device=True))
+    return reqs
+
+
+def _one_batch(eng, reqs):
+    """``reqs`` as one batch of the scheduler, as its worker runs one."""
+    out = [None] * len(reqs)
+    for i, r in enumerate(reqs):
+        r.response_callback = lambda resp, i=i: out.__setitem__(i, resp)
+    eng._schedulers["b"]._execute_batch(reqs)
+    assert all(r is not None and r.error is None for r in out), out
+    return out
+
+
+def _host_rows(eng, feeds):
+    """The same rows through the host path at the same bucket (3 rows and
+    the first repeated, as the device concat pads them)."""
+    host = {name: np.concatenate([f[name] for f in feeds] + [feeds[0][name]])
+            for name in feeds[0]}
+    out, _ = eng.repository.get("b").execute_timed(host, batch_size=4)
+    return out
+
+
+def test_device_region_outputs_are_views_of_the_batch_output(card):
+    eng = _region_engine(card)
+    try:
+        feeds = _bert_feeds(3)
+        resps = _one_batch(eng, _region_requests(eng, feeds))
+        want = _host_rows(eng, feeds)
+        for k, resp in enumerate(resps):
+            for name in ("logits", "pooled_output"):
+                got = resp.outputs[name]
+                region = f"out_{name}_{k}"
+                eng.cuda_shm.register_device_tensor(
+                    region, torch.zeros_like(got))
+                assert eng.write_shm_tensor(region, 0, 0, got) == got.nbytes
+                back = eng.cuda_shm.read_back(region)
+                assert back.device.type == "cuda"
+                assert back.untyped_storage().data_ptr() == \
+                    resps[0].outputs[name].untyped_storage().data_ptr()
+                assert back.cpu().numpy().tobytes() == \
+                    want[name][k:k + 1].tobytes()
+    finally:
+        eng.shutdown()
+
+
+def test_device_region_path_copies_nothing_between_host_and_card(card):
+    """A profiler window around three requests whose inputs and outputs
+    are device regions holds kernels (K1 among them) and no memcpy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = _region_engine(card)
+    try:
+        feeds = _bert_feeds(3)
+        _one_batch(eng, _region_requests(eng, feeds, "warm"))
+        reqs = _region_requests(eng, feeds)
+        for k in range(3):
+            for name in ("logits", "pooled_output"):
+                eng.cuda_shm.register_device_tensor(
+                    f"out_{name}_{k}", torch.zeros(
+                        (1, 2) if name == "logits" else (1, 256),
+                        device=card))
+        torch.cuda.synchronize()
+        before = fa.launches
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            resps = _one_batch(eng, reqs)
+            for k, resp in enumerate(resps):
+                for name, t in resp.outputs.items():
+                    eng.write_shm_tensor(f"out_{name}_{k}", 0, 0, t)
+            torch.cuda.synchronize()
+        assert fa.launches - before == SMALL["n_layers"]
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert any("flash" in n for n in names), names
+        assert not [n for n in names if "Memcpy HtoD" in n
+                    or "Memcpy DtoH" in n], names
+    finally:
+        eng.shutdown()
+
+
+def test_device_region_filled_on_a_side_stream_is_waited_for(card):
+    """A region filled on a side stream behind a long sleep and registered
+    there: the batch reads the filled rows, not the zeros before them."""
+    eng = _region_engine(card)
+    try:
+        feeds = _bert_feeds(3, seed=4)
+        want = _host_rows(eng, feeds)
+        side = torch.cuda.Stream(device=card)
+        reqs = []
+        for k, feed in enumerate(feeds):
+            inputs = {}
+            for name, arr in feed.items():
+                t = torch.zeros(arr.shape, dtype=torch.int32, device=card)
+                src = torch.from_numpy(arr).to(card)
+                torch.cuda.synchronize()
+                with torch.cuda.stream(side):
+                    torch.cuda._sleep(20_000_000)  # ~10 ms at H100 clocks
+                    t.copy_(src)
+                    eng.cuda_shm.register_device_tensor(f"s_{name}_{k}", t)
+                inputs[name] = eng.read_shm_tensor(
+                    f"s_{name}_{k}", 0, arr.nbytes, "INT32", arr.shape)
+            reqs.append(InferRequest(
+                model_name="b", inputs=inputs,
+                outputs=[OutputRequest(name="logits")],
+                keep_outputs_on_device=True))
+        resps = _one_batch(eng, reqs)
+        for k, resp in enumerate(resps):
+            assert resp.outputs["logits"].cpu().numpy().tobytes() == \
+                want["logits"][k:k + 1].tobytes()
+    finally:
+        eng.shutdown()
+
+
+def test_device_region_offsets_and_device_ids_are_refused(card):
+    """Offsets on a device region and a device_id past the visible cards
+    answer 400 with the JAX engine's words."""
+    from client_tpu_torch.engine import EngineError
+    from client_tpu_torch.utils import cuda_shared_memory as cudashm
+
+    eng = _region_engine(card)
+    n = torch.cuda.device_count()
+    h = cudashm.create_shared_memory_region("far", 64, device_id=n)
+    try:
+        eng.cuda_shm.register_device_tensor(
+            "d", torch.zeros(1, 16, dtype=torch.int32, device=card),
+            device_id=n)
+        eng.cuda_shm.register_handle("far", cudashm.get_raw_handle(h), n, 64)
+        for fn, words in (
+                (lambda: eng.read_shm_tensor("d", 64, 64, "INT32", [1, 16]),
+                 "region 'd': offsets unsupported for device regions"),
+                (lambda: eng.write_shm_tensor(
+                    "d", 64, 64, torch.zeros(1, 16, device=card)),
+                 "region 'd': offsets unsupported for device regions"),
+                (lambda: eng.write_shm_tensor(
+                    "d", 0, 64, np.zeros((1, 16), np.int32)),
+                 f"device_id {n} out of range ({n} devices)"),
+                (lambda: eng.read_shm_tensor("far", 0, 64, "INT32", [1, 16]),
+                 f"device_id {n} out of range ({n} devices)")):
+            with pytest.raises(EngineError) as exc:
+                fn()
+            assert exc.value.status == 400 and str(exc.value) == words
+    finally:
+        eng.shutdown()
+        cudashm.destroy_shared_memory_region(h)

@@ -73,7 +73,11 @@ def test_stub_lists_the_core_rpcs_of_the_proto():
     assert served == [
         "ServerLive", "ServerReady", "ModelReady", "ServerMetadata",
         "ModelMetadata", "ModelInfer", "ModelStreamInfer", "ModelConfig",
-        "ModelStatistics", "RepositoryIndex"]
+        "ModelStatistics", "RepositoryIndex", "SystemSharedMemoryStatus",
+        "SystemSharedMemoryRegister", "SystemSharedMemoryUnregister",
+        "CudaSharedMemoryStatus", "CudaSharedMemoryRegister",
+        "CudaSharedMemoryUnregister", "TpuSharedMemoryStatus",
+        "TpuSharedMemoryRegister", "TpuSharedMemoryUnregister"]
 
 
 # -- the codec -----------------------------------------------------------------
@@ -588,8 +592,9 @@ def test_metadata_of_an_unknown_model_equals_jax(servers):
 
 def test_an_rpc_the_port_lacks_is_unimplemented(servers):
     with pytest.raises(grpc.RpcError) as exc:
-        servers.port.SystemSharedMemoryStatus(
-            pb.SystemSharedMemoryStatusRequest(), timeout=TIMEOUT)
+        servers.port.RepositoryModelLoad(
+            pb.RepositoryModelLoadRequest(model_name="simple"),
+            timeout=TIMEOUT)
     assert exc.value.code() == grpc.StatusCode.UNIMPLEMENTED
 
 

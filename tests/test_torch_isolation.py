@@ -64,6 +64,9 @@ def test_importing_the_server_loads_no_jax():
         "import client_tpu_torch.server.grpc_server\n"
         "import client_tpu_torch.server.coalesce\n"
         "import client_tpu_torch.engine.shm\n"
+        "import client_tpu_torch.utils\n"
+        "import client_tpu_torch.utils.shared_memory\n"
+        "import client_tpu_torch.utils.cuda_shared_memory\n"
         "import client_tpu_torch.protocol.grpc_service_pb2\n"
         "import client_tpu_torch.protocol.grpc_stub\n"
         "import client_tpu_torch.protocol.grpc_codec\n"
