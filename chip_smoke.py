@@ -138,18 +138,39 @@
    HTTP, system shm over HTTP and host-staged regions over gRPC:
    requests/s, p50, bytes on the wire and ``compute_input`` a request;
    ``bert_long`` in process on device regions against host arrays).
-10. Prints one ``{"kernels": [...]}`` line (each kernel's ``launches`` over
+10. Clients phase: one engine behind HTTP and gRPC with ``bert_base``,
+   ``bert_long``, ``tiny_gpt_long``, ``dlrm_mlperf`` (2 shards, K3) and
+   ``simple``; every launch count set to 0, then a child process (this
+   script with ``--clients-child``) drives them through the port's own
+   clients, ``client_tpu_torch.http`` and ``client_tpu_torch.grpc``, and
+   must load no torch, jax or ``client_tpu`` module: health, metadata and
+   config of every model on both; 4 ``bert_long`` requests one at a time
+   and 8 at once over HTTP, 4 over gRPC; 8 greedy ``tiny_gpt_long``
+   streams of 32 tokens on one gRPC stream; 16 one-row ``dlrm_mlperf``
+   requests over HTTP, every other one with its inputs in system shm; a
+   bad model version on each frontend. The counts are read when the child
+   exits and each kernel's must have risen (K1 bf16 12 a ``bert_long``
+   batch, K3 one a ``dlrm_mlperf`` execution). Then the script holds the
+   answers: one at a time bit for bit against the same requests built by
+   its own wire code, the 8 at once within ``KERNEL_ATOL``, the streams
+   token for token against the plain path, DLRM bit for bit, the
+   reference's 400 words. An observation line: ``bert_base``, 64
+   requests at concurrency 16 from the child (requests/s, p50, p99, the
+   client's ``InferStat`` against the server's ``/stats`` split).
+11. Prints one ``{"kernels": [...]}`` line (each kernel's ``launches`` over
    HTTP and gRPC, beside ``http_launches`` over HTTP alone, which must be
    fewer; the ring all-reduce's include the stateful phase's, and its
    entry carries ``dlrm_shape``, its times at [832, 128]; flash
-   attention's include the shm phase's, also given as ``shm_launches``),
-   the ``nvidia-smi`` name and power limit line, and last
-   ``{"ok": true, "device": {...}}``.
+   attention's include the shm phase's, also given as ``shm_launches``;
+   every kernel's include the clients phase's, also given as
+   ``clients_launches``), the ``nvidia-smi`` name and power limit line,
+   and last ``{"ok": true, "device": {...}}``.
 
-The gRPC client code is the script's own (tensors as ``tobytes`` and
-``np.frombuffer``, BYTES with a hand-written length prefix); it uses the
-port's ``grpc_service_pb2`` and ``grpc_stub`` only, the wire schema.
-Without ``grpc`` the script fails.
+The gRPC client code of steps 4 to 9 is the script's own (tensors as
+``tobytes`` and ``np.frombuffer``, BYTES with a hand-written length
+prefix); it uses the port's ``grpc_service_pb2`` and ``grpc_stub`` only,
+the wire schema. Without ``grpc`` the script fails. Step 10 holds the
+port's clients against that code.
 
 ``--kernels`` stops after step 3, prints the per-wave host/device split of
 ``tiny_gpt_long`` over one arena and over 2 shards (built directly, no
@@ -1279,14 +1300,15 @@ def _stream(port: int, model: str, body: dict
         conn.close()
 
 
-def _direct_stream(torch, backend, arena, prompt, n, params) -> list[int]:
+def _direct_stream(torch, backend, arena, prompt, n, params,
+                   device: str = "cuda") -> list[int]:
     """The same model run directly, one stream alone in arena row 0."""
     lanes = backend.lane_params([params.get("seed", 0)],
                                 [params.get("temperature", 0.0)],
                                 [params.get("top_k", 0)],
                                 [params.get("top_p", 1.0)])
     sample = params.get("temperature", 0.0) > 0
-    ids = torch.tensor([prompt], dtype=torch.int32, device="cuda")
+    ids = torch.tensor([prompt], dtype=torch.int32, device=device)
     tokens = [int(backend.prefill(
         arena, backend.wave_index(arena, [0], [len(prompt)]), ids, lanes,
         sample)[0])]
@@ -3531,6 +3553,458 @@ def shm_phase(torch, smi: str, device: str = "cuda") -> dict:
         engine.shutdown()
 
 
+# -- clients phase -------------------------------------------------------------
+
+CLIENT_MODELS = ("simple", "bert_base", "bert_long", "tiny_gpt_long")
+CLIENT_PROMPTS = (3, 17, 60, 130, 300, 700, 1100, 1500)
+CLIENT_TOKENS = 32
+CLIENT_DLRM = 16  # one-row requests, every other one with inputs in shm
+CLIENT_OBSERVED, CLIENT_CONCURRENCY = 64, 16  # bert_base, the observation
+CHILD_TIMEOUT_S = 900
+# The client process may load none of these.
+CHILD_FORBIDDEN = ("jax", "jaxlib", "client_tpu", "torch")
+BERT_OUTPUTS = ("pooled_output", "logits")
+
+
+def _client_inputs(seq: int) -> dict[str, np.ndarray]:
+    """Every request of the clients phase, from fixed seeds: 8 one-row
+    ``bert_long`` requests of ``seq`` tokens, the stream prompts, the
+    one-row ``dlrm_mlperf`` requests and a ``bert_base`` request."""
+    rng = np.random.default_rng(11)
+    arrays = {}
+    for i in range(8):
+        arrays[f"ids{i}"] = rng.integers(0, 30522, (1, seq)).astype(np.int32)
+        mask = np.ones((1, seq), np.int32)
+        mask[0, rng.integers(seq // 4, seq + 1):] = 0
+        arrays[f"mask{i}"] = mask
+    for i, n in enumerate(CLIENT_PROMPTS):
+        arrays[f"prompt{i}"] = rng.integers(0, 512, n).astype(np.int32)
+    dlrm_rng = np.random.default_rng(36)
+    for i in range(CLIENT_DLRM):
+        for k, v in _mlperf_csr(dlrm_rng).items():
+            arrays[f"dlrm{i}_{k}"] = v
+    arrays["base_ids"] = rng.integers(0, 30522, (1, 128)).astype(np.int32)
+    arrays["base_mask"] = np.ones((1, 128), np.int32)
+    return arrays
+
+
+def clients_child(argv: list[str]) -> int:
+    """The clients phase's other process (``--clients-child WORKDIR
+    HTTP_URL GRPC_URL``): drives the servers through the port's own
+    clients, ``client_tpu_torch.http`` and ``client_tpu_torch.grpc``, with
+    system shm from ``client_tpu_torch.utils.shared_memory``, and writes
+    every answer to WORKDIR. It loads neither torch nor jax nor the JAX
+    package, and says which modules it loaded."""
+    workdir, http_url, grpc_url = argv
+    import client_tpu_torch.grpc as grpcclient
+    import client_tpu_torch.http as httpclient
+    import client_tpu_torch.utils.shared_memory as shm
+    from client_tpu_torch.utils import InferenceServerException
+
+    data = dict(np.load(os.path.join(workdir, "inputs.npz")))
+    models = json.loads(Path(workdir, "models.json").read_text())
+    out: dict[str, np.ndarray] = {}
+    summary: dict = {}
+    hc = httpclient.InferenceServerClient(
+        http_url, concurrency=8, connection_timeout=CHILD_TIMEOUT_S,
+        network_timeout=CHILD_TIMEOUT_S)
+    gc = grpcclient.InferenceServerClient(grpc_url)
+
+    def bert(mod, i):
+        """A BERT request's inputs: ``bert_long``'s ``i``-th, or, for
+        ``i == "base"``, the ``bert_base`` one."""
+        ids = data["base_ids" if i == "base" else f"ids{i}"]
+        mask = data["base_mask" if i == "base" else f"mask{i}"]
+        inputs = [mod.InferInput("input_ids", list(ids.shape), "INT32"),
+                  mod.InferInput("attention_mask", list(mask.shape),
+                                 "INT32")]
+        inputs[0].set_data_from_numpy(ids)
+        inputs[1].set_data_from_numpy(mask)
+        return inputs
+
+    try:
+        # Health, metadata and config of every model over both clients.
+        summary["health"] = [hc.is_server_live(), hc.is_server_ready(),
+                             gc.is_server_live(), gc.is_server_ready()]
+        summary["models"] = {}
+        for m in models:
+            hmd, gmd = hc.get_model_metadata(m), gc.get_model_metadata(m)
+            summary["models"][m] = [
+                hc.is_model_ready(m), gc.is_model_ready(m), hmd["name"],
+                hc.get_model_config(m)["name"], gmd.name,
+                gc.get_model_config(m).config.name,
+                [t["name"] for t in hmd["inputs"]],
+                [t.name for t in gmd.inputs]]
+
+        # bert_long: 4 one at a time over HTTP, 8 at once, 4 over gRPC.
+        t0 = time.monotonic()
+        for i in range(4):
+            r = hc.infer("bert_long", bert(httpclient, i))
+            for n in BERT_OUTPUTS:
+                out[f"http_one{i}_{n}"] = r.as_numpy(n)
+        handles = [hc.async_infer("bert_long", bert(httpclient, i))
+                   for i in range(8)]
+        for i, h in enumerate(handles):
+            r = h.get_result(timeout=CHILD_TIMEOUT_S)
+            for n in BERT_OUTPUTS:
+                out[f"http_many{i}_{n}"] = r.as_numpy(n)
+        for i in range(4):
+            r = gc.infer("bert_long", bert(grpcclient, i),
+                         client_timeout=CHILD_TIMEOUT_S)
+            for n in BERT_OUTPUTS:
+                out[f"grpc_one{i}_{n}"] = r.as_numpy(n)
+        summary["bert_long_s"] = time.monotonic() - t0
+
+        # tiny_gpt_long: 8 greedy streams multiplexed on one gRPC stream.
+        got: dict[str, list] = {}
+        finals, errors = set(), []
+        cond = threading.Condition()
+
+        def on_message(result, error):
+            with cond:
+                if error is not None:
+                    errors.append(str(error))
+                else:
+                    resp = result.get_response()
+                    p = resp.parameters
+                    if resp.outputs:
+                        tokens, index = got.setdefault(resp.id, ([], []))
+                        tokens += result.as_numpy("TOKEN").tolist()
+                        index += result.as_numpy("INDEX").tolist()
+                    if ("triton_final_response" in p
+                            and p["triton_final_response"].bool_param):
+                        finals.add(resp.id)
+                cond.notify_all()
+
+        t0 = time.monotonic()
+        gc.start_stream(on_message)
+        for i in range(len(CLIENT_PROMPTS)):
+            prompt = data[f"prompt{i}"]
+            inp = grpcclient.InferInput("INPUT_IDS", [len(prompt)], "INT32")
+            inp.set_data_from_numpy(prompt)
+            gc.async_stream_infer("tiny_gpt_long", [inp], request_id=f"s{i}",
+                                  parameters={"max_tokens": CLIENT_TOKENS})
+        with cond:
+            done = cond.wait_for(
+                lambda: errors or len(finals) == len(CLIENT_PROMPTS),
+                timeout=CHILD_TIMEOUT_S)
+        gc.stop_stream()
+        if errors or not done:
+            raise RuntimeError(f"streams: errors {errors}, finals {finals}")
+        for i in range(len(CLIENT_PROMPTS)):
+            tokens, index = got[f"s{i}"]
+            if index != list(range(len(tokens))):
+                raise RuntimeError(f"stream s{i}: INDEX {index}")
+            out[f"stream{i}"] = np.asarray(tokens, np.int64)
+        summary["streams_s"] = time.monotonic() - t0
+
+        # dlrm_mlperf: one-row requests, every other one from system shm.
+        order = ("DENSE", "INDICES", "OFFSETS")
+        wire = {"DENSE": "FP32", "INDICES": "INT32", "OFFSETS": "INT32"}
+        size = max(sum(data[f"dlrm{i}_{k}"].nbytes for k in order)
+                   for i in range(CLIENT_DLRM))
+        region, key = "clients_dlrm", f"/chip_smoke_clients_{os.getpid()}"
+        handle = shm.create_shared_memory_region(region, key, size)
+        try:
+            hc.register_system_shared_memory(region, key, size)
+            summary["shm_status"] = hc.get_system_shared_memory_status(
+                region)
+            for i in range(CLIENT_DLRM):
+                arrs = {k: data[f"dlrm{i}_{k}"] for k in order}
+                inputs, offset = [], 0
+                if i % 2:
+                    shm.set_shared_memory_region(
+                        handle, [arrs[k] for k in order])
+                for k in order:
+                    inp = httpclient.InferInput(k, list(arrs[k].shape),
+                                                wire[k])
+                    if i % 2:
+                        inp.set_shared_memory(region, arrs[k].nbytes,
+                                              offset=offset)
+                        offset += arrs[k].nbytes
+                    else:
+                        inp.set_data_from_numpy(arrs[k])
+                    inputs.append(inp)
+                r = hc.infer(DLRM_MODEL, inputs)
+                out[f"dlrm{i}"] = r.as_numpy("OUTPUT0")
+            hc.unregister_system_shared_memory(region)
+        finally:
+            shm.destroy_shared_memory_region(handle)
+
+        # A model version that is not a positive integer, on both frontends.
+        simple = {"INPUT0": np.arange(16, dtype=np.int32).reshape(1, 16),
+                  "INPUT1": np.ones((1, 16), np.int32)}
+
+        def simple_inputs(mod):
+            inputs = [mod.InferInput(k, [1, 16], "INT32") for k in simple]
+            for inp, v in zip(inputs, simple.values()):
+                inp.set_data_from_numpy(v)
+            return inputs
+
+        summary["versions"] = []
+        for call in (lambda: hc.get_model_metadata("simple", "abc"),
+                     lambda: gc.get_model_metadata("simple", "abc"),
+                     lambda: hc.infer("simple", simple_inputs(httpclient),
+                                      model_version="0"),
+                     lambda: gc.infer("simple", simple_inputs(grpcclient),
+                                      model_version="0")):
+            try:
+                call()
+                summary["versions"].append(None)
+            except InferenceServerException as exc:
+                summary["versions"].append([str(exc.status()),
+                                            exc.message()])
+        summary["version_01"] = [hc.is_model_ready("simple", "01"),
+                                 gc.is_model_ready("simple", "01")]
+
+        # The observation: bert_base at concurrency 16 over HTTP.
+        oc = httpclient.InferenceServerClient(
+            http_url, concurrency=CLIENT_CONCURRENCY,
+            network_timeout=CHILD_TIMEOUT_S)
+        try:
+            def one(_):
+                t = time.monotonic()
+                oc.infer("bert_base", bert(httpclient, "base"))
+                return time.monotonic() - t
+
+            with concurrent.futures.ThreadPoolExecutor(
+                    CLIENT_CONCURRENCY) as pool:
+                list(pool.map(one, range(CLIENT_CONCURRENCY)))  # warm-up
+                before = hc.get_inference_statistics("bert_base")[
+                    "model_stats"][0]
+                stat0 = oc.get_infer_stat()
+                t0 = time.monotonic()
+                lat = list(pool.map(one, range(CLIENT_OBSERVED)))
+                wall = time.monotonic() - t0
+            after = hc.get_inference_statistics("bert_base")["model_stats"][0]
+            stat1 = oc.get_infer_stat()
+            n = (stat1["completed_request_count"]
+                 - stat0["completed_request_count"])
+            summary["observation"] = {
+                "model": "bert_base", "requests": CLIENT_OBSERVED,
+                "concurrency": CLIENT_CONCURRENCY,
+                "requests_per_s": CLIENT_OBSERVED / wall,
+                "p50_ms": 1e3 * float(np.percentile(lat, 50)),
+                "p99_ms": 1e3 * float(np.percentile(lat, 99)),
+                "client_round_trip_ms": (
+                    stat1["cumulative_total_request_time_us"]
+                    - stat0["cumulative_total_request_time_us"]) / n / 1e3,
+                "client_requests": n,
+                "client_server_timed": (stat1["reported_request_count"]
+                                        - stat0["reported_request_count"]),
+                "server_ms": _stats_split(before, after),
+                "server_executions": (after["execution_count"]
+                                      - before["execution_count"])}
+        finally:
+            oc.close()
+    finally:
+        gc.close()
+        hc.close()
+    summary["modules"] = sorted(m for m in sys.modules
+                                if m.split(".")[0] in CHILD_FORBIDDEN)
+    np.savez(os.path.join(workdir, "outputs.npz"), **out)
+    Path(workdir, "summary.json").write_text(json.dumps(summary))
+    print(f"{len(out)} answers, modules of torch / jax / client_tpu "
+          f"loaded: {summary['modules']}", flush=True)
+    return 0
+
+
+def clients_phase(torch, smi: str, device: str = "cuda") -> dict:
+    """The port's own clients in another process against the port's
+    servers: one engine with ``bert_base``, ``bert_long``,
+    ``tiny_gpt_long``, ``dlrm_mlperf`` (2 shards on the card, K3) and
+    ``simple`` behind HTTP and gRPC, launch counts set to 0 just before the
+    child starts and read just after it exits. Every answer is held against
+    the same request through the script's own wire code or the plain path.
+    ``device`` is for a dry run of the phase's logic on the CPU."""
+    import tempfile
+
+    from client_tpu_torch.engine import TorchEngine
+    from client_tpu_torch.models import build_repository
+    from client_tpu_torch.models.dlrm import DlrmBackend
+    from client_tpu_torch.models.generate import TinyGptBackend
+    from client_tpu_torch.ops import decode_attention as da
+    from client_tpu_torch.ops import flash_attention as fa
+    from client_tpu_torch.parallel import kv_shard as ks
+    from client_tpu_torch.server import (
+        GrpcInferenceServer,
+        HttpInferenceServer,
+    )
+
+    t_phase = time.monotonic()
+    device = torch.device(device)
+    repo = build_repository(list(CLIENT_MODELS))
+    repo.register(DLRM_MODEL, lambda dev: DlrmBackend(
+        name=DLRM_MODEL, device=dev, emb_devices=[dev] * 2, **MLPERF_DLRM))
+    engine = TorchEngine(repo, device=device)
+    server = HttpInferenceServer(engine, port=0).start()
+    grpc_server = GrpcInferenceServer(engine, port=0).start()
+    names = engine.repository.names()
+    print(f"clients: {names} up in {time.monotonic() - t_phase:.1f} s on "
+          f"{device}", flush=True)
+    root = Path(__file__).resolve().parent
+    (root / "build").mkdir(exist_ok=True)
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_clients_",
+                                    dir=root / "build"))
+    channel, stub = _grpc_channel(grpc_server.url)
+
+    def executions(name):
+        return engine.model_statistics(name)["model_stats"][0][
+            "execution_count"]
+
+    try:
+        seq = engine.repository.get("bert_long").config.input[0].dims[0]
+        arrays = _client_inputs(seq)
+        np.savez(workdir / "inputs.npz", **arrays)
+        (workdir / "models.json").write_text(json.dumps(names))
+
+        # Counted: what the child's requests launch, and nothing else.
+        e_long, e_dlrm = executions("bert_long"), executions(DLRM_MODEL)
+        fa.launches = fa.launches_fp32 = da.launches = ks.launches = 0
+        t0 = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, str(root / "chip_smoke.py"), "--clients-child",
+             str(workdir), server.url, grpc_server.url], cwd=root,
+            capture_output=True, text=True, timeout=CHILD_TIMEOUT_S)
+        child_s = time.monotonic() - t0
+        launches = {"flash_attention": fa.launches,
+                    "flash_attention_fp32": fa.launches_fp32,
+                    "decode_wave_attention": da.launches,
+                    "ring_all_reduce": ks.launches}
+        long_execs = executions("bert_long") - e_long
+        dlrm_execs = executions(DLRM_MODEL) - e_dlrm
+        for line in proc.stdout.splitlines():
+            print(f"clients: child: {line}", flush=True)
+        _check(proc.returncode == 0, f"the client process exited "
+               f"{proc.returncode}: {proc.stderr[-4000:]}")
+        out = dict(np.load(workdir / "outputs.npz"))
+        summary = json.loads((workdir / "summary.json").read_text())
+        _check(summary["modules"] == [], "the client process loaded "
+               f"{summary['modules']}")
+        print(f"clients: the child ran {child_s:.1f} s with the port's "
+              "clients alone (no torch, jax or client_tpu module loaded); "
+              f"launches {launches}; bert_long {long_execs} executions, "
+              f"{DLRM_MODEL} {dlrm_execs}", flush=True)
+
+        # Health, metadata and config of every model, over both.
+        _check(summary["health"] == [True] * 4, f"health {summary['health']}")
+        for m in names:
+            got = summary["models"][m]
+            want_inputs = [t.name for t in engine.repository.get(m)
+                           .config.input]
+            _check(got == [True, True, m, m, m, m, want_inputs, want_inputs],
+                   f"{m}: metadata / config over the clients: {got}")
+
+        # bert_long one at a time: bit for bit against the script's own
+        # wire code at the same bucket (one row alone).
+        hand = []
+        for i in range(8):
+            ids, mask = arrays[f"ids{i}"], arrays[f"mask{i}"]
+            body, headers = _binary_request(ids, mask)
+            status, rheaders, data = _post(
+                server.port, "/v2/models/bert_long/infer", body, headers)
+            _check(status == 200, f"bert_long: HTTP {status}")
+            hand.append(_parse_response(rheaders, data))
+            if i < 4:
+                via_grpc = _grpc_outputs(stub.ModelInfer(_grpc_request(
+                    "bert_long", {"input_ids": ids, "attention_mask": mask}),
+                    timeout=GRPC_TIMEOUT_S))
+                for n in BERT_OUTPUTS:
+                    _check(out[f"http_one{i}_{n}"].tobytes()
+                           == hand[i][n].tobytes(),
+                           f"bert_long {i} {n}: HTTP client differs from "
+                           "the hand-built request")
+                    _check(out[f"grpc_one{i}_{n}"].tobytes()
+                           == via_grpc[n].tobytes(),
+                           f"bert_long {i} {n}: gRPC client differs from "
+                           "the hand-built request")
+        errs = [float(np.abs(out[f"http_many{i}_{n}"] - hand[i][n]).max())
+                for i in range(8) for n in BERT_OUTPUTS]
+        exact = sum(out[f"http_many{i}_{n}"].tobytes() == hand[i][n].tobytes()
+                    for i in range(8) for n in BERT_OUTPUTS)
+        _check(max(errs) <= KERNEL_ATOL, f"bert_long at once: max error "
+               f"{max(errs)} against one at a time (tolerance {KERNEL_ATOL})")
+        print(f"clients: bert_long: 4 one at a time over each client bit for "
+              f"bit against the hand-built requests; 8 at once "
+              f"(async_infer) within {max(errs):.3g} of one at a time "
+              f"(tolerance {KERNEL_ATOL}), {exact}/16 outputs exact",
+              flush=True)
+
+        # Streams: token for token against the plain path run directly.
+        served = engine.repository.get("tiny_gpt_long").backend
+        oracle = TinyGptBackend(
+            name="tiny_gpt_long", max_seq_len=served.max_seq_len,
+            max_streams=served.max_streams, attention_impl="einsum",
+            attn_impl="reference", device=device)
+        arena = oracle.init_arena(1)
+        for i in range(len(CLIENT_PROMPTS)):
+            want = _direct_stream(torch, oracle, arena,
+                                  arrays[f"prompt{i}"].tolist(),
+                                  CLIENT_TOKENS, {}, device=device.type)
+            _check(out[f"stream{i}"].tolist() == want,
+                   f"stream {i} (prompt of {CLIENT_PROMPTS[i]}): "
+                   f"{out[f'stream{i}'].tolist()} != direct {want}")
+        del oracle, arena
+        print(f"clients: {len(CLIENT_PROMPTS)} greedy tiny_gpt_long streams "
+              f"of {CLIENT_TOKENS} tokens (prompts {CLIENT_PROMPTS}) on one "
+              "gRPC stream equal the plain path, token for token", flush=True)
+
+        # dlrm_mlperf: bit for bit against the hand-built request.
+        for i in range(CLIENT_DLRM):
+            arrs = {k: arrays[f"dlrm{i}_{k}"]
+                    for k in ("DENSE", "INDICES", "OFFSETS")}
+            status, want = _http_infer(server.port, DLRM_MODEL, arrs, True)
+            _check(status == 200, f"{DLRM_MODEL}: HTTP {status}: {want}")
+            _check(out[f"dlrm{i}"].tobytes() == want["OUTPUT0"].tobytes(),
+                   f"{DLRM_MODEL} request {i} ({'shm' if i % 2 else 'inline'}"
+                   f"): {out[f'dlrm{i}']} != {want['OUTPUT0']}")
+        _check(list(summary["shm_status"]) == ["clients_dlrm"],
+               f"shm status {summary['shm_status']}")
+        print(f"clients: {DLRM_MODEL}: {CLIENT_DLRM} one-row requests, half "
+              "with inputs in system shm, bit for bit against the hand-built "
+              "request", flush=True)
+
+        words = "invalid model version '{}'"
+        want = [["400", words.format("abc")],
+                ["StatusCode.INVALID_ARGUMENT", words.format("abc")],
+                ["400", words.format("0")],
+                ["StatusCode.INVALID_ARGUMENT", words.format("0")]]
+        _check(summary["versions"] == want, f"bad versions: "
+               f"{summary['versions']}")
+        _check(summary["version_01"] == [True, True],
+               f"version '01': {summary['version_01']}")
+        print("clients: a bad model version answers 400 / INVALID_ARGUMENT "
+              "with the reference's words on both frontends; '01' serves "
+              "version 1", flush=True)
+
+        if device.type == "cuda":
+            n_layers = len(engine.repository.get("bert_long").backend.layers)
+            _check(launches["flash_attention"] == n_layers * long_execs > 0,
+                   f"K1 bf16: {launches['flash_attention']} launches for "
+                   f"{long_execs} bert_long batches")
+            _check(launches["ring_all_reduce"] == dlrm_execs > 0,
+                   f"K3: {launches['ring_all_reduce']} launches for "
+                   f"{dlrm_execs} {DLRM_MODEL} executions")
+            _check(launches["flash_attention_fp32"] > 0
+                   and launches["flash_attention_fp32"] % 4 == 0,
+                   f"K1 fp32 launches {launches['flash_attention_fp32']}")
+            _check(launches["decode_wave_attention"]
+                   >= 4 * (CLIENT_TOKENS - 1)
+                   and launches["decode_wave_attention"] % 4 == 0,
+                   f"K2 launches {launches['decode_wave_attention']}")
+        observation = {**summary["observation"], "card": smi}
+        print(f"clients observation: {json.dumps(observation)}", flush=True)
+        print(f"clients: phase passed in {time.monotonic() - t_phase:.1f} s; "
+              f"launches {launches}", flush=True)
+        return launches
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+        channel.close()
+        grpc_server.stop()
+        server.stop()
+        engine.shutdown()
+
+
 def wave_phase(torch, smi: str) -> None:
     """``--kernels``: the per-wave host/device split (:func:`_wave_split`)
     of ``tiny_gpt_long`` at its registered size, built directly, over one
@@ -3549,6 +4023,8 @@ def wave_phase(torch, smi: str) -> None:
 
 
 def main(argv: list[str]) -> int:
+    if argv[:1] == ["--clients-child"]:  # the clients phase's other process
+        return clients_child(argv[1:])
     import torch
 
     kernels_only = argv == ["--kernels"]
@@ -3623,6 +4099,12 @@ def main(argv: list[str]) -> int:
     shm = shm_phase(torch, smi)
     kernels[0]["launches"] += shm["launches"]
     kernels[0]["shm_launches"] = shm["launches"]
+    torch.cuda.empty_cache()
+    # Every kernel again, from the port's own clients in another process.
+    clients = clients_phase(torch, smi)
+    for kernel in kernels:
+        kernel["clients_launches"] = clients[kernel["name"]]
+        kernel["launches"] += clients[kernel["name"]]
     for kernel in kernels:
         # Shorter aliases of the two keys above.
         kernel["launched"] = kernel["launches"]

@@ -24,7 +24,7 @@ import torch
 
 import client_tpu_torch
 from client_tpu_torch.engine.backend_init import resolve_device
-from client_tpu_torch.engine.repository import ModelRepository
+from client_tpu_torch.engine.repository import ModelRepository, _parse_version
 from client_tpu_torch.engine.scheduler import Scheduler, make_scheduler
 from client_tpu_torch.engine.shm import CudaShmManager, SystemShmManager
 from client_tpu_torch.engine.stats import ModelStats
@@ -81,14 +81,19 @@ class TorchEngine:
                 "extensions": list(SERVER_EXTENSIONS)}
 
     def _model(self, name: str, version: str = ""):
+        """The model serving ``name`` at ``version`` ('' = latest), with
+        the reference's order of checks: the version's form (400), the
+        name (404), readiness (400), then the version (404)."""
+        wanted = _parse_version(version)
         model = self.repository.get(name)
         if model is None:
             if name in self.repository.names():
                 raise EngineError(f"model '{name}' is not ready", 400)
             raise EngineError(f"unknown model '{name}'", 404)
-        v = str(version or "").strip()
-        if v and v != str(model.config.version):
-            raise EngineError(f"model '{name}' has no version '{v}'", 404)
+        if wanted is not None and wanted != int(model.config.version):
+            raise EngineError(
+                f"model '{name}' has no version '{str(version).strip()}'",
+                404)
         return model
 
     def model_is_ready(self, name: str, version: str = "") -> bool:
@@ -145,7 +150,10 @@ class TorchEngine:
         model is refused with 400, as Triton refuses it over HTTP infer:
         its responses stream through :meth:`async_infer` (``/generate``,
         ``/generate_stream``)."""
-        model = self.repository.get(req.model_name)
+        try:
+            model = self._model(req.model_name, req.model_version)
+        except EngineError:
+            model = None  # async_infer answers with the lookup's error
         if model is not None and model.config.decoupled:
             raise EngineError(
                 f"model '{req.model_name}' is decoupled; use streaming "

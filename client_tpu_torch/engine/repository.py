@@ -5,7 +5,8 @@ A model registers as a builder ``builder(device) -> ModelBackend``; loading
 builds the backend on the engine's device and wraps it in one
 :class:`~client_tpu_torch.engine.model.Model`. Unload, directory
 repositories (``config.pbtxt``) and multiple versions per name are not
-ported yet.
+ported yet. :func:`_parse_version` reads a requested version as
+the reference does, with its codes and words.
 """
 
 from __future__ import annotations
@@ -19,6 +20,22 @@ from client_tpu_torch.engine.model import Model, ModelBackend
 from client_tpu_torch.engine.types import EngineError
 
 Builder = Callable[[torch.device], ModelBackend]
+
+
+def _parse_version(version) -> int | None:
+    """'' / None -> None (latest); otherwise a positive int."""
+    if version is None:
+        return None
+    v = str(version).strip()
+    if not v:
+        return None
+    try:
+        n = int(v)
+    except ValueError:
+        raise EngineError(f"invalid model version '{version}'", 400) from None
+    if n < 1:
+        raise EngineError(f"invalid model version '{version}'", 400)
+    return n
 
 
 class ModelRepository:

@@ -1,0 +1,55 @@
+"""Retry-After pushback, as the clients read it.
+
+The port's copy of the parsing half of ``client_tpu/protocol/pushback.py``
+(the servers' formatting and the shm-ring slot encoding come with the
+planes that send pushback). Both clients parse pushback here, so HTTP's
+``Retry-After`` header and gRPC's trailing metadata agree on sub-second
+values:
+
+* :func:`parse_retry_after`: text -> seconds; None on absent, unparsable,
+  negative or non-finite input (None means "no pushback", never "retry
+  immediately").
+* :func:`parse_pushback_metadata`: the gRPC client's trailing-metadata
+  view (``retry-after`` preferred, ``retry-pushback-ms`` fallback).
+"""
+
+from __future__ import annotations
+
+__all__ = [
+    "RETRY_AFTER_HEADER",
+    "RETRY_AFTER_METADATA_KEY",
+    "RETRY_PUSHBACK_MS_METADATA_KEY",
+    "parse_retry_after",
+    "parse_pushback_metadata",
+]
+
+RETRY_AFTER_HEADER = "Retry-After"
+RETRY_AFTER_METADATA_KEY = "retry-after"
+RETRY_PUSHBACK_MS_METADATA_KEY = "retry-pushback-ms"
+
+
+def parse_retry_after(raw) -> float | None:
+    """Text (or None) -> pushback seconds, or None when the value is
+    absent, unparsable, or negative. HTTP-date is not used here."""
+    if raw is None:
+        return None
+    try:
+        value = float(raw)
+    except (TypeError, ValueError):
+        return None
+    # "inf" and "nan" read as "no pushback", not "wait forever".
+    return value if 0 <= value < float("inf") else None
+
+
+def parse_pushback_metadata(meta) -> float | None:
+    """gRPC trailing metadata (a mapping with lowercase keys, or an
+    iterable of (key, value)) -> pushback seconds, or None."""
+    if meta is None:
+        return None
+    if not hasattr(meta, "get"):
+        meta = {str(k).lower(): v for k, v in meta}
+    value = parse_retry_after(meta.get(RETRY_AFTER_METADATA_KEY))
+    if value is not None:
+        return value
+    ms = parse_retry_after(meta.get(RETRY_PUSHBACK_MS_METADATA_KEY))
+    return ms / 1000.0 if ms is not None else None

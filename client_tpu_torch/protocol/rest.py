@@ -79,6 +79,27 @@ def build_tensor_json(name: str, arr: np.ndarray, datatype: str, shape, *,
     return entry, None
 
 
+def build_infer_request_body(inputs: list[tuple[dict, bytes | None]],
+                             outputs: list[dict] | None = None,
+                             request_id: str = "",
+                             parameters: dict | None = None
+                             ) -> tuple[bytes, int]:
+    """A request body and the length of its JSON head; when any input
+    carries a binary payload the caller sends the head's length as the
+    ``Inference-Header-Content-Length`` header."""
+    head: dict[str, Any] = {}
+    if request_id:
+        head["id"] = request_id
+    if parameters:
+        head["parameters"] = parameters
+    head["inputs"] = [entry for entry, _ in inputs]
+    if outputs is not None:
+        head["outputs"] = outputs
+    json_bytes = json.dumps(head, separators=(",", ":")).encode("utf-8")
+    tails = [raw for _, raw in inputs if raw is not None]
+    return json_bytes + b"".join(tails), len(json_bytes)
+
+
 def split_body(body: bytes, header_json_length: int | None) -> tuple[dict, bytes]:
     """Split a v2 body into (parsed JSON head, binary tail)."""
     if header_json_length is None:

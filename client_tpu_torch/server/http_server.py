@@ -21,7 +21,8 @@ response entry then carries the ``shared_memory_*`` parameters and no
 data); a region that is not registered answers 400.
 A stream request with the ``response_coalesce`` parameter may get its
 backlogged tokens merged into one event (``server/coalesce.py``).
-Compression, the shm slot ring, staged datasets, tracing and the
+``POST /v2/repository/index`` lists the repository's models; load,
+unload, compression, the shm slot ring, staged datasets, tracing and the
 control-plane routes are not ported yet.
 
 A stdlib ThreadingHTTPServer: each connection gets a thread that only
@@ -68,6 +69,7 @@ _ROUTES: list[tuple[str, re.Pattern, str]] = [
     ("POST", re.compile(_MODEL + r"/infer$"), "infer"),
     ("POST", re.compile(_MODEL + r"/generate$"), "generate"),
     ("POST", re.compile(_MODEL + r"/generate_stream$"), "generate_stream"),
+    ("POST", re.compile(r"^/v2/repository/index$"), "repo_index"),
     ("GET", re.compile(r"^/v2/(systemsharedmemory|cudasharedmemory|"
                        r"tpusharedmemory)(?:/region/([^/]+))?/status$"),
      "shm_status"),
@@ -169,6 +171,9 @@ class _Handler(BaseHTTPRequestHandler):
 
     def h_all_stats(self):
         self._send_json(self.engine.model_statistics())
+
+    def h_repo_index(self):
+        self._send_json(self.engine.repository_index())
 
     def h_infer(self, name, version=None):
         req = self._parse_infer_request(name, version)

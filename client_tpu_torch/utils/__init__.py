@@ -2,7 +2,8 @@
 ``client_tpu/utils/__init__.py``.
 
 The names and signatures are those of ``tritonclient.utils``, so that a
-client can switch imports without other changes. Only what the
+client can switch imports without other changes. Only what the clients
+(``client_tpu_torch.http``, ``client_tpu_torch.grpc``) and the
 shared-memory utilities (``utils.shared_memory``,
 ``utils.cuda_shared_memory``) need is here.
 """
@@ -59,6 +60,13 @@ def serialize_byte_tensor(input_tensor: np.ndarray):
         return np.empty([0], dtype=np.uint8)
     return np.frombuffer(_codec.serialize_bytes_tensor(input_tensor),
                          dtype=np.uint8)
+
+
+def serialized_byte_size(tensor_value: np.ndarray) -> int:
+    """The byte size of a BYTES tensor's wire form."""
+    if tensor_value.size == 0:
+        return 0
+    return len(_codec.serialize_bytes_tensor(tensor_value))
 
 
 def deserialize_bytes_tensor(encoded_tensor) -> np.ndarray:

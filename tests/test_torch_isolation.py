@@ -77,8 +77,37 @@ def test_importing_the_server_loads_no_jax():
         "import client_tpu_torch.engine.ragged\n"
         "import client_tpu_torch.engine.sequence\n"
         "import client_tpu_torch.parallel.emb_shard\n"
+        "import client_tpu_torch.http, client_tpu_torch.grpc\n"
+        "import client_tpu_torch.resilience, client_tpu_torch.router.core\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'client_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+CLIENT_MODULES = [
+    "client_tpu_torch.http", "client_tpu_torch.grpc",
+    "client_tpu_torch.resilience",
+    "client_tpu_torch.observability.client_stats",
+    "client_tpu_torch.observability.tracing",
+    "client_tpu_torch.protocol.pushback",
+    "client_tpu_torch.protocol.loadreport", "client_tpu_torch.router.core",
+    "client_tpu_torch.utils.shared_memory",
+]
+
+
+@pytest.mark.parametrize("module", CLIENT_MODULES)
+def test_clients_load_no_torch(module):
+    """The clients, like the JAX package's, need no framework: importing
+    one loads neither torch, nor jax, nor the JAX package."""
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('torch', 'jax', 'jaxlib', 'client_tpu'))\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
