@@ -157,16 +157,45 @@
    reference's 400 words. An observation line: ``bert_base``, 64
    requests at concurrency 16 from the child (requests/s, p50, p99, the
    client's ``InferStat`` against the server's ``/stats`` split).
-11. Prints one ``{"kernels": [...]}`` line (each kernel's ``launches`` over
+11. Repository phase: a directory repository written for the phase
+   (removed at the end): ``config.json`` files from the zoo's configs for
+   ``bert_long`` (``version_policy: all``, versions 1 and 2),
+   ``tiny_gpt_long``, ``dlrm_mlperf`` (2 shards, K3), ``dlrm_cached``,
+   ``ensemble_bert`` with its steps and ``ensemble_bert_logits`` (its
+   first two steps), and a copy of ``models/``, served at full size by
+   one engine behind HTTP and gRPC, every launch count set to 0. Both
+   ``bert_long`` versions over ``/versions/<v>`` and gRPC, bit for bit
+   alike and within ``SERVED_ATOL`` of the plain path (K1 bf16 once a
+   layer a batch; the serve phase's tolerance for the same comparison, a
+   whole 12-layer forward against the module with plain attention); an
+   unload over HTTP (400 "not ready", and the raw
+   ``torch.cuda.memory_allocated`` falls by at least ``REPO_FREED`` of
+   both versions' parameter and buffer bytes), a load over gRPC, a
+   ``3/`` under ``latest`` 2 (version 2 kept, 3 served, 1 a 404), then
+   ``REPO_CYCLES`` unload/load cycles whose raw memory, cuBLAS's
+   workspaces included, may grow at most ``REPO_LEAK``.
+   ``tiny_gpt_long`` unloaded with ``REPO_STREAMS``
+   streams open (each ends with an error within
+   ``REPO_STREAM_WAIT_S``), reloaded, 8 greedy streams token for token
+   against the plain path (K1 fp32, K2); ``dlrm_mlperf`` reloaded bit for
+   bit, K3 once an execution, and the reloaded model's sharded bag sums
+   (K3) bit for bit the unsharded table's; ``dlrm_cached``'s row cache
+   emptied by a
+   reload; ``ensemble_bert`` unloaded with ``unload_dependents`` (its own
+   step goes, the two it shares stay); the SSDs; the index equal on the
+   engine, HTTP and gRPC. Memory readings are printed beside the card's
+   name and power limit.
+12. Prints one ``{"kernels": [...]}`` line (each kernel's ``launches`` over
    HTTP and gRPC, beside ``http_launches`` over HTTP alone, which must be
    fewer; the ring all-reduce's include the stateful phase's, and its
    entry carries ``dlrm_shape``, its times at [832, 128]; flash
    attention's include the shm phase's, also given as ``shm_launches``;
-   every kernel's include the clients phase's, also given as
-   ``clients_launches``), the ``nvidia-smi`` name and power limit line,
-   and last ``{"ok": true, "device": {...}}``.
+   every kernel's include the clients phase's and the repository
+   phase's, also given as ``clients_launches`` and
+   ``repository_launches``), the ``nvidia-smi`` name and power limit
+   line, and last ``{"ok": true, "device": {...}}``.
 
-The gRPC client code of steps 4 to 9 is the script's own (tensors as
+The gRPC client code of steps 4 to 9 and 11 is the script's own (tensors as
 ``tobytes`` and ``np.frombuffer``, BYTES with a hand-written length
 prefix); it uses the port's ``grpc_service_pb2`` and ``grpc_stub`` only,
 the wire schema. Without ``grpc`` the script fails. Step 10 holds the
@@ -4005,6 +4034,572 @@ def clients_phase(torch, smi: str, device: str = "cuda") -> dict:
         engine.shutdown()
 
 
+# -- repository phase ----------------------------------------------------------
+
+REPO_STREAMS = 4      # tiny_gpt_long streams open when it unloads
+REPO_STREAM_WAIT_S = 10.0  # each must end with an error within this
+REPO_CYCLES = 5       # bert_long unload/load cycles of the leak check
+REPO_FREED = 0.9      # share of bert_long's bytes an unload must free
+REPO_LEAK = 0.01      # memory growth allowed over the cycles
+REPO_TOKENS = 16      # tokens of each stream after the reload
+
+
+def _write_config(root: Path, name: str, cfg: dict,
+                  versions: tuple = ()) -> None:
+    mdir = root / name
+    mdir.mkdir(exist_ok=True)
+    (mdir / "config.json").write_text(json.dumps(cfg))
+    for v in versions:
+        (mdir / str(v)).mkdir(exist_ok=True)
+
+
+def _repository_dir(root: Path, torch) -> None:
+    """The phase's directory repository: ``config.json`` files from the
+    zoo's own configs (``bert_long`` with ``version_policy: all`` and
+    versions 1 and 2), a second ensemble sharing ``ensemble_bert``'s first
+    two steps, and a copy of the repo's ``models/``."""
+    from client_tpu_torch.models import _REGISTRY, _import_all
+    from client_tpu_torch.models.dlrm import DlrmBackend
+
+    _import_all()
+    cpu = torch.device("cpu")
+    for name in ("tiny_gpt_long", "dlrm_cached", "bert_preprocess",
+                 "bert_base", "bert_postprocess", "ensemble_bert"):
+        _write_config(root, name,
+                      _REGISTRY[name](cpu).config.config_dict())
+    cfg = _REGISTRY["bert_long"](cpu).config.config_dict()
+    _write_config(root, "bert_long", {**cfg, "version_policy": {"all": {}}},
+                  versions=(1, 2))
+    # Only the config of the MLPerf DLRM: a one-row table builds it.
+    small = DlrmBackend(name=DLRM_MODEL, device=cpu, **{
+        **MLPERF_DLRM, "table_rows": 1, "emb_shards": 0})
+    _write_config(root, DLRM_MODEL, small.config.config_dict())
+    ens = _REGISTRY["ensemble_bert"](cpu).config.config_dict()
+    steps = ens["ensemble_scheduling"]["step"]
+    _write_config(root, "ensemble_bert_logits", {
+        **ens, "name": "ensemble_bert_logits",
+        "output": [{"name": "LOGITS", "data_type": "TYPE_FP32",
+                    "dims": [2]}],
+        "ensemble_scheduling": {"step": [
+            steps[0], {**steps[1], "output_map": {"logits": "LOGITS"}}]}})
+    for entry in (Path(__file__).resolve().parent / "models").iterdir():
+        shutil.copytree(entry, root / entry.name)
+
+
+def _device_bytes(model) -> int:
+    backend = model.backend
+    return sum(t.numel() * t.element_size()
+               for t in (*backend.parameters(), *backend.buffers()))
+
+
+def _allocated(torch, device) -> int:
+    """``torch.cuda.memory_allocated`` once nothing refers to the dropped
+    tensors (0 on the CPU). It counts cuBLAS's workspaces, one for each
+    (handle, stream) pair that has run, which no unload gives back: a
+    reload that made new pairs would show here as growth."""
+    import gc
+
+    gc.collect()
+    if device.type != "cuda":
+        return 0
+    torch.cuda.synchronize(device)
+    return torch.cuda.memory_allocated(device)
+
+
+def _repo_post(port: int, path: str, body: dict | None = None):
+    status, _, data = _post(port, path,
+                            json.dumps(body).encode() if body else b"")
+    return status, (json.loads(data) if data else None)
+
+
+def _open_stream(port: int, prompt: list, max_tokens: int,
+                 first: threading.Event) -> dict:
+    """A ``tiny_gpt_long`` /generate_stream read in this thread until it
+    ends; ``first`` is set on its first token. Returns its tokens, the
+    error event's words and the monotonic time it ended."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    out = {"tokens": [], "error": None, "end": None}
+    try:
+        conn.request("POST", "/v2/models/tiny_gpt_long/generate_stream",
+                     json.dumps({"inputs": [{
+                         "name": "INPUT_IDS", "datatype": "INT32",
+                         "shape": [len(prompt)], "data": prompt}],
+                         "parameters": {"max_tokens": max_tokens}}).encode())
+        resp = conn.getresponse()
+        _check(resp.status == 200, f"stream: HTTP {resp.status}")
+        buf = b""
+        while True:
+            data = resp.read1(65536)
+            if not data:
+                break
+            buf += data
+            while b"\n\n" in buf:
+                event, buf = buf.split(b"\n\n", 1)
+                head = json.loads(event[len(b"data: "):])
+                if "error" in head:
+                    out["error"] = head["error"]
+                    continue
+                outs = {o["name"]: o["data"] for o in head["outputs"]}
+                out["tokens"] += outs["TOKEN"]
+                first.set()
+    finally:
+        out["end"] = time.monotonic()
+        first.set()
+        conn.close()
+    return out
+
+
+def _bert_long_checks(torch, engine, port: int, stub, device) -> dict:
+    """Both versions over both frontends, bit for bit alike and within
+    ``SERVED_ATOL`` of the plain path (a whole 12-layer forward against
+    the module with plain attention, as the serve phase holds it); K1
+    bf16's launches per batch."""
+    from client_tpu_torch.ops import flash_attention as fa
+
+    seq = engine.repository.get("bert_long").config.input[0].dims[0]
+    rng = np.random.default_rng(12)
+    feeds = []
+    for _ in range(2):
+        ids = rng.integers(0, 30522, (1, seq)).astype(np.int32)
+        mask = np.ones((1, seq), np.int32)
+        mask[0, rng.integers(seq // 4, seq + 1):] = 0
+        feeds.append((ids, mask))
+
+    def executions(version):
+        return engine.model_statistics("bert_long", version)["model_stats"][
+            0]["execution_count"]
+
+    e0 = {v: executions(v) for v in ("1", "2")}
+    k0 = fa.launches
+    answers = {}
+    for v in ("1", "2"):
+        for i, (ids, mask) in enumerate(feeds):
+            body, headers = _binary_request(ids, mask)
+            status, rheaders, data = _post(
+                port, f"/v2/models/bert_long/versions/{v}/infer", body,
+                headers)
+            _check(status == 200, f"bert_long v{v}: HTTP {status}: "
+                   f"{data[:300]!r}")
+            answers[("http", v, i)] = _parse_response(rheaders, data)
+            req = _grpc_request("bert_long", {"input_ids": ids,
+                                              "attention_mask": mask})
+            req.model_version = v
+            answers[("grpc", v, i)] = _grpc_outputs(
+                stub.ModelInfer(req, timeout=GRPC_TIMEOUT_S))
+    batches = sum(executions(v) - e0[v] for v in ("1", "2"))
+    launches = fa.launches - k0
+    n_layers = len(engine.repository.get("bert_long").backend.layers)
+    if device.type == "cuda":
+        _check(batches == 8 and launches == n_layers * batches,
+               f"K1 bf16: {launches} launches for {batches} bert_long "
+               f"batches of two versions ({n_layers} a batch)")
+    names = [tc.name for tc in engine.repository.get("bert_long")
+             .config.output]
+    for (wire, v, i), out in answers.items():
+        for n in names:
+            _check(out[n].tobytes() == answers[("http", "1", i)][n]
+                   .tobytes(), f"bert_long {wire} v{v} request {i} {n}: "
+                   "not bit for bit the HTTP v1 answer")
+    errs = []
+    with torch.inference_mode():
+        for i, (ids, mask) in enumerate(feeds):
+            model = engine.repository.get("bert_long", "2")
+            ref = model.backend.encode(
+                {"input_ids": torch.from_numpy(ids).to(device),
+                 "attention_mask": torch.from_numpy(mask).to(device)},
+                fa.flash_attention_plain)
+            errs += [float(np.abs(answers[("http", "2", i)][n]
+                                  - ref[n].float().cpu().numpy()).max())
+                     for n in names]
+    _check(fa.launches - k0 == launches, "the plain path launched K1")
+    # The serve phase's comparison and tolerance: a whole 12-layer forward
+    # through K1 against the same module with plain attention.
+    _check(max(errs) <= SERVED_ATOL, f"bert_long against the plain path: "
+           f"{max(errs)} (tolerance {SERVED_ATOL})")
+    print(f"repository: bert_long versions 1 and 2 over /versions/<v> and "
+          f"gRPC model_version: 8 batches, K1 bf16 {launches} launches; "
+          f"every answer bit for bit alike across versions and frontends, "
+          f"within {max(errs):.3g} of the plain path (tolerance "
+          f"{SERVED_ATOL})", flush=True)
+    return {"feed": feeds[0], "answer": answers[("http", "1", 0)]}
+
+
+def repository_phase(torch, smi: str, device: str = "cuda") -> dict:
+    """Repository control on one engine behind HTTP and gRPC, serving a
+    directory repository written for the phase: ``bert_long`` (versions 1
+    and 2, K1 bf16), ``tiny_gpt_long`` (K1 fp32, K2), ``dlrm_mlperf`` (2
+    shards, K3), ``dlrm_cached``, ``ensemble_bert`` with its steps, a
+    second ensemble sharing two of them, and both SSDs of ``models/``,
+    at their registered sizes. Models are unloaded, loaded and reloaded
+    over both frontends while every kernel is counted; the card memory an
+    unload gives back and the growth over ``REPO_CYCLES`` unload/load
+    cycles are read with ``torch.cuda.memory_allocated``. ``device`` is
+    for a dry run of the phase's logic on the CPU."""
+    import tempfile
+
+    import grpc
+
+    from client_tpu_torch.engine import TorchEngine
+    from client_tpu_torch.engine.repository import ModelRepository
+    from client_tpu_torch.models import _REGISTRY, register_model
+    from client_tpu_torch.models.dlrm import DlrmBackend
+    from client_tpu_torch.models.generate import TinyGptBackend
+    from client_tpu_torch.ops import decode_attention as da
+    from client_tpu_torch.ops import flash_attention as fa
+    from client_tpu_torch.parallel import kv_shard as ks
+    from client_tpu_torch.protocol import grpc_service_pb2 as pb
+    from client_tpu_torch.server import (
+        GrpcInferenceServer,
+        HttpInferenceServer,
+    )
+
+    t_phase = time.monotonic()
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    register_model(DLRM_MODEL, default=False)(lambda dev: DlrmBackend(
+        name=DLRM_MODEL, device=dev, emb_devices=[dev] * 2, **MLPERF_DLRM))
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_repository_"))
+    engine = server = grpc_server = channel = None
+    try:
+        _repository_dir(root, torch)
+        engine = TorchEngine(ModelRepository.from_directory(str(root)),
+                             device=device)
+        server = HttpInferenceServer(engine, port=0).start()
+        grpc_server = GrpcInferenceServer(engine, port=0).start()
+        channel, stub = _grpc_channel(grpc_server.url)
+        index = engine.repository_index()
+        _check(all(e["state"] == "READY" for e in index),
+               f"a model of the directory did not load: {index}")
+        print(f"repository: {len(index)} rows READY from {root} in "
+              f"{time.monotonic() - t_phase:.1f} s on {device}: "
+              f"{[(e['name'], e['version']) for e in index]}", flush=True)
+        fa.launches = fa.launches_fp32 = da.launches = ks.launches = 0
+
+        # bert_long: two versions, then an unload over HTTP.
+        first = _bert_long_checks(torch, engine, server.port, stub, device)
+        freed_bytes = sum(_device_bytes(m) for m in
+                          engine.repository.loaded_versions(
+                              "bert_long").values())
+        before = _allocated(torch, device)
+        status, _ = _repo_post(server.port,
+                               "/v2/repository/models/bert_long/unload")
+        _check(status == 200, f"unload bert_long: HTTP {status}")
+        after = _allocated(torch, device)
+        body, headers = _binary_request(*first["feed"])
+        status, _, data = _post(server.port, "/v2/models/bert_long/infer",
+                                body, headers)
+        _check(status == 400 and json.loads(data)["error"]
+               == "model 'bert_long' is not ready",
+               f"bert_long unloaded: HTTP {status} {data[:200]!r}")
+        if cuda:
+            _check(before - after >= REPO_FREED * freed_bytes,
+                   f"unloading bert_long freed {before - after} bytes of "
+                   f"its {freed_bytes}")
+        print(f"repository: bert_long unloaded over HTTP (then 400 'not "
+              f"ready'): memory_allocated {before} -> {after} bytes, "
+              f"{before - after} freed of its 2 versions' {freed_bytes} "
+              f"parameter and buffer bytes (at least {REPO_FREED:.0%} "
+              f"required); {smi}", flush=True)
+
+        # Load over gRPC; then 3/ under latest-2: 2 and 3 serve, 1 retires.
+        stub.RepositoryModelLoad(pb.RepositoryModelLoadRequest(
+            model_name="bert_long"), timeout=GRPC_TIMEOUT_S)
+        status, rheaders, data = _post(
+            server.port, "/v2/models/bert_long/versions/1/infer", body,
+            headers)
+        _check(status == 200, f"bert_long reloaded: HTTP {status}")
+        for n, got in _parse_response(rheaders, data).items():
+            _check(got.tobytes() == first["answer"][n].tobytes(),
+                   f"bert_long {n} after the reload differs")
+        kept = engine.repository.get("bert_long", "2")
+        (root / "bert_long" / "3").mkdir()
+        cfg = json.loads((root / "bert_long" / "config.json").read_text())
+        cfg["version_policy"] = {"latest": {"num_versions": 2}}
+        (root / "bert_long" / "config.json").write_text(json.dumps(cfg))
+        status, _ = _repo_post(server.port,
+                               "/v2/repository/models/bert_long/load")
+        _check(status == 200, f"load bert_long with 3/: HTTP {status}")
+        versions = engine.model_metadata("bert_long")["versions"]
+        _check(versions == ["2", "3"] and engine.repository.get(
+            "bert_long", "2") is kept, f"after 3/: versions {versions}")
+        status, _, data = _post(
+            server.port, "/v2/models/bert_long/versions/1/infer", body,
+            headers)
+        _check(status == 404 and json.loads(data)["error"]
+               == "model 'bert_long' has no version '1'",
+               f"retired version 1: HTTP {status} {data[:200]!r}")
+        for v in ("3", ""):
+            path = f"/v2/models/bert_long{'/versions/' + v if v else ''}/infer"
+            status, rheaders, data = _post(server.port, path, body, headers)
+            _check(status == 200, f"bert_long {path}: HTTP {status}")
+            for n, got in _parse_response(rheaders, data).items():
+                _check(got.tobytes() == first["answer"][n].tobytes(),
+                       f"bert_long v{v or 'latest'} {n} differs")
+        del kept
+        print("repository: bert_long loaded over gRPC serves v1 bit for bit "
+              "as before; with 3/ and latest-2 a load serves 2 (kept, not "
+              "rebuilt) and 3, and v1 answers 404 'has no version'",
+              flush=True)
+
+        # The leak check: unload/load cycles over both frontends.
+        readings = []
+        for cycle in range(REPO_CYCLES):
+            if cycle % 2:
+                stub.RepositoryModelUnload(pb.RepositoryModelUnloadRequest(
+                    model_name="bert_long"), timeout=GRPC_TIMEOUT_S)
+                stub.RepositoryModelLoad(pb.RepositoryModelLoadRequest(
+                    model_name="bert_long"), timeout=GRPC_TIMEOUT_S)
+            else:
+                for op in ("unload", "load"):
+                    status, _ = _repo_post(
+                        server.port, f"/v2/repository/models/bert_long/{op}")
+                    _check(status == 200, f"{op} bert_long: HTTP {status}")
+            status, rheaders, data = _post(
+                server.port, "/v2/models/bert_long/infer", body, headers)
+            _check(status == 200, f"bert_long cycle {cycle}: HTTP {status}")
+            readings.append(_allocated(torch, device))
+        growth = (readings[-1] - readings[0]) / max(1, readings[0])
+        if cuda:
+            _check(abs(growth) <= REPO_LEAK,
+                   f"memory over {REPO_CYCLES} unload/load cycles: "
+                   f"{readings}")
+        print(f"repository: {REPO_CYCLES} unload/load cycles of bert_long "
+              f"(HTTP and gRPC, one request each): memory_allocated "
+              f"{readings} bytes, {growth:+.4%} from the first to the last "
+              f"(at most {REPO_LEAK:.0%}); {smi}", flush=True)
+
+        _gpt_checks(torch, engine, server.port, grpc_server.url, device,
+                    TinyGptBackend)
+        _repo_dlrm_checks(torch, engine, server.port, stub)
+
+        # Ensembles: ensemble_bert's own step goes, the shared ones stay.
+        text = np.array([[b"a chip check"]], dtype=np.object_)
+        want = _http_infer(server.port, "ensemble_bert_logits",
+                           {"TEXT": text}, True)
+        _check(want[0] == 200, f"ensemble_bert_logits: {want}")
+        status, _ = _repo_post(
+            server.port, "/v2/repository/models/ensemble_bert/unload",
+            {"parameters": {"unload_dependents": True}})
+        _check(status == 200, f"unload ensemble_bert: HTTP {status}")
+        states = {e["name"]: e["state"] for e in engine.repository_index()}
+        _check([states[m] for m in (
+            "ensemble_bert", "bert_postprocess", "bert_preprocess",
+            "bert_base", "ensemble_bert_logits")] == [
+            "UNAVAILABLE", "UNAVAILABLE", "READY", "READY", "READY"],
+            f"after unload_dependents: {states}")
+        got = _http_infer(server.port, "ensemble_bert_logits",
+                          {"TEXT": text}, True)
+        _check(got[0] == 200 and got[1]["LOGITS"].tobytes()
+               == want[1]["LOGITS"].tobytes(),
+               f"ensemble_bert_logits after the unload: {got}")
+        print("repository: ensemble_bert unloaded with unload_dependents "
+              "took bert_postprocess and left bert_preprocess and bert_base,"
+              " which ensemble_bert_logits still names (it serves bit for "
+              "bit as before)", flush=True)
+
+        # The directory's SSDs, and the index on both frontends.
+        img = np.random.default_rng(9).integers(
+            0, 255, (1, 300, 300, 3)).astype(np.uint8)
+        for name in SSD_MODELS:
+            status, out = _http_infer(
+                server.port, name, {"normalized_input_image_tensor": img},
+                True)
+            _check(status == 200 and out["TFLite_Detection_PostProcess"]
+                   .shape == (1, 1, 10, 4), f"{name}: {status} {out}")
+        index = engine.repository_index()
+        status, over_http = _repo_post(server.port, "/v2/repository/index")
+        over_grpc = [{k: v for k, v in (
+            ("name", m.name), ("version", m.version), ("state", m.state),
+            ("reason", m.reason)) if v} for m in stub.RepositoryIndex(
+                pb.RepositoryIndexRequest(), timeout=GRPC_TIMEOUT_S).models]
+        _check(status == 200 and over_http == index == over_grpc,
+               f"index: engine {index}, HTTP {over_http}, gRPC {over_grpc}")
+        try:
+            stub.RepositoryModelLoad(pb.RepositoryModelLoadRequest(
+                model_name="no_such_model"), timeout=GRPC_TIMEOUT_S)
+            code = None
+        except grpc.RpcError as exc:
+            code = exc.code()
+        _check(code == grpc.StatusCode.NOT_FOUND, f"unknown load: {code}")
+        print(f"repository: both SSDs of models/ serve; the index ({len(index)}"
+              " rows) is the engine's over HTTP and gRPC", flush=True)
+
+        launches = {"flash_attention": fa.launches,
+                    "flash_attention_fp32": fa.launches_fp32,
+                    "decode_wave_attention": da.launches,
+                    "ring_all_reduce": ks.launches}
+        if cuda:
+            _check(all(launches.values()),
+                   f"a kernel did not run in the phase: {launches}")
+        print(f"repository: phase passed in {time.monotonic() - t_phase:.1f}"
+              f" s; launches {launches}; {smi}", flush=True)
+        return launches
+    finally:
+        if channel is not None:
+            channel.close()
+        for srv in (grpc_server, server):
+            if srv is not None:
+                srv.stop()
+        if engine is not None:
+            engine.shutdown()
+        _REGISTRY.pop(DLRM_MODEL, None)
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _gpt_checks(torch, engine, port: int, grpc_url: str, device,
+                gpt_cls) -> None:
+    """``tiny_gpt_long``: unloaded with ``REPO_STREAMS`` streams open (each
+    ends with an error), then reloaded: greedy streams over HTTP and gRPC
+    token for token against the plain path (K1 fp32, K2)."""
+    from client_tpu_torch.ops import decode_attention as da
+    from client_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(14)
+    firsts = [threading.Event() for _ in range(REPO_STREAMS)]
+    with concurrent.futures.ThreadPoolExecutor(REPO_STREAMS) as pool:
+        futures = [pool.submit(_open_stream, port,
+                               rng.integers(0, 512, 5).tolist(), 2000, f)
+                   for f in firsts]
+        for f in firsts:
+            _check(f.wait(120), "a stream sent no first token")
+        t0 = time.monotonic()
+        status, _ = _repo_post(port,
+                               "/v2/repository/models/tiny_gpt_long/unload")
+        _check(status == 200, f"unload tiny_gpt_long: HTTP {status}")
+        ended = [fut.result(timeout=120) for fut in futures]
+    for out in ended:
+        _check(out["error"] == "server shutting down"
+               and out["end"] - t0 <= REPO_STREAM_WAIT_S
+               and len(out["tokens"]) < 2000,
+               f"an open stream at unload: {len(out['tokens'])} tokens, "
+               f"error {out['error']!r}, ended {out['end'] - t0:.2f} s "
+               "after the unload began")
+    print(f"repository: tiny_gpt_long unloaded with {REPO_STREAMS} streams "
+          f"open ({[len(o['tokens']) for o in ended]} tokens in): each "
+          f"ended with 'server shutting down' within "
+          f"{max(o['end'] for o in ended) - t0:.2f} s", flush=True)
+
+    status, _ = _repo_post(port, "/v2/repository/models/tiny_gpt_long/load")
+    _check(status == 200, f"load tiny_gpt_long: HTTP {status}")
+    k1, k2 = fa.launches_fp32, da.launches
+    prompts = [rng.integers(0, 512, n).tolist() for n in CLIENT_PROMPTS]
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        http_toks = list(pool.map(lambda p: _stream(
+            port, "tiny_gpt_long", {"inputs": [{
+                "name": "INPUT_IDS", "datatype": "INT32", "shape": [len(p)],
+                "data": p}], "parameters": {"max_tokens": REPO_TOKENS}})[0],
+            prompts[:4]))
+    by_id = _grpc_streams(grpc_url, [
+        (f"r{i}", "tiny_gpt_long", p, {"max_tokens": REPO_TOKENS})
+        for i, p in enumerate(prompts[4:])])
+    served = http_toks + [by_id[f"r{i}"][0] for i in range(4)]
+    backend = engine.repository.get("tiny_gpt_long").backend
+    oracle = gpt_cls(name="tiny_gpt_long", max_seq_len=backend.max_seq_len,
+                     max_streams=backend.max_streams,
+                     attention_impl="einsum", attn_impl="reference",
+                     device=device)
+    arena = oracle.init_arena(1)
+    for prompt, toks in zip(prompts, served):
+        want = _direct_stream(torch, oracle, arena, prompt, REPO_TOKENS, {},
+                              device=device.type)
+        _check(toks == want, f"reloaded tiny_gpt_long, prompt of "
+               f"{len(prompt)}: {toks} != direct {want}")
+    del oracle, arena
+    n_layers = backend.n_layers
+    if device.type == "cuda":
+        _check(fa.launches_fp32 - k1 >= n_layers
+               and (fa.launches_fp32 - k1) % n_layers == 0
+               and da.launches - k2 >= n_layers * (REPO_TOKENS - 1)
+               and (da.launches - k2) % n_layers == 0,
+               f"reloaded tiny_gpt_long: K1 fp32 {fa.launches_fp32 - k1}, "
+               f"K2 {da.launches - k2} launches")
+    print(f"repository: tiny_gpt_long reloaded: 8 greedy streams of "
+          f"{REPO_TOKENS} tokens (prompts {CLIENT_PROMPTS}; 4 over SSE, 4 on"
+          f" one gRPC stream) equal the plain path token for token; K1 fp32 "
+          f"{fa.launches_fp32 - k1}, K2 {da.launches - k2} launches",
+          flush=True)
+
+
+def _repo_dlrm_checks(torch, engine, port: int, stub) -> None:
+    """``dlrm_mlperf`` reloaded answers bit for bit as before, K3 once an
+    execution, and its sharded bag sums (K3) equal the unsharded table's
+    bit for bit; a reload of ``dlrm_cached`` empties its row cache."""
+    from client_tpu_torch.parallel import emb_shard as es
+    from client_tpu_torch.parallel import kv_shard as ks
+    from client_tpu_torch.protocol import grpc_service_pb2 as pb
+
+    def executions():
+        return engine.model_statistics(DLRM_MODEL)["model_stats"][0][
+            "execution_count"]
+
+    rng = np.random.default_rng(27)
+    reqs = [_mlperf_csr(rng, rows=1 + i % 3) for i in range(6)]
+    k0, e0 = ks.launches, executions()
+    before = []
+    for r in reqs:
+        status, out = _http_infer(port, DLRM_MODEL, r, True)
+        _check(status == 200, f"{DLRM_MODEL}: {status} {out}")
+        before.append(out["OUTPUT0"])
+    stub.RepositoryModelUnload(pb.RepositoryModelUnloadRequest(
+        model_name=DLRM_MODEL), timeout=GRPC_TIMEOUT_S)
+    status, _ = _repo_post(port, f"/v2/repository/models/{DLRM_MODEL}/load")
+    _check(status == 200, f"load {DLRM_MODEL}: HTTP {status}")
+    e1 = executions()
+    for r, want in zip(reqs, before):
+        code, out = _grpc_infer(stub, DLRM_MODEL, r)
+        _check(out["OUTPUT0"].tobytes() == want.tobytes(),
+               f"{DLRM_MODEL} after the reload: {out['OUTPUT0']} != {want}")
+    execs = (e1 - e0) + (executions() - e1)
+    if engine.device.type == "cuda":
+        _check(ks.launches - k0 == execs == 2 * len(reqs),
+               f"K3: {ks.launches - k0} launches for {execs} executions")
+    launches = ks.launches - k0
+
+    # The reloaded model against its plain version: sharded bag sums of a
+    # full batch against the unsharded table's (this launch is not the
+    # phase's).
+    backend = engine.repository.get(DLRM_MODEL).backend
+    device = engine.device
+    batch = _mlperf_csr(np.random.default_rng(28), rows=32)
+    staged = {k: torch.from_numpy(v).to(device) for k, v in
+              backend.pre_stage(batch, MLPERF_DLRM["max_lookups"]).items()}
+    num_seg = MLPERF_DLRM["max_batch_size"] * MLPERF_DLRM["num_tables"]
+    with torch.inference_mode():
+        sharded = backend.pooled(staged)
+        whole = torch.from_numpy(backend.table_host).to(device)
+        oracle = es.bag_sum_oracle(whole, staged["INDICES"],
+                                   staged["SEG_IDS"], num_seg)
+    ks.launches = k0 + launches
+    _check(bool(torch.equal(sharded, oracle)),
+           f"{DLRM_MODEL} after the reload: sharded bag sums differ from "
+           f"the unsharded ones by {float((sharded - oracle).abs().max())}")
+    del backend, staged, sharded, whole, oracle
+    print(f"repository: {DLRM_MODEL} unloaded over gRPC, loaded over HTTP: "
+          f"{len(reqs)} requests bit for bit as before the reload; K3 "
+          f"{launches} launches for {execs} executions; pooled over 2 "
+          "shards (ring) bit for bit the unsharded table's", flush=True)
+
+    r = _small_csr(np.random.default_rng(8), rows=2)
+    cache = engine.repository.get("dlrm_cached").backend.row_cache
+    for _ in range(2):
+        status, want = _http_infer(port, "dlrm_cached", r, True)
+    hits = cache.hits
+    status, again = _http_infer(port, "dlrm_cached", r, True)
+    _check(cache.hits - hits == int(r["INDICES"].shape[0]) > 0,
+           f"dlrm_cached: {cache.hits - hits} hits of a resident request")
+    status, _ = _repo_post(port, "/v2/repository/models/dlrm_cached/load")
+    _check(status == 200 and cache.snapshot()["resident_rows"] == 0,
+           f"dlrm_cached reload: {status} {cache.snapshot()}")
+    hits = cache.hits
+    status, after = _http_infer(port, "dlrm_cached", r, True)
+    _check(cache.hits - hits == 0 and after["OUTPUT0"].tobytes()
+           == want["OUTPUT0"].tobytes(),
+           f"dlrm_cached after the reload: {cache.hits - hits} hits")
+    print(f"repository: dlrm_cached reload emptied its row cache: the same "
+          f"request hit {int(r['INDICES'].shape[0])} rows before and 0 "
+          "after, the same score", flush=True)
+
+
 def wave_phase(torch, smi: str) -> None:
     """``--kernels``: the per-wave host/device split (:func:`_wave_split`)
     of ``tiny_gpt_long`` at its registered size, built directly, over one
@@ -4105,6 +4700,12 @@ def main(argv: list[str]) -> int:
     for kernel in kernels:
         kernel["clients_launches"] = clients[kernel["name"]]
         kernel["launches"] += clients[kernel["name"]]
+    torch.cuda.empty_cache()
+    # Every kernel again, through models loaded, unloaded and reloaded.
+    repository = repository_phase(torch, smi)
+    for kernel in kernels:
+        kernel["repository_launches"] = repository[kernel["name"]]
+        kernel["launches"] += repository[kernel["name"]]
     for kernel in kernels:
         # Shorter aliases of the two keys above.
         kernel["launched"] = kernel["launches"]

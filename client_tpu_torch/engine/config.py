@@ -3,15 +3,34 @@
 The port's own copy of ``client_tpu/engine/config.py``, trimmed to what
 the port serves: batched models with optional dynamic batching, ragged
 models batched along a lookups axis (DLRM), stateful models with
-sequence batching, decoupled (streaming) models and ensembles, built in
-code (no ``config.pbtxt`` parsing yet). Field names match the
-reference's model-config schema.
+sequence batching, decoupled (streaming) models and ensembles. A config
+is built in code by a zoo backend, or read from a directory repository's
+``config.pbtxt`` / ``config.json`` by :meth:`ModelConfig.from_dict`.
+Field names match the reference's model-config schema.
+
+The port's schedulers have no priority levels, queue policies or
+``preserve_ordering`` yet: a config that asks for one is refused with a
+400 that names it, never served without it.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Any
+
+from client_tpu_torch.engine.types import EngineError
+from client_tpu_torch.protocol.dtypes import DataType
+
+
+def _norm_dtype(dt: str) -> str:
+    """Accept both bare ('INT32') and proto-enum ('TYPE_INT32') spellings."""
+    if dt.startswith("TYPE_"):
+        dt = dt[len("TYPE_"):]
+    if dt == "STRING":
+        dt = "BYTES"
+    if dt not in DataType.ALL:
+        raise ValueError(f"unknown data_type '{dt}'")
+    return dt
 
 
 @dataclass
@@ -24,6 +43,16 @@ class TensorConfig:
     # variable leading dim instead of the implicit [-1] batch dim: its
     # wire shape is exactly ``dims``.
     ragged: bool = False
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "TensorConfig":
+        return cls(
+            name=d["name"],
+            data_type=_norm_dtype(d["data_type"]),
+            dims=[int(x) for x in d["dims"]],
+            optional=bool(d.get("optional", False)),
+            ragged=bool(d.get("ragged", False)),
+        )
 
 
 @dataclass
@@ -72,11 +101,16 @@ class ModelConfig:
     # the last flagged final (Triton's ``model_transaction_policy``).
     decoupled: bool = False
     version: int = 1
+    # The bucket ladder, when not powers of two up to the axis capacity.
+    batch_buckets: list[int] | None = None
     # The quantity the bucket ladder pads: "rows" (batch rows) or
     # "lookups" (the summed embedding lookups of a ragged DLRM batch; rows
     # still cap at max_batch_size).
     padding_axis: str = "rows"
     max_lookups: int = 0  # the ladder's ceiling along "lookups"
+    # Free-form settings: a directory model's ``zoo_builder``,
+    # ``weights_path`` and the ``labels`` of its ``label_filename``s.
+    parameters: dict[str, Any] = field(default_factory=dict)
 
     def scheduler_kind(self) -> str:
         """ENSEMBLE, SEQUENCE, DYNAMIC or NONE: the kinds the port
@@ -95,11 +129,13 @@ class ModelConfig:
         return self.max_batch_size
 
     def effective_buckets(self) -> list[int]:
-        """Buckets a batch pads up to: powers of two up to the axis
-        capacity."""
+        """Buckets a batch pads up to: ``batch_buckets`` when set, else
+        powers of two up to the axis capacity."""
         cap = self.axis_capacity()
         if cap <= 0:
             return [0]
+        if self.batch_buckets:
+            return sorted({int(b) for b in self.batch_buckets})
         buckets, b = [], 1
         while b < cap:
             buckets.append(b)
@@ -107,8 +143,79 @@ class ModelConfig:
         buckets.append(cap)
         return buckets
 
-    def metadata_dict(self) -> dict:
-        """v2 model-metadata JSON (GET /v2/models/<name>)."""
+    @classmethod
+    def from_dict(cls, d: dict) -> "ModelConfig":
+        """A config from its dict form (``config.json``, or
+        :func:`~client_tpu_torch.protocol.model_config.load_pbtxt`), as the
+        reference reads it. Raises EngineError 400 for a dynamic-batching
+        block that asks for what the port's schedulers lack."""
+        db = None
+        if "dynamic_batching" in d:
+            raw = d["dynamic_batching"] or {}
+            wanted = [k for k in ("preserve_ordering", "priority_levels",
+                                  "default_queue_policy",
+                                  "priority_queue_policy") if raw.get(k)]
+            if wanted:
+                raise EngineError(
+                    f"model '{d.get('name', '')}': dynamic_batching "
+                    f"{', '.join(wanted)} not ported yet (the port's "
+                    "scheduler has no priority levels, queue policies or "
+                    "preserve_ordering)", 400)
+            db = DynamicBatchingConfig(
+                preferred_batch_size=[int(x) for x in
+                                      raw.get("preferred_batch_size", [])],
+                max_queue_delay_microseconds=int(
+                    raw.get("max_queue_delay_microseconds", 0)))
+        sb = None
+        if "sequence_batching" in d:
+            raw = d["sequence_batching"] or {}
+            oldest = raw.get("oldest") or {}
+            sb = SequenceBatchingConfig(
+                strategy=("oldest" if "oldest" in raw
+                          else raw.get("strategy", "direct")),
+                max_sequence_idle_microseconds=int(
+                    raw.get("max_sequence_idle_microseconds", 1_000_000)),
+                max_candidate_sequences=int(
+                    oldest.get("max_candidate_sequences",
+                               raw.get("max_candidate_sequences", 64))),
+                max_queue_delay_microseconds=int(
+                    oldest.get("max_queue_delay_microseconds",
+                               raw.get("max_queue_delay_microseconds",
+                                       1000))),
+            )
+        steps = [EnsembleStep(model_name=s["model_name"],
+                              model_version=int(s.get("model_version", -1)),
+                              input_map=dict(s.get("input_map", {})),
+                              output_map=dict(s.get("output_map", {})))
+                 for s in (d.get("ensemble_scheduling") or {}).get("step",
+                                                                   [])]
+        group = d.get("instance_group")
+        return cls(
+            name=d["name"],
+            platform=d.get("platform", d.get("backend", "pytorch")),
+            max_batch_size=int(d.get("max_batch_size", 0)),
+            input=[TensorConfig.from_dict(x) for x in d.get("input", [])],
+            output=[TensorConfig.from_dict(x) for x in d.get("output", [])],
+            dynamic_batching=db,
+            sequence_batching=sb,
+            ensemble_scheduling=steps,
+            instance_count=int(
+                (group or [{}])[0].get("count", 1)
+                if isinstance(group, list)
+                else (group or {}).get("count", 1)),
+            decoupled=bool((d.get("model_transaction_policy") or {})
+                           .get("decoupled", False)),
+            version=int(d.get("version", 1)),
+            batch_buckets=([int(b) for b in d["batch_buckets"]]
+                           if d.get("batch_buckets") else None),
+            padding_axis=str(d.get("padding_axis", "rows")),
+            max_lookups=int(d.get("max_lookups", 0)),
+            parameters=dict(d.get("parameters", {})),
+        )
+
+    def metadata_dict(self, versions: list[str] | None = None) -> dict:
+        """v2 model-metadata JSON (GET /v2/models/<name>); ``versions``
+        lists the loaded versions of the name."""
         def io_md(tc: TensorConfig) -> dict:
             # A ragged tensor owns its variable leading dim: no batch dim.
             dims = (([-1] if self.max_batch_size > 0 and not tc.ragged
@@ -117,7 +224,7 @@ class ModelConfig:
 
         return {
             "name": self.name,
-            "versions": [str(self.version)],
+            "versions": versions or [str(self.version)],
             "platform": self.platform,
             "inputs": [io_md(t) for t in self.input],
             "outputs": [io_md(t) for t in self.output],

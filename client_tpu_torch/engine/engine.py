@@ -11,12 +11,15 @@ or other decoupled streaming, or an ensemble. Two shared-memory
 managers serve both frontends and in-process callers: ``system_shm``
 (regions by shm key) and ``cuda_shm`` (host-staged regions by handle, and
 in-process regions of tensors on the card; ``engine/shm.py``).
-Load/unload at run time, the shm slot ring and staged datasets, and the
+Models load, reload and unload at run time (:meth:`TorchEngine.load_model`,
+:meth:`TorchEngine.unload_model`), each loaded version with its own
+scheduler and statistics. The shm slot ring and staged datasets, and the
 admission, QoS, tracing, profiling and cost planes are not ported yet.
 """
 
 from __future__ import annotations
 
+import logging
 import threading
 from typing import Callable
 
@@ -24,7 +27,7 @@ import torch
 
 import client_tpu_torch
 from client_tpu_torch.engine.backend_init import resolve_device
-from client_tpu_torch.engine.repository import ModelRepository, _parse_version
+from client_tpu_torch.engine.repository import ModelRepository
 from client_tpu_torch.engine.scheduler import Scheduler, make_scheduler
 from client_tpu_torch.engine.shm import CudaShmManager, SystemShmManager
 from client_tpu_torch.engine.stats import ModelStats
@@ -33,6 +36,8 @@ from client_tpu_torch.engine.types import (
     InferRequest,
     InferResponse,
 )
+
+_log = logging.getLogger("client_tpu_torch")
 
 SERVER_NAME = "client_tpu_torch"
 # The device regions answer on the tpu and cuda routes alike, as in the
@@ -45,11 +50,15 @@ SERVER_EXTENSIONS = ["model_configuration", "binary_tensor_data",
 class TorchEngine:
     def __init__(self, repository: ModelRepository | None = None, *,
                  device: str | torch.device | None = None):
-        """Builds every registered model on ``device`` and starts its
-        scheduler. ``device=None`` means cuda, and raises when CUDA is
-        unavailable; pass ``device="cpu"`` to serve on the CPU."""
+        """Loads every registered model on ``device`` and starts its
+        schedulers; a model that fails to load stays in the repository
+        index with its reason, and the rest load. ``device=None`` means
+        cuda, and raises when CUDA is unavailable; pass ``device="cpu"``
+        to serve on the CPU."""
         self.device = resolve_device(device)
         self.repository = repository or ModelRepository()
+        # 'name:v' per loaded version, and 'name' as the alias of the
+        # latest one (the same scheduler and stats objects).
         self._schedulers: dict[str, Scheduler] = {}
         self._stats: dict[str, ModelStats] = {}
         self._lock = threading.Lock()
@@ -61,12 +70,10 @@ class TorchEngine:
             [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
             if self.device.type == "cuda" else [self.device]))
         for name in self.repository.names():
-            model = self.repository.load(name, self.device)
-            stats = ModelStats(name, str(model.config.version))
-            with self._lock:
-                self._stats[name] = stats
-                self._schedulers[name] = make_scheduler(model, stats,
-                                                        engine=self)
+            try:
+                self.load_model(name)
+            except Exception as exc:  # noqa: BLE001 — load the rest
+                _log.error("model '%s' failed to load: %s", name, exc)
 
     # -- health / metadata ---------------------------------------------------
 
@@ -80,45 +87,148 @@ class TorchEngine:
         return {"name": SERVER_NAME, "version": client_tpu_torch.__version__,
                 "extensions": list(SERVER_EXTENSIONS)}
 
-    def _model(self, name: str, version: str = ""):
+    @staticmethod
+    def _vkey(name: str, version: str | int = "") -> str:
+        """Scheduler and stats key: the bare name is the latest version's
+        alias, 'name:v' one version."""
+        v = str(version).strip()
+        return f"{name}:{int(v)}" if v else name
+
+    def _model(self, name: str, version: str | int = ""):
         """The model serving ``name`` at ``version`` ('' = latest), with
         the reference's order of checks: the version's form (400), the
         name (404), readiness (400), then the version (404)."""
-        wanted = _parse_version(version)
-        model = self.repository.get(name)
+        model = self.repository.get(name, version)
         if model is None:
             if name in self.repository.names():
+                v = str(version).strip()
+                if v and self.repository.is_ready(name):
+                    raise EngineError(
+                        f"model '{name}' has no version '{v}'", 404)
                 raise EngineError(f"model '{name}' is not ready", 400)
             raise EngineError(f"unknown model '{name}'", 404)
-        if wanted is not None and wanted != int(model.config.version):
-            raise EngineError(
-                f"model '{name}' has no version '{str(version).strip()}'",
-                404)
         return model
 
     def model_is_ready(self, name: str, version: str = "") -> bool:
-        try:
-            self._model(name, version)
-        except EngineError:
-            return False
-        return True
+        return self.repository.is_ready(name, version)
 
     def model_metadata(self, name: str, version: str = "") -> dict:
-        return self._model(name, version).config.metadata_dict()
+        model = self._model(name, version)
+        versions = [str(v) for v in
+                    sorted(self.repository.loaded_versions(name))]
+        return model.config.metadata_dict(versions=versions or None)
 
     def model_config(self, name: str, version: str = "") -> dict:
         return self._model(name, version).config.config_dict()
 
     def model_statistics(self, name: str = "", version: str = "") -> dict:
+        """One entry per version ('name:v' keys only: the bare alias shares
+        the latest version's object), filtered by name and version."""
+        with self._lock:
+            items = sorted((k, s) for k, s in self._stats.items() if ":" in k)
         if name:
             self._model(name, version)
-        with self._lock:
-            stats = [s.to_dict() for n, s in sorted(self._stats.items())
-                     if not name or n == name]
+            vfilter = str(version).strip()
+            stats = [s.to_dict() for k, s in items
+                     if k.rsplit(":", 1)[0] == name
+                     and (not vfilter
+                          or k.rsplit(":", 1)[1] == str(int(vfilter)))]
+        else:
+            stats = [s.to_dict() for _, s in items]
         return {"model_stats": stats}
 
     def repository_index(self) -> list[dict]:
         return self.repository.index()
+
+    # -- repository control --------------------------------------------------
+
+    def load_model(self, name: str) -> None:
+        """Load (or reload) a model. A reload re-polls the repository: a
+        version it keeps keeps its scheduler, a new one gets a scheduler,
+        a retired one's scheduler stops, and the bare-name alias moves to
+        the latest. Every load clears a backend's row cache: the
+        repository was read again, and a cached row is a correctness
+        hazard."""
+        self.repository.load(name, self.device)
+        versions = self.repository.loaded_versions(name)
+        retired: list[Scheduler] = []
+        with self._lock:
+            for v, model in sorted(versions.items()):
+                key = self._vkey(name, v)
+                sched = self._schedulers.get(key)
+                if sched is not None and sched.model is model:
+                    continue  # an unchanged version keeps its scheduler
+                if sched is not None:
+                    retired.append(sched)
+                stats = self._stats.get(key)
+                if stats is None:
+                    stats = ModelStats(name, str(v))
+                    self._stats[key] = stats
+                self._schedulers[key] = make_scheduler(model, stats,
+                                                       engine=self)
+            valid = {self._vkey(name, v) for v in versions}
+            for key in [k for k in self._schedulers
+                        if ":" in k and k.rsplit(":", 1)[0] == name
+                        and k not in valid]:
+                retired.append(self._schedulers.pop(key))
+            latest = self._vkey(name, max(versions))
+            self._schedulers[name] = self._schedulers[latest]
+            self._stats[name] = self._stats[latest]
+            live = {id(s) for s in self._schedulers.values()}
+        for sched in retired:
+            if id(sched) not in live:
+                sched.stop()
+        for model in versions.values():
+            cache = getattr(model.backend, "row_cache", None)
+            if cache is not None:
+                cache.clear()
+
+    def unload_model(self, name: str, unload_dependents: bool = False) -> None:
+        """Stop every version's scheduler and drop the model, so nothing of
+        it keeps its tensors alive. With ``unload_dependents`` an
+        ensemble's composing models unload too, except one that another
+        loaded ensemble still names."""
+        dependents: list[str] = []
+        if unload_dependents:
+            model = self.repository.get(name)
+            if model is not None and model.config.ensemble_scheduling:
+                dependents = [s.model_name
+                              for s in model.config.ensemble_scheduling]
+        with self._lock:
+            keys = [k for k in self._schedulers
+                    if k == name or k.rsplit(":", 1)[0] == name]
+            popped = [self._schedulers.pop(k) for k in keys]
+        seen: set[int] = set()
+        for sched in popped:
+            if id(sched) not in seen:
+                seen.add(id(sched))
+                sched.stop()
+                cache = getattr(sched.model.backend, "row_cache", None)
+                if cache is not None:
+                    cache.clear()
+        self.repository.unload(name)
+        for dep in dependents:
+            if dep != name and not self._referenced_by_loaded_ensemble(dep):
+                self.unload_model(dep, unload_dependents=True)
+
+    def _referenced_by_loaded_ensemble(self, name: str) -> bool:
+        """A composing model shared by several ensembles stays until the
+        last ensemble that names it unloads."""
+        with self._lock:
+            scheds = list(self._schedulers.values())
+        return any(step.model_name == name
+                   for sched in scheds
+                   for step in sched.model.config.ensemble_scheduling)
+
+    def scheduler_for(self, name: str,
+                      version: str | int = "") -> Scheduler | None:
+        """The live scheduler of one model version ('' = the latest's
+        alias); None when it is not loaded."""
+        with self._lock:
+            try:
+                return self._schedulers.get(self._vkey(name, version))
+            except ValueError:
+                return None
 
     # -- inference -----------------------------------------------------------
 
@@ -132,13 +242,16 @@ class TorchEngine:
         if req.response_callback is None:
             raise EngineError("async_infer requires a response callback", 400)
         try:
-            model = self._model(req.model_name, req.model_version)
+            self._model(req.model_name, req.model_version)
             with self._lock:
-                sched = self._schedulers.get(req.model_name)
+                sched = self._schedulers.get(
+                    self._vkey(req.model_name, req.model_version))
             if sched is None:
+                # In the repository but without a scheduler: mid-load or
+                # mid-unload.
                 raise EngineError(
                     f"model '{req.model_name}' is not ready", 400)
-            model.validate_inputs(req.inputs)
+            sched.model.validate_inputs(req.inputs)
         except EngineError as exc:
             req.response_callback(InferResponse.make_error(req, exc))
             return
@@ -205,7 +318,9 @@ class TorchEngine:
     def shutdown(self) -> None:
         self._live = False
         with self._lock:
-            scheds = list(self._schedulers.values())
+            # The bare-name aliases share their latest version's object.
+            scheds = list({id(s): s for s in self._schedulers.values()}
+                          .values())
             self._schedulers.clear()
         for s in scheds:
             s.stop()

@@ -24,9 +24,10 @@ behaviour: every decode step is shared by all live generation streams.
   next wave and never waits for a running stream to finish.
 
 Every arena operation (prefill, waves, re-init after a failure) runs on
-one CUDA stream that this scheduler owns. That stream's order is what
-makes a row safe to reuse the moment its stream retires: work already
-dispatched with the row runs before any later prefill into it. A
+the worker's CUDA stream (``worker_stream``), but the first arena's
+making, which the load does and the worker waits for. That stream's order
+is what makes a row safe to reuse the moment its stream retires: work
+already dispatched with the row runs before any later prefill into it. A
 row-sharded arena (``kv_shards > 1``) keeps every shard on the scheduler's
 card, so its per-shard work is ordered on that one stream too; the free
 rows then skip each shard's junk row, and nothing here assumes that a row
@@ -51,6 +52,7 @@ import numpy as np
 import torch
 
 from client_tpu_torch.config import env_int
+from client_tpu_torch.engine.model import worker_stream
 from client_tpu_torch.engine.scheduler import (
     _SHUTDOWN,
     Scheduler,
@@ -192,13 +194,14 @@ class GenerativeScheduler(Scheduler):
         free_rows, dummy = backend.arena_rows(self._cap)
         self._rows_init = [int(r) for r in free_rows]
         self._dummy = int(dummy)
-        self._stream = (torch.cuda.Stream(device=self._device)
-                        if self._cuda else None)
+        # The arena is made here, on the loading thread's stream, so that a
+        # load which cannot hold it fails; the worker runs on its own
+        # stream (``worker_stream``) once that work is done.
+        self._arena = backend.init_arena(self._cap)
+        self._stream = self._loaded = None
         if self._cuda:
-            # The weights were copied in on the loading thread's stream.
-            self._stream.wait_stream(torch.cuda.current_stream(self._device))
-        with self._on_stream():
-            self._arena = backend.init_arena(self._cap)
+            self._loaded = torch.cuda.Event()
+            self._loaded.record(torch.cuda.current_stream(self._device))
         # Chunked decode (CLIENT_TPU_GEN_CHUNK > 1): K waves per dispatch.
         # Tokens are still emitted per wave at fetch time; admits join at
         # chunk boundaries.
@@ -235,11 +238,25 @@ class GenerativeScheduler(Scheduler):
         return self.queue.get_many(1, timeout=timeout)[0]
 
     def _worker_loop(self) -> None:
-        with self._on_stream():
-            self._run()
+        if self._cuda:
+            self._stream = worker_stream(self._device)
+            self._stream.wait_event(self._loaded)
+        try:
+            with self._on_stream():
+                self._run()
+        finally:
+            if self._cuda:
+                # The first arena's blocks go back to the loading thread's
+                # stream when they are freed: this stream must be done.
+                self._stream.synchronize()
 
     def _run(self) -> None:
         while True:
+            if self._stopping:
+                # Unloaded (or shut down) with streams open: end each with
+                # an error now, not after its last token.
+                self._abort_streams("server shutting down")
+                return
             pending = []
             shutdown = False
             # Blocking admit only when fully idle; otherwise opportunistic:
@@ -598,6 +615,10 @@ class GenerativeScheduler(Scheduler):
             self._fail(s.req, EngineError(why, 503))
         self._clear()
 
+    def _release(self) -> None:
+        self._clear()
+        self._arena = None
+
     def _reset_arena(self, exc: Exception, failing=None) -> None:
         """A failed step may have left the arena half written, and every
         execution behind it with it: rebuild the arena and fail every live
@@ -612,4 +633,6 @@ class GenerativeScheduler(Scheduler):
             s.dead = True
             self._fail(s.req, EngineError(f"generation aborted: {exc}", 500))
         self._clear()
+        if self._cuda:
+            self._stream.synchronize()  # as at the worker's end
         self._arena = self._backend.init_arena(self._cap)

@@ -9,7 +9,9 @@ the kernels see to a small set.
 
 Each scheduler worker thread runs its batches on its own CUDA stream, so
 two instances of one model overlap on the card, and every phase boundary
-waits on that stream alone, never on the whole device. An input may be a
+waits on that stream alone, never on the whole device. The stream is the
+one of the thread's cuBLAS handle (:func:`worker_stream`), so the workers
+of a reloaded model reuse their predecessors' streams. An input may be a
 tensor already on the card (a device shared-memory region): it is padded
 there and never staged through the host, and a batch whose requests all
 keep their outputs on the device skips the fetch (``fetch_outputs``).
@@ -64,6 +66,45 @@ class ExecPhases:
     output_end: int = 0
 
 
+# cuBLAS keeps a workspace (32 MiB on Hopper) for each (handle, stream)
+# pair it has run on, for the life of the process, and cuBLASLt one of
+# 1 MiB per (its own handle, stream). A handle belongs to one live thread
+# and passes to a later thread when its own ends, so a stream kept per
+# cuBLAS handle bounds those pairs by the threads alive at once: a model's
+# reload starts new workers, which reuse the old pairs.
+_HANDLE_STREAMS: dict[tuple[int, int], torch.cuda.Stream] = {}
+_HANDLE_STREAMS_LOCK = threading.Lock()
+_THREAD = threading.local()
+
+
+def worker_stream(device: torch.device) -> torch.cuda.Stream:
+    """The calling thread's CUDA stream on ``device``: the stream kept for
+    the thread's cuBLAS handle there, which no other live thread holds.
+    The first call in a thread makes cuBLAS's workspaces for the pair."""
+    streams = getattr(_THREAD, "streams", None)
+    if streams is None:
+        streams = _THREAD.streams = {}
+    stream = streams.get(device)
+    if stream is None:
+        with torch.cuda.device(device):
+            # A runtime call first makes the card's context current in this
+            # thread, as cuBLAS expects.
+            torch.cuda.current_stream().query()
+            key = (torch.cuda.current_device(),
+                   torch.cuda.current_blas_handle())
+            with _HANDLE_STREAMS_LOCK:
+                stream = _HANDLE_STREAMS.get(key)
+                if stream is None:
+                    stream = _HANDLE_STREAMS[key] = torch.cuda.Stream(device)
+            with torch.cuda.stream(stream):
+                # cuBLAS and cuBLASLt each keep a workspace for the pair:
+                # one small GEMM with a bias makes both now.
+                x = torch.ones(8, 8, device=device)
+                torch.nn.functional.linear(x, x, x[0])
+        streams[device] = stream
+    return stream
+
+
 class ModelBackend(nn.Module):
     """A servable model: a ``config`` attribute and a ``forward(inputs)``
     from a dict of batched tensors on the model's device to a dict of
@@ -95,14 +136,9 @@ class Model:
             t.name: (t, np.dtype(wire_to_np_dtype(t.data_type)), tuple(t.dims))
             for t in self.config.input
         }
-        self._local = threading.local()  # one CUDA stream per worker thread
 
     def _stream(self) -> torch.cuda.Stream:
-        stream = getattr(self._local, "stream", None)
-        if stream is None:
-            stream = torch.cuda.Stream(device=self.device)
-            self._local.stream = stream
-        return stream
+        return worker_stream(self.device)
 
     def _on_stream(self):
         """The calling worker's own stream as the current one (nothing on

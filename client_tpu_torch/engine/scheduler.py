@@ -28,7 +28,7 @@ import time
 import numpy as np
 import torch
 
-from client_tpu_torch.engine.model import Model, np_dtype_of
+from client_tpu_torch.engine.model import Model, np_dtype_of, worker_stream
 from client_tpu_torch.engine.shm import wait_for_writer
 from client_tpu_torch.engine.stats import ModelStats
 from client_tpu_torch.engine.types import (
@@ -174,43 +174,94 @@ class Scheduler:
         self.model = model
         self.stats = stats
         self.queue = _ReqQueue()
+        # Set by stop(): a long-running worker loop (a generation wave, a
+        # decoupled stream) checks it to end what it holds.
+        self._stopping = False
         self.workers: list[threading.Thread] = []
         n = 1 if self.single_instance else max(1, model.config.instance_count)
+        started = threading.Barrier(n + 1)
+        errors: list[BaseException] = []
         for i in range(n):
-            t = threading.Thread(target=self._worker_loop,
+            t = threading.Thread(target=self._start_worker,
+                                 args=(started, errors),
                                  name=f"sched-{model.config.name}-{i}",
                                  daemon=True)
             t.start()
             self.workers.append(t)
+        started.wait()
+        if errors:
+            self.stop()
+            raise errors[0]
 
     def submit(self, req: InferRequest) -> None:
         req.times.queue_start = now_ns()
         self.queue.put(req)
+        if self._stopping and not any(t.is_alive() for t in self.workers):
+            # Submit raced stop() and the workers are gone: nothing would
+            # ever pop this request.
+            self._fail_queued()
 
     def stop(self, timeout_s: float = 5.0) -> None:
         """Let the workers finish what is queued ahead of the shutdown
-        markers, then fail anything left; ``timeout_s`` bounds the total
-        wait."""
+        markers, then fail anything left with 503; ``timeout_s`` bounds
+        the total wait. Once every worker has exited, the device state the
+        scheduler holds (an arena, sequence states) is released."""
+        self._stopping = True
         deadline = time.monotonic() + max(0.0, timeout_s)
         for _ in self.workers:
             self.queue.put(_SHUTDOWN)
         for t in self.workers:
             t.join(timeout=max(0.0, deadline - time.monotonic()))
+        self._fail_queued()
+        if not any(t.is_alive() for t in self.workers):
+            self._release()
+
+    def _fail_queued(self) -> None:
+        """Fail every queued request with 503. Shutdown markers drained
+        here go back, for a worker that outlived stop()'s wait."""
+        markers = 0
         while True:
             try:
                 items = self.queue.get_many(64, timeout=0)
             except queue.Empty:
                 break
             for item in items:
-                if isinstance(item, InferRequest):
+                if item is _SHUTDOWN:
+                    markers += 1
+                elif isinstance(item, InferRequest):
                     self._fail(item, EngineError(
                         "model unloaded before the request was processed",
                         503))
+        for _ in range(markers):
+            self.queue.put(_SHUTDOWN)
+
+    def _release(self) -> None:
+        """Drop the device state this scheduler holds; called once its
+        workers have exited."""
+
+    def _start_worker(self, started: threading.Barrier,
+                      errors: list) -> None:
+        """The worker's stream and cuBLAS's workspaces on it are made
+        before the load returns, not by the first request."""
+        model = self.model
+        try:
+            if (model.device.type == "cuda" and not model.backend.host_side
+                    and model.config.scheduler_kind() != "ENSEMBLE"):
+                worker_stream(model.device)
+        except Exception as exc:  # noqa: BLE001 — the load raises it
+            errors.append(exc)
+        started.wait()
+        if not errors:
+            self._worker_loop()
 
     def _worker_loop(self) -> None:
         raise NotImplementedError
 
     def _fail(self, req: InferRequest, exc: Exception) -> None:
+        # The response carries the error, not the frames it was raised in:
+        # those hold this scheduler, and with it the model's weights, for
+        # as long as a caller keeps the response.
+        exc.__traceback__ = None
         req.times.compute_output_end = now_ns()
         self.stats.record_request(req.times, success=False)
         self._respond(req, InferResponse.make_error(req, exc))
@@ -376,6 +427,9 @@ class DecoupledScheduler(Scheduler):
             if req.cancelled:
                 gen.close()
                 raise EngineError("request cancelled", 499)
+            if self._stopping:  # unloaded mid-stream: end it
+                gen.close()
+                raise EngineError("server shutting down", 503)
             self._emit(req, outputs, final=False)
             count += 1
         req.times.compute_input_end = req.times.compute_start

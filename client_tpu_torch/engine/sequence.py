@@ -219,6 +219,10 @@ class SequenceScheduler(_PendingGuard, Scheduler):
         with self._slots_lock:
             return len(self._slots)
 
+    def _release(self) -> None:
+        with self._slots_lock:
+            self._slots.clear()
+
 
 class OldestSequenceScheduler(_PendingGuard, Scheduler):
     """The oldest strategy over a state arena on the card (see the module
@@ -520,6 +524,13 @@ class OldestSequenceScheduler(_PendingGuard, Scheduler):
     def active_sequences(self) -> int:
         with self._arena_lock:
             return len(self._rows)
+
+    def _release(self) -> None:
+        with self._arena_lock:
+            self._rows.clear()
+            self._last_used.clear()
+            self._free = list(range(self._cap))
+            self._arena = None
 
 
 def _same_signature(a: InferRequest, b: InferRequest) -> bool:

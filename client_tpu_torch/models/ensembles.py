@@ -30,6 +30,7 @@ from client_tpu_torch.engine.config import (
     TensorConfig,
 )
 from client_tpu_torch.engine.model import ModelBackend
+from client_tpu_torch.engine.repository import ConfigOnlyBackend
 from client_tpu_torch.models import register_model
 
 SEQ_LEN = 128
@@ -135,15 +136,6 @@ class ImagePreprocessBackend(_HostBackend):
         return {"IMAGE": out}
 
 
-class EnsembleBackend(ModelBackend):
-    """An ensemble: its config and steps only; the engine's
-    ``EnsembleScheduler`` runs the composing models."""
-
-    def __init__(self, config: ModelConfig):
-        super().__init__()
-        self.config = config
-
-
 BERT_STEPS = [
     EnsembleStep(model_name="bert_preprocess",
                  input_map={"TEXT": "TEXT"},
@@ -189,6 +181,6 @@ register_model("bert_preprocess")(lambda device: BertPreprocessBackend())
 register_model("bert_postprocess")(lambda device: BertPostprocessBackend())
 register_model("image_preprocess")(lambda device: ImagePreprocessBackend())
 register_model("ensemble_bert")(
-    lambda device: EnsembleBackend(ensemble_bert_config()))
+    lambda device: ConfigOnlyBackend(ensemble_bert_config()))
 register_model("ensemble_image")(
-    lambda device: EnsembleBackend(ensemble_image_config()))
+    lambda device: ConfigOnlyBackend(ensemble_image_config()))

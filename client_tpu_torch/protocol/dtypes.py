@@ -35,6 +35,9 @@ class DataType:
     BYTES = "BYTES"
     BF16 = "BF16"
 
+    ALL = (BOOL, UINT8, UINT16, UINT32, UINT64, INT8, INT16, INT32, INT64,
+           FP16, FP32, FP64, BYTES, BF16)
+
 
 _WIRE_TO_NP = {
     DataType.BOOL: np.bool_,

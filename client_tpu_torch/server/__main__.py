@@ -4,6 +4,7 @@
     python -m client_tpu_torch.server --zoo tiny_gpt,tiny_gpt_long --grpc-port 8001
     python -m client_tpu_torch.server --zoo simple,simple_string --device cpu
     python -m client_tpu_torch.server --zoo image_preprocess,resnet50,ensemble_image
+    python -m client_tpu_torch.server --model-repository models/ --device cpu
 
 One engine serves both frontends: HTTP (``--http-port``, default 8000) and
 gRPC (``--grpc-port``, default 8001); ``--no-http`` or ``--no-grpc`` leaves
@@ -11,6 +12,15 @@ one out. ``tiny_gpt`` and ``tiny_gpt_long`` stream tokens through
 ``POST /v2/models/<m>/generate_stream`` (server-sent events),
 ``/generate`` and the gRPC ``ModelStreamInfer`` stream. An ensemble is
 served only beside the composing models it names.
+
+``--model-repository DIR`` serves a directory repository (one
+``<model>/config.pbtxt`` or ``config.json`` each, numbered version
+directories; the file is the serving contract and the port's zoo supplies
+the executable), with ``--zoo`` models registered beside it. Every
+model's state is printed, with the reason of one that failed to load.
+Models load and unload at run time over ``POST
+/v2/repository/models/<m>/{load,unload}`` and the gRPC
+``RepositoryModelLoad`` / ``RepositoryModelUnload``.
 
 Serves on the card unless ``--device cpu`` is given; without CUDA and
 without that flag it exits with an error. SIGTERM or Ctrl-C stops it.
@@ -28,9 +38,11 @@ def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(
         prog="client_tpu_torch.server",
         description="PyTorch/CUDA inference server (KServe v2 HTTP + gRPC)")
+    ap.add_argument("--model-repository", metavar="DIR", default=None,
+                    help="directory of <model>/config.pbtxt model configs")
     ap.add_argument("--zoo", metavar="NAMES", default=None,
                     help="comma-separated zoo models to serve (default: "
-                         "every default model)")
+                         "every default model, when no --model-repository)")
     ap.add_argument("--http-port", type=int, default=8000)
     ap.add_argument("--grpc-port", type=int, default=8001)
     ap.add_argument("--host", default="0.0.0.0")
@@ -43,8 +55,9 @@ def main(argv: list[str] | None = None) -> int:
     if args.no_http and args.no_grpc:
         ap.error("nothing to serve (--no-http and --no-grpc)")
 
-    from client_tpu_torch.engine import TorchEngine
-    from client_tpu_torch.models import build_repository
+    from client_tpu_torch.engine import EngineError, TorchEngine
+    from client_tpu_torch.engine.repository import ModelRepository
+    from client_tpu_torch.models import _REGISTRY, build_repository, model_names
     from client_tpu_torch.server import (
         GrpcInferenceServer,
         HttpInferenceServer,
@@ -52,14 +65,25 @@ def main(argv: list[str] | None = None) -> int:
 
     names = ([n.strip() for n in args.zoo.split(",") if n.strip()]
              if args.zoo else None)
-    try:
+    unknown = sorted(set(names or ()) - set(model_names()))
+    if unknown:
+        ap.error(f"unknown zoo model(s) {unknown}; "
+                 f"available: {', '.join(model_names())}")
+    if args.model_repository:
+        try:
+            repo = ModelRepository.from_directory(args.model_repository)
+        except EngineError as exc:
+            ap.error(str(exc))
+        for name in names or ():
+            repo.register(name, _REGISTRY[name])
+    else:
         repo = build_repository(names)
-    except KeyError as exc:
-        ap.error(str(exc))
     engine = TorchEngine(repo, device=args.device)
     for entry in engine.repository_index():
-        print(f"model {entry['name']}: {entry['state']}", file=sys.stderr,
-              flush=True)
+        line = f"model {entry['name']}: {entry['state']}"
+        if entry.get("reason"):
+            line += f" ({entry['reason']})"
+        print(line, file=sys.stderr, flush=True)
     servers = []
     if not args.no_http:
         servers.append(("http", HttpInferenceServer(

@@ -3,7 +3,8 @@
 The port's own copy of ``client_tpu/server/classification.py``: a client
 may ask for an output as its top-K classes (``"classification": K`` in
 the output's parameters) instead of raw scores. Labels come from the
-model config's ``parameters["labels"][output_name]`` list.
+model config's ``parameters["labels"][output_name]`` list, which a
+directory model fills from the file its output's ``label_filename`` names.
 """
 
 from __future__ import annotations
@@ -31,3 +32,12 @@ def classify_output(scores: np.ndarray, count: int,
                 entry += f":{labels[idx]}"
             out[b, j] = entry.encode("utf-8")
     return out
+
+
+def output_labels(engine, req, name: str) -> list[str] | None:
+    """The labels of output ``name`` of the model version ``req`` ran on,
+    or None."""
+    model = engine.repository.get(req.model_name, req.model_version)
+    if model is None:
+        return None
+    return (model.config.parameters.get("labels") or {}).get(name)

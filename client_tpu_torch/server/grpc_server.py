@@ -16,10 +16,12 @@ engine's system regions, and the ``TpuSharedMemory*`` and
 ``CudaSharedMemory*`` RPCs alike on its device regions (a raw handle), as
 in the JAX server. A tensor may be read from a region and an output
 written into one (it then takes no ``raw_output_contents`` slot); a region
-that is not registered answers INVALID_ARGUMENT. Repository load and
-unload, the operational RPCs, fault sites, trace adoption, deadlines,
-tenants, priorities and the load-report and health-state trailers are not
-ported: an RPC with no handler answers UNIMPLEMENTED.
+that is not registered answers INVALID_ARGUMENT. ``RepositoryModelLoad``
+and ``RepositoryModelUnload`` (``unload_dependents`` as a ``bool_param``)
+load and unload at run time. The operational RPCs, fault sites, trace
+adoption, deadlines, tenants, priorities and the load-report and
+health-state trailers are not ported: an RPC with no handler answers
+UNIMPLEMENTED.
 """
 
 from __future__ import annotations
@@ -49,7 +51,10 @@ from client_tpu_torch.protocol.grpc_stub import (
     add_GRPCInferenceServiceServicer_to_server,
 )
 from client_tpu_torch.protocol.model_config import config_dict_to_proto
-from client_tpu_torch.server.classification import classify_output
+from client_tpu_torch.server.classification import (
+    classify_output,
+    output_labels,
+)
 from client_tpu_torch.server.coalesce import (
     COALESCE_MAX,
     merge,
@@ -136,7 +141,8 @@ def _response_to_proto(engine: TorchEngine, req: InferRequest,
     for name, arr in resp.outputs.items():
         o = out_req.get(name)
         if o is not None and o.classification_count > 0:
-            arr = classify_output(arr, o.classification_count, None)
+            arr = classify_output(arr, o.classification_count,
+                                  output_labels(engine, req, name))
         dt = np_to_wire_dtype(arr.dtype)
         tensor = out.outputs.add(name=name, datatype=dt, shape=list(arr.shape))
         if o is not None and o.shm_region and o.classification_count <= 0:
@@ -242,6 +248,30 @@ class _Servicer(GRPCInferenceServiceServicer):
                             state=e.get("state", ""),
                             reason=e.get("reason", ""))
         return resp
+
+    def RepositoryModelLoad(self, request, context):  # noqa: N802
+        if request.parameters:
+            # A config or file override is refused, never ignored in
+            # favour of the repository's own config.
+            context.abort(grpc.StatusCode.UNIMPLEMENTED,
+                          "load_model parameters (config/file overrides) "
+                          "are not supported")
+        try:
+            self.engine.load_model(request.model_name)
+        except Exception as exc:  # noqa: BLE001
+            _abort(context, exc)
+        return pb.RepositoryModelLoadResponse()
+
+    def RepositoryModelUnload(self, request, context):  # noqa: N802
+        unload_dependents = bool(
+            request.parameters["unload_dependents"].bool_param
+            if "unload_dependents" in request.parameters else False)
+        try:
+            self.engine.unload_model(request.model_name,
+                                     unload_dependents=unload_dependents)
+        except Exception as exc:  # noqa: BLE001
+            _abort(context, exc)
+        return pb.RepositoryModelUnloadResponse()
 
     # -- shared memory -------------------------------------------------------
 

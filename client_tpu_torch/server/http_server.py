@@ -21,8 +21,12 @@ response entry then carries the ``shared_memory_*`` parameters and no
 data); a region that is not registered answers 400.
 A stream request with the ``response_coalesce`` parameter may get its
 backlogged tokens merged into one event (``server/coalesce.py``).
-``POST /v2/repository/index`` lists the repository's models; load,
-unload, compression, the shm slot ring, staged datasets, tracing and the
+``POST /v2/repository/index`` lists the repository's models, one row per
+loaded version, and ``POST /v2/repository/models/<m>/{load,unload}``
+loads (re-polling the repository) and unloads one (``unload_dependents``
+in the body's parameters takes an ensemble's composing models with it);
+``/v2/models/<m>/versions/<v>/...`` reaches each loaded version.
+Compression, the shm slot ring, staged datasets, tracing and the
 control-plane routes are not ported yet.
 
 A stdlib ThreadingHTTPServer: each connection gets a thread that only
@@ -51,7 +55,10 @@ from client_tpu_torch.engine.types import (
 )
 from client_tpu_torch.protocol import rest
 from client_tpu_torch.protocol.dtypes import np_to_wire_dtype
-from client_tpu_torch.server.classification import classify_output
+from client_tpu_torch.server.classification import (
+    classify_output,
+    output_labels,
+)
 from client_tpu_torch.server.coalesce import drain_run
 
 _log = logging.getLogger("client_tpu_torch")
@@ -70,6 +77,10 @@ _ROUTES: list[tuple[str, re.Pattern, str]] = [
     ("POST", re.compile(_MODEL + r"/generate$"), "generate"),
     ("POST", re.compile(_MODEL + r"/generate_stream$"), "generate_stream"),
     ("POST", re.compile(r"^/v2/repository/index$"), "repo_index"),
+    ("POST", re.compile(r"^/v2/repository/models/([^/]+)/load$"),
+     "repo_load"),
+    ("POST", re.compile(r"^/v2/repository/models/([^/]+)/unload$"),
+     "repo_unload"),
     ("GET", re.compile(r"^/v2/(systemsharedmemory|cudasharedmemory|"
                        r"tpusharedmemory)(?:/region/([^/]+))?/status$"),
      "shm_status"),
@@ -174,6 +185,31 @@ class _Handler(BaseHTTPRequestHandler):
 
     def h_repo_index(self):
         self._send_json(self.engine.repository_index())
+
+    def _repo_parameters(self, what: str) -> dict:
+        if not self._raw_body:
+            return {}
+        try:
+            return json.loads(self._raw_body).get("parameters", {}) or {}
+        except (ValueError, AttributeError):
+            raise EngineError(f"malformed {what} request body", 400) from None
+
+    def h_repo_load(self, name):
+        if self._repo_parameters("load"):
+            # As the gRPC frontend: a config or file override is refused,
+            # never ignored in favour of the repository's own config.
+            raise EngineError(
+                "load parameters (config/file overrides) are not supported",
+                400)
+        self.engine.load_model(name)
+        self._send_json({})
+
+    def h_repo_unload(self, name):
+        params = self._repo_parameters("unload")
+        self.engine.unload_model(
+            name, unload_dependents=bool(params.get("unload_dependents",
+                                                    False)))
+        self._send_json({})
 
     def h_infer(self, name, version=None):
         req = self._parse_infer_request(name, version)
@@ -404,7 +440,9 @@ class _Handler(BaseHTTPRequestHandler):
         for out_name, arr in resp.outputs.items():
             o = out_req.get(out_name)
             if o is not None and o.classification_count > 0:
-                arr = classify_output(arr, o.classification_count, None)
+                arr = classify_output(
+                    arr, o.classification_count,
+                    output_labels(self.engine, req, out_name))
             elif o is not None and o.shm_region:
                 written = self.engine.write_shm_tensor(
                     o.shm_region, o.shm_offset, o.shm_byte_size, arr)

@@ -14,8 +14,9 @@ counts. Trace ids are random per request, so a result is compared by the
 form of its trace id, never its value.
 
 What the port's server lacks answers alike for both clients: HTTP
-compression (415), the HTTP repository routes (404) and gRPC load and
-unload (UNIMPLEMENTED). The shared-memory cases use each package's own
+compression (415). The repository cases (load and unload over HTTP and
+gRPC) unload and reload a model on the port's server as on the JAX
+server. The shared-memory cases use each package's own
 utilities on segments of the same names, keyed by the test process.
 """
 

@@ -879,3 +879,138 @@ def test_device_region_offsets_and_device_ids_are_refused(card):
     finally:
         eng.shutdown()
         cudashm.destroy_shared_memory_region(h)
+
+
+# -- unload on the card ------------------------------------------------------------
+
+UNLOAD_KINDS = ["dynamic", "ragged", "sequence_direct", "sequence_oldest",
+                "generative", "decoupled", "ensemble"]
+
+
+def _unload_case(kind: str, card):
+    """(repository, the model to unload, its request's keyword arguments)
+    for one scheduler kind, with weights or state on the card."""
+    from client_tpu_torch.engine.config import (
+        EnsembleStep,
+        ModelConfig,
+        TensorConfig,
+    )
+    from client_tpu_torch.engine.repository import ConfigOnlyBackend
+    from client_tpu_torch.models.simple import RepeatBackend
+
+    repo = ModelRepository()
+    rng = np.random.default_rng(6)
+    bert_kw = dict(inputs={
+        "input_ids": rng.integers(0, 512, (1, 200)).astype(np.int32),
+        "attention_mask": np.ones((1, 200), np.int32)})
+    if kind in ("dynamic", "ensemble"):
+        repo.register("b", lambda device: BertBackend(
+            name="b", attention_impl="flash", device=device, **SMALL))
+        if kind == "dynamic":
+            return repo, "b", bert_kw
+        cfg = ModelConfig(
+            name="e", platform="ensemble", max_batch_size=4,
+            input=[TensorConfig("input_ids", "INT32", [200]),
+                   TensorConfig("attention_mask", "INT32", [200])],
+            output=[TensorConfig("logits", "FP32", [2])],
+            ensemble_scheduling=[EnsembleStep(
+                "b", input_map={"input_ids": "input_ids",
+                                "attention_mask": "attention_mask"},
+                output_map={"logits": "logits"})])
+        repo.register("e", lambda device: ConfigOnlyBackend(cfg))
+        return repo, "e", bert_kw
+    if kind == "ragged":
+        repo.register("d", lambda device: DlrmBackend(
+            name="d", table_rows=4096, emb_shards=2, combine="ring",
+            emb_devices=[card] * 2, device=device))
+        counts = np.array([1, 2, 3, 1])
+        return repo, "d", dict(inputs={
+            "DENSE": np.ones((1, 8), np.float32),
+            "INDICES": np.arange(7, dtype=np.int32),
+            "OFFSETS": np.concatenate([[0], np.cumsum(counts)]).astype(
+                np.int32)})
+    if kind.startswith("sequence"):
+        strategy = kind.split("_")[1]
+        repo.register("s", lambda device: SequenceAccumulateBackend(
+            name="s", strategy=strategy))
+        return repo, "s", dict(inputs={"INPUT": np.array([3], np.int32)},
+                               sequence_id=5)
+    if kind == "generative":
+        repo.register("tg", lambda device: TinyGptBackend(
+            name="tg", n_layers=2, d_model=128, n_heads=2, d_ff=256,
+            vocab=256, max_seq_len=256, max_streams=4,
+            attention_impl="flash", attn_impl="fused", device=device))
+        return repo, "tg", dict(
+            inputs={"INPUT_IDS": np.array([1, 2, 3], np.int32)},
+            parameters={"max_tokens": 240})
+    repo.register("r", lambda device: RepeatBackend(name="r"))
+    return repo, "r", dict(inputs={"IN": np.arange(8, dtype=np.int32),
+                                   "DELAY": np.full(8, 20_000, np.uint32)})
+
+
+def _allocated(card) -> int:
+    """``memory_allocated`` once nothing refers to the dropped tensors.
+    It counts cuBLAS's workspaces too: a worker makes its own when it
+    starts (``worker_stream``), so serving adds none between readings."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize(card)
+    return torch.cuda.memory_allocated(card)
+
+
+@pytest.mark.parametrize("kind", UNLOAD_KINDS)
+def test_unload_with_a_request_in_flight_gives_the_card_memory_back(card,
+                                                                    kind):
+    """Four requests in flight when their model unloads: each is answered
+    within 10 s (served, or 503), nothing keeps the backend alive, and
+    ``memory_allocated`` falls by at least 90% of the weights' bytes; a
+    stateful model's slots or arena go with it (the decoupled model is
+    host-side: nothing of it is on the card, and nothing stays)."""
+    import threading
+    import weakref
+
+    repo, name, kw = _unload_case(kind, card)
+    eng = TorchEngine(repo, device=card)
+    try:
+        model = eng.repository.get(name)
+        # The ensemble's composing model unloads with it.
+        models = {id(m): m for m in (model, eng.repository.get("b"))
+                  if m is not None}
+        held = sum(t.numel() * t.element_size() for m in models.values()
+                   for t in (*m.backend.parameters(), *m.backend.buffers()))
+        del models
+        backend = weakref.ref(model.backend)
+        del model
+        if kind.startswith("sequence"):
+            # A live sequence: its state is on the card when it unloads.
+            eng.infer(InferRequest(model_name=name, sequence_start=True,
+                                   **kw), timeout_s=60)
+        pending = []
+        for _ in range(4):
+            done, got = threading.Event(), []
+
+            def cb(resp, done=done, got=got):
+                got.append(resp)
+                if resp.error is not None or resp.final:
+                    done.set()
+
+            eng.async_infer(InferRequest(model_name=name, **kw), cb)
+            pending.append((done, got))
+        before = _allocated(card)
+        eng.unload_model(name, unload_dependents=True)
+        for done, got in pending:
+            assert done.wait(10), f"{kind}: a caller left waiting"
+            err = got[-1].error
+            assert err is None or err.status in (400, 503), str(err)
+        del pending, done, got, err
+        after = _allocated(card)
+        assert backend() is None, f"{kind}: the backend lives on"
+        if held:
+            assert before - after >= 0.9 * held, (kind, before, after, held)
+        elif kind == "decoupled":
+            assert after <= before, (before, after)
+        else:
+            assert after < before, (kind, before, after)
+    finally:
+        eng.shutdown()

@@ -256,7 +256,7 @@ def _echo_repo(steps, outputs=("OUT",)):
     """A repository with ``pre`` (``bert_preprocess`` under another name)
     and an ensemble ``ens`` over ``steps``."""
     from client_tpu_torch.engine.config import TensorConfig
-    from client_tpu_torch.models.ensembles import EnsembleBackend
+    from client_tpu_torch.engine.repository import ConfigOnlyBackend
 
     repo = ModelRepository()
     repo.register("pre", lambda device: torch_ens.BertPreprocessBackend(
@@ -266,7 +266,7 @@ def _echo_repo(steps, outputs=("OUT",)):
         input=[TensorConfig("TEXT", "BYTES", [1])],
         output=[TensorConfig(o, "INT32", [128]) for o in outputs],
         ensemble_scheduling=steps)
-    repo.register("ens", lambda device: EnsembleBackend(cfg))
+    repo.register("ens", lambda device: ConfigOnlyBackend(cfg))
     return repo
 
 
@@ -298,8 +298,18 @@ def test_ensemble_naming_a_missing_model_is_a_load_error():
                           output_map={"input_ids": "_ids"}),
              EnsembleStep("no_such_model", input_map={"x": "_ids"},
                           output_map={"y": "OUT"})]
-    with pytest.raises(EngineError, match=r"\['no_such_model'\]"):
-        TorchEngine(_echo_repo(steps), device="cpu")
+    # The engine loads the rest, as the JAX engine does: the failure stays
+    # in the repository index, and loading the ensemble again raises it.
+    engine = TorchEngine(_echo_repo(steps), device="cpu")
+    try:
+        rows = {e["name"]: e for e in engine.repository_index()}
+        assert rows["ens"]["state"] == "UNAVAILABLE"
+        assert "['no_such_model']" in rows["ens"]["reason"]
+        assert rows["pre"]["state"] == "READY"
+        with pytest.raises(EngineError, match=r"\['no_such_model'\]"):
+            engine.load_model("ens")
+    finally:
+        engine.shutdown()
 
 
 @pytest.mark.parametrize("names", [["ensemble_image"], ["ensemble_bert"],
@@ -324,7 +334,7 @@ def test_host_side_registrations_match_the_jax_zoo():
     for name in ("bert_preprocess", "bert_postprocess", "image_preprocess",
                  "ensemble_bert", "ensemble_image"):
         want = jax_registry[name]().config
-        got = build_repository([name])._builders[name](
+        got = build_repository([name])._builders[name][None](
             torch.device("cpu")).config
         assert got.max_batch_size == want.max_batch_size, name
         assert got.instance_count == want.instance_count, name

@@ -11,10 +11,12 @@ package's clients, and with the port's own clients put in their place
 in a process where no module of the JAX package is loaded. In both runs
 each system-shm key the script names is made unique to its process.
 
+``simple_{http,grpc}_model_control.py`` unload and reload ``simple``
+over the port's repository routes and RPCs.
+
 Scripts left out, each for a route or RPC the port does not have yet:
-``simple_{http,grpc}_model_control.py`` (repository load and unload,
-``ROADMAP.md`` Q1.12), ``simple_shm_ring_client.py`` (the shm slot ring,
-Q1.6) and the ``moe_*`` clients (the MoE models, Q1.8).
+``simple_shm_ring_client.py`` (the shm slot ring, ``ROADMAP.md`` Q1.6)
+and the ``moe_*`` clients (the MoE models, Q1.8).
 """
 
 import os
@@ -48,6 +50,8 @@ SCRIPTS = [
     ("grpc_client.py", [], "grpc"),
     ("grpc_image_client.py", ["--synthetic", "-c", "3", "-b", "2"], "grpc"),
     ("grpc_image_ssd_client.py", [], "grpc"),
+    ("simple_http_model_control.py", [], "http"),
+    ("simple_grpc_model_control.py", [], "grpc"),
 ]
 
 # Both runs go through a runner. It appends the process id to every

@@ -183,7 +183,7 @@ def test_registered_configs_match_the_jax_zoo(name):
     from client_tpu_torch.models import build_repository
 
     want = jax_registry[name]()
-    got = build_repository([name])._builders[name](torch.device("cpu"))
+    got = build_repository([name])._builders[name][None](torch.device("cpu"))
     for attr in ("n_layers", "d_model", "n_heads", "d_ff", "vocab",
                  "max_seq_len", "max_streams", "attention_impl",
                  "default_max_tokens"):

@@ -79,6 +79,8 @@ def test_importing_the_server_loads_no_jax():
         "import client_tpu_torch.parallel.emb_shard\n"
         "import client_tpu_torch.http, client_tpu_torch.grpc\n"
         "import client_tpu_torch.resilience, client_tpu_torch.router.core\n"
+        "import client_tpu_torch.engine.repository\n"
+        "import client_tpu_torch.engine.config\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'client_tpu'))\n"
         "assert not bad, bad\n"
@@ -86,6 +88,36 @@ def test_importing_the_server_loads_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_a_directory_repository_loads_no_jax():
+    """Reading ``models/`` (both pbtxt files through the port's own
+    ``load_pbtxt``), building its configs and the repository index, and
+    the server's ``--model-repository`` flag load nothing of JAX or the
+    JAX package."""
+    code = (
+        "import sys\n"
+        "from client_tpu_torch.engine.config import ModelConfig\n"
+        "from client_tpu_torch.engine.repository import ModelRepository\n"
+        "from client_tpu_torch.protocol.model_config import load_pbtxt\n"
+        "from client_tpu_torch.server.__main__ import main\n"
+        "repo = ModelRepository.from_directory('models')\n"
+        "assert [e['name'] for e in repo.index()] == [\n"
+        "    'ssd_mobilenet_v2_coco_quantized', 'ssd_mobilenet_v2_tpu']\n"
+        "for n in repo.names():\n"
+        "    ModelConfig.from_dict(load_pbtxt(f'models/{n}/config.pbtxt'))\n"
+        "try:\n"
+        "    main(['--model-repository', 'no_such_dir', '--device', 'cpu'])\n"
+        "except SystemExit as exc:\n"
+        "    assert exc.code == 2, exc.code\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'client_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "model repository 'no_such_dir' is not a directory" in proc.stderr
 
 
 CLIENT_MODULES = [

@@ -12,11 +12,13 @@ generative profile on ``tiny_gpt``; each run must report a positive
 throughput. The perf runs assert no rate or latency bound: they show the
 port serves another process's load, not how fast.
 
-Left out: the model-control binaries and ``simple_http_health_metadata``,
-which unloads and reloads ``simple`` (``POST
-/v2/repository/models/<m>/{load,unload}``, repository control,
-``ROADMAP.md`` Q1.12), and ``--num-of-sequences`` in request-rate mode,
-whose JAX test is load-timed.
+The model-control binaries and ``simple_http_health_metadata`` unload
+and reload ``simple`` over the port's ``POST
+/v2/repository/models/<m>/{load,unload}`` and its ``RepositoryModelLoad``
+/ ``RepositoryModelUnload``.
+
+Left out: ``--num-of-sequences`` in request-rate mode, whose JAX test is
+load-timed.
 """
 
 import json
@@ -38,6 +40,8 @@ HTTP_EXAMPLES = [
     "simple_http_shm_client",
     "simple_http_sequence_client",
     "simple_http_tpushm_client",
+    "simple_http_health_metadata",
+    "simple_http_model_control",
 ]
 GRPC_EXAMPLES = [
     "simple_grpc_infer_client",
@@ -51,6 +55,7 @@ GRPC_EXAMPLES = [
     "grpc_generate_client",
     "simple_grpc_health_metadata",
     "simple_grpc_keepalive_client",
+    "simple_grpc_model_control",
 ]
 
 

@@ -260,7 +260,7 @@ def test_registered_configs_match_the_jax_zoo(name):
     from client_tpu.models import _REGISTRY as jax_registry
 
     want = jax_registry[name]().config
-    got = build_repository([name])._builders[name](torch.device("cpu")).config
+    got = build_repository([name])._builders[name][None](torch.device("cpu")).config
     for field in ("name", "max_batch_size", "instance_count"):
         assert getattr(got, field) == getattr(want, field)
     for side in ("input", "output"):
