@@ -185,17 +185,43 @@
    step goes, the two it shares stay); the SSDs; the index equal on the
    engine, HTTP and gRPC. Memory readings are printed beside the card's
    name and power limit.
-12. Prints one ``{"kernels": [...]}`` line (each kernel's ``launches`` over
+12. Observability phase: one engine behind HTTP and gRPC with
+   ``bert_long``, ``tiny_gpt_long`` and ``dlrm_mlperf`` (2 shards, K3),
+   every launch count set to 0 just before the traffic. ``/metrics`` is
+   scraped in both formats (0.0.4 and OpenMetrics) before and after:
+   ``tpu_inference_request_success``, ``tpu_inference_exec_count`` and
+   the ``tpu_batch_size`` count rise by what was sent and executed, and
+   each kernel's launches equal its launches per execution times the
+   executions read there (K1 bf16 12 a ``bert_long`` batch; K1 fp32 4 a
+   prefill chunk and K2 4 a decode wave, the waves from ``/v2/profile``;
+   K3 one a ``dlrm_mlperf`` execution). ``bert_long`` one request at a
+   time with a ``traceparent`` over HTTP and gRPC (as a parameter and as
+   metadata): the trace id comes back, and the request's spans from
+   ``/v2/trace/requests`` agree with its ``Server-Timing`` (or
+   ``server_*_us``) within ``OBS_TIMING_MS``. ``model.execute`` armed at
+   probability 0.5, seed ``OBS_FAULT_SEED``, over ``OBS_FAULTED``
+   requests: the failures are the seed's ``random.Random`` draws,
+   counted on ``tpu_fault_injections_total`` and in ``/v2/events``; one
+   ``http.pre_read`` drop and one ``grpc.pre_infer`` error; disarmed,
+   ``bert_long`` within ``SERVED_ATOL`` of the plain path.
+   ``/v2/profile``: each bucket used with its executions, rows, one cold
+   first execution and a counted roofline, every MFU and MBU in (0,
+   ``OBS_SHARE_MAX``]; ``bert_long``'s bucket 1 FLOPs counted on the card
+   within ``OBS_FLOPS_RTOL`` of the same bucket counted on the CPU plain
+   path; the decode waves' bytes above the model's parameter bytes (K2's
+   arena reads). One ``observability observation:`` JSON line with the
+   table, the peaks and ``tpu_device_duty_cycle``.
+13. Prints one ``{"kernels": [...]}`` line (each kernel's ``launches`` over
    HTTP and gRPC, beside ``http_launches`` over HTTP alone, which must be
    fewer; the ring all-reduce's include the stateful phase's, and its
    entry carries ``dlrm_shape``, its times at [832, 128]; flash
    attention's include the shm phase's, also given as ``shm_launches``;
-   every kernel's include the clients phase's and the repository
-   phase's, also given as ``clients_launches`` and
-   ``repository_launches``), the ``nvidia-smi`` name and power limit
-   line, and last ``{"ok": true, "device": {...}}``.
+   every kernel's include the clients, repository and observability
+   phases', also given as ``clients_launches``, ``repository_launches``
+   and ``observability_launches``), the ``nvidia-smi`` name and power
+   limit line, and last ``{"ok": true, "device": {...}}``.
 
-The gRPC client code of steps 4 to 9 and 11 is the script's own (tensors as
+The gRPC client code of steps 4 to 9, 11 and 12 is the script's own (tensors as
 ``tobytes`` and ``np.frombuffer``, BYTES with a hand-written length
 prefix); it uses the port's ``grpc_service_pb2`` and ``grpc_stub`` only,
 the wire schema. Without ``grpc`` the script fails. Step 10 holds the
@@ -4600,6 +4626,529 @@ def _repo_dlrm_checks(torch, engine, port: int, stub) -> None:
           "after, the same score", flush=True)
 
 
+# -- observability phase -------------------------------------------------------
+
+OBS_LONG_HTTP = 4     # bert_long requests over HTTP with a traceparent
+OBS_LONG_GRPC = 2     # and over gRPC (one as a parameter, one as metadata)
+OBS_STREAMS = 16      # tiny_gpt_long streams: 8 over SSE, 8 on one RPC
+OBS_TOKENS = 16
+OBS_DLRM = 8          # one-row dlrm_mlperf requests over HTTP
+OBS_FAULT_SEED = 5    # model.execute armed at probability 0.5 ...
+OBS_FAULTED = 16      # ... over this many bert_long requests
+# A phase duration from the span store against Server-Timing (or the
+# gRPC server_*_us parameters) of the same request: both are formatted
+# from the same stamps, ms to 3 decimals and us floored.
+OBS_TIMING_MS = 1.0
+# A bucket's counted FLOPs on the card against the same bucket counted
+# on the CPU plain path (the kernel's formula against the plain version's
+# counted matmuls).
+OBS_FLOPS_RTOL = 0.01
+OBS_SHARE_MAX = 1.05  # MFU and MBU must lie in (0, this]
+
+
+def _scrape(port: int, openmetrics: bool = False) -> str:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request("GET", "/metrics", headers={
+            "Accept": "application/openmetrics-text; version=1.0.0"}
+            if openmetrics else {})
+        resp = conn.getresponse()
+        body = resp.read().decode()
+        _check(resp.status == 200, f"/metrics: HTTP {resp.status}")
+        want = ("application/openmetrics-text" if openmetrics
+                else "text/plain; version=0.0.4")
+        _check(resp.getheader("Content-Type").startswith(want),
+               f"/metrics content type {resp.getheader('Content-Type')}")
+        _check(body.endswith("# EOF\n") == openmetrics,
+               "/metrics: # EOF where it does not belong, or missing")
+        return body
+    finally:
+        conn.close()
+
+
+def _samples(text: str) -> dict[tuple, float]:
+    """{(name, ((label, value), ...)): value} of an exposition, parsed by
+    the script itself (an exemplar's ' # ' tail dropped)."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        line = line.split(" # ", 1)[0]
+        m = re.match(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})?\s+(\S+)$",
+                     line)
+        _check(m is not None, f"/metrics: unparsed line {line!r}")
+        labels = tuple(sorted(re.findall(
+            r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"',
+            m.group(2) or "")))
+        out[(m.group(1), labels)] = float(m.group(3))
+    return out
+
+
+def _sample_sum(samples: dict, name: str, **labels) -> float:
+    want = set(labels.items())
+    return sum(v for (n, lab), v in samples.items()
+               if n == name and want <= set(lab))
+
+
+def _trace_spans(port: int, trace_id: str) -> dict[str, float]:
+    """{phase: duration ms} of one traced request, from
+    ``/v2/trace/requests``."""
+    status, data = _get(port, f"/v2/trace/requests?trace_id={trace_id}")
+    _check(status == 200, f"/v2/trace/requests: HTTP {status}")
+    spans = {e["name"]: e["dur"] / 1e3 for e in data["traceEvents"]
+             if e["ph"] == "X"}
+    _check(all(e["args"]["trace_id"] == trace_id
+               for e in data["traceEvents"]),
+           f"trace {trace_id}: another request's spans")
+    _check({"queue", "compute_input", "compute_infer",
+            "compute_output"} <= set(spans), f"trace {trace_id}: {spans}")
+    return spans
+
+
+def _check_timing(what: str, spans: dict, timing: dict) -> float:
+    """The largest gap (ms) between the spans and the response's own
+    phase timings; fails past ``OBS_TIMING_MS``."""
+    worst = 0.0
+    for phase in ("queue", "compute_input", "compute_infer",
+                  "compute_output"):
+        worst = max(worst, abs(spans[phase] - timing[phase]))
+    _check(worst <= OBS_TIMING_MS, f"{what}: spans {spans} against the "
+           f"response's timings {timing}")
+    return worst
+
+
+def _obs_bert_inputs(seq: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, 30522, (1, seq)).astype(np.int32)
+    mask = np.ones((1, seq), np.int32)
+    mask[0, rng.integers(seq // 4, seq + 1):] = 0
+    return ids, mask
+
+
+def _obs_traffic(port: int, stub, grpc_url: str, seq: int) -> dict:
+    """The phase's traced traffic: ``bert_long`` one request at a time
+    over HTTP and gRPC with a ``traceparent``, ``tiny_gpt_long`` streams
+    over SSE and one RPC, ``dlrm_mlperf`` one request at a time; each
+    trace round trip and span set checked. Returns the timing gaps."""
+    gaps = []
+    for i in range(OBS_LONG_HTTP + OBS_LONG_GRPC):
+        trace_id = f"{0xB0 + i:02x}" + "5e" * 15
+        tp = f"00-{trace_id}-{i + 1:016x}-01"
+        ids, mask = _obs_bert_inputs(seq, i)
+        if i < OBS_LONG_HTTP:
+            body, headers = _binary_request(ids, mask)
+            status, rheaders, data = _post(
+                port, "/v2/models/bert_long/infer", body,
+                dict(headers, traceparent=tp))
+            _check(status == 200, f"bert_long: HTTP {status}: {data[:200]}")
+            echo = rheaders.get("traceparent", "")
+            timing = {}
+            for entry in rheaders["Server-Timing"].split(","):
+                name, _, dur = entry.strip().partition(";dur=")
+                timing[name] = float(dur)
+        else:
+            metadata = (("traceparent", tp),) if i % 2 else ()
+            resp = stub.ModelInfer(_grpc_request(
+                "bert_long", {"input_ids": ids, "attention_mask": mask},
+                parameters=None if i % 2 else {"traceparent": tp}),
+                metadata=metadata, timeout=GRPC_TIMEOUT_S)
+            params = {k: getattr(v, v.WhichOneof("parameter_choice"))
+                      for k, v in resp.parameters.items()}
+            echo = params.get("traceparent", "")
+            timing = {p: params[f"server_{p}_us"] / 1e3 for p in (
+                "queue", "compute_input", "compute_infer",
+                "compute_output")}
+        _check(echo.split("-")[1:2] == [trace_id] and echo.endswith("-01"),
+               f"traceparent {tp} came back as {echo!r}")
+        gaps.append(_check_timing(f"bert_long request {i}",
+                                  _trace_spans(port, trace_id), timing))
+    # At once, so that waves reach the 16-lane bucket.
+    rng = np.random.default_rng(41)
+    half = OBS_STREAMS // 2
+    prompts = [rng.integers(0, 512, CLIENT_PROMPTS[i % len(CLIENT_PROMPTS)])
+               .tolist() for i in range(OBS_STREAMS)]
+    body = {"parameters": {"max_tokens": OBS_TOKENS}}
+    with concurrent.futures.ThreadPoolExecutor(half + 1) as pool:
+        sse = [pool.submit(_stream, port, "tiny_gpt_long", dict(
+            body, inputs=[{"name": "INPUT_IDS", "datatype": "INT32",
+                           "shape": [len(p)], "data": p}]))
+               for p in prompts[:half]]
+        rpc = pool.submit(_grpc_streams, grpc_url, [
+            (f"s{i}", "tiny_gpt_long", p, {"max_tokens": OBS_TOKENS})
+            for i, p in enumerate(prompts[half:])])
+        toks = [f.result()[0] for f in sse] + [
+            rpc.result()[f"s{i}"][0] for i in range(half)]
+    _check(all(len(t) == OBS_TOKENS for t in toks),
+           f"streams of {[len(t) for t in toks]} tokens")
+    rng = np.random.default_rng(42)
+    for _ in range(OBS_DLRM):
+        status, out = _http_infer(port, DLRM_MODEL, _mlperf_csr(rng), True)
+        _check(status == 200 and np.isfinite(out["OUTPUT0"]).all(),
+               f"{DLRM_MODEL}: {status} {out}")
+    return {"timing_gap_ms": max(gaps)}
+
+
+def _obs_faults(port: int, stub, seq: int) -> dict:
+    """A seeded ``model.execute`` fault fails exactly the requests the
+    seed's draws predict; counted on ``/metrics`` and journalled. Then one
+    ``http.pre_read`` drop and one ``grpc.pre_infer`` error."""
+    import random
+
+    import grpc
+
+    from client_tpu_torch import faults
+
+    before = _samples(_scrape(port))
+    cursor = _get(port, "/v2/events?category=fault")[1]["next_seq"]
+    rng = random.Random(OBS_FAULT_SEED)
+    want = [rng.random() < 0.5 for _ in range(OBS_FAULTED)]
+    ids, mask = _obs_bert_inputs(seq, 99)
+    body, headers = _binary_request(ids, mask)
+    faults.configure({"model.execute": {
+        "probability": 0.5, "seed": OBS_FAULT_SEED, "error_status": 503}})
+    try:
+        got = [_post(port, "/v2/models/bert_long/infer", body, headers)
+               for _ in range(OBS_FAULTED)]
+    finally:
+        faults.reset()
+    failed = [g[0] == 503 for g in got]
+    _check(failed == want, f"faulted requests {failed}, the seed's draws "
+           f"{want}")
+    _check(all(g[0] in (200, 503) for g in got), "another status")
+    _check(all(json.loads(g[2])["error"] == "injected fault at "
+               "model.execute (error, status 503)" for g in got
+               if g[0] == 503), "the fault's words")
+    n = sum(want)
+
+    # One http.pre_read drop (the connection closes with no answer) and one
+    # grpc.pre_infer error; the next request on each answers.
+    faults.configure({"http.pre_read": {"drop": True, "max_injections": 1},
+                      "grpc.pre_infer": {"error_status": 503,
+                                         "max_injections": 1}})
+    try:
+        try:
+            _get(port, "/v2")
+            dropped = False
+        except (http.client.HTTPException, ConnectionError):
+            dropped = True
+        try:
+            stub.ModelInfer(_grpc_request(
+                "bert_long", {"input_ids": ids, "attention_mask": mask}),
+                timeout=GRPC_TIMEOUT_S)
+            code = None
+        except grpc.RpcError as exc:
+            code = (exc.code(), exc.details())
+    finally:
+        faults.reset()
+    _check(dropped, "http.pre_read drop: the request was answered")
+    _check(code == (grpc.StatusCode.UNAVAILABLE, "injected fault at "
+                    "grpc.pre_infer (error, status 503)"),
+           f"grpc.pre_infer: {code}")
+    _check(_get(port, "/v2")[0] == 200, "HTTP after the drop")
+
+    after = _samples(_scrape(port))
+    for site, kind, count in (("model.execute", "error", n),
+                              ("http.pre_read", "drop", 1),
+                              ("grpc.pre_infer", "error", 1)):
+        delta = (_sample_sum(after, "tpu_fault_injections_total",
+                             site=site, kind=kind)
+                 - _sample_sum(before, "tpu_fault_injections_total",
+                               site=site, kind=kind))
+        _check(delta == count, f"tpu_fault_injections_total{{{site},{kind}}}"
+               f" rose by {delta}, not {count}")
+    events = _get(port, f"/v2/events?category=fault&since={cursor}")[1]
+    _check(len(events["events"]) == n + 2
+           and all(e["name"] == "injected" for e in events["events"]),
+           f"/v2/events: {events['events']}")
+    return {"failed": n, "pattern": "".join("x" if f else "."
+                                            for f in failed)}
+
+
+def _obs_profile(engine, port: int, cpu_flops: float) -> dict:
+    """``/v2/profile``: every bucket used has its executions, rows, one cold
+    first execution and a counted roofline; every MFU and MBU on the card
+    lies in (0, ``OBS_SHARE_MAX``]; ``bert_long``'s bucket 1 FLOPs equal
+    the CPU count; the kernels' share of the counted costs."""
+    status, snap = _get(port, "/v2/profile")
+    _check(status == 200, f"/v2/profile: HTTP {status}")
+    cuda = engine.device.type == "cuda"
+    out = {"duty_cycle": snap["duty_cycle"],
+           "peaks": snap["roofline"]["peaks"], "buckets": {}}
+    shares = []
+    for key in ("bert_long:1", DLRM_MODEL + ":1", "tiny_gpt_long:1"):
+        entry = snap["models"].get(key)
+        _check(entry is not None, f"/v2/profile has no {key}: "
+               f"{list(snap['models'])}")
+        for b in entry["buckets"]:
+            rl = b["roofline"]
+            warm = b["executions"] - b["cold_executions"]
+            _check(b["cold_executions"] == 1 and b["compilations"] == 1
+                   and b["rows"] > 0 and rl["cost_model"] == "counted"
+                   and rl["flops_per_call"] > 0 and rl["bytes_per_call"] > 0,
+                   f"{key} bucket {b['bucket']}: {b}")
+            _check((b["device_s"] > 0) == (warm > 0),
+                   f"{key} bucket {b['bucket']}: device_s {b['device_s']} "
+                   f"over {warm} warm executions")
+            row = {k: b[k] for k in ("executions", "cold_executions", "rows",
+                                     "padded_rows", "device_s")}
+            row.update({k: rl[k] for k in (
+                "flops_per_call", "bytes_per_call", "achieved_flops_per_s",
+                "mfu", "mbu")})
+            out["buckets"][f"{key}/{b['bucket']}"] = row
+            if cuda and warm > 0:
+                shares += [(f"{key}/{b['bucket']}", rl["mfu"], rl["mbu"])]
+        for w in entry.get("decode_waves", ()):
+            rl = w["roofline"]
+            row = {k: w[k] for k in ("waves", "dispatches", "device_s",
+                                     "wave_ms_p50")}
+            row.update({k: rl[k] for k in ("flops_per_call", "bytes_per_call",
+                                           "mfu", "mbu")})
+            out["buckets"][f"{key}/wave{w['bucket']}"] = row
+            # A wave shape's first dispatch is cold (counted, its time kept
+            # out): a shape used once has no device time.
+            _check(rl["cost_model"] == "counted"
+                   and (w["device_s"] > 0) == (w["dispatches"] > 1),
+                   f"{key} wave bucket {w['bucket']}: {w}")
+            if cuda and w["dispatches"] > 1:
+                shares += [(f"{key}/wave{w['bucket']}", rl["mfu"], rl["mbu"])]
+    for what, mfu, mbu in shares:
+        _check(mfu is not None and mbu is not None
+               and 0 < mfu <= OBS_SHARE_MAX and 0 < mbu <= OBS_SHARE_MAX,
+               f"{what}: MFU {mfu}, MBU {mbu} outside (0, {OBS_SHARE_MAX}]")
+    _check(not cuda or shares, "no bucket with a warm execution")
+
+    # bert_long, bucket 1: the card's count (counter + K1's report) against
+    # the CPU plain path's (counter over the plain attention's matmuls).
+    card = out["buckets"]["bert_long:1/1"]["flops_per_call"]
+    _check(abs(card - cpu_flops) <= OBS_FLOPS_RTOL * cpu_flops,
+           f"bert_long bucket 1: {card:.6e} FLOPs counted on "
+           f"{engine.device}, {cpu_flops:.6e} on the CPU")
+    out["bert_long_flops"] = {"device": card, "cpu": cpu_flops}
+
+    # The hand-written kernels' share of the counted costs: K2's arena
+    # reads in every wave shape's bytes, and on the card K1's and K2's
+    # FLOPs, which the FLOP counter cannot see through ctypes.
+    costs = engine.profiler.cost_models()
+    waves = {k: c for k, c in costs.items()
+             if k[0] == "tiny_gpt_long" and len(k) == 4}
+    long_cost = costs[("bert_long", "1", 1)]
+    _check(waves and all(c["kernel_bytes"] > 0 and (
+        not cuda or c["kernel_flops"] > 0) for c in waves.values()),
+           f"tiny_gpt_long wave costs {waves}")
+    _check(long_cost["kernel_bytes"] > 0
+           and (not cuda or long_cost["kernel_flops"] > 0),
+           f"bert_long bucket 1 cost {long_cost}")
+    out["kernel_share"] = {
+        "bert_long/1": {k: long_cost[k] for k in (
+            "kernel_flops", "kernel_bytes", "flops", "bytes_accessed")},
+        **{f"tiny_gpt_long/wave{k[2]}": {n: c[n] for n in (
+            "kernel_flops", "kernel_bytes", "flops", "bytes_accessed")}
+           for k, c in waves.items()}}
+    return out
+
+
+def _trace_cost_us(n: int = 20_000) -> float:
+    """Host microseconds the tracing of one HTTP request costs the
+    server, timed on this host: adopting its ``traceparent``, snapshotting
+    its spans into the ring, and writing its ``traceparent`` and
+    ``Server-Timing`` headers."""
+    from client_tpu_torch.engine.types import RequestTimes
+    from client_tpu_torch.observability.tracing import (
+        TraceContext,
+        TraceStore,
+        build_request_trace,
+        server_timing_header,
+    )
+
+    store = TraceStore(512)
+    times = RequestTimes(received=1, queue_start=2, compute_start=3,
+                         compute_input_end=4, compute_infer_end=5,
+                         compute_output_end=6)
+    header = "00-4bf92f3577b34da6a3ce929d0e0e4736-00f067aa0ba902b7-01"
+    t0 = time.perf_counter()
+    for _ in range(n):
+        ctx = TraceContext.from_traceparent(header)
+        store.add(build_request_trace(ctx, "bert_long", "", times, True))
+        ctx.to_traceparent()
+        server_timing_header(times)
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def _cpu_bucket_flops(torch, served, seq: int) -> float:
+    """``bert_long``'s FLOPs for one row counted on the CPU: the same
+    model (dims read from the served one), its attention the plain
+    version's torch ops."""
+    from client_tpu_torch.models.bert import BertBackend
+    from client_tpu_torch.observability.roofline import CostCapture
+
+    cpu = BertBackend(
+        name="bert_long_cpu", seq_len=seq,
+        hidden=served.pooler.in_features, n_layers=len(served.layers),
+        n_heads=served.n_heads, ffn=served.layers[0].w1.out_features,
+        vocab=served.tok_embed.shape[0], attention_impl="flash",
+        device="cpu")
+    ids, mask = _obs_bert_inputs(seq, 0)
+    with torch.inference_mode(), CostCapture(cpu) as cap:
+        cpu({"input_ids": torch.from_numpy(ids),
+             "attention_mask": torch.from_numpy(mask)})
+    return cap.result()["flops"]
+
+
+def observability_phase(torch, smi: str, device: str = "cuda") -> dict:
+    """The metrics, tracing, fault and efficiency planes on one engine with
+    ``bert_long`` (K1 bf16), ``tiny_gpt_long`` (K1 fp32, K2) and
+    ``dlrm_mlperf`` (2 shards, K3) behind HTTP and gRPC. ``/metrics`` in
+    both formats before and after the traffic: its deltas are what was
+    sent, and each kernel launched its count per execution read there.
+    ``device`` is for a dry run of the phase's logic on the CPU."""
+    from client_tpu_torch.engine import TorchEngine
+    from client_tpu_torch.models import build_repository
+    from client_tpu_torch.models.dlrm import DlrmBackend
+    from client_tpu_torch.ops import decode_attention as da
+    from client_tpu_torch.ops import flash_attention as fa
+    from client_tpu_torch.parallel import kv_shard as ks
+    from client_tpu_torch.server import (
+        GrpcInferenceServer,
+        HttpInferenceServer,
+    )
+
+    t_phase = time.monotonic()
+    device = torch.device(device)
+    repo = build_repository(["bert_long", "tiny_gpt_long"])
+    repo.register(DLRM_MODEL, lambda dev: DlrmBackend(
+        name=DLRM_MODEL, device=dev, emb_devices=[dev] * 2, **MLPERF_DLRM))
+    engine = TorchEngine(repo, device=device)
+    # The profiler is process-global, and the earlier phases' engines
+    # recorded into it: this phase reads its own records only, as a fresh
+    # server process would.
+    engine.profiler.reset()
+    server = HttpInferenceServer(engine, port=0).start()
+    grpc_server = GrpcInferenceServer(engine, port=0).start()
+    channel, stub = _grpc_channel(grpc_server.url)
+    models = ("bert_long", "tiny_gpt_long", DLRM_MODEL)
+    print(f"observability: {list(models)} up in "
+          f"{time.monotonic() - t_phase:.1f} s on {device}", flush=True)
+    try:
+        backend = engine.repository.get("bert_long").backend
+        seq = engine.repository.get("bert_long").config.input[0].dims[0]
+        t0 = time.monotonic()
+        cpu_flops = _cpu_bucket_flops(torch, backend, seq)
+        print(f"observability: bert_long, one row counted on the CPU in "
+              f"{time.monotonic() - t0:.1f} s: {cpu_flops:.6e} FLOPs",
+              flush=True)
+        before = {om: _scrape(server.port, om) for om in (False, True)}
+        fa.launches = fa.launches_fp32 = da.launches = ks.launches = 0
+        t0 = time.monotonic()
+        traffic = _obs_traffic(server.port, stub, grpc_server.url, seq)
+        mid = _samples(_scrape(server.port))
+        faulted = _obs_faults(server.port, stub, seq)
+        # Disarmed: bert_long answers within the serve phase's tolerance of
+        # the same module with its attention the plain version.
+        ids, mask = _obs_bert_inputs(seq, 7)
+        status, rheaders, data = _post(
+            server.port, "/v2/models/bert_long/infer",
+            *_binary_request(ids, mask))
+        _check(status == 200, f"bert_long after the faults: HTTP {status}")
+        got = _parse_response(rheaders, data)
+        with torch.inference_mode():
+            ref = backend.encode({
+                "input_ids": torch.from_numpy(ids).to(device),
+                "attention_mask": torch.from_numpy(mask).to(device)},
+                fa.flash_attention_plain)
+        err = max(float(np.abs(got[n] - ref[n].float().cpu().numpy()).max())
+                  for n in BERT_OUTPUTS)
+        _check(err <= SERVED_ATOL, f"bert_long after the faults: {err} off "
+               f"the plain path (tolerance {SERVED_ATOL})")
+        launches = {"flash_attention": fa.launches,
+                    "flash_attention_fp32": fa.launches_fp32,
+                    "decode_wave_attention": da.launches,
+                    "ring_all_reduce": ks.launches}
+        traffic_s = time.monotonic() - t0
+        after = {om: _scrape(server.port, om) for om in (False, True)}
+
+        # /metrics: the deltas are what was sent and executed.
+        b, a = _samples(before[False]), _samples(after[False])
+
+        def delta(name, model, samples=a):
+            return (_sample_sum(samples, name, model=model)
+                    - _sample_sum(b, name, model=model))
+
+        sent = {"bert_long": OBS_LONG_HTTP + OBS_LONG_GRPC,
+                "tiny_gpt_long": OBS_STREAMS, DLRM_MODEL: OBS_DLRM}
+        execs = {}
+        for m in models:
+            ok = delta("tpu_inference_request_success", m, mid)
+            _check(ok == sent[m], f"{m}: {ok} successes on /metrics after "
+                   f"the traffic, {sent[m]} sent")
+            execs[m] = delta("tpu_inference_exec_count", m)
+            _check(execs[m] == delta("tpu_batch_size_count", m) > 0,
+                   f"{m}: {execs[m]} executions, "
+                   f"{delta('tpu_batch_size_count', m)} batch sizes")
+        ok = delta("tpu_inference_request_success", "bert_long")
+        _check(ok == sent["bert_long"] + OBS_FAULTED - faulted["failed"] + 1,
+               f"bert_long: {ok} successes over the phase")
+        fails = delta("tpu_inference_request_failure", "bert_long")
+        _check(fails == faulted["failed"], f"bert_long: {fails} failures, "
+               f"{faulted['failed']} injected")
+        _check(execs["bert_long"] == ok and execs[DLRM_MODEL] == OBS_DLRM,
+               f"executions {execs}: one a request, one at a time")
+        om_after = _samples(after[True])
+        _check(_sample_sum(om_after, "tpu_inference_exec_count") == 0
+               and _sample_sum(om_after, "tpu_batch_size_count",
+                               model="bert_long")
+               == _sample_sum(a, "tpu_batch_size_count", model="bert_long"),
+               "OpenMetrics: the legacy block is 0.0.4 only; the "
+               "histograms agree")
+
+        # Each kernel's launches: its count per execution read on /metrics.
+        status, snap = _get(server.port, "/v2/profile?model=tiny_gpt_long")
+        waves = sum(w["dispatches"] for w in snap["models"][
+            "tiny_gpt_long:1"]["decode_waves"])
+        gpt = engine.repository.get("tiny_gpt_long").backend
+        per = {"flash_attention": (len(backend.layers), execs["bert_long"]),
+               "flash_attention_fp32": (gpt.n_layers,
+                                        execs["tiny_gpt_long"] - waves),
+               "decode_wave_attention": (gpt.n_layers, waves),
+               "ring_all_reduce": (1, execs[DLRM_MODEL])}
+        if device.type == "cuda":
+            for name, (k, n) in per.items():
+                _check(launches[name] == k * n > 0,
+                       f"{name}: {launches[name]} launches, {k} x {n} "
+                       "executions read on /metrics")
+        print(f"observability: /metrics deltas: successes {sent} (bert_long "
+              f"{ok} over the phase, {fails} failed), executions {execs}, "
+              f"{waves} of tiny_gpt_long's decode waves; launches {launches}"
+              f" = per-execution counts x executions {per}", flush=True)
+        print(f"observability: traceparent round trips over HTTP and gRPC "
+              f"(parameter and metadata); spans against Server-Timing / "
+              f"server_*_us within {traffic['timing_gap_ms']:.4f} ms "
+              f"(limit {OBS_TIMING_MS})", flush=True)
+        print(f"observability: model.execute at p=0.5, seed "
+              f"{OBS_FAULT_SEED}: {faulted['pattern']} ({faulted['failed']}"
+              f" of {OBS_FAULTED} failed, the seed's draws exactly); "
+              "tpu_fault_injections_total and /v2/events counted them; an "
+              "http.pre_read drop and a grpc.pre_infer error once each; "
+              f"then bert_long within {err:.4g} of the plain path "
+              f"(tolerance {SERVED_ATOL})", flush=True)
+        profile = _obs_profile(engine, server.port, cpu_flops)
+        duty = _sample_sum(_samples(_scrape(server.port)),
+                           "tpu_device_duty_cycle")
+        observation = {"card": smi, "traffic_s": round(traffic_s, 3),
+                       "tpu_device_duty_cycle": duty,
+                       "trace_us_per_request": _trace_cost_us(), **profile}
+        print(f"observability observation: {json.dumps(observation)}",
+              flush=True)
+        print(f"observability: phase passed in "
+              f"{time.monotonic() - t_phase:.1f} s; launches {launches}; "
+              f"{smi}", flush=True)
+        return launches
+    finally:
+        channel.close()
+        grpc_server.stop()
+        server.stop()
+        engine.shutdown()
+
+
 def wave_phase(torch, smi: str) -> None:
     """``--kernels``: the per-wave host/device split (:func:`_wave_split`)
     of ``tiny_gpt_long`` at its registered size, built directly, over one
@@ -4706,6 +5255,13 @@ def main(argv: list[str]) -> int:
     for kernel in kernels:
         kernel["repository_launches"] = repository[kernel["name"]]
         kernel["launches"] += repository[kernel["name"]]
+    torch.cuda.empty_cache()
+    # Every kernel again, its launches held against the executions that
+    # /metrics reports, with the tracing, fault and profiler planes.
+    observed = observability_phase(torch, smi)
+    for kernel in kernels:
+        kernel["observability_launches"] = observed[kernel["name"]]
+        kernel["launches"] += observed[kernel["name"]]
     for kernel in kernels:
         # Shorter aliases of the two keys above.
         kernel["launched"] = kernel["launches"]

@@ -10,11 +10,28 @@ from __future__ import annotations
 import os
 
 _DEFAULTS = {
+    # Capacity of the operational event-journal ring (GET /v2/events).
+    "CLIENT_TPU_EVENT_BUFFER": "1024",
+    # Deterministic fault-injection plan (inline JSON or `@/path.json`);
+    # unset injects nothing.
+    "CLIENT_TPU_FAULTS": "",
     # Decode chunk K: one dispatch advances every stream K tokens.
     "CLIENT_TPU_GEN_CHUNK": "1",
     # Generative dispatch-ahead depth, in waves, before the worker blocks
     # on the oldest token fetch.
     "CLIENT_TPU_GEN_PIPELINE": "32",
+    # `json` attaches a JSON-lines handler to the `client_tpu_torch`
+    # logger and mirrors journal events to the same stream.
+    "CLIENT_TPU_LOG": "",
+    # Level of the `client_tpu_torch` logger's default stderr handler.
+    "CLIENT_TPU_LOGLEVEL": "INFO",
+    # Efficiency-profiler sliding-window length in seconds.
+    "CLIENT_TPU_PROFILE_WINDOW_S": "60",
+    # Roofline attribution (FLOP and byte capture, MFU/MBU peaks): `0`/
+    # `off` disables capture; unset/`1`/`on` defaults; else inline JSON or
+    # `@/path.json` with `peak_flops`, `peak_bytes_per_s`, `device_kinds`,
+    # `capture`.
+    "CLIENT_TPU_ROOFLINE": "",
     # Oldest-sequence batcher dispatch-ahead depth, in waves, before the
     # worker blocks on the oldest wave's outputs.
     "CLIENT_TPU_SEQ_PIPELINE": "2",
@@ -26,12 +43,28 @@ _DEFAULTS = {
     # writer backlog, so the coalescing and shed paths can be exercised
     # deterministically.
     "CLIENT_TPU_STREAM_WRITER_DELAY_MS": "0",
+    # Request-trace span-store capacity (GET /v2/trace/requests).
+    "CLIENT_TPU_TRACE_BUFFER": "512",
 }
 
 
+def env_text(name: str, environ=None) -> str:
+    """The stripped raw value of ``name``, or its default when unset (a
+    set but blank value stays blank). The JSON knobs parse this
+    themselves (``@file`` indirection, the ``1``/``on`` words)."""
+    default = _DEFAULTS[name]
+    raw = (os.environ if environ is None else environ).get(name)
+    return default if raw is None else raw.strip()
+
+
 def _text(name: str) -> str:
-    text = os.environ.get(name, "").strip()
+    text = env_text(name)
     return text if text else _DEFAULTS[name]
+
+
+def env_str(name: str) -> str:
+    """The value of ``name``, or its default when unset or blank."""
+    return _text(name)
 
 
 def env_int(name: str) -> int:

@@ -12,12 +12,14 @@ import logging
 
 import torch
 
+from client_tpu_torch.config import env_str
+
 log = logging.getLogger("client_tpu_torch")
 if not log.handlers:  # visible stderr progress by default; apps may override
     _h = logging.StreamHandler()
     _h.setFormatter(logging.Formatter("[client_tpu_torch] %(asctime)s %(message)s"))
     log.addHandler(_h)
-    log.setLevel(logging.INFO)
+    log.setLevel(env_str("CLIENT_TPU_LOGLEVEL"))
 
 _logged: set[str] = set()
 

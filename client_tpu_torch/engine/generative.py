@@ -33,9 +33,18 @@ card, so its per-shard work is ordered on that one stream too; the free
 rows then skip each shard's junk row, and nothing here assumes that a row
 is its lane's number.
 
+Each decode dispatch is timed on the card between CUDA events recorded
+around it on the worker's stream (on the CPU, the host time of the
+synchronous call) and recorded at fetch time
+(``EfficiencyProfiler.record_wave``); the first dispatch of each (wave
+bucket, chunk) shape is counted for the roofline
+(``record_wave_cost_model``), K2's arena reads, and K3's combine on a
+sharded arena, included, and kept out of the device time as cold: the
+counter slows its launches, and a shape's first use is slow anyway.
+
 Not ported yet: warmup (nothing compiles in eager PyTorch, and the kernels
-are built at model load), and the HBM census, cost ledger, profiler and
-roofline hooks of the JAX scheduler.
+are built at model load), and the HBM census and cost-ledger hooks of
+the JAX scheduler.
 """
 
 from __future__ import annotations
@@ -65,6 +74,8 @@ from client_tpu_torch.engine.types import (
     InferResponse,
     now_ns,
 )
+from client_tpu_torch.observability.profiler import profiler
+from client_tpu_torch.observability.roofline import CostCapture
 from client_tpu_torch.ops.decode_attention import stage
 
 _log = logging.getLogger("client_tpu_torch")
@@ -96,9 +107,11 @@ class _Stream:
 class _Inflight:
     """One dispatched execution whose token fetch is pending."""
 
-    __slots__ = ("kind", "streams", "tokens", "event", "waves", "staged")
+    __slots__ = ("kind", "streams", "tokens", "event", "waves", "staged",
+                 "bucket", "timing", "cold")
 
-    def __init__(self, kind, streams, tokens, event, staged, waves=1):
+    def __init__(self, kind, streams, tokens, event, staged, waves=1,
+                 bucket=0, timing=None, cold=False):
         self.kind = kind          # 'prefill' | 'wave' | 'chunk'
         self.streams = streams    # lane order, real lanes only
         self.tokens = tokens      # host tensor the tokens are copied into
@@ -107,6 +120,18 @@ class _Inflight:
         # referenced until the fetch, after which the stream has read them.
         self.staged = staged
         self.waves = waves        # logical waves this dispatch advances
+        self.bucket = bucket      # wave lane bucket (0: a prefill)
+        # A decode dispatch's (begin, end) CUDA events, or its host ns on
+        # the CPU.
+        self.timing = timing
+        self.cold = cold          # a shape's first dispatch, run counted
+
+    def device_ns(self) -> int:
+        """The dispatch's device time; call once the fetch has landed."""
+        if isinstance(self.timing, tuple):
+            begin, end = self.timing
+            return int(begin.elapsed_time(end) * 1e6)
+        return int(self.timing or 0)
 
     def ready(self) -> bool:
         return self.event is None or self.event.query()
@@ -214,6 +239,8 @@ class GenerativeScheduler(Scheduler):
         # oldest fetch.
         self._depth = max(1, env_int("CLIENT_TPU_GEN_PIPELINE"))
         self._streams: list[_Stream] = []
+        # (wave bucket, chunk) shapes whose first dispatch was counted.
+        self._wave_cost_captured: set[tuple[int, int]] = set()
         self._inflight: collections.deque[_Inflight] = collections.deque()
         # Depth is counted in WAVES: a K-chunk counts K, so the knob bounds
         # the same amount of dispatched-ahead work in either mode.
@@ -504,11 +531,34 @@ class GenerativeScheduler(Scheduler):
         sample = bool((temps > 0.0).any())
         index = self._backend.wave_index(self._arena, rows, lens)
         lanes = self._backend.lane_params(seeds, temps, top_ks, top_ps)
-        if k > 1:
-            nxt = self._backend.decode_chunk(self._arena, index, lanes,
-                                             sample, k)
+        capture = None
+        if (bucket, k) not in self._wave_cost_captured:
+            self._wave_cost_captured.add((bucket, k))
+            capture = CostCapture(self._backend)
+        if self._cuda:
+            begin = torch.cuda.Event(enable_timing=True)
+            begin.record(self._stream)
+        t0 = time.monotonic_ns()
+        with capture or contextlib.nullcontext():
+            if k > 1:
+                nxt = self._backend.decode_chunk(self._arena, index, lanes,
+                                                 sample, k)
+            else:
+                nxt = self._backend.decode(self._arena, index, lanes, sample)
+        if self._cuda:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(self._stream)
+            timing = (begin, end)
         else:
-            nxt = self._backend.decode(self._arena, index, lanes, sample)
+            timing = time.monotonic_ns() - t0  # the call ran synchronously
+        if capture is not None:
+            # The dispatch's own inputs and outputs: rows and lens, the
+            # lanes' sampling parameters, and the tokens.
+            io_bytes = 2 * bucket * 4 + nxt.numel() * nxt.element_size() \
+                + sum(a.nbytes for a in (seeds, temps, top_ks, top_ps))
+            profiler().record_wave_cost_model(
+                self.model.config.name, self.model.config.version, bucket,
+                k, capture.result(io_bytes))
         host, event = self._start_fetch(nxt)
         for s in live:
             s.disp_len += k
@@ -518,7 +568,9 @@ class GenerativeScheduler(Scheduler):
         self.stats.record_execution(len(live))
         self._inflight.append(_Inflight("chunk" if k > 1 else "wave", live,
                                         host, event, (index, lanes),
-                                        waves=k))
+                                        waves=k, bucket=bucket,
+                                        timing=timing,
+                                        cold=capture is not None))
         self._inflight_waves += k
 
     def _drain_fetches(self, force_one: bool = False) -> None:
@@ -538,6 +590,12 @@ class GenerativeScheduler(Scheduler):
             except Exception as exc:  # noqa: BLE001 — the execution failed
                 self._reset_arena(exc)
                 return
+            if head.kind != "prefill":
+                profiler().record_wave(
+                    self.model.config.name, self.model.config.version,
+                    bucket=head.bucket, chunk=head.waves,
+                    duration_ns=head.device_ns(), waves=head.waves,
+                    cold=head.cold)
             # A chunked fetch is K stacked waves [K, B]; emit them in wave
             # order so a stop or the budget retires a stream mid-chunk
             # exactly where per-wave dispatch would have.
@@ -591,7 +649,8 @@ class GenerativeScheduler(Scheduler):
         s.req.times.compute_input_end = s.req.times.compute_start
         s.req.times.compute_infer_end = now_ns()
         s.req.times.compute_output_end = s.req.times.compute_infer_end
-        self.stats.record_request(s.req.times, success=True)
+        self.stats.record_request(s.req.times, success=True,
+                                  trace_id=self._trace_id(s.req))
         self._respond(s.req, self._response(s, {}, final=True))
 
     def _all_tracked_streams(self) -> list:

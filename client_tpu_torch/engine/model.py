@@ -16,6 +16,15 @@ tensor already on the card (a device shared-memory region): it is padded
 there and never staged through the host, and a batch whose requests all
 keep their outputs on the device skips the fetch (``fetch_outputs``).
 
+Each execution feeds the efficiency profiler: its CUDA-event device time
+(``ExecPhases.device_ns``), rows and padding. The first execution of an
+input signature is the port's "compile" (a kernel's first-use build,
+cuBLAS's handles and workspaces): it is recorded as cold, kept out of
+device time, and counted once for the roofline
+(``observability.roofline.CostCapture``), as JAX keeps XLA's compile
+out and reads XLA's cost model. The ``model.execute`` fault site fires
+before any work.
+
 Three hooks a backend may define, as in the JAX package: a ragged backend
 (DLRM) checks the structure of its CSR tensors in ``validate_ragged`` and
 stages them itself in ``pre_stage`` (no generic row padding then); a
@@ -34,10 +43,13 @@ import numpy as np
 import torch
 from torch import nn
 
+from client_tpu_torch import faults
 from client_tpu_torch.engine.backend_init import resolve_device
 from client_tpu_torch.engine.config import ModelConfig
 from client_tpu_torch.engine.shm import wait_for_writer
 from client_tpu_torch.engine.types import EngineError, now_ns
+from client_tpu_torch.observability.profiler import profiler
+from client_tpu_torch.observability.roofline import CostCapture
 from client_tpu_torch.protocol.dtypes import wire_to_np_dtype
 
 
@@ -58,12 +70,18 @@ class ExecPhases:
     ``input_end`` bounds the host work (pad, pin, enqueue of the H2D
     copies); ``infer_end`` waits on a CUDA event recorded after the forward
     pass on the executing stream; ``output_end`` follows the D2H copies.
+    ``device_ns`` is the forward's time on the card, between CUDA events
+    recorded on the stream before and after it (on the CPU, the host's
+    ``infer_end - input_end``). ``compile_ns`` is the cold first
+    execution's ``infer_end - input_end`` (0 on a warm one).
     """
 
     start: int = 0
     input_end: int = 0
     infer_end: int = 0
     output_end: int = 0
+    device_ns: int = 0
+    compile_ns: int = 0
 
 
 # cuBLAS keeps a workspace (32 MiB on Hopper) for each (handle, stream)
@@ -136,6 +154,10 @@ class Model:
             t.name: (t, np.dtype(wire_to_np_dtype(t.data_type)), tuple(t.dims))
             for t in self.config.input
         }
+        # Input signatures (names, shapes, dtypes) executed once already:
+        # the next execution of one is warm.
+        self._seen: set = set()
+        self._seen_lock = threading.Lock()
 
     def _stream(self) -> torch.cuda.Stream:
         return worker_stream(self.device)
@@ -231,13 +253,21 @@ class Model:
         device region) the outputs stay on the device, untrimmed: the
         caller takes each request's rows as a slice, and the padding rows
         lie past every request's."""
+        try:
+            faults.fire("model.execute")
+        except faults.FaultInjected as exc:
+            raise EngineError(str(exc), exc.status or 503) from None
         cfg = self.config
         phases = ExecPhases(start=now_ns())
-        if self.backend.host_side:
-            return self._execute_host(inputs, phases)
         pad_to = (self.pick_bucket(batch_size)
                   if cfg.axis_capacity() > 0 and batch_size is not None
                   else None)
+        if self.backend.host_side:
+            # Unpadded, never cold; its bucket is recorded as the JAX
+            # package records a host-side model's.
+            outputs, phases = self._execute_host(inputs, phases)
+            self._record(phases, pad_to, batch_size)
+            return outputs, phases
         pre_stage = getattr(self.backend, "pre_stage", None)
         if pre_stage is not None:
             inputs = pre_stage(inputs, pad_to)
@@ -263,19 +293,31 @@ class Model:
                     t = t.pin_memory().to(self.device, non_blocking=True)
                 staged[name] = t
             phases.input_end = now_ns()
-            with torch.inference_mode():
+            first = self._first_execution(staged)
+            if cuda:
+                begin = torch.cuda.Event(enable_timing=True)
+                begin.record(self._stream())
+            capture = CostCapture(self.backend) if first else None
+            with torch.inference_mode(), \
+                    capture or contextlib.nullcontext():
                 outputs = self.backend(staged)
             if not isinstance(outputs, dict):
                 raise EngineError(
                     f"model '{cfg.name}' returned {type(outputs)}, "
                     "expected dict", 500)
             if cuda:
-                done = torch.cuda.Event()
+                done = torch.cuda.Event(enable_timing=True)
                 done.record(self._stream())
                 done.synchronize()
             phases.infer_end = now_ns()
+            phases.device_ns = (int(begin.elapsed_time(done) * 1e6) if cuda
+                                else phases.infer_end - phases.input_end)
+            if first:
+                phases.compile_ns = phases.infer_end - phases.input_end
+                self._record_first(phases, pad_to, capture, staged, outputs)
             if not fetch_outputs:
                 phases.output_end = now_ns()
+                self._record(phases, pad_to, batch_size)
                 return outputs, phases
             host: dict[str, np.ndarray] = {}
             for name, val in outputs.items():
@@ -284,7 +326,46 @@ class Model:
                     arr = arr[:batch_size]
                 host[name] = arr
         phases.output_end = now_ns()
+        self._record(phases, pad_to, batch_size)
         return host, phases
+
+    def _first_execution(self, staged: dict) -> bool:
+        """True the first time this input signature runs (and marks it
+        seen): the execution is then cold, as a JAX bucket's first call
+        compiles."""
+        sig = tuple(sorted((name, tuple(t.shape), str(t.dtype))
+                           for name, t in staged.items()))
+        with self._seen_lock:
+            if sig in self._seen:
+                return False
+            self._seen.add(sig)
+            return True
+
+    def _record_first(self, phases: ExecPhases, pad_to, capture,
+                      staged: dict, outputs: dict) -> None:
+        """A cold first execution: its duration as the bucket's compile,
+        and the counted cost of the bucket."""
+        cfg = self.config
+        prof = profiler()
+        prof.record_compile(cfg.name, cfg.version, pad_to, phases.compile_ns,
+                            axis=cfg.padding_axis)
+        io_bytes = sum(t.numel() * t.element_size()
+                       for t in list(staged.values()) + list(outputs.values())
+                       if isinstance(t, torch.Tensor))
+        prof.record_cost_model(cfg.name, cfg.version, pad_to,
+                               capture.result(io_bytes),
+                               axis=cfg.padding_axis)
+
+    def _record(self, phases: ExecPhases, pad_to, batch_size) -> None:
+        """One profiler record per execution (not per request)."""
+        cfg = self.config
+        profiler().record_execution(
+            cfg.name, cfg.version, pad_to,
+            rows=batch_size if batch_size is not None else 1,
+            device_ns=phases.device_ns,
+            host_ns=(phases.input_end - phases.start)
+            + (phases.output_end - phases.infer_end),
+            cold=bool(phases.compile_ns), axis=cfg.padding_axis)
 
     def execute_stateful(self, state, inputs: dict[str, np.ndarray]):
         """One sequence step, the backend's ``step(state, staged_inputs)
@@ -321,4 +402,5 @@ class Model:
                 f"model '{self.config.name}' returned {type(outputs)}, "
                 "expected dict", 500)
         phases.infer_end = phases.output_end = now_ns()
+        phases.device_ns = phases.infer_end - phases.input_end
         return outputs, phases

@@ -80,7 +80,8 @@ class RaggedScheduler(DefaultScheduler):
                     for later in reversed(items[idx + 1:]):
                         self.queue.put_front(later)
                     return batch, True
-                if self._check_cancelled(item):
+                if self._check_cancelled(item) \
+                        or self._check_dequeue_fault(item):
                     continue
                 if nnz >= prefer \
                         or nnz + request_nnz(item, self._indices) \

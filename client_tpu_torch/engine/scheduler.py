@@ -13,8 +13,12 @@ Decoupled generative models get the continuous-batching
 the :class:`DecoupledScheduler`, stateful models the sequence batcher
 (``engine/sequence.py``), lookups-axis models the ``RaggedScheduler``
 (``engine/ragged.py``) and ensembles the ``EnsembleScheduler``
-(``engine/ensemble.py``). Priority levels, queue policies, QoS lanes,
-dispatch overrides and preemption are not ported yet.
+(``engine/ensemble.py``). Two fault sites fire here as in the JAX
+package: ``scheduler.enqueue`` in every scheduler's submit (the error
+goes back to the caller), ``scheduler.dequeue`` where the dynamic,
+ragged and decoupled workers pop a request (it fails alone). Priority
+levels, queue policies, QoS lanes, dispatch overrides and preemption are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import time
 import numpy as np
 import torch
 
+from client_tpu_torch import faults
 from client_tpu_torch.engine.model import Model, np_dtype_of, worker_stream
 from client_tpu_torch.engine.shm import wait_for_writer
 from client_tpu_torch.engine.stats import ModelStats
@@ -57,6 +62,11 @@ class _ReqQueue:
         with self._cv:
             self._q.append(item)
             self._cv.notify()
+
+    def qsize(self) -> int:
+        """Requests waiting (the tpu_queue_depth gauge)."""
+        with self._cv:
+            return len(self._q)
 
     def put_front(self, item) -> None:
         with self._cv:
@@ -174,6 +184,9 @@ class Scheduler:
         self.model = model
         self.stats = stats
         self.queue = _ReqQueue()
+        # Batches executing now (the tpu_inflight_batches gauge).
+        self.active_batches = 0
+        self._active_lock = threading.Lock()
         # Set by stop(): a long-running worker loop (a generation wave, a
         # decoupled stream) checks it to end what it holds.
         self._stopping = False
@@ -194,6 +207,10 @@ class Scheduler:
             raise errors[0]
 
     def submit(self, req: InferRequest) -> None:
+        try:
+            faults.fire("scheduler.enqueue")
+        except faults.FaultInjected as exc:
+            raise EngineError(str(exc), exc.status or 503) from None
         req.times.queue_start = now_ns()
         self.queue.put(req)
         if self._stopping and not any(t.is_alive() for t in self.workers):
@@ -274,6 +291,24 @@ class Scheduler:
             return True
         return False
 
+    def _check_dequeue_fault(self, req: InferRequest) -> bool:
+        """The ``scheduler.dequeue`` fault site: a popped request that an
+        injected error fails before any batching."""
+        try:
+            faults.fire("scheduler.dequeue")
+        except faults.FaultInjected as exc:
+            self._fail(req, EngineError(str(exc), exc.status or 503))
+            return True
+        return False
+
+    def _busy(self, delta: int) -> None:
+        with self._active_lock:
+            self.active_batches += delta
+
+    @staticmethod
+    def _trace_id(req: InferRequest) -> str | None:
+        return req.trace.trace_id if req.trace is not None else None
+
     def _respond(self, req: InferRequest, resp: InferResponse) -> None:
         if req.response_callback is None:
             return
@@ -295,18 +330,26 @@ class DefaultScheduler(Scheduler):
             item = self.queue.get_many(1)[0]
             if item is _SHUTDOWN:
                 return
+            if self._check_dequeue_fault(item):
+                continue
             batch = [item]
             if cfg.scheduler_kind() == "DYNAMIC" and cfg.max_batch_size > 0:
                 batch, stop = self._gather(item, dyn)
             else:
                 stop = False
+            self._busy(1)
             try:
                 self._execute_batch(batch)
+            except EngineError as exc:  # an answer (an injected fault, a
+                for r in batch:         # bad input), not a crash
+                    self._fail(r, exc)
             except Exception as exc:  # noqa: BLE001 — the worker must live
                 _log.exception("model '%s': batch of %d failed",
                                cfg.name, len(batch))
                 for r in batch:
                     self._fail(r, exc)
+            finally:
+                self._busy(-1)
             if stop:
                 return
 
@@ -332,6 +375,8 @@ class DefaultScheduler(Scheduler):
                     for later in reversed(items[idx + 1:]):
                         self.queue.put_front(later)
                     return batch, True
+                if self._check_dequeue_fault(item):
+                    continue
                 if total >= prefer \
                         or total + _request_batch(item) > max_batch \
                         or not _compatible(first, item):
@@ -380,10 +425,14 @@ class DefaultScheduler(Scheduler):
         req.times.compute_input_end = phases.input_end
         req.times.compute_infer_end = phases.infer_end
         req.times.compute_output_end = now_ns()
+        # Every member of a batch that ran its bucket's cold first
+        # execution carries it (the whole batch waited on it).
+        req.times.compile_ns = phases.compile_ns
         if req.outputs:
             requested = {o.name for o in req.outputs}
             outputs = {k: v for k, v in outputs.items() if k in requested}
-        self.stats.record_request(req.times, success=True)
+        self.stats.record_request(req.times, success=True,
+                                  trace_id=self._trace_id(req))
         self._respond(req, InferResponse(
             model_name=req.model_name,
             model_version=req.model_version or str(self.model.config.version),
@@ -410,13 +459,16 @@ class DecoupledScheduler(Scheduler):
             req = self.queue.get_many(1)[0]
             if req is _SHUTDOWN:
                 return
-            if self._check_cancelled(req):
+            if self._check_cancelled(req) or self._check_dequeue_fault(req):
                 continue
             req.times.compute_start = now_ns()
+            self._busy(1)
             try:
                 self._stream(req)
             except Exception as exc:  # noqa: BLE001 — the worker must live
                 self._fail(req, exc)
+            finally:
+                self._busy(-1)
 
     def _stream(self, req: InferRequest) -> None:
         gen = self.model.backend.generate(req.inputs, req.parameters)
@@ -437,7 +489,8 @@ class DecoupledScheduler(Scheduler):
         req.times.compute_output_end = req.times.compute_infer_end
         self.stats.record_execution(max(1, count),
                                     compute_ns=req.times.compute_infer_ns)
-        self.stats.record_request(req.times, success=True)
+        self.stats.record_request(req.times, success=True,
+                                  trace_id=self._trace_id(req))
         self._emit(req, {}, final=True)
 
     def _emit(self, req: InferRequest, outputs: dict, final: bool) -> None:

@@ -137,7 +137,11 @@ class SequenceScheduler(_PendingGuard, Scheduler):
                 if slot is not None:
                     slot.last_used_ns = now_ns()
                 self._pend_locked(req.sequence_id)
-        super().submit(req)
+        try:
+            super().submit(req)
+        except Exception:
+            self._unpend(req.sequence_id)  # refused at enqueue
+            raise
 
     def _worker_loop(self) -> None:
         while True:
@@ -321,7 +325,11 @@ class OldestSequenceScheduler(_PendingGuard, Scheduler):
                 if req.sequence_id in self._last_used:
                     self._last_used[req.sequence_id] = now_ns()
                 self._pend_locked(req.sequence_id)
-        super().submit(req)
+        try:
+            super().submit(req)
+        except Exception:
+            self._unpend(req.sequence_id)  # refused at enqueue
+            raise
 
     def _worker_loop(self) -> None:
         while True:

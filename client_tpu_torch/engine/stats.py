@@ -3,7 +3,9 @@
 The port's own copy of ``client_tpu/engine/stats.py``, trimmed to the
 counts ``/v2/models/<m>/stats`` reports: the queue / compute_input /
 compute_infer / compute_output phase sums and the executions per batch
-size.
+size. When the engine attaches :class:`ModelInstruments` (the metrics
+plane), every recorded request and execution also feeds the histograms
+of ``/metrics``: sums here, distributions there, from one call site.
 """
 
 from __future__ import annotations
@@ -43,9 +45,12 @@ class ModelStats:
     last_inference_ms: int = 0  # wall-clock ms of the latest success
     # batch_size -> [executions, cumulative compute-infer ns]
     batch_hist: dict[int, list[int]] = field(default_factory=dict)
+    # observability.metrics.ModelInstruments, or None outside an engine.
+    instruments: object | None = field(default=None, repr=False)
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
 
-    def record_request(self, times: RequestTimes, success: bool) -> None:
+    def record_request(self, times: RequestTimes, success: bool,
+                       trace_id: str | None = None) -> None:
         total = max(0, times.compute_output_end - times.queue_start)
         with self._lock:
             if success:
@@ -58,6 +63,8 @@ class ModelStats:
                 self.last_inference_ms = int(time.time() * 1000)
             else:
                 self.fail.add(total)
+        if success and self.instruments is not None:
+            self.instruments.observe_request(total, times, trace_id=trace_id)
 
     def record_execution(self, batch_size: int, compute_ns: int = 0) -> None:
         """One device execution of ``batch_size`` rows that took
@@ -68,6 +75,8 @@ class ModelStats:
             entry = self.batch_hist.setdefault(batch_size, [0, 0])
             entry[0] += 1
             entry[1] += max(0, compute_ns)
+        if self.instruments is not None:
+            self.instruments.observe_execution(batch_size)
 
     def to_dict(self) -> dict:
         """v2 ``GET /v2/models/<m>/stats`` entry."""

@@ -2,8 +2,8 @@
 
 The port's own copy of ``client_tpu/engine/types.py``, trimmed to what
 the port serves: sequence routing, cancellation, the streaming
-backpressure probe and shared-memory placement are in; no deadline,
-tenant, QoS or tracing fields yet.
+backpressure probe, shared-memory placement and the trace context are
+in; no deadline, tenant or QoS fields yet.
 """
 
 from __future__ import annotations
@@ -31,11 +31,17 @@ def now_ns() -> int:
 class RequestTimes:
     """Nanosecond stamps of one request's server-side lifecycle."""
 
+    received: int = 0             # the engine took the request
     queue_start: int = 0
     compute_start: int = 0        # batch assembled; input staging begins
     compute_input_end: int = 0    # inputs enqueued to the device
     compute_infer_end: int = 0    # the forward pass finished on the device
     compute_output_end: int = 0   # outputs on the host for the frontend
+    # The ns of a bucket's cold first execution paid inside compute_infer
+    # (0 on warm requests): the frontends mark the response cold with it
+    # (the Server-Timing `compile` entry, the `server_compile_us`
+    # parameter).
+    compile_ns: int = 0
 
     @property
     def queue_ns(self) -> int:
@@ -101,6 +107,10 @@ class InferRequest:
     # response carries its window of the batch's output tensors on the
     # device (a basic slice, a view; the region stores it as it is).
     keep_outputs_on_device: bool = False
+    # The W3C trace context (observability.tracing.TraceContext) the
+    # frontends set from the `traceparent` header or gRPC metadata; None
+    # for an untraced in-process caller.
+    trace: Any = None
 
     def cancel(self) -> None:
         self.cancelled = True

@@ -11,7 +11,8 @@ place, as the JAX version's donated, aliased arena is.
 ``client_tpu_torch/csrc/decode_attention.cu`` for tensors on the card and
 takes :func:`decode_wave_attention_plain` only for tensors on the CPU. The
 kernel takes head dim 64 only and raises on anything else. ``launches``
-counts kernel launches.
+counts kernel launches. Each call reports its work (:func:`work`) to a
+roofline capture running on its thread.
 
 A wave's ``rows`` and ``lens`` come as a :class:`WaveIndex`: checked on the
 host, where the scheduler holds them as numpy, then staged to the device
@@ -29,6 +30,7 @@ import threading
 import numpy as np
 import torch
 
+from client_tpu_torch.observability import roofline
 from client_tpu_torch.ops import cuda_build
 
 _NEG_INF = -1e30
@@ -131,6 +133,19 @@ class WaveIndex:
                          self.seq, device, owned)
 
 
+def work(index: WaveIndex, heads: int, dim: int) -> tuple[float, int]:
+    """(FLOPs, bytes) of one layer's call, from the lanes' host lengths:
+    each lane's valid K/V prefix read once, q, k_new, v_new read and the
+    output written, the two scattered slots, rows and lens; q.k and p.v
+    over the prefix and the new position at 2 FLOP per MAC."""
+    b = int(index.lens_host.shape[0])
+    keys = int(index.lens_host.sum())
+    lane_bytes = heads * dim * 4
+    nbytes = (2 * keys * lane_bytes + 4 * b * lane_bytes
+              + 2 * b * lane_bytes + 2 * b * 4)
+    return 4.0 * heads * dim * (keys + b), nbytes
+
+
 def decode_wave_attention_plain(k_arena: torch.Tensor, v_arena: torch.Tensor,
                                 q: torch.Tensor, k_new: torch.Tensor,
                                 v_new: torch.Tensor, index: WaveIndex, *,
@@ -224,6 +239,8 @@ def decode_wave_attention(k_arena: torch.Tensor, v_arena: torch.Tensor,
     the runtime's message, for a cluster the card refuses too); on the CPU
     it is the plain version."""
     if k_arena.device.type == "cpu":
+        # The plain version's torch ops count their own FLOPs.
+        roofline.kernel_work(0.0, work(index, q.shape[1], q.shape[2])[1])
         return decode_wave_attention_plain(k_arena, v_arena, q, k_new, v_new,
                                            index, layer=layer)
     if k_arena.device.type != "cuda":
@@ -246,6 +263,7 @@ def decode_wave_attention(k_arena: torch.Tensor, v_arena: torch.Tensor,
     if err != 0:
         raise RuntimeError(
             f"decode wave kernel launch failed: {err_str(err).decode()}")
+    roofline.kernel_work(*work(index, heads, dim))
     global launches
     with _count_lock:
         launches += 1

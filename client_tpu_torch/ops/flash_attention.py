@@ -12,7 +12,9 @@ takes :func:`flash_attention_plain` only for tensors on the CPU. The kernel
 has a bf16 instantiation (the BERTs) and an fp32 one (the generative
 models' prefill), both with head dim 64, and raises on anything else.
 ``launches`` counts bf16 launches and ``launches_fp32`` fp32 ones, so a
-run can show that its path went through the kernel.
+run can show that its path went through the kernel. Each call reports
+its work (:func:`work`) to a roofline capture running on its thread:
+the ``ctypes`` launch is invisible to the FLOP counter.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import threading
 
 import torch
 
+from client_tpu_torch.observability import roofline
 from client_tpu_torch.ops import cuda_build
 
 _NEG_INF = -1e30
@@ -56,6 +59,20 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     denom = torch.where(denom == 0.0, torch.ones_like(denom), denom)
     out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
     return (out / denom.transpose(1, 2)).to(q.dtype)
+
+
+def work(q: torch.Tensor, bias: torch.Tensor | None,
+         causal: bool) -> tuple[float, int]:
+    """(FLOPs, bytes) of one call: QK^T and PV at 2 FLOP per MAC over
+    every (query, key) pair it attends (those on or below the diagonal
+    when causal), and q, k, v read, the output written and the bias
+    read once."""
+    b, s, h, d = q.shape
+    pairs = s * (s + 1) / 2 if causal else s * s
+    nbytes = 4 * b * s * h * d * q.element_size()
+    if bias is not None:
+        nbytes += b * s * 4
+    return 4.0 * b * h * d * pairs, nbytes
 
 
 def load_kernel():
@@ -129,6 +146,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launches the Hopper kernel (or raises); on the CPU it is the plain
     version."""
     if q.device.type == "cpu":
+        # The plain version's torch ops count their own FLOPs.
+        roofline.kernel_work(0.0, work(q, bias, causal)[1])
         return flash_attention_plain(q, k, v, bias, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
@@ -151,6 +170,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(
             f"flash attention kernel launch failed: {err_str(err).decode()}")
+    roofline.kernel_work(*work(q, bias, causal))
     global launches, launches_fp32
     with _count_lock:
         if q.dtype == torch.float32:

@@ -30,6 +30,7 @@ from typing import Sequence
 
 import torch
 
+from client_tpu_torch.observability import roofline
 from client_tpu_torch.ops import cuda_build
 from client_tpu_torch.ops.decode_attention import (
     WaveIndex,
@@ -209,6 +210,13 @@ def load_kernel():
         return _fwd
 
 
+def ring_work(n: int, numel: int) -> tuple[float, int]:
+    """(FLOPs, bytes) of an all-reduce of ``n`` fp32 partials of
+    ``numel``: each partial read once and each of the ``n`` sums written
+    once, and ``(n - 1) * n * numel`` additions."""
+    return float((n - 1) * n * numel), 2 * n * numel * 4
+
+
 def ring_all_reduce(partials: Sequence[torch.Tensor]) -> list[torch.Tensor]:
     """All-reduce-sum of ``n`` same-shaped partials, one per shard; returns
     the ``n`` sums (replicated), each in the ring's order of additions.
@@ -222,6 +230,7 @@ def ring_all_reduce(partials: Sequence[torch.Tensor]) -> list[torch.Tensor]:
         return parts
     device = parts[0].device
     if all(p.device.type == "cpu" for p in parts):
+        roofline.kernel_work(0.0, ring_work(n, parts[0].numel())[1])
         return ring_all_reduce_plain(parts)
     if device.type != "cuda":
         raise ValueError(f"ring_all_reduce runs on cuda or cpu, not {device}")
@@ -250,6 +259,7 @@ def ring_all_reduce(partials: Sequence[torch.Tensor]) -> list[torch.Tensor]:
     if err != 0:
         raise RuntimeError(
             f"ring all-reduce kernel launch failed: {err_str(err).decode()}")
+    roofline.kernel_work(*ring_work(n, numel))
     global launches
     with _count_lock:
         launches += 1

@@ -18,10 +18,15 @@ in the JAX server. A tensor may be read from a region and an output
 written into one (it then takes no ``raw_output_contents`` slot); a region
 that is not registered answers INVALID_ARGUMENT. ``RepositoryModelLoad``
 and ``RepositoryModelUnload`` (``unload_dependents`` as a ``bool_param``)
-load and unload at run time. The operational RPCs, fault sites, trace
-adoption, deadlines, tenants, priorities and the load-report and
-health-state trailers are not ported: an RPC with no handler answers
-UNIMPLEMENTED.
+load and unload at run time. A request adopts the caller's W3C trace
+context from its ``traceparent`` parameter or, on ``ModelInfer``, the
+RPC's metadata (the parameter wins); a caller that sent one gets it back
+on the final response with the server's phases (``server_<phase>_us``,
+and ``server_compile_us`` for a cold first execution). The
+``grpc.pre_infer`` fault site fires on ``ModelInfer`` entry. The
+operational RPCs (Events, Profile, ...), deadlines, tenants, priorities
+and the load-report and health-state trailers are not ported: an RPC
+with no handler answers UNIMPLEMENTED.
 """
 
 from __future__ import annotations
@@ -43,6 +48,8 @@ from client_tpu_torch.engine.types import (
     InferResponse,
     OutputRequest,
 )
+from client_tpu_torch.faults import FaultInjected
+from client_tpu_torch.observability.tracing import TraceContext
 from client_tpu_torch.protocol import grpc_codec
 from client_tpu_torch.protocol import grpc_service_pb2 as pb
 from client_tpu_torch.protocol.dtypes import np_to_wire_dtype
@@ -154,7 +161,40 @@ def _response_to_proto(engine: TorchEngine, req: InferRequest,
                 grpc_codec.set_param(tensor.parameters, key, value)
             continue
         out.raw_output_contents.append(grpc_codec.ndarray_to_raw(arr, dt))
+    # The trace round trip: only for a caller that sent a traceparent (the
+    # response's parameters stay as they were for everyone else), and only
+    # on a stream's final response.
+    if (req.trace is not None and resp.final
+            and req.parameters.get("traceparent")):
+        grpc_codec.set_param(out.parameters, "traceparent",
+                             req.trace.to_traceparent())
+        if resp.times is not None:
+            t = resp.times
+            for phase, ns in (("queue", t.queue_ns),
+                              ("compute_input", t.compute_input_ns),
+                              ("compute_infer", t.compute_infer_ns),
+                              ("compute_output", t.compute_output_ns)):
+                grpc_codec.set_param(out.parameters,
+                                     f"server_{phase}_us", ns // 1000)
+            if t.compile_ns > 0:
+                grpc_codec.set_param(out.parameters, "server_compile_us",
+                                     t.compile_ns // 1000)
     return out
+
+
+def _adopt_trace(req: InferRequest, context=None) -> None:
+    """Adopt the caller's W3C trace context: the ``traceparent`` request
+    parameter (which works on streams, where a message has no metadata of
+    its own) or the RPC's metadata; the parameter wins. An id from the
+    metadata is copied into ``req.parameters``, so the response carries
+    it back."""
+    tp = req.parameters.get("traceparent")
+    if not tp and context is not None:
+        md = dict(context.invocation_metadata() or [])
+        tp = md.get("traceparent")
+        if tp:
+            req.parameters["traceparent"] = tp
+    req.trace = TraceContext.from_traceparent(tp)
 
 
 class _Servicer(GRPCInferenceServiceServicer):
@@ -347,8 +387,17 @@ class _Servicer(GRPCInferenceServiceServicer):
     # -- inference -----------------------------------------------------------
 
     def ModelInfer(self, request, context):  # noqa: N802
+        # The fault site on entry, before the request is decoded; a drop
+        # answers UNAVAILABLE, the code of a severed HTTP/2 connection.
+        try:
+            self.engine.faults.fire("grpc.pre_infer")
+        except FaultInjected as exc:
+            context.abort(_STATUS_BY_HTTP.get(exc.status,
+                                              grpc.StatusCode.UNAVAILABLE),
+                          str(exc))
         try:
             req = _proto_to_request(self.engine, request)
+            _adopt_trace(req, context)
             # A client that goes away marks the request, so the scheduler
             # skips it instead of spending device time on it; add_callback
             # returns False when the RPC already ended (the callback would
@@ -469,6 +518,7 @@ class _Servicer(GRPCInferenceServiceServicer):
                     except Exception as exc:  # noqa: BLE001
                         out_q.put(("err", str(exc), ""))
                         continue
+                    _adopt_trace(req)
                     req.backpressure = rpc_backlogged
                     with lock:
                         inflight[0] += 1

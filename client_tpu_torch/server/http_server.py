@@ -26,8 +26,18 @@ loaded version, and ``POST /v2/repository/models/<m>/{load,unload}``
 loads (re-polling the repository) and unloads one (``unload_dependents``
 in the body's parameters takes an ensemble's composing models with it);
 ``/v2/models/<m>/versions/<v>/...`` reaches each loaded version.
-Compression, the shm slot ring, staged datasets, tracing and the
-control-plane routes are not ported yet.
+The observability routes: ``GET /metrics`` (OpenMetrics 1.0 when the
+scraper's ``Accept`` asks for it, else the text format 0.0.4), ``GET``
+and ``POST /v2/trace/setting`` (the device trace), ``GET
+/v2/trace/requests[?trace_id=]`` (Chrome trace events of finished
+requests), ``GET /v2/events`` (the journal, with its filters) and ``GET
+/v2/profile[?model=]``. Every inference adopts the caller's
+``traceparent`` (or starts a trace) and answers with it and a
+``Server-Timing`` header. The ``http.pre_read`` fault site fires before
+the body is read: a drop closes the connection with no answer, an error
+drains the body first. Compression, the shm slot ring, staged datasets
+and the other control-plane routes (SLO, costs, QoS, timeseries, memory,
+load, blackbox) are not ported yet: they answer 404.
 
 A stdlib ThreadingHTTPServer: each connection gets a thread that only
 frames; the engine's per-model schedulers batch and run the work.
@@ -45,6 +55,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
+from urllib.parse import parse_qs, urlparse
+
 from client_tpu_torch.config import env_float, env_int
 from client_tpu_torch.engine.engine import TorchEngine
 from client_tpu_torch.engine.types import (
@@ -52,6 +64,11 @@ from client_tpu_torch.engine.types import (
     InferRequest,
     InferResponse,
     OutputRequest,
+)
+from client_tpu_torch.faults import FaultInjected
+from client_tpu_torch.observability.tracing import (
+    TraceContext,
+    server_timing_header,
 )
 from client_tpu_torch.protocol import rest
 from client_tpu_torch.protocol.dtypes import np_to_wire_dtype
@@ -90,6 +107,12 @@ _ROUTES: list[tuple[str, re.Pattern, str]] = [
     ("POST", re.compile(r"^/v2/(systemsharedmemory|cudasharedmemory|"
                         r"tpusharedmemory)(?:/region/([^/]+))?/unregister$"),
      "shm_unregister"),
+    ("GET", re.compile(r"^/v2/trace/setting$"), "trace_setting"),
+    ("POST", re.compile(r"^/v2/trace/setting$"), "trace_update"),
+    ("GET", re.compile(r"^/v2/trace/requests$"), "trace_requests"),
+    ("GET", re.compile(r"^/v2/events$"), "events"),
+    ("GET", re.compile(r"^/v2/profile$"), "profile"),
+    ("GET", re.compile(r"^/metrics$"), "metrics"),
 ]
 
 
@@ -107,6 +130,24 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _dispatch(self, method: str) -> None:
         try:
+            # The fault site before any byte past the headers is read. A
+            # drop closes the keep-alive socket with no answer, as a
+            # server's idle timeout does; an error still drains the body,
+            # whose unread bytes would prefix the next request line.
+            try:
+                self.engine.faults.fire("http.pre_read")
+            except FaultInjected as exc:
+                if exc.kind == "drop":
+                    self.close_connection = True
+                    return
+                try:
+                    if method == "POST":
+                        self.rfile.read(
+                            int(self.headers.get("Content-Length", 0) or 0))
+                except (OSError, ValueError):
+                    self.close_connection = True
+                self._send_error(exc.status or 503, str(exc))
+                return
             # Read the whole body first: unread bytes would prefix the next
             # request line on this keep-alive connection.
             length = int(self.headers.get("Content-Length", 0) or 0)
@@ -165,7 +206,11 @@ class _Handler(BaseHTTPRequestHandler):
         self._send(200 if self.engine.is_ready() else 503, b"")
 
     def h_server_metadata(self):
-        self._send_json(self.engine.server_metadata())
+        md = self.engine.server_metadata()
+        # /v2/trace/setting is a route of this frontend, so only it
+        # advertises the trace extension.
+        md["extensions"] = list(md["extensions"]) + ["trace"]
+        self._send_json(md)
 
     def h_model_ready(self, name, version=None):
         ready = self.engine.model_is_ready(name, version or "")
@@ -215,6 +260,72 @@ class _Handler(BaseHTTPRequestHandler):
         req = self._parse_infer_request(name, version)
         resp = self.engine.infer(req)
         self._send_infer_response(req, resp)
+
+    # -- observability ----------------------------------------------------------
+
+    OPENMETRICS_CT = ("application/openmetrics-text; version=1.0.0; "
+                      "charset=utf-8")
+
+    def _query(self) -> dict:
+        return parse_qs(urlparse(self.path).query)
+
+    def h_metrics(self):
+        # A scraper that accepts application/openmetrics-text gets
+        # OpenMetrics 1.0 (exemplars, # EOF); any other the 0.0.4 text.
+        om = "application/openmetrics-text" in (
+            self.headers.get("Accept", "") or "")
+        body = self.engine.prometheus_metrics(openmetrics=om)
+        self._send(200, body.encode("utf-8"),
+                   content_type=(self.OPENMETRICS_CT if om
+                                 else "text/plain; version=0.0.4"))
+
+    def h_events(self):
+        """The journal: ``?model=`` exact, ``?severity=`` minimum,
+        ``?category=``, ``?since=<seq>`` exclusive cursor (the previous
+        answer's ``next_seq``), ``?since_wall=`` / ``?until_wall=`` an
+        epoch-seconds window (``since_ts`` the older name of the lower
+        bound), ``?limit=<n>`` the newest n."""
+        q = self._query()
+
+        def one(key):
+            return (q.get(key) or [None])[0]
+
+        def num(key, cast):
+            raw = one(key)
+            if raw is None:
+                return None
+            try:
+                return cast(raw)
+            except ValueError:
+                raise EngineError(f"malformed {key!r} parameter",
+                                  400) from None
+
+        since_wall = num("since_wall", float)
+        if since_wall is None:
+            since_wall = num("since_ts", float)
+        try:
+            self._send_json(self.engine.events_export(
+                model=one("model"), severity=one("severity"),
+                category=one("category"), since_seq=num("since", int),
+                since_ts=since_wall, until_ts=num("until_wall", float),
+                limit=num("limit", int)))
+        except ValueError as exc:  # an unknown severity name
+            raise EngineError(str(exc), 400) from None
+
+    def h_profile(self):
+        self._send_json(self.engine.profile_snapshot(
+            model=(self._query().get("model") or [None])[0]))
+
+    def h_trace_setting(self):
+        self._send_json(self.engine.trace_setting())
+
+    def h_trace_update(self):
+        self._send_json(self.engine.update_trace_setting(
+            json.loads(self._raw_body or b"{}")))
+
+    def h_trace_requests(self):
+        self._send_json(self.engine.request_trace_export(
+            (self._query().get("trace_id") or [None])[0]))
 
     # -- shared-memory control plane ------------------------------------------
 
@@ -428,7 +539,11 @@ class _Handler(BaseHTTPRequestHandler):
             outputs=outputs, parameters=params,
             sequence_id=int(params.get("sequence_id", 0)),
             sequence_start=bool(params.get("sequence_start", False)),
-            sequence_end=bool(params.get("sequence_end", False)))
+            sequence_end=bool(params.get("sequence_end", False)),
+            # Every HTTP inference is traced: the caller's W3C context is
+            # adopted, or a trace starts here.
+            trace=TraceContext.from_traceparent(
+                self.headers.get("traceparent")))
 
     def _send_infer_response(self, req: InferRequest,
                              resp: InferResponse) -> None:
@@ -461,12 +576,18 @@ class _Handler(BaseHTTPRequestHandler):
         body, jlen = rest.build_infer_response_body(
             entries, model_name=resp.model_name,
             model_version=resp.model_version, request_id=resp.request_id)
+        headers = {}
+        ctype = "application/json"
         if any(raw is not None for _, raw in entries):
-            self._send(200, body, content_type="application/octet-stream",
-                       extra_headers={
-                           rest.HEADER_INFERENCE_CONTENT_LENGTH: str(jlen)})
-        else:
-            self._send(200, body)
+            headers[rest.HEADER_INFERENCE_CONTENT_LENGTH] = str(jlen)
+            ctype = "application/octet-stream"
+        # The trace id goes back (clients look it up in
+        # /v2/trace/requests) with the server's phases.
+        if req.trace is not None:
+            headers["traceparent"] = req.trace.to_traceparent()
+        if resp.times is not None:
+            headers["Server-Timing"] = server_timing_header(resp.times)
+        self._send(200, body, content_type=ctype, extra_headers=headers)
 
 
 class HttpInferenceServer:

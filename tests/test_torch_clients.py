@@ -6,8 +6,11 @@ the port's server}. Each server (HTTP and gRPC from one engine) serves
 ``simple``, ``simple_string``, ``simple_sequence``, ``simple_repeat`` and a
 narrow ``tiny_gpt`` ("tg"). Each case, taken from ``tests/test_http_e2e.py``
 and ``tests/test_grpc_e2e.py``, runs once with the JAX client to warm the
-server (a first call per bucket pays a compile, which ``InferStat`` counts
-as a cold start), then once with each client on fresh client objects. The
+server (a first call per bucket pays a compile on the JAX server and a cold
+first execution on the port's, which ``InferStat`` counts as a cold
+start; each engine's buckets for batches of 1 to 8 are warmed first, so
+dynamic batching cannot reach a cold one in one run and not the other),
+then once with each client on fresh client objects. The
 two runs must give equal outputs, equal exceptions (class name,
 ``status()``, message and ``retry_after_s``) and equal ``InferStat``
 counts. Trace ids are random per request, so a result is compared by the
@@ -89,10 +92,21 @@ def servers():
         s = np.full((rows, 16), b"1", dtype=np.object_)
         jax_engine.infer(JaxRequest(model_name="simple_string", inputs={
             "INPUT0": s, "INPUT1": s}), timeout_s=TIMEOUT)
+    # The port's server marks a bucket's first execution cold as well (a
+    # Server-Timing `compile` entry), so its buckets are warmed alike.
+    from client_tpu_torch.engine import InferRequest
+
+    port_engine = TorchEngine(repo, device="cpu")
+    for rows in range(1, 9):
+        a = np.zeros((rows, 16), np.int32)
+        port_engine.infer(InferRequest(model_name="simple", inputs={
+            "INPUT0": a, "INPUT1": a}), timeout_s=TIMEOUT)
+        s = np.full((rows, 16), b"1", dtype=np.object_)
+        port_engine.infer(InferRequest(model_name="simple_string", inputs={
+            "INPUT0": s, "INPUT1": s}), timeout_s=TIMEOUT)
     sides = {}
     for name, engine, http_cls, grpc_cls in (
-            ("port", TorchEngine(repo, device="cpu"), HttpInferenceServer,
-             GrpcInferenceServer),
+            ("port", port_engine, HttpInferenceServer, GrpcInferenceServer),
             ("jax", jax_engine, JaxHttpServer, JaxGrpc)):
         sides[name] = SimpleNamespace(
             engine=engine, http=http_cls(engine, port=0).start(),

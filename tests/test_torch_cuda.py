@@ -16,7 +16,9 @@ the card against its CPU run with TF32 off, at 1e-4 relative; the batched
 NMS against its CPU run on identical inputs, decisions exactly; SSD at
 batch 1 bit for bit from call to call. Device regions (in-process
 shared memory on the card): each request's outputs bit for bit against
-the same rows run through the host path at the same bucket.
+the same rows run through the host path at the same bucket. The roofline
+capture: each kernel's FLOPs and bytes exactly by its formula, and a
+BERT bucket's FLOPs on the card within 1% of its CPU count.
 """
 
 import concurrent.futures
@@ -1014,3 +1016,113 @@ def test_unload_with_a_request_in_flight_gives_the_card_memory_back(card,
             assert after < before, (kind, before, after)
     finally:
         eng.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# The roofline capture and /metrics on the card
+# ---------------------------------------------------------------------------
+
+
+def _captured(fn):
+    from client_tpu_torch.observability.roofline import CostCapture
+
+    with CostCapture() as cap:
+        fn()
+    torch.cuda.synchronize()
+    return cap
+
+
+@pytest.mark.parametrize("causal,dtype", [(False, torch.bfloat16),
+                                          (True, torch.float32)])
+def test_capture_counts_the_flash_kernel_by_its_formula(card, causal, dtype):
+    """K1 runs through ctypes, where the FLOP counter sees nothing: its
+    wrapper reports 4 B H D x (pairs attended) FLOPs and the q, k, v,
+    output and bias bytes, and the capture holds exactly those."""
+    b, s, h = 2, 256, 4
+    q, k, v = (t.to(dtype) for t in _fused_qkv(b, s, h))
+    bias = torch.zeros(b, s, device=card)
+    cap = _captured(lambda: fa.flash_attention(q, k, v, bias, causal=causal))
+    pairs = s * (s + 1) / 2 if causal else s * s
+    res = cap.result()
+    assert res["flops"] == cap.kernel_flops == 4.0 * b * h * 64 * pairs
+    assert res["bytes_accessed"] == cap.kernel_bytes \
+        == 4 * b * s * h * 64 * q.element_size() + b * s * 4
+
+
+def test_capture_counts_the_decode_kernel_by_its_formula(card):
+    """K2: 4 H D (sum of lens + B) FLOPs, and the valid K/V prefix, the
+    lanes, the scattered slots, rows and lens as bytes."""
+    L, R, S, H, D = 2, 5, 512, 4, 64
+    g = torch.Generator().manual_seed(3)
+    k_arena = torch.randn(L, R, S, H, D, generator=g).cuda()
+    v_arena = torch.randn(L, R, S, H, D, generator=g).cuda()
+    lens = [300, 7, 0, 511]
+    index = da.WaveIndex([0, 2, 3, 4], lens, R, S, card)
+    q, kn, vn = (torch.randn(4, H, D, generator=g).cuda() for _ in range(3))
+    cap = _captured(lambda: da.decode_wave_attention(
+        k_arena, v_arena, q, kn, vn, index, layer=1))
+    lane = H * D * 4
+    assert cap.kernel_flops == 4.0 * H * D * (sum(lens) + 4)
+    assert cap.kernel_bytes == 2 * sum(lens) * lane + 6 * 4 * lane + 2 * 4 * 4
+    assert cap.result()["flops"] == cap.kernel_flops
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_capture_counts_the_ring_kernel_by_its_formula(card, n):
+    """K3: (n - 1) n numel additions; each partial read and each sum
+    written once (n x numel x 4 bytes each way)."""
+    parts = [torch.full((16, 4, 64), float(i), device=card)
+             for i in range(n)]
+    cap = _captured(lambda: ks.ring_all_reduce(parts))
+    numel = 16 * 4 * 64
+    assert cap.kernel_flops == (n - 1) * n * numel
+    assert cap.kernel_bytes == 2 * n * numel * 4
+
+
+def test_a_flash_bert_bucket_counts_equal_flops_on_the_card_and_cpu(card):
+    """The whole forward: the FLOPs captured for one bucket on the card
+    (counter plus K1's report) equal the CPU's (counter over the plain
+    version) within 1%."""
+    from client_tpu_torch.observability.roofline import CostCapture
+
+    flops = {}
+    for device in ("cpu", "cuda"):
+        backend = BertBackend(name="b", attention_impl="flash",
+                              device=device, **SMALL)
+        ids = torch.randint(0, SMALL["vocab"], (2, SMALL["seq_len"]),
+                            generator=torch.Generator().manual_seed(0))
+        inputs = {"input_ids": ids.to(device),
+                  "attention_mask": torch.ones_like(ids).to(device)}
+        with torch.inference_mode(), CostCapture(backend) as cap:
+            backend(inputs)
+        flops[device] = cap.result()["flops"]
+    assert flops["cuda"] == pytest.approx(flops["cpu"], rel=0.01)
+
+
+def test_metrics_render_on_the_card_with_its_memory_in_use(card):
+    """``/metrics`` of an engine on the card: the card's bytes in use are
+    not 0, its capacity is the card's, and the legacy block counts the
+    request."""
+    repo = ModelRepository()
+    repo.register("b", lambda device: BertBackend(name="b", device=device,
+                                                  **SMALL))
+    engine = TorchEngine(repo)
+    try:
+        ids = np.zeros((1, SMALL["seq_len"]), np.int32)
+        engine.infer(InferRequest(model_name="b", inputs={
+            "input_ids": ids, "attention_mask": np.ones_like(ids)}))
+        text = engine.prometheus_metrics()
+    finally:
+        engine.shutdown()
+    values = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            name, _, value = line.rpartition(" ")
+            values[name] = float(value)
+    assert values['tpu_device_hbm_bytes_in_use{device="0"}'] > 0
+    assert values['tpu_hbm_limit_bytes{device="0"}'] \
+        == torch.cuda.get_device_properties(0).total_memory
+    assert values['tpu_inference_request_success{model="b",version="1"}'] \
+        == 1
+    assert values['tpu_xla_compilations_total{model="b",version="1",'
+                  'bucket="1"}'] == 1

@@ -81,6 +81,11 @@ def test_importing_the_server_loads_no_jax():
         "import client_tpu_torch.resilience, client_tpu_torch.router.core\n"
         "import client_tpu_torch.engine.repository\n"
         "import client_tpu_torch.engine.config\n"
+        "import client_tpu_torch.engine.trace, client_tpu_torch.faults\n"
+        "import client_tpu_torch.observability.events\n"
+        "import client_tpu_torch.observability.metrics\n"
+        "import client_tpu_torch.observability.profiler\n"
+        "import client_tpu_torch.observability.roofline\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'client_tpu'))\n"
         "assert not bad, bad\n"
@@ -125,6 +130,8 @@ CLIENT_MODULES = [
     "client_tpu_torch.resilience",
     "client_tpu_torch.observability.client_stats",
     "client_tpu_torch.observability.tracing",
+    "client_tpu_torch.observability.events", "client_tpu_torch.faults",
+    "client_tpu_torch.observability.metrics",
     "client_tpu_torch.protocol.pushback",
     "client_tpu_torch.protocol.loadreport", "client_tpu_torch.router.core",
     "client_tpu_torch.utils.shared_memory",
@@ -134,7 +141,9 @@ CLIENT_MODULES = [
 @pytest.mark.parametrize("module", CLIENT_MODULES)
 def test_clients_load_no_torch(module):
     """The clients, like the JAX package's, need no framework: importing
-    one loads neither torch, nor jax, nor the JAX package."""
+    one loads neither torch, nor jax, nor the JAX package. Nor do the
+    journal, the fault registry and the metric registry, which the
+    clients' resilience layer may write to."""
     code = (
         "import importlib, sys\n"
         f"importlib.import_module({module!r})\n"
