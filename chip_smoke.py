@@ -211,20 +211,38 @@
    path; the decode waves' bytes above the model's parameter bytes (K2's
    arena reads). One ``observability observation:`` JSON line with the
    table, the peaks and ``tpu_device_duty_cycle``.
-13. Prints one ``{"kernels": [...]}`` line (each kernel's ``launches`` over
+13. Weights phase: checkpoints written by the port's ``save_params`` from
+   in-process twins on the card (``bert_long`` v1 seeded and v2 with
+   layer 0's ``w1`` halved, ``bert_base`` with its pooler halved,
+   ``tiny_gpt_long`` with layer 0's ``w1`` halved, served again as
+   ``tiny_gpt_long_kv2`` over 2 shards), and the JAX-written fixture
+   ``tests/torch_data/jax_gpt_ckpt`` (orbax's zstd frames), served from a
+   directory repository (``<v>/weights`` and ``weights_path``) by one
+   engine behind HTTP and gRPC, every launch count set to 0 just before
+   the traffic. One row per request: each BERT answer bit for bit its
+   twin's forward, the two versions apart; each greedy stream token for
+   token its twin's direct stream (K1 bf16, K1 fp32, K2, K3); the
+   fixture's leaves' SHA-256 and greedy streams JAX's, with no JAX or
+   ``zstandard`` on the machine. Prints ``bert_base``'s ``save_params``
+   and ``load_params`` seconds and MB/s, the fixture's decode rate, each
+   restore's ``max_memory_allocated`` peak against its weights' bytes
+   (at most ``WEIGHTS_PEAK_MAX``), and a ``weights observation:`` line;
+   an unload of the restored ``bert_long`` frees its memory.
+14. Prints one ``{"kernels": [...]}`` line (each kernel's ``launches`` over
    HTTP and gRPC, beside ``http_launches`` over HTTP alone, which must be
    fewer; the ring all-reduce's include the stateful phase's, and its
    entry carries ``dlrm_shape``, its times at [832, 128]; flash
    attention's include the shm phase's, also given as ``shm_launches``;
-   every kernel's include the clients, repository and observability
-   phases', also given as ``clients_launches``, ``repository_launches``
-   and ``observability_launches``), the ``nvidia-smi`` name and power
-   limit line, and last ``{"ok": true, "device": {...}}``.
+   every kernel's include the clients, repository, observability and
+   weights phases', also given as ``clients_launches``,
+   ``repository_launches``, ``observability_launches`` and
+   ``weights_launches``), the ``nvidia-smi`` name and power limit line,
+   and last ``{"ok": true, "device": {...}}``.
 
-The gRPC client code of steps 4 to 9, 11 and 12 is the script's own (tensors as
-``tobytes`` and ``np.frombuffer``, BYTES with a hand-written length
-prefix); it uses the port's ``grpc_service_pb2`` and ``grpc_stub`` only,
-the wire schema. Without ``grpc`` the script fails. Step 10 holds the
+The gRPC client code of steps 4 to 9 and 11 to 13 is the script's own
+(tensors as ``tobytes`` and ``np.frombuffer``, BYTES with a hand-written
+length prefix); it uses the port's ``grpc_service_pb2`` and ``grpc_stub``
+only, the wire schema. Without ``grpc`` the script fails. Step 10 holds the
 port's clients against that code.
 
 ``--kernels`` stops after step 3, prints the per-wave host/device split of
@@ -5149,6 +5167,346 @@ def observability_phase(torch, smi: str, device: str = "cuda") -> dict:
         engine.shutdown()
 
 
+# -- weights phase ------------------------------------------------------------
+
+FIXTURE = (Path(__file__).resolve().parent / "tests" / "torch_data"
+           / "jax_gpt_ckpt")
+WEIGHTS_KV2 = "tiny_gpt_long_kv2"
+# tiny_gpt_long's registered size; a dry run on the CPU may shrink it.
+WEIGHTS_GPT = dict(max_seq_len=2048, max_streams=16)
+WEIGHTS_TOKENS = 16   # tokens of each restored GPT stream
+# Card memory a restore may reach above what was allocated before it, in
+# the weights' bytes: one copy of them (the module is filled on the host
+# and moved one tensor at a time), and the caching allocator's rounding.
+WEIGHTS_PEAK_MAX = 1.05
+
+
+def _tree_bytes(tree) -> int:
+    from client_tpu_torch.engine.checkpoint import flatten
+
+    return sum(leaf.numel() * leaf.element_size()
+               for _, _, leaf in flatten(tree))
+
+
+def _restore_on_card(torch, build, path, device) -> tuple:
+    """``build(device)`` inside ``restoring(path)``: (backend, seconds,
+    peak bytes above the memory allocated before, weights' bytes)."""
+    import gc
+
+    from client_tpu_torch.engine.model import restoring
+
+    gc.collect()
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(device)
+        base = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.monotonic()
+    with restoring(str(path)):
+        backend = build(device)
+    if cuda:
+        torch.cuda.synchronize(device)
+    seconds = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated(device) - base if cuda else 0
+    return backend, seconds, peak, _tree_bytes(backend.params_to_jax())
+
+
+def weights_phase(torch, smi: str, device: str = "cuda") -> dict:
+    """Checkpoints restored and served: a directory repository whose
+    weights the port's ``save_params`` wrote from in-process twins on the
+    card (``bert_long`` v1 seeded and v2 with layer 0's ``w1`` halved, K1
+    bf16; ``tiny_gpt_long`` with the same perturbation, K1 fp32 and K2,
+    and again as ``tiny_gpt_long_kv2`` over 2 shards, K3; ``bert_base``
+    with its pooler halved), plus the JAX-written fixture
+    ``tests/torch_data/jax_gpt_ckpt`` (zstd-compressed by orbax), served
+    by one engine behind HTTP and gRPC, every launch count set to 0 just
+    before the traffic and read just after it. One row per request, so
+    each BERT answer is bit for bit its twin's forward at batch 1; every
+    greedy stream token for token its twin's direct stream, and the
+    fixture's the tokens JAX recorded, its leaves' SHA-256 JAX's. Prints
+    ``bert_base``'s save and restore seconds and MB/s, the fixture's
+    decode rate, and each restore's peak card memory against its
+    weights' bytes. ``device`` is for a dry run on the CPU."""
+    import gc
+    import hashlib
+    import tempfile
+
+    from client_tpu_torch.engine import TorchEngine
+    from client_tpu_torch.engine.checkpoint import (
+        flatten,
+        load_params,
+        save_params,
+    )
+    from client_tpu_torch.engine.repository import ModelRepository
+    from client_tpu_torch.models import _REGISTRY, _import_all, register_model
+    from client_tpu_torch.models.generate import TinyGptBackend
+    from client_tpu_torch.ops import decode_attention as da
+    from client_tpu_torch.ops import flash_attention as fa
+    from client_tpu_torch.parallel import kv_shard as ks
+    from client_tpu_torch.server import (
+        GrpcInferenceServer,
+        HttpInferenceServer,
+    )
+
+    t_phase = time.monotonic()
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    _import_all()
+    expect = json.loads((FIXTURE / "expect.json").read_text())
+    fixture = expect["name"]
+    cpu = torch.device("cpu")
+
+    def gpt_long(dev, name="tiny_gpt_long", shards=1):
+        backend = TinyGptBackend(name=name, attention_impl="flash",
+                                 attn_impl="fused", kv_shards=shards,
+                                 device=dev, **WEIGHTS_GPT)
+        if shards > 1:  # every shard on this card
+            backend._kv_mesh = ks.kv_mesh(shards, [dev] * shards)
+        return backend
+
+    def fixture_gpt(dev):
+        return TinyGptBackend(name=fixture, device=dev, **expect["model"])
+
+    register_model(WEIGHTS_KV2, default=False)(
+        lambda dev: gpt_long(dev, WEIGHTS_KV2, 2))
+    register_model(fixture, default=False)(fixture_gpt)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_weights_"))
+    engine = server = grpc_server = channel = None
+    try:
+        # The twins: each served model's weights, given directly.
+        twins = {}
+        with torch.no_grad():
+            twins["bert_long", "1"] = _REGISTRY["bert_long"](device)
+            twins["bert_long", "2"] = _REGISTRY["bert_long"](device)
+            twins["bert_long", "2"].layers[0].w1.weight.mul_(0.5)
+            twins["bert_base", "1"] = _REGISTRY["bert_base"](device)
+            twins["bert_base", "1"].pooler.weight.mul_(0.5)
+            gpt = gpt_long(device)
+            gpt.layers[0].w1.weight.mul_(0.5)
+        for (name, v), twin in twins.items():
+            _write_config(root, name, {**twin.config.config_dict(),
+                                       "version_policy": {"all": {}}},
+                          versions=(v,))
+        saved = {}
+        for (name, v), twin in twins.items():
+            tree = twin.params_to_jax()
+            t0 = time.monotonic()
+            save_params(str(root / name / v / "weights"), tree)
+            saved[name, v] = (_tree_bytes(tree), time.monotonic() - t0)
+        gcfg = gpt.config.config_dict()
+        _write_config(root, "tiny_gpt_long",
+                      {**gcfg, "parameters": {"weights_path": "ckpt"}})
+        save_params(str(root / "tiny_gpt_long" / "ckpt"), gpt.params_to_jax())
+        _write_config(root, WEIGHTS_KV2, {**gcfg, "name": WEIGHTS_KV2,
+                                          "parameters": {"weights_path": str(
+                                              root / "tiny_gpt_long" /
+                                              "ckpt")}})
+        _write_config(root, fixture, {
+            **fixture_gpt(cpu).config.config_dict(),
+            "parameters": {"weights_path": str(FIXTURE / "ckpt")}})
+        nbytes, seconds = saved["bert_base", "1"]
+        print(f"weights: save_params wrote bert_base ({nbytes / 1e6:.1f} MB "
+              f"of weights on {device}) in {seconds:.2f} s, "
+              f"{nbytes / 1e6 / seconds:.1f} MB/s; bert_long v1 and v2 in "
+              f"{saved['bert_long', '1'][1]:.2f} and "
+              f"{saved['bert_long', '2'][1]:.2f} s", flush=True)
+
+        # Restores, each alone: seconds, rate and peak card memory.
+        ckpt = root / "bert_base" / "1" / "weights"
+        like = twins["bert_base", "1"].params_to_jax()
+        t0 = time.monotonic()
+        host = load_params(str(ckpt), like)
+        host_s = time.monotonic() - t0
+        del host
+        observed = {"bert_base_save_s": seconds,
+                    "bert_base_save_mb_s": nbytes / 1e6 / seconds,
+                    "bert_base_load_params_s": host_s,
+                    "bert_base_load_params_mb_s": nbytes / 1e6 / host_s}
+        t0 = time.monotonic()
+        load_params(str(FIXTURE / "ckpt"),
+                    fixture_gpt(cpu).params_to_jax())
+        fixture_s = time.monotonic() - t0
+        frames = sum(p.stat().st_size for p in (FIXTURE / "ckpt").rglob("*")
+                     if p.is_file())
+        fixture_bytes = _tree_bytes(
+            fixture_gpt(cpu).params_to_jax())
+        observed.update(fixture_decode_s=fixture_s,
+                        fixture_decode_mb_s=fixture_bytes / 1e6 / fixture_s,
+                        fixture_frames_mb_s=frames / 1e6 / fixture_s)
+        print(f"weights: the JAX-written fixture ({frames / 1e6:.2f} MB of "
+              f"orbax files, {fixture_bytes / 1e6:.2f} MB of weights) "
+              f"decoded in {fixture_s:.2f} s: "
+              f"{fixture_bytes / 1e6 / fixture_s:.2f} MB/s of weights out, "
+              f"{frames / 1e6 / fixture_s:.2f} MB/s of files in", flush=True)
+        peaks = {}
+        for label, build, path in (
+                ("bert_base", _REGISTRY["bert_base"], ckpt),
+                ("bert_long", _REGISTRY["bert_long"],
+                 root / "bert_long" / "2" / "weights"),
+                ("tiny_gpt_long", gpt_long, root / "tiny_gpt_long" / "ckpt"),
+                (fixture, fixture_gpt, FIXTURE / "ckpt")):
+            backend, secs, peak, wbytes = _restore_on_card(
+                torch, build, path, device)
+            del backend
+            peaks[label] = {"seconds": secs, "peak_bytes": peak,
+                            "weights_bytes": wbytes,
+                            "mb_s": wbytes / 1e6 / secs}
+            if cuda:
+                _check(peak <= WEIGHTS_PEAK_MAX * wbytes,
+                       f"restoring {label}: the card's memory peaked "
+                       f"{peak} bytes above its start for {wbytes} bytes "
+                       "of weights")
+            print(f"weights: {label} restored to {device} in {secs:.2f} s "
+                  f"({wbytes / 1e6 / secs:.1f} MB/s of weights); "
+                  f"max_memory_allocated {peak} bytes above the start for "
+                  f"{wbytes} bytes of weights ({peak / wbytes:.3f}x)",
+                  flush=True)
+        observed["restores"] = peaks
+        gc.collect()
+
+        engine = TorchEngine(ModelRepository.from_directory(str(root)),
+                             device=device)
+        server = HttpInferenceServer(engine, port=0).start()
+        grpc_server = GrpcInferenceServer(engine, port=0).start()
+        channel, stub = _grpc_channel(grpc_server.url)
+        index = engine.repository_index()
+        _check(all(e["state"] == "READY" for e in index),
+               f"a restored model did not load: {index}")
+        print(f"weights: {len(index)} rows READY from {root}: "
+              f"{[(e['name'], e['version']) for e in index]}", flush=True)
+
+        rng = np.random.default_rng(13)
+        feeds = {}
+        for name, v in twins:
+            seq = twins[name, v].config.input[0].dims[0]
+            for i in range(2):
+                ids = rng.integers(0, 30522, (1, seq)).astype(np.int32)
+                mask = np.ones((1, seq), np.int32)
+                mask[0, rng.integers(seq // 4, seq + 1):] = 0
+                feeds[name, v, i] = (ids, mask)
+        prompts = [rng.integers(0, 512, n).tolist() for n in CLIENT_PROMPTS]
+        gpt_prompts = [p for p in prompts if len(p) < gpt.max_seq_len
+                       - WEIGHTS_TOKENS]
+
+        def gen(model, prompt_list, n):
+            with concurrent.futures.ThreadPoolExecutor(4) as pool:
+                over_http = list(pool.map(lambda p: _stream(
+                    server.port, model, {"inputs": [{
+                        "name": "INPUT_IDS", "datatype": "INT32",
+                        "shape": [len(p)], "data": p}],
+                        "parameters": {"max_tokens": n}})[0], prompt_list))
+            by_id = _grpc_streams(grpc_server.url, [
+                (f"w{i}", model, p, {"max_tokens": n})
+                for i, p in enumerate(prompt_list)])
+            return over_http, [by_id[f"w{i}"][0]
+                               for i in range(len(prompt_list))]
+
+        fa.launches = fa.launches_fp32 = da.launches = ks.launches = 0
+        answers = {}
+        for (name, v, i), (ids, mask) in feeds.items():
+            body, headers = _binary_request(ids, mask)
+            status, rheaders, data = _post(
+                server.port, f"/v2/models/{name}/versions/{v}/infer", body,
+                headers)
+            _check(status == 200, f"{name} v{v}: HTTP {status}: "
+                   f"{data[:300]!r}")
+            answers["http", name, v, i] = _parse_response(rheaders, data)
+            req = _grpc_request(name, {"input_ids": ids,
+                                       "attention_mask": mask})
+            req.model_version = v
+            answers["grpc", name, v, i] = _grpc_outputs(
+                stub.ModelInfer(req, timeout=GRPC_TIMEOUT_S))
+        streams = {model: gen(model, gpt_prompts, WEIGHTS_TOKENS)
+                   for model in ("tiny_gpt_long", WEIGHTS_KV2)}
+        streams[fixture] = gen(fixture, expect["prompts"],
+                               expect["max_tokens"])
+        launches = {"flash_attention": fa.launches,
+                    "flash_attention_fp32": fa.launches_fp32,
+                    "decode_wave_attention": da.launches,
+                    "ring_all_reduce": ks.launches}
+
+        # The twins, after the count is read.
+        names = [tc.name for tc in twins["bert_base", "1"].config.output]
+        with torch.inference_mode():
+            for (wire, name, v, i), out in answers.items():
+                ids, mask = feeds[name, v, i]
+                want = twins[name, v]({
+                    "input_ids": torch.from_numpy(ids).to(device),
+                    "attention_mask": torch.from_numpy(mask).to(device)})
+                for n in names:
+                    _check(out[n].tobytes() == want[n].cpu().numpy()
+                           .tobytes(), f"{name} v{v} over {wire}, request "
+                           f"{i}: {n} is not bit for bit its twin's")
+        _check(not np.array_equal(answers["http", "bert_long", "1", 0][
+            "logits"], answers["http", "bert_long", "2", 0]["logits"]),
+            "bert_long versions 1 and 2 answer alike")
+        arena = gpt.init_arena(1)
+        for model in ("tiny_gpt_long", WEIGHTS_KV2):
+            for wire, got in zip(("SSE", "gRPC"), streams[model]):
+                for prompt, toks in zip(gpt_prompts, got):
+                    want = _direct_stream(torch, gpt, arena, prompt,
+                                          WEIGHTS_TOKENS, {},
+                                          device=device.type)
+                    _check(toks == want, f"{model} over {wire}, prompt of "
+                           f"{len(prompt)}: {toks} != its twin's {want}")
+        del arena
+        for wire, got in zip(("SSE", "gRPC"), streams[fixture]):
+            _check(got == expect["greedy_tokens"],
+                   f"the JAX-written {fixture} over {wire}: {got} != JAX's "
+                   f"{expect['greedy_tokens']}")
+        served = engine.repository.get(fixture).backend
+        digests = {}
+        for path, _, leaf in flatten(served.params_to_jax()):
+            arr = leaf.detach().contiguous().cpu().numpy()
+            digests[".".join(path)] = {
+                "dtype": arr.dtype.name, "shape": list(arr.shape),
+                "sha256": hashlib.sha256(arr.tobytes()).hexdigest()}
+        _check(digests == expect["leaves"], "the JAX-written fixture's "
+               "leaves on the card are not the SHA-256 JAX recorded")
+        print(f"weights: bert_long v1/v2 and bert_base over HTTP and gRPC, "
+              f"{len(answers)} answers bit for bit their twins' (v1 and v2 "
+              f"differ); tiny_gpt_long and {WEIGHTS_KV2} "
+              f"{len(gpt_prompts)} greedy streams each over SSE and gRPC "
+              f"token for token their twin's; {fixture} restored with no "
+              f"JAX: {len(digests)} leaves' SHA-256 and "
+              f"{len(expect['prompts'])} greedy streams over SSE and gRPC "
+              f"equal JAX's; launches {launches}", flush=True)
+        if cuda:
+            _check(all(launches.values()),
+                   f"a kernel did not run in the phase: {launches}")
+
+        # An unload gives the restored weights' card memory back.
+        freed_bytes = sum(_device_bytes(m) for m in
+                          engine.repository.loaded_versions(
+                              "bert_long").values())
+        before = _allocated(torch, device)
+        status, _ = _repo_post(server.port,
+                               "/v2/repository/models/bert_long/unload")
+        _check(status == 200, f"unload bert_long: HTTP {status}")
+        after = _allocated(torch, device)
+        if cuda:
+            _check(before - after >= REPO_FREED * freed_bytes,
+                   f"unloading the restored bert_long freed "
+                   f"{before - after} bytes of its {freed_bytes}")
+        observed.update(unload_freed_bytes=before - after,
+                        bert_long_bytes=freed_bytes, launches=launches)
+        print(f"weights observation: {json.dumps(observed)}", flush=True)
+        print(f"weights: phase passed in {time.monotonic() - t_phase:.1f} s; "
+              f"{smi}", flush=True)
+        return launches
+    finally:
+        if channel is not None:
+            channel.close()
+        for srv in (grpc_server, server):
+            if srv is not None:
+                srv.stop()
+        if engine is not None:
+            engine.shutdown()
+        for name in (WEIGHTS_KV2, fixture):
+            _REGISTRY.pop(name, None)
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def wave_phase(torch, smi: str) -> None:
     """``--kernels``: the per-wave host/device split (:func:`_wave_split`)
     of ``tiny_gpt_long`` at its registered size, built directly, over one
@@ -5262,6 +5620,12 @@ def main(argv: list[str]) -> int:
     for kernel in kernels:
         kernel["observability_launches"] = observed[kernel["name"]]
         kernel["launches"] += observed[kernel["name"]]
+    torch.cuda.empty_cache()
+    # Every kernel again, through models restored from checkpoints.
+    weights = weights_phase(torch, smi)
+    for kernel in kernels:
+        kernel["weights_launches"] = weights[kernel["name"]]
+        kernel["launches"] += weights[kernel["name"]]
     for kernel in kernels:
         # Shorter aliases of the two keys above.
         kernel["launched"] = kernel["launches"]

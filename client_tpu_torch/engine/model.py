@@ -36,6 +36,7 @@ stateful backend (sequence batching) defines ``initial_state()`` and
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import threading
 from dataclasses import dataclass
 
@@ -45,6 +46,7 @@ from torch import nn
 
 from client_tpu_torch import faults
 from client_tpu_torch.engine.backend_init import resolve_device
+from client_tpu_torch.engine.checkpoint import load_params
 from client_tpu_torch.engine.config import ModelConfig
 from client_tpu_torch.engine.shm import wait_for_writer
 from client_tpu_torch.engine.types import EngineError, now_ns
@@ -123,6 +125,22 @@ def worker_stream(device: torch.device) -> torch.cuda.Stream:
     return stream
 
 
+_RESTORE_FROM: contextvars.ContextVar[str | None] = contextvars.ContextVar(
+    "restore_from", default=None)
+
+
+@contextlib.contextmanager
+def restoring(weights_path: str | None):
+    """Backends constructed inside take their weights from the JAX
+    package's checkpoint at ``weights_path`` (``engine/checkpoint.py``)
+    instead of their seeded init; ``None`` changes nothing."""
+    token = _RESTORE_FROM.set(weights_path)
+    try:
+        yield
+    finally:
+        _RESTORE_FROM.reset(token)
+
+
 class ModelBackend(nn.Module):
     """A servable model: a ``config`` attribute and a ``forward(inputs)``
     from a dict of batched tensors on the model's device to a dict of
@@ -133,10 +151,42 @@ class ModelBackend(nn.Module):
     ``forward`` maps numpy arrays to numpy arrays, BYTES included, on the
     host whatever the model's device, and its batch is neither padded to
     a bucket nor staged to the card. An ensemble's backend carries only
-    its config and is never executed."""
+    its config and is never executed.
+
+    A backend with weights keeps them convertible to the JAX package's
+    params pytree and back (``params_to_jax`` / ``load_jax_params``), so
+    both packages share checkpoints. ``weights_path`` is the checkpoint
+    of a backend constructed inside :func:`restoring`."""
 
     config: ModelConfig
     host_side = False
+    weights_path: str | None = None
+
+    def __init__(self):
+        super().__init__()
+        self.weights_path = _RESTORE_FROM.get()
+
+    def restore(self, like):
+        """The checkpoint at ``weights_path`` as a tree of CPU tensors
+        shaped like ``like``, whose leaves may be ``meta`` tensors; a
+        checkpoint that is missing or does not match fails with the JAX
+        package's words (400)."""
+        return load_params(self.weights_path, like)
+
+    def load_or_init_params(self, init_fn) -> None:
+        """Give a module built on the ``meta`` device its storage on the
+        CPU and its weights: ``init_fn()`` fills the seeded init, or, with
+        ``weights_path`` set, the checkpoint is checked against
+        ``params_to_jax()`` of the module as built (shapes and dtypes,
+        before any storage exists) and loaded, and the seeded fill never
+        runs. Counterpart of the JAX package's ``load_or_init_params``."""
+        tree = self.restore(self.params_to_jax()) if self.weights_path \
+            else None
+        self.to_empty(device="cpu")
+        if tree is None:
+            init_fn()
+        else:
+            self.load_jax_params(tree)
 
 
 class Model:

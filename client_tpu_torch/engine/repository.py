@@ -15,8 +15,10 @@ backend comes from the port's zoo under the model's name (or
 ``parameters["zoo_builder"]``), and an ensemble needs none. A broken
 config or name is contained per model: it shows UNAVAILABLE in the index
 with its reason, and the rest of the directory loads. A model whose
-weights are named (``weights_path``, or a ``<model>/<v>/weights``
-directory) fails its load: the port does not read those checkpoints yet.
+weights are named (the ``weights_path`` parameter, or a
+``<model>/<v>/weights`` directory) restores them from the JAX package's
+checkpoint (``engine/checkpoint.py``) in place of the zoo's seeded init; a
+checkpoint that is missing or does not match fails that model alone.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from typing import Callable
 import torch
 
 from client_tpu_torch.engine.backend_init import resolve_device
-from client_tpu_torch.engine.model import Model, ModelBackend
+from client_tpu_torch.engine.model import Model, ModelBackend, restoring
 from client_tpu_torch.engine.types import EngineError
 
 Builder = Callable[[torch.device], ModelBackend]
@@ -391,10 +393,10 @@ def _directory_builder(d: dict, version: int | None = None) -> Builder:
     the port's zoo supplies the executable, under the model's name or
     ``parameters["zoo_builder"]``. With ``version`` the model serves as
     that numbered version. Weights named for it (the ``weights_path``
-    parameter, resolved against the version directory first, or a
-    ``<model>/<v>/weights`` directory) fail the load before anything is
-    built: the port reads no orbax checkpoint yet, and the seeded init in
-    their place would be a different model."""
+    parameter, relative paths resolved against the version directory
+    first, then the model directory; or a ``<model>/<v>/weights``
+    directory) are restored from that checkpoint instead of the zoo's
+    seeded init, as the JAX package restores them."""
 
     def build(device: torch.device) -> ModelBackend:
         from client_tpu_torch.engine.config import ModelConfig
@@ -420,11 +422,6 @@ def _directory_builder(d: dict, version: int | None = None) -> Builder:
                       else os.path.join(mdir, wp))
         elif vdir and os.path.isdir(os.path.join(vdir, "weights")):
             wp = os.path.join(vdir, "weights")
-        if wp:
-            raise EngineError(
-                f"model '{cfg.name}': weights_path '{wp}' names an orbax "
-                "checkpoint, and orbax checkpoints are not read by the port "
-                "yet", 400)
 
         import client_tpu_torch.models as zoo
 
@@ -437,7 +434,8 @@ def _directory_builder(d: dict, version: int | None = None) -> Builder:
                 f"'{cfg.platform}'): register one with "
                 f"client_tpu_torch.models.register_model('{builder_name}') "
                 "or set parameters.zoo_builder in its config", 400)
-        backend = builder(device)
+        with restoring(wp or None):
+            backend = builder(device)
         # The file's config is authoritative; a bucket ladder is not
         # expressible in pbtxt, so the zoo's carries over when the batch
         # limit agrees.

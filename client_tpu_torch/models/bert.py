@@ -16,19 +16,21 @@ Counterpart of ``client_tpu/models/bert.py``, with the same numerics:
 Inputs ``input_ids`` INT32[S] and ``attention_mask`` INT32[S]; outputs
 ``pooled_output`` FP32[hidden] and ``logits`` FP32[num_labels]. Weights are
 random from a fixed seed unless the JAX package's are carried across with
-:meth:`BertBackend.load_jax_params`.
+:meth:`BertBackend.load_jax_params`, or restored from its checkpoint
+(``engine.model.restoring``); :meth:`BertBackend.params_to_jax` gives
+them back as its pytree.
 """
 
 from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from client_tpu_torch.engine.backend_init import resolve_device
+from client_tpu_torch.engine.checkpoint import leaf_tensor
 from client_tpu_torch.engine.config import (
     DynamicBatchingConfig,
     ModelConfig,
@@ -117,8 +119,8 @@ class BertBackend(ModelBackend):
                                         for _ in range(n_layers))
             self.pooler = nn.Linear(hidden, hidden, dtype=bf16)
             self.classifier = nn.Linear(hidden, num_labels, dtype=bf16)
-        self.to_empty(device="cpu")
-        self._init_params(torch.Generator().manual_seed(_SEED))
+        self.load_or_init_params(
+            lambda: self._init_params(torch.Generator().manual_seed(_SEED)))
         self.requires_grad_(False)
         self.to(device)
         if attention_impl == "flash" and device.type == "cuda":
@@ -172,16 +174,37 @@ class BertBackend(ModelBackend):
 
     def load_jax_params(self, tree) -> None:
         """Take the JAX ``BertBackend``'s params (``make_apply_params()[1]``,
-        leaves as numpy arrays) as this module's weights."""
+        leaves as numpy arrays or tensors) as this module's weights."""
         self.load_state_dict(params_from_jax(tree))
+
+    def params_to_jax(self) -> dict:
+        """This module's weights as the JAX ``BertBackend``'s params
+        pytree, in its dtypes and shapes (the inverse of
+        :func:`params_from_jax`)."""
+        def dense(lin: nn.Linear) -> dict:
+            return {"w": lin.weight.detach().T, "b": lin.bias.detach()}
+
+        def ln(norm: nn.LayerNorm) -> dict:
+            return {"scale": norm.weight.detach(), "bias": norm.bias.detach()}
+
+        return {
+            "tok_embed": self.tok_embed.detach(),
+            "pos_embed": self.pos_embed.detach(),
+            "embed_ln": ln(self.embed_ln),
+            "layers": [{"wqkv": dense(lp.wqkv), "wo": dense(lp.wo),
+                        "ln1": ln(lp.ln1), "w1": dense(lp.w1),
+                        "w2": dense(lp.w2), "ln2": ln(lp.ln2)}
+                       for lp in self.layers],
+            "pooler": dense(self.pooler),
+            "classifier": dense(self.classifier),
+        }
 
 
 def params_from_jax(tree) -> dict[str, torch.Tensor]:
     """The JAX BERT params pytree as this module's ``state_dict``. JAX dense
     layers compute ``x @ w`` with ``w: [in, out]``; ``nn.Linear`` keeps
     ``[out, in]``, so weights are transposed. LN ``scale`` is ``weight``."""
-    def t(x) -> torch.Tensor:
-        return torch.from_numpy(np.asarray(x, dtype=np.float32).copy())
+    t = leaf_tensor
 
     out = {"tok_embed": t(tree["tok_embed"]), "pos_embed": t(tree["pos_embed"])}
 

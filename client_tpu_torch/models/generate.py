@@ -27,7 +27,9 @@ of ``n`` shards, one junk row per shard (``parallel/kv_shard.py``).
 
 Weights are random from ``np.random.default_rng(seed)`` in the JAX
 backend's draw order, so they equal the JAX package's bit for bit;
-:func:`params_from_jax` carries any JAX params pytree across. The arena is
+:func:`params_from_jax` carries any JAX params pytree across, a
+checkpoint restores one (``engine.model.restoring``), and
+:meth:`TinyGptBackend.params_to_jax` gives the pytree back. The arena is
 updated in place (the JAX version donates it into every call).
 """
 
@@ -42,6 +44,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from client_tpu_torch.engine.backend_init import resolve_device
+from client_tpu_torch.engine.checkpoint import leaf_tensor
 from client_tpu_torch.engine.config import ModelConfig, TensorConfig
 from client_tpu_torch.engine.model import ModelBackend
 from client_tpu_torch.models import register_model
@@ -167,8 +170,8 @@ class TinyGptBackend(ModelBackend):
                                         for _ in range(n_layers))
             self.lnf = nn.LayerNorm(d_model, eps=1e-5)
             self.head = nn.Linear(d_model, vocab, bias=False)
-        self.to_empty(device="cpu")
-        self.load_jax_params(self._init_params())
+        self.load_or_init_params(
+            lambda: self.load_jax_params(self._init_params()))
         self.requires_grad_(False)
         self.to(device)
         if device.type == "cuda":  # build now, not inside the first request
@@ -211,9 +214,24 @@ class TinyGptBackend(ModelBackend):
         }
 
     def load_jax_params(self, tree) -> None:
-        """Take the JAX ``TinyGptBackend``'s params pytree (numpy leaves)
-        as this module's weights."""
+        """Take the JAX ``TinyGptBackend``'s params pytree (numpy or
+        tensor leaves) as this module's weights."""
         self.load_state_dict(params_from_jax(tree))
+
+    def params_to_jax(self) -> dict:
+        """This module's weights as the JAX ``TinyGptBackend``'s params
+        pytree (the inverse of :func:`params_from_jax`)."""
+        layers = []
+        for lp in self.layers:
+            layer = {"ln1g": lp.ln1.weight, "ln1b": lp.ln1.bias,
+                     "ln2g": lp.ln2.weight, "ln2b": lp.ln2.bias}
+            for key in ("wq", "wk", "wv", "wo", "w1", "w2"):
+                layer[key] = getattr(lp, key).weight.T
+            layers.append({k: v.detach() for k, v in layer.items()})
+        return {"embed": self.embed.detach(), "pos": self.pos.detach(),
+                "layers": layers, "lnfg": self.lnf.weight.detach(),
+                "lnfb": self.lnf.bias.detach(),
+                "head": self.head.weight.detach().T}
 
     # -- shared blocks ----------------------------------------------------------
 
@@ -399,9 +417,7 @@ def params_from_jax(tree) -> dict[str, torch.Tensor]:
     """The JAX ``TinyGptBackend`` params pytree as this module's
     ``state_dict``. JAX computes ``x @ w`` with ``w: [in, out]``;
     ``nn.Linear`` keeps ``[out, in]``, so dense weights are transposed."""
-    def t(x) -> torch.Tensor:
-        return torch.from_numpy(np.asarray(x, dtype=np.float32).copy())
-
+    t = leaf_tensor
     out = {"embed": t(tree["embed"]), "pos": t(tree["pos"]),
            "lnf.weight": t(tree["lnfg"]), "lnf.bias": t(tree["lnfb"]),
            "head.weight": t(tree["head"]).T.contiguous()}

@@ -33,7 +33,7 @@ from client_tpu_torch.engine.config import (
     TensorConfig,
 )
 from client_tpu_torch.models import register_model
-from client_tpu_torch.models.vision import _Init, _TreeBackend, bn, conv
+from client_tpu_torch.models.vision import _TreeBackend, bn, conv
 
 NUM_CLASSES = 91          # COCO label map (91 ids incl. background gaps)
 MAX_DETECTIONS = 10
@@ -175,7 +175,7 @@ class SsdMobileNetV2Backend(_TreeBackend):
         )
         self._statics = [(stride, residual) for _cin, _cout, _exp, stride,
                          residual in _mbv2_blocks()]
-        init = _Init(300)
+        init = self._init(300)
         tree = {"stem": {"w": init.conv(3, 3, 3, 32), "bn": init.bn(32)},
                 "blocks": [], "heads": [], "extras": []}
         for cin, cout, expansion, _stride, _residual in _mbv2_blocks():

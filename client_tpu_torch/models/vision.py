@@ -18,20 +18,22 @@ Parameters are kept in the JAX package's pytree layout (``stem.w``,
 ``stages.0.0.bn1.scale``, ``fc.w``, ...), so :func:`params_from_jax` only
 turns HWIO kernels into OIHW. Weights are random from the port's own
 seeds unless the JAX package's are carried across with
-``load_jax_params``. The compute dtype follows the weights: ``.float()``
-gives an fp32 route with the same bf16 input quantization.
+``load_jax_params`` or restored from its checkpoint
+(``engine.model.restoring``); ``params_to_jax`` gives them back. The
+compute dtype follows the weights: ``.float()`` gives an fp32 route with
+the same bf16 input quantization.
 """
 
 from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from client_tpu_torch.engine.backend_init import resolve_device
+from client_tpu_torch.engine.checkpoint import leaf_tensor
 from client_tpu_torch.engine.config import (
     DynamicBatchingConfig,
     ModelConfig,
@@ -98,23 +100,29 @@ def dense_fp32(x: torch.Tensor, fc: nn.Module) -> torch.Tensor:
 
 class _Init:
     """Random weights with the JAX package's distributions, drawn from a
-    seeded ``torch.Generator``, in the JAX layout (HWIO kernels)."""
+    seeded ``torch.Generator``, in the JAX layout (HWIO kernels). With
+    ``meta`` the leaves are ``meta`` tensors of the same shapes and dtypes
+    and nothing is drawn: the tree a checkpoint is checked against."""
 
-    def __init__(self, seed: int):
+    def __init__(self, seed: int, meta: bool = False):
         self.gen = torch.Generator().manual_seed(seed)
+        self.meta = meta
+
+    def _normal(self, *shape: int) -> torch.Tensor:
+        if self.meta:
+            return torch.empty(shape, device="meta")
+        return torch.randn(*shape, generator=self.gen)
 
     def conv(self, kh: int, kw: int, cin: int, cout: int) -> torch.Tensor:
         std = math.sqrt(2.0 / (kh * kw * cin))
-        return (torch.randn(kh, kw, cin, cout, generator=self.gen)
-                * std).to(torch.bfloat16)
+        return (self._normal(kh, kw, cin, cout) * std).to(torch.bfloat16)
 
     def dense(self, cin: int, cout: int) -> torch.Tensor:
         std = math.sqrt(1.0 / cin)
-        return (torch.randn(cin, cout, generator=self.gen)
-                * std).to(torch.bfloat16)
+        return (self._normal(cin, cout) * std).to(torch.bfloat16)
 
     def bn(self, c: int) -> dict:
-        scale = 1.0 + 0.1 * torch.randn(c, generator=self.gen)
+        scale = 1.0 + 0.1 * self._normal(c)
         return {"scale": scale.to(torch.bfloat16),
                 "bias": torch.zeros(c, dtype=torch.bfloat16)}
 
@@ -122,11 +130,16 @@ class _Init:
 def _to_torch_layout(leaf) -> torch.Tensor:
     """One JAX leaf (numpy, bf16 included, or a tensor) as a torch
     tensor; a 4-D HWIO kernel becomes OIHW in ``channels_last`` memory."""
-    t = (leaf if isinstance(leaf, torch.Tensor)
-         else torch.from_numpy(np.array(leaf, dtype=np.float32)))
+    t = leaf_tensor(leaf)
     if t.ndim == 4:
         t = t.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
     return t
+
+
+def _to_jax_layout(t: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`_to_torch_layout`: OIHW back to HWIO."""
+    t = t.detach()
+    return t.permute(2, 3, 1, 0) if t.ndim == 4 else t
 
 
 def params_from_jax(tree) -> dict[str, torch.Tensor]:
@@ -168,12 +181,35 @@ def _tree_module(node) -> nn.Module:
     return mod
 
 
+def _module_tree(mod: nn.Module):
+    """The pytree of a module built by :func:`_add_tree`, leaves in the
+    JAX layout."""
+    if isinstance(mod, nn.ModuleList):
+        return [_module_tree(m) for m in mod]
+    tree = {k: _to_jax_layout(p) for k, p in mod._parameters.items()}
+    tree.update((k, _module_tree(m)) for k, m in mod._modules.items())
+    return tree
+
+
 class _TreeBackend(ModelBackend):
     """A backend whose parameters mirror the JAX package's pytree."""
 
+    def _init(self, seed: int) -> _Init:
+        """The seeded init, drawing nothing when weights are restored."""
+        return _Init(seed, meta=bool(self.weights_path))
+
     def _finish_init(self, tree: dict, device) -> None:
+        """Attach ``tree`` (from :meth:`_init`) as the parameters, or the
+        checkpoint's, checked against its shapes and dtypes first."""
+        if self.weights_path:
+            tree = self.restore(tree)
         _add_tree(self, tree)
         self.to(resolve_device(device))
+
+    def params_to_jax(self) -> dict:
+        """This module's weights as the JAX backend's params pytree (the
+        inverse of :func:`params_from_jax`)."""
+        return _module_tree(self)
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -223,7 +259,7 @@ class ResNet50Backend(_TreeBackend):
         super().__init__()
         self.config = _classifier_config(name, num_classes, image_size,
                                          max_batch_size, instance_count=2)
-        init = _Init(50)
+        init = self._init(50)
         tree = {"stem": {"w": init.conv(7, 7, 3, 64), "bn": init.bn(64)},
                 "stages": []}
         cin = 64
@@ -283,7 +319,7 @@ class DenseNet121Backend(_TreeBackend):
         self.config = _classifier_config(name, num_classes, image_size,
                                          max_batch_size, instance_count=1)
         g = growth
-        init = _Init(121)
+        init = self._init(121)
         tree = {"stem": {"w": init.conv(7, 7, 3, 2 * g), "bn": init.bn(2 * g)},
                 "blocks": [], "transitions": []}
         c = 2 * g

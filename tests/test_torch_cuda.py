@@ -1126,3 +1126,63 @@ def test_metrics_render_on_the_card_with_its_memory_in_use(card):
         == 1
     assert values['tpu_xla_compilations_total{model="b",version="1",'
                   'bucket="1"}'] == 1
+
+
+# -- checkpoints --------------------------------------------------------------
+
+def test_jax_written_fixture_restores_and_serves_on_the_card(card):
+    """The checkpoint JAX's save_params wrote (orbax's zstd frames),
+    restored with no JAX: every leaf's SHA-256 on the card is the one JAX
+    recorded, and the engine's greedy streams through K1 fp32 and K2 are
+    JAX's token for token."""
+    import hashlib
+    import json
+    import pathlib
+    import threading
+
+    from client_tpu_torch.engine.checkpoint import flatten
+    from client_tpu_torch.engine.model import restoring
+
+    here = pathlib.Path(__file__).resolve().parent / "torch_data"
+    expect = json.loads((here / "jax_gpt_ckpt" / "expect.json").read_text())
+    name = expect["name"]
+    repo = ModelRepository()
+
+    def build(device):
+        with restoring(str(here / "jax_gpt_ckpt" / "ckpt")):
+            return TinyGptBackend(name=name, device=device,
+                                  **expect["model"])
+
+    repo.register(name, build)
+    engine = TorchEngine(repo)
+    try:
+        backend = engine.repository.get(name).backend
+        assert backend.embed.device.type == "cuda"
+        for path, _, leaf in flatten(backend.params_to_jax()):
+            digest = hashlib.sha256(
+                leaf.detach().contiguous().cpu().numpy().tobytes())
+            assert digest.hexdigest() == expect["leaves"][
+                ".".join(path)]["sha256"], path
+        k1, k2 = fa.launches_fp32, da.launches
+        streams = []
+        for prompt in expect["prompts"]:
+            toks, done = [], threading.Event()
+
+            def on_response(resp, toks=toks, done=done):
+                if resp.error is not None or resp.final:
+                    toks.append(resp.error)
+                    done.set()
+                else:
+                    toks.append(int(resp.outputs["TOKEN"][0]))
+
+            engine.async_infer(InferRequest(
+                model_name=name,
+                inputs={"INPUT_IDS": np.asarray(prompt, np.int32)},
+                parameters={"max_tokens": expect["max_tokens"]}), on_response)
+            assert done.wait(300)
+            assert toks.pop() is None, toks  # the stream's error, if any
+            streams.append(toks)
+        assert streams == expect["greedy_tokens"]
+        assert fa.launches_fp32 > k1 and da.launches > k2
+    finally:
+        engine.shutdown()

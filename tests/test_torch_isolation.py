@@ -16,7 +16,10 @@ import torch
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted(str(p.relative_to(REPO))
                     for p in (REPO / "client_tpu_torch").rglob("*.py"))
-FORBIDDEN = ("jax", "jaxlib", "client_tpu")
+# A GPU host need not have JAX, zstandard, orbax or tensorstore: the port
+# reads and writes the JAX package's checkpoints without them.
+FORBIDDEN = ("jax", "jaxlib", "client_tpu", "zstandard", "orbax",
+             "tensorstore")
 
 
 def _imported_modules(path: pathlib.Path) -> list[str]:
@@ -86,8 +89,9 @@ def test_importing_the_server_loads_no_jax():
         "import client_tpu_torch.observability.metrics\n"
         "import client_tpu_torch.observability.profiler\n"
         "import client_tpu_torch.observability.roofline\n"
+        "import client_tpu_torch.engine.checkpoint\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'client_tpu'))\n"
+        f"             if m.split('.')[0] in {FORBIDDEN})\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -116,13 +120,39 @@ def test_a_directory_repository_loads_no_jax():
         "except SystemExit as exc:\n"
         "    assert exc.code == 2, exc.code\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'client_tpu'))\n"
+        f"             if m.split('.')[0] in {FORBIDDEN})\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "model repository 'no_such_dir' is not a directory" in proc.stderr
+
+
+def test_the_jax_written_fixture_restores_without_them():
+    """With JAX, zstandard, orbax, tensorstore and ml_dtypes unimportable,
+    the port restores the JAX-written checkpoint and every leaf's SHA-256
+    is the one JAX recorded."""
+    code = (
+        "import sys\n"
+        f"for name in {FORBIDDEN + ('ml_dtypes',)}:\n"
+        "    sys.modules[name] = None\n"
+        "import hashlib, json\n"
+        "from client_tpu_torch.engine.model import restoring\n"
+        "from client_tpu_torch.engine.checkpoint import flatten\n"
+        "from client_tpu_torch.models.generate import TinyGptBackend\n"
+        "d = 'tests/torch_data/jax_gpt_ckpt'\n"
+        "expect = json.load(open(d + '/expect.json'))\n"
+        "with restoring(d + '/ckpt'):\n"
+        "    m = TinyGptBackend(device='cpu', **expect['model'])\n"
+        "for path, _, leaf in flatten(m.params_to_jax()):\n"
+        "    want = expect['leaves']['.'.join(path)]['sha256']\n"
+        "    got = hashlib.sha256(leaf.contiguous().numpy().tobytes())\n"
+        "    assert got.hexdigest() == want, path\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
 
 
 CLIENT_MODULES = [

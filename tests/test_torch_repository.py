@@ -14,12 +14,13 @@ whole. The one word that differs on purpose: the port names its own
 registry, ``client_tpu_torch.models.register_model``, in a missing
 backend's reason.
 
-The JAX ``test_two_versions_serve_distinct_weights`` restores each
-version's weights from an orbax checkpoint. The port does not read those
-yet, so its counterpart here is the refusal: a version with a
-``weights`` directory, or a ``weights_path`` parameter, fails that
-model's load with a 400 that says so, and the rest of the repository
-loads.
+Weights named by a directory: as in the JAX
+``test_two_versions_serve_distinct_weights``, each version restores its
+own ``<v>/weights`` checkpoint (written by JAX's ``save_params``) on both
+engines; a ``weights_path`` parameter resolves against the version
+directory first, then the model directory, on both; a checkpoint that is
+missing, broken or of another model fails that model alone, with the
+JAX package's words and status.
 
 Also here: the repository index of a model whose build raises and of an
 unloaded one (version, state and reason, as the reference gives them),
@@ -467,7 +468,8 @@ def vbert():
 
     def port_builder(device):
         backend = TorchBert(name=VNAME, device=device, **TINY)
-        backend.load_jax_params(params)
+        if backend.weights_path is None:  # no checkpoint named: JAX's init
+            backend.load_jax_params(params)
         return backend
 
     jax_zoo._import_all()
@@ -481,22 +483,24 @@ def vbert():
         zoo._NON_DEFAULT.discard(VNAME)
 
 
-def _versioned(root, policy, versions=(1, 2), weights=False):
+def _vbert_config(name=VNAME) -> dict:
+    return {"name": name, "platform": "jax", "max_batch_size": 4,
+            "input": [{"name": "input_ids", "data_type": "TYPE_INT32",
+                       "dims": [16]},
+                      {"name": "attention_mask", "data_type": "TYPE_INT32",
+                       "dims": [16]}],
+            "output": [{"name": "logits", "data_type": "TYPE_FP32",
+                        "dims": [2]}]}
+
+
+def _versioned(root, policy, versions=(1, 2)):
     mdir = root / VNAME
-    cfg = {"name": VNAME, "platform": "jax", "max_batch_size": 4,
-           "input": [{"name": "input_ids", "data_type": "TYPE_INT32",
-                      "dims": [16]},
-                     {"name": "attention_mask", "data_type": "TYPE_INT32",
-                      "dims": [16]}],
-           "output": [{"name": "logits", "data_type": "TYPE_FP32",
-                       "dims": [2]}]}
+    cfg = _vbert_config()
     if policy is not None:
         cfg["version_policy"] = policy
     _write_json(mdir, cfg)
     for v in versions:
         (mdir / str(v)).mkdir()
-        if weights:
-            (mdir / str(v) / "weights").mkdir()
     return mdir
 
 
@@ -571,50 +575,117 @@ def test_specific_policy_without_its_directory(tmp_path, sides_of, vbert):
     assert row["state"] == "UNAVAILABLE" and "[3]" in row["reason"]
 
 
-def test_weights_directory_is_refused(tmp_path, vbert):
-    """The port's counterpart of ``test_two_versions_serve_distinct_weights``
-    (see the module docstring): ``<v>/weights`` fails the load with a 400
-    that names the path; the model shows UNAVAILABLE with that reason."""
-    mdir = _versioned(tmp_path, {"all": {}}, weights=True)
-    _write_json(tmp_path / "simple", {"name": "simple", "platform": "jax",
-                                      "max_batch_size": 8, **SIMPLE_IO})
-    engine = TorchEngine(ModelRepository.from_directory(str(tmp_path)),
-                         device="cpu")
-    try:
-        rows = {e["name"]: e for e in engine.repository_index()}
-        row = rows[VNAME]
-        assert row["state"] == "UNAVAILABLE" and row["version"] == "2"
-        assert str(mdir / "1" / "weights") in row["reason"]
-        assert "orbax checkpoints are not read by the port yet" \
-            in row["reason"]
-        assert rows["simple"]["state"] == "READY"
-        with pytest.raises(EngineError) as exc:
-            engine.load_model(VNAME)
-        assert exc.value.status == 400
-    finally:
-        engine.shutdown()
+def _save_bert(path, scale):
+    """A checkpoint of ``VNAME``'s JAX init with the pooler scaled, written
+    by JAX's ``save_params``."""
+    from client_tpu.engine.checkpoint import save_params
+    from client_tpu.models.bert import BertBackend as JaxBert
+
+    params = jax.tree_util.tree_map(
+        np.copy, JaxBert(name=VNAME, **TINY)._init_params())
+    params["pooler"]["w"] = np.asarray(params["pooler"]["w"]) * scale
+    save_params(str(path), params)
 
 
-def test_weights_path_parameter_is_refused(tmp_path, vbert, monkeypatch):
-    """The refusal comes before the zoo's backend is built: a full-size
-    model is not initialised only to be turned away."""
-    import client_tpu_torch.models as torch_zoo
+def test_two_versions_serve_distinct_weights(tmp_path, sides_of, vbert):
+    """Counterpart of the JAX test of this name: each version restores its
+    own ``<v>/weights``, on both engines, with the same answers."""
+    mdir = _versioned(tmp_path, {"all": {}})
+    # Scales below 1: the logits stay at the unscaled model's size, where
+    # the packages' bf16 roundings differ by less than BERT_ATOL.
+    for v, scale in ((1, 0.5), (2, 0.25)):
+        _save_bert(mdir / str(v) / "weights", scale)
+    sides = sides_of(tmp_path)
+    port, ref = sides.view([VNAME])
+    assert port == ref
+    assert port[f"{VNAME}/metadata"][1]["versions"] == ["1", "2"]
+    v1 = _bert_answers(sides, 1)[1]["logits"]
+    v2 = _bert_answers(sides, 2)[1]["logits"]
+    latest = _bert_answers(sides)[1]["logits"]
+    assert not np.allclose(v1, v2)
+    assert latest.tobytes() == v2.tobytes()
+    for engine in (sides.port, sides.jax):
+        assert [s["inference_count"] for s in engine.model_statistics(
+            VNAME)["model_stats"]] == [1, 2]
+    assert _bert_answers(sides, 9)[:2] == ("error", 404)
 
-    built = []
-    monkeypatch.setitem(torch_zoo._REGISTRY, VNAME,
-                        lambda device: built.append(device))
-    mdir = _versioned(tmp_path, None, versions=())
+
+def test_weights_path_resolves_version_directory_first(tmp_path, sides_of,
+                                                      vbert):
+    """``weights_path: "ckpt"`` names ``<v>/ckpt`` where version ``v`` has
+    one and ``<model>/ckpt`` where it does not, on both engines."""
+    mdir = _versioned(tmp_path, {"all": {}})
     cfg = json.loads((mdir / "config.json").read_text())
     cfg["parameters"] = {"weights_path": "ckpt"}
     (mdir / "config.json").write_text(json.dumps(cfg))
-    repo = ModelRepository.from_directory(str(tmp_path))
-    with pytest.raises(EngineError) as exc:
-        repo.load(VNAME, "cpu")
-    assert exc.value.status == 400 and built == []
-    assert str(mdir / "ckpt") in str(exc.value)
-    assert repo.index() == [{"name": VNAME, "version": "1",
-                             "state": "UNAVAILABLE",
-                             "reason": str(exc.value)}]
+    _save_bert(mdir / "ckpt", 0.25)
+    _save_bert(mdir / "2" / "ckpt", 0.75)
+    sides = sides_of(tmp_path)
+    port, ref = sides.view([VNAME])
+    assert port == ref
+    v1 = _bert_answers(sides, 1)[1]["logits"]
+    v2 = _bert_answers(sides, 2)[1]["logits"]
+    assert not np.allclose(v1, v2)
+    # v1 is the model directory's checkpoint: the same weights as a
+    # version that names it by its absolute path.
+    other = tmp_path / "other"
+    other.mkdir()
+    odir = _versioned(other, None, versions=(1,))
+    ocfg = json.loads((odir / "config.json").read_text())
+    ocfg["parameters"] = {"weights_path": str(mdir / "ckpt")}
+    (odir / "config.json").write_text(json.dumps(ocfg))
+    again = sides_of(other)
+    assert _bert_answers(again)[1]["logits"].tobytes() == v1.tobytes()
+
+
+def test_a_broken_checkpoint_fails_only_its_model(tmp_path, sides_of, vbert):
+    """A checkpoint that is truncated, one of another architecture and one
+    that is missing each fail their own model with the JAX package's
+    status and words; a model with a good checkpoint and ``simple``
+    beside them load."""
+    from client_tpu.engine.checkpoint import save_params
+    from client_tpu.models.bert import BertBackend as JaxBert
+
+    weights = {}
+    for name in ("good", "truncated", "other", "gone"):
+        _write_json(tmp_path / name, {
+            **_vbert_config(name), "parameters": {
+                "zoo_builder": VNAME,
+                **({"weights_path": "nowhere"} if name == "gone" else {})}})
+        (tmp_path / name / "1").mkdir()
+        weights[name] = tmp_path / name / "1" / "weights"
+    _save_bert(weights["good"], 0.5)
+    _save_bert(weights["truncated"], 0.5)
+    manifest = weights["truncated"] / "manifest.ocdbt"
+    manifest.write_bytes(manifest.read_bytes()[:40])
+    save_params(str(weights["other"]), JaxBert(
+        name=VNAME, **{**TINY, "n_layers": 3})._init_params())
+    _write_json(tmp_path / "simple", {"name": "simple", "platform": "jax",
+                                      "max_batch_size": 8, **SIMPLE_IO})
+    sides = sides_of(tmp_path)
+    port, ref = sides.view(["simple"])
+    rows = {e["name"]: e for e in port["index"]}
+    ref_rows = {e["name"]: e for e in ref["index"]}
+    assert rows.keys() == ref_rows.keys()
+    for name in ("good", "simple"):
+        assert rows[name]["state"] == ref_rows[name]["state"] == "READY"
+    nowhere = tmp_path / "gone" / "nowhere"
+    assert rows["gone"] == ref_rows["gone"] == {
+        "name": "gone", "version": "1", "state": "UNAVAILABLE",
+        "reason": f"weights checkpoint '{nowhere}' not found"}
+    for name in ("truncated", "other"):
+        prefix = (f"weights checkpoint '{weights[name]}' does not match "
+                  "the model's parameter tree: ")
+        for row in (rows[name], ref_rows[name]):
+            assert row["state"] == "UNAVAILABLE"
+            assert row["reason"].startswith(prefix)
+    got, want = sides.infer("good", _bert_inputs())
+    np.testing.assert_allclose(got[1]["logits"], want[1]["logits"],
+                               atol=BERT_ATOL)
+    for engine in (sides.port, sides.jax):
+        with pytest.raises(Exception) as exc:
+            engine.load_model("gone")
+        assert exc.value.status == 400
 
 
 class TestReloadRepolls:
