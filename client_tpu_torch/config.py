@@ -10,6 +10,12 @@ from __future__ import annotations
 import os
 
 _DEFAULTS = {
+    # Admission-controller limits (inline JSON or `@/path.json`); unset
+    # admits everything (in-flight accounting only).
+    "CLIENT_TPU_ADMISSION": "",
+    # Per-tenant cost ledger (GET /v2/costs): `0`/`off` disables; unset/
+    # `1`/`on` defaults; else inline JSON or `@/path.json`.
+    "CLIENT_TPU_COSTS": "",
     # Capacity of the operational event-journal ring (GET /v2/events).
     "CLIENT_TPU_EVENT_BUFFER": "1024",
     # Deterministic fault-injection plan (inline JSON or `@/path.json`);
@@ -25,6 +31,9 @@ _DEFAULTS = {
     "CLIENT_TPU_LOG": "",
     # Level of the `client_tpu_torch` logger's default stderr handler.
     "CLIENT_TPU_LOGLEVEL": "INFO",
+    # HBM census memory-pressure events: `0`/`off` silences them; unset/
+    # `1`/`on` defaults; else inline JSON or `@/path.json`.
+    "CLIENT_TPU_MEMORY": "",
     # Efficiency-profiler sliding-window length in seconds.
     "CLIENT_TPU_PROFILE_WINDOW_S": "60",
     # Roofline attribution (FLOP and byte capture, MFU/MBU peaks): `0`/
@@ -35,6 +44,9 @@ _DEFAULTS = {
     # Oldest-sequence batcher dispatch-ahead depth, in waves, before the
     # worker blocks on the oldest wave's outputs.
     "CLIENT_TPU_SEQ_PIPELINE": "2",
+    # SLO objectives (inline JSON or `@/path.json`); unset disables
+    # tracking.
+    "CLIENT_TPU_SLO": "",
     # Per-stream pending-response backlog (HTTP generate_stream, gRPC
     # stream RPC) before the slow-consumer shed; SSE backpressure starts
     # at half of it, the gRPC stream's at the mark itself.
@@ -43,6 +55,9 @@ _DEFAULTS = {
     # writer backlog, so the coalescing and shed paths can be exercised
     # deterministically.
     "CLIENT_TPU_STREAM_WRITER_DELAY_MS": "0",
+    # Flight recorder (1 Hz signal ring, GET /v2/timeseries): `0`/`off`
+    # disables; unset/`1`/`on` defaults; else inline JSON or `@/path.json`.
+    "CLIENT_TPU_TIMESERIES": "",
     # Request-trace span-store capacity (GET /v2/trace/requests).
     "CLIENT_TPU_TRACE_BUFFER": "512",
 }

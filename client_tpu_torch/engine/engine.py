@@ -19,19 +19,32 @@ The observability planes: each engine has its own metric registry
 (``metrics``: the legacy ``tpu_inference_*`` block and the histograms and
 gauges of :meth:`prometheus_metrics`), binds it to the process-global
 fault registry (``faults``), efficiency profiler (``profiler``,
-``GET /v2/profile``) and event journal (``events``, ``GET /v2/events``),
-keeps a ring of finished request traces (``request_traces``,
-``GET /v2/trace/requests``) and drives the device trace of
-``/v2/trace/setting`` (``trace``). The shm slot ring and staged
-datasets, the HBM census, and the admission, QoS, SLO and cost planes
-are not ported yet.
+``GET /v2/profile``), event journal (``events``, ``GET /v2/events``) and
+cost ledger (``costs``, ``GET /v2/costs``), keeps a ring of finished
+request traces (``request_traces``, ``GET /v2/trace/requests``), drives
+the device trace of ``/v2/trace/setting`` (``trace``), scores the SLO
+objectives (``slo``, ``GET /v2/slo``), reads the process-global HBM
+census (``hbm_census``, ``GET /v2/memory``) and feeds the 1 Hz flight
+recorder (``recorder``, ``GET /v2/timeseries``), whose thread stops at
+:meth:`TorchEngine.shutdown`.
+
+Overload protection: every request passes the admission controller
+(``admission``: rate and concurrency caps, queue-depth and estimated-wait
+shedding with ``Retry-After`` pushback, the shadow class) and its
+end-to-end deadline is checked on the way in; the controller counts the
+requests in flight exactly once each, which :meth:`begin_drain` and
+``admission/drain.py`` wait on. :meth:`health_state` reads DRAINING,
+then DEGRADED (a recent shed, or an SLO fast burn), then READY. The shm
+slot ring, staged datasets, QoS, the autotuner, self-drive and the
+blackbox are not ported yet.
 """
 
 from __future__ import annotations
 
 import logging
 import threading
-from typing import Callable
+import time
+from typing import TYPE_CHECKING, Callable
 
 import torch
 
@@ -44,20 +57,28 @@ from client_tpu_torch.engine.stats import ModelStats
 from client_tpu_torch.config import env_int
 from client_tpu_torch.engine.trace import TraceManager
 from client_tpu_torch.engine.types import (
+    DeadlineExpired,
     EngineError,
     InferRequest,
     InferResponse,
     now_ns,
 )
 from client_tpu_torch.observability import roofline
+from client_tpu_torch.observability.costs import ledger
 from client_tpu_torch.observability.events import journal
+from client_tpu_torch.observability.memory import hbm_census
 from client_tpu_torch.observability.metrics import EngineMetrics
 from client_tpu_torch.observability.profiler import profiler
+from client_tpu_torch.observability.slo import SloTracker
+from client_tpu_torch.observability.timeseries import recorder
 from client_tpu_torch.observability.tracing import (
     MAX_CHUNK_EVENTS,
     TraceStore,
     build_request_trace,
 )
+
+if TYPE_CHECKING:
+    from client_tpu_torch.admission import AdmissionController
 
 _log = logging.getLogger("client_tpu_torch")
 
@@ -71,13 +92,16 @@ SERVER_EXTENSIONS = ["model_configuration", "binary_tensor_data",
 
 class TorchEngine:
     def __init__(self, repository: ModelRepository | None = None, *,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 admission: AdmissionController | None = None):
         """Loads every registered model on ``device`` and starts its
         schedulers; a model that fails to load stays in the repository
         index with its reason, and the rest load. ``device=None`` means
         cuda, and raises when CUDA is unavailable; pass ``device="cpu"``
         to serve on the CPU. The engine's metrics go into a registry of
-        its own."""
+        its own. ``admission`` defaults to a controller configured from
+        ``CLIENT_TPU_ADMISSION`` (unset: everything admitted, requests in
+        flight counted)."""
         self.device = resolve_device(device)
         # A malformed CLIENT_TPU_ROOFLINE fails the boot here; the capture
         # and the snapshot read it again and degrade instead.
@@ -90,6 +114,28 @@ class TorchEngine:
         self.profiler = profiler()
         self.profiler.bind_metrics(self.metrics.registry)
         self.events = journal()
+        # SLO objectives (CLIENT_TPU_SLO; off when unset), their gauges on
+        # this engine's registry.
+        self.slo = SloTracker.from_env(registry=self.metrics.registry)
+        # The process-global cost ledger: the schedulers charge it from
+        # below; this registry gets its tpu_cost_* counters.
+        self.costs = ledger()
+        self.costs.bind_metrics(self.metrics.registry)
+        self.hbm_census = hbm_census()
+        # Imported here: the admission package imports engine.types, whose
+        # package imports this module.
+        from client_tpu_torch.admission import AdmissionController
+
+        self.admission = admission or AdmissionController.from_env(
+            metrics=self.metrics)
+        if self.admission._metrics is None:
+            self.admission._metrics = self.metrics
+        self._draining = False
+        self._last_health: str | None = None
+        # The flight recorder's per-signal state (the fill EWMA, counter
+        # deltas), touched only from its thread.
+        self._ts_state: dict = {"fill": {}, "shed": {}, "tenant_cost": {},
+                                "mono": None}
         self.trace = TraceManager()
         self.request_traces = TraceStore(
             capacity=env_int("CLIENT_TPU_TRACE_BUFFER"))
@@ -107,11 +153,11 @@ class TorchEngine:
             [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
             if self.device.type == "cuda" else [self.device]))
         # The JAX engine's detail keys, with the port's values: it has no
-        # SLO tracker, autotuner, self-drive governor or blackbox.
+        # autotuner, self-drive governor or blackbox.
         self.events.emit("lifecycle", "server_start",
                          models=len(self.repository.names()),
-                         slo_enabled=False, autotune=False, selfdrive=False,
-                         blackbox=False)
+                         slo_enabled=self.slo.enabled, autotune=False,
+                         selfdrive=False, blackbox=False)
         for name in self.repository.names():
             try:
                 self.load_model(name)
@@ -119,6 +165,10 @@ class TorchEngine:
                 _log.error("model '%s' failed to load: %s", name, exc)
                 self.events.emit("lifecycle", "model_load_failed",
                                  severity="ERROR", model=name, error=str(exc))
+        # Held weakly: the recorder samples timeseries_sample() at 1 Hz
+        # until shutdown() detaches this engine.
+        self.recorder = recorder()
+        self.recorder.attach(self)
 
     # -- health / metadata ---------------------------------------------------
 
@@ -126,7 +176,43 @@ class TorchEngine:
         return self._live
 
     def is_ready(self) -> bool:
-        return self._live
+        # A draining server is still live (in-flight work finishes) but
+        # not ready (no new work should come here).
+        return self._live and not self._draining
+
+    def health_state(self) -> str:
+        """Readiness with nuance (``/v2/health/ready``'s body and the
+        ``X-Health-State`` header): DRAINING while refusing new work,
+        DEGRADED while the admission controller shed recently or a model
+        burns its SLO budget fast, else READY. Each change is journalled
+        (``lifecycle.health``)."""
+        fast_burn: list[str] = []
+        if self._draining or not self._live:
+            state = "DRAINING"
+        elif self.admission.degraded():
+            state = "DEGRADED"
+        else:
+            fast_burn = self.slo.fast_burn()
+            state = "DEGRADED" if fast_burn else "READY"
+        prev = self._last_health
+        if state != prev:
+            self._last_health = state
+            detail = {"state": state}
+            if prev is not None:
+                detail["previous"] = prev
+            if fast_burn:
+                detail["slo_fast_burn"] = fast_burn
+            self.events.emit(
+                "lifecycle", "health",
+                severity="INFO" if state == "READY" else "WARNING",
+                **detail)
+        return state
+
+    def begin_drain(self) -> None:
+        """Turn readiness off and refuse new requests with 503 and
+        ``Retry-After`` pushback; work in flight and queued goes on.
+        ``admission.drain.drain`` runs the whole sequence."""
+        self._draining = True
 
     def server_metadata(self) -> dict:
         return {"name": SERVER_NAME, "version": client_tpu_torch.__version__,
@@ -211,7 +297,8 @@ class TorchEngine:
                     stats = ModelStats(
                         name, str(v),
                         instruments=self.metrics.model_instruments(
-                            name, str(v)))
+                            name, str(v)),
+                        slo=self.slo, events=self.events)
                     self._stats[key] = stats
                 self._schedulers[key] = make_scheduler(model, stats,
                                                        engine=self)
@@ -263,6 +350,8 @@ class TorchEngine:
             self.events.emit("model", "unload", model=name, versions=sorted(
                 k.rsplit(":", 1)[1] for k in keys if ":" in k))
         self.repository.unload(name)
+        # Its census rows go now, not when the collector frees them.
+        self.hbm_census.untag(name)
         for dep in dependents:
             if dep != name and not self._referenced_by_loaded_ensemble(dep):
                 self.unload_model(dep, unload_dependents=True)
@@ -275,6 +364,13 @@ class TorchEngine:
         return any(step.model_name == name
                    for sched in scheds
                    for step in sched.model.config.ensemble_scheduling)
+
+    def schedulers(self) -> list[Scheduler]:
+        """The distinct live schedulers (a bare-name alias shares its
+        latest version's); the drain polls their queues."""
+        with self._lock:
+            return list({id(s): s for s in self._schedulers.values()}
+                        .values())
 
     def scheduler_for(self, name: str,
                       version: str | int = "") -> Scheduler | None:
@@ -314,7 +410,69 @@ class TorchEngine:
             return
         if req.trace is not None:
             self._attach_trace_recorder(req)
-        sched.submit(req)
+        # Overload protection: these raise, as a scheduler's refusal does,
+        # so that every frontend answers them on one path.
+        from client_tpu_torch.admission import AdmissionError
+
+        trace_id = req.trace.trace_id if req.trace is not None else None
+        # The tenant is resolved before any shed, so a shed is
+        # attributable: untagged requests fold to the shadow class's
+        # tenant or "default".
+        if not req.tenant:
+            req.tenant = "shadow" if self.admission.is_shadow(
+                req.model_name, req.priority) else "default"
+        else:
+            req.tenant = self.costs.canonical_tenant(req.tenant)
+        if self._draining or not self._live:
+            self.admission.record_rejection(
+                req.model_name, req.model_version, reason="draining",
+                trace_id=trace_id, tenant=req.tenant)
+            raise AdmissionError(
+                "server is draining; retry against another replica",
+                retry_after_s=1.0, reason="draining", status=503)
+        if req.deadline_expired():
+            # The client's budget lapsed in transit or in parsing.
+            sched.stats.record_deadline_expired("admission",
+                                                trace_id=trace_id)
+            raise DeadlineExpired(
+                "end-to-end deadline expired before admission")
+        self.admission.admit(
+            req.model_name, req.model_version,
+            queue_depth=sched.queue.qsize(), instances=len(sched.workers),
+            trace_id=trace_id, priority=req.priority, tenant=req.tenant)
+        self._submit_accounted(sched, req)
+
+    def _submit_accounted(self, sched: Scheduler, req: InferRequest) -> None:
+        """Submit with exactly-once in-flight accounting: the count rises
+        before the submit and falls on the final response (feeding the
+        service-time EWMA), or at once when the submit itself refuses the
+        request, which then gets no response through its callback."""
+        model_name = req.model_name
+        shadow = self.admission.is_shadow(model_name, req.priority)
+        self.admission.on_request_start(model_name, shadow=shadow)
+        inner = req.response_callback
+        ended = [False]
+
+        def _accounted(resp: InferResponse) -> None:
+            if resp.final and not ended[0]:
+                ended[0] = True
+                service_s = None
+                t = req.times
+                if resp.error is None and t.compute_start:
+                    service_s = max(
+                        0.0, (t.compute_output_end - t.compute_start) / 1e9)
+                self.admission.on_request_end(model_name, service_s,
+                                              shadow=shadow)
+            inner(resp)
+
+        req.response_callback = _accounted
+        try:
+            sched.submit(req)
+        except BaseException:
+            if not ended[0]:
+                ended[0] = True
+                self.admission.on_request_end(model_name, shadow=shadow)
+            raise
 
     def _attach_trace_recorder(self, req: InferRequest) -> None:
         """Wrap the response callback so that the final response snapshots
@@ -445,8 +603,13 @@ class TorchEngine:
                                          model=model_name, version=version)
             self.metrics.inflight_batches.set(
                 sched.active_batches, model=model_name, version=version)
-        self.metrics.update_device_gauges()
+        self.metrics.update_device_gauges(census=self.hbm_census)
+        self.metrics.update_census_gauges(self.memory_census())
+        # Duty-cycle and SLO burn gauges refresh at scrape time, so that a
+        # quiet period still reads current windows.
         self.profiler.update_gauges()
+        if self.slo.enabled:
+            self.slo.snapshot()
         if openmetrics:
             return self.metrics.render(openmetrics=True)
         return "\n".join(lines) + "\n" + self.metrics.render()
@@ -465,8 +628,146 @@ class TorchEngine:
     def profile_snapshot(self, model: str | None = None) -> dict:
         """The ``GET /v2/profile`` body: the per-model, per-bucket cost
         table (executions, real and padded rows, device seconds, cold
-        first executions, roofline) and the duty cycle."""
+        first executions, roofline) and the duty cycle. The census is
+        ``GET /v2/memory``'s, not summarised here."""
         return self.profiler.snapshot(model=model)
+
+    def slo_snapshot(self) -> dict:
+        """The ``GET /v2/slo`` body: per-model window counts and burn
+        rates."""
+        return self.slo.snapshot()
+
+    def costs_snapshot(self, model: str | None = None) -> dict:
+        """The ``GET /v2/costs`` body: the per-tenant cost ledger and a
+        ``reconciliation`` section holding its totals against the
+        profiler's device seconds and the census's live KV-arena bytes,
+        the independent meters conservation is audited against."""
+        snap = self.costs.snapshot(model=model)
+        prof = self.profiler.snapshot(model=model)
+        prof_device = sum(e["device_s"]
+                          for e in prof.get("models", {}).values())
+        census = self.memory_census()
+        kv_bytes = sum(o["bytes"] for o in census.get("owners", ())
+                       if o.get("component") == "kv_arena"
+                       and (model is None or o.get("model") == model))
+        ledger_device = snap.get("totals", {}).get("device_s", 0.0)
+        snap["reconciliation"] = {
+            "profiler_device_s": round(prof_device, 6),
+            "profiler_window_s": prof.get("window_s"),
+            "ledger_device_s": round(ledger_device, 6),
+            "device_s_ratio": round(ledger_device / prof_device, 4)
+            if prof_device > 0 else None,
+            "census_kv_arena_bytes": int(kv_bytes),
+        }
+        return snap
+
+    def memory_census(self) -> dict:
+        """The ``GET /v2/memory`` body: live card bytes per (model,
+        component) owner, drift against the backends' reservations,
+        per-card memory counters and the unattributed remainder."""
+        extra_plans: dict = {}
+        for sched in self.schedulers():
+            backend = sched.model.backend
+            hbm = getattr(backend, "hbm_reservation_bytes", None)
+            if callable(hbm):
+                component = ("rowcache" if getattr(backend, "host_tables",
+                                                   False) else "embedding")
+                extra_plans[(sched.model.config.name, component)] = \
+                    int(hbm())
+        return self.hbm_census.report(extra_plans=extra_plans,
+                                      events=self.events)
+
+    def timeseries_sample(self) -> dict:
+        """One flight-recorder sample (the recorder's thread calls this
+        at 1 Hz; ``observability/timeseries.py`` names the signals).
+        Scalars are engine-wide; per-model signals are {model: value}
+        maps, and ``tenant_cost_rate``'s keys are tenants."""
+        state = self._ts_state
+        now = time.monotonic()
+        elapsed = (now - state["mono"]) if state["mono"] else None
+        state["mono"] = now
+        sample: dict = {"duty_cycle": round(self.profiler.duty_cycle(), 6)}
+        queue_depth: dict[str, int] = {}
+        in_flight: dict[str, int] = {}
+        for sched in self.schedulers():
+            name = sched.model.config.name
+            queue_depth[name] = queue_depth.get(name, 0) + sched.queue.qsize()
+            in_flight[name] = in_flight.get(name, 0) + sched.active_batches
+        sample["queue_depth"] = queue_depth
+        sample["in_flight"] = in_flight
+        # The fill ratio smoothed across ticks (alpha 0.3: about a
+        # 3-sample memory at 1 Hz), the wave p50 and the MFU, all read off
+        # the /v2/profile table.
+        fill: dict[str, float] = {}
+        wave: dict[str, float] = {}
+        mfu: dict[str, float] = {}
+        for entry in self.profiler.snapshot().get("models", {}).values():
+            name = entry["model"]
+            model_mfu = (entry.get("roofline") or {}).get("mfu")
+            if model_mfu is not None:
+                mfu[name] = round(float(model_mfu), 6)
+            rows = sum(b["rows"] for b in entry.get("buckets", ()))
+            padded = sum(b["padded_rows"] for b in entry.get("buckets", ()))
+            if rows + padded:
+                current = rows / (rows + padded)
+                prev = state["fill"].get(name)
+                fill[name] = round(current if prev is None
+                                   else 0.3 * current + 0.7 * prev, 6)
+            waves_total = wave_weighted = 0.0
+            for w in entry.get("decode_waves", ()):
+                n = float(w.get("waves", 0) or 0)
+                if n > 0:
+                    waves_total += n
+                    wave_weighted += n * float(w["wave_ms_p50"])
+            if waves_total > 0:
+                wave[name] = round(wave_weighted / waves_total, 3)
+        state["fill"].update(fill)
+        for key, value in (("batch_fill", fill), ("wave_p50_ms", wave),
+                           ("mfu", mfu)):
+            if value:
+                sample[key] = value
+        # Counter deltas over the tick gap: admission sheds per model
+        # (versions and reasons summed) and device seconds per tenant.
+        shed_totals: dict[str, float] = {}
+        for labels, child in list(
+                self.metrics.admission_rejections._children.items()):
+            shed_totals[labels[0]] = shed_totals.get(labels[0], 0.0) + child.v
+        cost_totals = {t: row["device_s"] + row["padding_s"]
+                       for t, row in
+                       self.costs.snapshot().get("tenants", {}).items()}
+        for key, totals, prev_key, digits in (
+                ("shed_rate", shed_totals, "shed", 4),
+                ("tenant_cost_rate", cost_totals, "tenant_cost", 6)):
+            rate = {}
+            if elapsed and elapsed > 0:
+                for name, total in totals.items():
+                    prev = state[prev_key].get(name, 0.0)
+                    rate[name] = round(max(0.0, total - prev) / elapsed,
+                                       digits)
+            state[prev_key] = totals
+            if rate:
+                sample[key] = rate
+        # The census's card bytes in use (the allocator's live bytes).
+        sample["hbm_used"] = sum(d["bytes_in_use"]
+                                 for d in self.hbm_census.device_stats())
+        if self.slo.enabled:
+            burn = {name: float(report["windows"]["5m"]
+                                ["availability_burn_rate"])
+                    for name, report in self.slo.snapshot()["models"].items()}
+            if burn:
+                sample["slo_burn"] = burn
+        return sample
+
+    def timeseries_export(self, *, signal=None, model=None,
+                          since_seq=None, since_wall=None,
+                          until_wall=None, limit=None) -> dict:
+        """The ``GET /v2/timeseries`` body: the recorder's ring, narrowed
+        by signal, model, an exclusive seq cursor or a wall window
+        (exclusive lower, inclusive upper)."""
+        return self.recorder.export(signal=signal, model=model,
+                                    since_seq=since_seq,
+                                    since_wall=since_wall,
+                                    until_wall=until_wall, limit=limit)
 
     def trace_setting(self) -> dict:
         return self.trace.setting()
@@ -483,9 +784,11 @@ class TorchEngine:
 
     def shutdown(self) -> None:
         if self._live:
-            self.events.emit("lifecycle", "server_shutdown", draining=False)
-        self.trace.shutdown()
+            self.events.emit("lifecycle", "server_shutdown",
+                             draining=self._draining)
         self._live = False
+        self.recorder.detach(self)
+        self.trace.shutdown()
         with self._lock:
             # The bare-name aliases share their latest version's object.
             scheds = list({id(s): s for s in self._schedulers.values()}

@@ -42,9 +42,16 @@ bucket, chunk) shape is counted for the roofline
 sharded arena, included, and kept out of the device time as cold: the
 counter slows its launches, and a shape's first use is slow anyway.
 
+The arena is in the HBM census as the model's ``kv_arena`` (a provider
+read at walk time, since a failed step rebuilds it; a sharded arena's
+row sums its shards). The cost ledger gets each stream's queue wait at
+admission, each decode dispatch's device time split evenly over its
+live streams (component ``wave``, padded lanes to the dominant tenant,
+a cold dispatch left out as the profiler leaves it), and each stream's
+arena row-seconds when it releases its row.
+
 Not ported yet: warmup (nothing compiles in eager PyTorch, and the kernels
-are built at model load), and the HBM census and cost-ledger hooks of
-the JAX scheduler.
+are built at model load).
 """
 
 from __future__ import annotations
@@ -73,6 +80,12 @@ from client_tpu_torch.engine.types import (
     InferRequest,
     InferResponse,
     now_ns,
+)
+from client_tpu_torch.observability.costs import ledger
+from client_tpu_torch.observability.memory import (
+    hbm_census,
+    storage_bytes,
+    tensor_leaves,
 )
 from client_tpu_torch.observability.profiler import profiler
 from client_tpu_torch.observability.roofline import CostCapture
@@ -201,6 +214,13 @@ def _parse_sampling(req: InferRequest, vocab: int):
     return seed, temp, top_k, top_p, frozenset(stop)
 
 
+def _census_arena(sched) -> list:
+    """The census provider: the arena's tensors now. A plain function
+    taking the scheduler, never a closure over it (the census holds the
+    scheduler weakly)."""
+    return tensor_leaves(sched._arena)
+
+
 class GenerativeScheduler(Scheduler):
     """Arena-owned single worker; batching provides the parallelism."""
 
@@ -223,6 +243,12 @@ class GenerativeScheduler(Scheduler):
         # load which cannot hold it fails; the worker runs on its own
         # stream (``worker_stream``) once that work is done.
         self._arena = backend.init_arena(self._cap)
+        hbm_census().register_provider(model.config.name, "kv_arena", self,
+                                       _census_arena)
+        # Arena bytes a row (usable rows + the dummy lane), for the cost
+        # ledger's row-second charges; the arena's shapes are fixed.
+        self._row_bytes = storage_bytes(tensor_leaves(self._arena)) / (
+            len(self._rows_init) + 1)
         self._stream = self._loaded = None
         if self._cuda:
             self._loaded = torch.cuda.Event()
@@ -412,6 +438,10 @@ class GenerativeScheduler(Scheduler):
                 self._fail(req, EngineError(f"invalid request: {exc}", 400))
                 continue
             req.times.compute_start = now_ns()
+            ledger().charge_queue(
+                self.model.config.name, str(self.model.config.version),
+                req.tenant, req.times.queue_ns / 1e9,
+                trace_id=self._trace_id(req))
             ready.append((req, ids, max_new, sampling))
         by_bucket: dict[int, list] = {}
         for entry in ready:
@@ -591,11 +621,27 @@ class GenerativeScheduler(Scheduler):
                 self._reset_arena(exc)
                 return
             if head.kind != "prefill":
+                busy_ns = head.device_ns()
                 profiler().record_wave(
                     self.model.config.name, self.model.config.version,
                     bucket=head.bucket, chunk=head.waves,
-                    duration_ns=head.device_ns(), waves=head.waves,
+                    duration_ns=busy_ns, waves=head.waves,
                     cold=head.cold)
+                # The dispatch's device time splits evenly over its live
+                # lanes (each advances one token whatever its context);
+                # a wave whose every lane retired in flight bills the
+                # streams it was dispatched for, so every recorded wave is
+                # charged.
+                live = [s for s in head.streams if not s.dead] \
+                    or list(head.streams)
+                if live and not head.cold:
+                    ledger().charge_batch(
+                        self.model.config.name,
+                        str(self.model.config.version),
+                        [(s.req.tenant, 1, None) for s in live],
+                        busy_ns / 1e9,
+                        padded=max(0, head.bucket - len(live)),
+                        component="wave")
             # A chunked fetch is K stacked waves [K, B]; emit them in wave
             # order so a stop or the budget retires a stream mid-chunk
             # exactly where per-wave dispatch would have.
@@ -643,6 +689,13 @@ class GenerativeScheduler(Scheduler):
         if s in self._streams:
             self._streams.remove(s)
         self._free.append(s.row)
+        # The row's residency: held from admission until now.
+        held_ns = now_ns() - s.req.times.compute_start
+        if held_ns > 0 and s.req.times.compute_start:
+            ledger().charge_hbm(
+                self.model.config.name, str(self.model.config.version),
+                s.req.tenant, held_ns / 1e9 * self._row_bytes,
+                trace_id=self._trace_id(s.req))
 
     def _retire(self, s: _Stream) -> None:
         self._drop(s)
@@ -650,7 +703,8 @@ class GenerativeScheduler(Scheduler):
         s.req.times.compute_infer_end = now_ns()
         s.req.times.compute_output_end = s.req.times.compute_infer_end
         self.stats.record_request(s.req.times, success=True,
-                                  trace_id=self._trace_id(s.req))
+                                  trace_id=self._trace_id(s.req),
+                                  tenant=s.req.tenant)
         self._respond(s.req, self._response(s, {}, final=True))
 
     def _all_tracked_streams(self) -> list:

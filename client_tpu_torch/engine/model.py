@@ -22,8 +22,11 @@ input signature is the port's "compile" (a kernel's first-use build,
 cuBLAS's handles and workspaces): it is recorded as cold, kept out of
 device time, and counted once for the roofline
 (``observability.roofline.CostCapture``), as JAX keeps XLA's compile
-out and reads XLA's cost model. The ``model.execute`` fault site fires
-before any work.
+out and reads XLA's cost model. A batch whose end-to-end deadline has
+passed fails with 504 before anything is padded, pinned, copied or
+launched; the ``model.execute`` fault site fires next, before any work.
+A loaded model's weights are tagged in the HBM census
+(``observability/memory.py``) as its ``weights``.
 
 Three hooks a backend may define, as in the JAX package: a ragged backend
 (DLRM) checks the structure of its CSR tensors in ``validate_ragged`` and
@@ -49,7 +52,8 @@ from client_tpu_torch.engine.backend_init import resolve_device
 from client_tpu_torch.engine.checkpoint import load_params
 from client_tpu_torch.engine.config import ModelConfig
 from client_tpu_torch.engine.shm import wait_for_writer
-from client_tpu_torch.engine.types import EngineError, now_ns
+from client_tpu_torch.engine.types import DeadlineExpired, EngineError, now_ns
+from client_tpu_torch.observability.memory import hbm_census
 from client_tpu_torch.observability.profiler import profiler
 from client_tpu_torch.observability.roofline import CostCapture
 from client_tpu_torch.protocol.dtypes import wire_to_np_dtype
@@ -198,6 +202,12 @@ class Model:
         self.device = resolve_device(device)
         self.backend = backend.to(self.device).eval()
         self.config = backend.config
+        # The weights (parameters and persistent buffers) in the census;
+        # overwrite=False keeps a more specific tag a backend placed at
+        # construction (DLRM's `embedding` tables).
+        hbm_census().tag(self.config.name, "weights",
+                         list(self.backend.state_dict(keep_vars=True)
+                              .values()), overwrite=False)
         # Per-input validation metadata, built once: the config is fixed
         # after load.
         self._input_meta = {
@@ -289,7 +299,8 @@ class Model:
 
     def execute_timed(self, inputs: dict,
                       batch_size: int | None = None,
-                      fetch_outputs: bool = True) -> tuple[dict, ExecPhases]:
+                      fetch_outputs: bool = True,
+                      deadline_ns: int = 0) -> tuple[dict, ExecPhases]:
         """Pad to the bucket, stage to the device, run the forward pass,
         fetch to the host and slice back to ``batch_size`` rows. Returns
         the outputs and the measured :class:`ExecPhases`. A backend with a
@@ -302,7 +313,16 @@ class Model:
         ``fetch_outputs=False`` (every output of the batch goes into a
         device region) the outputs stay on the device, untrimmed: the
         caller takes each request's rows as a slice, and the padding rows
-        lie past every request's."""
+        lie past every request's.
+
+        ``deadline_ns`` (absolute ``now_ns()``; 0 = none) is the batch's:
+        once it has passed, :class:`DeadlineExpired` is raised before
+        anything is staged or launched, so the card spends nothing on a
+        batch whose every caller has given up."""
+        if deadline_ns > 0 and now_ns() >= deadline_ns:
+            raise DeadlineExpired(
+                f"end-to-end deadline expired before execution of model "
+                f"'{self.config.name}'")
         try:
             faults.fire("model.execute")
         except faults.FaultInjected as exc:

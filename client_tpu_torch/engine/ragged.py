@@ -13,7 +13,8 @@ Downstream it is the ordinary bucket machinery along the lookups axis:
 ``Model.pick_bucket`` snaps the summed lookups to the ladder and the
 backend's ``pre_stage`` pads indices and segment ids to the bucket and rows
 to ``max_batch_size``. Outputs are row-shaped, so each request's rows are
-windowed by row offset.
+windowed by row offset. An execution's device time is split across its
+requests' tenants by lookups, the padded axis.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from client_tpu_torch.engine.model import Model
 from client_tpu_torch.engine.scheduler import (
     _SHUTDOWN,
     DefaultScheduler,
+    _batch_deadline,
 )
 from client_tpu_torch.engine.stats import ModelStats
 from client_tpu_torch.engine.types import InferRequest, now_ns
@@ -81,6 +83,7 @@ class RaggedScheduler(DefaultScheduler):
                         self.queue.put_front(later)
                     return batch, True
                 if self._check_cancelled(item) \
+                        or self._check_deadline(item) \
                         or self._check_dequeue_fault(item):
                     continue
                 if nnz >= prefer \
@@ -88,9 +91,12 @@ class RaggedScheduler(DefaultScheduler):
                         > max_lookups \
                         or rows + self._rows(item) > max_rows:
                     # A ceiling would overflow: this request and everything
-                    # behind it start the next batch, in order.
+                    # behind it start the next batch, in order (one whose
+                    # deadline passed fails here instead).
                     for later in reversed(items[idx:]):
-                        self.queue.put_front(later)
+                        if later is _SHUTDOWN \
+                                or not self._check_deadline(later):
+                            self.queue.put_front(later)
                     return batch, False
                 batch.append(item)
                 nnz += request_nnz(item, self._indices)
@@ -102,7 +108,8 @@ class RaggedScheduler(DefaultScheduler):
         for r in batch:
             r.times.compute_start = start
         row_sizes = [self._rows(r) for r in batch]
-        total_nnz = sum(request_nnz(r, self._indices) for r in batch)
+        nnz = [request_nnz(r, self._indices) for r in batch]
+        total_nnz = sum(nnz)
         merged: dict[str, np.ndarray] = {}
         for name in batch[0].inputs:
             if name == self._offsets:
@@ -119,8 +126,8 @@ class RaggedScheduler(DefaultScheduler):
                                     [np.asarray(r.inputs[name])
                                      for r in batch], axis=0))
         # batch_size counts lookups: pick_bucket snaps it to the ladder.
-        outputs, phases = self.model.execute_timed(merged,
-                                                   batch_size=total_nnz)
+        outputs, phases = self.model.execute_timed(
+            merged, batch_size=total_nnz, deadline_ns=_batch_deadline(batch))
         # The statistics keep rows, as every other scheduler's do.
         self.stats.record_execution(
             sum(row_sizes), compute_ns=phases.infer_end - phases.input_end)
@@ -129,3 +136,5 @@ class RaggedScheduler(DefaultScheduler):
             per = {k: v[offset:offset + sz] for k, v in outputs.items()}
             offset += sz
             self._finish(r, per, phases)
+        self._charge(batch, nnz, phases, start,
+                     self.model.pick_bucket(total_nnz) - total_nnz)

@@ -16,9 +16,15 @@ the :class:`DecoupledScheduler`, stateful models the sequence batcher
 (``engine/ensemble.py``). Two fault sites fire here as in the JAX
 package: ``scheduler.enqueue`` in every scheduler's submit (the error
 goes back to the caller), ``scheduler.dequeue`` where the dynamic,
-ragged and decoupled workers pop a request (it fails alone). Priority
-levels, queue policies, QoS lanes, dispatch overrides and preemption are
-not ported yet.
+ragged and decoupled workers pop a request (it fails alone). A request
+whose end-to-end deadline has passed fails with 504 where it is popped
+(stage ``queue``) or just before its batch runs (stage ``execute``, and
+``Model.execute_timed``'s own check for the whole batch), counted on
+``tpu_deadline_expirations_total{stage}``. Each execution's device time
+(the profiler's CUDA-event interval) is split across its requests'
+tenants on the cost ledger, and each request's queue wait charged at
+dequeue. Priority levels, queue policies, QoS lanes, dispatch overrides
+and preemption are not ported yet.
 """
 
 from __future__ import annotations
@@ -37,11 +43,13 @@ from client_tpu_torch.engine.model import Model, np_dtype_of, worker_stream
 from client_tpu_torch.engine.shm import wait_for_writer
 from client_tpu_torch.engine.stats import ModelStats
 from client_tpu_torch.engine.types import (
+    DeadlineExpired,
     EngineError,
     InferRequest,
     InferResponse,
     now_ns,
 )
+from client_tpu_torch.observability.costs import ledger
 
 _SHUTDOWN = object()
 
@@ -121,6 +129,15 @@ def power_buckets(n: int) -> list[int]:
         b *= 2
     out.append(n)
     return out
+
+
+def _batch_deadline(batch: list[InferRequest]) -> int:
+    """The batch's deadline for ``Model.execute_timed``: 0 (none) when any
+    member has none, since the batch must run for that member; else the
+    latest member's (an earlier one would fail members with time left)."""
+    if any(r.deadline_ns == 0 for r in batch):
+        return 0
+    return max(r.deadline_ns for r in batch)
 
 
 def _request_batch(req: InferRequest) -> int:
@@ -213,6 +230,9 @@ class Scheduler:
             raise EngineError(str(exc), exc.status or 503) from None
         req.times.queue_start = now_ns()
         self.queue.put(req)
+        # The arrival joins the model's tenant mix (the queue_wait
+        # interference split at dequeue).
+        ledger().note_queued(self.model.config.name, req.tenant)
         if self._stopping and not any(t.is_alive() for t in self.workers):
             # Submit raced stop() and the workers are gone: nothing would
             # ever pop this request.
@@ -280,7 +300,8 @@ class Scheduler:
         # as long as a caller keeps the response.
         exc.__traceback__ = None
         req.times.compute_output_end = now_ns()
-        self.stats.record_request(req.times, success=False)
+        self.stats.record_request(req.times, success=False,
+                                  trace_id=self._trace_id(req))
         self._respond(req, InferResponse.make_error(req, exc))
 
     def _check_cancelled(self, req: InferRequest) -> bool:
@@ -288,6 +309,20 @@ class Scheduler:
         time."""
         if req.cancelled:
             self._fail(req, EngineError("request cancelled", 499))
+            return True
+        return False
+
+    def _check_deadline(self, req: InferRequest, stage: str = "queue") -> bool:
+        """Fail a request whose end-to-end deadline has passed with 504
+        before it costs device time; ``stage`` (queue | execute) labels
+        where on tpu_deadline_expirations_total."""
+        if req.deadline_expired():
+            waited_ms = (now_ns() - req.times.queue_start) / 1e6
+            self.stats.record_deadline_expired(
+                stage, trace_id=self._trace_id(req))
+            self._fail(req, DeadlineExpired(
+                f"end-to-end deadline expired before {stage} "
+                f"(waited {waited_ms:.1f}ms in queue)"))
             return True
         return False
 
@@ -330,16 +365,31 @@ class DefaultScheduler(Scheduler):
             item = self.queue.get_many(1)[0]
             if item is _SHUTDOWN:
                 return
-            if self._check_dequeue_fault(item):
+            if self._check_deadline(item) or self._check_dequeue_fault(item):
                 continue
             batch = [item]
             if cfg.scheduler_kind() == "DYNAMIC" and cfg.max_batch_size > 0:
                 batch, stop = self._gather(item, dyn)
             else:
                 stop = False
+            # The gather may have used the delay window: a member popped
+            # with time left may have expired since.
+            batch = [r for r in batch
+                     if not self._check_deadline(r, stage="execute")]
+            if not batch:
+                if stop:
+                    return
+                continue
             self._busy(1)
             try:
                 self._execute_batch(batch)
+            except DeadlineExpired as exc:
+                # Model.execute_timed's check: the whole batch's budget
+                # lapsed between the filter above and the launch.
+                for r in batch:
+                    self.stats.record_deadline_expired(
+                        "execute", trace_id=self._trace_id(r))
+                    self._fail(r, exc)
             except EngineError as exc:  # an answer (an injected fault, a
                 for r in batch:         # bad input), not a crash
                     self._fail(r, exc)
@@ -375,15 +425,19 @@ class DefaultScheduler(Scheduler):
                     for later in reversed(items[idx + 1:]):
                         self.queue.put_front(later)
                     return batch, True
-                if self._check_dequeue_fault(item):
+                if self._check_deadline(item) \
+                        or self._check_dequeue_fault(item):
                     continue
                 if total >= prefer \
                         or total + _request_batch(item) > max_batch \
                         or not _compatible(first, item):
                     # Full, or doesn't fit: it and everything behind it go
-                    # back to the head, in order, to lead the next gather.
+                    # back to the head, in order, to lead the next gather;
+                    # one whose deadline passed fails here instead.
                     for later in reversed(items[idx:]):
-                        self.queue.put_front(later)
+                        if later is _SHUTDOWN \
+                                or not self._check_deadline(later):
+                            self.queue.put_front(later)
                     return batch, False
                 batch.append(item)
                 total += _request_batch(item)
@@ -394,6 +448,7 @@ class DefaultScheduler(Scheduler):
         start = now_ns()
         for r in batch:
             r.times.compute_start = start
+        deadline_ns = _batch_deadline(batch)
         if cfg.max_batch_size > 0:
             sizes = [_request_batch(r) for r in batch]
             merged = {name: _concat_batch([r.inputs[name] for r in batch],
@@ -405,10 +460,12 @@ class DefaultScheduler(Scheduler):
             outputs, phases = self.model.execute_timed(
                 merged, batch_size=sum(sizes),
                 fetch_outputs=not all(r.keep_outputs_on_device
-                                      for r in batch))
+                                      for r in batch),
+                deadline_ns=deadline_ns)
         else:
             sizes = [None]
-            outputs, phases = self.model.execute_timed(batch[0].inputs)
+            outputs, phases = self.model.execute_timed(
+                batch[0].inputs, deadline_ns=deadline_ns)
         self.stats.record_execution(
             sum(sizes) if cfg.max_batch_size > 0 else 1,
             compute_ns=phases.infer_end - phases.input_end)
@@ -420,6 +477,27 @@ class DefaultScheduler(Scheduler):
                 per = {k: v[offset:offset + sz] for k, v in outputs.items()}
                 offset += sz
             self._finish(r, per, phases)
+        if cfg.max_batch_size > 0:
+            self._charge(batch, sizes, phases, start,
+                         self.model.pick_bucket(sum(sizes)) - sum(sizes))
+        else:
+            self._charge(batch, [1], phases, start)
+
+    def _charge(self, batch: list[InferRequest], weights: list[int],
+                phases, start: int, padded: int = 0) -> None:
+        """Split one execution's device time (the profiler's interval, a
+        cold first execution left out as the profiler leaves it) across
+        its requests' tenants by ``weights``; the rest of the batch's wall
+        time since ``start`` is its host time. Charged after the responses
+        went out, so the host leg includes their scatter."""
+        if phases.compile_ns:
+            return
+        cfg = self.model.config
+        ledger().charge_batch(
+            cfg.name, str(cfg.version),
+            [(r.tenant, w, self._trace_id(r)) for r, w in zip(batch, weights)],
+            phases.device_ns / 1e9, padded=max(0, padded),
+            host_s=max(0, now_ns() - start - phases.device_ns) / 1e9)
 
     def _finish(self, req: InferRequest, outputs: dict, phases) -> None:
         req.times.compute_input_end = phases.input_end
@@ -431,8 +509,13 @@ class DefaultScheduler(Scheduler):
         if req.outputs:
             requested = {o.name for o in req.outputs}
             outputs = {k: v for k, v in outputs.items() if k in requested}
+        cfg = self.model.config
+        ledger().charge_queue(cfg.name, str(cfg.version), req.tenant,
+                              req.times.queue_ns / 1e9,
+                              trace_id=self._trace_id(req))
         self.stats.record_request(req.times, success=True,
-                                  trace_id=self._trace_id(req))
+                                  trace_id=self._trace_id(req),
+                                  tenant=req.tenant)
         self._respond(req, InferResponse(
             model_name=req.model_name,
             model_version=req.model_version or str(self.model.config.version),
@@ -459,7 +542,8 @@ class DecoupledScheduler(Scheduler):
             req = self.queue.get_many(1)[0]
             if req is _SHUTDOWN:
                 return
-            if self._check_cancelled(req) or self._check_dequeue_fault(req):
+            if self._check_cancelled(req) or self._check_deadline(req) \
+                    or self._check_dequeue_fault(req):
                 continue
             req.times.compute_start = now_ns()
             self._busy(1)
@@ -489,8 +573,16 @@ class DecoupledScheduler(Scheduler):
         req.times.compute_output_end = req.times.compute_infer_end
         self.stats.record_execution(max(1, count),
                                     compute_ns=req.times.compute_infer_ns)
+        # A decoupled backend runs on the host: only the queue wait is
+        # charged (device seconds invented here would break conservation
+        # against the profiler).
+        cfg = self.model.config
+        ledger().charge_queue(cfg.name, str(cfg.version), req.tenant,
+                              req.times.queue_ns / 1e9,
+                              trace_id=self._trace_id(req))
         self.stats.record_request(req.times, success=True,
-                                  trace_id=self._trace_id(req))
+                                  trace_id=self._trace_id(req),
+                                  tenant=req.tenant)
         self._emit(req, {}, final=True)
 
     def _emit(self, req: InferRequest, outputs: dict, final: bool) -> None:

@@ -6,6 +6,9 @@ compute_infer / compute_output phase sums and the executions per batch
 size. When the engine attaches :class:`ModelInstruments` (the metrics
 plane), every recorded request and execution also feeds the histograms
 of ``/metrics``: sums here, distributions there, from one call site.
+Every finally answered request also scores the SLO tracker (``slo``),
+and a request whose deadline expired is counted by stage and journalled
+(``events``).
 """
 
 from __future__ import annotations
@@ -26,6 +29,21 @@ class _DurationStat:
         self.count += 1
         self.ns += ns
 
+    def record_deadline_expired(self, stage: str = "queue",
+                                trace_id: str | None = None) -> None:
+        """An end-to-end deadline passed before ``stage`` ran (admission,
+        queue or execute): tpu_deadline_expirations_total{stage} and a
+        ``deadline.expired`` event."""
+        with self._lock:
+            self.deadline_expired_count += 1
+        if self.instruments is not None:
+            self.instruments.record_deadline_expired(stage)
+        if self.events is not None:
+            self.events.emit(
+                "deadline", "expired", severity="WARNING",
+                model=self.model_name, version=self.model_version,
+                trace_id=trace_id, stage=stage)
+
     def to_dict(self) -> dict:
         return {"count": self.count, "ns": self.ns}
 
@@ -43,14 +61,22 @@ class ModelStats:
     inference_count: int = 0
     execution_count: int = 0
     last_inference_ms: int = 0  # wall-clock ms of the latest success
+    # End-to-end deadline expirations caught before the card ran them.
+    deadline_expired_count: int = 0
     # batch_size -> [executions, cumulative compute-infer ns]
     batch_hist: dict[int, list[int]] = field(default_factory=dict)
     # observability.metrics.ModelInstruments, or None outside an engine.
     instruments: object | None = field(default=None, repr=False)
+    # observability.slo.SloTracker, scored by every finally answered
+    # request; None outside an engine.
+    slo: object | None = field(default=None, repr=False)
+    # observability.events.EventJournal, for deadline.expired.
+    events: object | None = field(default=None, repr=False)
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
 
     def record_request(self, times: RequestTimes, success: bool,
-                       trace_id: str | None = None) -> None:
+                       trace_id: str | None = None,
+                       tenant: str = "") -> None:
         total = max(0, times.compute_output_end - times.queue_start)
         with self._lock:
             if success:
@@ -64,7 +90,11 @@ class ModelStats:
             else:
                 self.fail.add(total)
         if success and self.instruments is not None:
-            self.instruments.observe_request(total, times, trace_id=trace_id)
+            self.instruments.observe_request(total, times, trace_id=trace_id,
+                                             tenant=tenant)
+        if self.slo is not None:
+            self.slo.record(self.model_name, success,
+                            duration_us=total / 1e3)
 
     def record_execution(self, batch_size: int, compute_ns: int = 0) -> None:
         """One device execution of ``batch_size`` rows that took
@@ -77,6 +107,21 @@ class ModelStats:
             entry[1] += max(0, compute_ns)
         if self.instruments is not None:
             self.instruments.observe_execution(batch_size)
+
+    def record_deadline_expired(self, stage: str = "queue",
+                                trace_id: str | None = None) -> None:
+        """An end-to-end deadline passed before ``stage`` ran (admission,
+        queue or execute): tpu_deadline_expirations_total{stage} and a
+        ``deadline.expired`` event."""
+        with self._lock:
+            self.deadline_expired_count += 1
+        if self.instruments is not None:
+            self.instruments.record_deadline_expired(stage)
+        if self.events is not None:
+            self.events.emit(
+                "deadline", "expired", severity="WARNING",
+                model=self.model_name, version=self.model_version,
+                trace_id=trace_id, stage=stage)
 
     def to_dict(self) -> dict:
         """v2 ``GET /v2/models/<m>/stats`` entry."""

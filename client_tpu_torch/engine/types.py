@@ -2,8 +2,9 @@
 
 The port's own copy of ``client_tpu/engine/types.py``, trimmed to what
 the port serves: sequence routing, cancellation, the streaming
-backpressure probe, shared-memory placement and the trace context are
-in; no deadline, tenant or QoS fields yet.
+backpressure probe, shared-memory placement, the trace context, the
+end-to-end deadline and the cost-ledger tenant are in; no QoS class or
+queue-policy fields yet.
 """
 
 from __future__ import annotations
@@ -21,6 +22,16 @@ class EngineError(Exception):
     def __init__(self, message: str, status: int = 400):
         super().__init__(message)
         self.status = status
+
+
+class DeadlineExpired(EngineError):
+    """The request's end-to-end deadline passed before its work ran: 504,
+    which the HTTP frontend answers as Gateway Timeout and the gRPC one
+    as DEADLINE_EXCEEDED. A type of its own, so the schedulers count the
+    stage it expired at on tpu_deadline_expirations_total."""
+
+    def __init__(self, message: str):
+        super().__init__(message, 504)
 
 
 def now_ns() -> int:
@@ -88,6 +99,18 @@ class InferRequest:
     sequence_id: int = 0
     sequence_start: bool = False
     sequence_end: bool = False
+    # Read only for the admission shadow class (priority at or above
+    # ``shadow_priority``); priority queues are refused at load.
+    priority: int = 0
+    # The cost-ledger tenant: the `X-Tpu-Tenant` header or the `tenant`
+    # parameter. Empty means untagged: the engine resolves it to "shadow"
+    # (the admission shadow class) or "default" at submit.
+    tenant: str = ""
+    # End-to-end deadline (absolute now_ns(); 0 = none), from the client's
+    # budget: the `timeout-ms` header or `timeout_ms` parameter, or the gRPC
+    # deadline. Past it the request fails with 504 at admission, at dequeue
+    # or before its batch executes, and costs the card nothing.
+    deadline_ns: int = 0
     times: RequestTimes = field(default_factory=RequestTimes)
     # Called with each response; a decoupled model calls it once per
     # streamed response and last with ``final=True``.
@@ -114,6 +137,22 @@ class InferRequest:
 
     def cancel(self) -> None:
         self.cancelled = True
+
+    def set_deadline_from_timeout_ms(self, timeout_ms: float) -> None:
+        """Arm the deadline from a client budget in ms (a budget that is
+        not positive leaves the request without one)."""
+        if timeout_ms > 0:
+            self.deadline_ns = now_ns() + int(timeout_ms * 1_000_000)
+
+    def deadline_expired(self, now: int | None = None) -> bool:
+        return self.deadline_ns > 0 and \
+            (now if now is not None else now_ns()) >= self.deadline_ns
+
+    def deadline_remaining_s(self) -> float | None:
+        """Seconds until the deadline (None without one)."""
+        if self.deadline_ns <= 0:
+            return None
+        return (self.deadline_ns - now_ns()) / 1e9
 
 
 @dataclass

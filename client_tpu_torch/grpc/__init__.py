@@ -9,9 +9,10 @@ and stubs are cached process-wide by URL and options. Opt-in resilience
 (``retry_policy=``, ``circuit_breaker=``) comes from
 ``client_tpu_torch.resilience``.
 
-Not ported yet: the operational RPCs and their fleet merges (events, SLO,
-profile, timeseries, memory, costs, QoS, bundles), which need the port's
-copy of ``ops_pb2``, and the shm ring and staged-dataset RPCs. This
+The operational RPCs: ``get_events``, ``get_slo_status``,
+``get_profile``, ``get_timeseries``, ``get_memory`` and ``get_costs``
+(messages in the port's ``ops_pb2``). Not ported yet: the QoS and bundle
+RPCs, the fleet merges, and the shm ring and staged-dataset RPCs. This
 module loads neither torch nor jax.
 """
 
@@ -19,6 +20,7 @@ from __future__ import annotations
 
 import base64
 import itertools
+import json
 import logging
 import queue
 import threading
@@ -31,6 +33,7 @@ from client_tpu_torch.observability.client_stats import InferStat
 from client_tpu_torch.observability.tracing import TraceContext
 from client_tpu_torch.protocol import grpc_codec
 from client_tpu_torch.protocol import grpc_service_pb2 as pb
+from client_tpu_torch.protocol import ops_pb2 as ops
 from client_tpu_torch.protocol.codec import serialize_tensor
 from client_tpu_torch.protocol.dtypes import np_to_wire_dtype
 from client_tpu_torch.protocol.grpc_stub import GRPCInferenceServiceStub
@@ -551,6 +554,104 @@ class InferenceServerClient:
             headers, as_json, client_timeout)
 
     # -- shared memory -------------------------------------------------------
+
+    def _events_via(self, stub, model_name="", severity="", category="",
+                    since_seq=None, limit=None, headers=None,
+                    client_timeout=None, since_wall=None,
+                    until_wall=None):
+        request = ops.EventsRequest(
+            model=model_name, severity=severity, category=category,
+            since_seq=int(since_seq) if since_seq else 0,
+            since_wall=float(since_wall) if since_wall else 0.0,
+            until_wall=float(until_wall) if until_wall else 0.0,
+            limit=int(limit) if limit else 0)
+        response = self._unary(stub.Events, request,
+                               self._md(headers), client_timeout)
+        events = []
+        for e in response.events:
+            ev = {"seq": e.seq, "ts_wall": e.ts_wall,
+                  "ts_mono_ns": e.ts_mono_ns, "category": e.category,
+                  "name": e.name, "severity": e.severity}
+            if e.model:
+                ev["model"] = e.model
+            if e.version:
+                ev["version"] = e.version
+            if e.trace_id:
+                ev["trace_id"] = e.trace_id
+            if e.detail_json:
+                ev["detail"] = json.loads(e.detail_json)
+            events.append(ev)
+        return {"events": events, "next_seq": response.next_seq,
+                "dropped": response.dropped}
+
+    def get_events(self, model_name="", severity="", category="",
+                   since_seq=None, since_wall=None, until_wall=None,
+                   limit=None, headers=None, client_timeout=None):
+        """Structured event journal (gRPC mirror of ``GET /v2/events``).
+        Returns the same dict shape as the HTTP endpoint: ``events`` (each
+        with its ``detail`` decoded from JSON), ``next_seq``, ``dropped``.
+        ``since_wall``/``until_wall`` bound the events by epoch-seconds
+        wall stamp (exclusive lower, inclusive upper)."""
+        return self._events_via(self._client_stub, model_name, severity,
+                                category, since_seq, limit, headers,
+                                client_timeout, since_wall=since_wall,
+                                until_wall=until_wall)
+
+    def get_slo_status(self, model_name="", headers=None,
+                       client_timeout=None):
+        """SLO burn-rate snapshot (gRPC mirror of ``GET /v2/slo``)."""
+        response = self._unary(
+            self._client_stub.SloStatus,
+            ops.SloStatusRequest(model=model_name),
+            self._md(headers), client_timeout)
+        return json.loads(response.slo_json)
+
+    def get_profile(self, model_name="", headers=None, client_timeout=None):
+        """Efficiency profiler cost table (gRPC mirror of
+        ``GET /v2/profile``): per-model/per-bucket fill ratios,
+        padding-waste device-seconds, compile counts, duty cycle."""
+        response = self._unary(
+            self._client_stub.Profile,
+            ops.ProfileRequest(model=model_name),
+            self._md(headers), client_timeout)
+        return json.loads(response.profile_json)
+
+    def get_timeseries(self, signal="", model_name="", since_seq=None,
+                       since_wall=None, until_wall=None, limit=None,
+                       headers=None, client_timeout=None):
+        """Flight-recorder signal ring (gRPC mirror of
+        ``GET /v2/timeseries``): the 1 Hz duty-cycle / queue-depth /
+        HBM sample history; ``since_seq`` is the exclusive cursor from
+        the previous response's ``next_seq``; ``since_wall``/
+        ``until_wall`` an epoch-seconds window (exclusive lower,
+        inclusive upper)."""
+        response = self._unary(
+            self._client_stub.Timeseries,
+            ops.TimeseriesRequest(signal=signal, model=model_name,
+                                  since_seq=since_seq or 0,
+                                  since_wall=float(since_wall or 0.0),
+                                  until_wall=float(until_wall or 0.0),
+                                  limit=limit or 0),
+            self._md(headers), client_timeout)
+        return json.loads(response.timeseries_json)
+
+    def get_memory(self, headers=None, client_timeout=None):
+        """HBM census report (gRPC mirror of ``GET /v2/memory``)."""
+        response = self._unary(
+            self._client_stub.MemoryCensus, ops.MemoryRequest(),
+            self._md(headers), client_timeout)
+        return json.loads(response.memory_json)
+
+    def get_costs(self, model_name="", headers=None, client_timeout=None):
+        """Per-tenant cost ledger (gRPC mirror of ``GET /v2/costs``):
+        device/HBM/queue seconds and interference attribution per
+        tenant. Tag requests with a ``tenant`` request parameter to
+        attribute their spend."""
+        response = self._unary(
+            self._client_stub.Costs,
+            ops.CostsRequest(model=model_name),
+            self._md(headers), client_timeout)
+        return json.loads(response.costs_json)
 
     def get_system_shared_memory_status(self, region_name="", headers=None,
                                         as_json=False, client_timeout=None):

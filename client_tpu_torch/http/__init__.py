@@ -11,10 +11,11 @@ circuit breaker per target, failover). Opt-in resilience
 (``retry_policy=``, ``circuit_breaker=``) comes from
 ``client_tpu_torch.resilience``.
 
+The operational GETs: ``get_events``, ``get_slo_status``,
+``get_profile``, ``get_timeseries``, ``get_memory`` and ``get_costs``.
 Not ported yet: the shm slot ring and staged datasets, trace settings,
-and the operational and fleet GETs (events, SLO, profile, timeseries,
-memory, costs, QoS, bundles, stitched traces), whose routes the port's
-server does not have. This module loads neither torch nor jax.
+and the QoS, bundle and fleet GETs, whose routes the port's server does
+not have. This module loads neither torch nor jax.
 """
 
 from __future__ import annotations
@@ -794,6 +795,87 @@ class InferenceServerClient:
     unregister_cuda_shared_memory = unregister_tpu_shared_memory
 
     # -- inference -----------------------------------------------------------
+
+    # -- operational control plane -------------------------------------------
+
+    def get_events(self, model_name="", severity="", category="",
+                   since_seq=None, since_wall=None, until_wall=None,
+                   limit=None, headers=None, query_params=None):
+        """Server operational event timeline (``GET /v2/events``):
+        breaker/admission/drain/model/fault/deadline transitions with
+        trace correlation. ``severity`` is a minimum (e.g. ``WARNING``);
+        ``since_seq`` the exclusive cursor from the previous response's
+        ``next_seq``; ``since_wall``/``until_wall`` an epoch-seconds
+        window (exclusive lower, inclusive upper)."""
+        qp = dict(query_params or {})
+        if model_name:
+            qp["model"] = model_name
+        if severity:
+            qp["severity"] = severity
+        if category:
+            qp["category"] = category
+        if since_seq is not None:
+            qp["since"] = int(since_seq)
+        if since_wall is not None:
+            qp["since_wall"] = float(since_wall)
+        if until_wall is not None:
+            qp["until_wall"] = float(until_wall)
+        if limit is not None:
+            qp["limit"] = int(limit)
+        return self._get_json("/v2/events", qp or None, headers)
+
+    def get_slo_status(self, headers=None, query_params=None):
+        """Per-model SLO burn-rate report (``GET /v2/slo``)."""
+        return self._get_json("/v2/slo", query_params, headers)
+
+    def get_profile(self, model_name="", headers=None, query_params=None):
+        """Efficiency profiler cost table (``GET /v2/profile``): per-model
+        per-bucket fill ratios, padding-waste device-seconds, compile
+        counts, device duty cycle, and a suggested bucket-ladder tweak."""
+        qp = dict(query_params or {})
+        if model_name:
+            qp["model"] = model_name
+        return self._get_json("/v2/profile", qp or None, headers)
+
+    def get_timeseries(self, signal="", model_name="", since_seq=None,
+                       since_wall=None, until_wall=None, limit=None,
+                       headers=None, query_params=None):
+        """Flight-recorder signal ring (``GET /v2/timeseries``): ~15 min
+        of 1 Hz duty-cycle / queue-depth / batch-fill / shed-rate /
+        wave-p50 / HBM / SLO-burn samples. ``since_seq`` is the
+        exclusive cursor from the previous response's ``next_seq``;
+        ``since_wall``/``until_wall`` an epoch-seconds window
+        (exclusive lower, inclusive upper)."""
+        qp = dict(query_params or {})
+        if signal:
+            qp["signal"] = signal
+        if model_name:
+            qp["model"] = model_name
+        if since_seq is not None:
+            qp["since"] = int(since_seq)
+        if since_wall is not None:
+            qp["since_wall"] = float(since_wall)
+        if until_wall is not None:
+            qp["until_wall"] = float(until_wall)
+        if limit is not None:
+            qp["limit"] = int(limit)
+        return self._get_json("/v2/timeseries", qp or None, headers)
+
+    def get_memory(self, headers=None, query_params=None):
+        """HBM census report (``GET /v2/memory``): live device bytes per
+        ``(model, component)`` owner, plan-vs-actual drift, watermark."""
+        return self._get_json("/v2/memory", query_params, headers)
+
+    def get_costs(self, model_name="", headers=None, query_params=None):
+        """Per-tenant cost ledger (``GET /v2/costs``): device-seconds,
+        HBM-byte-seconds, queue-seconds, and interference attribution
+        per tenant, with profiler/census reconciliation. Tag requests
+        with the ``X-Tpu-Tenant`` header or a ``tenant`` request
+        parameter to attribute their spend."""
+        qp = dict(query_params or {})
+        if model_name:
+            qp["model"] = model_name
+        return self._get_json("/v2/costs", qp or None, headers)
 
     @staticmethod
     def generate_request_body(inputs, outputs=None, request_id="",

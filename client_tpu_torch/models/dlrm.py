@@ -53,6 +53,7 @@ from client_tpu_torch.engine.model import ModelBackend
 from client_tpu_torch.engine.rowcache import RowCache
 from client_tpu_torch.engine.types import EngineError
 from client_tpu_torch.models import register_model
+from client_tpu_torch.observability.memory import hbm_census
 from client_tpu_torch.parallel.emb_shard import (
     bag_sum_oracle,
     emb_mesh,
@@ -167,6 +168,19 @@ class DlrmBackend(ModelBackend):
             self.register_buffer("table", torch.from_numpy(table).to(
                 self.device))
         self.to(self.device)
+        if not self.host_tables:
+            # The tables in the HBM census as `embedding`; the model's
+            # generic `weights` pass leaves them so.
+            hbm_census().tag(name, "embedding",
+                             self.shards() if self.n_shards else [self.table])
+
+    def hbm_reservation_bytes(self) -> int:
+        """The card memory the model should be charged: the tables' bytes
+        on the device, or the host-table mode's cache budget (the census
+        holds it against the actual ``embedding`` rows)."""
+        if self.host_tables:
+            return self.cache_budget_bytes
+        return int(self.table_host.nbytes)
 
     def shards(self) -> list[torch.Tensor]:
         return [getattr(self, f"table_shard{i}")

@@ -325,14 +325,13 @@ class ModelInstruments:
         self._labels = {"model": model, "version": version}
 
     def observe_request(self, total_ns: int, times,
-                        trace_id: str | None = None) -> None:
+                        trace_id: str | None = None,
+                        tenant: str = "") -> None:
         em = self._em
         lab = self._labels
-        # Every request is the "default" tenant: the port has no cost
-        # ledger to tag it yet.
         em.request_duration_us.observe(max(0, total_ns) / 1e3,
                                        exemplar=trace_id,
-                                       tenant="default", **lab)
+                                       tenant=tenant or "default", **lab)
         em.phase_duration_us.observe(times.queue_ns / 1e3,
                                      phase="queue", **lab)
         em.phase_duration_us.observe(times.compute_input_ns / 1e3,
@@ -344,6 +343,9 @@ class ModelInstruments:
 
     def observe_execution(self, batch_size: int) -> None:
         self._em.batch_size.observe(batch_size, **self._labels)
+
+    def record_deadline_expired(self, stage: str) -> None:
+        self._em.deadline_expirations.inc(stage=stage, **self._labels)
 
 
 class EngineMetrics:
@@ -471,26 +473,43 @@ class EngineMetrics:
                     self._instruments = updated
         return inst
 
-    def update_device_gauges(self) -> None:
+    def update_device_gauges(self, census=None) -> None:
         """Refresh each visible card's bytes in use (the caching
-        allocator's live tensor bytes), capacity and peak from
-        ``torch.cuda.memory_stats`` and the device properties, at scrape
-        time. Without a card (``device="cpu"``) the gauges still render,
-        pinned to 0 on device "0", as the JAX package's do on the CPU."""
-        import torch
+        allocator's live tensor bytes), capacity and peak from the HBM
+        census's device walk (``HbmCensus.device_stats``, one source for
+        both), at scrape time. Without a card (``device="cpu"``) the
+        gauges still render, pinned to 0 on device "0", as the JAX
+        package's do on the CPU."""
+        if census is None:
+            from client_tpu_torch.observability.memory import hbm_census
 
-        devices = []
-        if torch.cuda.is_available():
-            for i in range(torch.cuda.device_count()):
-                stats = torch.cuda.memory_stats(i)
-                devices.append((
-                    str(i), int(stats.get("allocated_bytes.all.current", 0)),
-                    int(torch.cuda.get_device_properties(i).total_memory),
-                    int(stats.get("allocated_bytes.all.peak", 0))))
-        for device, in_use, limit, peak in devices or [("0", 0, 0, 0)]:
-            self.hbm_bytes.set(in_use, device=device)
-            self.hbm_limit_bytes.set(limit, device=device)
-            self.hbm_peak_bytes.set(peak, device=device)
+            census = hbm_census()
+        devices = census.device_stats()
+        for d in devices:
+            self.hbm_bytes.set(d["bytes_in_use"], device=d["device"])
+            self.hbm_limit_bytes.set(d["bytes_limit"], device=d["device"])
+            self.hbm_peak_bytes.set(d["peak_bytes_in_use"],
+                                    device=d["device"])
+        if not devices:
+            self.hbm_bytes.set(0, device="0")
+            self.hbm_limit_bytes.set(0, device="0")
+            self.hbm_peak_bytes.set(0, device="0")
+
+    def update_census_gauges(self, report: dict) -> None:
+        """Refresh the attribution gauges from one census report
+        (``TorchEngine.memory_census``), at scrape time like the device
+        gauges."""
+        for row in report.get("owners", ()):
+            self.hbm_census_bytes.set(row["bytes"], model=row["model"],
+                                      component=row["component"])
+            if "drift_bytes" in row:
+                self.hbm_plan_drift_bytes.set(
+                    row["drift_bytes"], model=row["model"],
+                    component=row["component"])
+        self.hbm_census_bytes.set(report.get("unattributed_bytes", 0),
+                                  model="", component="unattributed")
+        self.hbm_census_watermark_bytes.set(
+            report.get("watermark_bytes", 0))
 
     def render(self, openmetrics: bool = False) -> str:
         return self.registry.render(openmetrics)

@@ -3,9 +3,11 @@
 The port's own copy of ``client_tpu/protocol/grpc_stub.py``: a hand-written
 equivalent of the ``*_pb2_grpc.py`` file ``grpc_tools`` would generate. The
 method table lists every RPC of ``grpc_service.proto`` under its
-fully-qualified path, so these stubs interoperate with any v2 gRPC peer.
-The operational RPCs of the JAX package (events, profile, shm rings,
-datasets, ...) are not in it: their messages and planes are not ported.
+fully-qualified path, so these stubs interoperate with any v2 gRPC peer;
+a second table lists the operational RPCs the port serves (events, SLO,
+profile, timeseries, memory, costs; messages in ``ops_pb2``). The JAX
+package's other operational RPCs (shm rings, datasets, QoS, the
+blackbox) are not in it: a call answers UNIMPLEMENTED.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import grpc
 
 from client_tpu_torch.protocol import grpc_service_pb2 as pb
+from client_tpu_torch.protocol import ops_pb2 as ops
 
 _SERVICE = "inference.GRPCInferenceService"
 
@@ -58,12 +61,23 @@ _METHODS = [
 ]
 
 
+# The operational RPCs, in the JAX package's table's order.
+_OPS_METHODS = [
+    ("Events", ops.EventsRequest, ops.EventsResponse, False),
+    ("SloStatus", ops.SloStatusRequest, ops.SloStatusResponse, False),
+    ("Profile", ops.ProfileRequest, ops.ProfileResponse, False),
+    ("Timeseries", ops.TimeseriesRequest, ops.TimeseriesResponse, False),
+    ("MemoryCensus", ops.MemoryRequest, ops.MemoryResponse, False),
+    ("Costs", ops.CostsRequest, ops.CostsResponse, False),
+]
+
+
 class GRPCInferenceServiceStub:
     """Client-side stub: one callable per RPC (``.future`` on each for the
     asynchronous form, grpcio's standard mechanism)."""
 
     def __init__(self, channel: grpc.Channel):
-        for name, req_t, resp_t, streaming in _METHODS:
+        for name, req_t, resp_t, streaming in _METHODS + _OPS_METHODS:
             make = channel.stream_stream if streaming else channel.unary_unary
             setattr(self, name, make(
                 f"/{_SERVICE}/{name}",
@@ -84,13 +98,13 @@ def _make_unimplemented(name):
     return method
 
 
-for _name, _req, _resp, _streaming in _METHODS:
+for _name, _req, _resp, _streaming in _METHODS + _OPS_METHODS:
     setattr(GRPCInferenceServiceServicer, _name, _make_unimplemented(_name))
 
 
 def add_GRPCInferenceServiceServicer_to_server(servicer, server):  # noqa: N802
     handlers = {}
-    for name, req_t, resp_t, streaming in _METHODS:
+    for name, req_t, resp_t, streaming in _METHODS + _OPS_METHODS:
         make = (grpc.stream_stream_rpc_method_handler if streaming
                 else grpc.unary_unary_rpc_method_handler)
         handlers[name] = make(getattr(servicer, name),

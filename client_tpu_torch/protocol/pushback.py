@@ -1,10 +1,12 @@
 """Retry-After pushback, as the clients read it.
 
-The port's copy of the parsing half of ``client_tpu/protocol/pushback.py``
-(the servers' formatting and the shm-ring slot encoding come with the
-planes that send pushback). Both clients parse pushback here, so HTTP's
-``Retry-After`` header and gRPC's trailing metadata agree on sub-second
-values:
+The port's copy of ``client_tpu/protocol/pushback.py`` without the
+shm-ring slot encoding. The servers format pushback here and both
+clients parse it here, so HTTP's ``Retry-After`` header and gRPC's
+trailing metadata agree on sub-second values:
+
+* :func:`format_retry_after_s` / :func:`format_retry_pushback_ms`: the
+  servers' wire text (fractional seconds; integral milliseconds);
 
 * :func:`parse_retry_after`: text -> seconds; None on absent, unparsable,
   negative or non-finite input (None means "no pushback", never "retry
@@ -19,6 +21,8 @@ __all__ = [
     "RETRY_AFTER_HEADER",
     "RETRY_AFTER_METADATA_KEY",
     "RETRY_PUSHBACK_MS_METADATA_KEY",
+    "format_retry_after_s",
+    "format_retry_pushback_ms",
     "parse_retry_after",
     "parse_pushback_metadata",
 ]
@@ -26,6 +30,25 @@ __all__ = [
 RETRY_AFTER_HEADER = "Retry-After"
 RETRY_AFTER_METADATA_KEY = "retry-after"
 RETRY_PUSHBACK_MS_METADATA_KEY = "retry-pushback-ms"
+
+
+def format_retry_after_s(seconds: float) -> str:
+    """Canonical wire text for a pushback interval in seconds. Negative
+    input clamps to 0; any positive interval renders as at least
+    ``"0.001"``, so rounding cannot erase a request to back off."""
+    s = float(seconds)
+    if s <= 0.0:
+        return "0.000"
+    return f"{max(round(s, 3), 0.001):.3f}"
+
+
+def format_retry_pushback_ms(seconds: float) -> str:
+    """Integral-millisecond mirror of :func:`format_retry_after_s`:
+    rounded, and at least 1 ms for positive input."""
+    s = float(seconds)
+    if s <= 0.0:
+        return "0"
+    return str(max(1, round(s * 1000)))
 
 
 def parse_retry_after(raw) -> float | None:

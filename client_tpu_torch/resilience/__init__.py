@@ -221,13 +221,13 @@ class CircuitBreaker:
 
     def _emit(self, name: str, host: str, trace_id: str | None,
               severity: str = "INFO", **detail) -> None:
-        """Journal a state transition (called outside the breaker lock).
+        """Journal a state transition as a ``breaker.<name>`` event
+        (outside the breaker lock: the journal has its own lock and runs
+        its sinks)."""
+        from client_tpu_torch.observability.events import journal
 
-        The port has no event journal yet: this hook does nothing. When
-        the events plane is ported (``observability/events.py``), it
-        emits here as the reference does:
-        ``journal().emit("breaker", name, severity=severity,
-        trace_id=trace_id, host=host, **detail)``."""
+        journal().emit("breaker", name, severity=severity,
+                       trace_id=trace_id, host=host, **detail)
 
     def check(self, host: str = "", trace_id: str | None = None) -> None:
         """Gate one call attempt; raises CircuitBreakerOpenError when the

@@ -23,15 +23,17 @@ Models load and unload at run time over ``POST
 ``RepositoryModelLoad`` / ``RepositoryModelUnload``.
 
 Serves on the card unless ``--device cpu`` is given; without CUDA and
-without that flag it exits with an error. SIGTERM or Ctrl-C stops it.
+without that flag it exits with an error. SIGTERM drains it
+(``admission/drain.py``): readiness turns off, new requests get 503 with
+``Retry-After``, the requests in flight finish within
+``--drain-deadline`` seconds (default 30), then it exits 0. Ctrl-C stops
+it at once.
 """
 
 from __future__ import annotations
 
 import argparse
-import signal
 import sys
-import threading
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -50,11 +52,16 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--no-grpc", action="store_true")
     ap.add_argument("--device", default=None,
                     help="torch device to serve on (default: cuda)")
+    ap.add_argument("--drain-deadline", type=float, default=30.0,
+                    metavar="SECONDS",
+                    help="max seconds to drain in-flight requests on "
+                         "SIGTERM before forcing shutdown (default 30)")
     ap.add_argument("--verbose", action="store_true")
     args = ap.parse_args(argv)
     if args.no_http and args.no_grpc:
         ap.error("nothing to serve (--no-http and --no-grpc)")
 
+    from client_tpu_torch.admission.drain import install_sigterm_handler
     from client_tpu_torch.engine import EngineError, TorchEngine
     from client_tpu_torch.engine.repository import ModelRepository
     from client_tpu_torch.models import _REGISTRY, build_repository, model_names
@@ -84,26 +91,28 @@ def main(argv: list[str] | None = None) -> int:
         if entry.get("reason"):
             line += f" ({entry['reason']})"
         print(line, file=sys.stderr, flush=True)
-    servers = []
-    if not args.no_http:
-        servers.append(("http", HttpInferenceServer(
-            engine, host=args.host, port=args.http_port,
-            verbose=args.verbose).start()))
-    if not args.no_grpc:
-        servers.append(("grpc", GrpcInferenceServer(
-            engine, host=args.host, port=args.grpc_port).start()))
-    for kind, server in servers:
+    http_servers = [] if args.no_http else [HttpInferenceServer(
+        engine, host=args.host, port=args.http_port,
+        verbose=args.verbose).start()]
+    grpc_servers = [] if args.no_grpc else [GrpcInferenceServer(
+        engine, host=args.host, port=args.grpc_port).start()]
+    for kind, server in ([("http", s) for s in http_servers]
+                         + [("grpc", s) for s in grpc_servers]):
         print(f"serving {kind} at {server.url}", file=sys.stderr, flush=True)
-    stop = threading.Event()
-    signal.signal(signal.SIGTERM, lambda *_: stop.set())
+    drained = install_sigterm_handler(
+        engine, http_servers=http_servers, grpc_servers=grpc_servers,
+        deadline_s=args.drain_deadline,
+        on_done=lambda report: print(f"drain: {report}", file=sys.stderr,
+                                     flush=True))
     try:
-        stop.wait()
+        while not drained.wait(timeout=3600):
+            pass
+        print("drained; exiting", file=sys.stderr, flush=True)
     except KeyboardInterrupt:
-        pass
-    print("shutting down", file=sys.stderr, flush=True)
-    for _, server in servers:
-        server.stop()
-    engine.shutdown()
+        print("shutting down", file=sys.stderr, flush=True)
+        for server in http_servers + grpc_servers:
+            server.stop()
+        engine.shutdown()
     return 0
 
 

@@ -23,14 +23,25 @@ context from its ``traceparent`` parameter or, on ``ModelInfer``, the
 RPC's metadata (the parameter wins); a caller that sent one gets it back
 on the final response with the server's phases (``server_<phase>_us``,
 and ``server_compile_us`` for a cold first execution). The
-``grpc.pre_infer`` fault site fires on ``ModelInfer`` entry. The
-operational RPCs (Events, Profile, ...), deadlines, tenants, priorities
-and the load-report and health-state trailers are not ported: an RPC
-with no handler answers UNIMPLEMENTED.
+``grpc.pre_infer`` fault site fires on ``ModelInfer`` entry.
+
+A request's end-to-end deadline is the RPC's (``context.time_remaining()``)
+or its ``timeout_ms`` parameter, which wins and is the only one on a
+stream, whose RPC deadline covers every request on it; an expired one
+answers DEADLINE_EXCEEDED. The ``tenant`` parameter tags it for the cost
+ledger and ``priority`` may put it in the admission shadow class. A shed
+answers RESOURCE_EXHAUSTED (UNAVAILABLE while draining) with the
+``retry-after`` and ``retry-pushback-ms`` trailers; ``ServerReady``
+carries the health state in an ``x-health-state`` trailer. The
+operational RPCs ``Events``, ``SloStatus``, ``Profile``, ``Timeseries``,
+``MemoryCensus`` and ``Costs`` answer the HTTP routes' bodies (reports as
+JSON strings). The load-report trailer, ``Qos``, the blackbox RPCs and
+the shm ring and dataset RPCs are not ported: they answer UNIMPLEMENTED.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import queue
 import threading
@@ -47,17 +58,25 @@ from client_tpu_torch.engine.types import (
     InferRequest,
     InferResponse,
     OutputRequest,
+    now_ns,
 )
 from client_tpu_torch.faults import FaultInjected
 from client_tpu_torch.observability.tracing import TraceContext
 from client_tpu_torch.protocol import grpc_codec
 from client_tpu_torch.protocol import grpc_service_pb2 as pb
+from client_tpu_torch.protocol import ops_pb2 as ops
 from client_tpu_torch.protocol.dtypes import np_to_wire_dtype
 from client_tpu_torch.protocol.grpc_stub import (
     GRPCInferenceServiceServicer,
     add_GRPCInferenceServiceServicer_to_server,
 )
 from client_tpu_torch.protocol.model_config import config_dict_to_proto
+from client_tpu_torch.protocol.pushback import (
+    RETRY_AFTER_METADATA_KEY,
+    RETRY_PUSHBACK_MS_METADATA_KEY,
+    format_retry_after_s,
+    format_retry_pushback_ms,
+)
 from client_tpu_torch.server.classification import (
     classify_output,
     output_labels,
@@ -86,14 +105,24 @@ _STATUS_BY_HTTP = {
 
 
 def _abort(context, exc: Exception):
+    # A shed carries its pushback in trailing metadata: `retry-after` in
+    # fractional seconds and `retry-pushback-ms`, which the clients'
+    # RetryPolicy waits out instead of its own backoff.
+    retry_after_s = getattr(exc, "retry_after_s", None)
+    if retry_after_s is not None:
+        context.set_trailing_metadata((
+            (RETRY_AFTER_METADATA_KEY, format_retry_after_s(retry_after_s)),
+            (RETRY_PUSHBACK_MS_METADATA_KEY,
+             format_retry_pushback_ms(retry_after_s)),
+        ))
     if isinstance(exc, EngineError):
         code = _STATUS_BY_HTTP.get(exc.status, grpc.StatusCode.UNKNOWN)
         context.abort(code, str(exc))
     context.abort(grpc.StatusCode.INTERNAL, str(exc))
 
 
-def _proto_to_request(engine: TorchEngine,
-                      request: "pb.ModelInferRequest") -> InferRequest:
+def _proto_to_request(engine: TorchEngine, request: "pb.ModelInferRequest",
+                      context=None) -> InferRequest:
     inputs: dict[str, np.ndarray] = {}
     raw = list(request.raw_input_contents)
     raw_idx = 0
@@ -122,7 +151,7 @@ def _proto_to_request(engine: TorchEngine,
             shm_byte_size=int(p.get("shared_memory_byte_size", 0))))
 
     params = grpc_codec.params_to_dict(request.parameters)
-    return InferRequest(
+    req = InferRequest(
         model_name=request.model_name,
         model_version=request.model_version,
         request_id=request.id,
@@ -132,7 +161,22 @@ def _proto_to_request(engine: TorchEngine,
         sequence_id=int(params.get("sequence_id", 0)),
         sequence_start=bool(params.get("sequence_start", False)),
         sequence_end=bool(params.get("sequence_end", False)),
+        priority=int(params.get("priority", 0)),
+        tenant=str(params.get("tenant", "") or ""),
     )
+    # The end-to-end deadline: a `timeout_ms` parameter (the only one
+    # mid-stream, where the RPC's deadline covers the whole stream) wins
+    # over the RPC's own, which the client set net of transit. An RPC
+    # whose deadline has already passed is expired here (the JAX server
+    # serves it as if it had none).
+    timeout_ms = params.get("timeout_ms")
+    if timeout_ms is not None:
+        req.set_deadline_from_timeout_ms(float(timeout_ms))
+    elif context is not None:
+        remaining = context.time_remaining()
+        if remaining is not None:
+            req.deadline_ns = now_ns() + max(0, int(remaining * 1e9))
+    return req
 
 
 def _response_to_proto(engine: TorchEngine, req: InferRequest,
@@ -220,6 +264,10 @@ class _Servicer(GRPCInferenceServiceServicer):
         return pb.ServerLiveResponse(live=self.engine.is_live())
 
     def ServerReady(self, request, context):  # noqa: N802
+        # The HTTP frontend's X-Health-State, as a trailer: a router tells
+        # a draining server from a dead one by it.
+        context.set_trailing_metadata(
+            (("x-health-state", self.engine.health_state()),))
         return pb.ServerReadyResponse(ready=self.engine.is_ready())
 
     def ModelReady(self, request, context):  # noqa: N802
@@ -313,6 +361,73 @@ class _Servicer(GRPCInferenceServiceServicer):
             _abort(context, exc)
         return pb.RepositoryModelUnloadResponse()
 
+    # -- operational control plane -------------------------------------------
+
+    def Events(self, request, context):  # noqa: N802
+        """``GET /v2/events`` over gRPC. Empty strings and zeros mean no
+        filter (proto3 defaults); ``since_seq`` is the exclusive cursor of
+        the previous answer's ``next_seq``."""
+        try:
+            out = self.engine.events_export(
+                model=request.model or None,
+                severity=request.severity or None,
+                category=request.category or None,
+                since_seq=request.since_seq or None,
+                since_ts=request.since_wall or None,
+                until_ts=request.until_wall or None,
+                limit=request.limit or None)
+        except ValueError as exc:  # an unknown severity name
+            context.abort(grpc.StatusCode.INVALID_ARGUMENT, str(exc))
+        resp = ops.EventsResponse(next_seq=out["next_seq"],
+                                  dropped=out["dropped"])
+        for e in out["events"]:
+            resp.events.add(
+                seq=e["seq"], ts_wall=e["ts_wall"],
+                ts_mono_ns=e["ts_mono_ns"], category=e["category"],
+                name=e["name"], severity=e["severity"],
+                model=e.get("model", ""), version=e.get("version", ""),
+                trace_id=e.get("trace_id", ""),
+                detail_json=(json.dumps(e["detail"])
+                             if e.get("detail") else ""))
+        return resp
+
+    def SloStatus(self, request, context):  # noqa: N802
+        """``GET /v2/slo`` over gRPC, narrowed to ``model`` if set."""
+        snap = self.engine.slo_snapshot()
+        if request.model:
+            snap["models"] = {k: v for k, v in snap["models"].items()
+                              if k == request.model}
+        return ops.SloStatusResponse(slo_json=json.dumps(snap))
+
+    def Profile(self, request, context):  # noqa: N802
+        """``GET /v2/profile`` over gRPC."""
+        snap = self.engine.profile_snapshot(model=request.model or None)
+        return ops.ProfileResponse(profile_json=json.dumps(snap))
+
+    def Timeseries(self, request, context):  # noqa: N802
+        """``GET /v2/timeseries`` over gRPC."""
+        try:
+            out = self.engine.timeseries_export(
+                signal=request.signal or None,
+                model=request.model or None,
+                since_seq=request.since_seq or None,
+                since_wall=request.since_wall or None,
+                until_wall=request.until_wall or None,
+                limit=request.limit or None)
+        except ValueError as exc:  # an unknown signal name
+            context.abort(grpc.StatusCode.INVALID_ARGUMENT, str(exc))
+        return ops.TimeseriesResponse(timeseries_json=json.dumps(out))
+
+    def MemoryCensus(self, request, context):  # noqa: N802
+        """``GET /v2/memory`` over gRPC."""
+        return ops.MemoryResponse(
+            memory_json=json.dumps(self.engine.memory_census()))
+
+    def Costs(self, request, context):  # noqa: N802
+        """``GET /v2/costs`` over gRPC."""
+        snap = self.engine.costs_snapshot(model=request.model or None)
+        return ops.CostsResponse(costs_json=json.dumps(snap))
+
     # -- shared memory -------------------------------------------------------
 
     def SystemSharedMemoryStatus(self, request, context):  # noqa: N802
@@ -396,7 +511,7 @@ class _Servicer(GRPCInferenceServiceServicer):
                                               grpc.StatusCode.UNAVAILABLE),
                           str(exc))
         try:
-            req = _proto_to_request(self.engine, request)
+            req = _proto_to_request(self.engine, request, context)
             _adopt_trace(req, context)
             # A client that goes away marks the request, so the scheduler
             # skips it instead of spending device time on it; add_callback

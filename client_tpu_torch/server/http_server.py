@@ -35,9 +35,23 @@ requests), ``GET /v2/events`` (the journal, with its filters) and ``GET
 ``traceparent`` (or starts a trace) and answers with it and a
 ``Server-Timing`` header. The ``http.pre_read`` fault site fires before
 the body is read: a drop closes the connection with no answer, an error
-drains the body first. Compression, the shm slot ring, staged datasets
-and the other control-plane routes (SLO, costs, QoS, timeseries, memory,
-load, blackbox) are not ported yet: they answer 404.
+drains the body first. The census and ledger routes: ``GET /v2/memory``
+(the HBM census), ``/v2/slo``, ``/v2/costs[?model=]`` and
+``/v2/timeseries`` (the flight recorder, with the events route's
+filters and ``signal``).
+
+Overload protection: a request's end-to-end deadline comes from the
+``timeout-ms`` header or the ``timeout_ms`` parameter (the header wins)
+and its cost-ledger tenant from ``X-Tpu-Tenant`` or the ``tenant``
+parameter; ``priority`` may put it in the admission shadow class. A shed
+answers 429 (503 while draining) with ``Retry-After`` and
+``X-Health-State``, an expired deadline 504. ``/v2/health/ready``
+answers 200 with ``{"state": ...}`` while READY or DEGRADED, 503 while
+DRAINING, and the state in ``X-Health-State``; once the engine is not
+ready each connection closes after its response, so that pooled clients
+stop reaching a drained server. Compression, the shm slot ring, staged
+datasets, QoS, the load report and the blackbox are not ported: their
+routes answer 404.
 
 A stdlib ThreadingHTTPServer: each connection gets a thread that only
 frames; the engine's per-model schedulers batch and run the work.
@@ -72,6 +86,10 @@ from client_tpu_torch.observability.tracing import (
 )
 from client_tpu_torch.protocol import rest
 from client_tpu_torch.protocol.dtypes import np_to_wire_dtype
+from client_tpu_torch.protocol.pushback import (
+    RETRY_AFTER_HEADER,
+    format_retry_after_s,
+)
 from client_tpu_torch.server.classification import (
     classify_output,
     output_labels,
@@ -112,6 +130,10 @@ _ROUTES: list[tuple[str, re.Pattern, str]] = [
     ("GET", re.compile(r"^/v2/trace/requests$"), "trace_requests"),
     ("GET", re.compile(r"^/v2/events$"), "events"),
     ("GET", re.compile(r"^/v2/profile$"), "profile"),
+    ("GET", re.compile(r"^/v2/slo$"), "slo"),
+    ("GET", re.compile(r"^/v2/costs$"), "costs"),
+    ("GET", re.compile(r"^/v2/timeseries$"), "timeseries"),
+    ("GET", re.compile(r"^/v2/memory$"), "memory"),
     ("GET", re.compile(r"^/metrics$"), "metrics"),
 ]
 
@@ -160,7 +182,9 @@ class _Handler(BaseHTTPRequestHandler):
                     return
             self._send_error(404, f"no route for {method} {self.path}")
         except EngineError as exc:
-            self._send_error(exc.status, str(exc))
+            self._send_error(exc.status, str(exc),
+                             retry_after_s=getattr(exc, "retry_after_s",
+                                                   None))
         except (ValueError, KeyError, TypeError) as exc:
             # json.JSONDecodeError and UnicodeDecodeError are ValueErrors.
             self._send_error(400, f"malformed request: {exc!r}")
@@ -169,6 +193,12 @@ class _Handler(BaseHTTPRequestHandler):
         except Exception as exc:  # noqa: BLE001 — the frontend must answer
             _log.exception("HTTP %s %s failed", method, self.path)
             self._send_error(500, f"internal error: {exc}")
+        finally:
+            # A drained server sheds its keep-alive connections: its
+            # accept loop has stopped, and a pooled client would otherwise
+            # keep reaching it through the connection it holds.
+            if not self.engine.is_ready():
+                self.close_connection = True
 
     def do_GET(self):  # noqa: N802
         self._dispatch("GET")
@@ -191,9 +221,19 @@ class _Handler(BaseHTTPRequestHandler):
     def _send_json(self, obj, status: int = 200) -> None:
         self._send(status, json.dumps(obj).encode("utf-8"))
 
-    def _send_error(self, status: int, msg: str) -> None:
+    def _send_error(self, status: int, msg: str,
+                    retry_after_s: float | None = None) -> None:
+        # A shed carries the server's pushback (fractional seconds, the
+        # gRPC trailer's text) and names the health state it came from, so
+        # that a router tells a draining server from an overloaded one.
+        headers = {}
+        if retry_after_s is not None:
+            headers[RETRY_AFTER_HEADER] = format_retry_after_s(retry_after_s)
+        if status in (429, 503):
+            headers["X-Health-State"] = self.engine.health_state()
         try:
-            self._send_json({"error": msg}, status)
+            self._send(status, json.dumps({"error": msg}).encode("utf-8"),
+                       extra_headers=headers)
         except OSError:
             pass  # the peer went away
 
@@ -203,7 +243,13 @@ class _Handler(BaseHTTPRequestHandler):
         self._send(200 if self.engine.is_live() else 400, b"")
 
     def h_health_ready(self):
-        self._send(200 if self.engine.is_ready() else 503, b"")
+        # 200 while serving (READY or DEGRADED still take work), 503 while
+        # DRAINING; the state in the body and a header, for probes that
+        # read no body.
+        state = self.engine.health_state()
+        self._send(200 if self.engine.is_ready() else 503,
+                   json.dumps({"state": state}).encode("utf-8"),
+                   extra_headers={"X-Health-State": state})
 
     def h_server_metadata(self):
         md = self.engine.server_metadata()
@@ -269,6 +315,26 @@ class _Handler(BaseHTTPRequestHandler):
     def _query(self) -> dict:
         return parse_qs(urlparse(self.path).query)
 
+    def _query_readers(self):
+        """(one, num): a query parameter's text, and its value cast with
+        a malformed one answered 400."""
+        q = self._query()
+
+        def one(key):
+            return (q.get(key) or [None])[0]
+
+        def num(key, cast):
+            raw = one(key)
+            if raw is None:
+                return None
+            try:
+                return cast(raw)
+            except ValueError:
+                raise EngineError(f"malformed {key!r} parameter",
+                                  400) from None
+
+        return one, num
+
     def h_metrics(self):
         # A scraper that accepts application/openmetrics-text gets
         # OpenMetrics 1.0 (exemplars, # EOF); any other the 0.0.4 text.
@@ -285,21 +351,7 @@ class _Handler(BaseHTTPRequestHandler):
         answer's ``next_seq``), ``?since_wall=`` / ``?until_wall=`` an
         epoch-seconds window (``since_ts`` the older name of the lower
         bound), ``?limit=<n>`` the newest n."""
-        q = self._query()
-
-        def one(key):
-            return (q.get(key) or [None])[0]
-
-        def num(key, cast):
-            raw = one(key)
-            if raw is None:
-                return None
-            try:
-                return cast(raw)
-            except ValueError:
-                raise EngineError(f"malformed {key!r} parameter",
-                                  400) from None
-
+        one, num = self._query_readers()
         since_wall = num("since_wall", float)
         if since_wall is None:
             since_wall = num("since_ts", float)
@@ -315,6 +367,32 @@ class _Handler(BaseHTTPRequestHandler):
     def h_profile(self):
         self._send_json(self.engine.profile_snapshot(
             model=(self._query().get("model") or [None])[0]))
+
+    def h_slo(self):
+        self._send_json(self.engine.slo_snapshot())
+
+    def h_costs(self):
+        self._send_json(self.engine.costs_snapshot(
+            model=(self._query().get("model") or [None])[0]))
+
+    def h_memory(self):
+        self._send_json(self.engine.memory_census())
+
+    def h_timeseries(self):
+        """The flight recorder's ring: ``?signal=`` one signal,
+        ``?model=`` narrows per-model maps, ``?since=<seq>`` exclusive
+        cursor, ``?since_wall=`` / ``?until_wall=`` an epoch-seconds
+        window, ``?limit=<n>`` the newest n."""
+        one, num = self._query_readers()
+        try:
+            self._send_json(self.engine.timeseries_export(
+                signal=one("signal"), model=one("model"),
+                since_seq=num("since", int),
+                since_wall=num("since_wall", float),
+                until_wall=num("until_wall", float),
+                limit=num("limit", int)))
+        except ValueError as exc:  # an unknown signal name
+            raise EngineError(str(exc), 400) from None
 
     def h_trace_setting(self):
         self._send_json(self.engine.trace_setting())
@@ -533,17 +611,34 @@ class _Handler(BaseHTTPRequestHandler):
                 shm_region=p.get("shared_memory_region"),
                 shm_offset=int(p.get("shared_memory_offset", 0)),
                 shm_byte_size=int(p.get("shared_memory_byte_size", 0))))
-        return InferRequest(
+        req = InferRequest(
             model_name=name, model_version=version or "",
             request_id=str(head.get("id", "")), inputs=inputs,
             outputs=outputs, parameters=params,
             sequence_id=int(params.get("sequence_id", 0)),
             sequence_start=bool(params.get("sequence_start", False)),
             sequence_end=bool(params.get("sequence_end", False)),
+            priority=int(params.get("priority", 0)),
+            # The header (transport-level, set by the clients) or the
+            # parameter (survives a proxy that strips unknown headers);
+            # the header wins, as timeout-ms's does below.
+            tenant=str(self.headers.get("x-tpu-tenant")
+                       or params.get("tenant", "") or ""),
             # Every HTTP inference is traced: the caller's W3C context is
             # adopted, or a trace starts here.
             trace=TraceContext.from_traceparent(
                 self.headers.get("traceparent")))
+        # The end-to-end deadline: the header holds the budget left when
+        # the client sent it, so it wins over the parameter.
+        timeout_ms = self.headers.get("timeout-ms") \
+            or params.get("timeout_ms")
+        if timeout_ms is not None:
+            try:
+                req.set_deadline_from_timeout_ms(float(timeout_ms))
+            except (TypeError, ValueError):
+                raise EngineError(
+                    f"invalid timeout-ms value {timeout_ms!r}", 400) from None
+        return req
 
     def _send_infer_response(self, req: InferRequest,
                              resp: InferResponse) -> None:
