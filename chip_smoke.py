@@ -261,18 +261,49 @@
    ``overload observation:`` line (census rows, drain seconds, sheds,
    expirations, the host µs admission and the deadline check add a
    request).
-15. Prints one ``{"kernels": [...]}`` line (each kernel's ``launches`` over
+15. Tuning phase: one engine behind HTTP and gRPC with ``bert_long``
+   (one worker, ladder [1, 4], 2 priority levels, level 2 capped at
+   ``TUNE_LEVEL_CAP`` queued), ``tiny_gpt_long`` and ``dlrm_mlperf``,
+   loaded with ``warmup=True`` and ``CLIENT_TPU_QOS``,
+   ``CLIENT_TPU_AUTOTUNE`` and ``CLIENT_TPU_SELFDRIVE`` set, the census
+   and profiler fresh. Before any request: K1 bf16 launched 12 x
+   ``bert_long``'s buckets, K1 fp32 and K2 by the generative warm-up, K3
+   once per ``dlrm_mlperf`` bucket, and every bucket's cold execution in
+   ``/v2/profile``. The first request is warm (no ``compile`` in its
+   ``Server-Timing``). ``bert_long``'s worker held by a ``model.execute``
+   latency fault while batch-class requests (``X-Tpu-Tenant: etl``)
+   queue, one past the level's cap shed with 429 in the JAX engine's
+   words, then interactive ones (``ui``): the interactive ones make the
+   first wave (each waits less than every batch one), and every answer is
+   within ``SERVED_ATOL`` of its own feed's plain output; ``/v2/qos`` and
+   the ``Qos`` RPC give equal bodies; K1 bf16 = 12 x the executions on
+   ``/metrics``. Streams and DLRM requests too; no execution or decode
+   dispatch of that traffic is cold. Then the profiler fresh, 2-row
+   requests fill bucket 4 half; one ``Autotuner.tick()`` warms bucket 2
+   through ``warm_bucket`` (12 K1 launches) and promotes it; its
+   reservation is on ``/v2/memory``'s ``autotune_warm`` plan (the arena
+   only plans; the drift is the plan less the tagged bytes), the recorder's
+   ``hbm_reserved`` is the arena's ``reserved_bytes``, and requests at
+   bucket 2 run warm. Self-drive: one tick under a stub's fast burn
+   tightens ``bert_long``'s admission, one after the quiet hold restores
+   it. Last, ``bert_long`` reloaded without warm-up, for the first
+   request's cold ``compute_infer``. One ``tuning observation:`` line
+   (the warm seconds per model, the first request's ``compute_infer``
+   with and without warm-up, ``warm_bucket``'s seconds, the interactive
+   and batch requests' queue ms).
+16. Prints one ``{"kernels": [...]}`` line (each kernel's ``launches`` over
    HTTP and gRPC, beside ``http_launches`` over HTTP alone, which must be
    fewer; the ring all-reduce's include the stateful phase's, and its
    entry carries ``dlrm_shape``, its times at [832, 128]; flash
    attention's include the shm phase's, also given as ``shm_launches``;
    every kernel's include the clients, repository, observability,
-   weights and overload phases', also given as ``clients_launches``,
-   ``repository_launches``, ``observability_launches``,
-   ``weights_launches`` and ``overload_launches``), the ``nvidia-smi``
+   weights, overload and tuning phases', also given as
+   ``clients_launches``, ``repository_launches``,
+   ``observability_launches``, ``weights_launches``,
+   ``overload_launches`` and ``tuning_launches``), the ``nvidia-smi``
    name and power limit line, and last ``{"ok": true, "device": {...}}``.
 
-The gRPC client code of steps 4 to 9 and 11 to 14 is the script's own
+The gRPC client code of steps 4 to 9 and 11 to 15 is the script's own
 (tensors as ``tobytes`` and ``np.frombuffer``, BYTES with a hand-written
 length prefix); it uses the port's ``grpc_service_pb2`` and ``grpc_stub``
 only, the wire schema. Without ``grpc`` the script fails. Step 10 holds the
@@ -6196,6 +6227,470 @@ def overload_phase(torch, smi: str, device: str = "cuda") -> dict:
             engine.shutdown()
 
 
+TUNE_QOS = {"classes": {
+    "interactive": {"weight": 4, "preempt": True, "priority_level": 1},
+    "batch": {"weight": 1, "priority_level": 2}},
+    "tenants": {"ui": "interactive", "etl": "batch"},
+    "default_class": "interactive"}
+TUNE_LEVEL_CAP = 4      # bert_long's level 2 holds this many queued
+TUNE_WAVE = 4           # requests of each class queued behind the hold
+TUNE_HOLD_MS = 1500     # model.execute latency that holds the worker
+TUNE_PAIRS = 9          # 2-row bert_long requests before the tuner's tick
+TUNE_AUTOTUNE = '{"interval_s": 3600, "min_calls": 8}'
+TUNE_SELFDRIVE = '{"interval_s": 3600}'
+TUNE_STREAMS = (3, 40, 700)  # tiny_gpt_long prompt lengths
+TUNE_TOKENS = 8
+TUNE_DLRM = 4           # dlrm_mlperf requests
+
+
+class _Env:
+    """Environment variables set for a block, then restored."""
+
+    def __init__(self, **values):
+        self.values = values
+        self.saved = {}
+
+    def __enter__(self):
+        for k, v in self.values.items():
+            self.saved[k] = os.environ.get(k)
+            os.environ[k] = v
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _timing(headers: dict) -> dict[str, float]:
+    """A response's ``Server-Timing`` phases in ms."""
+    from client_tpu_torch.observability.tracing import parse_server_timing
+
+    return {k: v / 1e3 for k, v in parse_server_timing(
+        headers.get("Server-Timing")).items()}
+
+
+def _cold_table(engine) -> dict:
+    """{model: [(bucket, compilations, cold executions, executions)]}
+    and, for a generative model, its decode shapes' cold dispatches."""
+    out = {e["model"]: [(b["bucket"], b["compilations"],
+                         b["cold_executions"], b["executions"])
+                        for b in e["buckets"]]
+           for e in engine.profile_snapshot()["models"].values()}
+    waves = {}
+    for (model, _v, bucket, chunk), w in engine.profiler._waves.items():
+        waves.setdefault(model, []).append(
+            (bucket, chunk, w.dispatches, w.cold_dispatches))
+    return out, waves
+
+
+def _tune_qos(torch, engine, port: int, stub, seq: int, backend,
+              device) -> dict:
+    """``bert_long``'s worker held; batch-class then interactive requests
+    queue; the interactive ones make the first wave, one batch request
+    past the level's cap sheds, every answer is within ``SERVED_ATOL`` of
+    its own feed's plain output; ``/v2/qos`` and ``Qos`` agree."""
+    from client_tpu_torch import faults
+    from client_tpu_torch.protocol import ops_pb2
+
+    sched = engine.scheduler_for("bert_long")
+    path = "/v2/models/bert_long/infer"
+    feeds = [_obs_bert_inputs(seq, 60 + i) for i in range(2 * TUNE_WAVE + 2)]
+
+    def send(i, tenant):
+        ids, mask = feeds[i]
+        body, headers = _binary_request(ids, mask)
+        return _post(port, path, body, dict(headers,
+                                            **{"X-Tpu-Tenant": tenant}))
+
+    faults.configure({"model.execute": {"latency_ms": TUNE_HOLD_MS}})
+    try:
+        with concurrent.futures.ThreadPoolExecutor(2 * TUNE_WAVE + 2) as pool:
+            held = pool.submit(send, 0, "etl")
+            _wait_for(lambda: sched.active_batches == 1, "bert_long held")
+            batch = []
+            for i in range(TUNE_WAVE):
+                batch.append(pool.submit(send, 1 + i, "etl"))
+                _wait_for(lambda: sched.queue.qsize() == i + 1,
+                          f"batch request {i} queued")
+            shed = send(1 + TUNE_WAVE, "etl")  # past the level's cap
+            inter = []
+            for i in range(TUNE_WAVE):
+                inter.append(pool.submit(send, 2 + TUNE_WAVE + i, "ui"))
+                _wait_for(lambda: sched.queue.qsize() == TUNE_WAVE + i + 1,
+                          f"interactive request {i} queued")
+            lanes = engine.qos_snapshot(model="bert_long")["queues"]
+            faults.reset()
+            held = held.result()
+            batch = [f.result() for f in batch]
+            inter = [f.result() for f in inter]
+    finally:
+        faults.reset()
+    _check(lanes == {"bert_long": {"interactive": TUNE_WAVE,
+                                   "batch": TUNE_WAVE}},
+           f"lanes while held: {lanes}")
+    _check(shed[0] == 429 and json.loads(shed[2])["error"] == (
+        f"model 'bert_long' rejected request at priority level 2: current "
+        f"queue depth {TUNE_LEVEL_CAP} exceeds maximum queue size "
+        f"({TUNE_LEVEL_CAP}) for that level"),
+        f"past the level's cap: {shed[0]} {shed[2][:200]}")
+    for status, headers, data in [held] + batch + inter:
+        _check(status == 200, f"bert_long: HTTP {status} {data[:200]}")
+        _check("compile" not in _timing(headers), "a cold execution")
+    queue_ms = {"interactive": [_timing(h)["queue"] for _, h, _ in inter],
+                "batch": [_timing(h)["queue"] for _, h, _ in batch]}
+    _check(max(queue_ms["interactive"]) < min(queue_ms["batch"]),
+           f"interactive requests did not lead: {queue_ms}")
+    # Every answer against its own feed's plain output: a lane that
+    # returned the wrong tensor, or one request another's answer, fails.
+    answered = [(0, held)] + [(1 + i, r) for i, r in enumerate(batch)] + [
+        (2 + TUNE_WAVE + i, r) for i, r in enumerate(inter)]
+    plains = {i: _bert_plain(torch, backend, *feeds[i], device)
+              for i, _ in answered}
+    err = max(_bert_err(_parse_response(headers, data), plains[i])
+              for i, (_, headers, data) in answered)
+    apart = min(max(float(np.abs(plains[i][n] - plains[j][n]).max())
+                    for n in BERT_OUTPUTS)
+                for i in plains for j in plains if i < j)
+    status, body = _get(port, "/v2/qos")
+    rpc = json.loads(stub.Qos(ops_pb2.QosRequest(),
+                              timeout=GRPC_TIMEOUT_S).qos_json)
+    _check(status == 200 and rpc == body, f"Qos RPC {rpc} != /v2/qos {body}")
+    _check(body["enabled"] and body["queues"]["bert_long"] == {
+        "interactive": 0, "batch": 0}, f"/v2/qos after: {body}")
+    print(f"tuning: QoS: worker held {TUNE_HOLD_MS} ms, {TUNE_WAVE} batch "
+          f"then {TUNE_WAVE} interactive requests queued (one more batch "
+          f"shed at level 2's cap); interactive queue ms "
+          f"{[round(q, 3) for q in queue_ms['interactive']]} < batch "
+          f"{[round(q, 3) for q in queue_ms['batch']]}; "
+          f"{len(answered)} answers at most {err:.2e} off their own feeds' "
+          f"plain outputs (tolerance {SERVED_ATOL}; distinct feeds' plain "
+          f"outputs at least {apart:.2e} apart); /v2/qos == Qos", flush=True)
+    return {k: [round(q, 3) for q in v] for k, v in queue_ms.items()}
+
+
+def _tune_autotune(engine, port: int, seq: int, take) -> dict:
+    """2-row requests half fill bucket 4; one tick warms bucket 2 through
+    ``warm_bucket`` and promotes it; the census holds the arena's
+    reservations as its plan; the recorder's ``hbm_reserved`` is the
+    arena's; bucket 2 runs warm."""
+    path = "/v2/models/bert_long/infer"
+    engine.profiler.reset()
+    rng = np.random.default_rng(77)
+    for _ in range(TUNE_PAIRS):
+        ids = rng.integers(0, 30522, (2, seq)).astype(np.int32)
+        status, _, data = _post(port, path,
+                                *_binary_request(ids, np.ones_like(ids)))
+        _check(status == 200, f"2-row bert_long: HTTP {status}")
+    sched = engine.scheduler_for("bert_long")
+    _check(sched.bucket_ladder() == [1, 4], f"ladder {sched.bucket_ladder()}")
+    take()
+    decisions = engine.autotuner.tick()
+    warm_launches = take()["flash_attention"]
+    _check([(d["action"], d["model"], d["bucket"], d["applied"])
+            for d in decisions] == [("add_bucket", "bert_long", 2, True)],
+           f"the tuner decided {decisions}")
+    layers = len(engine.repository.get("bert_long").backend.layers)
+    if engine.device.type == "cuda":
+        _check(warm_launches == layers,
+               f"warm_bucket launched K1 {warm_launches} times, {layers} "
+               "layers")
+    _check(sched.bucket_ladder() == [1, 2, 4],
+           f"ladder after the tick {sched.bucket_ladder()}")
+    arena = engine.autotuner.arena
+    _check(arena.get("bucket:bert_long:1:2") is not None,
+           "no reservation for the promoted bucket")
+    status, census = _get(port, "/v2/memory")
+    row = next(r for r in census["owners"]
+               if (r["model"], r["component"]) == ("bert_long",
+                                                  "autotune_warm"))
+    planned = sum(r.nbytes for r in map(arena.get, (
+        f"bucket:bert_long:1:{b}" for b in (1, 2, 4))))
+    # The arena only plans: the census reads its reservations as the plan
+    # and the drift as the plan less the bytes tagged autotune_warm.
+    _check(row["plan_bytes"] == planned
+           and row["drift_bytes"] == row["plan_bytes"] - row["bytes"],
+           f"/v2/memory's autotune_warm row {row}, {planned} B planned")
+    sample = engine.recorder.tick()["signals"]
+    _check(sample["hbm_reserved"] == arena.reserved_bytes() > 0,
+           f"recorder hbm_reserved {sample.get('hbm_reserved')} != arena "
+           f"{arena.reserved_bytes()}")
+    for _ in range(2):
+        ids = rng.integers(0, 30522, (2, seq)).astype(np.int32)
+        status, headers, _ = _post(port, path,
+                                   *_binary_request(ids, np.ones_like(ids)))
+        _check(status == 200 and "compile" not in _timing(headers),
+               f"bucket 2: HTTP {status}, timing {_timing(headers)}")
+    bucket2 = next(b for b in engine.profile_snapshot()["models"][
+        "bert_long:1"]["buckets"] if b["bucket"] == 2)
+    _check((bucket2["compilations"], bucket2["cold_executions"],
+            bucket2["executions"]) == (1, 0, 2), f"bucket 2 {bucket2}")
+    compile_s = decisions[0]["compile_s"]
+    print(f"tuning: autotune: {TUNE_PAIRS} 2-row requests in bucket 4, one "
+          f"tick promoted bucket 2 (warm_bucket {compile_s} s, {warm_launches}"
+          f" K1 launches), ladder [1, 2, 4]; autotune_warm plan {planned} B, "
+          f"drift {row['drift_bytes']} B; hbm_reserved "
+          f"{arena.reserved_bytes()} B; bucket 2 warm", flush=True)
+    return {"warm_bucket_s": compile_s, "warm_bucket_launches": warm_launches,
+            "hbm_reserved": arena.reserved_bytes()}
+
+
+def _tune_selfdrive(engine) -> dict:
+    """One tick under a stub's fast burn tightens ``bert_long``; one after
+    the quiet hold restores it."""
+    from types import SimpleNamespace
+
+    from client_tpu_torch.engine.selfdrive import SelfDriveGovernor
+
+    clock = [1000.0]
+    slo = SimpleNamespace(enabled=True, burning=["bert_long"])
+    slo.fast_burn = lambda: list(slo.burning)
+    view = SimpleNamespace(slo=slo, admission=engine.admission,
+                           profiler=engine.profiler,
+                           scheduler_for=engine.scheduler_for)
+    config = engine.selfdrive.config
+    gov = SelfDriveGovernor(view, config, clock=lambda: clock[0])
+    burn = gov.tick()["admission"]
+    tightened = engine.admission.tightened_models()
+    _check([(d["action"], d["model"]) for d in burn]
+           == [("tighten", "bert_long")] and tightened == {
+               "bert_long": config.burn_factor},
+           f"under burn: {burn}, tightened {tightened}")
+    slo.burning = []
+    clock[0] += config.burn_restore_hold_s
+    quiet = gov.tick()["admission"]
+    _check([(d["action"], d["model"]) for d in quiet]
+           == [("restore", "bert_long")]
+           and engine.admission.tightened_models() == {},
+           f"after the hold: {quiet}, {engine.admission.tightened_models()}")
+    _check("selfdrive" in engine.profile_snapshot(), "no selfdrive section")
+    print(f"tuning: self-drive: a burning tick tightened bert_long to "
+          f"{config.burn_factor}, a quiet one after {config.burn_restore_hold_s}"
+          f" s restored it", flush=True)
+    return {"tightened": tightened}
+
+
+def tuning_phase(torch, smi: str, device: str = "cuda") -> dict:
+    """Warm-up, QoS with priority levels, the bucket autotuner with its
+    arena and self-drive on one engine with ``bert_long`` (K1 bf16),
+    ``tiny_gpt_long`` (K1 fp32, K2) and ``dlrm_mlperf`` (2 shards, K3)
+    behind HTTP and gRPC. Returns each kernel's launches. ``device`` is
+    for a dry run of the phase's logic on the CPU."""
+    from client_tpu_torch.engine import TorchEngine
+    from client_tpu_torch.engine.config import (
+        DynamicBatchingConfig,
+        QueuePolicy,
+    )
+    from client_tpu_torch.engine.generative import GenerativeScheduler
+    from client_tpu_torch.engine.model import Model
+    from client_tpu_torch.engine.repository import ModelRepository
+    from client_tpu_torch.models import _REGISTRY
+    from client_tpu_torch.models.dlrm import DlrmBackend
+    from client_tpu_torch.observability.costs import ledger
+    from client_tpu_torch.observability.events import journal
+    from client_tpu_torch.observability.memory import reset_hbm_census
+    from client_tpu_torch.observability.profiler import profiler
+    from client_tpu_torch.ops import decode_attention as da
+    from client_tpu_torch.ops import flash_attention as fa
+    from client_tpu_torch.parallel import kv_shard as ks
+    from client_tpu_torch.server import (
+        GrpcInferenceServer,
+        HttpInferenceServer,
+    )
+
+    t_phase = time.monotonic()
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+
+    def bert(dev):
+        backend = _REGISTRY["bert_long"](dev)
+        cfg = backend.config
+        cfg.instance_count = 1
+        cfg.batch_buckets = [1, cfg.max_batch_size]
+        cfg.dynamic_batching = DynamicBatchingConfig(
+            preferred_batch_size=[cfg.max_batch_size],
+            max_queue_delay_microseconds=500, priority_levels=2,
+            default_priority_level=2,
+            priority_queue_policy={2: QueuePolicy(
+                max_queue_size=TUNE_LEVEL_CAP)})
+        return backend
+
+    repo = ModelRepository()
+    repo.register("bert_long", bert)
+    repo.register("tiny_gpt_long", _REGISTRY["tiny_gpt_long"])
+    repo.register(DLRM_MODEL, lambda dev: DlrmBackend(
+        name=DLRM_MODEL, device=dev, emb_devices=[dev] * 2, **MLPERF_DLRM))
+    reset_hbm_census()
+    profiler().reset()
+    ledger().reset()
+    # The seconds each model's warm-up takes, timed around the engine's
+    # own calls.
+    warm_s: dict[str, float] = {}
+
+    def timed(fn, name_of):
+        def run(self):
+            t0 = time.monotonic()
+            fn(self)
+            key = name_of(self)
+            warm_s[key] = round(warm_s.get(key, 0.0)
+                                + time.monotonic() - t0, 3)
+        return run
+
+    model_warmup = Model.warmup
+    sched_warmup = GenerativeScheduler.warmup
+    Model.warmup = timed(model_warmup, lambda m: m.config.name)
+    GenerativeScheduler.warmup = timed(sched_warmup,
+                                       lambda s: s.model.config.name)
+    total = dict.fromkeys(("flash_attention", "flash_attention_fp32",
+                           "decode_wave_attention", "ring_all_reduce"), 0)
+
+    def take() -> dict:
+        """The launches since the last take, added to the phase's."""
+        now = {"flash_attention": fa.launches,
+               "flash_attention_fp32": fa.launches_fp32,
+               "decode_wave_attention": da.launches,
+               "ring_all_reduce": ks.launches}
+        fa.launches = fa.launches_fp32 = da.launches = ks.launches = 0
+        for k, v in now.items():
+            total[k] += v
+        return now
+
+    fa.launches = fa.launches_fp32 = da.launches = ks.launches = 0
+    since = journal().export(limit=0)["next_seq"]
+    try:
+        with _Env(CLIENT_TPU_QOS=json.dumps(TUNE_QOS),
+                  CLIENT_TPU_AUTOTUNE=TUNE_AUTOTUNE,
+                  CLIENT_TPU_SELFDRIVE=TUNE_SELFDRIVE):
+            engine = TorchEngine(repo, device=device, warmup=True)
+    finally:
+        Model.warmup = model_warmup
+        GenerativeScheduler.warmup = sched_warmup
+    warm = take()
+    server = HttpInferenceServer(engine, port=0).start()
+    grpc_server = GrpcInferenceServer(engine, port=0).start()
+    channel, stub = _grpc_channel(grpc_server.url)
+    print(f"tuning: bert_long, tiny_gpt_long, {DLRM_MODEL} warmed and up in "
+          f"{time.monotonic() - t_phase:.1f} s on {device}; warm-up seconds "
+          f"{warm_s}; warm-up launches {warm}", flush=True)
+    try:
+        index = {e["name"]: e["state"] for e in engine.repository_index()}
+        failed = [e for e in engine.events_export(
+            category="lifecycle", since_seq=since)["events"]
+            if e["name"] == "model_load_failed"]
+        _check(set(index.values()) == {"READY"} and not failed,
+               f"index {index}, failed loads {failed}")
+        bert_model = engine.repository.get("bert_long")
+        layers = len(bert_model.backend.layers)
+        ladders = {m: engine.repository.get(m).config.effective_buckets()
+                   for m in ("bert_long", DLRM_MODEL)}
+        if cuda:
+            _check(warm["flash_attention"]
+                   == layers * len(ladders["bert_long"]),
+                   f"warm-up: K1 bf16 {warm['flash_attention']} launches, "
+                   f"{layers} layers x {ladders['bert_long']}")
+            _check(warm["flash_attention_fp32"] > 0
+                   and warm["decode_wave_attention"] > 0,
+                   f"the generative warm-up launched {warm}")
+            _check(warm["ring_all_reduce"] == len(ladders[DLRM_MODEL]),
+                   f"warm-up: K3 {warm['ring_all_reduce']} launches, "
+                   f"{len(ladders[DLRM_MODEL])} {DLRM_MODEL} buckets")
+        status, prof = _get(server.port, "/v2/profile")
+        _check(status == 200, f"/v2/profile: HTTP {status}")
+        for model, ladder in ladders.items():
+            rows = {b["bucket"]: (b["compilations"], b["cold_executions"],
+                                  b["executions"])
+                    for b in prof["models"][f"{model}:1"]["buckets"]}
+            _check(rows == {b: (1, 0, 0) for b in ladder},
+                   f"{model}'s warm buckets in /v2/profile: {rows}")
+        gpt = engine.scheduler_for("tiny_gpt_long")
+        waves = {w["bucket"] for w in prof["models"]["tiny_gpt_long:1"]
+                 ["decode_waves"]}
+        _check(waves == set(gpt._wave_buckets),
+               f"tiny_gpt_long's warmed wave shapes {waves}")
+        seq = bert_model.config.input[0].dims[0]
+        ids, mask = _obs_bert_inputs(seq, 50)
+        status, headers, data = _post(server.port,
+                                      "/v2/models/bert_long/infer",
+                                      *_binary_request(ids, mask))
+        first = _timing(headers)
+        _check(status == 200 and "compile" not in first,
+               f"the first request: HTTP {status}, timing {first}")
+        # The other models' traffic: no execution or dispatch is cold.
+        rng = np.random.default_rng(88)
+        for plen in TUNE_STREAMS:
+            plen = min(plen, gpt._max_seq - TUNE_TOKENS - 1)
+            tokens, _, _ = _stream(server.port, "tiny_gpt_long", {
+                "inputs": [{"name": "INPUT_IDS", "datatype": "INT32",
+                            "shape": [plen], "data": rng.integers(
+                                0, 256, plen).tolist()}],
+                "parameters": {"max_tokens": TUNE_TOKENS}})
+            _check(len(tokens) == TUNE_TOKENS, f"{plen}: {len(tokens)}")
+        for i in range(TUNE_DLRM):
+            code, out = _grpc_infer(stub, DLRM_MODEL, _mlperf_csr(rng))
+            _check(code.name == "OK" and np.isfinite(
+                out["OUTPUT0"]).all(), f"{DLRM_MODEL} over gRPC: {code}")
+        before = _samples(_scrape(server.port))
+        take()
+        queue_ms = _tune_qos(torch, engine, server.port, stub, seq,
+                             bert_model.backend, device)
+        after = _samples(_scrape(server.port))
+        executions = int(_sample_sum(after, "tpu_inference_exec_count",
+                                     model="bert_long")
+                         - _sample_sum(before, "tpu_inference_exec_count",
+                                       model="bert_long"))
+        _check(executions == 3, f"{executions} bert_long executions: the "
+               "held one and two waves")
+        qos_launches = take()["flash_attention"]
+        if cuda:
+            _check(qos_launches == layers * executions,
+                   f"QoS: K1 {qos_launches} launches, {layers} x "
+                   f"{executions} executions on /metrics")
+        buckets, gen = _cold_table(engine)
+        cold = [(m, b) for m, rows in buckets.items() for b in rows
+                if b[1] != 1 or b[2] != 0]
+        cold += [(m, w) for m, rows in gen.items() for w in rows if w[3]]
+        _check(not cold, f"cold under traffic: {cold}")
+        tuned = _tune_autotune(engine, server.port, seq, take)
+        driven = _tune_selfdrive(engine)
+        # The first request without warm-up: bert_long reloaded cold.
+        engine._warmup = False
+        try:
+            engine.unload_model("bert_long")
+            engine.load_model("bert_long")
+        finally:
+            engine._warmup = True
+        status, headers, _ = _post(server.port, "/v2/models/bert_long/infer",
+                                   *_binary_request(ids, mask))
+        unwarmed = _timing(headers)
+        _check(status == 200 and "compile" in unwarmed,
+               f"an unwarmed first request: HTTP {status}, {unwarmed}")
+        take()
+        launches = dict(total)
+        if cuda:
+            _check(all(v > 0 for v in launches.values()),
+                   f"a kernel of the path did not launch: {launches}")
+        observation = {
+            "card": smi, "warm_s": warm_s,
+            "first_compute_infer_ms": {
+                "warmup": first["compute_infer"],
+                "no_warmup": unwarmed["compute_infer"],
+                "no_warmup_compile": unwarmed["compile"]},
+            "warm_bucket_s": tuned["warm_bucket_s"],
+            "queue_ms": queue_ms,
+            "hbm_reserved": tuned["hbm_reserved"],
+            "tightened": driven["tightened"]}
+        print(f"tuning observation: {json.dumps(observation)}", flush=True)
+        print(f"tuning: phase passed in {time.monotonic() - t_phase:.1f} s; "
+              f"launches {launches}; {smi}", flush=True)
+        return launches
+    finally:
+        channel.close()
+        grpc_server.stop()
+        server.stop()
+        engine.shutdown()
+
+
 def wave_phase(torch, smi: str) -> None:
     """``--kernels``: the per-wave host/device split (:func:`_wave_split`)
     of ``tiny_gpt_long`` at its registered size, built directly, over one
@@ -6322,6 +6817,12 @@ def main(argv: list[str]) -> int:
     for kernel in kernels:
         kernel["overload_launches"] = overload[kernel["name"]]
         kernel["launches"] += overload[kernel["name"]]
+    torch.cuda.empty_cache()
+    # Every kernel again: warm-up, QoS lanes, the autotuner's promotion.
+    tuning = tuning_phase(torch, smi)
+    for kernel in kernels:
+        kernel["tuning_launches"] = tuning[kernel["name"]]
+        kernel["launches"] += tuning[kernel["name"]]
     for kernel in kernels:
         # Shorter aliases of the two keys above.
         kernel["launched"] = kernel["launches"]

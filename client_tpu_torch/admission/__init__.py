@@ -35,7 +35,10 @@ Every limit defaults to off (0), so an unconfigured engine admits
 everything; the controller then only counts requests in flight for the
 drain (:mod:`client_tpu_torch.admission.drain`). Rejections are counted
 on ``tpu_admission_rejections_total{model,version,reason,tenant}``, on
-the cost ledger and in the event journal. QoS lanes are not ported.
+the cost ledger and in the event journal. A QoS controller
+(:mod:`client_tpu_torch.admission.qos`, ``attach_qos``) adds per-class
+gates ahead of the shared ones; self-drive tightens a model's rate
+(``tighten_model``) and its concurrency cap (``set_concurrency_cap``).
 """
 
 from __future__ import annotations
@@ -212,7 +215,7 @@ class _ModelGate:
 
     __slots__ = ("cfg", "bucket", "inflight", "shadow_inflight",
                  "ewma_service_s", "rate_ratio", "dyn_bucket",
-                 "dyn_base_rate")
+                 "dyn_base_rate", "dyn_max_inflight")
 
     def __init__(self, cfg: AdmissionConfig, clock=time.monotonic):
         self.cfg = cfg
@@ -223,13 +226,15 @@ class _ModelGate:
         self.inflight = 0
         self.shadow_inflight = 0
         self.ewma_service_s = 0.0
-        # Tightening state (tighten_model / restore_model): the fraction
-        # of the configured rate admitted now, and a synthesized bucket
-        # for a model with no configured rate cap. Both only ever
-        # *tighten* relative to cfg.
+        # Self-drive's actuators (tighten_model / set_concurrency_cap):
+        # the fraction of the configured rate admitted now, a synthesized
+        # bucket for a model with no configured rate cap, and a dynamic
+        # concurrency cap (0 = none). All only ever *tighten* relative to
+        # cfg.
         self.rate_ratio = 1.0
         self.dyn_bucket = None
         self.dyn_base_rate = 0.0
+        self.dyn_max_inflight = 0
 
 
 class AdmissionController:
@@ -248,6 +253,9 @@ class AdmissionController:
         self._clock = clock
         self._lock = threading.Lock()
         self._gates: dict[str, _ModelGate] = {}
+        # The QoS controller (admission/qos.py), when one is attached:
+        # its per-class gates run ahead of the shared ones.
+        self.qos = None
         self._last_shed = 0.0
         # True between the first shed and the hold-window expiry observed
         # by degraded(); drives degraded_enter/degraded_exit events.
@@ -276,10 +284,19 @@ class AdmissionController:
         cfg = self._gate(model).cfg
         return cfg.shadow_priority > 0 and priority >= cfg.shadow_priority
 
+    def attach_qos(self, qos) -> None:
+        """Bind a :class:`~client_tpu_torch.admission.qos.QosController`
+        (an enabled one; else detach): its per-class gates run first in
+        :meth:`admit`, and its sheds count on the same rejection counter,
+        journal and ledger as the shared ones."""
+        self.qos = qos if qos is not None and \
+            getattr(qos, "enabled", False) else None
+
     def admit(self, model: str, version: str = "",
               queue_depth: int = 0, instances: int = 1,
               trace_id: str | None = None, priority: int = 0,
-              tenant: str = "") -> None:
+              tenant: str = "", qos_class: str = "",
+              class_queue_depth: int = 0) -> None:
         """Admit or shed one request; raises :class:`AdmissionError` on
         shed. ``queue_depth`` is the model's current scheduler backlog and
         ``instances`` its worker count (for the estimated-wait check).
@@ -287,9 +304,21 @@ class AdmissionController:
         in the event journal. ``priority`` selects the admission class:
         at/above ``shadow_priority`` the stricter shadow gates apply
         first, so shadow traffic sheds before it can queue behind live.
-        ``tenant`` attributes a shed on the metrics/ledger side."""
+        ``tenant`` attributes a shed on the metrics/ledger side. With a
+        QoS controller attached, ``qos_class`` and ``class_queue_depth``
+        drive the per-class gates (quota, class in-flight and queue caps),
+        whose pushback is the class bucket's refill time."""
         gate = self._gate(model)
         cfg = gate.cfg
+        if self.qos is not None and qos_class:
+            try:
+                self.qos.admit(model, qos_class,
+                               class_queue_depth=class_queue_depth)
+            except AdmissionError as exc:
+                self._count_shed(model, version, exc.reason,
+                                 retry_after_s=exc.retry_after_s,
+                                 trace_id=trace_id, tenant=tenant)
+                raise
         if cfg.shadow_priority > 0 and priority >= cfg.shadow_priority:
             if cfg.shadow_max_inflight > 0 \
                     and gate.shadow_inflight >= cfg.shadow_max_inflight:
@@ -308,7 +337,12 @@ class AdmissionController:
                     f"({cfg.shadow_max_queue_depth})",
                     retry_after_s=est, reason="shadow"),
                     trace_id=trace_id, tenant=tenant)
+        # The configured cap, tightened (never relaxed) by self-drive's
+        # dynamic one.
         inflight_cap = cfg.max_inflight
+        if gate.dyn_max_inflight > 0:
+            inflight_cap = min(inflight_cap, gate.dyn_max_inflight) \
+                if inflight_cap > 0 else gate.dyn_max_inflight
         if inflight_cap > 0 and gate.inflight >= inflight_cap:
             # Pushback ~ one service interval: a slot frees when the
             # oldest in-flight request completes.
@@ -450,7 +484,16 @@ class AdmissionController:
         gate = self._gates.get(model)
         return gate.ewma_service_s if gate is not None else 0.0
 
-    # -- tightening actuators (SLO-burn tightening) ---------------------------
+    def load_snapshot(self) -> dict[str, dict]:
+        """Per-model load: the in-flight counts and the service EWMA, in
+        one lock acquisition (self-drive's dispatch tuner reads it)."""
+        with self._lock:
+            return {m: {"inflight": g.inflight,
+                        "shadow_inflight": g.shadow_inflight,
+                        "ewma_service_s": g.ewma_service_s}
+                    for m, g in self._gates.items()}
+
+    # -- self-drive's actuators (SLO-burn tightening, concurrency nudges) ----
 
     def tighten_model(self, model: str, version: str = "", *,
                       factor: float = 0.5, min_ratio: float = 0.1,
@@ -521,6 +564,31 @@ class AdmissionController:
                 jour.emit("admission", "restore", model=model,
                           version=version or None, ratio=1.0)
         return True
+
+    def tightened_models(self) -> dict[str, float]:
+        """{model: rate_ratio} for every model tightened below 1.0."""
+        with self._lock:
+            return {m: g.rate_ratio for m, g in self._gates.items()
+                    if g.rate_ratio < 1.0}
+
+    def set_concurrency_cap(self, model: str, cap: int | None) -> int:
+        """Set (None: clear) the model's dynamic concurrency cap, the
+        dispatch tuner's nudge; :meth:`admit` enforces min(configured,
+        dynamic), so it only tightens. Returns the dynamic cap in force
+        (0 = none)."""
+        gate = self._gate(model)
+        with self._lock:
+            gate.dyn_max_inflight = 0 if cap is None else max(1, int(cap))
+            return gate.dyn_max_inflight
+
+    def concurrency_cap(self, model: str) -> int:
+        """The model's effective concurrency cap (0 = uncapped)."""
+        gate = self._gate(model)
+        with self._lock:
+            cfg_cap, dyn = gate.cfg.max_inflight, gate.dyn_max_inflight
+        if dyn > 0:
+            return min(cfg_cap, dyn) if cfg_cap > 0 else dyn
+        return cfg_cap
 
     # -- health --------------------------------------------------------------
 

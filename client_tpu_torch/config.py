@@ -13,6 +13,9 @@ _DEFAULTS = {
     # Admission-controller limits (inline JSON or `@/path.json`); unset
     # admits everything (in-flight accounting only).
     "CLIENT_TPU_ADMISSION": "",
+    # Bucket autotuner with its HBM planning arena: unset/`0`/`off`
+    # disables; `1`/`on` defaults; else inline JSON or `@/path.json`.
+    "CLIENT_TPU_AUTOTUNE": "",
     # Per-tenant cost ledger (GET /v2/costs): `0`/`off` disables; unset/
     # `1`/`on` defaults; else inline JSON or `@/path.json`.
     "CLIENT_TPU_COSTS": "",
@@ -36,6 +39,8 @@ _DEFAULTS = {
     "CLIENT_TPU_MEMORY": "",
     # Efficiency-profiler sliding-window length in seconds.
     "CLIENT_TPU_PROFILE_WINDOW_S": "60",
+    # Tenant QoS classes (inline JSON or `@/path.json`); unset disables.
+    "CLIENT_TPU_QOS": "",
     # Roofline attribution (FLOP and byte capture, MFU/MBU peaks): `0`/
     # `off` disables capture; unset/`1`/`on` defaults; else inline JSON or
     # `@/path.json` with `peak_flops`, `peak_bytes_per_s`, `device_kinds`,
@@ -44,6 +49,10 @@ _DEFAULTS = {
     # Oldest-sequence batcher dispatch-ahead depth, in waves, before the
     # worker blocks on the oldest wave's outputs.
     "CLIENT_TPU_SEQ_PIPELINE": "2",
+    # Self-drive governor (dispatch retune, SLO-burn tightening): unset/
+    # `0`/`off` disables; `1`/`on` defaults; else inline JSON or
+    # `@/path.json`.
+    "CLIENT_TPU_SELFDRIVE": "",
     # SLO objectives (inline JSON or `@/path.json`); unset disables
     # tracking.
     "CLIENT_TPU_SLO": "",
@@ -60,6 +69,9 @@ _DEFAULTS = {
     "CLIENT_TPU_TIMESERIES": "",
     # Request-trace span-store capacity (GET /v2/trace/requests).
     "CLIENT_TPU_TRACE_BUFFER": "512",
+    # A flag: warm every model at load (each bucket run once on zeros) so
+    # that no bucket's first execution under traffic is cold.
+    "CLIENT_TPU_WARMUP": "",
 }
 
 
@@ -70,6 +82,12 @@ def env_text(name: str, environ=None) -> str:
     default = _DEFAULTS[name]
     raw = (os.environ if environ is None else environ).get(name)
     return default if raw is None else raw.strip()
+
+
+def env_flag(name: str, environ=None) -> bool:
+    """A flag: unset, blank, ``0``, ``false`` and ``off`` are False,
+    anything else True."""
+    return env_text(name, environ).lower() not in ("", "0", "false", "off")
 
 
 def _text(name: str) -> str:

@@ -8,9 +8,10 @@ is built in code by a zoo backend, or read from a directory repository's
 ``config.pbtxt`` / ``config.json`` by :meth:`ModelConfig.from_dict`.
 Field names match the reference's model-config schema.
 
-The port's schedulers have no priority levels, queue policies or
-``preserve_ordering`` yet: a config that asks for one is refused with a
-400 that names it, never served without it.
+Dynamic batching carries Triton's priority levels, queue policies
+(``default_queue_policy`` and per-level ``priority_queue_policy``: a
+level's queue bound and its wait timeout with the REJECT or DELAY
+action) and ``preserve_ordering``, read as the reference reads them.
 """
 
 from __future__ import annotations
@@ -18,7 +19,6 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any
 
-from client_tpu_torch.engine.types import EngineError
 from client_tpu_torch.protocol.dtypes import DataType
 
 
@@ -56,9 +56,54 @@ class TensorConfig:
 
 
 @dataclass
+class QueuePolicy:
+    """Triton's ModelQueuePolicy (the ``schedule_policy`` extension): what
+    happens to a request that waits too long or arrives at a full
+    queue."""
+
+    timeout_action: str = "REJECT"  # REJECT | DELAY (execute anyway)
+    default_timeout_microseconds: int = 0  # 0 = no queue timeout
+    allow_timeout_override: bool = True    # request timeout_us may override
+    max_queue_size: int = 0                # 0 = unbounded
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "QueuePolicy":
+        return cls(
+            timeout_action=str(d.get("timeout_action", "REJECT")).upper(),
+            default_timeout_microseconds=int(
+                d.get("default_timeout_microseconds", 0)),
+            allow_timeout_override=bool(d.get("allow_timeout_override",
+                                              True)),
+            max_queue_size=int(d.get("max_queue_size", 0)),
+        )
+
+    def to_dict(self) -> dict:
+        return {"timeout_action": self.timeout_action,
+                "default_timeout_microseconds":
+                    self.default_timeout_microseconds,
+                "allow_timeout_override": self.allow_timeout_override,
+                "max_queue_size": self.max_queue_size}
+
+
+@dataclass
 class DynamicBatchingConfig:
     preferred_batch_size: list[int] = field(default_factory=list)
     max_queue_delay_microseconds: int = 0
+    # Responses leave in arrival order even when instances finish out of
+    # order (Triton's preserve_ordering).
+    preserve_ordering: bool = False
+    # Priority levels (lower is served first, Triton's convention; a
+    # request priority of 0 maps to default_priority_level).
+    priority_levels: int = 0
+    default_priority_level: int = 0
+    default_queue_policy: QueuePolicy | None = None
+    # Per-level overrides: level -> policy.
+    priority_queue_policy: dict[int, QueuePolicy] = field(
+        default_factory=dict)
+
+    def policy_for(self, level: int) -> QueuePolicy | None:
+        return self.priority_queue_policy.get(level,
+                                              self.default_queue_policy)
 
 
 @dataclass
@@ -147,25 +192,26 @@ class ModelConfig:
     def from_dict(cls, d: dict) -> "ModelConfig":
         """A config from its dict form (``config.json``, or
         :func:`~client_tpu_torch.protocol.model_config.load_pbtxt`), as the
-        reference reads it. Raises EngineError 400 for a dynamic-batching
-        block that asks for what the port's schedulers lack."""
+        reference reads it."""
         db = None
         if "dynamic_batching" in d:
             raw = d["dynamic_batching"] or {}
-            wanted = [k for k in ("preserve_ordering", "priority_levels",
-                                  "default_queue_policy",
-                                  "priority_queue_policy") if raw.get(k)]
-            if wanted:
-                raise EngineError(
-                    f"model '{d.get('name', '')}': dynamic_batching "
-                    f"{', '.join(wanted)} not ported yet (the port's "
-                    "scheduler has no priority levels, queue policies or "
-                    "preserve_ordering)", 400)
             db = DynamicBatchingConfig(
                 preferred_batch_size=[int(x) for x in
                                       raw.get("preferred_batch_size", [])],
                 max_queue_delay_microseconds=int(
-                    raw.get("max_queue_delay_microseconds", 0)))
+                    raw.get("max_queue_delay_microseconds", 0)),
+                preserve_ordering=bool(raw.get("preserve_ordering", False)),
+                priority_levels=int(raw.get("priority_levels", 0)),
+                default_priority_level=int(
+                    raw.get("default_priority_level", 0)),
+                default_queue_policy=QueuePolicy.from_dict(
+                    raw["default_queue_policy"])
+                if raw.get("default_queue_policy") else None,
+                priority_queue_policy={
+                    int(k): QueuePolicy.from_dict(v)
+                    for k, v in (raw.get("priority_queue_policy")
+                                 or {}).items()})
         sb = None
         if "sequence_batching" in d:
             raw = d["sequence_batching"] or {}
@@ -249,11 +295,22 @@ class ModelConfig:
             out["max_lookups"] = self.max_lookups
         if self.dynamic_batching is not None:
             db = self.dynamic_batching
-            out["dynamic_batching"] = {
+            dyn = out["dynamic_batching"] = {
                 "preferred_batch_size": db.preferred_batch_size,
                 "max_queue_delay_microseconds":
                     db.max_queue_delay_microseconds,
             }
+            if db.preserve_ordering:
+                dyn["preserve_ordering"] = True
+            if db.priority_levels:
+                dyn["priority_levels"] = db.priority_levels
+                dyn["default_priority_level"] = db.default_priority_level
+            if db.default_queue_policy is not None:
+                dyn["default_queue_policy"] = db.default_queue_policy.to_dict()
+            if db.priority_queue_policy:
+                dyn["priority_queue_policy"] = {
+                    int(k): v.to_dict()
+                    for k, v in db.priority_queue_policy.items()}
         if self.instance_count != 1:
             out["instance_group"] = [{"count": self.instance_count}]
         if self.sequence_batching is not None:

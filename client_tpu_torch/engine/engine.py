@@ -34,9 +34,19 @@ shedding with ``Retry-After`` pushback, the shadow class) and its
 end-to-end deadline is checked on the way in; the controller counts the
 requests in flight exactly once each, which :meth:`begin_drain` and
 ``admission/drain.py`` wait on. :meth:`health_state` reads DRAINING,
-then DEGRADED (a recent shed, or an SLO fast burn), then READY. The shm
-slot ring, staged datasets, QoS, the autotuner, self-drive and the
-blackbox are not ported yet.
+then DEGRADED (a recent shed, or an SLO fast burn), then READY.
+
+Tuning: ``warmup=True`` (or ``CLIENT_TPU_WARMUP``) runs every bucket of
+each model it loads once on zeros, and the scheduler's own shapes (the
+generative prefill and decode), before the load returns, so that no
+bucket is cold under traffic. ``qos`` (``CLIENT_TPU_QOS``) classifies
+each request into a tenant class: its lane in the schedulers' weighted
+fair queue, its per-class admission gates, a class's implied priority
+level, and the SLO-burn governor (``GET /v2/qos``). ``autotuner``
+(``CLIENT_TPU_AUTOTUNE``) promotes and retires buckets against the
+planning arena; ``selfdrive`` (``CLIENT_TPU_SELFDRIVE``) retunes dispatch
+and tightens the admission of a model burning its SLO. The shm slot
+ring, staged datasets and the blackbox are not ported yet.
 """
 
 from __future__ import annotations
@@ -54,7 +64,7 @@ from client_tpu_torch.engine.repository import ModelRepository
 from client_tpu_torch.engine.scheduler import Scheduler, make_scheduler
 from client_tpu_torch.engine.shm import CudaShmManager, SystemShmManager
 from client_tpu_torch.engine.stats import ModelStats
-from client_tpu_torch.config import env_int
+from client_tpu_torch.config import env_flag, env_int
 from client_tpu_torch.engine.trace import TraceManager
 from client_tpu_torch.engine.types import (
     DeadlineExpired,
@@ -79,6 +89,7 @@ from client_tpu_torch.observability.tracing import (
 
 if TYPE_CHECKING:
     from client_tpu_torch.admission import AdmissionController
+    from client_tpu_torch.admission.qos import QosController
 
 _log = logging.getLogger("client_tpu_torch")
 
@@ -93,7 +104,9 @@ SERVER_EXTENSIONS = ["model_configuration", "binary_tensor_data",
 class TorchEngine:
     def __init__(self, repository: ModelRepository | None = None, *,
                  device: str | torch.device | None = None,
-                 admission: AdmissionController | None = None):
+                 admission: AdmissionController | None = None,
+                 qos: QosController | None = None,
+                 warmup: bool | None = None):
         """Loads every registered model on ``device`` and starts its
         schedulers; a model that fails to load stays in the repository
         index with its reason, and the rest load. ``device=None`` means
@@ -101,7 +114,11 @@ class TorchEngine:
         to serve on the CPU. The engine's metrics go into a registry of
         its own. ``admission`` defaults to a controller configured from
         ``CLIENT_TPU_ADMISSION`` (unset: everything admitted, requests in
-        flight counted)."""
+        flight counted), ``qos`` to one from ``CLIENT_TPU_QOS`` (unset:
+        off). ``warmup`` (None: ``CLIENT_TPU_WARMUP``) warms each model
+        as it loads; on the card a warm execution that fails fails the
+        load, and the model is left unloaded, UNAVAILABLE with the
+        error as its reason."""
         self.device = resolve_device(device)
         # A malformed CLIENT_TPU_ROOFLINE fails the boot here; the capture
         # and the snapshot read it again and degrade instead.
@@ -130,6 +147,17 @@ class TorchEngine:
             metrics=self.metrics)
         if self.admission._metrics is None:
             self.admission._metrics = self.metrics
+        # Tenant QoS; disabled (env unset, no controller given) everything
+        # it touches is inert: schedulers keep their priority heap and
+        # admission runs only the shared gates.
+        from client_tpu_torch.admission.qos import QosController
+
+        self.qos = qos or QosController.from_env(metrics=self.metrics)
+        if self.qos._metrics is None:
+            self.qos._metrics = self.metrics
+        self.admission.attach_qos(self.qos)
+        self._warmup = env_flag("CLIENT_TPU_WARMUP") if warmup is None \
+            else bool(warmup)
         self._draining = False
         self._last_health: str | None = None
         # The flight recorder's per-signal state (the fill EWMA, counter
@@ -152,12 +180,32 @@ class TorchEngine:
         self.cuda_shm = CudaShmManager(devices=(
             [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
             if self.device.type == "cuda" else [self.device]))
-        # The JAX engine's detail keys, with the port's values: it has no
-        # autotuner, self-drive governor or blackbox.
+        # The bucket autotuner and its planning arena
+        # (CLIENT_TPU_AUTOTUNE) and the self-drive governor
+        # (CLIENT_TPU_SELFDRIVE); unset, neither exists and no thread runs.
+        from client_tpu_torch.engine.autotune import (
+            Autotuner,
+            AutotuneConfig,
+        )
+        from client_tpu_torch.engine.selfdrive import (
+            SelfDriveConfig,
+            SelfDriveGovernor,
+        )
+
+        tune_cfg = AutotuneConfig.from_env()
+        self.autotuner = (Autotuner(self, tune_cfg,
+                                    registry=self.metrics.registry)
+                          if tune_cfg is not None else None)
+        drive_cfg = SelfDriveConfig.from_env()
+        self.selfdrive = (SelfDriveGovernor(self, drive_cfg)
+                          if drive_cfg is not None else None)
+        # The JAX engine's detail keys; the port has no blackbox.
         self.events.emit("lifecycle", "server_start",
                          models=len(self.repository.names()),
-                         slo_enabled=self.slo.enabled, autotune=False,
-                         selfdrive=False, blackbox=False)
+                         slo_enabled=self.slo.enabled,
+                         autotune=self.autotuner is not None,
+                         selfdrive=self.selfdrive is not None,
+                         blackbox=False)
         for name in self.repository.names():
             try:
                 self.load_model(name)
@@ -169,6 +217,14 @@ class TorchEngine:
         # until shutdown() detaches this engine.
         self.recorder = recorder()
         self.recorder.attach(self)
+        if self.autotuner is not None:
+            self.autotuner.start()
+        if self.selfdrive is not None:
+            self.selfdrive.start()
+        # The QoS governor needs the alarm (SLO fast burn) and an actuator
+        # (a throttleable class bucket); start_governor checks the latter.
+        if self.qos.enabled and self.slo.enabled:
+            self.qos.start_governor(self.slo, self.costs)
 
     # -- health / metadata ---------------------------------------------------
 
@@ -284,6 +340,7 @@ class TorchEngine:
         versions = self.repository.loaded_versions(name)
         retired: list[Scheduler] = []
         new_models = []
+        new_scheds: list[Scheduler] = []
         with self._lock:
             for v, model in sorted(versions.items()):
                 key = self._vkey(name, v)
@@ -300,9 +357,11 @@ class TorchEngine:
                             name, str(v)),
                         slo=self.slo, events=self.events)
                     self._stats[key] = stats
-                self._schedulers[key] = make_scheduler(model, stats,
-                                                       engine=self)
+                self._schedulers[key] = make_scheduler(
+                    model, stats, engine=self,
+                    qos=self.qos if self.qos.enabled else None)
                 new_models.append(model)
+                new_scheds.append(self._schedulers[key])
             valid = {self._vkey(name, v) for v in versions}
             for key in [k for k in self._schedulers
                         if ":" in k and k.rsplit(":", 1)[0] == name
@@ -318,10 +377,32 @@ class TorchEngine:
         for model in versions.values():
             cache = getattr(model.backend, "row_cache", None)
             if cache is not None:
+                if model in new_models:
+                    cache.bind_metrics(self.metrics.registry, name,
+                                       model.config.version)
                 cache.clear()
         for model in new_models:
             self.events.emit("model", "load", model=name,
                              version=model.config.version)
+        if self.autotuner is not None:
+            # Retired versions first: their cooldowns, applied marks and
+            # reservations go before the new ones reserve.
+            for v in sorted({str(s.model.config.version) for s in retired}):
+                self.autotuner.on_version_retired(name, v)
+            for model, sched in zip(new_models, new_scheds):
+                self.autotuner.on_model_loaded(model, sched)
+        if self._warmup:
+            try:
+                for model in new_models:
+                    model.warmup()
+                for sched in new_scheds:
+                    sched.warmup()
+            except Exception as exc:
+                # A warm-up that raised fails the model: no version of it
+                # serves, and the index says why.
+                self.unload_model(name)
+                self.repository.unload(name, reason=f"warmup failed: {exc}")
+                raise
 
     def unload_model(self, name: str, unload_dependents: bool = False) -> None:
         """Stop every version's scheduler and drop the model, so nothing of
@@ -349,6 +430,8 @@ class TorchEngine:
         if popped:
             self.events.emit("model", "unload", model=name, versions=sorted(
                 k.rsplit(":", 1)[1] for k in keys if ":" in k))
+        if self.autotuner is not None:
+            self.autotuner.on_model_unloaded(name)
         self.repository.unload(name)
         # Its census rows go now, not when the collector frees them.
         self.hbm_census.untag(name)
@@ -423,6 +506,15 @@ class TorchEngine:
                 req.model_name, req.priority) else "default"
         else:
             req.tenant = self.costs.canonical_tenant(req.tenant)
+        # QoS: the class (the request's lane) from the tenant table or the
+        # priority band; a class may imply the priority of a request that
+        # came without one.
+        if self.qos.enabled:
+            req.qos_class = self.qos.classify(req.tenant, req.priority)
+            if req.priority <= 0:
+                level = self.qos.priority_level(req.qos_class)
+                if level > 0:
+                    req.priority = level
         if self._draining or not self._live:
             self.admission.record_rejection(
                 req.model_name, req.model_version, reason="draining",
@@ -436,10 +528,13 @@ class TorchEngine:
                                                 trace_id=trace_id)
             raise DeadlineExpired(
                 "end-to-end deadline expired before admission")
+        class_depth = sched.queue.class_qsize(req.qos_class) \
+            if req.qos_class and hasattr(sched.queue, "class_qsize") else 0
         self.admission.admit(
             req.model_name, req.model_version,
             queue_depth=sched.queue.qsize(), instances=len(sched.workers),
-            trace_id=trace_id, priority=req.priority, tenant=req.tenant)
+            trace_id=trace_id, priority=req.priority, tenant=req.tenant,
+            qos_class=req.qos_class, class_queue_depth=class_depth)
         self._submit_accounted(sched, req)
 
     def _submit_accounted(self, sched: Scheduler, req: InferRequest) -> None:
@@ -449,20 +544,28 @@ class TorchEngine:
         request, which then gets no response through its callback."""
         model_name = req.model_name
         shadow = self.admission.is_shadow(model_name, req.priority)
+        qos_class = req.qos_class if self.qos.enabled else ""
         self.admission.on_request_start(model_name, shadow=shadow)
+        if qos_class:
+            self.qos.on_request_start(qos_class)
         inner = req.response_callback
         ended = [False]
 
+        def _end(service_s: float | None = None) -> None:
+            ended[0] = True
+            self.admission.on_request_end(model_name, service_s,
+                                          shadow=shadow)
+            if qos_class:
+                self.qos.on_request_end(qos_class)
+
         def _accounted(resp: InferResponse) -> None:
             if resp.final and not ended[0]:
-                ended[0] = True
                 service_s = None
                 t = req.times
                 if resp.error is None and t.compute_start:
                     service_s = max(
                         0.0, (t.compute_output_end - t.compute_start) / 1e9)
-                self.admission.on_request_end(model_name, service_s,
-                                              shadow=shadow)
+                _end(service_s)
             inner(resp)
 
         req.response_callback = _accounted
@@ -470,8 +573,7 @@ class TorchEngine:
             sched.submit(req)
         except BaseException:
             if not ended[0]:
-                ended[0] = True
-                self.admission.on_request_end(model_name, shadow=shadow)
+                _end()
             raise
 
     def _attach_trace_recorder(self, req: InferRequest) -> None:
@@ -628,9 +730,64 @@ class TorchEngine:
     def profile_snapshot(self, model: str | None = None) -> dict:
         """The ``GET /v2/profile`` body: the per-model, per-bucket cost
         table (executions, real and padded rows, device seconds, cold
-        first executions, roofline) and the duty cycle. The census is
-        ``GET /v2/memory``'s, not summarised here."""
-        return self.profiler.snapshot(model=model)
+        first executions, roofline) and the duty cycle; each model's
+        ``hbm_bytes`` reservation and ``row_cache`` where its backend has
+        them; the autotuner's ``autotune`` section and the suggestions'
+        ``state``, and self-drive's ``selfdrive`` section, when they run;
+        and the census's headline (``memory``)."""
+        snap = self.profiler.snapshot(model=model)
+        for entry in snap.get("models", {}).values():
+            sched = self.scheduler_for(entry["model"], entry["version"])
+            if sched is None:
+                continue
+            backend = sched.model.backend
+            hbm = getattr(backend, "hbm_reservation_bytes", None)
+            if callable(hbm):
+                entry["hbm_bytes"] = int(hbm())
+            cache = getattr(backend, "row_cache", None)
+            if cache is not None:
+                entry["row_cache"] = cache.snapshot()
+        if self.autotuner is not None:
+            self.autotuner.annotate(snap)
+        if self.selfdrive is not None:
+            snap["selfdrive"] = self.selfdrive.snapshot()
+        census = self.memory_census()
+        snap["memory"] = {
+            "bytes_limit": census["totals"].get("bytes_limit", 0),
+            "bytes_in_use": census["totals"].get("bytes_in_use", 0),
+            "committed_bytes": census["totals"]["committed_bytes"],
+            "attributed_bytes": census["attributed_bytes"],
+            "unattributed_bytes": census["unattributed_bytes"],
+            "attributed_fraction": census["attributed_fraction"],
+            "watermark_bytes": census["watermark_bytes"],
+            "owners": census["owners"],
+        }
+        return snap
+
+    def qos_snapshot(self, model: str | None = None) -> dict:
+        """The ``GET /v2/qos`` body: the controller's class table
+        (weights, quotas, throttle ratios, in flight, sheds and
+        preemptions) and each model's lane depths from the live
+        schedulers (versions summed)."""
+        snap = self.qos.snapshot()
+        queues: dict[str, dict[str, int]] = {}
+        if self.qos.enabled:
+            with self._lock:
+                scheds = dict(self._schedulers)
+            seen: set[int] = set()
+            for key, sched in sorted(scheds.items()):
+                name = key.split(":", 1)[0]
+                if model and name != model:
+                    continue
+                q = sched.queue
+                if id(sched) in seen or not hasattr(q, "class_qsize"):
+                    continue
+                seen.add(id(sched))
+                depths = queues.setdefault(name, {})
+                for cls in self.qos.class_names():
+                    depths[cls] = depths.get(cls, 0) + q.class_qsize(cls)
+        snap["queues"] = queues
+        return snap
 
     def slo_snapshot(self) -> dict:
         """The ``GET /v2/slo`` body: per-model window counts and burn
@@ -750,12 +907,19 @@ class TorchEngine:
         # The census's card bytes in use (the allocator's live bytes).
         sample["hbm_used"] = sum(d["bytes_in_use"]
                                  for d in self.hbm_census.device_stats())
+        if self.autotuner is not None:
+            sample["hbm_reserved"] = int(
+                self.autotuner.arena.reserved_bytes())
         if self.slo.enabled:
             burn = {name: float(report["windows"]["5m"]
                                 ["availability_burn_rate"])
                     for name, report in self.slo.snapshot()["models"].items()}
             if burn:
                 sample["slo_burn"] = burn
+        # The QoS governor's actuation: classes held below their rate (0:
+        # the loop is quiet).
+        if self.qos.enabled:
+            sample["qos_throttled"] = len(self.qos.throttled_classes())
         return sample
 
     def timeseries_export(self, *, signal=None, model=None,
@@ -787,7 +951,12 @@ class TorchEngine:
             self.events.emit("lifecycle", "server_shutdown",
                              draining=self._draining)
         self._live = False
+        self.qos.stop_governor()
         self.recorder.detach(self)
+        if self.selfdrive is not None:
+            self.selfdrive.stop()
+        if self.autotuner is not None:
+            self.autotuner.stop()
         self.trace.shutdown()
         with self._lock:
             # The bare-name aliases share their latest version's object.

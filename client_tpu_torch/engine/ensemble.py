@@ -33,7 +33,7 @@ class EnsembleScheduler(Scheduler):
             if item is _SHUTDOWN:
                 return
             req: InferRequest = item
-            if self._check_cancelled(req):
+            if self._check_timeout(req) or self._check_cancelled(req):
                 continue
             try:
                 self._run_dag(req)
@@ -93,7 +93,8 @@ class EnsembleScheduler(Scheduler):
             else str(step.model_version),
             request_id=req.request_id,
             inputs={mi: pool[et] for mi, et in step.input_map.items()},
-            outputs=[OutputRequest(name=mo) for mo in step.output_map])
+            outputs=[OutputRequest(name=mo) for mo in step.output_map],
+            timeout_us=req.timeout_us)
         resp = self.engine.infer(sub)
         for model_out, ensemble_name in step.output_map.items():
             if model_out not in resp.outputs:

@@ -50,8 +50,13 @@ live streams (component ``wave``, padded lanes to the dominant tenant,
 a cold dispatch left out as the profiler leaves it), and each stream's
 arena row-seconds when it releases its row.
 
-Not ported yet: warmup (nothing compiles in eager PyTorch, and the kernels
-are built at model load).
+Warm-up (:meth:`GenerativeScheduler.warmup`, run at load when the
+engine warms its models): on the worker thread, between requests, one
+greedy prefill per prompt bucket into the dummy row and one decode
+dispatch per (wave bucket, chunk) shape, each of the latter counted for
+the roofline as a first dispatch is; so no dispatch under traffic is
+cold, and the kernels' first launches, cuBLAS's and the allocator's
+blocks on the worker's stream are taken before any request.
 """
 
 from __future__ import annotations
@@ -62,6 +67,7 @@ import logging
 import math
 import os
 import queue as _queue
+import threading
 import time
 
 import numpy as np
@@ -155,6 +161,16 @@ class _Inflight:
         return self.tokens.numpy()
 
 
+class _WarmupReq:
+    """A queue item asking the worker to warm its shapes: the warm-up
+    runs on the worker's thread and stream, between requests (from the
+    caller's thread it would race the arena)."""
+
+    def __init__(self):
+        self.done = threading.Event()
+        self.error: Exception | None = None
+
+
 def _parse_sampling(req: InferRequest, vocab: int):
     """(seed, temp, top_k, top_p, stop_set) from request parameters.
 
@@ -212,6 +228,13 @@ def _parse_sampling(req: InferRequest, vocab: int):
                     f"stop token {tok} outside vocab [0, {vocab})", 400)
             stop.add(tok)
     return seed, temp, top_k, top_p, frozenset(stop)
+
+
+def _wave_io_bytes(bucket: int, tokens: torch.Tensor, *lane_arrays) -> int:
+    """A decode dispatch's own inputs and outputs: rows and lens, the
+    lanes' sampling parameters, and the tokens."""
+    return 2 * bucket * 4 + tokens.numel() * tokens.element_size() \
+        + sum(a.nbytes for a in lane_arrays)
 
 
 def _census_arena(sched) -> list:
@@ -279,11 +302,82 @@ class GenerativeScheduler(Scheduler):
         backend splits the arena's rows (``kv_shards``)."""
         return int(getattr(self._backend, "kv_shards", 1) or 1)
 
+    def arena_nbytes(self) -> int:
+        """The KV arena's bytes, every shard's: the autotuner's planning
+        arena reserves them (one card's share) against the budget, so
+        the tuner's promotions plan around them."""
+        return int(storage_bytes(tensor_leaves(self._arena)))
+
     def _on_stream(self):
         """The context every arena operation runs in: this scheduler's
         CUDA stream on the card, nothing on the CPU."""
         return (torch.cuda.stream(self._stream) if self._cuda
                 else contextlib.nullcontext())
+
+    # -- warm-up --------------------------------------------------------------
+
+    def warmup(self) -> None:
+        """Warm every prompt bucket's prefill and every (wave bucket,
+        chunk) decode shape on the worker (see the module docstring);
+        raises when the worker failed it, or stays busy for 600 s."""
+        req = _WarmupReq()
+        self.queue.put(req)
+        if not req.done.wait(600):
+            raise EngineError(
+                "generative warmup timed out (worker busy for 600s)", 500)
+        if req.error is not None:
+            raise EngineError(f"generative warmup failed: {req.error}", 500)
+
+    def _run_warmup(self, req: _WarmupReq) -> None:
+        try:
+            self._precompile()
+        except Exception as exc:  # noqa: BLE001 — the caller raises it
+            req.error = exc
+        finally:
+            req.done.set()
+
+    def _precompile(self) -> None:
+        lane = self._admit_lane
+        zeros_i = np.zeros(lane, np.int32)
+        lanes = self._backend.lane_params(
+            zeros_i, np.zeros(lane, np.float32), zeros_i,
+            np.ones(lane, np.float32))
+        rows = [self._dummy] * lane
+        for pb in self._prompt_buckets:
+            index = self._backend.wave_index(self._arena, rows,
+                                             np.ones(lane, np.int32))
+            _pinned, ids_dev = stage(np.zeros((lane, pb), np.int32),
+                                     self._device)
+            self._backend.prefill(self._arena, index, ids_dev, lanes, False)
+        for wb in self._wave_buckets:
+            for k in sorted({1, self._chunk}):
+                if (wb, k) not in self._wave_cost_captured:
+                    self._warm_wave(wb, k)
+        if self._cuda:
+            self._stream.synchronize()
+
+    def _warm_wave(self, bucket: int, k: int) -> None:
+        """One greedy decode dispatch of ``bucket`` dummy lanes and ``k``
+        chained waves, counted for the roofline as a shape's first
+        dispatch is, and kept out of the wave statistics."""
+        zeros_i = np.zeros(bucket, np.int32)
+        temps = np.zeros(bucket, np.float32)
+        top_ps = np.ones(bucket, np.float32)
+        index = self._backend.wave_index(
+            self._arena, [self._dummy] * bucket, [0] * bucket)
+        lanes = self._backend.lane_params(zeros_i, temps, zeros_i, top_ps)
+        self._wave_cost_captured.add((bucket, k))
+        capture = CostCapture(self._backend)
+        with capture:
+            if k > 1:
+                nxt = self._backend.decode_chunk(self._arena, index, lanes,
+                                                 False, k)
+            else:
+                nxt = self._backend.decode(self._arena, index, lanes, False)
+        profiler().record_wave_cost_model(
+            self.model.config.name, self.model.config.version, bucket, k,
+            capture.result(_wave_io_bytes(bucket, nxt, zeros_i, temps,
+                                          zeros_i, top_ps)))
 
     # -- worker ---------------------------------------------------------------
 
@@ -318,6 +412,9 @@ class GenerativeScheduler(Scheduler):
                 item = self._get()
                 if item is _SHUTDOWN:
                     return
+                if isinstance(item, _WarmupReq):
+                    self._run_warmup(item)
+                    continue
                 pending.append(item)
             while len(self._free) > len(pending):
                 try:
@@ -327,6 +424,9 @@ class GenerativeScheduler(Scheduler):
                 if item is _SHUTDOWN:
                     shutdown = True
                     break
+                if isinstance(item, _WarmupReq):
+                    self._run_warmup(item)
+                    continue
                 pending.append(item)
             if pending:
                 try:
@@ -386,6 +486,9 @@ class GenerativeScheduler(Scheduler):
                 if item is _SHUTDOWN:
                     self._abort_streams("server shutting down")
                     return
+                if isinstance(item, _WarmupReq):
+                    self._run_warmup(item)
+                    continue
                 # A new admit while every stream is throttled: back to the
                 # front (no reordering); the loop-top admit takes it as
                 # soon as a row is free.
@@ -426,7 +529,7 @@ class GenerativeScheduler(Scheduler):
         waiting (their tokens are fetched asynchronously)."""
         ready = []  # (req, ids, max_new, sampling)
         for req in items:
-            if self._check_cancelled(req):
+            if self._check_timeout(req) or self._check_cancelled(req):
                 continue
             try:
                 ids, max_new, sampling = self._validate(req)
@@ -582,13 +685,10 @@ class GenerativeScheduler(Scheduler):
         else:
             timing = time.monotonic_ns() - t0  # the call ran synchronously
         if capture is not None:
-            # The dispatch's own inputs and outputs: rows and lens, the
-            # lanes' sampling parameters, and the tokens.
-            io_bytes = 2 * bucket * 4 + nxt.numel() * nxt.element_size() \
-                + sum(a.nbytes for a in (seeds, temps, top_ks, top_ps))
             profiler().record_wave_cost_model(
                 self.model.config.name, self.model.config.version, bucket,
-                k, capture.result(io_bytes))
+                k, capture.result(_wave_io_bytes(bucket, nxt, seeds, temps,
+                                                 top_ks, top_ps)))
         host, event = self._start_fetch(nxt)
         for s in live:
             s.disp_len += k

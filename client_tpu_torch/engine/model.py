@@ -300,7 +300,8 @@ class Model:
     def execute_timed(self, inputs: dict,
                       batch_size: int | None = None,
                       fetch_outputs: bool = True,
-                      deadline_ns: int = 0) -> tuple[dict, ExecPhases]:
+                      deadline_ns: int = 0, pad_to: int | None = None,
+                      synthetic: bool = False) -> tuple[dict, ExecPhases]:
         """Pad to the bucket, stage to the device, run the forward pass,
         fetch to the host and slice back to ``batch_size`` rows. Returns
         the outputs and the measured :class:`ExecPhases`. A backend with a
@@ -318,7 +319,15 @@ class Model:
         ``deadline_ns`` (absolute ``now_ns()``; 0 = none) is the batch's:
         once it has passed, :class:`DeadlineExpired` is raised before
         anything is staged or launched, so the card spends nothing on a
-        batch whose every caller has given up."""
+        batch whose every caller has given up.
+
+        ``pad_to`` overrides the bucket (normally ``pick_bucket
+        (batch_size)``): the autotuner warms a candidate bucket that is
+        not in the ladder yet. ``synthetic=True`` (warm-up, the tuner's
+        warm probe) keeps the execution out of the profiler's traffic: a
+        full dummy batch would spoil the bucket's fill evidence behind the
+        ladder suggestions. A synthetic first execution is still recorded
+        as the bucket's compile and counted for the roofline."""
         if deadline_ns > 0 and now_ns() >= deadline_ns:
             raise DeadlineExpired(
                 f"end-to-end deadline expired before execution of model "
@@ -329,14 +338,15 @@ class Model:
             raise EngineError(str(exc), exc.status or 503) from None
         cfg = self.config
         phases = ExecPhases(start=now_ns())
-        pad_to = (self.pick_bucket(batch_size)
-                  if cfg.axis_capacity() > 0 and batch_size is not None
-                  else None)
+        if pad_to is None and cfg.axis_capacity() > 0 \
+                and batch_size is not None:
+            pad_to = self.pick_bucket(batch_size)
         if self.backend.host_side:
             # Unpadded, never cold; its bucket is recorded as the JAX
             # package records a host-side model's.
             outputs, phases = self._execute_host(inputs, phases)
-            self._record(phases, pad_to, batch_size)
+            if not synthetic:
+                self._record(phases, pad_to, batch_size)
             return outputs, phases
         pre_stage = getattr(self.backend, "pre_stage", None)
         if pre_stage is not None:
@@ -387,7 +397,8 @@ class Model:
                 self._record_first(phases, pad_to, capture, staged, outputs)
             if not fetch_outputs:
                 phases.output_end = now_ns()
-                self._record(phases, pad_to, batch_size)
+                if not synthetic:
+                    self._record(phases, pad_to, batch_size)
                 return outputs, phases
             host: dict[str, np.ndarray] = {}
             for name, val in outputs.items():
@@ -396,8 +407,104 @@ class Model:
                     arr = arr[:batch_size]
                 host[name] = arr
         phases.output_end = now_ns()
-        self._record(phases, pad_to, batch_size)
+        if not synthetic:
+            self._record(phases, pad_to, batch_size)
         return host, phases
+
+    def _zeros(self, rows: int | None,
+               skip_bytes: bool = False) -> dict[str, np.ndarray] | None:
+        """Zero inputs of ``rows`` rows (unbatched with None), each ``-1``
+        dim taken as 1. Zeros cannot stand in for a BYTES input: it is
+        left out with ``skip_bytes``, else the answer is None."""
+        inputs = {}
+        for tc in self.config.input:
+            if tc.data_type == "BYTES":
+                if skip_bytes:
+                    continue
+                return None
+            dims = [d if d != -1 else 1 for d in tc.dims]
+            inputs[tc.name] = np.zeros(
+                ([rows] if rows is not None else []) + dims,
+                dtype=wire_to_np_dtype(tc.data_type))
+        return inputs
+
+    def warm_bucket(self, bucket: int) -> float:
+        """Run one bucket on zero inputs at exactly ``bucket`` rows (the
+        ``pad_to`` override: the bucket need not be in the ladder yet), on
+        the caller's thread: the autotuner pays the bucket's cold
+        execution here, off the scheduler's workers, before it promotes
+        the bucket. Returns the cold execution's seconds (0.0 when the
+        shape was warm already, or the model has BYTES inputs). A
+        backend with ``synthetic_inputs`` (DLRM) builds its own dummy
+        batch for a lookup bucket."""
+        cfg = self.config
+        cap = cfg.axis_capacity()
+        if cfg.ensemble_scheduling or cap <= 0:
+            return 0.0
+        bucket = int(bucket)
+        if not 1 <= bucket <= cap:
+            raise EngineError(
+                f"bucket {bucket} out of range 1..{cap} "
+                f"for model '{cfg.name}'")
+        synth = getattr(self.backend, "synthetic_inputs", None)
+        inputs = synth(bucket) if synth is not None else self._zeros(bucket)
+        if inputs is None:
+            return 0.0
+        _, phases = self.execute_timed(
+            inputs, batch_size=bucket, pad_to=bucket, synthetic=True)
+        return phases.compile_ns / 1e9
+
+    def swap_buckets(self, buckets: list[int]) -> list[int]:
+        """Replace the bucket ladder: deduplicated, clamped to ``1..
+        axis_capacity()``, and always keeping the capacity itself so that
+        ``pick_bucket`` covers every legal batch. Readers see the old list
+        or the new one (one reference assignment), and a batch that picked
+        a retired bucket still runs. Returns the ladder applied."""
+        cfg = self.config
+        cap = cfg.axis_capacity()
+        if cap <= 0:
+            raise EngineError(
+                f"model '{cfg.name}' is unbatched; no bucket ladder")
+        new = sorted({int(b) for b in buckets if 1 <= int(b) <= cap}
+                     | {cap})
+        cfg.batch_buckets = new
+        return new
+
+    def warmup(self) -> None:
+        """Run every bucket of the ladder once on zero inputs, so that no
+        bucket's first execution under traffic is cold: on the card this
+        takes the kernels' first launch, cuBLAS's and cuDNN's handles,
+        workspaces and plans, and the caching allocator's blocks, and is
+        recorded as each bucket's cold execution (its "compile"), kept out
+        of the traffic statistics (``synthetic``). A BYTES input is left
+        out (zeros cannot stand in for it) and a backend with
+        ``synthetic_inputs`` builds its own batch.
+
+        As in the JAX package, a model whose host code rejects the zeros
+        (a host-side model, one missing its BYTES input) is warmed as far
+        as it goes and loads all the same. On the card a failure of a
+        device model's execution is not that: it raises, and the load
+        fails with it, so a kernel that does not build or launch never
+        hides behind warm-up."""
+        cfg = self.config
+        if cfg.ensemble_scheduling:
+            return
+        synth = getattr(self.backend, "synthetic_inputs", None)
+        batched = cfg.axis_capacity() > 0
+        for bucket in cfg.effective_buckets():
+            inputs = (synth(max(bucket, 1)) if synth is not None
+                      else self._zeros(bucket if cfg.max_batch_size > 0
+                                       else None, skip_bytes=True))
+            try:
+                self.execute_timed(inputs,
+                                   batch_size=bucket if batched else None,
+                                   synthetic=True)
+            except EngineError:
+                raise
+            except Exception:
+                if self.device.type == "cuda" and not self.backend.host_side:
+                    raise
+                return
 
     def _first_execution(self, staged: dict) -> bool:
         """True the first time this input signature runs (and marks it

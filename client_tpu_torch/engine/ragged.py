@@ -14,7 +14,9 @@ Downstream it is the ordinary bucket machinery along the lookups axis:
 backend's ``pre_stage`` pads indices and segment ids to the bucket and rows
 to ``max_batch_size``. Outputs are row-shaped, so each request's rows are
 windowed by row offset. An execution's device time is split across its
-requests' tenants by lookups, the padded axis.
+requests' tenants by lookups, the padded axis. Priority levels, the
+queue policies and QoS lanes with preemption work as in the dynamic
+batcher.
 """
 
 from __future__ import annotations
@@ -45,13 +47,13 @@ class RaggedScheduler(DefaultScheduler):
     ``offsets_name`` (``INDICES`` and ``OFFSETS`` by default); every
     other input is row-shaped and concatenates along axis 0."""
 
-    def __init__(self, model: Model, stats: ModelStats):
+    def __init__(self, model: Model, stats: ModelStats, qos=None):
         self._indices = getattr(model.backend, "indices_name", "INDICES")
         self._offsets = getattr(model.backend, "offsets_name", "OFFSETS")
         # Rows come from a row-shaped input, never from a ragged one.
         self._row_input = next(t.name for t in model.config.input
                                if not t.ragged)
-        super().__init__(model, stats)
+        super().__init__(model, stats, qos=qos)
 
     def _rows(self, req: InferRequest) -> int:
         return int(req.inputs[self._row_input].shape[0])
@@ -68,7 +70,14 @@ class RaggedScheduler(DefaultScheduler):
         batch = [first]
         nnz = request_nnz(first, self._indices)
         rows = self._rows(first)
+        preemptable = (self.qos is not None
+                       and not self.qos.is_preempt(first.qos_class))
         while nnz < prefer:
+            if preemptable:
+                pending = self.queue.preempt_pending()
+                if pending is not None:
+                    self.qos.note_preemption(cfg.name, pending)
+                    break
             timeout = max((deadline_ns - now_ns()) / 1e9, 0.0)
             try:
                 # Lookups per request vary widely, so the slab is bounded
@@ -79,10 +88,10 @@ class RaggedScheduler(DefaultScheduler):
                 break
             for idx, item in enumerate(items):
                 if item is _SHUTDOWN:
-                    for later in reversed(items[idx + 1:]):
-                        self.queue.put_front(later)
+                    for later in items[idx + 1:]:
+                        self._requeue(later)
                     return batch, True
-                if self._check_cancelled(item) \
+                if self._check_timeout(item) or self._check_cancelled(item) \
                         or self._check_deadline(item) \
                         or self._check_dequeue_fault(item):
                     continue
@@ -96,7 +105,7 @@ class RaggedScheduler(DefaultScheduler):
                     for later in reversed(items[idx:]):
                         if later is _SHUTDOWN \
                                 or not self._check_deadline(later):
-                            self.queue.put_front(later)
+                            self._requeue(later)
                     return batch, False
                 batch.append(item)
                 nnz += request_nnz(item, self._indices)

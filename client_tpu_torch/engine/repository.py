@@ -192,13 +192,15 @@ class ModelRepository:
                 f"ensemble '{cfg.name}' names model(s) {missing} that are "
                 "not in the repository", 400)
 
-    def unload(self, name: str) -> None:
+    def unload(self, name: str, reason: str = "unloaded") -> None:
+        """Drop every version; the index shows the model UNAVAILABLE with
+        ``reason``."""
         with self._lock:
             if name not in self._builders:
                 raise EngineError(f"unknown model '{name}'", 404)
             self._loaded.pop(name, None)
             self._resolved.pop(name, None)
-            self._state[name] = ("UNAVAILABLE", "unloaded")
+            self._state[name] = ("UNAVAILABLE", reason)
 
     def get(self, name: str, version: str | int = "") -> Model | None:
         v = _parse_version(version)

@@ -8,9 +8,11 @@ backing table, inserted as they fault, evicting the least recently used
 past the byte budget. The card then receives the gathered vectors, and
 only pools them.
 
-Not ported: the metrics binding (``bind_metrics``; the port has no
-metrics registry yet) and the invalidation on model reload (the port does
-not reload models). ``clear`` is here for when it does.
+The engine binds each cache to its metric registry at load
+(:meth:`RowCache.bind_metrics`: ``tpu_emb_lookups_total``,
+``tpu_emb_cache_hits_total``, ``tpu_emb_cache_size_bytes``) and clears it
+on every load and unload of its model (the weights may have changed; the
+counters stay monotonic).
 """
 
 from __future__ import annotations
@@ -43,6 +45,40 @@ class RowCache:
         self.misses = 0
         self.evictions = 0
         self.invalidations = 0
+        # (lookups counter, hits counter, size gauge, labels) per bound
+        # registry.
+        self._bound: list = []
+
+    def bind_metrics(self, registry, model: str, version) -> None:
+        """Declare the ``tpu_emb_*`` families on an engine's registry;
+        every later lookup batch adds its counts there."""
+        labels = {"model": str(model), "version": str(version)}
+        self._bound.append((
+            registry.counter(
+                "tpu_emb_lookups_total",
+                "Embedding rows resolved through the hot-row cache",
+                ("model", "version")),
+            registry.counter(
+                "tpu_emb_cache_hits_total",
+                "Embedding lookups served from the hot-row cache",
+                ("model", "version")),
+            registry.gauge(
+                "tpu_emb_cache_size_bytes",
+                "Resident bytes of the hot-row embedding cache",
+                ("model", "version")),
+            labels,
+        ))
+        for _lookups, _hits, size, lab in self._bound:
+            size.set(self.size_bytes(), **lab)
+
+    def _record(self, lookups: int, hits: int) -> None:
+        size_bytes = self.size_bytes()
+        for lk, h, size, lab in self._bound:
+            if lookups:
+                lk.inc(lookups, **lab)
+            if hits:
+                h.inc(hits, **lab)
+            size.set(size_bytes, **lab)
 
     def size_bytes(self) -> int:
         return len(self._rows) * self.row_bytes
@@ -90,6 +126,7 @@ class RowCache:
             self.hits += hits
             self.misses += n - hits
         out[:] = gathered[inverse]
+        self._record(n, hits)
         return out, hits
 
     def clear(self) -> None:
@@ -97,6 +134,7 @@ class RowCache:
         with self._lock:
             self._rows.clear()
             self.invalidations += 1
+        self._record(0, 0)
 
     def snapshot(self) -> dict:
         with self._lock:

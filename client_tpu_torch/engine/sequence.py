@@ -152,7 +152,7 @@ class SequenceScheduler(_PendingGuard, Scheduler):
             # sibling worker's GC would see no pending, no inflight and a
             # stale timestamp.
             try:
-                if self._check_cancelled(req):
+                if self._check_timeout(req) or self._check_cancelled(req):
                     continue
                 try:
                     self._run_one(req)
@@ -350,7 +350,7 @@ class OldestSequenceScheduler(_PendingGuard, Scheduler):
                 self._drain_waves(flush=True)
                 return
             self._unpend(item.sequence_id)
-            if self._check_cancelled(item):
+            if self._check_timeout(item) or self._check_cancelled(item):
                 continue
             batch = self._gather_candidates(item)
             try:
@@ -382,7 +382,7 @@ class OldestSequenceScheduler(_PendingGuard, Scheduler):
                     stop = True
                     break
                 self._unpend(item.sequence_id)
-                if self._check_cancelled(item):
+                if self._check_timeout(item) or self._check_cancelled(item):
                     continue
                 if item.sequence_id in seen \
                         or not _same_signature(first, item):
@@ -392,14 +392,14 @@ class OldestSequenceScheduler(_PendingGuard, Scheduler):
                 batch.append(item)
             if stop:
                 break
-        for later in reversed(tail):
-            self.queue.put_front(later)
+        for later in tail:
+            self._requeue(later)
         for later in reversed(pushback):
             # Back in the queue: pending again until the next gather.
             if later.sequence_id:
                 with self._arena_lock:
                     self._pend_locked(later.sequence_id)
-            self.queue.put_front(later)
+            self._requeue(later)
         return batch
 
     def _dispatch_wave(self, batch: list[InferRequest]) -> None:

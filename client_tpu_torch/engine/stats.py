@@ -63,6 +63,8 @@ class ModelStats:
     last_inference_ms: int = 0  # wall-clock ms of the latest success
     # End-to-end deadline expirations caught before the card ran them.
     deadline_expired_count: int = 0
+    # Requests refused by a full priority level or timed out in the queue.
+    rejection_count: int = 0
     # batch_size -> [executions, cumulative compute-infer ns]
     batch_hist: dict[int, list[int]] = field(default_factory=dict)
     # observability.metrics.ModelInstruments, or None outside an engine.
@@ -107,6 +109,14 @@ class ModelStats:
             entry[1] += max(0, compute_ns)
         if self.instruments is not None:
             self.instruments.observe_execution(batch_size)
+
+    def record_rejection(self) -> None:
+        """A queue policy refused the request: its level was full, or it
+        waited past its timeout (tpu_queue_rejections_total)."""
+        with self._lock:
+            self.rejection_count += 1
+        if self.instruments is not None:
+            self.instruments.record_rejection()
 
     def record_deadline_expired(self, stage: str = "queue",
                                 trace_id: str | None = None) -> None:

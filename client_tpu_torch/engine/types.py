@@ -3,8 +3,8 @@
 The port's own copy of ``client_tpu/engine/types.py``, trimmed to what
 the port serves: sequence routing, cancellation, the streaming
 backpressure probe, shared-memory placement, the trace context, the
-end-to-end deadline and the cost-ledger tenant are in; no QoS class or
-queue-policy fields yet.
+end-to-end deadline, the cost-ledger tenant, the QoS class and the queue
+policy's wait bound are in.
 """
 
 from __future__ import annotations
@@ -99,13 +99,24 @@ class InferRequest:
     sequence_id: int = 0
     sequence_start: bool = False
     sequence_end: bool = False
-    # Read only for the admission shadow class (priority at or above
-    # ``shadow_priority``); priority queues are refused at load.
+    # Triton's request priority: the model's priority level (lower is
+    # served first; 0 means the model's default level), and the admission
+    # shadow class at or above ``shadow_priority``.
     priority: int = 0
     # The cost-ledger tenant: the `X-Tpu-Tenant` header or the `tenant`
     # parameter. Empty means untagged: the engine resolves it to "shadow"
     # (the admission shadow class) or "default" at submit.
     tenant: str = ""
+    # The QoS class (``admission/qos.py``), stamped by the engine from the
+    # tenant and priority; the scheduler's weighted fair queue lanes
+    # requests by it. Empty while QoS is off.
+    qos_class: str = ""
+    # The arrival index, set by a scheduler that preserves ordering.
+    arrival_seq: int | None = None
+    # The queue policy's wait bound in microseconds (the request's
+    # `timeout` parameter; 0 = the policy's default), not the end-to-end
+    # deadline below.
+    timeout_us: int = 0
     # End-to-end deadline (absolute now_ns(); 0 = none), from the client's
     # budget: the `timeout-ms` header or `timeout_ms` parameter, or the gRPC
     # deadline. Past it the request fails with 504 at admission, at dequeue

@@ -10,9 +10,9 @@ and stubs are cached process-wide by URL and options. Opt-in resilience
 ``client_tpu_torch.resilience``.
 
 The operational RPCs: ``get_events``, ``get_slo_status``,
-``get_profile``, ``get_timeseries``, ``get_memory`` and ``get_costs``
-(messages in the port's ``ops_pb2``). Not ported yet: the QoS and bundle
-RPCs, the fleet merges, and the shm ring and staged-dataset RPCs. This
+``get_profile``, ``get_timeseries``, ``get_memory``, ``get_costs`` and
+``get_qos_status`` (messages in the port's ``ops_pb2``). Not ported yet:
+the bundle RPCs, the fleet merges, and the shm ring and staged-dataset RPCs. This
 module loads neither torch nor jax.
 """
 
@@ -652,6 +652,16 @@ class InferenceServerClient:
             ops.CostsRequest(model=model_name),
             self._md(headers), client_timeout)
         return json.loads(response.costs_json)
+
+    def get_qos_status(self, model_name="", headers=None,
+                       client_timeout=None):
+        """Tenant QoS status (gRPC mirror of ``GET /v2/qos``): class
+        weights, quotas, governor throttle ratios, and each model's lane
+        depths."""
+        response = self._unary(
+            self._client_stub.Qos, ops.QosRequest(model=model_name),
+            self._md(headers), client_timeout)
+        return json.loads(response.qos_json)
 
     def get_system_shared_memory_status(self, region_name="", headers=None,
                                         as_json=False, client_timeout=None):

@@ -12,10 +12,10 @@ circuit breaker per target, failover). Opt-in resilience
 ``client_tpu_torch.resilience``.
 
 The operational GETs: ``get_events``, ``get_slo_status``,
-``get_profile``, ``get_timeseries``, ``get_memory`` and ``get_costs``.
-Not ported yet: the shm slot ring and staged datasets, trace settings,
-and the QoS, bundle and fleet GETs, whose routes the port's server does
-not have. This module loads neither torch nor jax.
+``get_profile``, ``get_timeseries``, ``get_memory``, ``get_costs`` and
+``get_qos_status``. Not ported yet: the shm slot ring and staged
+datasets, trace settings, and the bundle and fleet GETs, whose routes the
+port's server does not have. This module loads neither torch nor jax.
 """
 
 from __future__ import annotations
@@ -876,6 +876,17 @@ class InferenceServerClient:
         if model_name:
             qp["model"] = model_name
         return self._get_json("/v2/costs", qp or None, headers)
+
+    def get_qos_status(self, model_name="", headers=None,
+                       query_params=None):
+        """Tenant QoS status (``GET /v2/qos``): the class table (WFQ
+        weights, token-bucket quotas, governor throttle ratios, inflight
+        and shed/preemption tallies) and each model's lane depths;
+        ``model_name`` narrows the lane depths to one model."""
+        qp = dict(query_params or {})
+        if model_name:
+            qp["model"] = model_name
+        return self._get_json("/v2/qos", qp or None, headers)
 
     @staticmethod
     def generate_request_body(inputs, outputs=None, request_id="",

@@ -344,6 +344,9 @@ class ModelInstruments:
     def observe_execution(self, batch_size: int) -> None:
         self._em.batch_size.observe(batch_size, **self._labels)
 
+    def record_rejection(self) -> None:
+        self._em.queue_rejections.inc(**self._labels)
+
     def record_deadline_expired(self, stage: str) -> None:
         self._em.deadline_expirations.inc(stage=stage, **self._labels)
 

@@ -69,6 +69,7 @@ _OPS_METHODS = [
     ("Timeseries", ops.TimeseriesRequest, ops.TimeseriesResponse, False),
     ("MemoryCensus", ops.MemoryRequest, ops.MemoryResponse, False),
     ("Costs", ops.CostsRequest, ops.CostsResponse, False),
+    ("Qos", ops.QosRequest, ops.QosResponse, False),
 ]
 
 

@@ -5,6 +5,7 @@
     python -m client_tpu_torch.server --zoo simple,simple_string --device cpu
     python -m client_tpu_torch.server --zoo image_preprocess,resnet50,ensemble_image
     python -m client_tpu_torch.server --model-repository models/ --device cpu
+    python -m client_tpu_torch.server --zoo bert_long,tiny_gpt_long --warmup
 
 One engine serves both frontends: HTTP (``--http-port``, default 8000) and
 gRPC (``--grpc-port``, default 8001); ``--no-http`` or ``--no-grpc`` leaves
@@ -21,6 +22,11 @@ model's state is printed, with the reason of one that failed to load.
 Models load and unload at run time over ``POST
 /v2/repository/models/<m>/{load,unload}`` and the gRPC
 ``RepositoryModelLoad`` / ``RepositoryModelUnload``.
+
+``--warmup`` (or ``CLIENT_TPU_WARMUP=1``) runs every bucket of each model
+once on zeros before serving, so no first request is cold; the tuning
+planes read ``CLIENT_TPU_QOS``, ``CLIENT_TPU_AUTOTUNE`` and
+``CLIENT_TPU_SELFDRIVE``.
 
 Serves on the card unless ``--device cpu`` is given; without CUDA and
 without that flag it exits with an error. SIGTERM drains it
@@ -56,6 +62,9 @@ def main(argv: list[str] | None = None) -> int:
                     metavar="SECONDS",
                     help="max seconds to drain in-flight requests on "
                          "SIGTERM before forcing shutdown (default 30)")
+    ap.add_argument("--warmup", action="store_true",
+                    help="run every bucket once on zeros at load, so no "
+                         "request meets a cold bucket")
     ap.add_argument("--verbose", action="store_true")
     args = ap.parse_args(argv)
     if args.no_http and args.no_grpc:
@@ -85,7 +94,8 @@ def main(argv: list[str] | None = None) -> int:
             repo.register(name, _REGISTRY[name])
     else:
         repo = build_repository(names)
-    engine = TorchEngine(repo, device=args.device)
+    engine = TorchEngine(repo, device=args.device,
+                         warmup=True if args.warmup else None)
     for entry in engine.repository_index():
         line = f"model {entry['name']}: {entry['state']}"
         if entry.get("reason"):

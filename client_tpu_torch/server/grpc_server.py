@@ -34,8 +34,8 @@ answers RESOURCE_EXHAUSTED (UNAVAILABLE while draining) with the
 ``retry-after`` and ``retry-pushback-ms`` trailers; ``ServerReady``
 carries the health state in an ``x-health-state`` trailer. The
 operational RPCs ``Events``, ``SloStatus``, ``Profile``, ``Timeseries``,
-``MemoryCensus`` and ``Costs`` answer the HTTP routes' bodies (reports as
-JSON strings). The load-report trailer, ``Qos``, the blackbox RPCs and
+``MemoryCensus``, ``Costs`` and ``Qos`` answer the HTTP routes' bodies
+(reports as JSON strings). The load-report trailer, the blackbox RPCs and
 the shm ring and dataset RPCs are not ported: they answer UNIMPLEMENTED.
 """
 
@@ -162,6 +162,7 @@ def _proto_to_request(engine: TorchEngine, request: "pb.ModelInferRequest",
         sequence_start=bool(params.get("sequence_start", False)),
         sequence_end=bool(params.get("sequence_end", False)),
         priority=int(params.get("priority", 0)),
+        timeout_us=int(params.get("timeout", 0)),
         tenant=str(params.get("tenant", "") or ""),
     )
     # The end-to-end deadline: a `timeout_ms` parameter (the only one
@@ -427,6 +428,11 @@ class _Servicer(GRPCInferenceServiceServicer):
         """``GET /v2/costs`` over gRPC."""
         snap = self.engine.costs_snapshot(model=request.model or None)
         return ops.CostsResponse(costs_json=json.dumps(snap))
+
+    def Qos(self, request, context):  # noqa: N802
+        """``GET /v2/qos`` over gRPC."""
+        snap = self.engine.qos_snapshot(model=request.model or None)
+        return ops.QosResponse(qos_json=json.dumps(snap))
 
     # -- shared memory -------------------------------------------------------
 

@@ -49,9 +49,17 @@ answers 429 (503 while draining) with ``Retry-After`` and
 answers 200 with ``{"state": ...}`` while READY or DEGRADED, 503 while
 DRAINING, and the state in ``X-Health-State``; once the engine is not
 ready each connection closes after its response, so that pooled clients
-stop reaching a drained server. Compression, the shm slot ring, staged
-datasets, QoS, the load report and the blackbox are not ported: their
-routes answer 404.
+stop reaching a drained server. ``GET /v2/qos[?model=]`` answers the QoS
+class table and each model's lane depths.
+
+Compression, as in the JAX server: a request body sent with
+``Content-Encoding: gzip`` or ``deflate`` is decoded before any route
+reads it (another encoding answers 415), and an answer is gzipped or
+deflated at level 1 when the client's ``Accept-Encoding`` names one. A
+request sent with ``Expect: 100-continue`` gets its ``100 Continue`` at
+once, flushed out of the write buffer, before the body is read. The shm
+slot ring, staged datasets, the load report and the blackbox are not
+ported: their routes answer 404.
 
 A stdlib ThreadingHTTPServer: each connection gets a thread that only
 frames; the engine's per-model schedulers batch and run the work.
@@ -59,12 +67,14 @@ frames; the engine's per-model schedulers batch and run the work.
 
 from __future__ import annotations
 
+import gzip
 import json
 import logging
 import queue
 import re
 import threading
 import time
+import zlib
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
@@ -134,6 +144,7 @@ _ROUTES: list[tuple[str, re.Pattern, str]] = [
     ("GET", re.compile(r"^/v2/costs$"), "costs"),
     ("GET", re.compile(r"^/v2/timeseries$"), "timeseries"),
     ("GET", re.compile(r"^/v2/memory$"), "memory"),
+    ("GET", re.compile(r"^/v2/qos$"), "qos"),
     ("GET", re.compile(r"^/metrics$"), "metrics"),
 ]
 
@@ -145,6 +156,13 @@ class _Handler(BaseHTTPRequestHandler):
     wbufsize = 64 * 1024  # header and body leave in one segment
     engine: TorchEngine = None  # set on the subclass by HttpInferenceServer
     verbose = False
+
+    def handle_expect_100(self):
+        # The interim answer would sit in the buffered wfile while the
+        # handler blocks reading the body the client holds back for it.
+        result = super().handle_expect_100()
+        self.wfile.flush()
+        return result
 
     def log_message(self, fmt, *args):  # noqa: A003
         if self.verbose:
@@ -173,7 +191,8 @@ class _Handler(BaseHTTPRequestHandler):
             # Read the whole body first: unread bytes would prefix the next
             # request line on this keep-alive connection.
             length = int(self.headers.get("Content-Length", 0) or 0)
-            self._raw_body = self.rfile.read(length) if method == "POST" else b""
+            self._raw_body = (self._read_body(self.rfile.read(length))
+                              if method == "POST" else b"")
             path = self.path.split("?")[0]
             for m, pat, name in _ROUTES:
                 match = pat.match(path) if m == method else None
@@ -185,8 +204,10 @@ class _Handler(BaseHTTPRequestHandler):
             self._send_error(exc.status, str(exc),
                              retry_after_s=getattr(exc, "retry_after_s",
                                                    None))
-        except (ValueError, KeyError, TypeError) as exc:
-            # json.JSONDecodeError and UnicodeDecodeError are ValueErrors.
+        except (ValueError, KeyError, TypeError, zlib.error,
+                gzip.BadGzipFile) as exc:
+            # json.JSONDecodeError and UnicodeDecodeError are ValueErrors;
+            # a corrupt compressed body raises zlib's or gzip's error.
             self._send_error(400, f"malformed request: {exc!r}")
         except BrokenPipeError:
             pass
@@ -206,13 +227,33 @@ class _Handler(BaseHTTPRequestHandler):
     def do_POST(self):  # noqa: N802
         self._dispatch("POST")
 
+    def _read_body(self, body: bytes) -> bytes:
+        """The request body decoded by its ``Content-Encoding``."""
+        encoding = (self.headers.get("Content-Encoding") or "").lower()
+        if encoding == "deflate":
+            return zlib.decompress(body)
+        if encoding == "gzip":
+            return gzip.decompress(body)
+        if encoding:
+            raise EngineError(f"unsupported Content-Encoding '{encoding}'",
+                              415)
+        return body
+
     def _send(self, status: int, body: bytes,
               content_type: str = "application/json",
               extra_headers: dict | None = None) -> None:
+        accept = (self.headers.get("Accept-Encoding") or "").lower()
+        headers = dict(extra_headers or {})
+        if body and "gzip" in accept:
+            body = gzip.compress(body, compresslevel=1)
+            headers["Content-Encoding"] = "gzip"
+        elif body and "deflate" in accept:
+            body = zlib.compress(body, level=1)
+            headers["Content-Encoding"] = "deflate"
         self.send_response(status)
         self.send_header("Content-Type", content_type)
         self.send_header("Content-Length", str(len(body)))
-        for k, v in (extra_headers or {}).items():
+        for k, v in headers.items():
             self.send_header(k, v)
         self.end_headers()
         if body:
@@ -377,6 +418,10 @@ class _Handler(BaseHTTPRequestHandler):
 
     def h_memory(self):
         self._send_json(self.engine.memory_census())
+
+    def h_qos(self):
+        self._send_json(self.engine.qos_snapshot(
+            model=(self._query().get("model") or [None])[0]))
 
     def h_timeseries(self):
         """The flight recorder's ring: ``?signal=`` one signal,
@@ -583,9 +628,6 @@ class _Handler(BaseHTTPRequestHandler):
         return head
 
     def _parse_infer_request(self, name, version) -> InferRequest:
-        if self.headers.get("Content-Encoding"):
-            raise EngineError("compressed request bodies are not supported",
-                              415)
         header_len = self.headers.get(rest.HEADER_INFERENCE_CONTENT_LENGTH)
         head, tail = rest.split_body(
             self._raw_body, int(header_len) if header_len is not None else None)
@@ -619,6 +661,9 @@ class _Handler(BaseHTTPRequestHandler):
             sequence_start=bool(params.get("sequence_start", False)),
             sequence_end=bool(params.get("sequence_end", False)),
             priority=int(params.get("priority", 0)),
+            # The queue policy's wait bound (the schedule_policy
+            # extension's `timeout`, microseconds).
+            timeout_us=int(params.get("timeout", 0)),
             # The header (transport-level, set by the clients) or the
             # parameter (survives a proxy that strips unknown headers);
             # the header wins, as timeout-ms's does below.

@@ -438,8 +438,9 @@ def test_profile_route_answers_on_both_servers(engines):
             server.stop()
     assert bodies[0][0] == bodies[1][0] == 200
     port_keys, jax_keys = (set(b[1]) for b in bodies)
-    # The JAX server adds its HBM census summary; the port has no census.
-    assert port_keys == jax_keys - {"memory"}
+    # Both carry the HBM census's headline (``memory``) beside the table.
+    assert port_keys == jax_keys
+    assert set(bodies[0][1]["memory"]) == set(bodies[1][1]["memory"])
     assert set(bodies[0][1]["models"]) == {"bert_p:1"}
 
 

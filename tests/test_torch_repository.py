@@ -415,10 +415,36 @@ def test_pbtxt_sequence_oldest_knobs(tmp_path, sides_of):
 
 def test_priority_and_queue_policies_are_refused_per_model(tmp_path,
                                                            sides_of):
-    """The port has no priority levels, queue policies or
-    preserve_ordering: a file asking for one fails that model's load with
-    a 400 that names it, and the rest of the repository loads. The JAX
-    package serves it."""
+    """A priority or queue-policy field that is not a number fails its
+    own model in both packages; the other models load."""
+    asks = {
+        "prio": {"priority_levels": "two"},
+        "policy": {"default_queue_policy": {"max_queue_size": "many"}},
+        "levels": {"priority_levels": 2, "priority_queue_policy": {
+            "first": {"timeout_action": "DELAY"}}},
+    }
+    for name, extra in asks.items():
+        _write_json(tmp_path / name, {
+            "name": name, "platform": "jax", "max_batch_size": 8,
+            **SIMPLE_IO, "parameters": {"zoo_builder": "simple"},
+            "dynamic_batching": {"max_queue_delay_microseconds": 100,
+                                 **extra}})
+    _write_json(tmp_path / "simple", {"name": "simple", "platform": "jax",
+                                      "max_batch_size": 8, **SIMPLE_IO})
+    sides = sides_of(tmp_path)
+    rows = {e["name"]: e for e in sides.port.repository_index()}
+    for name in asks:
+        assert rows[name]["state"] == "UNAVAILABLE", rows[name]
+        assert rows[name].get("reason"), rows[name]
+        assert not sides.jax.model_is_ready(name)
+    assert rows["simple"]["state"] == "READY"
+    assert sides.jax.model_is_ready("simple")
+
+
+def test_priority_and_queue_policies_load_as_jax(tmp_path, sides_of):
+    """A file with priority levels, a queue policy or
+    ``preserve_ordering`` loads in the port as in the JAX package, with
+    the same config round trip, and serves."""
     asks = {
         "prio": {"priority_levels": 2, "default_priority_level": 1},
         "policy": {"default_queue_policy": {"max_queue_size": 4}},
@@ -436,20 +462,18 @@ def test_priority_and_queue_policies_are_refused_per_model(tmp_path,
                                       "max_batch_size": 8, **SIMPLE_IO})
     sides = sides_of(tmp_path)
     rows = {e["name"]: e for e in sides.port.repository_index()}
-    for name, extra in asks.items():
-        assert rows[name]["state"] == "UNAVAILABLE"
-        assert rows[name]["version"] == "1"
-        for key in extra:
-            if key != "default_priority_level":
-                assert key in rows[name]["reason"], (name, key)
-        assert "not ported yet" in rows[name]["reason"]
-        with pytest.raises(EngineError) as exc:
-            sides.port.model_config(name)
-        assert exc.value.status == 400
+    for name in list(asks) + ["simple"]:
+        assert rows[name]["state"] == "READY", rows[name]
         assert sides.jax.model_is_ready(name)
-    assert rows["simple"]["state"] == "READY"
-    got, want = sides.infer("simple", _simple_pair())
-    assert got[0] == want[0] == "ok"
+        got = sides.port.model_config(name)["dynamic_batching"] \
+            if name != "simple" else None
+        want = sides.jax.model_config(name)["dynamic_batching"] \
+            if name != "simple" else None
+        assert got == want
+        out, ref = sides.infer(name, _simple_pair())
+        assert out[0] == ref[0] == "ok", (name, out, ref)
+        assert {k: v.tolist() for k, v in out[1].items()} \
+            == {k: v.tolist() for k, v in ref[1].items()}
 
 
 # -- versions ------------------------------------------------------------------
