@@ -291,17 +291,49 @@
    (the warm seconds per model, the first request's ``compute_infer``
    with and without warm-up, ``warm_bucket``'s seconds, the interactive
    and batch requests' queue ms).
-16. Prints one ``{"kernels": [...]}`` line (each kernel's ``launches`` over
+16. Incident phase, in a child process (the script again, with
+   ``--incident-child``) started with ``CLIENT_TPU_LOCKDEP=1``, so that
+   every lock of the card path is a lockdep lock from import on: one
+   engine behind HTTP and gRPC with ``bert_long``, ``tiny_gpt_long`` and
+   ``dlrm_mlperf`` (2 shards, K3 at [832, 128]), the blackbox on with the
+   ``deadline.burst`` trigger alone. ``bert_long`` requests through shm
+   slot rings: spans of one slot, doorbells over HTTP and over gRPC,
+   and a span of 4 slots behind a held worker, each answer byte for byte
+   the same request's over binary HTTP (the span's requests queued in the
+   same order behind the same hold) and within ``SERVED_ATOL`` of the
+   plain path. A reaped ring of ``dlrm_mlperf`` requests whose inputs are
+   staged descriptors into one registered dataset, each score byte for
+   byte the binary HTTP one and within ``DLRM_ATOL`` of the plain path
+   (the whole table's bag sums without K3, then the MLPs). A producer process killed with 2 slots in
+   flight (the worker held): the slots are failed in its segment, its
+   ring detached, ``shm_ring.producer_dead`` and ``detach_inflight`` in
+   the journal. A burst of ``storm_count`` expired ``bert_long``
+   requests while 4 ``tiny_gpt_long`` streams run: exactly one
+   ``deadline.burst`` bundle, and a second burst suppressed by the
+   cooldown; the streams token for token against the plain path. Manual
+   captures over HTTP and gRPC; ``/v2/debug/bundles`` and
+   ``BlackboxBundles`` list the same index; no section of a bundle holds
+   an error; the bundles' ``memory`` owners are ``/v2/memory``'s;
+   ``tools/blackbox_report.py`` renders the burst's bundle. Each kernel
+   launched its count per execution read on ``/metrics``. A lockdep
+   violation anywhere fails the phase: lockdep records each one as it
+   raises, and the child reads that record after the engine's shutdown
+   and prints its count. Prints the lock-order graph's node and edge
+   counts and one ``incident observation:`` line (wall µs per
+   ``bert_long`` slot through a doorbell against per request over binary
+   HTTP, ``capture_ms``, bundle bytes, the reaper's sweep µs).
+17. Prints one ``{"kernels": [...]}`` line (each kernel's ``launches`` over
    HTTP and gRPC, beside ``http_launches`` over HTTP alone, which must be
    fewer; the ring all-reduce's include the stateful phase's, and its
    entry carries ``dlrm_shape``, its times at [832, 128]; flash
    attention's include the shm phase's, also given as ``shm_launches``;
    every kernel's include the clients, repository, observability,
-   weights, overload and tuning phases', also given as
+   weights, overload, tuning and incident phases', also given as
    ``clients_launches``, ``repository_launches``,
    ``observability_launches``, ``weights_launches``,
-   ``overload_launches`` and ``tuning_launches``), the ``nvidia-smi``
-   name and power limit line, and last ``{"ok": true, "device": {...}}``.
+   ``overload_launches``, ``tuning_launches`` and
+   ``incident_launches``), the ``nvidia-smi`` name and power limit line,
+   and last ``{"ok": true, "device": {...}}``.
 
 The gRPC client code of steps 4 to 9 and 11 to 15 is the script's own
 (tensors as ``tobytes`` and ``np.frombuffer``, BYTES with a hand-written
@@ -6691,6 +6723,642 @@ def tuning_phase(torch, smi: str, device: str = "cuda") -> dict:
         engine.shutdown()
 
 
+# -- incident phase -----------------------------------------------------------
+
+INC_STORM = 5           # expired requests that make a burst ...
+INC_STORM_WINDOW_S = 10.0   # ... inside this window
+# The blackbox in the child: the burst trigger alone, so that no other edge
+# (memory pressure under three full-size models) takes the debounce first.
+INC_BLACKBOX = {"triggers": ["deadline.burst"], "storm_count": INC_STORM,
+                "storm_window_s": INC_STORM_WINDOW_S, "post_window_s": 1.0,
+                "debounce_s": 30.0, "cooldown_s": 300.0}
+INC_ONE = 4             # bert_long spans of one slot, wires alternating
+INC_SPAN = 4            # bert_long slots of the held span (max_batch_size)
+INC_TIMED = 16          # sequential requests of each path, timed
+INC_HOLD_MS = 1500      # model.execute latency that holds bert_long's worker
+INC_DLRM = 8            # dlrm_mlperf requests through the reaped ring
+INC_STREAMS = (5, 60, 300, 900)  # tiny_gpt_long prompt lengths in the burst
+INC_TOKENS = 96
+INC_SWEEPS = 2000       # idle reaper sweeps timed
+INC_CHILD_TIMEOUT_S = 600
+LOCKDEP_WORDS = ("LockOrderViolation", "BlockingUnderLock")
+
+# The producer the incident phase kills: a reaped ring of bert_long with
+# two slots filled, then nothing (the port's client and ring utilities
+# only).
+_INC_DEAD_PRODUCER = r"""
+import sys, time
+import numpy as np
+import client_tpu_torch.http as httpclient
+from client_tpu_torch.utils.shm_ring import RingBuffer
+
+url, name, key, seq = sys.argv[1], sys.argv[2], sys.argv[3], int(sys.argv[4])
+ring = RingBuffer.create(key, 4, 8 * seq, 16 * seq + 4096)
+metas = [{"name": n, "datatype": "INT32", "shape": [1, seq],
+          "offset": i * 4 * seq, "byte_size": 4 * seq}
+         for i, n in enumerate(("input_ids", "attention_mask"))]
+httpclient.InferenceServerClient(url).register_shm_ring(
+    name, key, spec={"model_name": "bert_long", "inputs": metas})
+for i in range(2):
+    ring.fill({"input_ids": np.full((1, seq), 7 + i, np.int32),
+               "attention_mask": np.ones((1, seq), np.int32)})
+print("filled", flush=True)
+time.sleep(600)
+"""
+
+
+def _inc_ring(torch, engine, port: int, hc, gc, backend, seq: int,
+              device) -> dict:
+    """``bert_long`` through slot rings: spans of one slot (doorbells over
+    HTTP and gRPC, wires alternating), then a span of ``INC_SPAN`` queued
+    behind a held worker; every answer byte for byte the same request's
+    over binary HTTP and within ``SERVED_ATOL`` of the plain path; then
+    the paths timed, one request at a time."""
+    from client_tpu_torch import faults
+    from client_tpu_torch.utils.shm_ring import RingProducer
+
+    sched = engine.scheduler_for("bert_long")
+    path = "/v2/models/bert_long/infer"
+    feeds = [_obs_bert_inputs(seq, 200 + i) for i in range(INC_ONE + INC_SPAN)]
+
+    def over_http(i):
+        status, headers, data = _post(port, path, *_binary_request(*feeds[i]))
+        _check(status == 200, f"bert_long: HTTP {status}: {data[:200]}")
+        return _parse_response(headers, data)
+
+    def slot(i):
+        ids, mask = feeds[i]
+        return {"input_ids": ids, "attention_mask": mask}
+
+    def reap(prod):
+        _, outs, err = prod.reap(timeout_s=GRPC_TIMEOUT_S, copy=True)
+        _check(err is None, f"bert_long slot: {err}")
+        return outs
+
+    def held(submit_queued, n):
+        """Hold every worker with a request over HTTP, queue ``n`` more
+        through ``submit_queued`` (in order), release: the first worker
+        free takes the ``n`` as one batch. Returns their answers."""
+        workers = len(sched.workers)
+        faults.configure({"model.execute": {"latency_ms": INC_HOLD_MS}})
+        try:
+            with concurrent.futures.ThreadPoolExecutor(n + workers) as pool:
+                holds = []
+                for w in range(workers):
+                    holds.append(pool.submit(over_http, 0))
+                    _wait_for(lambda: sched.active_batches == w + 1,
+                              f"bert_long worker {w} held")
+                answers = submit_queued(pool)
+                _wait_for(lambda: sched.queue.qsize() == n,
+                          f"{n} bert_long requests queued")
+                faults.reset()
+                for h in holds:
+                    h.result()
+                return [a() for a in answers]
+        finally:
+            faults.reset()
+
+    tag = os.getpid()
+    slot_bytes = 8 * seq
+    rings = {
+        "http": RingProducer(hc, "inc_http", f"/chip_smoke_inc_http_{tag}",
+                             slot_count=8, slot_bytes=slot_bytes),
+        "grpc": RingProducer(gc, "inc_grpc", f"/chip_smoke_inc_grpc_{tag}",
+                             slot_count=8, slot_bytes=slot_bytes)}
+    for prod in rings.values():
+        prod.__enter__()
+    try:
+        ring_out = {}
+        for i in range(INC_ONE):
+            prod = rings["http" if i % 2 == 0 else "grpc"]
+            prod.fill(slot(i))
+            _check(prod.doorbell("bert_long")["admitted"] == 1,
+                   "a one-slot doorbell")
+            ring_out[i] = reap(prod)
+        http_out = {i: over_http(i) for i in range(INC_ONE)}
+        span = list(range(INC_ONE, INC_ONE + INC_SPAN))
+
+        def ring_span(pool):
+            prod = rings["grpc"]
+            for i in span:
+                prod.fill(slot(i))
+            _check(prod.doorbell("bert_long")["admitted"] == INC_SPAN,
+                   f"a {INC_SPAN}-slot doorbell over gRPC")
+            return [lambda: reap(prod) for _ in span]
+
+        def http_span(pool):
+            futs = []
+            for k, i in enumerate(span):
+                futs.append(pool.submit(over_http, i))
+                _wait_for(lambda: sched.queue.qsize() == k + 1,
+                          f"HTTP request {k} queued")
+            return [f.result for f in futs]
+
+        ring_out.update(zip(span, held(ring_span, INC_SPAN)))
+        http_out.update(zip(span, held(http_span, INC_SPAN)))
+        for i in ring_out:
+            for n in BERT_OUTPUTS:
+                _check(ring_out[i][n].dtype == http_out[i][n].dtype
+                       and ring_out[i][n].tobytes()
+                       == http_out[i][n].tobytes(),
+                       f"bert_long feed {i} {n}: the ring's answer differs "
+                       "from binary HTTP's")
+        # _bert_err fails the run past SERVED_ATOL.
+        err = max(_bert_err(ring_out[i], _bert_plain(torch, backend,
+                                                      *feeds[i], device))
+                  for i in ring_out)
+
+        # Timed, one request at a time: binary HTTP against one-slot spans.
+        t0 = time.perf_counter()
+        for k in range(INC_TIMED):
+            over_http(k % len(feeds))
+        http_us = (time.perf_counter() - t0) / INC_TIMED * 1e6
+        prod = rings["http"]
+        t0 = time.perf_counter()
+        for k in range(INC_TIMED):
+            prod.fill(slot(k % len(feeds)))
+            prod.doorbell("bert_long")
+            reap(prod)
+        ring_us = (time.perf_counter() - t0) / INC_TIMED * 1e6
+        t0 = time.perf_counter()
+        for k in range(0, INC_TIMED, INC_SPAN):
+            for j in range(INC_SPAN):
+                prod.fill(slot((k + j) % len(feeds)))
+            prod.doorbell("bert_long")
+            for _ in range(INC_SPAN):
+                reap(prod)
+        span_us = (time.perf_counter() - t0) / INC_TIMED * 1e6
+        status = {w: p._client.get_shm_ring_status(f"inc_{w}")[f"inc_{w}"]
+                  for w, p in rings.items()}
+    finally:
+        for prod in rings.values():
+            prod.__exit__(None, None, None)
+    _check(status["grpc"]["slots_ok"] == INC_ONE // 2 + INC_SPAN
+           and status["http"]["slots_ok"]
+           == INC_ONE - INC_ONE // 2 + 2 * INC_TIMED,
+           f"ring status {status}")
+    print(f"incident: bert_long through slot rings: {INC_ONE} one-slot "
+          f"doorbells over HTTP and gRPC and a {INC_SPAN}-slot span behind a "
+          f"held worker, each answer byte for byte binary HTTP's; at most "
+          f"{err:.4g} off the plain path (tolerance {SERVED_ATOL}); wall per "
+          f"request, one at a time: binary HTTP {http_us:.1f} us, one-slot "
+          f"doorbell {ring_us:.1f} us, {INC_SPAN}-slot spans {span_us:.1f} "
+          "us a slot", flush=True)
+    return {"http_us_per_request": round(http_us, 1),
+            "ring_us_per_slot": round(ring_us, 1),
+            "ring_span_us_per_slot": round(span_us, 1)}
+
+
+def _dlrm_plain(torch, backend, reqs: list) -> list:
+    """Each request's ``dlrm_mlperf`` score by the plain path: the bag sums
+    of the whole table on one device (``bag_sum_oracle``, no K3), then the
+    backend's own MLPs and interaction, as ``DlrmBackend.forward``."""
+    from client_tpu_torch.models.dlrm import _mlp
+    from client_tpu_torch.parallel.emb_shard import bag_sum_oracle
+
+    dev = backend.device
+    b_max = backend.config.max_batch_size
+    t, d = backend.num_tables, backend.emb_dim
+    out = []
+    with torch.inference_mode():
+        whole = torch.from_numpy(backend.table_host).to(dev)
+        for req in reqs:
+            st = {k: torch.from_numpy(v).to(dev)
+                  for k, v in backend.pre_stage(req, None).items()}
+            pooled = bag_sum_oracle(whole, st["INDICES"], st["SEG_IDS"],
+                                    b_max * t).reshape(b_max, t, d)
+            bottom = _mlp(backend.bottom, st["DENSE"])
+            feats = torch.cat([bottom[:, None, :], pooled], dim=1)
+            z = torch.bmm(feats, feats.transpose(1, 2))
+            inter = z[:, backend.pair_i, backend.pair_j]
+            score = _mlp(backend.top, torch.cat([bottom, inter], dim=-1))
+            out.append(score[:1].cpu().numpy())
+    del whole
+    return out
+
+
+def _inc_staged(torch, engine, port: int, hc) -> dict:
+    """``dlrm_mlperf`` through a reaped ring whose slots hold staged
+    descriptors into one registered dataset, one request at a time; each
+    score byte for byte the binary HTTP one and within ``DLRM_ATOL`` of the
+    plain path (:func:`_dlrm_plain`). Then the idle reaper's sweep
+    timed."""
+    from client_tpu_torch.utils.shm_ring import (
+        RingProducer,
+        staged_inputs_meta,
+    )
+    from client_tpu_torch.utils.shm_ring.staged import build_staged_dataset
+
+    rng = np.random.default_rng(77)
+    reqs = [_mlperf_csr(rng) for _ in range(INC_DLRM)]
+    starts = np.concatenate([[0], np.cumsum([len(r["INDICES"])
+                                             for r in reqs])])
+    n_off = len(reqs[0]["OFFSETS"])
+    tensors = {name: np.concatenate([r[name] for r in reqs])
+               for name in ("DENSE", "INDICES", "OFFSETS")}
+
+    def refs(r):
+        return {"DENSE": ("DENSE", r, 1),
+                "INDICES": ("INDICES", int(starts[r]),
+                            int(starts[r + 1] - starts[r])),
+                "OFFSETS": ("OFFSETS", r * n_off, n_off)}
+
+    tag = os.getpid()
+    ds = build_staged_dataset(f"/chip_smoke_inc_ds_{tag}", tensors)
+    got = []
+    try:
+        hc.register_staged_dataset("inc_ds", ds.key)
+        spec = {"model_name": DLRM_MODEL,
+                "inputs": staged_inputs_meta(refs(0)), "dataset": "inc_ds"}
+        with RingProducer(hc, "inc_dlrm", f"/chip_smoke_inc_dlrm_{tag}",
+                          slot_count=4, slot_bytes=4096, dataset=ds,
+                          dataset_name="inc_ds", spec=spec) as prod:
+            for r in range(INC_DLRM):
+                _check(prod.fill_staged(refs(r)) is not None,
+                       "the dlrm ring is full")
+                _, outs, err = prod.reap(timeout_s=GRPC_TIMEOUT_S)
+                _check(err is None, f"{DLRM_MODEL} slot {r}: {err}")
+                got.append(outs["OUTPUT0"])
+            mgr = engine.ring_shm
+            t0 = time.perf_counter()
+            for _ in range(INC_SWEEPS):
+                mgr._sweep_once(mgr._reaper_span)
+            sweep_us = (time.perf_counter() - t0) / INC_SWEEPS * 1e6
+            status = hc.get_shm_ring_status("inc_dlrm")["inc_dlrm"]
+        refs_total = hc.get_staged_dataset_status("inc_ds")["inc_ds"]["refs"]
+        hc.unregister_staged_dataset("inc_ds")
+    finally:
+        ds.close(unlink=True)
+    for r, req in enumerate(reqs):
+        status_code, out = _http_infer(port, DLRM_MODEL, req, True)
+        _check(status_code == 200 and np.isfinite(out["OUTPUT0"]).all()
+               and got[r].tobytes() == out["OUTPUT0"].tobytes(),
+               f"{DLRM_MODEL} request {r}: the staged slot's score "
+               f"{got[r]} != binary HTTP's {out}")
+    plain = _dlrm_plain(torch, engine.repository.get(DLRM_MODEL).backend,
+                        reqs)
+    worst = max(float(np.abs(g - p).max()) for g, p in zip(got, plain))
+    _check(worst <= DLRM_ATOL, f"{DLRM_MODEL}: the staged slots' scores are "
+           f"{worst} off the plain path (tolerance {DLRM_ATOL})")
+    _check(status["reaped"] and status["reap_slots"] == INC_DLRM
+           and status["doorbells"] == 0 and refs_total == 3 * INC_DLRM,
+           f"reaped ring {status}, {refs_total} descriptors resolved")
+    print(f"incident: {INC_DLRM} {DLRM_MODEL} requests through a reaped ring "
+          f"of staged descriptors (no doorbell), each score byte for byte "
+          f"binary HTTP's and at most {worst:.4g} off the plain path "
+          f"(tolerance {DLRM_ATOL}); an idle sweep {sweep_us:.2f} us",
+          flush=True)
+    return {"reaper_sweep_us": round(sweep_us, 2)}
+
+
+def _inc_dead_producer(engine, server, seq: int) -> dict:
+    """A producer process killed with two slots of its reaped ring in
+    flight (the worker held): the slots are failed in the segment, the
+    ring detached, both edges in the journal."""
+    from client_tpu_torch import faults
+    from client_tpu_torch.utils.shm_ring import SLOT_DONE, RingBuffer
+
+    sched = engine.scheduler_for("bert_long")
+    key = f"/chip_smoke_inc_dead_{os.getpid()}"
+    root = Path(__file__).resolve().parent
+    cursor = engine.events_export(limit=0)["next_seq"]
+    workers = len(sched.workers)
+    faults.configure({"model.execute": {"latency_ms": INC_HOLD_MS}})
+    proc = None
+    try:
+        with concurrent.futures.ThreadPoolExecutor(workers) as pool:
+            ids, mask = _obs_bert_inputs(seq, 300)
+            holds = []
+            for w in range(workers):
+                holds.append(pool.submit(
+                    _post, server.port, "/v2/models/bert_long/infer",
+                    *_binary_request(ids, mask)))
+                _wait_for(lambda: sched.active_batches == w + 1,
+                          f"bert_long worker {w} held")
+            proc = subprocess.Popen(
+                [sys.executable, "-c", _INC_DEAD_PRODUCER, server.url,
+                 "inc_dead", key, str(seq)], stdout=subprocess.PIPE,
+                cwd=root, env=dict(os.environ, PYTHONPATH=str(root)))
+            _check(proc.stdout.readline().strip() == b"filled",
+                   "the producer process did not fill its slots")
+            _wait_for(lambda: sched.queue.qsize() == 2,
+                      "the dead producer's slots queued")
+            pid = proc.pid
+            proc.kill()
+            proc.wait(timeout=30)
+            _wait_for(lambda: "inc_dead" not in engine.ring_shm.status(),
+                      "the dead producer's ring reclaimed", timeout_s=30)
+            faults.reset()
+            statuses = [h.result()[0] for h in holds]
+            _check(statuses == [200] * workers,
+                   f"the held requests: HTTP {statuses}")
+        seg = RingBuffer.attach(key)
+        try:
+            failed = [(seg.state(s), seg.read_response(s)[1])
+                      for s in (0, 1)]
+        finally:
+            seg.close()
+    finally:
+        faults.reset()
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        try:
+            os.unlink("/dev/shm/" + key.lstrip("/"))
+        except FileNotFoundError:
+            pass
+    _check(all(state == SLOT_DONE and "detached" in (err or "")
+               for state, err in failed),
+           f"the dead producer's slots: {failed}")
+    edges = {e["name"]: e["detail"] for e in engine.events_export(
+        category="shm_ring", since_seq=cursor)["events"]}
+    _check(edges.get("producer_dead", {}).get("pid") == pid
+           and edges.get("detach_inflight", {}).get("slots") == 2,
+           f"shm_ring journal after the kill: {edges}")
+    _wait_for(lambda: sched.queue.qsize() == 0 and sched.active_batches == 0,
+              "bert_long idle")
+    print(f"incident: producer {pid} killed with 2 slots in flight: both "
+          f"failed in its segment ({failed[0][1]!r}), its ring detached, "
+          "shm_ring.producer_dead and detach_inflight journaled", flush=True)
+    return {}
+
+
+def _inc_burst(torch, engine, port: int, seq: int, device) -> dict:
+    """``INC_STORM`` expired ``bert_long`` requests while tiny_gpt_long
+    streams run: exactly one ``deadline.burst`` bundle; a second burst
+    inside the cooldown is suppressed; the streams token for token
+    against the plain path."""
+    from client_tpu_torch.models.generate import TinyGptBackend
+
+    rec = engine.blackbox
+    gpt = engine.scheduler_for("tiny_gpt_long")
+    rng = np.random.default_rng(99)
+    prompts = [rng.integers(0, 512, min(n, gpt._max_seq - INC_TOKENS - 1))
+               .tolist() for n in INC_STREAMS]
+    ids, mask = _obs_bert_inputs(seq, 400)
+    expired = _binary_request(ids, mask)
+
+    def burst() -> list[int]:
+        return [_post(port, "/v2/models/bert_long/infer", expired[0],
+                      dict(expired[1], **{"timeout-ms": "0.001"}))[0]
+                for _ in range(INC_STORM)]
+
+    before = (rec.captures, rec.suppressed)
+    with concurrent.futures.ThreadPoolExecutor(len(prompts)) as pool:
+        streams = [pool.submit(_stream, port, "tiny_gpt_long", {
+            "inputs": [{"name": "INPUT_IDS", "datatype": "INT32",
+                        "shape": [len(p)], "data": p}],
+            "parameters": {"max_tokens": INC_TOKENS}}) for p in prompts]
+        _wait_for(lambda: len(gpt._free) <= len(gpt._rows_init)
+                  - len(prompts), "the streams admitted")
+        first = burst()
+        t_burst = time.monotonic()
+        _wait_for(lambda: rec.captures == before[0] + 1,
+                  "the deadline.burst capture", timeout_s=60)
+        second = burst()
+        served = [f.result() for f in streams]
+    _check(first == second == [504] * INC_STORM,
+           f"expired requests answered {first} and {second}")
+    _check(rec.captures == before[0] + 1
+           and rec.suppressed == before[1] + 1,
+           f"captures {rec.captures}, suppressed {rec.suppressed} after two "
+           f"bursts (before {before})")
+    _check(all(len(toks) == INC_TOKENS and times[-1] > t_burst
+               for toks, times, _ in served),
+           "a stream was not running through the burst: "
+           f"{[(len(t), tm[-1] - t_burst) for t, tm, _ in served]}")
+    oracle = TinyGptBackend(name="tiny_gpt_long", attention_impl="einsum",
+                            attn_impl="reference", device=device,
+                            max_seq_len=gpt._max_seq, max_streams=gpt._cap)
+    arena = oracle.init_arena(1)
+    for prompt, (toks, _, _) in zip(prompts, served):
+        want = _direct_stream(torch, oracle, arena, prompt, INC_TOKENS, {},
+                              device=device.type)
+        _check(toks == want, f"a stream, prompt of {len(prompt)}: {toks} "
+               f"!= direct {want}")
+    bursts = [m for m in rec.store.list() if m["trigger"] == "deadline.burst"]
+    _check(len(bursts) == 1, f"deadline.burst bundles: {bursts}")
+    print(f"incident: {INC_STORM} expired bert_long requests (504) during "
+          f"{len(prompts)} tiny_gpt_long streams: one deadline.burst bundle "
+          f"{bursts[0]['id']} ({bursts[0]['capture_ms']} ms, "
+          f"{bursts[0]['bytes']} B); a second burst suppressed; every "
+          f"stream {INC_TOKENS} tokens token for token against the plain "
+          "path", flush=True)
+    return bursts[0]
+
+
+def _inc_bundles(engine, port: int, stub, hc, gc, burst: dict) -> dict:
+    """Manual captures over HTTP and gRPC; the index equal over both; no
+    section of a bundle holds an error; each bundle's memory owners are
+    ``/v2/memory``'s; ``tools/blackbox_report.py`` renders the burst's
+    bundle."""
+    from client_tpu_torch.protocol import ops_pb2
+
+    root = Path(__file__).resolve().parent
+    manual = [hc.capture_bundle(note="incident phase, over HTTP"),
+              gc.capture_bundle(note="incident phase, over gRPC")]
+    status, index = _get(port, "/v2/debug/bundles")
+    rpc = json.loads(stub.BlackboxBundles(ops_pb2.BlackboxBundlesRequest(),
+                                          timeout=GRPC_TIMEOUT_S)
+                     .bundles_json)
+    _check(status == 200 and rpc == index and rpc == hc.get_bundles()
+           == gc.get_bundles(), "/v2/debug/bundles and BlackboxBundles "
+           "differ")
+    _check([b["id"] for b in index["bundles"]] == [
+        manual[1]["id"], manual[0]["id"], burst["id"]],
+        f"the bundle index {index['bundles']}")
+    _, memory = _get(port, "/v2/memory")
+    for meta in [burst] + manual:
+        bundle = gc.get_bundles(meta["id"])
+        _check(bundle == hc.get_bundles(meta["id"]),
+               f"{meta['id']} differs over the two wires")
+        bad = {k: v for k, v in bundle["sections"].items()
+               if not isinstance(v, dict) or "error" in v}
+        _check(not bad and not bundle["truncated"],
+               f"{meta['id']}: sections {bad}, truncated "
+               f"{bundle['truncated']}")
+        _check(bundle["sections"]["memory"]["owners"] == memory["owners"],
+               f"{meta['id']}: memory owners differ from /v2/memory's")
+    path = Path(engine.blackbox.store.directory) / f"{burst['id']}.json"
+    report = subprocess.run(
+        [sys.executable, str(root / "tools" / "blackbox_report.py"),
+         str(path)], capture_output=True, text=True, timeout=120, cwd=root)
+    _check(report.returncode == 0 and "deadline.burst" in report.stdout,
+           f"blackbox_report exited {report.returncode}: "
+           f"{report.stderr[-2000:]}")
+    metrics = _scrape(port)
+    _check('tpu_blackbox_captures_total{trigger="deadline.burst"} 1'
+           in metrics and 'tpu_blackbox_captures_total{trigger="manual"} 2'
+           in metrics, "tpu_blackbox_captures_total on /metrics")
+    print(f"incident: manual captures over HTTP and gRPC "
+          f"({manual[0]['capture_ms']} and {manual[1]['capture_ms']} ms); "
+          f"/v2/debug/bundles == BlackboxBundles ({len(index['bundles'])} "
+          f"bundles, {index['total_bytes']} B); no section with an error; "
+          f"memory owners == /v2/memory's; blackbox_report rendered "
+          f"{burst['id']} ({len(report.stdout.splitlines())} lines)",
+          flush=True)
+    return {"manual_capture_ms": [m["capture_ms"] for m in manual],
+            "total_bytes": index["total_bytes"]}
+
+
+def incident_run(torch, smi: str, workdir: Path,
+                 device: str = "cuda") -> dict:
+    """The incident phase's body, in the process started with
+    ``CLIENT_TPU_LOCKDEP=1``: the slot ring, staged datasets and the
+    blackbox on one engine with ``bert_long`` (K1 bf16), ``tiny_gpt_long``
+    (K1 fp32, K2) and ``dlrm_mlperf`` (2 shards, K3) behind HTTP and
+    gRPC. Returns each kernel's launches, the lock-order graph's size and
+    the observation. ``device`` is for a dry run of the phase's logic on
+    the CPU."""
+    import client_tpu_torch.grpc as grpcclient
+    import client_tpu_torch.http as httpclient
+    from client_tpu_torch.engine import TorchEngine
+    from client_tpu_torch.models import build_repository
+    from client_tpu_torch.models.dlrm import DlrmBackend
+    from client_tpu_torch.ops import decode_attention as da
+    from client_tpu_torch.ops import flash_attention as fa
+    from client_tpu_torch.parallel import kv_shard as ks
+    from client_tpu_torch.server import (
+        GrpcInferenceServer,
+        HttpInferenceServer,
+    )
+    from client_tpu_torch.utils import lockdep
+
+    t_phase = time.monotonic()
+    device = torch.device(device)
+    os.environ["CLIENT_TPU_BLACKBOX"] = json.dumps(
+        dict(INC_BLACKBOX, dir=str(workdir / "bundles")))
+    repo = build_repository(["bert_long", "tiny_gpt_long"])
+    repo.register(DLRM_MODEL, lambda dev: DlrmBackend(
+        name=DLRM_MODEL, device=dev, emb_devices=[dev] * 2, **MLPERF_DLRM))
+    engine = TorchEngine(repo, device=device)
+    engine.profiler.reset()
+    server = HttpInferenceServer(engine, port=0).start()
+    grpc_server = GrpcInferenceServer(engine, port=0).start()
+    channel, stub = _grpc_channel(grpc_server.url)
+    hc = httpclient.InferenceServerClient(server.url)
+    gc = grpcclient.InferenceServerClient(grpc_server.url)
+    models = ("bert_long", "tiny_gpt_long", DLRM_MODEL)
+    print(f"incident: {list(models)} up in {time.monotonic() - t_phase:.1f}"
+          f" s on {device}, lockdep {'on' if lockdep.enabled() else 'off'}",
+          flush=True)
+    try:
+        backend = engine.repository.get("bert_long").backend
+        seq = engine.repository.get("bert_long").config.input[0].dims[0]
+        before = _samples(_scrape(server.port))
+        fa.launches = fa.launches_fp32 = da.launches = ks.launches = 0
+        timed = _inc_ring(torch, engine, server.port, hc, gc, backend, seq,
+                          device)
+        swept = _inc_staged(torch, engine, server.port, hc)
+        _inc_dead_producer(engine, server, seq)
+        burst = _inc_burst(torch, engine, server.port, seq, device)
+        launches = {"flash_attention": fa.launches,
+                    "flash_attention_fp32": fa.launches_fp32,
+                    "decode_wave_attention": da.launches,
+                    "ring_all_reduce": ks.launches}
+        captured = _inc_bundles(engine, server.port, stub, hc, gc, burst)
+        after = _samples(_scrape(server.port))
+        execs = {m: int(_sample_sum(after, "tpu_inference_exec_count",
+                                    model=m)
+                        - _sample_sum(before, "tpu_inference_exec_count",
+                                      model=m)) for m in models}
+        _, snap = _get(server.port, "/v2/profile?model=tiny_gpt_long")
+        waves = sum(w["dispatches"] for w in snap["models"][
+            "tiny_gpt_long:1"]["decode_waves"])
+        gpt = engine.repository.get("tiny_gpt_long").backend
+        per = {"flash_attention": (len(backend.layers), execs["bert_long"]),
+               "flash_attention_fp32": (gpt.n_layers,
+                                        execs["tiny_gpt_long"] - waves),
+               "decode_wave_attention": (gpt.n_layers, waves),
+               "ring_all_reduce": (1, execs[DLRM_MODEL])}
+        if device.type == "cuda":
+            for name, (k, n) in per.items():
+                _check(launches[name] == k * n > 0,
+                       f"{name}: {launches[name]} launches, {k} x {n} "
+                       "executions read on /metrics")
+        graph = lockdep.graph()
+        nodes = set(graph) | {s for v in graph.values() for s in v}
+        edges = sum(len(v) for v in graph.values())
+        print(f"incident: launches {launches} = per-execution counts x "
+              f"executions on /metrics {per}", flush=True)
+        print(f"incident: lockdep graph {len(nodes)} nodes, {edges} edges",
+              flush=True)
+        observation = {"card": smi, **timed, **swept,
+                       "capture_ms": burst["capture_ms"],
+                       "bundle_bytes": burst["bytes"], **captured,
+                       "lockdep_nodes": len(nodes), "lockdep_edges": edges}
+    finally:
+        hc.close()
+        gc.close()
+        channel.close()
+        grpc_server.stop()
+        server.stop()
+        engine.shutdown()
+    # Read after shutdown: a violation raised where the caller swallows it
+    # (a journal sink, a frontend's handler) is still on this record.
+    found = lockdep.violations()
+    print(f"incident: lockdep recorded {len(found)} violations through "
+          "shutdown", flush=True)
+    _check(not found, f"lockdep violations in the incident child: {found}")
+    observation["lockdep_violations"] = len(found)
+    print(f"incident observation: {json.dumps(observation)}", flush=True)
+    print(f"incident: phase body passed in "
+          f"{time.monotonic() - t_phase:.1f} s; {smi}", flush=True)
+    return {"launches": launches, "observation": observation}
+
+
+def incident_child(argv: list[str]) -> int:
+    """``--incident-child WORKDIR``: :func:`incident_run` on the card, its
+    result in ``WORKDIR/result.json``."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from client_tpu_torch.utils import lockdep
+
+    _check(lockdep.enabled(), "the incident child runs without lockdep")
+    workdir = Path(argv[0])
+    result = incident_run(torch, _nvidia_smi(), workdir)
+    (workdir / "result.json").write_text(json.dumps(result))
+    return 0
+
+
+def incident_phase(torch, smi: str) -> dict:
+    """Runs :func:`incident_run` in a child process started with
+    ``CLIENT_TPU_LOCKDEP=1`` and passes its lines through; a lockdep
+    violation anywhere in its output fails the phase. Returns each
+    kernel's launches in the child."""
+    import tempfile
+
+    t_phase = time.monotonic()
+    root = Path(__file__).resolve().parent
+    (root / "build").mkdir(exist_ok=True)
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_incident_",
+                                    dir=root / "build"))
+    proc = subprocess.run(
+        [sys.executable, str(root / "chip_smoke.py"), "--incident-child",
+         str(workdir)], cwd=root, capture_output=True, text=True,
+        timeout=INC_CHILD_TIMEOUT_S,
+        env=dict(os.environ, CLIENT_TPU_LOCKDEP="1"))
+    for line in proc.stdout.splitlines():
+        print(line if line.startswith("incident") else
+              f"incident: child: {line}", flush=True)
+    _check(proc.returncode == 0, f"the incident child exited "
+           f"{proc.returncode}: {proc.stderr[-6000:]}")
+    hits = [w for w in LOCKDEP_WORDS if w in proc.stdout + proc.stderr]
+    _check(not hits, f"lockdep in the incident child: {hits}: "
+           f"{proc.stderr[-6000:]}")
+    result = json.loads((workdir / "result.json").read_text())
+    shutil.rmtree(workdir, ignore_errors=True)
+    launches = result["launches"]
+    _check(all(v > 0 for v in launches.values()),
+           f"a kernel of the path did not launch in the incident child: "
+           f"{launches}")
+    print(f"incident: phase passed in {time.monotonic() - t_phase:.1f} s "
+          f"under CLIENT_TPU_LOCKDEP=1; launches {launches}; {smi}",
+          flush=True)
+    return launches
+
+
 def wave_phase(torch, smi: str) -> None:
     """``--kernels``: the per-wave host/device split (:func:`_wave_split`)
     of ``tiny_gpt_long`` at its registered size, built directly, over one
@@ -6711,6 +7379,8 @@ def wave_phase(torch, smi: str) -> None:
 def main(argv: list[str]) -> int:
     if argv[:1] == ["--clients-child"]:  # the clients phase's other process
         return clients_child(argv[1:])
+    if argv[:1] == ["--incident-child"]:  # the incident phase's process
+        return incident_child(argv[1:])
     import torch
 
     kernels_only = argv == ["--kernels"]
@@ -6823,6 +7493,13 @@ def main(argv: list[str]) -> int:
     for kernel in kernels:
         kernel["tuning_launches"] = tuning[kernel["name"]]
         kernel["launches"] += tuning[kernel["name"]]
+    torch.cuda.empty_cache()
+    # Every kernel again, under lockdep in another process: the slot ring,
+    # staged datasets, a dead producer and the incident blackbox.
+    incident = incident_phase(torch, smi)
+    for kernel in kernels:
+        kernel["incident_launches"] = incident[kernel["name"]]
+        kernel["launches"] += incident[kernel["name"]]
     for kernel in kernels:
         # Shorter aliases of the two keys above.
         kernel["launched"] = kernel["launches"]

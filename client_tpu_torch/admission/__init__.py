@@ -45,12 +45,12 @@ from __future__ import annotations
 
 import json
 import os
-import threading
 import time
 from dataclasses import dataclass, field
 
 from client_tpu_torch.config import env_text
 from client_tpu_torch.engine.types import EngineError
+from client_tpu_torch.utils import lockdep
 
 __all__ = [
     "ENV_VAR",
@@ -108,7 +108,7 @@ class TokenBucket:
         self._clock = clock
         self._tokens = self.burst
         self._stamp = clock()
-        self._lock = threading.Lock()
+        self._lock = lockdep.Lock("admission.bucket")
 
     def _refill_locked(self) -> None:
         now = self._clock()
@@ -251,7 +251,7 @@ class AdmissionController:
         self.config = config or AdmissionConfig()
         self._metrics = metrics  # EngineMetrics | None
         self._clock = clock
-        self._lock = threading.Lock()
+        self._lock = lockdep.Lock("admission.controller")
         self._gates: dict[str, _ModelGate] = {}
         # The QoS controller (admission/qos.py), when one is attached:
         # its per-class gates run ahead of the shared ones.

@@ -46,6 +46,7 @@ from client_tpu_torch.admission import (
     TokenBucket,
 )
 from client_tpu_torch.config import env_text
+from client_tpu_torch.utils import lockdep
 
 __all__ = [
     "ENV_VAR",
@@ -224,7 +225,7 @@ class QosController:
         self.config = config or QosConfig()
         self._metrics = metrics  # EngineMetrics | None
         self._clock = clock
-        self._lock = threading.Lock()
+        self._lock = lockdep.Lock("qos.controller")
         self._classes: dict[str, _ClassState] = {
             name: _ClassState(cfg, clock)
             for name, cfg in self.config.classes.items()

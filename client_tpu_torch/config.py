@@ -19,6 +19,10 @@ _DEFAULTS = {
     # Per-tenant cost ledger (GET /v2/costs): `0`/`off` disables; unset/
     # `1`/`on` defaults; else inline JSON or `@/path.json`.
     "CLIENT_TPU_COSTS": "",
+    # Incident blackbox (journal-triggered bundles on disk, GET
+    # /v2/debug/bundles): `0`/`off` disables; unset/`1`/`on` defaults;
+    # else inline JSON or `@/path.json`.
+    "CLIENT_TPU_BLACKBOX": "",
     # Capacity of the operational event-journal ring (GET /v2/events).
     "CLIENT_TPU_EVENT_BUFFER": "1024",
     # Deterministic fault-injection plan (inline JSON or `@/path.json`);
@@ -29,6 +33,10 @@ _DEFAULTS = {
     # Generative dispatch-ahead depth, in waves, before the worker blocks
     # on the oldest token fetch.
     "CLIENT_TPU_GEN_PIPELINE": "32",
+    # A flag: run-time lock-order and blocking-under-lock checking
+    # (utils/lockdep.py), read when that module is imported. Tests and
+    # checks only.
+    "CLIENT_TPU_LOCKDEP": "",
     # `json` attaches a JSON-lines handler to the `client_tpu_torch`
     # logger and mirrors journal events to the same stream.
     "CLIENT_TPU_LOG": "",
@@ -53,9 +61,17 @@ _DEFAULTS = {
     # `0`/`off` disables; `1`/`on` defaults; else inline JSON or
     # `@/path.json`.
     "CLIENT_TPU_SELFDRIVE": "",
+    # Idle sleep (ms) of the engine-side ring reaper between sweeps that
+    # admitted nothing.
+    "CLIENT_TPU_SHM_REAPER_INTERVAL_MS": "1.0",
+    # Per-ring slot cap of one reaper sweep (the fairness quantum).
+    "CLIENT_TPU_SHM_REAPER_SPAN": "32",
     # SLO objectives (inline JSON or `@/path.json`); unset disables
     # tracking.
     "CLIENT_TPU_SLO": "",
+    # Total payload bytes of staged datasets attached at once; 0 is
+    # unlimited.
+    "CLIENT_TPU_STAGED_BUDGET": "0",
     # Per-stream pending-response backlog (HTTP generate_stream, gRPC
     # stream RPC) before the slow-consumer shed; SSE backpressure starts
     # at half of it, the gRPC stream's at the mark itself.

@@ -24,10 +24,10 @@ The arena plans; PyTorch's caching allocator owns the card's memory.
 
 from __future__ import annotations
 
-import threading
 from dataclasses import dataclass
 
 from client_tpu_torch.engine.types import EngineError
+from client_tpu_torch.utils import lockdep
 
 # Reservations round up to this grain: sub-KiB precision would be false
 # accuracy in a planner.
@@ -66,7 +66,7 @@ class ArenaAllocator:
                 f"got {budget_bytes}", 500)
         self.budget = int(budget_bytes)
         self.label = label
-        self._lock = threading.Lock()
+        self._lock = lockdep.Lock("engine.arena")
         self._res: dict[str, Reservation] = {}
 
     # -- core ops -------------------------------------------------------------

@@ -60,6 +60,7 @@ from client_tpu_torch.engine.types import EngineError
 from client_tpu_torch.observability.events import journal
 from client_tpu_torch.observability.memory import hbm_census
 from client_tpu_torch.protocol.dtypes import wire_to_np_dtype
+from client_tpu_torch.utils import lockdep
 
 _log = logging.getLogger("client_tpu_torch")
 
@@ -166,7 +167,7 @@ class Autotuner:
         # The census holds these reservations against the live tagged
         # bytes (tpu_hbm_plan_drift_bytes); it holds the arena weakly.
         hbm_census().register_arena(self.arena)
-        self._lock = threading.Lock()
+        self._lock = lockdep.Lock("engine.autotune")
         # (model, version, action, bucket) -> monotonic deadline before
         # which the same decision is not retried (hysteresis spacing).
         self._cooldown: dict[tuple, float] = {}
@@ -572,7 +573,7 @@ class DispatchTuner:
         self.restore_hold_s = float(restore_hold_s)
         self.concurrency_floor = max(1, int(concurrency_floor))
         self._clock = clock
-        self._lock = threading.Lock()
+        self._lock = lockdep.Lock("engine.dispatch_tuner")
         # (model, version) -> mutable loop state.
         self._state: dict[tuple, dict] = {}
         self._decisions: deque[dict] = deque(maxlen=64)

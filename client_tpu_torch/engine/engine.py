@@ -7,10 +7,15 @@ A decoupled (streaming) model answers only through ``async_infer``, once
 per response; a blocking ``infer`` on one is a 400. Each model gets the
 scheduler its config asks for (``scheduler.make_scheduler``): dynamic
 batching, ragged (lookups-axis) batching, sequence batching, generative
-or other decoupled streaming, or an ensemble. Two shared-memory
+or other decoupled streaming, or an ensemble. Four shared-memory
 managers serve both frontends and in-process callers: ``system_shm``
 (regions by shm key) and ``cuda_shm`` (host-staged regions by handle, and
-in-process regions of tensors on the card; ``engine/shm.py``).
+in-process regions of tensors on the card; ``engine/shm.py``), the slot
+ring ``ring_shm`` (``engine/shmring.py``: producers fill slots of a
+segment and ring a doorbell, or leave a reaped ring to the engine's
+reaper thread; answers land in the slots) and the staged datasets
+``staged_shm`` (``engine/staged.py``: read-only segments whose rows ring
+slots reference by descriptor).
 Models load, reload and unload at run time (:meth:`TorchEngine.load_model`,
 :meth:`TorchEngine.unload_model`), each loaded version with its own
 scheduler and statistics.
@@ -45,8 +50,14 @@ fair queue, its per-class admission gates, a class's implied priority
 level, and the SLO-burn governor (``GET /v2/qos``). ``autotuner``
 (``CLIENT_TPU_AUTOTUNE``) promotes and retires buckets against the
 planning arena; ``selfdrive`` (``CLIENT_TPU_SELFDRIVE``) retunes dispatch
-and tightens the admission of a model burning its SLO. The shm slot
-ring, staged datasets and the blackbox are not ported yet.
+and tightens the admission of a model burning its SLO.
+
+The incident blackbox (``blackbox``, ``CLIENT_TPU_BLACKBOX``, on by
+default) listens to the journal and, on a trigger edge (an SLO fast
+burn, a QoS throttle, an admission tightening, memory pressure, a storm
+of breaker opens or a burst of deadline expiries), writes a bundle of
+the planes above to disk (``GET /v2/debug/bundles``, ``POST
+/v2/debug/capture``); its capture thread stops at :meth:`shutdown`.
 """
 
 from __future__ import annotations
@@ -86,6 +97,7 @@ from client_tpu_torch.observability.tracing import (
     TraceStore,
     build_request_trace,
 )
+from client_tpu_torch.utils import lockdep
 
 if TYPE_CHECKING:
     from client_tpu_torch.admission import AdmissionController
@@ -98,7 +110,8 @@ SERVER_NAME = "client_tpu_torch"
 # JAX package.
 SERVER_EXTENSIONS = ["model_configuration", "binary_tensor_data",
                      "statistics", "generate", "system_shared_memory",
-                     "tpu_shared_memory", "cuda_shared_memory"]
+                     "tpu_shared_memory", "cuda_shared_memory", "shm_ring",
+                     "staged_dataset"]
 
 
 class TorchEngine:
@@ -131,6 +144,19 @@ class TorchEngine:
         self.profiler = profiler()
         self.profiler.bind_metrics(self.metrics.registry)
         self.events = journal()
+        # The slot ring and the staged datasets it references, on this
+        # engine's registry and the journal; the ring manager resolves
+        # staged descriptors through the dataset manager and admits a
+        # reaped ring's slots through async_infer.
+        from client_tpu_torch.engine.shmring import RingShmManager
+        from client_tpu_torch.engine.staged import StagedDatasetManager
+
+        self.staged_shm = StagedDatasetManager(
+            registry=self.metrics.registry, events=self.events)
+        self.ring_shm = RingShmManager(registry=self.metrics.registry,
+                                       events=self.events,
+                                       datasets=self.staged_shm,
+                                       submit=self.async_infer)
         # SLO objectives (CLIENT_TPU_SLO; off when unset), their gauges on
         # this engine's registry.
         self.slo = SloTracker.from_env(registry=self.metrics.registry)
@@ -172,7 +198,7 @@ class TorchEngine:
         # latest one (the same scheduler and stats objects).
         self._schedulers: dict[str, Scheduler] = {}
         self._stats: dict[str, ModelStats] = {}
-        self._lock = threading.Lock()
+        self._lock = lockdep.Lock("engine.engine")
         self._live = True
         self.system_shm = SystemShmManager()
         # A region's device_id indexes the visible cards (the engine's own
@@ -199,13 +225,28 @@ class TorchEngine:
         drive_cfg = SelfDriveConfig.from_env()
         self.selfdrive = (SelfDriveGovernor(self, drive_cfg)
                           if drive_cfg is not None else None)
-        # The JAX engine's detail keys; the port has no blackbox.
+        # The incident blackbox (CLIENT_TPU_BLACKBOX; `0`/`off` leaves it
+        # None). The card's name is read here, once: a crash bundle must
+        # make no CUDA call.
+        from client_tpu_torch.observability.blackbox import (
+            BlackboxConfig,
+            BlackboxRecorder,
+        )
+
+        self.blackbox: BlackboxRecorder | None = None
+        bb_cfg = BlackboxConfig.from_env()
+        if bb_cfg.enabled:
+            self.blackbox = BlackboxRecorder(
+                self, bb_cfg, registry=self.metrics.registry,
+                device_name=(torch.cuda.get_device_name(self.device)
+                             if self.device.type == "cuda" else None)
+            ).install()
         self.events.emit("lifecycle", "server_start",
                          models=len(self.repository.names()),
                          slo_enabled=self.slo.enabled,
                          autotune=self.autotuner is not None,
                          selfdrive=self.selfdrive is not None,
-                         blackbox=False)
+                         blackbox=self.blackbox is not None)
         for name in self.repository.names():
             try:
                 self.load_model(name)
@@ -653,6 +694,18 @@ class TorchEngine:
         raise EngineError(
             f"shared memory region '{region}' not registered", 400)
 
+    def ring_doorbell(self, name: str, spec: dict) -> dict:
+        """Admit a span of FILLED ring slots (``engine/shmring.py``); each
+        slot's answer lands in its response region."""
+        return self.ring_shm.doorbell(name, spec)
+
+    def resolve_staged_input(self, dataset: str, tensor_index: int,
+                             row_start: int, row_count: int):
+        """A 24-byte staged-input descriptor as a zero-copy row slice of a
+        registered staged dataset (``engine/staged.py``)."""
+        return self.staged_shm.resolve(dataset, tensor_index, row_start,
+                                       row_count)
+
     # -- observability -------------------------------------------------------
 
     def prometheus_metrics(self, openmetrics: bool = False) -> str:
@@ -710,6 +763,7 @@ class TorchEngine:
         # Duty-cycle and SLO burn gauges refresh at scrape time, so that a
         # quiet period still reads current windows.
         self.profiler.update_gauges()
+        self.ring_shm.update_gauges()
         if self.slo.enabled:
             self.slo.snapshot()
         if openmetrics:
@@ -734,7 +788,9 @@ class TorchEngine:
         ``hbm_bytes`` reservation and ``row_cache`` where its backend has
         them; the autotuner's ``autotune`` section and the suggestions'
         ``state``, and self-drive's ``selfdrive`` section, when they run;
-        and the census's headline (``memory``)."""
+        the attached rings' (``shm_rings``) and staged datasets'
+        (``shm_datasets``) tables, when there are any; and the census's
+        headline (``memory``)."""
         snap = self.profiler.snapshot(model=model)
         for entry in snap.get("models", {}).values():
             sched = self.scheduler_for(entry["model"], entry["version"])
@@ -751,6 +807,12 @@ class TorchEngine:
             self.autotuner.annotate(snap)
         if self.selfdrive is not None:
             snap["selfdrive"] = self.selfdrive.snapshot()
+        rings = self.ring_shm.profile_table()
+        if rings:
+            snap["shm_rings"] = rings
+        datasets = self.staged_shm.profile_table()
+        if datasets:
+            snap["shm_datasets"] = datasets
         census = self.memory_census()
         snap["memory"] = {
             "bytes_limit": census["totals"].get("bytes_limit", 0),
@@ -933,6 +995,41 @@ class TorchEngine:
                                     since_wall=since_wall,
                                     until_wall=until_wall, limit=limit)
 
+    # -- incident blackbox ----------------------------------------------------
+
+    def blackbox_bundles(self, bundle_id: str | None = None) -> dict:
+        """The ``GET /v2/debug/bundles[/{id}]`` body: the bundle ring's
+        index, or one whole bundle. 400 when the blackbox is disabled,
+        the id malformed or the file corrupt; 404 for an unknown id."""
+        if self.blackbox is None:
+            raise EngineError(
+                "blackbox disabled (CLIENT_TPU_BLACKBOX=off)", 400)
+        try:
+            return self.blackbox.bundles(bundle_id)
+        except KeyError:
+            raise EngineError(
+                f"unknown bundle {bundle_id!r}", 404) from None
+        except ValueError as exc:
+            raise EngineError(str(exc), 400) from None
+
+    def blackbox_capture(self, trigger: str = "manual", *,
+                         incident: str | None = None,
+                         note: str | None = None) -> dict:
+        """The ``POST /v2/debug/capture`` body: a bundle written now.
+        ``manual``, ``crash`` and ``fleet`` always capture; an automatic
+        trigger's name respects the debounce and cooldown, and answers
+        ``{"deduped": true}`` with the earlier bundle's id instead of a
+        second bundle of one incident."""
+        if self.blackbox is None:
+            raise EngineError(
+                "blackbox disabled (CLIENT_TPU_BLACKBOX=off)", 400)
+        try:
+            return self.blackbox.capture(
+                trigger, incident=incident, note=note,
+                respect_cooldown=True)
+        except ValueError as exc:
+            raise EngineError(str(exc), 400) from None
+
     def trace_setting(self) -> dict:
         return self.trace.setting()
 
@@ -951,6 +1048,10 @@ class TorchEngine:
             self.events.emit("lifecycle", "server_shutdown",
                              draining=self._draining)
         self._live = False
+        if self.blackbox is not None:
+            # First: off the journal before the state its capture thread
+            # snapshots is torn down.
+            self.blackbox.close()
         self.qos.stop_governor()
         self.recorder.detach(self)
         if self.selfdrive is not None:
@@ -969,6 +1070,9 @@ class TorchEngine:
         # region may still complete during the stop above.
         self.system_shm.unregister(None)
         self.cuda_shm.unregister(None)
+        # The reaper stops before the segments unmap beneath it.
+        self.ring_shm.shutdown()
+        self.staged_shm.unregister(None)
 
 
 def _esc(v: str) -> str:

@@ -57,6 +57,7 @@ from client_tpu_torch.observability.memory import hbm_census
 from client_tpu_torch.observability.profiler import profiler
 from client_tpu_torch.observability.roofline import CostCapture
 from client_tpu_torch.protocol.dtypes import wire_to_np_dtype
+from client_tpu_torch.utils import lockdep
 
 
 def np_dtype_of(arr) -> np.dtype | None:
@@ -97,8 +98,24 @@ class ExecPhases:
 # cuBLAS handle bounds those pairs by the threads alive at once: a model's
 # reload starts new workers, which reuse the old pairs.
 _HANDLE_STREAMS: dict[tuple[int, int], torch.cuda.Stream] = {}
-_HANDLE_STREAMS_LOCK = threading.Lock()
+_HANDLE_STREAMS_LOCK = lockdep.Lock("engine.worker_streams")
 _THREAD = threading.local()
+
+
+def _stage_host(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host input as the batch's tensor. On the card: one copy into a
+    pinned buffer, then one host-to-device copy queued on the current
+    stream. An input may be a view of a mapping (a shared-memory
+    region's, a ring slot's or a staged dataset's rows), read-only or
+    not: it is only read from. On the CPU the tensor shares the array's
+    memory, or that of one copy of a read-only array (which
+    ``torch.from_numpy`` would take with a warning)."""
+    if device.type != "cuda":
+        return torch.from_numpy(arr if arr.flags.writeable else arr.copy())
+    dtype = torch.from_numpy(np.empty(0, arr.dtype)).dtype
+    pinned = torch.empty(arr.shape, dtype=dtype, pin_memory=True)
+    pinned.numpy()[...] = arr
+    return pinned.to(device, non_blocking=True)
 
 
 def worker_stream(device: torch.device) -> torch.cuda.Stream:
@@ -217,7 +234,7 @@ class Model:
         # Input signatures (names, shapes, dtypes) executed once already:
         # the next execution of one is warm.
         self._seen: set = set()
-        self._seen_lock = threading.Lock()
+        self._seen_lock = lockdep.Lock("engine.model")
 
     def _stream(self) -> torch.cuda.Stream:
         return worker_stream(self.device)
@@ -367,11 +384,7 @@ class Model:
                 if trim and arr.shape[0] < pad_to:
                     arr = np.pad(arr, [(0, pad_to - arr.shape[0])]
                                  + [(0, 0)] * (arr.ndim - 1))
-                t = torch.from_numpy(arr if arr.flags.writeable
-                                     else arr.copy())
-                if cuda:
-                    t = t.pin_memory().to(self.device, non_blocking=True)
-                staged[name] = t
+                staged[name] = _stage_host(arr, self.device)
             phases.input_end = now_ns()
             first = self._first_execution(staged)
             if cuda:
@@ -549,15 +562,9 @@ class Model:
         -> (state, outputs)``, on the worker's stream. The state stays on
         the device; the outputs come back as host arrays. Returns
         ``(new_state, outputs)``."""
-        cuda = self.device.type == "cuda"
         with self._on_stream():
-            staged = {}
-            for name, arr in inputs.items():
-                t = torch.from_numpy(arr if arr.flags.writeable
-                                     else arr.copy())
-                if cuda:
-                    t = t.pin_memory().to(self.device, non_blocking=True)
-                staged[name] = t
+            staged = {name: _stage_host(arr, self.device)
+                      for name, arr in inputs.items()}
             with torch.inference_mode():
                 new_state, outputs = self.backend.step(state, staged)
             if not isinstance(outputs, dict):

@@ -34,6 +34,7 @@ import torch
 from client_tpu_torch.engine.backend_init import resolve_device
 from client_tpu_torch.engine.model import Model, ModelBackend, restoring
 from client_tpu_torch.engine.types import EngineError
+from client_tpu_torch.utils import lockdep
 
 Builder = Callable[[torch.device], ModelBackend]
 
@@ -103,7 +104,7 @@ class ModelRepository:
         # One load at a time per name: load() builds outside the global
         # lock, and two loads of one name would both build its versions.
         self._load_locks: dict[str, threading.Lock] = {}
-        self._lock = threading.RLock()
+        self._lock = lockdep.RLock("engine.repository")
 
     def register(self, name: str, builder: Builder,
                  version: int | None = None) -> None:
@@ -132,7 +133,7 @@ class ModelRepository:
         versions that left the policy retire, and a version already built
         is kept as it is. If the reload fails, the old set keeps serving."""
         with self._lock:
-            load_lock = self._load_locks.setdefault(name, threading.Lock())
+            load_lock = self._load_locks.setdefault(name, lockdep.Lock("engine.repository.load"))
         with load_lock:
             return self._load_serialized(name, resolve_device(device))
 

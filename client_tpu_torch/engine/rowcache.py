@@ -17,10 +17,11 @@ counters stay monotonic).
 
 from __future__ import annotations
 
-import threading
 from collections import OrderedDict
 
 import numpy as np
+
+from client_tpu_torch.utils import lockdep
 
 
 class RowCache:
@@ -36,7 +37,7 @@ class RowCache:
         self.capacity_rows = (max(1, int(budget_bytes) // self.row_bytes)
                               if budget_bytes > 0 else 0)
         self.budget_bytes = int(budget_bytes)
-        self._lock = threading.Lock()
+        self._lock = lockdep.Lock("engine.rowcache")
         # row id -> its vector; recency order, least recent first.
         self._rows: OrderedDict[int, np.ndarray] = OrderedDict()
         # Cumulative counters: clear() leaves them alone.

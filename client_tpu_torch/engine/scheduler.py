@@ -65,6 +65,7 @@ from client_tpu_torch.engine.types import (
     now_ns,
 )
 from client_tpu_torch.observability.costs import ledger
+from client_tpu_torch.utils import lockdep
 
 _SHUTDOWN = object()
 # Shutdown markers sort behind every queued request, whatever its level.
@@ -86,7 +87,7 @@ class _ReqQueue:
 
     def __init__(self):
         self._h: list = []  # (level, seq, item)
-        self._cv = threading.Condition()
+        self._cv = lockdep.Condition("scheduler.queue")
         self._seq = 0        # arrival order within a level
         self._front_seq = 0  # decreasing: pushback lands ahead of arrivals
         self._level_counts: dict[int, int] = {}
@@ -176,7 +177,7 @@ class _WfqQueue:
 
     def __init__(self, qos):
         self._qos = qos
-        self._cv = threading.Condition()
+        self._cv = lockdep.Condition("scheduler.queue")
         self._seq = 0
         self._front_seq = 0
         self._level_counts: dict[int, int] = {}
@@ -441,14 +442,14 @@ class Scheduler:
         # The run-time dispatch override (self-drive's actuator): one dict
         # swapped whole, read once per gather; None runs the config.
         self._dispatch_override: dict | None = None
-        self._order_lock = threading.Lock()
+        self._order_lock = lockdep.Lock("scheduler.order")
         self._arrival_seq = 0        # assigned at submit
         self._release_seq = 0        # the next arrival allowed to answer
         self._held: dict[int, tuple] = {}  # seq -> (req, resp)
         self._draining = False       # one thread flushes at a time
         # Batches executing now (the tpu_inflight_batches gauge).
         self.active_batches = 0
-        self._active_lock = threading.Lock()
+        self._active_lock = lockdep.Lock("scheduler.active")
         # Set by stop(): a long-running worker loop (a generation wave, a
         # decoupled stream) checks it to end what it holds.
         self._stopping = False

@@ -50,6 +50,7 @@ from client_tpu_torch.engine.types import (
     InferResponse,
     now_ns,
 )
+from client_tpu_torch.utils import lockdep
 
 _log = logging.getLogger("client_tpu_torch")
 
@@ -74,7 +75,7 @@ class _SequenceSlot:
 
     def __init__(self, state):
         self.state = state
-        self.lock = threading.Lock()
+        self.lock = lockdep.Lock("sequence.slot")
         self.last_used_ns = now_ns()
         # Executions holding this slot now: last_used_ns is written only
         # after a step, so a step that outlasts the idle window would look
@@ -121,7 +122,7 @@ class SequenceScheduler(_PendingGuard, Scheduler):
 
     def __init__(self, model, stats):
         self._slots: dict[int, _SequenceSlot] = {}
-        self._slots_lock = threading.Lock()
+        self._slots_lock = lockdep.Lock("sequence.slots")
         self._pending: dict[int, int] = {}
         super().__init__(model, stats)
 
@@ -198,8 +199,9 @@ class SequenceScheduler(_PendingGuard, Scheduler):
         req.times.compute_start = start
         try:
             # One step of a sequence at a time, in order: the step is this
-            # lock's critical section by design.
-            with slot.lock:
+            # lock's critical section by design, so blocking under it (the
+            # model.execute latency fault's sleep) is reviewed.
+            with slot.lock, lockdep.allow_blocking():
                 slot.state, outputs = self.model.execute_stateful(
                     slot.state, req.inputs)
         finally:
@@ -248,7 +250,7 @@ class OldestSequenceScheduler(_PendingGuard, Scheduler):
         self._rows: dict[int, int] = {}       # sequence_id -> arena row
         self._last_used: dict[int, int] = {}  # sequence_id -> ns
         self._pending: dict[int, int] = {}
-        self._arena_lock = threading.Lock()
+        self._arena_lock = lockdep.Lock("sequence.arena")
         # (live requests, host outputs, done event or None, t_stacked)
         self._inflight_waves: collections.deque = collections.deque()
         # Depth 2: one wave running while the next assembles; deeper

@@ -46,7 +46,6 @@ from __future__ import annotations
 import json
 import mmap
 import os
-import threading
 
 import numpy as np
 import torch
@@ -62,6 +61,7 @@ from client_tpu_torch.protocol.dtypes import (
     np_to_wire_dtype,
     wire_to_np_dtype,
 )
+from client_tpu_torch.utils import lockdep
 
 # The attribute a device region's read carries: the CUDA event recorded
 # after the region's last write, on the writer's stream.
@@ -178,7 +178,7 @@ def _status(regions: dict, name: str | None, fields) -> dict:
 class SystemShmManager:
     def __init__(self):
         self._regions: dict[str, _SysRegion] = {}
-        self._lock = threading.Lock()
+        self._lock = lockdep.Lock("shm.system")
 
     def register(self, name, key, offset, byte_size) -> None:
         with self._lock:
@@ -292,7 +292,7 @@ class CudaShmManager:
 
     def __init__(self, devices: list | None = None):
         self._regions: dict[str, _CudaRegion] = {}
-        self._lock = threading.Lock()
+        self._lock = lockdep.Lock("shm.device")
         self._devices = devices
 
     def _device(self, device_id: int) -> torch.device:

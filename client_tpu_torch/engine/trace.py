@@ -20,13 +20,14 @@ import os
 import threading
 
 from client_tpu_torch.engine.types import EngineError
+from client_tpu_torch.utils import lockdep
 
 
 class TraceManager:
     """Engine-wide device trace control (``torch.profiler`` start/stop)."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = lockdep.Lock("engine.trace")
         self._log_dir = ""
         self._session: _Session | None = None
         self._written = 0

@@ -9,8 +9,8 @@ stack:
 * ``scheduler.enqueue``  — scheduler admission, before the queue put
 * ``scheduler.dequeue``  — scheduler worker, after a request is popped
 * ``model.execute``      — model execution, before the device work
-* ``shmring.doorbell``   — registered for the shm slot ring, which the
-  port does not have yet: nothing fires it
+* ``shmring.doorbell``   — the shm slot ring's doorbell and each reaper
+  sweep of a ring
 
 Each site can add latency, answer a protocol error with a chosen status,
 or drop the connection, gated by a seeded Bernoulli draw: one
@@ -35,11 +35,11 @@ from __future__ import annotations
 import json
 import os
 import random
-import threading
 import time
 import weakref
 
 from client_tpu_torch.config import env_text
+from client_tpu_torch.utils import lockdep
 
 SITES = ("http.pre_read", "grpc.pre_infer", "scheduler.enqueue",
          "scheduler.dequeue", "model.execute", "shmring.doorbell")
@@ -100,7 +100,7 @@ class _ActiveFault:
         self.spec = spec
         self.rng = random.Random(spec.seed)
         self.remaining = spec.max_injections
-        self.lock = threading.Lock()
+        self.lock = lockdep.Lock("faults.active")
 
     def draw(self) -> bool:
         with self.lock:
@@ -117,7 +117,7 @@ class FaultRegistry:
     """Named injection sites, their seeded draws and injection counts."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = lockdep.Lock("faults.registry")
         self._active: dict[str, _ActiveFault] = {}
         self._counts: dict[tuple[str, str], int] = {}
         # id(MetricRegistry) -> weak reference to its counter: rebinding
@@ -201,7 +201,7 @@ class FaultRegistry:
 
 
 _default: FaultRegistry | None = None
-_default_lock = threading.Lock()
+_default_lock = lockdep.Lock("faults.default")
 
 
 def registry() -> FaultRegistry:

@@ -10,10 +10,13 @@ and stubs are cached process-wide by URL and options. Opt-in resilience
 ``client_tpu_torch.resilience``.
 
 The operational RPCs: ``get_events``, ``get_slo_status``,
-``get_profile``, ``get_timeseries``, ``get_memory``, ``get_costs`` and
-``get_qos_status`` (messages in the port's ``ops_pb2``). Not ported yet:
-the bundle RPCs, the fleet merges, and the shm ring and staged-dataset RPCs. This
-module loads neither torch nor jax.
+``get_profile``, ``get_timeseries``, ``get_memory``, ``get_costs``,
+``get_qos_status`` and ``get_bundles`` (with ``capture_bundle``;
+messages in the port's ``ops_pb2``). The shm slot ring
+(``register_shm_ring``, ``ring_doorbell``, ...; the producer side is
+``RingProducer``, re-exported here) and staged datasets
+(``register_staged_dataset``, ...). Not ported yet: the fleet merges.
+This module loads neither torch nor jax.
 """
 
 from __future__ import annotations
@@ -43,13 +46,15 @@ from client_tpu_torch.utils import (
     InferenceServerException,
     raise_error,
 )
+from client_tpu_torch.utils import lockdep
+from client_tpu_torch.utils.shm_ring import RingProducer  # noqa: F401
 
 service_pb2 = pb  # re-export, as tritonclient re-exports its generated pb2
 
 _log = logging.getLogger("client_tpu_torch")
 
 _channel_cache: dict[tuple, tuple[grpc.Channel, GRPCInferenceServiceStub]] = {}
-_channel_cache_lock = threading.Lock()
+_channel_cache_lock = lockdep.Lock("grpcclient.channel_cache")
 
 
 class KeepAliveOptions:
@@ -398,7 +403,7 @@ class InferenceServerClient:
         self._retry_policy = retry_policy
         self._breaker = circuit_breaker
         self._async_executor = None
-        self._async_executor_lock = threading.Lock()
+        self._async_executor_lock = lockdep.Lock("grpcclient.async_executor")
 
     @property
     def _client_stub(self):
@@ -663,6 +668,30 @@ class InferenceServerClient:
             self._md(headers), client_timeout)
         return json.loads(response.qos_json)
 
+    def get_bundles(self, bundle_id="", headers=None,
+                    client_timeout=None):
+        """Incident-blackbox bundles (gRPC mirror of ``GET
+        /v2/debug/bundles[/{id}]``): the ring's index, or one whole
+        bundle with ``bundle_id``."""
+        response = self._unary(
+            self._client_stub.BlackboxBundles,
+            ops.BlackboxBundlesRequest(bundle_id=bundle_id),
+            self._md(headers), client_timeout)
+        return json.loads(response.bundles_json)
+
+    def capture_bundle(self, trigger="manual", incident="", note="",
+                       headers=None, client_timeout=None):
+        """Capture an incident bundle now (gRPC mirror of ``POST
+        /v2/debug/capture``) and return its meta; a trigger other than
+        ``manual`` respects the server's debounce and cooldown and may
+        answer ``{"deduped": true}``."""
+        response = self._unary(
+            self._client_stub.BlackboxCapture,
+            ops.BlackboxCaptureRequest(trigger=trigger or "manual",
+                                       incident=incident, note=note),
+            self._md(headers), client_timeout)
+        return json.loads(response.bundle_json)
+
     def get_system_shared_memory_status(self, region_name="", headers=None,
                                         as_json=False, client_timeout=None):
         return self._call(
@@ -715,6 +744,70 @@ class InferenceServerClient:
     get_cuda_shared_memory_status = get_tpu_shared_memory_status
     register_cuda_shared_memory = register_tpu_shared_memory
     unregister_cuda_shared_memory = unregister_tpu_shared_memory
+
+    # -- shm slot ring (zero-copy data plane) -------------------------------
+
+    def register_shm_ring(self, name, key, spec=None, headers=None,
+                          client_timeout=None):
+        """Attach a slot-ring segment (made with
+        ``client_tpu_torch.utils.shm_ring``) by POSIX shm key. A ``spec``
+        (a doorbell's span spec without start/count) makes a reaped
+        ring: the engine's reaper sweeps FILLED slots, and no doorbell is
+        rung."""
+        self._call(self._client_stub.RingRegister,
+                   ops.RingRegisterRequest(
+                       name=name, key=key,
+                       spec_json=json.dumps(spec) if spec else ""),
+                   headers, client_timeout=client_timeout)
+
+    def unregister_shm_ring(self, name="", headers=None,
+                            client_timeout=None):
+        self._call(self._client_stub.RingUnregister,
+                   ops.RingUnregisterRequest(name=name), headers,
+                   client_timeout=client_timeout)
+
+    def get_shm_ring_status(self, name="", headers=None,
+                            client_timeout=None):
+        response = self._unary(
+            self._client_stub.RingStatus,
+            ops.RingStatusRequest(name=name),
+            self._md(headers), client_timeout)
+        return json.loads(response.status_json)
+
+    def ring_doorbell(self, name, spec, headers=None, client_timeout=None):
+        """Submit a span of FILLED ring slots in one RPC; the span spec
+        rides as JSON (the HTTP doorbell's body), and the answers are
+        read from the slots."""
+        response = self._unary(
+            self._client_stub.RingDoorbell,
+            ops.RingDoorbellRequest(name=name,
+                                    doorbell_json=json.dumps(spec)),
+            self._md(headers), client_timeout)
+        return json.loads(response.result_json)
+
+    # -- staged datasets (many-producer fan-in) -----------------------------
+
+    def register_staged_dataset(self, name, key, headers=None,
+                                client_timeout=None):
+        """Attach a staged-dataset segment (built with
+        ``client_tpu_torch.utils.shm_ring.staged``) by POSIX shm key."""
+        self._call(self._client_stub.DatasetRegister,
+                   ops.DatasetRegisterRequest(name=name, key=key),
+                   headers, client_timeout=client_timeout)
+
+    def unregister_staged_dataset(self, name="", headers=None,
+                                  client_timeout=None):
+        self._call(self._client_stub.DatasetUnregister,
+                   ops.DatasetUnregisterRequest(name=name), headers,
+                   client_timeout=client_timeout)
+
+    def get_staged_dataset_status(self, name="", headers=None,
+                                  client_timeout=None):
+        response = self._unary(
+            self._client_stub.DatasetStatus,
+            ops.DatasetStatusRequest(name=name),
+            self._md(headers), client_timeout)
+        return json.loads(response.status_json)
 
     # -- inference -----------------------------------------------------------
 

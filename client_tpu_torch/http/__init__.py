@@ -12,10 +12,13 @@ circuit breaker per target, failover). Opt-in resilience
 ``client_tpu_torch.resilience``.
 
 The operational GETs: ``get_events``, ``get_slo_status``,
-``get_profile``, ``get_timeseries``, ``get_memory``, ``get_costs`` and
-``get_qos_status``. Not ported yet: the shm slot ring and staged
-datasets, trace settings, and the bundle and fleet GETs, whose routes the
-port's server does not have. This module loads neither torch nor jax.
+``get_profile``, ``get_timeseries``, ``get_memory``, ``get_costs``,
+``get_qos_status`` and ``get_bundles`` (with ``capture_bundle``). The
+shm slot ring (``register_shm_ring``, ``ring_doorbell``, ...; the
+producer side is ``RingProducer``, re-exported here) and staged datasets
+(``register_staged_dataset``, ...). Not ported yet: trace settings and
+the fleet GETs, whose routes the port's server does not have. This module
+loads neither torch nor jax.
 """
 
 from __future__ import annotations
@@ -25,7 +28,6 @@ import gzip
 import json
 import queue
 import random
-import threading
 import time
 import zlib
 from concurrent.futures import ThreadPoolExecutor
@@ -57,6 +59,8 @@ from client_tpu_torch.utils import (
     InferenceServerException,
     raise_error,
 )
+from client_tpu_torch.utils import lockdep
+from client_tpu_torch.utils.shm_ring import RingProducer  # noqa: F401
 
 
 class InferInput:
@@ -306,7 +310,7 @@ class _Target:
                                     timeout)
         self.load = None
         self.outstanding = 0
-        self._lock = threading.Lock()
+        self._lock = lockdep.Lock("httpclient.endpoint")
 
     def observe(self, resp) -> None:
         """Learn the endpoint's load from a response's X-Tpu-Load
@@ -339,7 +343,7 @@ class _ConnectionPool:
     def __init__(self, host, port, size, timeout):
         self._host, self._port, self._timeout = host, port, timeout
         self._pool: queue.LifoQueue = queue.LifoQueue()
-        self._lock = threading.Lock()
+        self._lock = lockdep.Lock("httpclient.pool")
         self._created = 0
         self._size = size
 
@@ -794,6 +798,64 @@ class InferenceServerClient:
     register_cuda_shared_memory = register_tpu_shared_memory
     unregister_cuda_shared_memory = unregister_tpu_shared_memory
 
+    # -- shm slot ring (zero-copy data plane) -------------------------------
+
+    def register_shm_ring(self, name, key, spec=None, headers=None,
+                          query_params=None):
+        """Attach a slot-ring segment (made with
+        ``client_tpu_torch.utils.shm_ring``) by POSIX shm key; the
+        geometry is read from the ring's header. A ``spec`` (a doorbell's
+        span spec without start/count) makes a reaped ring: the engine's
+        reaper sweeps FILLED slots, and no doorbell is rung."""
+        body = {"key": key}
+        if spec is not None:
+            body["spec"] = spec
+        self._post_json(f"/v2/shm/ring/{quote(name)}/register",
+                        body, query_params, headers)
+
+    def unregister_shm_ring(self, name="", headers=None, query_params=None):
+        path = "/v2/shm/ring"
+        if name:
+            path += f"/{quote(name)}"
+        self._post_json(path + "/unregister", {}, query_params, headers)
+
+    def get_shm_ring_status(self, name="", headers=None, query_params=None):
+        path = "/v2/shm/ring"
+        if name:
+            path += f"/{quote(name)}"
+        return self._get_json(path + "/status", query_params, headers)
+
+    def ring_doorbell(self, name, spec, headers=None, query_params=None):
+        """Submit a span of FILLED slots in one round trip (``spec`` as
+        ``RingProducer.doorbell`` builds it); returns ``{"admitted",
+        "rejected", "skipped"}``. The answers are read from the slots."""
+        return self._post_json(f"/v2/shm/ring/{quote(name)}/doorbell",
+                               spec, query_params, headers)
+
+    # -- staged datasets (many-producer fan-in) -----------------------------
+
+    def register_staged_dataset(self, name, key, headers=None,
+                                query_params=None):
+        """Attach a staged-dataset segment (built with
+        ``client_tpu_torch.utils.shm_ring.staged``) by POSIX shm key; the
+        server reads and checks its manifest."""
+        self._post_json(f"/v2/shm/dataset/{quote(name)}/register",
+                        {"key": key}, query_params, headers)
+
+    def unregister_staged_dataset(self, name="", headers=None,
+                                  query_params=None):
+        path = "/v2/shm/dataset"
+        if name:
+            path += f"/{quote(name)}"
+        self._post_json(path + "/unregister", {}, query_params, headers)
+
+    def get_staged_dataset_status(self, name="", headers=None,
+                                  query_params=None):
+        path = "/v2/shm/dataset"
+        if name:
+            path += f"/{quote(name)}"
+        return self._get_json(path + "/status", query_params, headers)
+
     # -- inference -----------------------------------------------------------
 
     # -- operational control plane -------------------------------------------
@@ -887,6 +949,29 @@ class InferenceServerClient:
         if model_name:
             qp["model"] = model_name
         return self._get_json("/v2/qos", qp or None, headers)
+
+    def get_bundles(self, bundle_id="", headers=None, query_params=None):
+        """Incident-blackbox bundles (``GET /v2/debug/bundles[/{id}]``):
+        the ring's index, or one whole bundle with ``bundle_id`` (render
+        it with ``tools/blackbox_report.py``)."""
+        path = "/v2/debug/bundles"
+        if bundle_id:
+            path += f"/{bundle_id}"
+        return self._get_json(path, query_params, headers)
+
+    def capture_bundle(self, trigger="manual", incident="", note="",
+                       headers=None, query_params=None):
+        """Capture an incident bundle now (``POST /v2/debug/capture``)
+        and return its meta. ``incident`` stamps a shared incident id; a
+        trigger other than ``manual`` respects the server's debounce and
+        cooldown and may answer ``{"deduped": true}``."""
+        body = {"trigger": trigger or "manual"}
+        if incident:
+            body["incident"] = incident
+        if note:
+            body["note"] = note
+        return self._post_json("/v2/debug/capture", body, query_params,
+                               headers)
 
     @staticmethod
     def generate_request_body(inputs, outputs=None, request_id="",

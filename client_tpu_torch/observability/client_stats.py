@@ -12,7 +12,7 @@ reads it from the ``Server-Timing`` response header, the gRPC client from
 
 from __future__ import annotations
 
-import threading
+from client_tpu_torch.utils import lockdep
 
 
 class InferStat:
@@ -21,7 +21,7 @@ class InferStat:
     _PHASES = ("queue", "compute_input", "compute_infer", "compute_output")
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = lockdep.Lock("client_stats")
         self.completed_request_count = 0
         self.cumulative_total_request_time_us = 0.0
         # Server-phase cumulative sums; requests whose response carried no

@@ -38,13 +38,13 @@ share of the rolling device-time window crosses the threshold emits a
 from __future__ import annotations
 
 import json
-import threading
 import time
 import weakref
 from collections import deque
 from dataclasses import dataclass
 
 from client_tpu_torch.config import env_text
+from client_tpu_torch.utils import lockdep
 
 ENV_VAR = "CLIENT_TPU_COSTS"
 
@@ -166,7 +166,7 @@ class CostLedger:
                  now=time.monotonic_ns):
         self.config = config or CostsConfig.from_env()
         self._now = now
-        self._lock = threading.Lock()
+        self._lock = lockdep.Lock("observability.costs")
         # (tenant, model, version) -> _TenantCost
         self._costs: dict[tuple[str, str, str], _TenantCost] = {}
         # Dynamically admitted tenant names (on top of the well-known
@@ -525,7 +525,7 @@ class CostLedger:
 # -- process-global default ledger --------------------------------------------
 
 _default: CostLedger | None = None
-_default_lock = threading.Lock()
+_default_lock = lockdep.Lock("observability.costs.default")
 
 
 def ledger() -> CostLedger:

@@ -28,11 +28,11 @@ import json
 import logging
 import os
 import sys
-import threading
 import time
 from collections import deque
 
 from client_tpu_torch.config import env_int, env_text
+from client_tpu_torch.utils import lockdep
 
 ENV_BUFFER = "CLIENT_TPU_EVENT_BUFFER"
 ENV_LOG = "CLIENT_TPU_LOG"
@@ -100,7 +100,7 @@ class EventJournal:
         self._clock = clock
         self._mono_ns = mono_ns
         self._events: deque[Event] = deque(maxlen=self.capacity)
-        self._lock = threading.Lock()
+        self._lock = lockdep.Lock("observability.events")
         self._seq = 0
         self._dropped = 0
         self._sinks: list = []
@@ -201,9 +201,14 @@ class EventJournal:
             if fn not in self._sinks:
                 self._sinks.append(fn)
 
+    def remove_sink(self, fn) -> None:
+        with self._lock:
+            if fn in self._sinks:
+                self._sinks.remove(fn)
+
 
 _default: EventJournal | None = None
-_default_lock = threading.Lock()
+_default_lock = lockdep.Lock("observability.events.default")
 
 
 def journal() -> EventJournal:

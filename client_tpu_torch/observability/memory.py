@@ -33,11 +33,11 @@ from __future__ import annotations
 
 import json
 import os
-import threading
 import weakref
 from dataclasses import dataclass, fields
 
 from client_tpu_torch.config import env_text
+from client_tpu_torch.utils import lockdep
 
 __all__ = [
     "COMPONENTS",
@@ -155,7 +155,7 @@ class HbmCensus:
 
     def __init__(self, config: MemoryConfig | None = None):
         self.config = config or MemoryConfig()
-        self._lock = threading.Lock()
+        self._lock = lockdep.Lock("observability.memory")
         # id(tensor) -> (weakref, model, component); the weakref both
         # detects death and guards against id reuse.
         self._tags: dict[int, tuple[weakref.ref, str, str]] = {}
@@ -434,7 +434,7 @@ class HbmCensus:
 # -- process-global census -----------------------------------------------------
 
 _default: HbmCensus | None = None
-_default_lock = threading.Lock()
+_default_lock = lockdep.Lock("observability.memory.default")
 
 
 def hbm_census() -> HbmCensus:

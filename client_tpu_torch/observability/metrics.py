@@ -22,8 +22,9 @@ families wait for the router.
 
 from __future__ import annotations
 
-import threading
 from bisect import bisect_left
+
+from client_tpu_torch.utils import lockdep
 
 # Microsecond latency ladder: sub-ms queue hops through multi-second
 # first-compile requests (16 finite buckets keeps series count modest).
@@ -68,7 +69,7 @@ class _Metric:
         self.help = help_text
         self.labelnames = tuple(labelnames)
         self._children: dict[tuple, object] = {}
-        self._lock = threading.Lock()
+        self._lock = lockdep.Lock("metrics.family")
 
     def labels(self, *values, **kw):
         if kw:
@@ -121,7 +122,7 @@ class _Value:
 
     def __init__(self):
         self.v = 0.0
-        self.lock = threading.Lock()
+        self.lock = lockdep.Lock("metrics.value")
 
 
 class _CounterValue:
@@ -133,7 +134,7 @@ class _CounterValue:
         # on the OpenMetrics `_total` sample (the spec permits counter
         # exemplars) linking the series to /v2/trace/requests.
         self.exemplar: tuple[float, str] | None = None
-        self.lock = threading.Lock()
+        self.lock = lockdep.Lock("metrics.value")
 
 
 class Counter(_Metric):
@@ -210,7 +211,7 @@ class _HistValue:
         self.exemplars: list[tuple[float, str] | None] = \
             [None] * (n_buckets + 1)
         self.sum = 0.0
-        self.lock = threading.Lock()
+        self.lock = lockdep.Lock("metrics.value")
 
 
 class Histogram(_Metric):
@@ -276,7 +277,7 @@ class MetricRegistry:
 
     def __init__(self):
         self._metrics: dict[str, _Metric] = {}
-        self._lock = threading.Lock()
+        self._lock = lockdep.Lock("metrics.registry")
 
     def _get_or_create(self, cls, name, help_text, labelnames, **kw):
         labelnames = tuple(labelnames or ())
@@ -459,7 +460,7 @@ class EngineMetrics:
             "arrived (WFQ preemption)",
             ("model",))
         self._instruments: dict[tuple[str, str], ModelInstruments] = {}
-        self._lock = threading.Lock()
+        self._lock = lockdep.Lock("metrics.instruments")
 
     def model_instruments(self, model: str, version: str) -> ModelInstruments:
         key = (str(model), str(version))

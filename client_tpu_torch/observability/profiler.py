@@ -30,7 +30,6 @@ is pruned, a rebind replaces). ``GET /v2/profile`` is
 
 from __future__ import annotations
 
-import threading
 import time
 import weakref
 from collections import deque
@@ -38,6 +37,7 @@ from dataclasses import dataclass, field
 
 from client_tpu_torch.config import env_float
 from client_tpu_torch.observability import roofline as _roofline
+from client_tpu_torch.utils import lockdep
 
 # Fill ratio lives in (0, 1]; power-of-two ladders can't go below 0.5 but
 # custom ladders (and max_batch_size overflow buckets) can.
@@ -226,7 +226,7 @@ class EfficiencyProfiler:
         self.window_s = max(1.0, window_s)
         self._now = now
         self._t0 = now()
-        self._lock = threading.Lock()
+        self._lock = lockdep.Lock("observability.profiler")
         self._costs: dict[tuple[str, str, int], _BucketCost] = {}
         # (model, version, wave bucket, chunk) -> _WaveCost.
         self._waves: dict[tuple[str, str, int, int], _WaveCost] = {}
@@ -779,7 +779,7 @@ def _suggest_ladder_tweaks(buckets: list[dict],
 # -- process-global default profiler ------------------------------------------
 
 _default: EfficiencyProfiler | None = None
-_default_lock = threading.Lock()
+_default_lock = lockdep.Lock("observability.profiler.default")
 
 
 def profiler() -> EfficiencyProfiler:

@@ -33,11 +33,11 @@ from __future__ import annotations
 
 import json
 import os
-import threading
 import time
 from dataclasses import dataclass, field
 
 from client_tpu_torch.config import env_text
+from client_tpu_torch.utils import lockdep
 
 __all__ = [
     "ENV_VAR",
@@ -165,7 +165,7 @@ class _ModelSlo:
     def __init__(self, cfg: SloConfig):
         self.cfg = cfg
         self.ring = _SecondRing()
-        self.lock = threading.Lock()
+        self.lock = lockdep.Lock("observability.slo.model")
 
 
 def _burn(bad: int, total: int, target: float) -> float:
@@ -187,7 +187,7 @@ class SloTracker:
                  clock=time.monotonic):
         self.config = config or SloConfig(enabled=False)
         self._clock = clock
-        self._lock = threading.Lock()
+        self._lock = lockdep.Lock("observability.slo")
         self._models: dict[str, _ModelSlo] = {}
         self._burn_gauge = None
         self._fast_gauge = None

@@ -42,6 +42,7 @@ from collections import deque
 from dataclasses import dataclass, fields
 
 from client_tpu_torch.config import env_text
+from client_tpu_torch.utils import lockdep
 
 __all__ = [
     "SIGNALS",
@@ -138,7 +139,7 @@ class FlightRecorder:
         self._ring: deque = deque(maxlen=self.config.capacity)
         self._seq = 0
         self._dropped = 0
-        self._lock = threading.Lock()
+        self._lock = lockdep.Lock("timeseries.recorder")
         # id(provider) -> weakref; id keys survive unhashable providers
         # and give O(1) detach. Dead refs are pruned every tick.
         self._providers: dict[int, weakref.ref] = {}
@@ -328,7 +329,7 @@ class FlightRecorder:
 # -- process-global recorder ---------------------------------------------------
 
 _default: FlightRecorder | None = None
-_default_lock = threading.Lock()
+_default_lock = lockdep.Lock("timeseries.default")
 
 
 def recorder() -> FlightRecorder:

@@ -21,10 +21,11 @@ from __future__ import annotations
 
 import re
 import secrets
-import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
+
+from client_tpu_torch.utils import lockdep
 
 _TRACEPARENT_RE = re.compile(
     r"^([0-9a-f]{2})-([0-9a-f]{32})-([0-9a-f]{16})-([0-9a-f]{2})$")
@@ -138,7 +139,7 @@ class TraceStore:
 
     def __init__(self, capacity: int = 512):
         self._buf: deque[RequestTrace] = deque(maxlen=max(1, capacity))
-        self._lock = threading.Lock()
+        self._lock = lockdep.Lock("tracing.store")
 
     def add(self, trace: RequestTrace) -> None:
         with self._lock:

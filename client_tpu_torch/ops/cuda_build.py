@@ -19,12 +19,14 @@ import threading
 import time
 from pathlib import Path
 
+from client_tpu_torch.utils import lockdep
+
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "client_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-_lock = threading.Lock()
+_lock = lockdep.Lock("ops.cuda_build")
 _loaded: dict[str, ctypes.CDLL] = {}
 
 

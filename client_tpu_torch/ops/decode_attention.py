@@ -25,13 +25,13 @@ from __future__ import annotations
 
 import ctypes
 import math
-import threading
 
 import numpy as np
 import torch
 
 from client_tpu_torch.observability import roofline
 from client_tpu_torch.ops import cuda_build
+from client_tpu_torch.utils import lockdep
 
 _NEG_INF = -1e30
 _HEAD_DIM = 64  # the only head dim the kernel is built for
@@ -39,9 +39,9 @@ _SPLIT_KEYS = 256  # keys per CTA the split plan aims at
 _MAX_SPLIT = 8     # CTAs per (lane, head): the portable cluster size
 
 launches = 0
-_count_lock = threading.Lock()
+_count_lock = lockdep.Lock("ops.decode_attention.count")
 _fwd = None
-_bind_lock = threading.Lock()
+_bind_lock = lockdep.Lock("ops.decode_attention.bind")
 
 
 def stage(host: np.ndarray, device: torch.device

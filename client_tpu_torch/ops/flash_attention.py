@@ -21,21 +21,21 @@ from __future__ import annotations
 
 import ctypes
 import math
-import threading
 
 import torch
 
 from client_tpu_torch.observability import roofline
 from client_tpu_torch.ops import cuda_build
+from client_tpu_torch.utils import lockdep
 
 _NEG_INF = -1e30
 _HEAD_DIM = 64  # the only head dim the kernel is built for
 
 launches = 0
 launches_fp32 = 0
-_count_lock = threading.Lock()
+_count_lock = lockdep.Lock("ops.flash_attention.count")
 _fwd = None
-_bind_lock = threading.Lock()
+_bind_lock = lockdep.Lock("ops.flash_attention.bind")
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -24,7 +24,6 @@ A mesh over distinct cards is not built yet (:func:`kv_mesh` raises).
 from __future__ import annotations
 
 import ctypes
-import threading
 from dataclasses import dataclass
 from typing import Sequence
 
@@ -36,13 +35,14 @@ from client_tpu_torch.ops.decode_attention import (
     WaveIndex,
     decode_wave_attention,
 )
+from client_tpu_torch.utils import lockdep
 
 _MAX_SHARDS = 8  # the kernel's pointer tables
 
 launches = 0
-_count_lock = threading.Lock()
+_count_lock = lockdep.Lock("parallel.kv_shard.count")
 _fwd = None
-_bind_lock = threading.Lock()
+_bind_lock = lockdep.Lock("parallel.kv_shard.bind")
 
 
 class KvMesh:

@@ -4,10 +4,10 @@ The port's own copy of ``client_tpu/protocol/grpc_stub.py``: a hand-written
 equivalent of the ``*_pb2_grpc.py`` file ``grpc_tools`` would generate. The
 method table lists every RPC of ``grpc_service.proto`` under its
 fully-qualified path, so these stubs interoperate with any v2 gRPC peer;
-a second table lists the operational RPCs the port serves (events, SLO,
-profile, timeseries, memory, costs; messages in ``ops_pb2``). The JAX
-package's other operational RPCs (shm rings, datasets, QoS, the
-blackbox) are not in it: a call answers UNIMPLEMENTED.
+a second table lists the operational RPCs (events, SLO, profile, the shm
+slot ring, staged datasets, timeseries, memory, costs, QoS and the
+blackbox; messages in ``ops_pb2``), the JAX package's table entry for
+entry.
 """
 
 from __future__ import annotations
@@ -66,10 +66,27 @@ _OPS_METHODS = [
     ("Events", ops.EventsRequest, ops.EventsResponse, False),
     ("SloStatus", ops.SloStatusRequest, ops.SloStatusResponse, False),
     ("Profile", ops.ProfileRequest, ops.ProfileResponse, False),
+    ("RingRegister", ops.RingRegisterRequest, ops.RingRegisterResponse,
+     False),
+    ("RingStatus", ops.RingStatusRequest, ops.RingStatusResponse, False),
+    ("RingUnregister", ops.RingUnregisterRequest,
+     ops.RingUnregisterResponse, False),
+    ("RingDoorbell", ops.RingDoorbellRequest, ops.RingDoorbellResponse,
+     False),
+    ("DatasetRegister", ops.DatasetRegisterRequest,
+     ops.DatasetRegisterResponse, False),
+    ("DatasetStatus", ops.DatasetStatusRequest,
+     ops.DatasetStatusResponse, False),
+    ("DatasetUnregister", ops.DatasetUnregisterRequest,
+     ops.DatasetUnregisterResponse, False),
     ("Timeseries", ops.TimeseriesRequest, ops.TimeseriesResponse, False),
     ("MemoryCensus", ops.MemoryRequest, ops.MemoryResponse, False),
     ("Costs", ops.CostsRequest, ops.CostsResponse, False),
     ("Qos", ops.QosRequest, ops.QosResponse, False),
+    ("BlackboxCapture", ops.BlackboxCaptureRequest,
+     ops.BlackboxCaptureResponse, False),
+    ("BlackboxBundles", ops.BlackboxBundlesRequest,
+     ops.BlackboxBundlesResponse, False),
 ]
 
 

@@ -1,9 +1,9 @@
 """Retry-After pushback, as the clients read it.
 
-The port's copy of ``client_tpu/protocol/pushback.py`` without the
-shm-ring slot encoding. The servers format pushback here and both
-clients parse it here, so HTTP's ``Retry-After`` header and gRPC's
-trailing metadata agree on sub-second values:
+The port's copy of ``client_tpu/protocol/pushback.py``. The servers
+format pushback here and both clients parse it here, so HTTP's
+``Retry-After`` header, gRPC's trailing metadata and a shm-ring slot's
+error string agree on sub-second values:
 
 * :func:`format_retry_after_s` / :func:`format_retry_pushback_ms`: the
   servers' wire text (fractional seconds; integral milliseconds);
@@ -12,10 +12,15 @@ trailing metadata agree on sub-second values:
   negative or non-finite input (None means "no pushback", never "retry
   immediately").
 * :func:`parse_pushback_metadata`: the gRPC client's trailing-metadata
-  view (``retry-after`` preferred, ``retry-pushback-ms`` fallback).
+  view (``retry-after`` preferred, ``retry-pushback-ms`` fallback);
+* :func:`format_slot_error` / :func:`parse_slot_error_retry_after`: the
+  shm slot ring's encoding, a ``[retry-after=<s>s]`` suffix on the slot's
+  error string (a slot has no header side channel).
 """
 
 from __future__ import annotations
+
+import re
 
 __all__ = [
     "RETRY_AFTER_HEADER",
@@ -25,6 +30,8 @@ __all__ = [
     "format_retry_pushback_ms",
     "parse_retry_after",
     "parse_pushback_metadata",
+    "format_slot_error",
+    "parse_slot_error_retry_after",
 ]
 
 RETRY_AFTER_HEADER = "Retry-After"
@@ -76,3 +83,22 @@ def parse_pushback_metadata(meta) -> float | None:
         return value
     ms = parse_retry_after(meta.get(RETRY_PUSHBACK_MS_METADATA_KEY))
     return ms / 1000.0 if ms is not None else None
+
+
+_SLOT_RETRY_AFTER_RE = re.compile(r" \[retry-after=(\d+(?:\.\d+)?)s\]$")
+
+
+def format_slot_error(message: str, retry_after_s: float | None) -> str:
+    """Fold a pushback interval into a shm-ring slot error string."""
+    if retry_after_s is None:
+        return message
+    return f"{message} [retry-after={format_retry_after_s(retry_after_s)}s]"
+
+
+def parse_slot_error_retry_after(error) -> float | None:
+    """Pushback seconds from a slot error string, or None when the error
+    carries no ``[retry-after=...s]`` suffix (non-admission failures)."""
+    if not error:
+        return None
+    m = _SLOT_RETRY_AFTER_RE.search(str(error))
+    return parse_retry_after(m.group(1)) if m else None

@@ -24,11 +24,10 @@ from __future__ import annotations
 
 import random
 import socket
-import threading
 import time
 from http.client import BadStatusLine
 
-from client_tpu_torch.utils import InferenceServerException
+from client_tpu_torch.utils import InferenceServerException, lockdep
 
 __all__ = [
     "RetryPolicy",
@@ -124,7 +123,7 @@ class RetryPolicy:
         self.retryable_statuses = frozenset(retryable_statuses)
         self.retryable_grpc_codes = tuple(retryable_grpc_codes)
         self._rng = random.Random(seed)
-        self._rng_lock = threading.Lock()
+        self._rng_lock = lockdep.Lock("resilience.rng")
 
     def retryable(self, exc) -> bool:
         if isinstance(exc, CONNECTION_ERRORS):
@@ -206,7 +205,7 @@ class CircuitBreaker:
         self.failure_threshold = int(failure_threshold)
         self.cooldown_s = float(cooldown_s)
         self._clock = clock
-        self._lock = threading.Lock()
+        self._lock = lockdep.Lock("resilience.breaker")
         self._hosts: dict[str, CircuitBreaker._HostState] = {}
 
     def _host(self, host: str) -> "_HostState":

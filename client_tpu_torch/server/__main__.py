@@ -106,14 +106,16 @@ def main(argv: list[str] | None = None) -> int:
         verbose=args.verbose).start()]
     grpc_servers = [] if args.no_grpc else [GrpcInferenceServer(
         engine, host=args.host, port=args.grpc_port).start()]
-    for kind, server in ([("http", s) for s in http_servers]
-                         + [("grpc", s) for s in grpc_servers]):
-        print(f"serving {kind} at {server.url}", file=sys.stderr, flush=True)
+    # The handler goes in before the addresses are announced: a caller
+    # that reads them may send SIGTERM at once.
     drained = install_sigterm_handler(
         engine, http_servers=http_servers, grpc_servers=grpc_servers,
         deadline_s=args.drain_deadline,
         on_done=lambda report: print(f"drain: {report}", file=sys.stderr,
                                      flush=True))
+    for kind, server in ([("http", s) for s in http_servers]
+                         + [("grpc", s) for s in grpc_servers]):
+        print(f"serving {kind} at {server.url}", file=sys.stderr, flush=True)
     try:
         while not drained.wait(timeout=3600):
             pass

@@ -35,8 +35,12 @@ answers RESOURCE_EXHAUSTED (UNAVAILABLE while draining) with the
 carries the health state in an ``x-health-state`` trailer. The
 operational RPCs ``Events``, ``SloStatus``, ``Profile``, ``Timeseries``,
 ``MemoryCensus``, ``Costs`` and ``Qos`` answer the HTTP routes' bodies
-(reports as JSON strings). The load-report trailer, the blackbox RPCs and
-the shm ring and dataset RPCs are not ported: they answer UNIMPLEMENTED.
+(reports as JSON strings), and so do ``BlackboxCapture`` and
+``BlackboxBundles`` (the incident blackbox), ``Ring{Register,Status,
+Unregister,Doorbell}`` (the shm slot ring: a register's ``spec_json``
+makes a reaped ring, a doorbell's span spec rides as JSON) and
+``Dataset{Register,Status,Unregister}`` (staged datasets). The
+load-report trailer is not ported.
 """
 
 from __future__ import annotations
@@ -87,6 +91,7 @@ from client_tpu_torch.server.coalesce import (
     mergeable,
     run_compatible,
 )
+from client_tpu_torch.utils import lockdep
 
 _log = logging.getLogger("client_tpu_torch")
 
@@ -434,6 +439,78 @@ class _Servicer(GRPCInferenceServiceServicer):
         snap = self.engine.qos_snapshot(model=request.model or None)
         return ops.QosResponse(qos_json=json.dumps(snap))
 
+    def BlackboxCapture(self, request, context):  # noqa: N802
+        """``POST /v2/debug/capture`` over gRPC: the bundle's meta as
+        JSON."""
+        try:
+            meta = self.engine.blackbox_capture(
+                request.trigger or "manual",
+                incident=request.incident or None,
+                note=request.note or None)
+        except EngineError as exc:
+            _abort(context, exc)
+        return ops.BlackboxCaptureResponse(bundle_json=json.dumps(meta))
+
+    def BlackboxBundles(self, request, context):  # noqa: N802
+        """``GET /v2/debug/bundles[/{id}]`` over gRPC: the index, or one
+        bundle when ``bundle_id`` is set."""
+        try:
+            out = self.engine.blackbox_bundles(request.bundle_id or None)
+        except EngineError as exc:
+            _abort(context, exc)
+        return ops.BlackboxBundlesResponse(bundles_json=json.dumps(out))
+
+    # -- the shm slot ring and staged datasets -------------------------------
+
+    def RingRegister(self, request, context):  # noqa: N802
+        try:
+            spec = (json.loads(request.spec_json)
+                    if request.spec_json else None)
+            self.engine.ring_shm.register(request.name, request.key,
+                                          spec=spec)
+        except Exception as exc:  # noqa: BLE001
+            _abort(context, exc)
+        return ops.RingRegisterResponse()
+
+    def RingStatus(self, request, context):  # noqa: N802
+        status = self.engine.ring_shm.status(request.name or None)
+        return ops.RingStatusResponse(status_json=json.dumps(status))
+
+    def RingUnregister(self, request, context):  # noqa: N802
+        try:
+            self.engine.ring_shm.unregister(request.name or None)
+        except Exception as exc:  # noqa: BLE001
+            _abort(context, exc)
+        return ops.RingUnregisterResponse()
+
+    def RingDoorbell(self, request, context):  # noqa: N802
+        """The HTTP doorbell's span spec, as JSON; the answers land in
+        the slots."""
+        try:
+            spec = json.loads(request.doorbell_json or "{}")
+            result = self.engine.ring_doorbell(request.name, spec)
+        except Exception as exc:  # noqa: BLE001
+            _abort(context, exc)
+        return ops.RingDoorbellResponse(result_json=json.dumps(result))
+
+    def DatasetRegister(self, request, context):  # noqa: N802
+        try:
+            self.engine.staged_shm.register(request.name, request.key)
+        except Exception as exc:  # noqa: BLE001
+            _abort(context, exc)
+        return ops.DatasetRegisterResponse()
+
+    def DatasetStatus(self, request, context):  # noqa: N802
+        status = self.engine.staged_shm.status(request.name or None)
+        return ops.DatasetStatusResponse(status_json=json.dumps(status))
+
+    def DatasetUnregister(self, request, context):  # noqa: N802
+        try:
+            self.engine.staged_shm.unregister(request.name or None)
+        except Exception as exc:  # noqa: BLE001
+            _abort(context, exc)
+        return ops.DatasetUnregisterResponse()
+
     # -- shared memory -------------------------------------------------------
 
     def SystemSharedMemoryStatus(self, request, context):  # noqa: N802
@@ -540,7 +617,7 @@ class _Servicer(GRPCInferenceServiceServicer):
         arrays; protobuf encoding happens on this RPC's writer below."""
         out_q: queue.Queue = queue.Queue()
         inflight = [0]
-        lock = threading.Lock()
+        lock = lockdep.Lock("grpc_server.stream")
         done_reading = threading.Event()
         live_reqs: dict = {}  # id(req) -> req (InferRequest is unhashable)
         pending_by_req: dict = {}  # id(req) -> responses enqueued, unwritten

@@ -57,9 +57,17 @@ Compression, as in the JAX server: a request body sent with
 reads it (another encoding answers 415), and an answer is gzipped or
 deflated at level 1 when the client's ``Accept-Encoding`` names one. A
 request sent with ``Expect: 100-continue`` gets its ``100 Continue`` at
-once, flushed out of the write buffer, before the body is read. The shm
-slot ring, staged datasets, the load report and the blackbox are not
-ported: their routes answer 404.
+once, flushed out of the write buffer, before the body is read.
+
+The shm slot ring and staged datasets: ``/v2/shm/ring[/<name>]/status``,
+``POST /v2/shm/ring/<name>/{register,doorbell}`` and
+``/v2/shm/ring[/<name>]/unregister`` (a register body's ``spec`` makes a
+reaped ring; a doorbell admits a span of filled slots, whose answers land
+in the slots), and ``/v2/shm/dataset[/<name>]/{status,unregister}`` and
+``POST /v2/shm/dataset/<name>/register``. The incident blackbox: ``GET
+/v2/debug/bundles[/<id>]`` and ``POST /v2/debug/capture`` (body keys
+``trigger``, ``incident``, ``note``). The load report is not ported: its
+route answers 404.
 
 A stdlib ThreadingHTTPServer: each connection gets a thread that only
 frames; the engine's per-model schedulers batch and run the work.
@@ -135,6 +143,17 @@ _ROUTES: list[tuple[str, re.Pattern, str]] = [
     ("POST", re.compile(r"^/v2/(systemsharedmemory|cudasharedmemory|"
                         r"tpusharedmemory)(?:/region/([^/]+))?/unregister$"),
      "shm_unregister"),
+    ("GET", re.compile(r"^/v2/shm/ring(?:/([^/]+))?/status$"), "ring_status"),
+    ("POST", re.compile(r"^/v2/shm/ring/([^/]+)/register$"), "ring_register"),
+    ("POST", re.compile(r"^/v2/shm/ring(?:/([^/]+))?/unregister$"),
+     "ring_unregister"),
+    ("POST", re.compile(r"^/v2/shm/ring/([^/]+)/doorbell$"), "ring_doorbell"),
+    ("GET", re.compile(r"^/v2/shm/dataset(?:/([^/]+))?/status$"),
+     "dataset_status"),
+    ("POST", re.compile(r"^/v2/shm/dataset/([^/]+)/register$"),
+     "dataset_register"),
+    ("POST", re.compile(r"^/v2/shm/dataset(?:/([^/]+))?/unregister$"),
+     "dataset_unregister"),
     ("GET", re.compile(r"^/v2/trace/setting$"), "trace_setting"),
     ("POST", re.compile(r"^/v2/trace/setting$"), "trace_update"),
     ("GET", re.compile(r"^/v2/trace/requests$"), "trace_requests"),
@@ -145,6 +164,9 @@ _ROUTES: list[tuple[str, re.Pattern, str]] = [
     ("GET", re.compile(r"^/v2/timeseries$"), "timeseries"),
     ("GET", re.compile(r"^/v2/memory$"), "memory"),
     ("GET", re.compile(r"^/v2/qos$"), "qos"),
+    ("GET", re.compile(r"^/v2/debug/bundles$"), "debug_bundles"),
+    ("GET", re.compile(r"^/v2/debug/bundles/([^/]+)$"), "debug_bundle"),
+    ("POST", re.compile(r"^/v2/debug/capture$"), "debug_capture"),
     ("GET", re.compile(r"^/metrics$"), "metrics"),
 ]
 
@@ -467,6 +489,58 @@ class _Handler(BaseHTTPRequestHandler):
     def h_shm_unregister(self, kind, region=None):
         self._shm_manager(kind).unregister(region)
         self._send_json({})
+
+    # -- the shm slot ring and staged datasets ---------------------------------
+
+    def h_ring_status(self, name=None):
+        self._send_json(self.engine.ring_shm.status(name))
+
+    def h_ring_register(self, name):
+        self.engine.ring_shm.register_from_json(
+            name, json.loads(self._raw_body or b"{}"))
+        self._send_json({})
+
+    def h_ring_unregister(self, name=None):
+        self.engine.ring_shm.unregister(name)
+        self._send_json({})
+
+    def h_ring_doorbell(self, name):
+        """One POST admits a span of FILLED slots; the answers land in
+        the slots, not in this response."""
+        self._send_json(self.engine.ring_doorbell(
+            name, json.loads(self._raw_body or b"{}")))
+
+    def h_dataset_status(self, name=None):
+        self._send_json(self.engine.staged_shm.status(name))
+
+    def h_dataset_register(self, name):
+        self.engine.staged_shm.register_from_json(
+            name, json.loads(self._raw_body or b"{}"))
+        self._send_json({})
+
+    def h_dataset_unregister(self, name=None):
+        self.engine.staged_shm.unregister(name)
+        self._send_json({})
+
+    # -- the incident blackbox -------------------------------------------------
+
+    def h_debug_bundles(self):
+        self._send_json(self.engine.blackbox_bundles())
+
+    def h_debug_bundle(self, bundle_id):
+        """One whole bundle (what ``tools/blackbox_report.py`` renders);
+        404 for an unknown id, 400 for a malformed id or a corrupt
+        file."""
+        self._send_json(self.engine.blackbox_bundles(bundle_id))
+
+    def h_debug_capture(self):
+        body = json.loads(self._raw_body or b"{}")
+        if not isinstance(body, dict):
+            raise EngineError("request body must be a JSON object", 400)
+        self._send_json(self.engine.blackbox_capture(
+            str(body.get("trigger") or "manual"),
+            incident=body.get("incident") or None,
+            note=body.get("note") or None))
 
     # Stall guard of the generate routes: how long to wait for the next
     # response of a stream before cancelling it.

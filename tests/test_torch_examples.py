@@ -14,9 +14,12 @@ each system-shm key the script names is made unique to its process.
 ``simple_{http,grpc}_model_control.py`` unload and reload ``simple``
 over the port's repository routes and RPCs.
 
+``simple_shm_ring_client.py`` stages requests into a slot ring, rings
+one doorbell over HTTP and reads the answers from the slots; the runners
+append the pid to its ring's key as they do to the system-shm keys.
+
 Scripts left out, each for a route or RPC the port does not have yet:
-``simple_shm_ring_client.py`` (the shm slot ring, ``ROADMAP.md`` Q1.6)
-and the ``moe_*`` clients (the MoE models, Q1.8).
+the ``moe_*`` clients (the MoE models, ``ROADMAP.md`` Q1.8).
 """
 
 import os
@@ -52,11 +55,12 @@ SCRIPTS = [
     ("grpc_image_ssd_client.py", [], "grpc"),
     ("simple_http_model_control.py", [], "http"),
     ("simple_grpc_model_control.py", [], "grpc"),
+    ("simple_shm_ring_client.py", [], "http"),
 ]
 
 # Both runs go through a runner. It appends the process id to every
-# system-shm key a script creates or registers: the scripts' keys are
-# fixed, and tests/test_examples.py runs the same scripts, at the same
+# system-shm and ring key a script creates or registers: the scripts' keys
+# are fixed, and tests/test_examples.py runs the same scripts, at the same
 # moment on another worker, against the JAX server.
 REKEY = r"""
 import os, runpy, sys
@@ -74,6 +78,14 @@ def rekey(shm, *clients):
                      _register=cls.register_system_shared_memory, **k):
             return _register(self, name, unique(key), size, *a, **k)
         cls.register_system_shared_memory = register
+
+
+def rekey_ring(producer):
+    init = producer.__init__
+
+    def __init__(self, client, name, shm_key, *a, **k):
+        init(self, client, name, f"{shm_key}_{os.getpid()}", *a, **k)
+    producer.__init__ = __init__
 """
 
 # The script as written, with the JAX package's clients.
@@ -81,6 +93,7 @@ JAX_CLIENTS = REKEY + r"""
 import client_tpu.grpc, client_tpu.http, client_tpu.utils.shared_memory
 rekey(client_tpu.utils.shared_memory, client_tpu.http.InferenceServerClient,
       client_tpu.grpc.InferenceServerClient)
+rekey_ring(client_tpu.http.RingProducer)
 script, *args = sys.argv[1:]
 sys.argv = [script, *args]
 runpy.run_path(script, run_name="__main__")
@@ -113,6 +126,7 @@ sys.modules.update({
 })
 rekey(port.utils.shared_memory, port.http.InferenceServerClient,
       port.grpc.InferenceServerClient)
+rekey_ring(port.http.RingProducer)
 script, *args = sys.argv[1:]
 if "tpushm" in script:  # the device-region utilities load torch
     import client_tpu_torch.utils.cuda_shared_memory as devshm

@@ -90,6 +90,11 @@ def test_importing_the_server_loads_no_jax():
         "import client_tpu_torch.observability.profiler\n"
         "import client_tpu_torch.observability.roofline\n"
         "import client_tpu_torch.engine.checkpoint\n"
+        "import client_tpu_torch.engine.shmring\n"
+        "import client_tpu_torch.engine.staged\n"
+        "import client_tpu_torch.observability.blackbox\n"
+        "import client_tpu_torch.utils.lockdep\n"
+        "import client_tpu_torch.utils.shm_ring.staged\n"
         "bad = sorted(m for m in sys.modules\n"
         f"             if m.split('.')[0] in {FORBIDDEN})\n"
         "assert not bad, bad\n"
@@ -165,6 +170,10 @@ CLIENT_MODULES = [
     "client_tpu_torch.protocol.pushback",
     "client_tpu_torch.protocol.loadreport", "client_tpu_torch.router.core",
     "client_tpu_torch.utils.shared_memory",
+    "client_tpu_torch.utils.lockdep",
+    "client_tpu_torch.utils.shm_ring",
+    "client_tpu_torch.utils.shm_ring.staged",
+    "client_tpu_torch.observability.blackbox",
 ]
 
 
