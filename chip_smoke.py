@@ -322,17 +322,52 @@
    counts and one ``incident observation:`` line (wall µs per
    ``bert_long`` slot through a doorbell against per request over binary
    HTTP, ``capture_ms``, bundle bytes, the reaper's sweep µs).
-17. Prints one ``{"kernels": [...]}`` line (each kernel's ``launches`` over
+17. Router phase: three replica processes on the one card, two of them
+   the script again (``--replica-child``: ``bert_long``,
+   ``tiny_gpt_long``, ``simple_sequence`` and ``dlrm_mlperf`` on 2 shards
+   behind HTTP and gRPC, drained on SIGTERM, printing their kernels'
+   launches when they exit) and one the real launcher (``python -m
+   client_tpu_torch.server --zoo bert_long,tiny_gpt_long,simple_sequence``),
+   behind ``python -m client_tpu_torch.router`` (its process maps no
+   libtorch). Driven over HTTP by the script's own wire code and the
+   port's client: ``bert_long`` requests of 4 rows (each one whole batch)
+   at concurrency 8 through the router, each answer byte for byte the
+   same request straight to the replica its ``X-Tpu-Replica`` names,
+   within ``SERVED_ATOL`` of the plain path, with an ``X-Tpu-Load``
+   report, every replica serving some; a ``ModelInfer`` straight to one
+   replica with its ``x-tpu-load`` trailer; ``simple_sequence``
+   sequences each on the replica ``rendezvous_pick`` names; the fleet
+   planes (``/v2/fleet/metrics`` each counter summed
+   over the replicas' own ``/metrics``, ``/v2/fleet/{profile,events}``
+   per replica, a stitched trace with each replica's phase spans under
+   the router's attempt, a placement plan, one fleet capture with no
+   section in error); the launcher's replica SIGKILLed under traffic (no
+   client error, its breaker open); then, on the two children alone,
+   ``tiny_gpt_long`` streams through the router token for token against
+   the plain path and ``dlrm_mlperf`` through the router within
+   ``DLRM_ATOL`` of the plain path; a rolling drain of one child under
+   traffic (``clean``, nothing dropped, the child exits 0) and the last
+   replica's drain refused. Each kernel's launches are the children's
+   own counts, each of which the child holds equal to its executions
+   times the launches per execution when it exits. The launcher's
+   replica counts nothing in its process: its executions read on its
+   ``/metrics`` before the kill go on a line of their own
+   (``launcher_execs``), not into the launches. One ``router
+   observation:`` line (p50/p99 wall ms at concurrency 8 through the
+   router over three replicas and straight to one, the router's added
+   ms, ms from the kill to the open breaker, the drain's seconds, a
+   child's µs to build the load report and its header, and cached).
+18. Prints one ``{"kernels": [...]}`` line (each kernel's ``launches`` over
    HTTP and gRPC, beside ``http_launches`` over HTTP alone, which must be
    fewer; the ring all-reduce's include the stateful phase's, and its
    entry carries ``dlrm_shape``, its times at [832, 128]; flash
    attention's include the shm phase's, also given as ``shm_launches``;
    every kernel's include the clients, repository, observability,
-   weights, overload, tuning and incident phases', also given as
-   ``clients_launches``, ``repository_launches``,
+   weights, overload, tuning, incident and router phases', also given
+   as ``clients_launches``, ``repository_launches``,
    ``observability_launches``, ``weights_launches``,
-   ``overload_launches``, ``tuning_launches`` and
-   ``incident_launches``), the ``nvidia-smi`` name and power limit line,
+   ``overload_launches``, ``tuning_launches``, ``incident_launches`` and
+   ``router_launches``), the ``nvidia-smi`` name and power limit line,
    and last ``{"ok": true, "device": {...}}``.
 
 The gRPC client code of steps 4 to 9 and 11 to 15 is the script's own
@@ -362,6 +397,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import threading
@@ -7359,6 +7395,815 @@ def incident_phase(torch, smi: str) -> dict:
     return launches
 
 
+# -- the router phase ---------------------------------------------------------
+
+ROUTER_CONC = 8         # bert_long requests in flight through the router
+ROUTER_ROUNDS = 4       # requests each of the 8 senders makes
+ROUTER_ROWS = 4         # rows of a bert_long request: one whole batch
+ROUTER_TIMED = 6        # timed requests of each of the 8 senders, each way
+ROUTER_ADDED = 12       # alternating pinned requests, router and straight
+ROUTER_STREAMS = (5, 60, 300, 900)  # tiny_gpt_long prompt lengths
+ROUTER_TOKENS = 32
+ROUTER_DLRM = 8         # dlrm_mlperf requests through the router
+ROUTER_SEQS = (21, 22, 23, 24)      # simple_sequence ids
+ROUTER_FAILOVER_S = 2.0  # traffic kept up after the SIGKILL
+ROUTER_DRAIN_DEADLINE_S = 60.0
+ROUTER_BOOT_S = 600     # replicas and router up, models loaded
+ROUTER_EXIT_S = 120     # a drained child gone
+ROUTER_ZOO = "bert_long,tiny_gpt_long,simple_sequence"
+
+
+class _Proc:
+    """One process the router phase starts: its lines (stdout and stderr
+    together) read on a thread, and the addresses it announces."""
+
+    _SERVING = re.compile(r"serving (http|grpc|router) at (\S+)")
+
+    def __init__(self, name: str, cmd: list, env: dict, cwd: Path):
+        self.name = name
+        self.proc = subprocess.Popen(cmd, cwd=cwd, env=env, text=True,
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT)
+        self.urls: dict[str, str] = {}
+        self.lines: list[str] = []
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            self.lines.append(line.rstrip("\n"))
+            m = self._SERVING.search(line)
+            if m:
+                self.urls[m.group(1)] = m.group(2)
+
+    @property
+    def pid(self) -> int:
+        return self.proc.pid
+
+    def port(self) -> int:
+        """The HTTP port: a replica's, or the router's."""
+        url = self.urls.get("http") or self.urls["router"]
+        return int(url.rsplit(":", 1)[1])
+
+    def wait_up(self, kinds: tuple, deadline: float) -> None:
+        while not all(k in self.urls for k in kinds):
+            _check(self.proc.poll() is None and time.monotonic() < deadline,
+                   f"router: {self.name} did not start (exit "
+                   f"{self.proc.poll()}): " + "\n".join(self.lines[-40:]))
+            time.sleep(0.05)
+
+    def wait_exit(self, timeout_s: float) -> int:
+        try:
+            rc = self.proc.wait(timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            rc = None
+        self._reader.join(timeout=10)
+        _check(rc is not None, f"router: {self.name} still running after "
+               f"{timeout_s} s")
+        return rc
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+
+
+def _get_raw(port: int, path: str):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read()
+    finally:
+        conn.close()
+
+
+def _router_infer(port: int, model: str, inputs: dict, binary: bool,
+                  parameters: dict | None = None,
+                  headers: dict | None = None):
+    """(status, response headers, outputs or error words) of one /infer
+    request with ``parameters`` in its JSON head."""
+    body, hdrs = _infer_body(inputs, None, binary)
+    if parameters:
+        head_len = hdrs.get("Inference-Header-Content-Length")
+        head = json.loads(body[:int(head_len)] if head_len else body)
+        head.setdefault("parameters", {}).update(parameters)
+        new = json.dumps(head).encode()
+        body = new + (body[int(head_len):] if head_len else b"")
+        if head_len:
+            hdrs["Inference-Header-Content-Length"] = str(len(new))
+    status, rheaders, data = _post(port, f"/v2/models/{model}/infer", body,
+                                   dict(hdrs, **(headers or {})))
+    if status != 200:
+        return status, rheaders, json.loads(data)["error"]
+    return status, rheaders, _any_outputs(rheaders, data)
+
+
+def _bert_requests(torch, bert, seq: int, n: int, seed: int, device):
+    """``n`` bert_long requests of ``ROUTER_ROWS`` rows (each its own full
+    batch, so that a replica runs it alone at one bucket however the
+    traffic interleaves), each with its plain path's outputs."""
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for _ in range(n):
+        ids = rng.integers(0, 30522, (ROUTER_ROWS, seq)).astype(np.int32)
+        mask = np.ones((ROUTER_ROWS, seq), np.int32)
+        for r in range(ROUTER_ROWS):
+            mask[r, rng.integers(seq // 4, seq + 1):] = 0
+        reqs.append((ids, mask, _bert_plain(torch, bert, ids, mask, device)))
+    return reqs
+
+
+def _percentiles(ms: list) -> dict:
+    return {"p50": round(float(np.percentile(ms, 50)), 3),
+            "p99": round(float(np.percentile(ms, 99)), 3)}
+
+
+def _client_load(url: str, reqs: list, n_each: int, senders: int,
+                 stop: threading.Event | None = None) -> tuple:
+    """``senders`` threads, each with its own port HTTP client, sending
+    bert_long requests (round robin over ``reqs``) until ``n_each`` each or
+    ``stop``; every answer held to its plain path. -> (wall ms of each,
+    errors, worst error against the plain path)."""
+    import client_tpu_torch.http as httpclient
+
+    walls, errors, worst = [], [], [0.0]
+    lock = threading.Lock()
+
+    def sender(k: int) -> None:
+        client = httpclient.InferenceServerClient(url)
+        try:
+            i = 0
+            while (stop is None and i < n_each) or (
+                    stop is not None and not stop.is_set()):
+                ids, mask, ref = reqs[(k + i * senders) % len(reqs)]
+                inputs = [httpclient.InferInput("input_ids", list(ids.shape),
+                                                "INT32"),
+                          httpclient.InferInput("attention_mask",
+                                                list(mask.shape), "INT32")]
+                inputs[0].set_data_from_numpy(ids, binary_data=True)
+                inputs[1].set_data_from_numpy(mask, binary_data=True)
+                t0 = time.perf_counter()
+                try:
+                    result = client.infer("bert_long", inputs)
+                    got = {n: result.as_numpy(n) for n in BERT_OUTPUTS}
+                except Exception as exc:  # noqa: BLE001 — counted, then failed
+                    with lock:
+                        errors.append(repr(exc))
+                    i += 1
+                    continue
+                wall = (time.perf_counter() - t0) * 1e3
+                err = _bert_err(got, ref)
+                with lock:
+                    walls.append(wall)
+                    worst[0] = max(worst[0], err)
+                i += 1
+        finally:
+            client.close()
+
+    with concurrent.futures.ThreadPoolExecutor(senders) as pool:
+        list(pool.map(sender, range(senders)))
+    return walls, errors, worst[0]
+
+
+def _launcher_execs(port: int, before: dict, per: dict) -> dict:
+    """The launcher replica's executions since ``before``, read on its
+    /metrics (K2's waves on /v2/profile), and each kernel's launches per
+    execution times them: what its kernels would have launched, not a
+    count (its process counts nothing the script can read)."""
+    now = _samples(_scrape(port))
+    execs = {m: int(_sample_sum(now, "tpu_inference_exec_count", model=m)
+                    - _sample_sum(before, "tpu_inference_exec_count",
+                                  model=m))
+             for m in ("bert_long", "tiny_gpt_long")}
+    _, snap = _get(port, "/v2/profile?model=tiny_gpt_long")
+    waves = sum(w["dispatches"] for w in snap["models"].get(
+        "tiny_gpt_long:1", {}).get("decode_waves", ()))
+    return {"execs": execs, "waves": waves, "times_per_execution": {
+        "flash_attention": per["flash_attention"] * execs["bert_long"],
+        "flash_attention_fp32": per["flash_attention_fp32"]
+        * (execs["tiny_gpt_long"] - waves),
+        "decode_wave_attention": per["decode_wave_attention"] * waves}}
+
+
+def _router_bert(torch, router: _Proc, replicas: dict, reqs: list,
+                 ids_of: dict) -> dict:
+    """Step 1: ``bert_long`` at concurrency 8 through the router; each
+    answer byte for byte the same request sent straight to the replica its
+    ``X-Tpu-Replica`` names, within ``SERVED_ATOL`` of the plain path, with
+    an ``X-Tpu-Load`` report; every replica served some."""
+    from client_tpu_torch.protocol.loadreport import (
+        LoadReport,
+        decode_header,
+        encode_header,
+    )
+
+    def send(k: int) -> list:
+        out = []
+        for i in range(ROUTER_ROUNDS):
+            j = k * ROUTER_ROUNDS + i
+            body, headers = _binary_request(reqs[j][0], reqs[j][1])
+            t0 = time.perf_counter()
+            status, rheaders, data = _post(
+                router.port(), "/v2/models/bert_long/infer", body, headers)
+            out.append((j, status, rheaders, data,
+                        (time.perf_counter() - t0) * 1e3))
+        return out
+
+    with concurrent.futures.ThreadPoolExecutor(ROUTER_CONC) as pool:
+        answers = [a for part in pool.map(send, range(ROUTER_CONC))
+                   for a in part]
+    served = collections.Counter()
+    worst, trace_ids = 0.0, {}
+    for j, status, rheaders, data, _ in answers:
+        _check(status == 200, f"router: bert_long HTTP {status}: {data[:200]}")
+        rid = rheaders.get("X-Tpu-Replica")
+        _check(rid in ids_of, f"router: X-Tpu-Replica {rid!r} names no "
+               f"replica of {sorted(ids_of)}")
+        report = decode_header(rheaders.get("X-Tpu-Load"))
+        _check(report is not None and report.state in ("READY", "DEGRADED"),
+               f"router: X-Tpu-Load {rheaders.get('X-Tpu-Load')!r}")
+        trace_ids[rid] = rheaders["X-Tpu-Trace-Id"]
+        served[rid] += 1
+        body, headers = _binary_request(reqs[j][0], reqs[j][1])
+        d_status, d_headers, direct = _post(
+            replicas[ids_of[rid]].port(), "/v2/models/bert_long/infer",
+            body, headers)
+        _check(d_status == 200 and direct == data,
+               f"router: request {j} through the router differs from the "
+               f"same request straight to {rid} (HTTP {d_status})")
+        worst = max(worst, _bert_err(_parse_response(rheaders, data),
+                                     reqs[j][2]))
+    _check(set(served) == set(ids_of), f"router: replicas served {served}, "
+           f"not every one of {sorted(ids_of)}")
+    # Each replica's own /v2/load: the body and its header form agree.
+    for rid, name in ids_of.items():
+        status, headers, data = _get_raw(replicas[name].port(), "/v2/load")
+        body = json.loads(data)
+        _check(status == 200 and decode_header(headers["X-Tpu-Load"])
+               is not None and headers["X-Tpu-Load"] == encode_header(
+                   LoadReport.from_json_dict(body)),
+               f"router: {rid} /v2/load {status} {headers} {body}")
+    print(f"router: {len(answers)} bert_long requests of {ROUTER_ROWS} rows "
+          f"at concurrency {ROUTER_CONC} through the router, served "
+          f"{dict(served)}; each byte for byte the same request straight to "
+          f"the replica its X-Tpu-Replica names, max |served - plain| "
+          f"{worst} (tolerance {SERVED_ATOL}); X-Tpu-Load on every answer",
+          flush=True)
+    return {"served": dict(served), "max_err": worst, "trace_ids": trace_ids}
+
+
+def _router_grpc_trailer(replica: _Proc, req: tuple) -> None:
+    """A ModelInfer straight to one replica carries the x-tpu-load trailer
+    and answers within ``SERVED_ATOL`` of the plain path."""
+    from client_tpu_torch.protocol.loadreport import (
+        LOAD_METADATA_KEY,
+        decode_header,
+    )
+
+    channel, stub = _grpc_channel(replica.urls["grpc"])
+    try:
+        code, out, trailers = _grpc_outcome(stub, _grpc_request(
+            "bert_long", {"input_ids": req[0], "attention_mask": req[1]}))
+    finally:
+        channel.close()
+    _check(code == "OK", f"router: gRPC bert_long {code}: {out}")
+    _bert_err(out, req[2])
+    _check(decode_header(trailers.get(LOAD_METADATA_KEY)) is not None,
+           f"router: ModelInfer trailers {trailers}")
+    print(f"router: ModelInfer straight to {replica.name} carries "
+          f"{LOAD_METADATA_KEY}: {trailers[LOAD_METADATA_KEY]}", flush=True)
+
+
+def _router_streams(torch, router: _Proc, gpt_cfg: dict, device) -> None:
+    """tiny_gpt_long streams through the router (the two child replicas,
+    after the launcher's SIGKILL), token for token against the plain
+    path."""
+    from client_tpu_torch.models.generate import TinyGptBackend
+
+    rng = np.random.default_rng(31)
+    prompts = [rng.integers(0, 512, min(n, gpt_cfg["max_seq_len"]
+                                        - ROUTER_TOKENS - 1)).tolist()
+               for n in ROUTER_STREAMS]
+    with concurrent.futures.ThreadPoolExecutor(len(prompts)) as pool:
+        served = list(pool.map(lambda p: _stream(
+            router.port(), "tiny_gpt_long", {
+                "inputs": [{"name": "INPUT_IDS", "datatype": "INT32",
+                            "shape": [len(p)], "data": p}],
+                "parameters": {"max_tokens": ROUTER_TOKENS}}), prompts))
+    oracle = TinyGptBackend(name="tiny_gpt_long", attention_impl="einsum",
+                            attn_impl="reference", device=device, **gpt_cfg)
+    arena = oracle.init_arena(1)
+    for prompt, (toks, _, events) in zip(prompts, served):
+        want = _direct_stream(torch, oracle, arena, prompt, ROUTER_TOKENS, {},
+                              device=device.type)
+        _check(toks == want, f"router: a stream, prompt of {len(prompt)}: "
+               f"{toks} != plain {want}")
+    del oracle, arena
+    print(f"router: {len(prompts)} tiny_gpt_long streams through the "
+          f"router, {ROUTER_TOKENS} tokens each, token for token against "
+          f"the plain path ({[e for _, _, e in served]} events)", flush=True)
+
+
+def _router_sequences(router: _Proc, eligible: list) -> dict:
+    """Step 2: simple_sequence sequences through the router keep to the
+    replica ``rendezvous_pick`` names (half by the X-Sequence-Id header,
+    half by the sequence_id in the request head)."""
+    from client_tpu_torch.router.core import rendezvous_pick
+
+    pinned = {}
+    for n, sid in enumerate(ROUTER_SEQS):
+        sums, rids = [], set()
+        for i in range(SEQ_STEPS):
+            status, headers, out = _router_infer(
+                router.port(), "simple_sequence",
+                {"INPUT": np.array([sid * 100 + i], np.int32)},
+                binary=i % 2 == 1, parameters={
+                    "sequence_id": sid, "sequence_start": i == 0,
+                    "sequence_end": i == SEQ_STEPS - 1},
+                headers={"X-Sequence-Id": str(sid)} if n % 2 else None)
+            _check(status == 200, f"router: sequence {sid}: {status} {out}")
+            sums.append(int(out["OUTPUT"][0]))
+            rids.add(headers["X-Tpu-Replica"])
+        want = rendezvous_pick(sorted(eligible), sid)
+        _check(rids == {want} and sums == _seq_expected(sid),
+               f"router: sequence {sid} served by {rids} (affinity names "
+               f"{want}), sums {sums}")
+        pinned[sid] = want
+    print(f"router: {len(ROUTER_SEQS)} simple_sequence sequences of "
+          f"{SEQ_STEPS} steps, each on the replica rendezvous_pick names "
+          f"{pinned}", flush=True)
+    return pinned
+
+
+def _router_fleet(router: _Proc, replicas: dict, ids_of: dict,
+                  trace_ids: dict) -> dict:
+    """Step 3: the fleet planes. /v2/fleet/metrics is each counter summed
+    over the replicas' own /metrics; /v2/fleet/profile and /v2/fleet/events
+    have a row or tag per replica; a stitched trace holds the router's
+    spans with the serving replica's phase spans parented onto the attempt
+    that carried them; a placement plan; one capture with every replica's
+    section, no section in error."""
+    ids = sorted(ids_of)
+    texts = {rid: _scrape(replicas[ids_of[rid]].port()) for rid in ids}
+    status, _, data = _get_raw(router.port(), "/v2/fleet/metrics")
+    fleet_text = data.decode()
+    again = {rid: _samples(_scrape(replicas[ids_of[rid]].port()))
+             for rid in ids}
+    _check(status == 200 and fleet_text.startswith(
+        f"# fleet replicas={len(ids)} merged={len(ids)} errors=0"),
+        f"router: /v2/fleet/metrics {status}: {fleet_text[:200]}")
+    counters = {line.split()[2] for t in texts.values()
+                for line in t.splitlines()
+                if line.startswith("# TYPE ") and line.split()[3] == "counter"}
+    mine = {rid: _samples(t) for rid, t in texts.items()}
+    fleet = _samples(fleet_text)
+    compared = 0
+    for key, value in fleet.items():
+        if key[0] not in counters:
+            continue
+        if any(mine[r].get(key, 0.0) != again[r].get(key, 0.0) for r in ids):
+            continue  # moved between the scrapes
+        want = sum(mine[r].get(key, 0.0) for r in ids)
+        # Exact for counts; a sum of seconds may round in its last bit.
+        _check(abs(value - want) <= 1e-12 * max(1.0, abs(want)),
+               f"router: fleet {key} = {value}, the replicas' own sum {want}")
+        compared += 1
+    execs = {m: _sample_sum(fleet, "tpu_inference_exec_count", model=m)
+             for m in ("bert_long", "tiny_gpt_long", DLRM_MODEL)}
+    _check(compared > 20 and execs["bert_long"] > 0,
+           f"router: {compared} counters compared, executions {execs}")
+    status, prof = _get(router.port(), "/v2/fleet/profile")
+    _check(status == 200 and sorted(prof["replicas"]) == ids
+           and prof["errors"] == {} and prof["fleet"]["replica_count"]
+           == len(ids), f"router: /v2/fleet/profile {status} "
+           f"{sorted(prof.get('replicas', {}))} {prof.get('errors')}")
+    status, evts = _get(router.port(), "/v2/fleet/events?limit=500")
+    _check(status == 200 and sorted(evts["cursors"]) == ids
+           and evts["events"] and all(e["replica"] in ids
+                                      for e in evts["events"]),
+           f"router: /v2/fleet/events {status} {evts.get('cursors')}")
+    # One request's stitched trace, for each replica that served.
+    for rid, tid in trace_ids.items():
+        status, doc = _get(router.port(),
+                           f"/v2/trace/requests?trace_id={tid}")
+        events = doc["traceEvents"]
+        pid_of = {e["args"]["name"]: e["pid"] for e in events
+                  if e.get("ph") == "M"}
+        proxy = [e for e in events if e["name"] == "router:proxy"
+                 and e["args"]["outcome"] == "ok"]
+        root = [e for e in events if e["name"] == "bert_long:request"]
+        _check(status == 200 and {"router:request", "router:select"}
+               <= {e["name"] for e in events} and len(proxy) == 1
+               and proxy[0]["pid"] == pid_of[f"replica {rid}"]
+               and len(root) == 1 and root[0]["pid"] == proxy[0]["pid"]
+               and root[0]["args"]["parent_span_id"]
+               == proxy[0]["args"]["span_id"]
+               and {"queue", "compute_infer"} <= {
+                   e["name"] for e in events if e["pid"] == proxy[0]["pid"]},
+               f"router: stitched trace {tid} on {rid}: {status} "
+               f"{[(e['name'], e.get('pid')) for e in events]}")
+    status, plan = _get(router.port(), "/v2/router/placement")
+    _check(status == 200 and sorted(plan["plan"]) == ids
+           and "bert_long" in plan["costs_device_s"],
+           f"router: /v2/router/placement {status} {plan}")
+    status, _, data = _post(router.port(), "/v2/debug/capture",
+                            json.dumps({"note": "chip_smoke"}).encode(),
+                            {"Content-Type": "application/json"})
+    capture = json.loads(data)
+    _check(status == 200 and sorted(capture["replicas"]) == ids
+           and all("error" not in v and (v.get("id") or v.get("deduped"))
+                   for v in capture["replicas"].values()),
+           f"router: /v2/debug/capture {status} {capture}")
+    status, bundle = _get(router.port(),
+                          f"/v2/debug/bundles/{capture['bundle']['id']}")
+    bad = {k: v for k, v in bundle["sections"].items()
+           if isinstance(v, dict) and "error" in v}
+    _check(status == 200 and not bad and sorted(bundle["replicas"]) == ids,
+           f"router: bundle {status} sections in error {bad}")
+    print(f"router: /v2/fleet/metrics = each of {compared} counters summed "
+          f"over the {len(ids)} replicas' own /metrics (executions {execs}); "
+          f"/v2/fleet/profile and /v2/fleet/events per replica; stitched "
+          f"traces of {len(trace_ids)} requests with each replica's phase "
+          f"spans under the attempt that carried them; placement plan "
+          f"{plan['plan']}; capture {capture['incident']}: router bundle "
+          f"{capture['bundle']['id']} ({capture['bundle']['bytes']} B, "
+          f"{capture['bundle']['capture_ms']} ms) with "
+          f"{len(capture['replicas'])} replica bundles, no section in error",
+          flush=True)
+    return {"capture_ms": capture["bundle"]["capture_ms"]}
+
+
+def _router_dlrm(torch, router: _Proc, dlrm) -> float:
+    """dlrm_mlperf through the router (the two child replicas, which alone
+    serve it), each score within ``DLRM_ATOL`` of the plain path."""
+    rng = np.random.default_rng(41)
+    reqs = [_mlperf_csr(rng) for _ in range(ROUTER_DLRM)]
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        outs = list(pool.map(lambda r: _router_infer(
+            router.port(), DLRM_MODEL, r, binary=True), reqs))
+    worst = 0.0
+    for (status, headers, out), want in zip(outs,
+                                            _dlrm_plain(torch, dlrm, reqs)):
+        _check(status == 200, f"router: {DLRM_MODEL} HTTP {status}: {out}")
+        got = out["OUTPUT0"]
+        _check(got.shape == (1, 1) and bool(np.isfinite(got).all()),
+               f"router: {DLRM_MODEL} {got.shape}")
+        worst = max(worst, float(np.abs(got - want).max()))
+    _check(worst <= DLRM_ATOL, f"router: {DLRM_MODEL} scores off the plain "
+           f"path by {worst} (tolerance {DLRM_ATOL})")
+    print(f"router: {len(reqs)} {DLRM_MODEL} requests through the router, "
+          f"served by {sorted({h['X-Tpu-Replica'] for _, h, _ in outs})}, "
+          f"max |served - plain| {worst} (tolerance {DLRM_ATOL})", flush=True)
+    return worst
+
+
+def _router_status(router: _Proc) -> dict:
+    status, body = _get(router.port(), "/v2/router/status")
+    _check(status == 200, f"router: /v2/router/status {status}")
+    return body
+
+
+def _router_failover(router: _Proc, victim: _Proc, victim_id: str,
+                     reqs: list, per: dict, before: dict) -> dict:
+    """Step 4: SIGKILL the launcher's replica under traffic: the clients
+    see no error and the router's breaker for it opens. Its executions
+    are read off its /metrics just before the kill."""
+    stop = threading.Event()
+    url = router.urls["router"]
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        load = pool.submit(_client_load, url, reqs, 0, 4, stop)
+        time.sleep(1.0)
+        executed = _launcher_execs(victim.port(), before, per)
+        os.kill(victim.pid, signal.SIGKILL)
+        t_kill = time.monotonic()
+        opened_ms = None
+        while time.monotonic() - t_kill < 30:
+            if _router_status(router)["replicas"][victim_id][
+                    "breaker"] == "open":
+                opened_ms = (time.monotonic() - t_kill) * 1e3
+                break
+            time.sleep(0.01)
+        time.sleep(ROUTER_FAILOVER_S)
+        stop.set()
+        walls, errors, worst = load.result()
+    victim.wait_exit(30)
+    _check(not errors, f"router: clients saw {len(errors)} errors through "
+           f"the SIGKILL: {errors[:3]}")
+    _check(opened_ms is not None, "router: the killed replica's breaker "
+           "never opened")
+    print(f"router: SIGKILL of {victim.name} ({victim_id}) under "
+          f"{len(walls)} bert_long requests: 0 client errors, its breaker "
+          f"open {opened_ms:.1f} ms after the kill; max |served - plain| "
+          f"{worst}", flush=True)
+    return {"opened_ms": round(opened_ms, 3), "executed": executed,
+            "requests": len(walls)}
+
+
+def _router_drain(router: _Proc, child: _Proc, child_id: str,
+                  last_id: str, reqs: list) -> dict:
+    """Step 5: POST /v2/router/drain on one child under traffic ends
+    clean, drops no request, and the child exits 0; a drain of the last
+    replica is refused."""
+    stop = threading.Event()
+    url = router.urls["router"]
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        load = pool.submit(_client_load, url, reqs, 0, 2, stop)
+        time.sleep(0.5)
+        status, _, data = _post(router.port(), "/v2/router/drain",
+                                json.dumps({
+                                    "replicas": [child_id],
+                                    "deadline_s": ROUTER_DRAIN_DEADLINE_S,
+                                }).encode())
+        rc = child.wait_exit(ROUTER_EXIT_S)
+        time.sleep(0.5)
+        stop.set()
+        walls, errors, _ = load.result()
+    (report,) = json.loads(data)["reports"]
+    _check(status == 200 and report["outcome"] == "clean"
+           and report["saw_draining"], f"router: drain {status} {report}")
+    _check(rc == 0, f"router: the drained child exited {rc}")
+    _check(not errors, f"router: the drain dropped {len(errors)} requests: "
+           f"{errors[:3]}")
+    eligible = _router_status(router)["eligible"]
+    _check(child_id not in eligible, f"router: {child_id} still eligible")
+    t0 = time.monotonic()
+    status, _, data = _post(router.port(), "/v2/router/drain",
+                            json.dumps({"replicas": [last_id],
+                                        "deadline_s": 5}).encode())
+    (refused,) = json.loads(data)["reports"]
+    _check(status == 500 and refused["outcome"] == "skipped",
+           f"router: a drain of the last replica answered {status} {refused}")
+    print(f"router: rolling drain of {child.name} ({child_id}) under "
+          f"{len(walls)} bert_long requests: {report['outcome']} in "
+          f"{report['step_s']} s, 0 dropped, the child exited 0; a drain of "
+          f"the last replica refused ({refused['outcome']}, "
+          f"{time.monotonic() - t0:.1f} s)", flush=True)
+    return {"drain_s": report["step_s"]}
+
+
+def _router_latency(router: _Proc, direct: _Proc, reqs: list) -> dict:
+    """bert_long wall ms at concurrency 8 through the router and straight
+    to one replica (the port's HTTP client), then the router's added ms: a
+    request pinned by X-Sequence-Id to one replica, through the router and
+    straight to that replica in turns."""
+    from client_tpu_torch.router.core import rendezvous_pick
+
+    out = {}
+    for name, url in (("router", router.urls["router"]),
+                      ("direct", direct.urls["http"]),
+                      ("router_2", router.urls["router"]),
+                      ("direct_2", direct.urls["http"])):
+        walls, errors, _ = _client_load(url, reqs, ROUTER_TIMED, ROUTER_CONC)
+        _check(not errors, f"router: {name} errors {errors[:3]}")
+        out.setdefault(name.split("_")[0], []).extend(walls)
+    eligible = _router_status(router)["eligible"]
+    sid = next(s for s in range(1, 1000)
+               if rendezvous_pick(sorted(eligible), s)
+               == f"127.0.0.1:{direct.port()}")
+    body, headers = _binary_request(reqs[0][0][:1], reqs[0][1][:1])
+    turns = {"router": [], "direct": []}
+    for i in range(2 * ROUTER_ADDED):
+        way = ("router", "direct")[i % 2]
+        port = router.port() if way == "router" else direct.port()
+        t0 = time.perf_counter()
+        status, rheaders, _ = _post(port, "/v2/models/bert_long/infer", body,
+                                    dict(headers, **{"X-Sequence-Id": str(sid)}))
+        turns[way].append((time.perf_counter() - t0) * 1e3)
+        _check(status == 200 and (way == "direct" or rheaders[
+            "X-Tpu-Replica"] == f"127.0.0.1:{direct.port()}"),
+            f"router: pinned request {status} {rheaders}")
+    added = float(np.median(turns["router"]) - np.median(turns["direct"]))
+    return {"router_ms": _percentiles(out["router"]),
+            "direct_ms": _percentiles(out["direct"]),
+            "added_ms": round(added, 3),
+            "pinned_ms": {k: round(float(np.median(v)), 3)
+                          for k, v in turns.items()}}
+
+
+def router_phase(torch, smi: str) -> dict:
+    """Step 17 (see the module's docstring): three replica processes on
+    the card behind ``python -m client_tpu_torch.router``. Returns each
+    kernel's launches in the phase."""
+    import tempfile
+
+    from client_tpu_torch.models import _REGISTRY, model_names
+    from client_tpu_torch.models.dlrm import DlrmBackend
+
+    model_names()  # imports every family, so that the registry is full
+    t_phase = time.monotonic()
+    device = torch.device("cuda")
+    root = Path(__file__).resolve().parent
+    (root / "build").mkdir(exist_ok=True)
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_router_",
+                                    dir=root / "build"))
+    env = dict(os.environ, CLIENT_TPU_BLACKBOX=json.dumps(
+        {"dir": str(workdir / "bundles")}))
+    procs: dict[str, _Proc] = {}
+    try:
+        for i in (1, 2):
+            procs[f"child{i}"] = _Proc(
+                f"child{i}", [sys.executable, str(root / "chip_smoke.py"),
+                              "--replica-child", str(workdir / f"child{i}")],
+                env, root)
+        procs["launcher"] = _Proc("launcher", [
+            sys.executable, "-m", "client_tpu_torch.server",
+            "--zoo", ROUTER_ZOO, "--http-port", "0", "--grpc-port", "0",
+            "--drain-deadline", str(ROUTER_DRAIN_DEADLINE_S)], env, root)
+        # The plain paths' models, on the card while the replicas load.
+        bert = _REGISTRY["bert_long"](device)
+        seq = bert.config.input[0].dims[0]
+        gpt = _REGISTRY["tiny_gpt_long"]("cpu")
+        gpt_cfg = {"max_seq_len": gpt.max_seq_len,
+                   "max_streams": gpt.max_streams}
+        per = {"flash_attention": len(bert.layers),
+               "flash_attention_fp32": gpt.n_layers,
+               "decode_wave_attention": gpt.n_layers, "ring_all_reduce": 1}
+        del gpt
+        dlrm = DlrmBackend(name=DLRM_MODEL, device=device,
+                           emb_devices=[device] * 2, **MLPERF_DLRM)
+        reqs = _bert_requests(torch, bert, seq, ROUTER_CONC * ROUTER_ROUNDS,
+                              17, device)
+        deadline = time.monotonic() + ROUTER_BOOT_S
+        for proc in procs.values():
+            proc.wait_up(("http", "grpc"), deadline)
+        replicas = dict(procs)
+        ids_of = {url: name for name, p in replicas.items()
+                  for url in [p.urls["http"]]}
+        launcher_before = _samples(_scrape(procs["launcher"].port()))
+        procs["router"] = _Proc("router", [
+            sys.executable, "-m", "client_tpu_torch.router", "--port", "0",
+            "--poll-interval", "0.5"] + [
+            a for name, p in replicas.items()
+            for a in ("--replica", f"http://{p.urls['http']}@{p.pid}")],
+            env, root)
+        router = procs["router"]
+        router.wait_up(("router",), deadline)
+        with open(f"/proc/{router.pid}/maps") as f:
+            maps = f.read()
+        _check("libtorch" not in maps, "router: the router process mapped "
+               "libtorch")
+        t_up = time.monotonic() - t_phase
+        named = ", ".join(f"{n} {p.urls['http']}" for n, p in replicas.items())
+        print(f"router: 3 replicas ({named}) and the router at "
+              f"{router.urls['router']} (no torch in its process) up in "
+              f"{t_up:.1f} s on {device}", flush=True)
+
+        bert_done = _router_bert(torch, router, replicas, reqs, ids_of)
+        _router_grpc_trailer(replicas["child1"], reqs[0])
+        latency = _router_latency(router, replicas["child1"], reqs)
+        print(f"router: bert_long wall ms at concurrency {ROUTER_CONC}: "
+              f"through the router {latency['router_ms']}, straight to "
+              f"child1 {latency['direct_ms']}; pinned one-row requests "
+              f"{latency['pinned_ms']}, the router's added ms "
+              f"{latency['added_ms']}", flush=True)
+        _router_sequences(router, list(ids_of))
+        fleet = _router_fleet(router, replicas, ids_of,
+                              bert_done["trace_ids"])
+        launcher_id = procs["launcher"].urls["http"]
+        failover = _router_failover(router, procs["launcher"], launcher_id,
+                                    reqs, per, launcher_before)
+        # The children alone from here: their own counts hold every
+        # kernel's launches, K1 fp32's, K2's and K3's included.
+        _router_streams(torch, router, gpt_cfg, device)
+        dlrm_err = _router_dlrm(torch, router, dlrm)
+        del dlrm
+        child1_id, child2_id = (procs["child1"].urls["http"],
+                                procs["child2"].urls["http"])
+        drained = _router_drain(router, procs["child1"], child1_id,
+                                child2_id, reqs)
+        procs["child2"].proc.send_signal(signal.SIGTERM)
+        rc = procs["child2"].wait_exit(ROUTER_EXIT_S)
+        _check(rc == 0, f"router: child2 exited {rc} after SIGTERM")
+        procs["router"].stop()
+    except BaseException:
+        for name, proc in procs.items():
+            print(f"router: {name} (exit {proc.proc.poll()}) last lines:",
+                  *proc.lines[-30:], sep="\n  ", flush=True)
+        raise
+    finally:
+        for proc in procs.values():
+            proc.stop()
+        for name, proc in procs.items():
+            for line in proc.lines:
+                if line.startswith("replica-child"):
+                    print(f"router: {name}: {line}", flush=True)
+    children = [json.loads((workdir / f"child{i}" / "result.json")
+                           .read_text()) for i in (1, 2)]
+    shutil.rmtree(workdir, ignore_errors=True)
+    names = ("flash_attention", "flash_attention_fp32",
+             "decode_wave_attention", "ring_all_reduce")
+    launches = {k: sum(c["launches"][k] for c in children) for k in names}
+    for k in names:
+        _check(launches[k] > 0, f"router: {k} launched {launches[k]} times "
+               "in the children")
+    print(f"router: launches {launches} (the children's own counts, each "
+          f"held equal to its executions x launches per execution when it "
+          f"exited)", flush=True)
+    print(f"router: launcher_execs {json.dumps(failover['executed'])} (the "
+          f"launcher replica's executions read on its /metrics before the "
+          f"kill, and launches per execution times them; not counted, and "
+          f"not in the launches)", flush=True)
+    observation = {"card": smi, **latency,
+                   "breaker_open_ms": failover["opened_ms"],
+                   "drain_s": drained["drain_s"],
+                   "served": bert_done["served"],
+                   "bert_max_err": bert_done["max_err"],
+                   "dlrm_max_err": dlrm_err,
+                   "capture_ms": fleet["capture_ms"],
+                   "load_report_us": [c["load_report_us"] for c in children],
+                   "launcher_execs": failover["executed"]["execs"],
+                   "failover_requests": failover["requests"],
+                   "up_s": round(t_up, 1)}
+    print(f"router observation: {json.dumps(observation)}", flush=True)
+    print(f"router: phase passed in {time.monotonic() - t_phase:.1f} s; "
+          f"{smi}", flush=True)
+    return launches
+
+
+def _load_report_us(engine, max_age_s: float | None, n: int = 2000) -> float:
+    """Mean µs to build one ``X-Tpu-Load`` header as a response does:
+    ``engine.load_report(max_age_s)`` and ``encode_header`` (``0.0``
+    rebuilds the report each call, ``None`` takes the 50 ms cache)."""
+    from client_tpu_torch.protocol.loadreport import encode_header
+
+    t0 = time.perf_counter()
+    for _ in range(n):
+        encode_header(engine.load_report(max_age_s))
+    return round((time.perf_counter() - t0) / n * 1e6, 3)
+
+
+def replica_child(argv: list[str]) -> int:
+    """``--replica-child WORKDIR``: one replica of the router
+    phase: ``bert_long``, ``tiny_gpt_long``, ``simple_sequence`` and
+    ``dlrm_mlperf`` (2 shards) behind the port's HTTP and gRPC servers,
+    drained on SIGTERM. When the drain ends it holds each kernel's
+    launches against its executions, writes them to
+    ``WORKDIR/result.json``, prints them and exits 0."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from client_tpu_torch.admission.drain import install_sigterm_handler
+    from client_tpu_torch.engine import TorchEngine
+    from client_tpu_torch.models import build_repository
+    from client_tpu_torch.models.dlrm import DlrmBackend
+    from client_tpu_torch.ops import decode_attention as da
+    from client_tpu_torch.ops import flash_attention as fa
+    from client_tpu_torch.parallel import kv_shard as ks
+    from client_tpu_torch.server import (
+        GrpcInferenceServer,
+        HttpInferenceServer,
+    )
+
+    workdir = Path(argv[0])
+    workdir.mkdir(parents=True, exist_ok=True)
+    device = torch.device("cuda")
+    repo = build_repository(ROUTER_ZOO.split(","))
+    repo.register(DLRM_MODEL, lambda dev: DlrmBackend(
+        name=DLRM_MODEL, device=dev, emb_devices=[dev] * 2, **MLPERF_DLRM))
+    engine = TorchEngine(repo, device=device)
+    layers = {"bert_long": len(engine.repository.get("bert_long")
+                               .backend.layers),
+              "tiny_gpt_long": engine.repository.get("tiny_gpt_long")
+              .backend.n_layers}
+    http_server = HttpInferenceServer(engine, port=0).start()
+    grpc_server = GrpcInferenceServer(engine, port=0).start()
+    load_report_us = {way: _load_report_us(engine, age)
+                      for way, age in (("built", 0.0), ("cached", None))}
+    fa.launches = fa.launches_fp32 = da.launches = ks.launches = 0
+    reports = []
+    drained = install_sigterm_handler(
+        engine, http_servers=[http_server], grpc_servers=[grpc_server],
+        deadline_s=ROUTER_DRAIN_DEADLINE_S, on_done=reports.append)
+    print(f"serving http at {http_server.url}", flush=True)
+    print(f"serving grpc at {grpc_server.url}", flush=True)
+    drained.wait()
+    launches = {"flash_attention": fa.launches,
+                "flash_attention_fp32": fa.launches_fp32,
+                "decode_wave_attention": da.launches,
+                "ring_all_reduce": ks.launches}
+    execs = {s["name"]: s["execution_count"]
+             for s in engine.model_statistics()["model_stats"]}
+    snap = engine.profiler.snapshot(model="tiny_gpt_long")
+    waves = sum(w["dispatches"] for w in snap["models"].get(
+        "tiny_gpt_long:1", {}).get("decode_waves", ()))
+    per = {"flash_attention": (layers["bert_long"], execs["bert_long"]),
+           "flash_attention_fp32": (layers["tiny_gpt_long"],
+                                    execs["tiny_gpt_long"] - waves),
+           "decode_wave_attention": (layers["tiny_gpt_long"], waves),
+           "ring_all_reduce": (1, execs[DLRM_MODEL])}
+    _check(reports and reports[0]["clean"], f"replica-child: drain {reports}")
+    for name, (k, n) in per.items():
+        _check(launches[name] == k * n, f"replica-child: {name}: "
+               f"{launches[name]} launches, {k} x {n} executions")
+    (workdir / "result.json").write_text(json.dumps(
+        {"launches": launches, "execs": execs, "waves": waves,
+         "load_report_us": load_report_us}))
+    print(f"replica-child: launches {launches} = per-execution counts x "
+          f"executions {per}; drain {reports[0]}", flush=True)
+    return 0
+
+
 def wave_phase(torch, smi: str) -> None:
     """``--kernels``: the per-wave host/device split (:func:`_wave_split`)
     of ``tiny_gpt_long`` at its registered size, built directly, over one
@@ -7381,6 +8226,8 @@ def main(argv: list[str]) -> int:
         return clients_child(argv[1:])
     if argv[:1] == ["--incident-child"]:  # the incident phase's process
         return incident_child(argv[1:])
+    if argv[:1] == ["--replica-child"]:  # a router phase replica
+        return replica_child(argv[1:])
     import torch
 
     kernels_only = argv == ["--kernels"]
@@ -7500,6 +8347,12 @@ def main(argv: list[str]) -> int:
     for kernel in kernels:
         kernel["incident_launches"] = incident[kernel["name"]]
         kernel["launches"] += incident[kernel["name"]]
+    torch.cuda.empty_cache()
+    # Every kernel again, in three replica processes behind the router.
+    routed = router_phase(torch, smi)
+    for kernel in kernels:
+        kernel["router_launches"] = routed[kernel["name"]]
+        kernel["launches"] += routed[kernel["name"]]
     for kernel in kernels:
         # Shorter aliases of the two keys above.
         kernel["launched"] = kernel["launches"]

@@ -28,6 +28,10 @@ _DEFAULTS = {
     # Deterministic fault-injection plan (inline JSON or `@/path.json`);
     # unset injects nothing.
     "CLIENT_TPU_FAULTS": "",
+    # The router's fleet drift monitor: unset/`0`/`off` disables; `1`/`on`
+    # defaults; else inline JSON or `@/path.json` (interval_s, threshold,
+    # min_replicas, window_s).
+    "CLIENT_TPU_FLEET_MONITOR": "",
     # Decode chunk K: one dispatch advances every stream K tokens.
     "CLIENT_TPU_GEN_CHUNK": "1",
     # Generative dispatch-ahead depth, in waves, before the worker blocks
@@ -54,6 +58,8 @@ _DEFAULTS = {
     # `@/path.json` with `peak_flops`, `peak_bytes_per_s`, `device_kinds`,
     # `capture`.
     "CLIENT_TPU_ROOFLINE": "",
+    # Router span-store capacity (stitched traces on /v2/trace/requests).
+    "CLIENT_TPU_ROUTER_TRACE_BUFFER": "512",
     # Oldest-sequence batcher dispatch-ahead depth, in waves, before the
     # worker blocks on the oldest wave's outputs.
     "CLIENT_TPU_SEQ_PIPELINE": "2",

@@ -97,6 +97,7 @@ from client_tpu_torch.observability.tracing import (
     TraceStore,
     build_request_trace,
 )
+from client_tpu_torch.protocol.loadreport import LoadReport
 from client_tpu_torch.utils import lockdep
 
 if TYPE_CHECKING:
@@ -186,6 +187,8 @@ class TorchEngine:
             else bool(warmup)
         self._draining = False
         self._last_health: str | None = None
+        # (monotonic stamp, LoadReport) of the last load report built.
+        self._load_report_cache: tuple | None = None
         # The flight recorder's per-signal state (the fill EWMA, counter
         # deltas), touched only from its thread.
         self._ts_state: dict = {"fill": {}, "shed": {}, "tenant_cost": {},
@@ -1029,6 +1032,48 @@ class TorchEngine:
                 respect_cooldown=True)
         except ValueError as exc:
             raise EngineError(str(exc), 400) from None
+
+    # -- load report -----------------------------------------------------------
+
+    # Staleness bound on the cached load report: every inference response
+    # carries it, so it must cost less than a response; 50 ms is far below
+    # any change of load a router acts on.
+    LOAD_REPORT_TTL_S = 0.05
+
+    def load_report(self, max_age_s: float | None = None) -> LoadReport:
+        """The replica's load report (``GET /v2/load`` and the
+        ``X-Tpu-Load`` piggyback): health state, in flight, queue depth,
+        active batches, the admission EWMA's wait estimate and SLO fast
+        burn, which the router scores replicas by. Cached for
+        :data:`LOAD_REPORT_TTL_S` (``max_age_s=0`` rebuilds it). It reads
+        the queues' depths without their locks, so a response never waits
+        on a worker gathering a batch."""
+        ttl = self.LOAD_REPORT_TTL_S if max_age_s is None else max_age_s
+        now = time.monotonic()
+        cached = self._load_report_cache
+        if cached is not None and now - cached[0] <= ttl:
+            return cached[1]
+        snap = self.admission.load_snapshot()
+        inflight = sum(g["inflight"] for g in snap.values())
+        queue_depth = active_batches = 0
+        wait_s = 0.0
+        models: list[str] = []
+        for sched in self.schedulers():
+            cfg = sched.model.config
+            models.append(cfg.name)
+            depth = sched.queue.depth()  # no wait on a batch being formed
+            queue_depth += depth
+            active_batches += sched.active_batches
+            service = snap.get(cfg.name, {}).get("ewma_service_s", 0.0)
+            if depth and service > 0:
+                wait_s += depth * service / max(1, cfg.instance_count)
+        report = LoadReport(
+            state=self.health_state(), inflight=inflight,
+            queue_depth=queue_depth, active_batches=active_batches,
+            wait_s=wait_s, slo_fast_burn=bool(self.slo.fast_burn()),
+            models=tuple(sorted(models)))
+        self._load_report_cache = (now, report)
+        return report
 
     def trace_setting(self) -> dict:
         return self.trace.setting()

@@ -136,6 +136,12 @@ class _ReqQueue:
         with self._cv:
             return len(self._h)
 
+    def depth(self) -> int:
+        """:meth:`qsize` without the queue's lock, for a reader that must
+        not wait on a batch being gathered (the load report): one read of
+        the heap's length."""
+        return len(self._h)
+
     def level_qsize(self, level: int) -> int:
         with self._cv:
             return self._level_counts.get(level, 0)
@@ -300,6 +306,11 @@ class _WfqQueue:
     def qsize(self) -> int:
         with self._cv:
             return self._size
+
+    def depth(self) -> int:
+        """:meth:`qsize` without the queue's lock (see
+        :meth:`_ReqQueue.depth`)."""
+        return self._size
 
     def class_qsize(self, name: str) -> int:
         lane = self._lanes.get(name)

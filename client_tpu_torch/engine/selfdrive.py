@@ -15,9 +15,10 @@ hysteresis and flap damping on every loop:
   tighten_model`), restored step by step on quiet windows; journal edges
   ``admission.tighten`` / ``admission.restore``.
 
-The router's drift re-placement loop shares this config's grammar in the
-JAX package; the port has no router, so its keys (:data:`ROUTER_KEYS`)
-are refused with a 400 rather than parsed and left unread.
+The router's drift re-placement loop
+(:class:`client_tpu_torch.router.selfdrive.FleetRebalancer`) reads its
+five keys from the same config, so every loop's damping reads from one
+grammar.
 
 Unset, there is no governor thread and no state. ``tick()`` is public
 and the clock injectable: every loop's hysteresis is provable on a fake
@@ -41,17 +42,14 @@ _log = logging.getLogger("client_tpu_torch")
 
 ENV_VAR = "CLIENT_TPU_SELFDRIVE"
 
-__all__ = ["ENV_VAR", "ROUTER_KEYS", "SelfDriveConfig", "SelfDriveGovernor"]
-
-# The JAX package's router rebalancer knobs; the port has no router.
-ROUTER_KEYS = ("rebalance_cooldown_s", "max_moves_per_window",
-               "rebalance_window_s", "quiesce_wait_s", "drain_after_moves")
+__all__ = ["ENV_VAR", "SelfDriveConfig", "SelfDriveGovernor"]
 
 
 @dataclass
 class SelfDriveConfig:
-    """``CLIENT_TPU_SELFDRIVE`` knobs of the engine governor's loops, all
-    optional."""
+    """``CLIENT_TPU_SELFDRIVE`` knobs, all optional. One config feeds the
+    engine governor (dispatch and admission loops) and the router's
+    rebalancer (placement loop)."""
 
     interval_s: float = 2.0           # governor wake period
     # -- dispatch retune loop (DispatchTuner) --
@@ -70,14 +68,15 @@ class SelfDriveConfig:
     burn_restore_step: float = 2.0    # per-quiet-window ratio regrowth
     burn_restore_hold_s: float = 10.0  # quiet window before a restore step
     burn_cooldown_s: float = 10.0     # spacing between cuts per model
+    # -- drift re-placement loop (router/selfdrive.py) --
+    rebalance_cooldown_s: float = 60.0   # spacing between rebalances
+    max_moves_per_window: int = 4        # placement-move budget ...
+    rebalance_window_s: float = 300.0    # ... per this window
+    quiesce_wait_s: float = 5.0          # rolling-unload in-flight wait
+    drain_after_moves: bool = False      # rolling-drain emptied replicas
 
     @classmethod
     def from_dict(cls, data: dict) -> "SelfDriveConfig":
-        router = [k for k in ROUTER_KEYS if k in data]
-        if router:
-            raise EngineError(
-                f"{ENV_VAR}: key(s) {router} drive the router's fleet "
-                "rebalancer, which is not ported", 400)
         known = {f.name for f in fields(cls)}
         unknown = set(data) - known
         if unknown:
@@ -90,8 +89,10 @@ class SelfDriveConfig:
                 continue
             raw = data[f.name]
             try:
-                if f.name in ("min_deadline_us", "min_calls",
-                              "concurrency_floor"):
+                if f.name == "drain_after_moves":
+                    setattr(cfg, f.name, bool(raw))
+                elif f.name in ("min_deadline_us", "min_calls",
+                                "concurrency_floor", "max_moves_per_window"):
                     setattr(cfg, f.name, int(raw))
                 else:
                     setattr(cfg, f.name, float(raw))

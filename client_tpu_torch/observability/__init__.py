@@ -4,7 +4,10 @@ and ``Server-Timing`` parsing of ``tracing``) and the server's planes:
 store behind ``/v2/trace/requests``), ``events`` (the journal behind
 ``/v2/events``), ``profiler`` and ``roofline`` (``/v2/profile``),
 ``memory`` (the HBM census behind ``/v2/memory``), ``costs``
-(``/v2/costs``), ``slo`` (``/v2/slo``) and ``timeseries`` (the flight
-recorder behind ``/v2/timeseries``). The blackbox is not ported yet.
+(``/v2/costs``), ``slo`` (``/v2/slo``), ``timeseries`` (the flight
+recorder behind ``/v2/timeseries``) and ``blackbox`` (incident bundles
+behind ``/v2/debug/{bundles,capture}``); the router's ``fleet`` (the
+merges of the fleet plane and its drift math) and ``scrape`` (exposition
+parsing and histogram quantiles).
 Nothing is imported here: the clients import ``tracing`` and
 ``client_stats`` without a framework."""

@@ -9,8 +9,8 @@ closing ``# EOF``). :class:`EngineMetrics` declares every family the JAX
 engine declares, with the same names (the ``tpu_`` prefix is the wire
 vocabulary), help, types and label sets, so a scraper reads both servers
 alike. The HBM census, QoS and admission families are declared but fed
-only by their planes, which the port does not have yet; the router's
-families wait for the router.
+only by their planes. :class:`RouterMetrics` declares the router's
+``tpu_router_*`` and ``tpu_fleet_*`` families, on a registry of its own.
 
 - ``MetricRegistry.histogram/gauge/counter`` are get-or-create;
   declaring a name again with another type or labels raises.
@@ -514,6 +514,77 @@ class EngineMetrics:
                                   model="", component="unattributed")
         self.hbm_census_watermark_bytes.set(
             report.get("watermark_bytes", 0))
+
+    def render(self, openmetrics: bool = False) -> str:
+        return self.registry.render(openmetrics)
+
+
+class RouterMetrics:
+    """The L7 router's metric vocabulary (``tpu_router_*``,
+    ``tpu_fleet_*``), the JAX router's families by name, help, type and
+    labels.
+
+    On a registry of its own by default, so a router in one process with
+    replicas scrapes only routing metrics from its ``/metrics``. Balance
+    reads off ``tpu_router_requests_total{replica}``."""
+
+    def __init__(self, registry: MetricRegistry | None = None):
+        self.registry = registry or MetricRegistry()
+        r = self.registry
+        self.requests = r.counter(
+            "tpu_router_requests_total",
+            "Requests forwarded, by replica and outcome (ok, error, "
+            "pushback, unreachable)",
+            ("replica", "outcome"))
+        self.failovers = r.counter(
+            "tpu_router_failovers_total",
+            "Requests re-routed to another replica after the first "
+            "candidate failed or pushed back, by failed replica",
+            ("replica",))
+        self.sheds = r.counter(
+            "tpu_router_sheds_total",
+            "Requests shed by the router itself: every candidate pushed "
+            "back (all_pushback) or no replica was reachable (no_replica)",
+            ("reason",))
+        self.breaker_open = r.gauge(
+            "tpu_router_breaker_open",
+            "1 while the per-replica circuit breaker is open",
+            ("replica",))
+        self.replica_states = r.gauge(
+            "tpu_router_replicas",
+            "Replicas known to the router, by last observed health state",
+            ("state",))
+        self.request_duration_us = r.histogram(
+            "tpu_router_request_duration_us",
+            "Router-observed request duration including failovers "
+            "(microseconds)",
+            ("replica",))
+        self.load_report_age = r.gauge(
+            "tpu_router_load_report_age_seconds",
+            "Seconds since each replica's load report was refreshed "
+            "(piggyback or /v2/load poll)",
+            ("replica",))
+        self.affinity_routed = r.counter(
+            "tpu_router_affinity_routed_total",
+            "Requests pinned to a replica by sequence-id rendezvous "
+            "affinity rather than P2C",
+            ("replica",))
+        self.drain_steps = r.counter(
+            "tpu_router_drain_steps_total",
+            "Rolling-drain steps executed, by replica and outcome "
+            "(clean, dirty, timeout, skipped)",
+            ("replica", "outcome"))
+        self.fleet_drift_score = r.gauge(
+            "tpu_fleet_drift_score",
+            "Per-replica drift from the fleet median, by signal "
+            "(duty_cycle, fill_ratio, wave_ms_p50, wait_s); unitless "
+            "|v-median|/max(|median|,floor) skew",
+            ("replica", "signal"))
+        self.fleet_fetch_failures = r.counter(
+            "tpu_fleet_fetch_failures_total",
+            "Per-replica fetch failures while federating a fleet "
+            "surface (events, profile, metrics, slo, trace)",
+            ("replica", "surface"))
 
     def render(self, openmetrics: bool = False) -> str:
         return self.registry.render(openmetrics)

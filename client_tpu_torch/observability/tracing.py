@@ -11,7 +11,10 @@ compute_input / compute_infer / compute_output) into a
 :class:`RequestTrace` in a ring buffer, exported as Chrome trace-event
 JSON by ``GET /v2/trace/requests`` (open it in ``chrome://tracing`` or
 Perfetto); :func:`server_timing_header` writes the same phases into the
-response. The router's span store is not ported yet.
+response. :class:`SpanStore` is the router's counterpart of the store:
+one group of free-form :class:`NamedSpan` s (select, one proxy span per
+attempt, shed, the request root) per routed request, which the fleet
+stitcher merges with the replicas' own traces.
 
 Standard library only: the port's clients import this module and load no
 framework.
@@ -73,6 +76,12 @@ class TraceContext:
 
     def to_traceparent(self) -> str:
         return f"00-{self.trace_id}-{self.span_id}-{self.flags & 0xFF:02x}"
+
+    def child(self) -> "TraceContext":
+        """The same trace, a new span parented on this one (the router's
+        context for one forwarding attempt)."""
+        return TraceContext(trace_id=self.trace_id, span_id=new_span_id(),
+                            parent_span_id=self.span_id, flags=self.flags)
 
 
 @dataclass
@@ -190,6 +199,90 @@ class TraceStore:
                 })
         return {"traceEvents": events, "displayTimeUnit": "ms"}
 
+
+@dataclass
+class NamedSpan:
+    """One free-form span: an interval with a name, an optional span
+    identity and Chrome-trace ``args``. An intermediary (the router's
+    select, proxy and shed spans) records these; the engine's phase
+    :class:`Span` has a fixed vocabulary."""
+
+    name: str
+    start_ns: int
+    end_ns: int
+    span_id: str = ""
+    parent_span_id: str = ""
+    args: dict = field(default_factory=dict)
+
+
+@dataclass
+class SpanGroup:
+    """All spans one component recorded for one trace id (one request's
+    timeline on the router)."""
+
+    trace_id: str
+    spans: list[NamedSpan]
+    wall_time_ms: int = 0
+
+
+class SpanStore:
+    """Bounded ring buffer of :class:`SpanGroup` s, the router's
+    counterpart of :class:`TraceStore`: one ``add`` per routed request,
+    exported as Chrome trace events."""
+
+    def __init__(self, capacity: int = 512):
+        self._buf: deque[SpanGroup] = deque(maxlen=max(1, capacity))
+        self._lock = lockdep.Lock("tracing.spanstore")
+
+    def add(self, trace_id: str, spans: list[NamedSpan]) -> None:
+        if not spans:
+            return
+        with self._lock:
+            self._buf.append(SpanGroup(
+                trace_id=trace_id, spans=list(spans),
+                wall_time_ms=int(time.time() * 1000)))
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._buf)
+
+    def snapshot(self, trace_id: str | None = None) -> list[SpanGroup]:
+        with self._lock:
+            groups = list(self._buf)
+        if trace_id:
+            groups = [g for g in groups if g.trace_id == trace_id]
+        return groups
+
+    def to_chrome_events(self, trace_id: str | None = None,
+                         pid: int = 1) -> list[dict]:
+        """Chrome ``ph:"X"`` events; one tid per group, so concurrent
+        requests stack as lanes on the component's track."""
+        events = []
+        for tid, g in enumerate(self.snapshot(trace_id), start=1):
+            for span in g.spans:
+                events.append({
+                    "name": span.name,
+                    "cat": "router",
+                    "ph": "X",
+                    "ts": span.start_ns / 1e3,
+                    "dur": max(0.0, (span.end_ns - span.start_ns) / 1e3),
+                    "pid": pid,
+                    "tid": tid,
+                    "args": span_args(g.trace_id, span),
+                })
+        return events
+
+
+def span_args(trace_id: str, span: NamedSpan) -> dict:
+    """A named span's Chrome ``args``: its trace and span identity, then
+    its own args."""
+    args = {"trace_id": trace_id}
+    if span.span_id:
+        args["span_id"] = span.span_id
+    if span.parent_span_id:
+        args["parent_span_id"] = span.parent_span_id
+    args.update(span.args)
+    return args
 
 
 def server_timing_header(times) -> str:

@@ -39,8 +39,9 @@ operational RPCs ``Events``, ``SloStatus``, ``Profile``, ``Timeseries``,
 ``BlackboxBundles`` (the incident blackbox), ``Ring{Register,Status,
 Unregister,Doorbell}`` (the shm slot ring: a register's ``spec_json``
 makes a reaped ring, a doorbell's span spec rides as JSON) and
-``Dataset{Register,Status,Unregister}`` (staged datasets). The
-load-report trailer is not ported.
+``Dataset{Register,Status,Unregister}`` (staged datasets). Each
+``ModelInfer`` answer carries the replica's load report in the
+``x-tpu-load`` trailer (the header form of ``X-Tpu-Load``).
 """
 
 from __future__ import annotations
@@ -73,6 +74,10 @@ from client_tpu_torch.protocol.dtypes import np_to_wire_dtype
 from client_tpu_torch.protocol.grpc_stub import (
     GRPCInferenceServiceServicer,
     add_GRPCInferenceServiceServicer_to_server,
+)
+from client_tpu_torch.protocol.loadreport import (
+    LOAD_METADATA_KEY,
+    encode_header,
 )
 from client_tpu_torch.protocol.model_config import config_dict_to_proto
 from client_tpu_torch.protocol.pushback import (
@@ -603,6 +608,15 @@ class _Servicer(GRPCInferenceServiceServicer):
             if not context.add_callback(req.cancel):
                 req.cancel()
             resp = self.engine.infer(req)
+            # The load-report piggyback, as HTTP's X-Tpu-Load: each unary
+            # answer refreshes the caller's view of this replica's load.
+            # Telemetry never fails an inference that succeeded.
+            try:
+                context.set_trailing_metadata((
+                    (LOAD_METADATA_KEY,
+                     encode_header(self.engine.load_report())),))
+            except Exception:  # noqa: BLE001
+                _log.debug("load report failed", exc_info=True)
             return _response_to_proto(self.engine, req, resp)
         except Exception as exc:  # noqa: BLE001 — the RPC must answer
             _abort(context, exc)

@@ -66,8 +66,10 @@ reaped ring; a doorbell admits a span of filled slots, whose answers land
 in the slots), and ``/v2/shm/dataset[/<name>]/{status,unregister}`` and
 ``POST /v2/shm/dataset/<name>/register``. The incident blackbox: ``GET
 /v2/debug/bundles[/<id>]`` and ``POST /v2/debug/capture`` (body keys
-``trigger``, ``incident``, ``note``). The load report is not ported: its
-route answers 404.
+``trigger``, ``incident``, ``note``). The load report: ``GET /v2/load``
+(JSON, with the header form in ``X-Tpu-Load``), and ``X-Tpu-Load`` on
+every successful inference answer, which the router and the multi-URL
+client read.
 
 A stdlib ThreadingHTTPServer: each connection gets a thread that only
 frames; the engine's per-model schedulers batch and run the work.
@@ -104,6 +106,7 @@ from client_tpu_torch.observability.tracing import (
 )
 from client_tpu_torch.protocol import rest
 from client_tpu_torch.protocol.dtypes import np_to_wire_dtype
+from client_tpu_torch.protocol.loadreport import LOAD_HEADER, encode_header
 from client_tpu_torch.protocol.pushback import (
     RETRY_AFTER_HEADER,
     format_retry_after_s,
@@ -164,6 +167,7 @@ _ROUTES: list[tuple[str, re.Pattern, str]] = [
     ("GET", re.compile(r"^/v2/timeseries$"), "timeseries"),
     ("GET", re.compile(r"^/v2/memory$"), "memory"),
     ("GET", re.compile(r"^/v2/qos$"), "qos"),
+    ("GET", re.compile(r"^/v2/load$"), "load"),
     ("GET", re.compile(r"^/v2/debug/bundles$"), "debug_bundles"),
     ("GET", re.compile(r"^/v2/debug/bundles/([^/]+)$"), "debug_bundle"),
     ("POST", re.compile(r"^/v2/debug/capture$"), "debug_capture"),
@@ -440,6 +444,14 @@ class _Handler(BaseHTTPRequestHandler):
 
     def h_memory(self):
         self._send_json(self.engine.memory_census())
+
+    def h_load(self):
+        """The load report (``/v2/load``), the pull form of the
+        ``X-Tpu-Load`` piggyback: routers start from it and then read the
+        header."""
+        report = self.engine.load_report()
+        self._send(200, json.dumps(report.to_json_dict()).encode("utf-8"),
+                   extra_headers={LOAD_HEADER: encode_header(report)})
 
     def h_qos(self):
         self._send_json(self.engine.qos_snapshot(
@@ -801,6 +813,13 @@ class _Handler(BaseHTTPRequestHandler):
             headers["traceparent"] = req.trace.to_traceparent()
         if resp.times is not None:
             headers["Server-Timing"] = server_timing_header(resp.times)
+        # The load-report piggyback: each answer refreshes the caller's
+        # view of this replica's load (the report is cached in the
+        # engine). Telemetry never fails an inference that succeeded.
+        try:
+            headers[LOAD_HEADER] = encode_header(self.engine.load_report())
+        except Exception:  # noqa: BLE001
+            _log.debug("load report failed", exc_info=True)
         self._send(200, body, content_type=ctype, extra_headers=headers)
 
 

@@ -174,6 +174,10 @@ CLIENT_MODULES = [
     "client_tpu_torch.utils.shm_ring",
     "client_tpu_torch.utils.shm_ring.staged",
     "client_tpu_torch.observability.blackbox",
+    "client_tpu_torch.router", "client_tpu_torch.router.__main__",
+    "client_tpu_torch.router.server", "client_tpu_torch.router.fleet",
+    "client_tpu_torch.observability.fleet",
+    "client_tpu_torch.observability.scrape",
 ]
 
 
@@ -182,7 +186,8 @@ def test_clients_load_no_torch(module):
     """The clients, like the JAX package's, need no framework: importing
     one loads neither torch, nor jax, nor the JAX package. Nor do the
     journal, the fault registry and the metric registry, which the
-    clients' resilience layer may write to."""
+    clients' resilience layer may write to, nor the router and its fleet
+    planes, which need no card."""
     code = (
         "import importlib, sys\n"
         f"importlib.import_module({module!r})\n"

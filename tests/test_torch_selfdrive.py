@@ -8,8 +8,7 @@ admission concurrency cap down; quiet: restore a step per hold), and the
 ``SelfDriveGovernor``'s SLO-burn loop (tighten a burning model's admitted
 rate a step per cooldown, restore a step per quiet hold) through each
 package's own ``AdmissionController``. ``SelfDriveConfig`` parses alike,
-but for the router rebalancer's keys: the port has no router and refuses
-them.
+the router rebalancer's five keys included.
 On live engines a dispatch override caps the batches the scheduler
 forms, alike, and ``CLIENT_TPU_SELFDRIVE`` puts the same ``selfdrive``
 section into ``/v2/profile``.
@@ -137,9 +136,7 @@ def _walk(pkg, config):
                     {n: engine.admission.concurrency_cap(n)
                      for n in engine.scheds},
                     engine.admission.tightened_models()))
-    snap = gov.snapshot()
-    snap["config"] = _engine_keys(snap["config"])
-    return out, snap
+    return out, gov.snapshot()
 
 
 @pytest.mark.parametrize("overrides", [
@@ -183,28 +180,33 @@ def test_the_tuner_alone_decides_as_jax():
     assert runs["port"] == runs["jax"]
 
 
-def _engine_keys(summary: dict) -> dict:
-    """A config summary without the router rebalancer's keys, which the
-    JAX package parses and the port, having no router, refuses."""
-    return {k: v for k, v in summary.items()
-            if k not in port_drive.ROUTER_KEYS}
-
-
 @pytest.mark.parametrize("key,value", [
     ("rebalance_cooldown_s", 30), ("max_moves_per_window", 2),
     ("rebalance_window_s", 60), ("quiesce_wait_s", 1),
     ("drain_after_moves", True)])
 def test_the_router_keys_are_refused(monkeypatch, key, value):
-    """The JAX package parses these for its router; the port has none, so
-    a config that sets one is refused rather than left unread."""
+    """Each router rebalancer key is refused exactly where the JAX config
+    refuses it: a good value parses to JAX's value and type with the whole
+    summary equal, and a value that is no number draws the same 400 and
+    words on both (``drain_after_moves`` takes any value, as ``bool``,
+    on both)."""
     import json
 
     monkeypatch.setenv("CLIENT_TPU_SELFDRIVE", json.dumps({key: value}))
-    assert getattr(jax_drive.SelfDriveConfig.from_env(), key) == value
-    with pytest.raises(port_types.EngineError) as exc:
-        port_drive.SelfDriveConfig.from_env()
-    assert exc.value.status == 400
-    assert key in str(exc.value) and "not ported" in str(exc.value)
+    jax_cfg = jax_drive.SelfDriveConfig.from_env()
+    port_cfg = port_drive.SelfDriveConfig.from_env()
+    assert getattr(port_cfg, key) == getattr(jax_cfg, key) == value
+    assert type(getattr(port_cfg, key)) is type(getattr(jax_cfg, key))
+    assert port_cfg.summary() == jax_cfg.summary()
+    monkeypatch.setenv("CLIENT_TPU_SELFDRIVE", json.dumps({key: "x"}))
+    got = []
+    for drive in (jax_drive, port_drive):
+        try:
+            got.append(("ok", drive.SelfDriveConfig.from_env().summary()))
+        except Exception as exc:  # noqa: BLE001 — either package's 400
+            got.append(("refused", exc.status, str(exc)))
+    assert got[0] == got[1]
+    assert got[0][0] == ("ok" if key == "drain_after_moves" else "refused")
 
 
 @pytest.mark.parametrize("raw", [
@@ -220,23 +222,10 @@ def test_selfdrive_config_parses_as_jax(monkeypatch, raw):
     for pkg in PACKAGES.values():
         try:
             cfg = pkg.drive.SelfDriveConfig.from_env()
-            got.append(("ok", None if cfg is None
-                        else _engine_keys(cfg.summary())))
+            got.append(("ok", None if cfg is None else cfg.summary()))
         except Exception as exc:  # noqa: BLE001 — either package's 400
-            got.append(("error", exc.status, _words(exc)))
+            got.append(("error", exc.status, str(exc).split(" (")[0]))
     assert got[0] == got[1]
-
-
-def _words(exc) -> tuple:
-    """An error's words; the list of valid keys without the router's."""
-    import ast
-
-    text = str(exc).split(" (")[0]
-    head, sep, valid = text.partition("; valid: ")
-    if not sep:
-        return (text,)
-    return head, [k for k in ast.literal_eval(valid)
-                  if k not in port_drive.ROUTER_KEYS]
 
 
 # -- live engines ---------------------------------------------------------------
@@ -319,7 +308,6 @@ def test_a_dispatch_override_caps_the_batches_alike(engines):
 def test_the_profile_carries_the_selfdrive_section(engines):
     sections = {name: engine.profile_snapshot()["selfdrive"]
                 for name, engine in engines.items()}
-    sections["jax"]["config"] = _engine_keys(sections["jax"]["config"])
     assert sections["port"] == sections["jax"]
     assert sections["port"]["enabled"] is True
     for engine in engines.values():
