@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # from the root of a checkout, one card
     python3 chip_smoke.py --kernels  # steps 1 to 3 and the wave split only
+    python3 chip_smoke.py --mc       # steps 1, 2, K2 at head dim 32 and 18
 
 1. Prints the card (``torch.cuda.get_device_name``) and its power limit.
 2. Builds every kernel of the path from ``client_tpu_torch/csrc`` with
@@ -357,7 +358,29 @@
    router over three replicas and straight to one, the router's added
    ms, ms from the kill to the open breaker, the drain's seconds, a
    child's µs to build the load report and its header, and cached).
-18. Prints one ``{"kernels": [...]}`` line (each kernel's ``launches`` over
+18. Mc phase: the six ``*_mc`` families of ``client_tpu_torch.parallel
+   .serving`` at the JAX zoo's widths, each on a mesh that repeats the
+   card (``bert_base_mc`` dp2 x tp4, ``bert_long_mc`` dp2 x sp4 with ring
+   attention, ``tiny_gpt_mc`` tp8, ``moe_gpt_mc`` ep2 x tp4,
+   ``moe_lm_mc`` dp2 x ep2 x tp2, ``pipelined_lm_mc`` dp2 x pp4), on one
+   engine behind HTTP and gRPC; launch counts set to 0. 16 forward
+   requests over HTTP (BERT and the pipelined LM at once, ``moe_lm_mc``
+   one at a time, its routing depending on the batch) and each again over
+   gRPC, every answer against the family's unsharded plain path run
+   directly on the same weights at the same bucket (BERT within
+   ``SERVED_ATOL``, the LMs within ``MC_LM_ATOL``); 12 streams of the two
+   generative families at once over SSE and again on 2 gRPC stream RPCs,
+   every token equal to the plain path's (a degree-1 mesh, K2's plain
+   version). K2's head-dim-32 instantiation must have run (and head dim
+   64 not, nor K1 or K3), one wave run directly must launch it once per
+   tp shard and layer, and the registered degree-1 builders, loaded by
+   name, must answer as the sharded families' plain paths do. Before the
+   serving phases, K2 at head dim 32 is held against its plain version at
+   ``tiny_gpt_mc``'s arena [4, 65, 128, 8, 32] and a tp8 shard's [4, 65,
+   128, 1, 32] (B=16, tile and split edges, repeated calls bit for bit)
+   and timed queued, in turns with the head-dim-64 case and with
+   ``scaled_dot_product_attention`` on gathered rows.
+19. Prints one ``{"kernels": [...]}`` line (each kernel's ``launches`` over
    HTTP and gRPC, beside ``http_launches`` over HTTP alone, which must be
    fewer; the ring all-reduce's include the stateful phase's, and its
    entry carries ``dlrm_shape``, its times at [832, 128]; flash
@@ -367,10 +390,11 @@
    as ``clients_launches``, ``repository_launches``,
    ``observability_launches``, ``weights_launches``,
    ``overload_launches``, ``tuning_launches``, ``incident_launches`` and
-   ``router_launches``), the ``nvidia-smi`` name and power limit line,
-   and last ``{"ok": true, "device": {...}}``.
+   ``router_launches``; K2's head-dim-32 entry, last, counts the mc
+   phase's), the ``nvidia-smi`` name and power limit line, and last
+   ``{"ok": true, "device": {...}}``.
 
-The gRPC client code of steps 4 to 9 and 11 to 15 is the script's own
+The gRPC client code of steps 4 to 9, 11 to 15 and 18 is the script's own
 (tensors as ``tobytes`` and ``np.frombuffer``, BYTES with a hand-written
 length prefix); it uses the port's ``grpc_service_pb2`` and ``grpc_stub``
 only, the wire schema. Without ``grpc`` the script fails. Step 10 holds the
@@ -381,7 +405,9 @@ port's clients against that code.
 engine), then the ``{"kernels": [...]}`` line (launches null) and the
 ``nvidia-smi`` line, and no ``ok`` line. Copied into an older checkout, it
 times that checkout's kernels by the same method, so that two commits can
-be compared in one call.
+be compared in one call. ``--mc`` builds the kernels, runs K2 at head dim
+32 and the mc phase (step 18), then prints the ``{"kernels": [...]}`` line
+with that one entry and the ``nvidia-smi`` line, and no ``ok`` line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It exits non-zero as well without CUDA, or outside a checkout of the repo.
@@ -535,17 +561,16 @@ def _queued_ms(torch, fn, reps: int = 20) -> float:
     return float(np.median(_queued_samples(torch, fn, reps)))
 
 
-def _queued_turns(torch, kernel: list, library: list) -> tuple[float, float]:
-    """Device ms per call of a kernel and its library call, each given as a
-    list of calls that are cycled through (one per layer), queued back to
-    back (:func:`_queued_samples`) in turns: kernel, library, library,
-    kernel. Medians of the ten runs of each."""
-    samples = {"kernel": [], "library": []}
-    for name in ("kernel", "library", "library", "kernel"):
-        calls = itertools.cycle(kernel if name == "kernel" else library)
-        samples[name] += _queued_samples(torch, lambda: next(calls)())
-    return (float(np.median(samples["kernel"])),
-            float(np.median(samples["library"])))
+def _queued_turns(torch, calls: dict[str, list]) -> dict[str, float]:
+    """Device ms per call of several calls (each a list cycled through, one
+    per layer), queued back to back (:func:`_queued_samples`) in turns:
+    the names in order, then in reverse (kernel, library, library,
+    kernel). Medians of the runs of each."""
+    samples = {name: [] for name in calls}
+    for name in list(calls) + list(reversed(calls)):
+        cycle = itertools.cycle(calls[name])
+        samples[name] += _queued_samples(torch, lambda: next(cycle)())
+    return {name: float(np.median(s)) for name, s in samples.items()}
 
 
 def _resource_usage(cuda_build, name: str) -> str:
@@ -823,22 +848,39 @@ def kernel_phase_fp32(torch) -> dict:
     }
 
 
-def _decode_occupancy(cuda_build, b: int, h: int, n_split: int) -> str:
+def _decode_occupancy(cuda_build, b: int, h: int, n_split: int,
+                      head_dim: int) -> str:
     """The decode kernel's dynamic shared memory per CTA and the clusters
     of ``n_split`` CTAs the card holds at once
-    (``cudaOccupancyMaxActiveClusters``)."""
+    (``cudaOccupancyMaxActiveClusters``), for one head dim."""
     import ctypes
 
     lib = cuda_build.load("decode_attention")
     fn = getattr(lib, "client_tpu_decode_wave_occupancy", None)
     if fn is None:  # a tree from before the clustered kernel
         return "occupancy not reported by this build"
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
     smem, clusters = ctypes.c_int(0), ctypes.c_int(0)
-    err = fn(b, h, n_split, ctypes.byref(smem), ctypes.byref(clusters))
+    err = fn(b, h, n_split, head_dim, ctypes.byref(smem),
+             ctypes.byref(clusters))
     _check(err == 0, f"cudaOccupancyMaxActiveClusters failed: error {err}")
     return (f"{smem.value} bytes of dynamic shared memory a CTA, at most "
             f"{clusters.value} clusters of {n_split} resident at once")
+
+
+def _decode_bound(lens_np, b: int, heads: int, dim: int
+                  ) -> tuple[float, str, int]:
+    """(bound ms, what bounds it, bytes) of one K2 call: each lane's valid
+    K/V prefix read once, q, k_new, v_new read and o written, the two
+    scattered slots, rows and lens; 4 H D (sum of lens + B) FLOPs."""
+    lane_bytes = heads * dim * 4
+    nbytes = (2 * int(np.sum(lens_np)) * lane_bytes + 4 * b * lane_bytes
+              + 2 * b * lane_bytes + 2 * b * 4)
+    flops = 4.0 * heads * dim * (int(np.sum(lens_np)) + b)
+    byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    flop_ms = flops / PEAK_FP32_FLOPS * 1e3
+    return (max(byte_ms, flop_ms),
+            "bytes" if byte_ms >= flop_ms else "operations", nbytes)
 
 
 def kernel_phase_decode(torch, cuda_build) -> dict:
@@ -920,7 +962,7 @@ def kernel_phase_decode(torch, cuda_build) -> dict:
     share = min(longest, (-(-longest // n_split) + 31) // 32 * 32)  # tiles
     print(f"decode split plan at B{b}: n_split {n_split}, {n_split * H * b} "
           f"CTAs, at most {share} keys per CTA (longest lane {longest}); "
-          f"{_decode_occupancy(cuda_build, b, H, n_split)}; "
+          f"{_decode_occupancy(cuda_build, b, H, n_split, D)}; "
           f"{_resource_usage(cuda_build, 'decode_attention')}", flush=True)
     q, kn, vn = (torch.randn(b, H, D, device="cuda", generator=gen)
                  for _ in range(3))
@@ -936,20 +978,13 @@ def kernel_phase_decode(torch, cuda_build) -> dict:
                .scaled_dot_product_attention(q[:, :, None], ck, cv,
                                              attn_mask=mask[:, None, None, :])
                for ck, cv in gathered]
-    ms, library_ms = _queued_turns(torch, kernel, library)
+    times = _queued_turns(torch, {"kernel": kernel, "library": library})
+    ms, library_ms = times["kernel"], times["library"]
     alone_ms = _time_ms(torch, kernel[0])
     plain_ms = _queued_ms(torch, lambda: da.decode_wave_attention_plain(
         k_ref, v_ref, q, kn, vn, index, layer=0))
     library_kernel = _device_kernels(torch, library[0])
-    lane_bytes = H * D * 4
-    nbytes = (2 * int(lens_np.sum()) * lane_bytes  # valid K/V prefix
-              + 4 * b * lane_bytes                 # q, k_new, v_new, o
-              + 2 * b * lane_bytes                 # the scattered slots
-              + 2 * b * 4)                         # rows, lens
-    flops = 4.0 * H * D * (int(lens_np.sum()) + b)
-    byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    flop_ms = flops / PEAK_FP32_FLOPS * 1e3
-    bound_ms = max(byte_ms, flop_ms)
+    bound_ms, bound_by, nbytes = _decode_bound(lens_np, b, H, D)
     print(f"decode_wave_attention at B{b} (sum of lens {int(lens_np.sum())}"
           f"), device ms per call queued back to back over the {L} layers, "
           f"in turns with the library call: kernel {ms} ms "
@@ -968,13 +1003,170 @@ def kernel_phase_decode(torch, cuda_build) -> dict:
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
-        "bound_by": "bytes" if byte_ms >= flop_ms else "operations",
+        "bound_by": bound_by,
         "library_ms": library_ms,
         "library_call": "scaled_dot_product_attention over rows gathered "
                         "beforehand, boolean mask; no scatter, no gather",
         "library_kernel": library_kernel,
         "alone_ms": alone_ms,
         "n_split": n_split,
+    }
+
+
+def _decode_case(torch, da, k_arena, v_arena, gen, rows, lens, layer,
+                 label: str) -> float:
+    """One K2 call against its plain version on clones of the arena (the
+    last row is the dummy): max error on the real lanes, exactly v_new at
+    lens 0, every other row bit-identical, the scattered slots equal to
+    the inputs, and a second call bit-identical."""
+    dummy = k_arena.shape[1] - 1
+    rows_np, lens_np = np.asarray(rows, np.int32), np.asarray(lens, np.int32)
+    b, (heads, dim) = len(rows_np), k_arena.shape[3:]
+    real = rows_np != dummy
+    q, kn, vn = (torch.randn(b, heads, dim, device=k_arena.device,
+                             generator=gen) for _ in range(3))
+    index = da.WaveIndex(rows_np, lens_np, k_arena.shape[1],
+                         k_arena.shape[2], k_arena.device)
+    k_ref, v_ref = k_arena.clone(), v_arena.clone()
+    o = da.decode_wave_attention(k_arena, v_arena, q, kn, vn, index,
+                                 layer=layer)
+    torch.cuda.synchronize()
+    o_ref = da.decode_wave_attention_plain(k_ref, v_ref, q, kn, vn, index,
+                                           layer=layer)
+    err = float((o[real] - o_ref[real]).abs().max())
+    print(f"kernel case decode head dim {dim} {label} lens {lens}: "
+          f"max_abs_err {err} (tolerance {DECODE_ATOL})", flush=True)
+    _check(err <= DECODE_ATOL, f"decode hd{dim} {label}: max_abs_err {err}")
+    _check(bool(torch.isfinite(o).all()), f"decode hd{dim} {label}: non-finite")
+    for i in np.flatnonzero(real & (lens_np == 0)):
+        _check(bool(torch.equal(o[i], vn[i])),
+               f"decode hd{dim} {label} lane {i}: lens 0 is not v_new")
+    _check(bool(torch.equal(k_arena[:, :dummy], k_ref[:, :dummy])
+                and torch.equal(v_arena[:, :dummy], v_ref[:, :dummy])),
+           f"decode hd{dim} {label}: arena differs from the plain scatter")
+    again = da.decode_wave_attention(k_arena, v_arena, q, kn, vn, index,
+                                     layer=layer)
+    _check(bool(torch.equal(again, o)),
+           f"decode hd{dim} {label}: two identical calls differ")
+    return err
+
+
+def kernel_phase_decode_hd32(torch, cuda_build) -> dict:
+    """K2's head-dim-32 instantiation (tiny_gpt_mc and moe_gpt_mc): held
+    against its plain version at tiny_gpt_mc's arena [4, 65, 128, 8, 32]
+    (64 stream rows + the dummy) at B=16 with padded lanes, tile and split
+    edges, and on a tp8 shard's one head ([4, 65, 128, 1, 32], the shape
+    the served path gives it); then timed queued over the 4 layers, in
+    turns with the head-dim-64 case of tiny_gpt_long ([4, 17, 2048, 4,
+    64] at B=16) and with scaled_dot_product_attention on gathered rows."""
+    from client_tpu_torch.ops import decode_attention as da
+
+    L, R, S, D = 4, 65, 128, 32
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    arenas = {heads: (torch.randn(L, R, S, heads, D, device="cuda",
+                                  generator=gen),
+                      torch.randn(L, R, S, heads, D, device="cuda",
+                                  generator=gen)) for heads in (8, 1)}
+    rng = np.random.default_rng(32)
+    b16 = (list(range(12)) + [R - 1] * 4,
+           [0, 1, 127] + rng.integers(2, 120, 9).tolist() + [0] * 4)
+    cases = {
+        "B16": b16,
+        "B1": ([5], [127]),
+        "edges": (list(range(10)), [1, 31, 32, 33, 63, 64, 65, 95, 126, 127]),
+        "B64 all 127": (list(range(64)), [127] * 64),
+    }
+    errors = []
+    for heads, (k_a, v_a) in arenas.items():
+        for layer, (label, (rows, lens)) in enumerate(cases.items()):
+            errors.append(_decode_case(torch, da, k_a, v_a, gen, rows, lens,
+                                       layer % L, f"H{heads} {label}"))
+    # The split edges need a longer arena: 256-key shares, one head.
+    long_k = torch.randn(2, 5, 2048, 1, D, device="cuda", generator=gen)
+    long_v = torch.randn(2, 5, 2048, 1, D, device="cuda", generator=gen)
+    for n in (255, 256, 257, 511, 512, 513, 1793, 2047):
+        errors.append(_decode_case(torch, da, long_k, long_v, gen, [1, 4],
+                                   [n, 0], 1, f"split n={n}"))
+    del long_k, long_v
+    print("decode kernel head dim 32: lens 0 gives exactly v_new; untouched "
+          "rows bit-identical; repeated calls bit-identical", flush=True)
+
+    # Timing: the B16 case over the 4 layers, unsharded (8 heads) and on a
+    # tp8 shard (1 head), beside the head-dim-64 case and the library.
+    rows_np, lens_np = (np.asarray(x, np.int32) for x in b16)
+    b = len(rows_np)
+    hd64 = [torch.randn(4, 17, 2048, 4, 64, device="cuda", generator=gen)
+            for _ in range(2)]
+    rows64 = np.asarray(list(range(12)) + [16] * 4, np.int32)
+    lens64 = np.asarray([0, 1, 2047] + np.random.default_rng(2).integers(
+        2, 1600, 9).tolist() + [0] * 4, np.int32)
+    index64 = da.WaveIndex(rows64, lens64, 17, 2048, "cuda")
+    q64, kn64, vn64 = (torch.randn(b, 4, 64, device="cuda", generator=gen)
+                       for _ in range(3))
+    calls, results = {}, {}
+    for heads, (k_a, v_a) in arenas.items():
+        index = da.WaveIndex(rows_np, lens_np, R, S, "cuda")
+        q, kn, vn = (torch.randn(b, heads, D, device="cuda", generator=gen)
+                     for _ in range(3))
+        calls[f"hd32 H{heads}"] = [
+            lambda layer=layer, k_a=k_a, v_a=v_a, q=q, kn=kn, vn=vn,
+            index=index: da.decode_wave_attention(k_a, v_a, q, kn, vn, index,
+                                                  layer=layer)
+            for layer in range(L)]
+        results[heads] = (k_a, v_a, q, kn, vn, index)
+    calls["hd64 H4"] = [lambda layer=layer: da.decode_wave_attention(
+        hd64[0], hd64[1], q64, kn64, vn64, index64, layer=layer)
+        for layer in range(L)]
+    k_a, v_a, q, kn, vn, index = results[8]
+    rows_t, lens_t = index.rows.long(), index.lens.long()
+    gathered = [(k_a[layer, rows_t].transpose(1, 2),
+                 v_a[layer, rows_t].transpose(1, 2)) for layer in range(L)]
+    mask = torch.arange(S, device="cuda")[None, :] <= lens_t[:, None]
+    calls["sdpa H8"] = [
+        lambda ck=ck, cv=cv: torch.nn.functional.scaled_dot_product_attention(
+            q[:, :, None], ck, cv, attn_mask=mask[:, None, None, :])
+        for ck, cv in gathered]
+    times = _queued_turns(torch, calls)
+    plain_ms = _queued_ms(torch, lambda: da.decode_wave_attention_plain(
+        k_a.clone(), v_a.clone(), q, kn, vn, index, layer=0))
+    alone_ms = _time_ms(torch, calls["hd32 H8"][0])
+    bound_ms, bound_by, nbytes = _decode_bound(lens_np, b, 8, D)
+    shard_bound, _, shard_bytes = _decode_bound(lens_np, b, 1, D)
+    occupancy = {heads: _decode_occupancy(
+        cuda_build, b, heads, getattr(results[heads][5], "n_split", 1), D)
+        for heads in arenas}
+    bound64, _, _ = _decode_bound(lens64, b, 4, 64)
+    ms = times["hd32 H8"]
+    print(f"decode_wave_attention head dim 32 at B{b} (sum of lens "
+          f"{int(lens_np.sum())}), device ms per call queued over the {L} "
+          f"layers in turns: [4, 65, 128, 8, 32] {ms} ms "
+          f"({nbytes / ms / 1e6:.1f} GB/s, {100 * bound_ms / ms:.1f}% of its "
+          f"bound {bound_ms} ms); the tp8 shard [4, 65, 128, 1, 32] "
+          f"{times['hd32 H1']} ms (bound {shard_bound} ms, {shard_bytes} "
+          f"bytes); head dim 64 [4, 17, 2048, 4, 64] {times['hd64 H4']} ms "
+          f"(bound {bound64} ms); scaled_dot_product_attention on gathered "
+          f"rows {times['sdpa H8']} ms; one call alone, host included, "
+          f"{alone_ms} ms; plain {plain_ms} ms; occupancy at head dim 32: "
+          f"H8 {occupancy[8]}, H1 {occupancy[1]}", flush=True)
+    return {
+        "name": "decode_wave_attention_hd32",
+        "route": "cuda",
+        "source": "client_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "client_tpu/ops/decode_kernel.py:58",
+        "launches": None,  # from the mc phase
+        "max_abs_err": max(errors),
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": times["sdpa H8"],
+        "library_call": "scaled_dot_product_attention over rows gathered "
+                        "beforehand, boolean mask; no scatter, no gather",
+        "shard_ms": times["hd32 H1"],
+        "shard_bound_ms": shard_bound,
+        "hd64_ms_same_turns": times["hd64 H4"],
+        "alone_ms": alone_ms,
+        "head_dim": D,
     }
 
 
@@ -1030,11 +1222,12 @@ def kernel_phase_ring(torch, cuda_build) -> dict:
         calls = {"kernel": lambda: ks.ring_all_reduce(parts),
                  "plain": lambda: ks.ring_all_reduce_plain(parts),
                  "torch.stack(...).sum(0)": lambda: torch.stack(parts).sum(0)}
-        kernel_ms, library_ms = _queued_turns(
-            torch, [calls["kernel"]], [calls["torch.stack(...).sum(0)"]])
-        queued = {"kernel": kernel_ms,
+        turns = _queued_turns(torch, {
+            "kernel": [calls["kernel"]],
+            "torch.stack(...).sum(0)": [calls["torch.stack(...).sum(0)"]]})
+        queued = {"kernel": turns["kernel"],
                   "plain": _queued_ms(torch, calls["plain"]),
-                  "torch.stack(...).sum(0)": library_ms}
+                  "torch.stack(...).sum(0)": turns["torch.stack(...).sum(0)"]}
         alone = {k: _time_ms(torch, f) for k, f in calls.items()}
         timed[n] = tuple(queued.values())
         nbytes = 2 * n * numel * 4  # n partials read, n sums written
@@ -1094,9 +1287,10 @@ def _ring_dlrm_shape(torch, ks, partials) -> dict:
             _check(g.shape == shape and bool(torch.equal(g, w)),
                    f"ring n={n} {list(shape)} shard {i} differs from the plain "
                    f"version by {float((g - w).abs().max())}")
-        ms, library_ms = _queued_turns(
-            torch, [lambda: ks.ring_all_reduce(parts)],
-            [lambda: torch.stack(parts).sum(0)])
+        turns = _queued_turns(torch, {
+            "kernel": [lambda: ks.ring_all_reduce(parts)],
+            "library": [lambda: torch.stack(parts).sum(0)]})
+        ms, library_ms = turns["kernel"], turns["library"]
         plain_ms = _queued_ms(torch, lambda: ks.ring_all_reduce_plain(parts))
         bound_ms, bound_by = _ring_bound(n, math.prod(shape))
         print(f"ring_all_reduce n={n} at {list(shape)} fp32 (DLRM's pooled "
@@ -8204,6 +8398,317 @@ def replica_child(argv: list[str]) -> int:
     return 0
 
 
+# -- mc phase -------------------------------------------------------------------
+
+# The six sharded families, each on a mesh that repeats the one card.
+MC_MESHES = {
+    "bert_base_mc": {"dp": 2, "tp": 4},
+    "bert_long_mc": {"dp": 2, "sp": 4},
+    "tiny_gpt_mc": {"tp": 8},
+    "moe_gpt_mc": {"ep": 2, "tp": 4},
+    "moe_lm_mc": {"dp": 2, "ep": 2, "tp": 2},
+    "pipelined_lm_mc": {"dp": 2, "pp": 4},
+}
+MC_FORWARD = ("bert_base_mc", "bert_long_mc", "moe_lm_mc", "pipelined_lm_mc")
+MC_GPT = ("tiny_gpt_mc", "moe_gpt_mc")
+MC_TOKENS = 16
+# Sharded LM forwards vs their degree-1 plain run on the same weights: fp32
+# throughout (TF32 off), logits of magnitude ~1; the tp partials, the
+# expert outputs and the batch's GEMM shapes sum in another order.
+MC_LM_ATOL = 1e-4
+
+
+def _mc_build(name: str, mesh, device, **kw):
+    """One family on ``mesh`` at its registered widths."""
+    from client_tpu_torch.parallel import serving as sv
+
+    cls = {"bert_base_mc": sv.ShardedBertBackend,
+           "bert_long_mc": sv.LongContextBertBackend,
+           "tiny_gpt_mc": sv.ShardedTinyGptBackend,
+           "moe_gpt_mc": sv.MoeGptBackend,
+           "moe_lm_mc": sv.MoeLmBackend,
+           "pipelined_lm_mc": sv.PipelinedLmBackend}[name]
+    return cls(mesh, device=device, **kw)
+
+
+def _mc_plain(name: str, backend):
+    """The family's unsharded plain path on the same weights: BERT as the
+    plain ``BertBackend`` (einsum attention), the others on a degree-1 mesh
+    (one shard), the GPTs with K2's plain version (``attn_impl=
+    "reference"``)."""
+    from client_tpu_torch.models.bert import BertBackend
+    from client_tpu_torch.parallel import mesh as mm
+
+    if name.startswith("bert"):
+        kw = {"max_batch_size": backend.config.max_batch_size,
+              "seq_len": backend.config.input[0].dims[0]}
+        plain = BertBackend(name=f"{name}_plain", device="cuda", **kw)
+    else:
+        axes = tuple(MC_MESHES[name])
+        extra = {"attn_impl": "reference"} if name in MC_GPT else {}
+        plain = _mc_build(name, mm.make_mesh(axes=axes, devices=["cuda"]),
+                          "cuda", **extra)
+    plain.load_jax_params(backend.params_to_jax())
+    return plain
+
+
+def _mc_inputs(name: str, backend, rng, rows: int) -> dict[str, np.ndarray]:
+    seq = backend.config.input[0].dims[0]
+    if name.startswith("bert"):
+        vocab = backend.tok_embed.shape[0]
+        mask = np.ones((rows, seq), np.int32)
+        for r in range(rows):
+            mask[r, int(rng.integers(seq // 4, seq + 1)):] = 0
+        return {"input_ids": rng.integers(0, vocab, (rows, seq)).astype(
+            np.int32), "attention_mask": mask}
+    return {"INPUT_IDS": rng.integers(0, backend.vocab, (rows, seq)).astype(
+        np.int32)}
+
+
+def _mc_direct(torch, plain, inputs: dict, pad_to: int) -> dict:
+    """``plain`` run directly on ``inputs`` padded with zero rows to
+    ``pad_to`` (the served bucket), the padding dropped from the answer."""
+    rows = next(iter(inputs.values())).shape[0]
+    feed = {k: torch.from_numpy(np.pad(v, [(0, pad_to - rows), (0, 0)])).to(
+        "cuda") for k, v in inputs.items()}
+    with torch.inference_mode():
+        out = plain(feed)
+    return {k: v[:rows].float().cpu().numpy() for k, v in out.items()}
+
+
+def _mc_err(got: dict, want: dict) -> float:
+    return max(float(np.abs(got[k] - want[k]).max()) for k in want)
+
+
+def mc_phase(torch, smi: str) -> dict:
+    """The six ``*_mc`` families on meshes that repeat the card, served over
+    HTTP and gRPC from one engine: forward answers against each family's
+    unsharded plain path run directly on the same weights, streams token
+    for token against the plain path; then the registered degree-1
+    builders loaded by name. K2 (head dim 32) once per tp shard and layer
+    of every decode wave."""
+    from client_tpu_torch.engine import TorchEngine
+    from client_tpu_torch.engine.repository import ModelRepository
+    from client_tpu_torch.models import build_repository
+    from client_tpu_torch.ops import decode_attention as da
+    from client_tpu_torch.ops import flash_attention as fa
+    from client_tpu_torch.parallel import kv_shard as ks
+    from client_tpu_torch.parallel import mesh as mm
+    from client_tpu_torch.server import (
+        GrpcInferenceServer,
+        HttpInferenceServer,
+    )
+
+    meshes = {name: mm.make_mesh(
+        axes=tuple(sizes), axis_sizes=sizes,
+        devices=["cuda"] * int(np.prod(list(sizes.values()))))
+        for name, sizes in MC_MESHES.items()}
+    repo = ModelRepository()
+    for name in MC_MESHES:
+        repo.register(name, lambda d, name=name: _mc_build(
+            name, meshes[name], d))
+    t0 = time.monotonic()
+    engine = TorchEngine(repo, device="cuda")
+    server = HttpInferenceServer(engine, port=0).start()
+    grpc_server = GrpcInferenceServer(engine, port=0).start()
+    backends = {n: engine.repository.get(n).backend for n in MC_MESHES}
+    plains = {n: _mc_plain(n, backends[n]) for n in MC_MESHES}
+    arenas = {n: [list(t.shape) for t in engine._schedulers[n]._arena.k]
+              for n in MC_GPT}
+    print(f"mc: engine, both servers and the 6 plain paths up in "
+          f"{time.monotonic() - t0:.1f} s; meshes "
+          f"{ {n: m.shape for n, m in meshes.items()} } on the card; "
+          f"head-sharded arenas (k per tp shard) {arenas}", flush=True)
+    channel, stub = _grpc_channel(grpc_server.url)
+    rng = np.random.default_rng(19)
+    try:
+        fa.launches = fa.launches_fp32 = da.launches = ks.launches = 0
+        for dim in da.launches_by_head_dim:
+            da.launches_by_head_dim[dim] = 0
+        # Forward families: BERT and the pipelined LM concurrently over
+        # HTTP (dynamic batching forms their batches); moe_lm_mc one
+        # request at a time, since its routing depends on the batch.
+        reqs = [(name, _mc_inputs(name, backends[name], rng, rows), i % 2)
+                for name in MC_FORWARD for i, rows in enumerate((1, 3, 4, 2))]
+        t0 = time.monotonic()
+        together = [r for r in reqs if r[0] != "moe_lm_mc"]
+        with concurrent.futures.ThreadPoolExecutor(len(together)) as pool:
+            got = dict(zip(map(id, together), pool.map(
+                lambda r: _http_infer(server.port, r[0], r[1], bool(r[2])),
+                together)))
+        for r in reqs:
+            if r[0] == "moe_lm_mc":
+                got[id(r)] = _http_infer(server.port, r[0], r[1], bool(r[2]))
+        errs = {n: 0.0 for n in MC_FORWARD}
+        for r in reqs:
+            name, inputs, _ = r
+            status, out = got[id(r)]
+            _check(status == 200, f"{name}: HTTP {status} {out}")
+            rows = next(iter(inputs.values())).shape[0]
+            bucket = engine.repository.get(name).pick_bucket(rows)
+            want = _mc_direct(torch, plains[name], inputs, bucket)
+            _check(all(out[k].shape == want[k].shape for k in want),
+                   f"{name}: shapes {[(k, out[k].shape) for k in out]}")
+            _check(all(np.isfinite(out[k]).all() for k in want),
+                   f"{name}: non-finite output")
+            err = _mc_err(out, want)
+            tol = SERVED_ATOL if name.startswith("bert") else MC_LM_ATOL
+            _check(err <= tol, f"{name} rows {rows}: served vs plain {err} "
+                   f"(tolerance {tol})")
+            errs[name] = max(errs[name], err)
+            # The same request over gRPC, alone.
+            code, gout = _grpc_infer(stub, name, inputs)
+            _check(code.name == "OK", f"{name} over gRPC: {code} {gout}")
+            gerr = _mc_err(gout, want)
+            _check(gerr <= tol, f"{name} over gRPC vs plain {gerr}")
+        print(f"mc: {len(reqs)} forward requests over HTTP and again over "
+              f"gRPC in {time.monotonic() - t0:.1f} s; max error against "
+              f"the unsharded plain path {errs} (tolerances: BERT "
+              f"{SERVED_ATOL}, LMs {MC_LM_ATOL})", flush=True)
+
+        # Generative families: concurrent SSE streams, then gRPC streams.
+        sampled = {"temperature": 0.8, "top_k": 24, "top_p": 0.9}
+        streams = []  # (model, prompt, params)
+        for name in MC_GPT:
+            backend = backends[name]
+            longest = backend.max_seq_len - MC_TOKENS - 1
+            for i, n in enumerate(sorted({1, 3, 9, 20, longest // 2,
+                                          longest})):
+                params = {**sampled, "seed": 500 + i} if i == 2 else {}
+                streams.append((name, rng.integers(
+                    0, backend.vocab, n).tolist(), params))
+        t0 = time.monotonic()
+        with concurrent.futures.ThreadPoolExecutor(len(streams)) as pool:
+            http_results = list(pool.map(lambda r: _stream(
+                server.port, r[0], {
+                    "inputs": [{"name": "INPUT_IDS", "datatype": "INT32",
+                                "shape": [len(r[1])], "data": r[1]}],
+                    "parameters": {"max_tokens": MC_TOKENS, **r[2]}}),
+                streams))
+        http_k2 = da.launches
+        rpcs = [[(f"m{i}", *s[:2], {"max_tokens": MC_TOKENS, **s[2],
+                                     **({"response_coalesce": True}
+                                        if i % 3 == 0 else {})})
+                 for i, s in enumerate(streams) if i % 2 == j]
+                for j in range(2)]
+        by_id = _grpc_stream_rpcs(grpc_server.url, rpcs)
+        grpc_results = [by_id[f"m{i}"][0] for i in range(len(streams))]
+        wall = time.monotonic() - t0
+        k2 = da.launches
+        for (name, prompt, params), (toks, _, _), gtoks in zip(
+                streams, http_results, grpc_results):
+            plain = plains[name]
+            want = _direct_stream(torch, plain, plain.init_arena(1), prompt,
+                                  MC_TOKENS, params)
+            _check(toks == want and gtoks == want,
+                   f"{name} prompt of {len(prompt)} {params or 'greedy'}: "
+                   f"SSE {toks}, gRPC {gtoks}, plain {want}")
+        per_wave = {n: backends[n].n_layers * meshes[n].shape["tp"]
+                    for n in MC_GPT}
+        step = math.gcd(*per_wave.values())
+        _check(k2 > http_k2 > 0 and http_k2 % step == 0 and k2 % step == 0,
+               f"K2 launches {http_k2} over SSE, {k2} with gRPC: not "
+               f"multiples of {step}")
+        _check(da.launches_by_head_dim.get(64, 0) == 0 and
+               da.launches_by_head_dim.get(32, 0) == k2,
+               f"K2 by head dim {da.launches_by_head_dim}")
+        _check((fa.launches, fa.launches_fp32, ks.launches) == (0, 0, 0),
+               "a kernel other than K2 ran on the mc path: K1 "
+               f"{fa.launches}/{fa.launches_fp32}, K3 {ks.launches}")
+        n_tokens = sum(len(t) for t, _, _ in http_results) + sum(
+            map(len, grpc_results))
+        print(f"mc: {len(streams)} streams over SSE and again over gRPC "
+              f"(2 RPCs), {n_tokens} tokens in {wall:.1f} s, every one "
+              f"equal to the plain path token for token; K2 (head dim 32) "
+              f"launched {k2} times ({http_k2} over SSE), {per_wave} per "
+              f"decode wave; {smi} (printed, not claimed)", flush=True)
+
+        # One decode wave run directly: K2 exactly once per tp shard and
+        # layer.
+        for name in MC_GPT:
+            backend = backends[name]
+            arena = backend.init_arena(2)
+            lanes = backend.lane_params([0, 0], [0.0, 0.0], [0, 0],
+                                        [1.0, 1.0])
+            before = da.launches
+            backend.decode(arena, backend.wave_index(arena, [0, 1], [3, 0]),
+                           lanes, False)
+            _check(da.launches - before == per_wave[name],
+                   f"{name}: one wave launched K2 {da.launches - before} "
+                   f"times, not {per_wave[name]}")
+        direct_k2 = da.launches - k2
+
+        # The registered degree-1 builders, loaded by name.
+        t0 = time.monotonic()
+        reg = TorchEngine(build_repository(list(MC_MESHES)), device="cuda")
+        try:
+            for name in MC_FORWARD:
+                inputs = _mc_inputs(name, backends[name], rng, 2)
+                out = reg.infer(_infer_request(name, inputs),
+                                timeout_s=600).outputs
+                mine = reg.repository.get(name).backend
+                _check(mine.mesh.size == 1, f"{name}: mesh {mine.mesh}")
+                want = _mc_direct(torch, plains[name], inputs, 2)
+                tol = SERVED_ATOL if name.startswith("bert") else MC_LM_ATOL
+                err = _mc_err(out, want)
+                _check(err <= tol, f"registered {name} vs the sharded "
+                       f"family's plain path: {err}")
+            reg_before = da.launches
+            for name in MC_GPT:
+                prompt = [1, 2, 3]
+                toks = _engine_stream(reg, name, prompt, MC_TOKENS)
+                plain = plains[name]
+                want = _direct_stream(torch, plain, plain.init_arena(1),
+                                      prompt, MC_TOKENS, {})
+                _check(toks == want, f"registered {name}: {toks} != {want}")
+            reg_k2 = da.launches - reg_before
+            _check(reg_k2 > 0, "the registered GPTs launched no K2")
+        finally:
+            reg.shutdown()
+        print(f"mc: the 6 registered builders (degree-1 meshes) loaded by "
+              f"name and answered like the sharded families' weights in "
+              f"{time.monotonic() - t0:.1f} s; K2 {reg_k2} launches",
+              flush=True)
+        return {"decode_wave_attention_hd32": k2 + direct_k2 + reg_k2,
+                "http_launches": http_k2}
+    finally:
+        channel.close()
+        grpc_server.stop()
+        server.stop()
+        engine.shutdown()
+
+
+def _infer_request(model: str, inputs: dict):
+    from client_tpu_torch.engine import InferRequest
+
+    return InferRequest(model_name=model, inputs=dict(inputs))
+
+
+def _engine_stream(engine, model: str, prompt: list, n: int) -> list[int]:
+    """One greedy stream straight through ``engine.async_infer``."""
+    import threading
+
+    from client_tpu_torch.engine import InferRequest
+
+    toks, errs, done = [], [], threading.Event()
+
+    def cb(resp):
+        if resp.error is not None:
+            errs.append(resp.error)
+            done.set()
+        elif resp.final:
+            done.set()
+        else:
+            toks.append(int(resp.outputs["TOKEN"][0]))
+
+    engine.async_infer(InferRequest(
+        model_name=model, inputs={"INPUT_IDS": np.asarray(prompt, np.int32)},
+        parameters={"max_tokens": n}), cb)
+    _check(done.wait(600), f"{model}: stream stalled")
+    _check(not errs, f"{model}: {errs}")
+    return toks
+
+
 def wave_phase(torch, smi: str) -> None:
     """``--kernels``: the per-wave host/device split (:func:`_wave_split`)
     of ``tiny_gpt_long`` at its registered size, built directly, over one
@@ -8231,8 +8736,10 @@ def main(argv: list[str]) -> int:
     import torch
 
     kernels_only = argv == ["--kernels"]
-    if argv and not kernels_only:
-        print("usage: python3 chip_smoke.py [--kernels]", file=sys.stderr)
+    mc_only = argv == ["--mc"]
+    if argv and not (kernels_only or mc_only):
+        print("usage: python3 chip_smoke.py [--kernels | --mc]",
+              file=sys.stderr)
         return 2
 
     if not torch.cuda.is_available():
@@ -8259,14 +8766,24 @@ def main(argv: list[str]) -> int:
           flush=True)
     census = _sass_census(cuda_build)
 
+    if mc_only:
+        hd32 = kernel_phase_decode_hd32(torch, cuda_build)
+        mc = mc_phase(torch, smi)
+        hd32["launches"] = mc["decode_wave_attention_hd32"]
+        hd32["http_launches"] = mc["http_launches"]
+        print(json.dumps({"kernels": [hd32]}), flush=True)
+        print(smi, flush=True)
+        return 0
     kernels = [kernel_phase(torch), kernel_phase_fp32(torch),
                kernel_phase_decode(torch, cuda_build),
                kernel_phase_ring(torch, cuda_build)]
     kernels[0]["sass"], kernels[1]["sass"] = census["bf16"], census["fp32"]
+    # K2's head-dim-32 instantiation, its own entry of the kernels line.
+    hd32 = kernel_phase_decode_hd32(torch, cuda_build)
     torch.cuda.empty_cache()
     if kernels_only:
         wave_phase(torch, smi)
-        print(json.dumps({"kernels": kernels}), flush=True)
+        print(json.dumps({"kernels": kernels + [hd32]}), flush=True)
         print(smi, flush=True)
         return 0
     # Each path's counts: the HTTP requests alone ("http_launches"), then
@@ -8353,6 +8870,13 @@ def main(argv: list[str]) -> int:
     for kernel in kernels:
         kernel["router_launches"] = routed[kernel["name"]]
         kernel["launches"] += routed[kernel["name"]]
+    torch.cuda.empty_cache()
+    # The six *_mc families on meshes that repeat the card: K2 at head dim
+    # 32, once per tp shard and layer of every decode wave.
+    mc = mc_phase(torch, smi)
+    hd32["launches"] = mc["decode_wave_attention_hd32"]
+    hd32["http_launches"] = mc["http_launches"]
+    kernels.append(hd32)
     for kernel in kernels:
         # Shorter aliases of the two keys above.
         kernel["launched"] = kernel["launches"]

@@ -30,15 +30,17 @@
 // `split_plan`), so the longest share stays near 256 keys. Each CTA
 // streams its share through a ring of kStages shared-memory tiles of 32
 // positions, each filled by two TMA boxes (the arena seen as a 2-D
-// [L * R * S, H * 64] fp32 tensor, a box of 32 positions of one head from
-// K and one from V, 16 KB) that complete on the stage's mbarrier; thread
-// 0 issues them, with no registers held for the copies. Its 256 threads
-// form 32 groups of 8 lanes, one key of the tile per group, each lane 8 of
-// the 64 dims (two 16-byte shared loads, conflict free); each group keeps
+// [L * R * S, H * D] fp32 tensor, a box of 32 positions of one head from
+// K and one from V, 16 KB at D = 64) that complete on the stage's
+// mbarrier; thread 0 issues them, with no registers held for the copies.
+// Its 256 threads form 32 groups of 8 lanes, one key of the tile per
+// group, each lane D / 8 of the D dims (D / 32 16-byte shared loads: the
+// 8 lanes of a group read one 128-byte stretch of the key's row at a time,
+// conflict free); each group keeps
 // its own online softmax (one expf per key: whichever of the score and the
 // running max is larger gets the factor 1). Groups merge through warp
 // shuffles, warps through shared memory, and every CTA stores its partial
-// (m, l, acc[64]) into rank 0's shared memory over distributed shared
+// (m, l, acc[D]) into rank 0's shared memory over distributed shared
 // memory, behind a cluster barrier that says every CTA has started. After
 // a second barrier rank 0 merges the partials in rank order (so the result
 // does not depend on timing), folds in the new token (score q . k_new,
@@ -59,6 +61,13 @@
 // lanes all point at the dummy row with lens == 0: they read nothing, and
 // their concurrent stores to one junk slot race harmlessly, since no lane
 // ever reads the dummy row.
+//
+// Head dim. D is a template parameter, instantiated for 32 and 64 (the
+// served GPTs' head dims: tiny_gpt and tiny_gpt_long at 64; tiny_gpt_mc
+// and moe_gpt_mc at 32); the entry point refuses any other. D fixes the
+// shared-memory tiles, the float4s each lane holds (D / 32), the TMA box
+// and the DSMEM partials; the 8-lane key groups and the 32-key tiles stay,
+// so at D = 32 a stage is 8 KB and each lane reads one float4 of a key.
 
 #include <cooperative_groups.h>
 #include <cuda.h>
@@ -72,16 +81,15 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kHeadDim = 64;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kGroupLanes = 8;                   // lanes sharing one key
 constexpr int kTileKeys = kThreads / kGroupLanes;  // one key per group
 constexpr int kStages = 2;
 constexpr int kMaxSplit = 8;                     // the portable cluster size
-constexpr uint32_t kRowBytes = kHeadDim * 4;     // one position of one head
 constexpr float kNegInf = -1e30f;                // the TPU kernel's mask
 
+template <int kHeadDim>
 struct Smem {  // at a 128-byte boundary, as TMA's destination needs
   float k[kStages][kTileKeys][kHeadDim];
   float v[kStages][kTileKeys][kHeadDim];
@@ -95,7 +103,8 @@ struct Smem {  // at a 128-byte boundary, as TMA's destination needs
   float score_new;
   uint64_t full[kStages];
 };
-constexpr int kSmemBytes = sizeof(Smem) + 128;  // + room to align
+template <int kHeadDim>
+constexpr int kSmemBytes = sizeof(Smem<kHeadDim>) + 128;  // + room to align
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -159,16 +168,22 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-__device__ __forceinline__ float dot8(float4 qa, float4 qb, float4 ka,
-                                      float4 kb) {
-  float s = qa.x * ka.x;
-  s = fmaf(qa.y, ka.y, s);
-  s = fmaf(qa.z, ka.z, s);
-  s = fmaf(qa.w, ka.w, s);
-  s = fmaf(qb.x, kb.x, s);
-  s = fmaf(qb.y, kb.y, s);
-  s = fmaf(qb.z, kb.z, s);
-  return fmaf(qb.w, kb.w, s);
+// q . k over a lane's kVecs float4s, accumulated in dim order.
+template <int kVecs>
+__device__ __forceinline__ float dot(const float4 (&q)[kVecs],
+                                     const float4 (&k)[kVecs]) {
+  float s = q[0].x * k[0].x;
+  s = fmaf(q[0].y, k[0].y, s);
+  s = fmaf(q[0].z, k[0].z, s);
+  s = fmaf(q[0].w, k[0].w, s);
+#pragma unroll
+  for (int j = 1; j < kVecs; ++j) {
+    s = fmaf(q[j].x, k[j].x, s);
+    s = fmaf(q[j].y, k[j].y, s);
+    s = fmaf(q[j].z, k[j].z, s);
+    s = fmaf(q[j].w, k[j].w, s);
+  }
+  return s;
 }
 
 __device__ __forceinline__ float4 scale_add(float4 acc, float c, float p,
@@ -193,6 +208,7 @@ __device__ __forceinline__ void store4(float* dst, float4 a) {
   dst[0] = a.x; dst[1] = a.y; dst[2] = a.z; dst[3] = a.w;
 }
 
+template <int kHeadDim>
 __global__ void __launch_bounds__(kThreads)
     decode_wave_kernel(const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
@@ -204,8 +220,11 @@ __global__ void __launch_bounds__(kThreads)
                        const int* __restrict__ lens, float* __restrict__ o,
                        int layer, int n_rows, int seq, int heads,
                        float sm_scale) {
+  constexpr int kVecs = kHeadDim / 32;  // float4s a lane holds of a key
+  constexpr int kVec4s = kHeadDim / 4;  // float4s of one position
+  constexpr uint32_t kRowBytes = kHeadDim * 4;  // one position of one head
   extern __shared__ unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(
+  Smem<kHeadDim>& sm = *reinterpret_cast<Smem<kHeadDim>*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -217,7 +236,8 @@ __global__ void __launch_bounds__(kThreads)
   const int warp = tid / 32;
   const int lane = tid % 32;
   const int group = tid / kGroupLanes;
-  const int d0 = (tid % kGroupLanes) * 4;  // dims d0..d0+3 and 32+d0..32+d0+3
+  // Dims 32 * j + d0 .. 32 * j + d0 + 3 for j < kVecs.
+  const int d0 = (tid % kGroupLanes) * 4;
 
   const int64_t lane_off = ((int64_t)b * heads + h) * kHeadDim;
   float* ob = o + lane_off;
@@ -228,19 +248,27 @@ __global__ void __launch_bounds__(kThreads)
   // Loads that do not depend on the lane's row are issued before it is
   // known, so their latency overlaps that of rows[b] and lens[b]. Rank 0
   // also takes the new token: thread 32 + i holds float4 i of k_new (i <
-  // 16) or of v_new (16 <= i < 32) for the scatter, warp 2 two dims of q
-  // and of k_new for the score, and thread d < 64 v_new[d] for the fold.
-  const float4 qa = *reinterpret_cast<const float4*>(q + lane_off + d0);
-  const float4 qb = *reinterpret_cast<const float4*>(q + lane_off + 32 + d0);
+  // D / 4) or of v_new (D / 4 <= i < D / 2) for the scatter, warp 2 D / 32
+  // dims of q and of k_new for the score, and thread d < D v_new[d] for
+  // the fold.
+  float4 qv[kVecs];
+#pragma unroll
+  for (int j = 0; j < kVecs; ++j) {
+    qv[j] = *reinterpret_cast<const float4*>(q + lane_off + 32 * j + d0);
+  }
   float4 slot = make_float4(0.f, 0.f, 0.f, 0.f);
   float score_new = 0.0f, v_fold = 0.0f;
   if (rank == 0) {
     if (warp == 1) {
-      slot = reinterpret_cast<const float4*>(lane < 16 ? k_new + lane_off
-                                                       : v_new + lane_off)[lane % 16];
+      if (lane < 2 * kVec4s) {
+        slot = reinterpret_cast<const float4*>(
+            lane < kVec4s ? k_new + lane_off : v_new + lane_off)[lane % kVec4s];
+      }
     } else if (warp == 2) {
-      score_new = q[lane_off + 2 * lane] * k_new[lane_off + 2 * lane] +
-                  q[lane_off + 2 * lane + 1] * k_new[lane_off + 2 * lane + 1];
+      const int64_t e0 = lane_off + kVecs * lane;
+      score_new = q[e0] * k_new[e0];
+#pragma unroll
+      for (int j = 1; j < kVecs; ++j) score_new += q[e0 + j] * k_new[e0 + j];
     }
     if (tid < kHeadDim) v_fold = v_new[lane_off + tid];
   }
@@ -277,15 +305,15 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   if (rank == 0) {
-    if (warp == 1) {
+    if (warp == 1 && lane < 2 * kVec4s) {
       // The scatter: the one slot (layer, row, len, h, :) of K (lanes 0 to
-      // 15) and of V. Positions < len, the only ones used, are never
-      // written by this launch.
-      float* arena = lane < 16 ? k_arena : v_arena;
+      // D / 4 - 1) and of V. Positions < len, the only ones used, are
+      // never written by this launch.
+      float* arena = lane < kVec4s ? k_arena : v_arena;
       const int64_t slot_off =
           (((int64_t)layer * n_rows + row) * seq + len) * heads * kHeadDim +
           (int64_t)h * kHeadDim;
-      reinterpret_cast<float4*>(arena + slot_off)[lane % 16] = slot;
+      reinterpret_cast<float4*>(arena + slot_off)[lane % kVec4s] = slot;
     } else if (warp == 2) {  // the new token's score, q . k_new
 #pragma unroll
       for (int off = 16; off > 0; off /= 2) {
@@ -300,7 +328,9 @@ __global__ void __launch_bounds__(kThreads)
   cluster_arrive_relaxed();
 
   float m = kNegInf, l = 0.0f;
-  float4 acc_a = make_float4(0.f, 0.f, 0.f, 0.f), acc_b = acc_a;
+  float4 acc[kVecs];
+#pragma unroll
+  for (int j = 0; j < kVecs; ++j) acc[j] = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int t = 0; t < n_tiles; ++t) {
     const int s = t % kStages;
     mbar_wait(&sm.full[s], (t / kStages) & 1);
@@ -308,14 +338,20 @@ __global__ void __launch_bounds__(kThreads)
     // its stage row holds positions at or past the share's end.
     const bool valid = group < min(kTileKeys, end - start - t * kTileKeys);
     float score = 0.0f;
-    float4 va, vb4;
+    float4 vv[kVecs];
     if (valid) {
       const float* kr = sm.k[s][group];
-      score = dot8(qa, qb, *reinterpret_cast<const float4*>(kr + d0),
-                   *reinterpret_cast<const float4*>(kr + 32 + d0));
       const float* vr = sm.v[s][group];
-      va = *reinterpret_cast<const float4*>(vr + d0);
-      vb4 = *reinterpret_cast<const float4*>(vr + 32 + d0);
+      float4 kv[kVecs];
+#pragma unroll
+      for (int j = 0; j < kVecs; ++j) {
+        kv[j] = *reinterpret_cast<const float4*>(kr + 32 * j + d0);
+      }
+      score = dot<kVecs>(qv, kv);
+#pragma unroll
+      for (int j = 0; j < kVecs; ++j) {
+        vv[j] = *reinterpret_cast<const float4*>(vr + 32 * j + d0);
+      }
     }
     score += __shfl_xor_sync(0xffffffffu, score, 1);
     score += __shfl_xor_sync(0xffffffffu, score, 2);
@@ -332,8 +368,8 @@ __global__ void __launch_bounds__(kThreads)
         p = expf(score - m);
       }
       l = l * corr + p;
-      acc_a = scale_add(acc_a, corr, p, va);
-      acc_b = scale_add(acc_b, corr, p, vb4);
+#pragma unroll
+      for (int j = 0; j < kVecs; ++j) acc[j] = scale_add(acc[j], corr, p, vv[j]);
     }
     __syncthreads();  // every thread is done with stage s
     if (tid == 0 && t + kStages < n_tiles) issue(t + kStages);
@@ -346,11 +382,13 @@ __global__ void __launch_bounds__(kThreads)
   l *= c;
   l += __shfl_xor_sync(0xffffffffu, l, 8);
   l += __shfl_xor_sync(0xffffffffu, l, 16);
-  acc_a = shfl_add(shfl_add(scale(acc_a, c), 8), 16);
-  acc_b = shfl_add(shfl_add(scale(acc_b, c), 8), 16);
+#pragma unroll
+  for (int j = 0; j < kVecs; ++j) {
+    acc[j] = shfl_add(shfl_add(scale(acc[j], c), 8), 16);
+  }
   if (lane < kGroupLanes) {
-    store4(&sm.warp_acc[warp][d0], acc_a);
-    store4(&sm.warp_acc[warp][32 + d0], acc_b);
+#pragma unroll
+    for (int j = 0; j < kVecs; ++j) store4(&sm.warp_acc[warp][32 * j + d0], acc[j]);
   }
   if (lane == 0) {
     sm.warp_m[warp] = mw;
@@ -372,7 +410,7 @@ __global__ void __launch_bounds__(kThreads)
       ll = fmaf(sm.warp_l[w], cw, ll);
       aa = fmaf(sm.warp_acc[w][tid], cw, aa);
     }
-    Smem* root = cluster.map_shared_rank(&sm, 0);
+    Smem<kHeadDim>* root = cluster.map_shared_rank(&sm, 0);
     root->part_acc[rank][tid] = aa;
     if (tid == 0) {
       root->part_m[rank] = mm;
@@ -410,6 +448,7 @@ __global__ void __launch_bounds__(kThreads)
 // Error codes of this file beyond cudaError_t's range.
 constexpr int kErrNoEncoder = 100001;  // no cuTensorMapEncodeTiled
 constexpr int kErrTensorMap = 100002;  // it refused a tensor map
+constexpr int kErrHeadDim = 100003;    // a head dim not instantiated
 
 PFN_cuTensorMapEncodeTiled tensor_map_encoder() {
   static PFN_cuTensorMapEncodeTiled fn = []() -> PFN_cuTensorMapEncodeTiled {
@@ -425,12 +464,13 @@ PFN_cuTensorMapEncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// The arena [L, R, S, H, 64] fp32 as a 2-D [L * R * S, H * 64] tensor,
+// The arena [L, R, S, H, D] fp32 as a 2-D [L * R * S, H * D] tensor,
 // boxes of 32 positions of one head, no swizzle.
+template <int kHeadDim>
 bool encode_arena_map(CUtensorMap* map, const void* base, int64_t positions,
                       int heads) {
   cuuint64_t dims[2] = {(cuuint64_t)heads * kHeadDim, (cuuint64_t)positions};
-  cuuint64_t strides[1] = {(cuuint64_t)heads * kRowBytes};
+  cuuint64_t strides[1] = {(cuuint64_t)heads * kHeadDim * 4};
   cuuint32_t box[2] = {kHeadDim, kTileKeys};
   cuuint32_t elem_strides[2] = {1, 1};
   return tensor_map_encoder()(
@@ -440,28 +480,30 @@ bool encode_arena_map(CUtensorMap* map, const void* base, int64_t positions,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// Opt the kernel in to its dynamic shared memory, once per device (two
-// threads may both do it; that is harmless).
+// Opt the kernel in to its dynamic shared memory, once per device and head
+// dim (two threads may both do it; that is harmless).
+template <int kHeadDim>
 cudaError_t opt_in() {
   static std::atomic<bool> done[64];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess || (dev < 64 && done[dev].load())) return err;
-  err = cudaFuncSetAttribute(decode_wave_kernel,
+  err = cudaFuncSetAttribute(decode_wave_kernel<kHeadDim>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kSmemBytes);
+                             kSmemBytes<kHeadDim>);
   if (err == cudaSuccess && dev < 64) done[dev].store(true);
   return err;
 }
 
 // The launch: B * H clusters of n_split CTAs along x. `attr` outlives it.
+template <int kHeadDim>
 cudaLaunchConfig_t launch_config(int batch, int heads, int n_split,
                                  cudaStream_t stream,
                                  cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(n_split, heads, batch);
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = kSmemBytes;
+  cfg.dynamicSmemBytes = kSmemBytes<kHeadDim>;
   cfg.stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = n_split;
@@ -472,56 +514,90 @@ cudaLaunchConfig_t launch_config(int batch, int heads, int n_split,
   return cfg;
 }
 
+template <int kHeadDim>
+int launch(void* k_arena, void* v_arena, const void* q, const void* k_new,
+           const void* v_new, const void* rows, const void* lens, void* o,
+           int batch, int heads, int n_layers, int layer, int n_rows, int seq,
+           int n_split, float sm_scale, void* stream) {
+  if (tensor_map_encoder() == nullptr) return kErrNoEncoder;
+  const int64_t positions = (int64_t)n_layers * n_rows * seq;
+  CUtensorMap tm_k, tm_v;
+  if (positions > INT32_MAX ||
+      !encode_arena_map<kHeadDim>(&tm_k, k_arena, positions, heads) ||
+      !encode_arena_map<kHeadDim>(&tm_v, v_arena, positions, heads)) {
+    return kErrTensorMap;
+  }
+  cudaError_t err = opt_in<kHeadDim>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config<kHeadDim>(
+      batch, heads, n_split, static_cast<cudaStream_t>(stream), &attr);
+  err = cudaLaunchKernelEx(
+      &cfg, decode_wave_kernel<kHeadDim>, tm_k, tm_v,
+      static_cast<float*>(k_arena), static_cast<float*>(v_arena),
+      static_cast<const float*>(q), static_cast<const float*>(k_new),
+      static_cast<const float*>(v_new), static_cast<const int*>(rows),
+      static_cast<const int*>(lens), static_cast<float*>(o), layer, n_rows,
+      seq, heads, sm_scale);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
+}
+
+template <int kHeadDim>
+int occupancy(int batch, int heads, int n_split, int* smem_bytes,
+              int* max_clusters) {
+  cudaError_t err = opt_in<kHeadDim>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      launch_config<kHeadDim>(batch, heads, n_split, nullptr, &attr);
+  *smem_bytes = kSmemBytes<kHeadDim>;
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(
+      max_clusters, decode_wave_kernel<kHeadDim>, &cfg));
+}
+
 }  // namespace
 
 // Launch on `stream` as B * H clusters of n_split CTAs; returns 0 when
 // launched, else the runtime's error (a cluster size the card refuses
 // included) or one of this file's codes (client_tpu_cuda_error_string
-// names both). The arena is [L, R, S, H, 64] fp32 at a 16-byte aligned
-// address with L * R * S < 2^31, q / k_new / v_new / o [B, H, 64] fp32,
-// rows and lens [B] int32, all contiguous on the card (the Python wrapper
-// checks).
+// names both; a head dim other than 32 or 64 is one). The arena is [L, R,
+// S, H, D] fp32 at a 16-byte aligned address with L * R * S < 2^31, q /
+// k_new / v_new / o [B, H, D] fp32, rows and lens [B] int32, all
+// contiguous on the card (the Python wrapper checks).
 extern "C" int client_tpu_decode_wave_fwd(
     void* k_arena, void* v_arena, const void* q, const void* k_new,
     const void* v_new, const void* rows, const void* lens, void* o,
-    int batch, int heads, int n_layers, int layer, int n_rows, int seq,
-    int n_split, float sm_scale, void* stream) {
-  if (tensor_map_encoder() == nullptr) return kErrNoEncoder;
-  const int64_t positions = (int64_t)n_layers * n_rows * seq;
-  CUtensorMap tm_k, tm_v;
-  if (positions > INT32_MAX ||
-      !encode_arena_map(&tm_k, k_arena, positions, heads) ||
-      !encode_arena_map(&tm_v, v_arena, positions, heads)) {
-    return kErrTensorMap;
+    int batch, int heads, int head_dim, int n_layers, int layer, int n_rows,
+    int seq, int n_split, float sm_scale, void* stream) {
+  switch (head_dim) {
+    case 32:
+      return launch<32>(k_arena, v_arena, q, k_new, v_new, rows, lens, o,
+                        batch, heads, n_layers, layer, n_rows, seq, n_split,
+                        sm_scale, stream);
+    case 64:
+      return launch<64>(k_arena, v_arena, q, k_new, v_new, rows, lens, o,
+                        batch, heads, n_layers, layer, n_rows, seq, n_split,
+                        sm_scale, stream);
+    default:
+      return kErrHeadDim;
   }
-  cudaError_t err = opt_in();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = launch_config(
-      batch, heads, n_split, static_cast<cudaStream_t>(stream), &attr);
-  err = cudaLaunchKernelEx(
-      &cfg, decode_wave_kernel, tm_k, tm_v, static_cast<float*>(k_arena),
-      static_cast<float*>(v_arena), static_cast<const float*>(q),
-      static_cast<const float*>(k_new), static_cast<const float*>(v_new),
-      static_cast<const int*>(rows), static_cast<const int*>(lens),
-      static_cast<float*>(o), layer, n_rows, seq, heads, sm_scale);
-  const cudaError_t last = cudaGetLastError();
-  return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
 // For reports: the kernel's dynamic shared memory per CTA, and how many
 // clusters of n_split CTAs the current device holds at once.
 extern "C" int client_tpu_decode_wave_occupancy(int batch, int heads,
-                                                int n_split, int* smem_bytes,
+                                                int n_split, int head_dim,
+                                                int* smem_bytes,
                                                 int* max_clusters) {
-  cudaError_t err = opt_in();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg =
-      launch_config(batch, heads, n_split, nullptr, &attr);
-  *smem_bytes = kSmemBytes;
-  return static_cast<int>(
-      cudaOccupancyMaxActiveClusters(max_clusters, decode_wave_kernel, &cfg));
+  switch (head_dim) {
+    case 32:
+      return occupancy<32>(batch, heads, n_split, smem_bytes, max_clusters);
+    case 64:
+      return occupancy<64>(batch, heads, n_split, smem_bytes, max_clusters);
+    default:
+      return kErrHeadDim;
+  }
 }
 
 extern "C" const char* client_tpu_cuda_error_string(int code) {
@@ -530,6 +606,9 @@ extern "C" const char* client_tpu_cuda_error_string(int code) {
   }
   if (code == kErrTensorMap) {
     return "cuTensorMapEncodeTiled refused a KV arena tensor map";
+  }
+  if (code == kErrHeadDim) {
+    return "the decode kernel is built for head dims 32 and 64 only";
   }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

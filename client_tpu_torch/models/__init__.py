@@ -35,6 +35,8 @@ def _import_all() -> None:
         ssd,
         vision,
     )
+    # The sharded (*_mc) families register themselves, as in the JAX zoo.
+    from client_tpu_torch.parallel import serving  # noqa: F401
 
 
 def model_names() -> list[str]:

@@ -54,6 +54,30 @@ def einsum_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def split_qkv(qkv: torch.Tensor, heads: int, head_dim: int,
+              head_major: bool = False):
+    """q, k, v ``[B, S, heads, head_dim]`` of a fused projection ``[B, S,
+    3 * heads * head_dim]``: qkv-major ``(3, heads, head_dim)`` columns, the
+    default, or head-major ``(heads, 3, head_dim)``, the layout a tp split
+    of the columns cuts into whole heads (``parallel/serving.py``)."""
+    b, s, _ = qkv.shape
+    if head_major:
+        qkv = qkv.view(b, s, heads, 3, head_dim)
+        return qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
+    qkv = qkv.view(b, s, 3, heads, head_dim)
+    return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+
+
+def head_major_perm(hidden: int, n_heads: int) -> torch.Tensor:
+    """The fused QKV's column permutation from qkv-major to head-major:
+    head-major column ``i`` is qkv-major column ``perm[i]``."""
+    hd = hidden // n_heads
+    i = torch.arange(3 * hidden)
+    head, rem = i // (3 * hd), i % (3 * hd)
+    which, d = rem // hd, rem % hd
+    return which * hidden + head * hd + d
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu``'s default, the tanh approximation (torch's own
     default is the erf form)."""
@@ -157,8 +181,7 @@ class BertBackend(ModelBackend):
         x = _layer_norm(x, self.embed_ln)
         for lp in self.layers:
             x = _layer_norm(x + self._attention(x, bias2d, lp, attend), lp.ln1)
-            y = gelu(lp.w1(x))
-            x = _layer_norm(x + lp.w2(y), lp.ln2)
+            x = _layer_norm(x + self._ffn(x, lp), lp.ln2)
         cls = x[:, 0, :].float()
         pooled = torch.tanh(F.linear(cls, self.pooler.weight.float(),
                                      self.pooler.bias.float()))
@@ -168,9 +191,11 @@ class BertBackend(ModelBackend):
 
     def _attention(self, x, bias2d, lp: BertLayer, attend) -> torch.Tensor:
         b, s, h = x.shape
-        qkv = lp.wqkv(x).view(b, s, 3, self.n_heads, self.head_dim)
-        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        q, k, v = split_qkv(lp.wqkv(x), self.n_heads, self.head_dim)
         return lp.wo(attend(q, k, v, bias2d).reshape(b, s, h))
+
+    def _ffn(self, x, lp: BertLayer) -> torch.Tensor:
+        return lp.w2(gelu(lp.w1(x)))
 
     def load_jax_params(self, tree) -> None:
         """Take the JAX ``BertBackend``'s params (``make_apply_params()[1]``,

@@ -166,7 +166,7 @@ class TinyGptBackend(ModelBackend):
         with torch.device("meta"):
             self.embed = nn.Parameter(torch.empty(vocab, d_model))
             self.pos = nn.Parameter(torch.empty(max_seq_len, d_model))
-            self.layers = nn.ModuleList(GptLayer(d_model, d_ff)
+            self.layers = nn.ModuleList(self._make_layer(d_model, d_ff)
                                         for _ in range(n_layers))
             self.lnf = nn.LayerNorm(d_model, eps=1e-5)
             self.head = nn.Linear(d_model, vocab, bias=False)
@@ -185,6 +185,9 @@ class TinyGptBackend(ModelBackend):
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+    def _make_layer(self, d_model: int, d_ff: int) -> nn.Module:
+        return GptLayer(d_model, d_ff)
 
     # -- params ---------------------------------------------------------------
 
@@ -260,6 +263,25 @@ class TinyGptBackend(ModelBackend):
             x = x + lp.wo(o.reshape(b, n, self.d_model))
             x = x + lp.ffn(x)
         return x
+
+    def _kv_writer(self, arena, index, n: int):
+        """The prefill's ``on_kv(li, k, v)``: each layer's K/V of the
+        prompts into their arena rows, positions ``:n``."""
+        rows = index.rows.long()
+
+        def on_kv(li, k, v):
+            if self.kv_shards == 1:
+                arena.k[li, rows, :n] = k
+                arena.v[li, rows, :n] = v
+                return
+            # Every shard takes every lane; the lanes it does not own land
+            # on its junk row, which is never read.
+            for k_sh, v_sh, local in zip(arena.k, arena.v, index.shards):
+                loc = local.rows.long()
+                k_sh[li, loc, :n] = k.to(k_sh.device)
+                v_sh[li, loc, :n] = v.to(v_sh.device)
+
+        return on_kv
 
     def _embed(self, ids: torch.Tensor) -> torch.Tensor:
         return self.embed[ids.long()] + self.pos[:ids.shape[-1]]
@@ -344,21 +366,8 @@ class TinyGptBackend(ModelBackend):
         ``arena.tok``; returns the first tokens ``[B]`` int32, sampled with
         ``ctx_len = lens``."""
         rows = index.rows.long()
-        n = ids.shape[1]
-
-        def on_kv(li, k, v):
-            if self.kv_shards == 1:
-                arena.k[li, rows, :n] = k
-                arena.v[li, rows, :n] = v
-                return
-            # Every shard takes every lane; the lanes it does not own land
-            # on its junk row, which is never read.
-            for k_sh, v_sh, local in zip(arena.k, arena.v, index.shards):
-                loc = local.rows.long()
-                k_sh[li, loc, :n] = k.to(k_sh.device)
-                v_sh[li, loc, :n] = v.to(v_sh.device)
-
-        x = self._stack(self._embed(ids), on_kv)
+        x = self._stack(self._embed(ids),
+                        self._kv_writer(arena, index, ids.shape[1]))
         lens = index.lens.long()
         last = x[torch.arange(x.shape[0], device=x.device), lens - 1]
         logits = self.head(self.lnf(last))

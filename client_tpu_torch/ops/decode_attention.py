@@ -10,8 +10,9 @@ place, as the JAX version's donated, aliased arena is.
 :func:`decode_wave_attention` launches the CUDA kernel in
 ``client_tpu_torch/csrc/decode_attention.cu`` for tensors on the card and
 takes :func:`decode_wave_attention_plain` only for tensors on the CPU. The
-kernel takes head dim 64 only and raises on anything else. ``launches``
-counts kernel launches. Each call reports its work (:func:`work`) to a
+kernel is built for head dims 32 and 64 (``HEAD_DIMS``) and raises on any
+other. ``launches`` counts kernel launches, and ``launches_by_head_dim``
+each instantiation's. Each call reports its work (:func:`work`) to a
 roofline capture running on its thread.
 
 A wave's ``rows`` and ``lens`` come as a :class:`WaveIndex`: checked on the
@@ -34,11 +35,12 @@ from client_tpu_torch.ops import cuda_build
 from client_tpu_torch.utils import lockdep
 
 _NEG_INF = -1e30
-_HEAD_DIM = 64  # the only head dim the kernel is built for
+HEAD_DIMS = (32, 64)  # the head dims the kernel is instantiated for
 _SPLIT_KEYS = 256  # keys per CTA the split plan aims at
 _MAX_SPLIT = 8     # CTAs per (lane, head): the portable cluster size
 
 launches = 0
+launches_by_head_dim = dict.fromkeys(HEAD_DIMS, 0)
 _count_lock = lockdep.Lock("ops.decode_attention.count")
 _fwd = None
 _bind_lock = lockdep.Lock("ops.decode_attention.bind")
@@ -175,7 +177,7 @@ def load_kernel():
         if _fwd is None:
             lib = cuda_build.load("decode_attention")
             fn = lib.client_tpu_decode_wave_fwd
-            fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+            fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                            + [ctypes.c_float, ctypes.c_void_p])
             fn.restype = ctypes.c_int
             lib.client_tpu_cuda_error_string.argtypes = [ctypes.c_int]
@@ -189,8 +191,9 @@ def check_kernel_args(k_arena: torch.Tensor, v_arena: torch.Tensor,
                       v_new: torch.Tensor, index: WaveIndex,
                       layer: int) -> None:
     """Raise ValueError for what the kernel does not take: anything but
-    contiguous fp32 ``[L, R, S, H, 64]`` arenas at 16-byte aligned addresses
-    (the kernel's TMA loads need it) and ``[B, H, 64]`` lanes on one
+    contiguous fp32 ``[L, R, S, H, D]`` arenas, D in ``HEAD_DIMS``, at
+    16-byte aligned addresses (the kernel's TMA loads need it) and ``[B, H,
+    D]`` lanes on one
     device, an index checked for another arena, or a layer out of range."""
     if k_arena.dim() != 5 or k_arena.shape != v_arena.shape:
         raise ValueError(f"k/v arenas must share one [L, R, S, H, D] shape, "
@@ -207,9 +210,9 @@ def check_kernel_args(k_arena: torch.Tensor, v_arena: torch.Tensor,
             raise ValueError(f"{name} must be float32, got {t.dtype}")
         if t.device != k_arena.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {k_arena.device}")
-    if dim != _HEAD_DIM:
+    if dim not in HEAD_DIMS:
         raise ValueError(
-            f"the kernel is built for head dim {_HEAD_DIM}, got {dim}")
+            f"the kernel is built for head dims {HEAD_DIMS}, got {dim}")
     for name, t in (("k_arena", k_arena), ("v_arena", v_arena)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start at a 16-byte aligned address")
@@ -256,7 +259,7 @@ def decode_wave_attention(k_arena: torch.Tensor, v_arena: torch.Tensor,
         stream = torch.cuda.current_stream(k_arena.device).cuda_stream
         err = fwd(k_arena.data_ptr(), v_arena.data_ptr(), q.data_ptr(),
                   k_new.data_ptr(), v_new.data_ptr(), index.rows.data_ptr(),
-                  index.lens.data_ptr(), out.data_ptr(), b, heads,
+                  index.lens.data_ptr(), out.data_ptr(), b, heads, dim,
                   k_arena.shape[0], layer, k_arena.shape[1],
                   k_arena.shape[2], index.n_split,
                   1.0 / math.sqrt(dim), stream)
@@ -267,4 +270,5 @@ def decode_wave_attention(k_arena: torch.Tensor, v_arena: torch.Tensor,
     global launches
     with _count_lock:
         launches += 1
+        launches_by_head_dim[dim] += 1
     return out

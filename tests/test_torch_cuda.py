@@ -238,10 +238,10 @@ def _decode_against_plain(k_a, v_a, gen, rows, lens, layer, n_rows):
     output within 2e-5 on the real lanes, exactly v_new where lens is 0,
     every row but the last (the dummy or junk row) bit-identical, one
     launch. Returns the kernel's output and the call's inputs."""
-    b = len(rows)
+    b, (heads, dim) = len(rows), k_a.shape[3:]
     rows, lens = np.asarray(rows, np.int32), np.asarray(lens, np.int32)
     real = rows != n_rows - 1
-    q, kn, vn = (torch.randn(b, 4, 64, device=k_a.device, generator=gen)
+    q, kn, vn = (torch.randn(b, heads, dim, device=k_a.device, generator=gen)
                  for _ in range(3))
     index = da.WaveIndex(rows, lens, n_rows, k_a.shape[2], k_a.device)
     k_ref, v_ref = k_a.clone(), v_a.clone()
@@ -313,6 +313,42 @@ def test_decode_wave_repeats_bit_for_bit(card):
     assert torch.equal(again, o)
 
 
+def _mc_arena(card, heads, seed=0, shape=(4, 65, 128)):
+    """An arena at head dim 32: tiny_gpt_mc's [4, 65, 128, H, 32] (64 stream
+    rows + the dummy row 64) by default; H = 8 unsharded, 1 on a tp8
+    shard."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    full = (*shape, heads, 32)
+    return (torch.randn(full, device=card, generator=gen),
+            torch.randn(full, device=card, generator=gen), gen)
+
+
+@pytest.mark.parametrize("heads", [8, 1], ids=["tiny_gpt_mc", "tp8_shard"])
+def test_decode_wave_head_dim_32_matches_plain(card, heads):
+    """K2's head-dim-32 instantiation at tiny_gpt_mc's arena, B=16 with
+    padded lanes and lens 0, and on a tp8 shard's one head."""
+    k_a, v_a, gen = _mc_arena(card, heads)
+    rows = list(range(0, 24, 2)) + [64] * 4
+    lens = [0, 1, 127, 31, 32, 33, 64, 100, 5, 0, 126, 77] + [0] * 4
+    _decode_against_plain(k_a, v_a, gen, rows, lens, 3, 65)
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 255, 256, 257, 511, 512, 513,
+                               1791, 1792, 1793, 2047])
+def test_decode_wave_head_dim_32_split_edges(card, n):
+    """Head dim 32 at the 32-key tile and 256-key split edges, one head."""
+    k_a, v_a, gen = _mc_arena(card, 1, seed=n, shape=(2, 5, 2048))
+    _decode_against_plain(k_a, v_a, gen, [2, 4], [n, 0], 1, 5)
+
+
+def test_decode_wave_head_dim_32_repeats_bit_for_bit(card):
+    k_a, v_a, gen = _mc_arena(card, 8, seed=4)
+    o, (q, kn, vn, index) = _decode_against_plain(
+        k_a, v_a, gen, list(range(8)), [127, 100, 33, 7, 0, 1, 64, 90], 2, 65)
+    again = da.decode_wave_attention(k_a, v_a, q, kn, vn, index, layer=2)
+    assert torch.equal(again, o)
+
+
 def test_decode_wave_refused_cluster_raises(card):
     """A cluster of 16 CTAs (above the portable 8, not opted in) is refused
     by the runtime: the wrapper raises with its message, counts no launch
@@ -328,8 +364,9 @@ def test_decode_wave_refused_cluster_raises(card):
 
 
 def test_decode_wave_refuses_what_it_was_not_built_for(card):
-    k_a = torch.zeros(1, 3, 8, 2, 32, device=card)
-    q = torch.zeros(1, 2, 32, device=card)
+    # Built for head dims 32 and 64 only.
+    k_a = torch.zeros(1, 3, 8, 2, 48, device=card)
+    q = torch.zeros(1, 2, 48, device=card)
     index = da.WaveIndex([0], [1], 3, 8, card)
     with pytest.raises(ValueError, match="head dim"):
         da.decode_wave_attention(k_a, k_a, q, q, q, index, layer=0)

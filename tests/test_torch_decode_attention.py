@@ -125,22 +125,33 @@ def _kernel_args(**change):
     return args
 
 
+def _head_dim(d: int) -> dict:
+    return dict(k_arena=torch.zeros(L, R, S, H, d),
+                v_arena=torch.zeros(L, R, S, H, d), q=torch.zeros(2, H, d),
+                k_new=torch.zeros(2, H, d), v_new=torch.zeros(2, H, d))
+
+
 @pytest.mark.parametrize("case", [
-    "float64_arena", "float64_q", "head_dim_32", "lane_shape",
-    "index_for_another_arena", "layer", "not_contiguous",
+    "float64_arena", "float64_q", "head_dim_32", "head_dim_48",
+    "head_dim_128", "lane_shape", "index_for_another_arena", "layer",
+    "not_contiguous",
 ])
 def test_kernel_argument_checks(case):
     """What the kernel wrapper refuses before a launch (checked on CPU
-    tensors: the checks read only shapes, dtypes and strides)."""
+    tensors: the checks read only shapes, dtypes and strides). The kernel
+    is instantiated for head dims 32 and 64, so head dim 32 passes the
+    checks and any other head dim is refused."""
+    if case == "head_dim_32":
+        args = _kernel_args(**_head_dim(32))
+        da.check_kernel_args(args["k_arena"], args["v_arena"], args["q"],
+                             args["k_new"], args["v_new"], args["index"], 0)
+        return
     change = {
         "float64_arena": dict(k_arena=torch.zeros(L, R, S, H, 64,
                                                   dtype=torch.float64)),
         "float64_q": dict(q=torch.zeros(2, H, 64, dtype=torch.float64)),
-        "head_dim_32": dict(k_arena=torch.zeros(L, R, S, H, 32),
-                            v_arena=torch.zeros(L, R, S, H, 32),
-                            q=torch.zeros(2, H, 32),
-                            k_new=torch.zeros(2, H, 32),
-                            v_new=torch.zeros(2, H, 32)),
+        "head_dim_48": _head_dim(48),
+        "head_dim_128": _head_dim(128),
         "lane_shape": dict(q=torch.zeros(3, H, 64)),
         "index_for_another_arena": dict(
             index=da.WaveIndex([0, 1], [3, 4], R, S + 1)),

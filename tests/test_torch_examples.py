@@ -18,11 +18,14 @@ over the port's repository routes and RPCs.
 one doorbell over HTTP and reads the answers from the slots; the runners
 append the pid to its ring's key as they do to the system-shm keys.
 
-Scripts left out, each for a route or RPC the port does not have yet:
-the ``moe_*`` clients (the MoE models, ``ROADMAP.md`` Q1.8).
+``moe_lm_client.py`` (HTTP) and ``moe_gpt_stream_client.py`` (a gRPC
+stream) run against ``python -m client_tpu_torch.server --zoo
+moe_lm_mc,moe_gpt_mc --device cpu``, the registered MoE families on a
+degree-1 mesh of the CPU, with both client sets.
 """
 
 import os
+import re
 import subprocess
 import sys
 
@@ -187,5 +190,48 @@ def test_example_passes_against_the_port(served, script, extra, wire,
         _command(script, extra, wire, served, clients), capture_output=True,
         text=True, timeout=180, cwd=REPO,
         env=dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu"))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "PASS" in proc.stdout, proc.stdout + proc.stderr
+
+
+MOE_SCRIPTS = [("moe_lm_client.py", "http"),
+               ("moe_gpt_stream_client.py", "grpc")]
+
+
+@pytest.fixture(scope="module")
+def moe_server():
+    """The port's launcher serving the registered moe_lm_mc and moe_gpt_mc
+    on the CPU; yields {"http": url, "grpc": url}."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "client_tpu_torch.server", "--zoo",
+         "moe_lm_mc,moe_gpt_mc", "--device", "cpu", "--host", "127.0.0.1",
+         "--http-port", "0", "--grpc-port", "0"], cwd=REPO,
+        stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu"))
+    try:
+        urls = {}
+        while len(urls) < 2:
+            line = proc.stderr.readline()
+            assert line, f"launcher exited: {proc.wait(timeout=30)}"
+            m = re.match(r"serving (http|grpc) at (\S+)", line)
+            if m:
+                urls[m.group(1)] = m.group(2)
+        yield urls
+    finally:
+        proc.kill()
+        proc.wait(timeout=30)
+        proc.stderr.close()
+
+
+@pytest.mark.parametrize("clients", ["jax", "port"])
+@pytest.mark.parametrize("script,wire", MOE_SCRIPTS,
+                         ids=[s[0] for s in MOE_SCRIPTS])
+def test_moe_example_passes_against_the_port_launcher(moe_server, script,
+                                                      wire, clients):
+    runner = JAX_CLIENTS if clients == "jax" else PORT_CLIENTS
+    proc = subprocess.run(
+        [sys.executable, "-c", runner, os.path.join(EXAMPLES, script), "-u",
+         moe_server[wire]], capture_output=True, text=True, timeout=180,
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu"))
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "PASS" in proc.stdout, proc.stdout + proc.stderr
