@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # from the root of a checkout, one card
     python3 chip_smoke.py --kernels  # steps 1 to 3 and the wave split only
     python3 chip_smoke.py --mc       # steps 1, 2, K2 at head dim 32 and 18
+    python3 chip_smoke.py --train    # steps 1, 2, K2 at head dims 8, 16, 19, 20
 
 1. Prints the card (``torch.cuda.get_device_name``) and its power limit.
 2. Builds every kernel of the path from ``client_tpu_torch/csrc`` with
@@ -380,7 +381,40 @@
    128, 1, 32] (B=16, tile and split edges, repeated calls bit for bit)
    and timed queued, in turns with the head-dim-64 case and with
    ``scaled_dot_product_attention`` on gathered rows.
-19. Prints one ``{"kernels": [...]}`` line (each kernel's ``launches`` over
+19. Train phase: the three train steps of ``client_tpu_torch.parallel``
+   (dp x sp x tp, dp x pp, dp x ep x tp) at the JAX package's defaults on
+   a mesh of 8 shards that repeat the card, AdamW, 5 steps each on one
+   seeded batch: finite losses, lower after 5 steps than at the first,
+   the first step's loss and every gradient against the same step on the
+   CPU within ``TRAIN_CARD_REL``, each step's ms. Then
+   ``graft_entry.dryrun_multichip(8)`` on the card (the three steps and
+   the five served dry runs), K2's counts set to 0 just before: it must
+   launch K2 at head dims 8 (``gpt_tiny_mc`` on tp8) and 16
+   (``moe_gpt_dry`` on ep2 x tp4) in whole waves, and no other. Before the
+   serving phases, K2 at head dims 8 and 16 is held against its plain
+   version on those dry runs' shard arenas ([2, 5, 32, 1, D]), at the 64-
+   and 128-key tile edges and the split edges of a 2048-long row, repeated
+   calls bit for bit, and timed queued in turns with head dim 32 and
+   ``scaled_dot_product_attention`` on gathered rows.
+20. Multiproc phase: the script re-runs itself twice as
+   ``--multiproc-child gloo RANK PORT WORKDIR``, two processes on the one
+   card joined over gloo (``parallel/multihost.py``, 4 shards each). They
+   run ``tests/test_multihost.py``'s worker step for step (the
+   cross-process reduction; the train step with dp across the two; the
+   pipeline with pp across them; MoE with ep across them; served BERT with
+   dp across them; expert-parallel decode of 4 tokens), then
+   ``moe_gpt_mc`` at the zoo's widths (ep2 x tp4, head dim 32) with ep
+   across them, 3 greedy streams of 16 tokens one after another. This
+   process runs the same sequence on a one-process mesh of 8 shards:
+   every stream must be equal token for token in both children and here,
+   the losses and gradients within ``TRAIN_CARD_REL`` and BERT's logits
+   within ``SERVED_ATOL`` (bit for bit printed), and a decode wave in a
+   child must launch K2 tp x layers times. Then a child in an NCCL world
+   of size 1 runs an exchange of card tensors, and two children ask NCCL
+   for two ranks on the one card: ``multihost.initialize`` must raise
+   (NCCL's words printed), never switch to gloo. The phase's seconds and
+   the exchanges' share of a train step are printed.
+21. Prints one ``{"kernels": [...]}`` line (each kernel's ``launches`` over
    HTTP and gRPC, beside ``http_launches`` over HTTP alone, which must be
    fewer; the ring all-reduce's include the stateful phase's, and its
    entry carries ``dlrm_shape``, its times at [832, 128]; flash
@@ -390,8 +424,10 @@
    as ``clients_launches``, ``repository_launches``,
    ``observability_launches``, ``weights_launches``,
    ``overload_launches``, ``tuning_launches``, ``incident_launches`` and
-   ``router_launches``; K2's head-dim-32 entry, last, counts the mc
-   phase's), the ``nvidia-smi`` name and power limit line, and last
+   ``router_launches``; K2's head-dim-32 entry counts the mc phase's,
+   and its head-dim-8 and head-dim-16 entries, last, the train phase's
+   ``dryrun_multichip``), the ``nvidia-smi`` name and power limit line,
+   and last
    ``{"ok": true, "device": {...}}``.
 
 The gRPC client code of steps 4 to 9, 11 to 15 and 18 is the script's own
@@ -408,6 +444,8 @@ times that checkout's kernels by the same method, so that two commits can
 be compared in one call. ``--mc`` builds the kernels, runs K2 at head dim
 32 and the mc phase (step 18), then prints the ``{"kernels": [...]}`` line
 with that one entry and the ``nvidia-smi`` line, and no ``ok`` line.
+``--train`` does the same with K2 at head dims 8 and 16 and steps 19 and
+20.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It exits non-zero as well without CUDA, or outside a checkout of the repo.
@@ -1168,6 +1206,126 @@ def kernel_phase_decode_hd32(torch, cuda_build) -> dict:
         "alone_ms": alone_ms,
         "head_dim": D,
     }
+
+
+# K2's head-dim-8 and head-dim-16 instantiations: the multi-chip dry run's
+# shard arenas (graft_entry: gpt_tiny_mc on tp8, 8 heads of dim 8 -> 1 a
+# shard; moe_gpt_dry on ep2 x tp4, 4 heads of dim 16 -> 1 a shard), [L, R,
+# S, H, D] with 4 stream rows + the dummy row.
+SMALL_HEAD_ARENAS = {8: (2, 5, 32, 1, 8), 16: (2, 5, 32, 1, 16)}
+
+
+def kernel_phase_decode_small(torch, cuda_build) -> list[dict]:
+    """K2 at head dims 8 and 16: held against its plain version on the dry
+    runs' shard arenas (padded lanes, lens 0, every length of the 32-long
+    row at B=4), at the 64- and 128-key tile edges and the 256-key split
+    edges of a 2048-long row, repeated calls bit for bit
+    (:func:`_decode_case`); then timed queued over the 2 layers in turns
+    with head dim 32 (tiny_gpt_mc's tp8 shard [4, 65, 128, 1, 32] at B16)
+    and with scaled_dot_product_attention on gathered rows. One kernels-line
+    entry per head dim."""
+    from client_tpu_torch.ops import decode_attention as da
+
+    gen = torch.Generator(device="cuda").manual_seed(816)
+    rng = np.random.default_rng(816)
+    entries = []
+    timed = {}
+    for dim, shape in SMALL_HEAD_ARENAS.items():
+        L, R, S = shape[:3]
+        k_a, v_a = (torch.randn(shape, device="cuda", generator=gen)
+                    for _ in range(2))
+        errors = []
+        cases = {"B4": ([0, 1, 2, 3], [0, 1, 17, 31]),
+                 "B4 padded": ([2, R - 1, 0, R - 1], [30, 0, 5, 0]),
+                 "B1": ([3], [16])}
+        for n in range(0, S, 3):  # every third length of the row
+            cases[f"len {n}"] = ([1, R - 1], [n, 0])
+        for layer, (label, (rows, lens)) in enumerate(cases.items()):
+            errors.append(_decode_case(torch, da, k_a, v_a, gen, rows, lens,
+                                       layer % L, label))
+        long_k, long_v = (torch.randn(2, 5, 2048, 1, dim, device="cuda",
+                                      generator=gen) for _ in range(2))
+        for n in (1, 63, 64, 65, 127, 128, 129, 255, 256, 257, 511, 512, 513,
+                  1791, 1792, 1793, 2047):
+            errors.append(_decode_case(torch, da, long_k, long_v, gen,
+                                       [1, 4], [n, 0], 1, f"split n={n}"))
+        del long_k, long_v
+        rows_np = np.asarray([0, 1, 2, 3], np.int32)
+        lens_np = np.asarray([31, 17, 5, 0], np.int32)  # the dry run's waves
+        index = da.WaveIndex(rows_np, lens_np, R, S, "cuda")
+        q, kn, vn = (torch.randn(4, 1, dim, device="cuda", generator=gen)
+                     for _ in range(3))
+        timed[dim] = [lambda layer=layer, k_a=k_a, v_a=v_a, q=q, kn=kn,
+                      vn=vn, index=index: da.decode_wave_attention(
+                          k_a, v_a, q, kn, vn, index, layer=layer)
+                      for layer in range(L)]
+        rows_t, lens_t = index.rows.long(), index.lens.long()
+        gathered = [(k_a[layer, rows_t].transpose(1, 2),
+                     v_a[layer, rows_t].transpose(1, 2)) for layer in range(L)]
+        mask = torch.arange(S, device="cuda")[None, :] <= lens_t[:, None]
+        timed[f"sdpa{dim}"] = [
+            lambda ck=ck, cv=cv, q=q, mask=mask: torch.nn.functional
+            .scaled_dot_product_attention(q[:, :, None], ck, cv,
+                                          attn_mask=mask[:, None, None, :])
+            for ck, cv in gathered]
+        plain_ms = _queued_ms(torch, lambda k_a=k_a, v_a=v_a, q=q, kn=kn,
+                              vn=vn, index=index:
+                              da.decode_wave_attention_plain(
+                                  k_a.clone(), v_a.clone(), q, kn, vn, index,
+                                  layer=0))
+        bound_ms, bound_by, nbytes = _decode_bound(lens_np, 4, 1, dim)
+        entries.append({
+            "name": f"decode_wave_attention_hd{dim}",
+            "route": "cuda",
+            "source": "client_tpu_torch/csrc/decode_attention.cu",
+            "replaces": "client_tpu/ops/decode_kernel.py:58",
+            "launches": None,  # from the train phase's dryrun_multichip
+            "max_abs_err": max(errors),
+            "ms": None,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None,
+            "library_call": "scaled_dot_product_attention over rows gathered "
+                            "beforehand, boolean mask; no scatter, no gather",
+            "shape": list(shape),
+            "lens": lens_np.tolist(),
+            "bytes": nbytes,
+            "head_dim": dim,
+        })
+        print(f"decode kernel head dim {dim}: {len(errors)} cases against "
+              f"the plain version, max_abs_err {max(errors)}; lens 0 gives "
+              f"exactly v_new; untouched rows bit-identical; repeated calls "
+              f"bit-identical", flush=True)
+    # Head dim 32 at tiny_gpt_mc's tp8 shard, B16, for the same turns.
+    k32, v32 = (torch.randn(4, 65, 128, 1, 32, device="cuda", generator=gen)
+                for _ in range(2))
+    rows32 = np.asarray(list(range(12)) + [64] * 4, np.int32)
+    lens32 = np.asarray([0, 1, 127] + rng.integers(2, 120, 9).tolist()
+                        + [0] * 4, np.int32)
+    index32 = da.WaveIndex(rows32, lens32, 65, 128, "cuda")
+    q32, kn32, vn32 = (torch.randn(16, 1, 32, device="cuda", generator=gen)
+                       for _ in range(3))
+    timed[32] = [lambda layer=layer: da.decode_wave_attention(
+        k32, v32, q32, kn32, vn32, index32, layer=layer) for layer in range(4)]
+    times = _queued_turns(torch, timed)
+    for entry in entries:
+        dim = entry["head_dim"]
+        entry["ms"] = times[dim]
+        entry["library_ms"] = times[f"sdpa{dim}"]
+        entry["hd32_shard_ms_same_turns"] = times[32]
+        entry["alone_ms"] = _time_ms(torch, timed[dim][0])
+        entry["occupancy"] = _decode_occupancy(cuda_build, 4, 1, 1, dim)
+        print(f"decode_wave_attention head dim {dim} at B4 {entry['shape']} "
+              f"lens {entry['lens']}, device ms per call queued over the 2 "
+              f"layers in turns: kernel {entry['ms']} ms (bound "
+              f"{entry['bound_ms']} ms, {entry['bytes']} bytes, "
+              f"{entry['bound_by']}); scaled_dot_product_attention on "
+              f"gathered rows {entry['library_ms']} ms; head dim 32 tp8 "
+              f"shard B16 {times[32]} ms; one call alone, host included, "
+              f"{entry['alone_ms']} ms; plain {entry['plain_ms']} ms; "
+              f"{entry['occupancy']}", flush=True)
+    return entries
 
 
 def kernel_phase_ring(torch, cuda_build) -> dict:
@@ -8678,6 +8836,430 @@ def mc_phase(torch, smi: str) -> dict:
         engine.shutdown()
 
 
+# -- train phase ----------------------------------------------------------------
+
+TRAIN_STEPS = 5
+# The card's first step against the same step on the CPU, fp32 (TF32 off):
+# relative to the leaf's largest magnitude. The card's embedding backward
+# accumulates through atomics and cuBLAS sums in its own order, so the
+# CPU tests' 1e-5 against JAX becomes 1e-4 here.
+TRAIN_CARD_REL = 1e-4
+
+
+def _train_cases(device) -> dict:
+    """The dry run's three train steps at the JAX package's defaults on 8
+    shards of ``device``: name -> make(), which returns (params, opt, step,
+    tokens) from the seeded init and seeded tokens (``dryrun_*_case``)."""
+    from client_tpu_torch.parallel import moe, pipeline, training
+
+    return {
+        "train": lambda: training.dryrun_training_case(8, device=device),
+        "pipeline": lambda: pipeline.dryrun_pipeline_case(8, device=device),
+        "moe": lambda: moe.dryrun_moe_case(8, device=device),
+    }
+
+
+def _rel_err(got, want) -> float:
+    """Max |got - want| over the largest |want|, leaf by leaf, worst leaf."""
+    return max(float((g.cpu() - w.cpu()).abs().max())
+               / max(float(w.abs().max()), 1e-30) for g, w in zip(got, want))
+
+
+def train_phase(torch, smi: str) -> dict:
+    """The three train steps (dp x sp x tp, dp x pp, dp x ep x tp) at the
+    JAX defaults on a mesh that repeats the card (8 shards), 5 steps each
+    on one seeded batch: finite losses, lower after 5 steps than at the
+    first; the first step's loss and every gradient against the same step
+    on the CPU (``TRAIN_CARD_REL``); each step's median ms. Then
+    ``dryrun_multichip(8)`` on the card, K2's counts set to 0 just before:
+    its two generative dry runs must launch K2 at head dims 8 and 16, and
+    no other instantiation."""
+    from client_tpu_torch.graft_entry import dryrun_multichip
+    from client_tpu_torch.ops import decode_attention as da
+    from client_tpu_torch.parallel.training import tree_leaves
+
+    t_phase = time.monotonic()
+    precision = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")  # fp32, as the CPU
+    try:
+        for name, make in _train_cases("cuda").items():
+            params, opt, step, tokens = make()
+            losses, ms = [], []
+            for i in range(TRAIN_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, opt, loss = step(params, opt, tokens)
+                losses.append(float(loss))
+                ms.append((time.perf_counter() - t0) * 1e3)
+                if i == 0:
+                    card_grads = [g.cpu() for g in tree_leaves(
+                        step.last_grads)]
+            _check(all(np.isfinite(losses)), f"{name}: losses {losses}")
+            _check(losses[-1] < losses[0],
+                   f"{name}: loss did not fall over {TRAIN_STEPS} steps: "
+                   f"{losses}")
+            cparams, copt, cstep, ctokens = _train_cases("cpu")[name]()
+            _, _, closs = cstep(cparams, copt, ctokens)
+            loss_err = abs(losses[0] - float(closs)) / abs(float(closs))
+            grad_err = _rel_err(card_grads, tree_leaves(cstep.last_grads))
+            _check(loss_err <= TRAIN_CARD_REL and grad_err <= TRAIN_CARD_REL,
+                   f"{name}: first step on the card against the CPU: loss "
+                   f"{loss_err}, gradients {grad_err} (relative, tolerance "
+                   f"{TRAIN_CARD_REL})")
+            print(f"train {name}: losses {losses}; step ms {ms} (median of "
+                  f"steps 2-{TRAIN_STEPS} {float(np.median(ms[1:]))} ms); "
+                  f"first step against the CPU: loss {loss_err}, worst "
+                  f"gradient leaf {grad_err} relative (tolerance "
+                  f"{TRAIN_CARD_REL}); {smi}", flush=True)
+        da.launches = 0
+        for dim in da.launches_by_head_dim:
+            da.launches_by_head_dim[dim] = 0
+        t0 = time.monotonic()
+        dry = dryrun_multichip(8)
+        by_dim = dict(da.launches_by_head_dim)
+        _check(by_dim[8] > 0 and by_dim[16] > 0 and by_dim[32] == 0
+               and by_dim[64] == 0, f"dryrun_multichip: K2 by head dim "
+               f"{by_dim}, want launches at 8 and 16 alone")
+        _check(by_dim[8] % 16 == 0 and by_dim[16] % 8 == 0,
+               f"K2 launches {by_dim}: not whole waves (tp x layers: 16 at "
+               "head dim 8, 8 at 16)")
+        print(f"train: dryrun_multichip(8) on the card in "
+              f"{time.monotonic() - t0:.1f} s: {dry}; K2 launches by head "
+              f"dim {by_dim}; phase {time.monotonic() - t_phase:.1f} s",
+              flush=True)
+        return {"hd8": by_dim[8], "hd16": by_dim[16]}
+    finally:
+        torch.set_float32_matmul_precision(precision)
+
+
+# -- multiproc phase ---------------------------------------------------------------
+
+MP_TIMEOUT_S = 300       # each child process
+MP_GROUP_TIMEOUT_S = 120  # each collective of the gloo group
+MP_GPT_PROMPTS = ([1, 2, 3], [9] * 7 + [4], list(range(30, 50)))
+MP_GPT_TOKENS = 16
+
+
+def _mp_sequence(torch, mode: str, workdir: Path, rank: int = 0,
+                 port: str = "") -> dict:
+    """``tests/test_multihost.py``'s worker on the card, then ``moe_gpt_mc``
+    at the zoo's widths (ep2 x tp4, head dim 32): in one of two processes
+    over gloo (``mode="proc"``, 4 shards each, the mesh's first axis
+    across the two) or on a one-process mesh of 8 shards (``"single"``).
+    Saves losses, gradients, logits and tokens to ``workdir``."""
+    from client_tpu_torch.engine import InferRequest, TorchEngine
+    from client_tpu_torch.engine.repository import ModelRepository
+    from client_tpu_torch.graft_entry import stream
+    from client_tpu_torch.ops import decode_attention as da
+    from client_tpu_torch.parallel import mesh as mm
+    from client_tpu_torch.parallel import multihost
+    from client_tpu_torch.parallel.moe import make_moe_train_step
+    from client_tpu_torch.parallel.pipeline import make_pipeline_train_step
+    from client_tpu_torch.parallel.serving import (
+        MoeGptBackend,
+        ShardedBertBackend,
+    )
+    from client_tpu_torch.parallel.training import (
+        make_train_step,
+        tree_leaves,
+    )
+
+    per_proc = 8
+    if mode == "proc":
+        got = multihost.initialize(f"127.0.0.1:{port}", 2, rank,
+                                   backend="gloo", device="cuda",
+                                   timeout_s=MP_GROUP_TIMEOUT_S)
+        _check(got == rank and multihost.process_count() == 2,
+               f"initialize gave rank {got} of {multihost.process_count()}")
+        per_proc = 4
+    tag = f"{mode} {rank}"
+    spent = [0.0]
+    exchange = mm._exchange
+
+    def timed_exchange(mesh, t):
+        t0 = time.perf_counter()
+        out = exchange(mesh, t)
+        spent[0] += time.perf_counter() - t0
+        return out
+
+    mm._exchange = timed_exchange
+
+    def gmesh(axes, shape):
+        return multihost.global_mesh(axes=axes, shape=shape,
+                                     devices=["cuda"] * per_proc)
+
+    saved = {}
+
+    def keep(name, loss, grads):
+        saved[f"{name}/loss"] = np.float32(float(loss))
+        for i, g in enumerate(tree_leaves(grads)):
+            saved[f"{name}/grad{i}"] = g.cpu().numpy()
+
+    mesh = gmesh(("dp", "tp"), {"dp": 2})
+    if mode == "proc":
+        local = np.full((8, 4), rank + 1, np.float32)
+    else:
+        local = np.concatenate([np.full((8, 4), 1, np.float32),
+                                np.full((8, 4), 2, np.float32)])
+    arr = multihost.host_local_array((16, 4), mm.P("dp", None), local, mesh)
+    total = float(mm.psum(mesh, [p.sum() for p in arr.along("dp")], "dp"))
+    _check(total == 96.0, f"{tag}: reduction {total}")
+
+    train_mesh = gmesh(("dp", "sp", "tp"), {"dp": 2, "sp": 2})
+    params, opt, step, _ = make_train_step(train_mesh)
+    tokens = np.random.default_rng(0).integers(0, 256, size=(8, 32))
+    step_ms, exch_ms = [], []
+    for i in range(4):
+        torch.cuda.synchronize()
+        spent[0] = 0.0
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, tokens)
+        float(loss)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        exch_ms.append(spent[0] * 1e3)
+        if i == 0:
+            keep("train", loss, step.last_grads)
+    share = float(np.median(np.asarray(exch_ms[1:]) / np.asarray(
+        step_ms[1:])))
+
+    pp_mesh = gmesh(("pp", "dp"), {"pp": 2})
+    pparams, popt, pstep, pshard = make_pipeline_train_step(pp_mesh,
+                                                            n_layers=2)
+    ptokens = pshard(np.random.default_rng(0).integers(0, 256, (3, 4, 17)))
+    _, _, ploss = pstep(pparams, popt, ptokens)
+    keep("pipeline", ploss, pstep.last_grads)
+
+    ep_mesh = gmesh(("ep", "dp", "tp"), {"ep": 2, "dp": 2})
+    mparams, mopt, mstep, _ = make_moe_train_step(ep_mesh, batch=8, seq=16)
+    _, _, mloss = mstep(mparams, mopt, np.random.default_rng(1).integers(
+        0, 256, (8, 16)))
+    keep("moe", mloss, mstep.last_grads)
+
+    def engine_of(backend):
+        repo = ModelRepository()
+        repo.register(backend.config.name, lambda _dev: backend)
+        return TorchEngine(repo, device="cuda")
+
+    bert = ShardedBertBackend(mesh, name="bert_mh", seq_len=16, hidden=64,
+                              n_layers=2, n_heads=4, ffn=128, vocab=512,
+                              max_batch_size=8, device="cuda")
+    engine = engine_of(bert)
+    try:
+        ones = np.ones((2, 16), dtype=np.int32)
+        resp = engine.infer(InferRequest(model_name="bert_mh", inputs={
+            "input_ids": ones * 3, "attention_mask": ones}), timeout_s=300)
+        saved["bert/logits"] = np.asarray(resp.outputs["logits"])
+    finally:
+        engine.shutdown()
+
+    gen_mesh = gmesh(("ep", "tp"), {"ep": 2})
+    k2 = {}
+    for name, kw in (("moe_gpt_mh", dict(n_layers=2, d_model=64, n_heads=4,
+                                         d_ff=128, vocab=256, max_seq_len=32,
+                                         max_streams=1)),
+                     ("moe_gpt_mc", {})):
+        backend = MoeGptBackend(gen_mesh, name=name, device="cuda", **kw)
+        engine = engine_of(backend)
+        try:
+            before = da.launches
+            prompts = MP_GPT_PROMPTS if name == "moe_gpt_mc" else \
+                ([1, 2, 3],)
+            n_tok = MP_GPT_TOKENS if name == "moe_gpt_mc" else 4
+            for i, prompt in enumerate(prompts):
+                saved[f"{name}/tokens{i}"] = np.asarray(
+                    stream(engine, name, prompt, n_tok), np.int64)
+            k2[name] = da.launches - before
+        finally:
+            engine.shutdown()
+        # One decode wave run directly: K2 once per tp shard and layer.
+        arena = backend.init_arena(2)
+        lanes = backend.lane_params([0, 0], [0.0, 0.0], [0, 0], [1.0, 1.0])
+        before = da.launches
+        backend.decode(arena, backend.wave_index(arena, [0, 1], [3, 0]),
+                       lanes, False)
+        per_wave = gen_mesh.axis_size("tp") * backend.n_layers
+        _check(da.launches - before == per_wave,
+               f"{tag} {name}: one wave launched K2 {da.launches - before} "
+               f"times, not tp x layers = {per_wave}")
+        _check(k2[name] > 0 and k2[name] % per_wave == 0,
+               f"{tag} {name}: K2 {k2[name]} launches over the streams")
+    mm._exchange = exchange
+    np.savez(workdir / f"{mode}{rank}.npz", **saved)
+    out = {"k2": k2, "train_step_ms": step_ms, "exchange_ms": exch_ms,
+           "exchange_share": share, "per_wave": per_wave}
+    (workdir / f"{mode}{rank}.json").write_text(json.dumps(out))
+    return out
+
+
+def multiproc_child(argv: list[str]) -> int:
+    """``--multiproc-child KIND RANK PORT WORKDIR``: one child of
+    the multiproc phase. KIND ``gloo``: :func:`_mp_sequence` as process
+    RANK of two over gloo; ``nccl1``: an NCCL world of one process and one
+    exchange of a card tensor; ``nccl2``: rank RANK of two NCCL ranks on
+    the one card, which NCCL must refuse (initialize raises)."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch.distributed as dist
+
+    from client_tpu_torch.parallel import mesh as mm
+    from client_tpu_torch.parallel import multihost
+
+    kind, rank, port, workdir = argv[0], int(argv[1]), argv[2], Path(argv[3])
+    torch.set_float32_matmul_precision("highest")  # fp32, as the parent
+    if kind == "gloo":
+        out = _mp_sequence(torch, "proc", workdir, rank, port)
+        print(f"multiproc child {rank}: {json.dumps(out)}", flush=True)
+    elif kind == "nccl1":
+        got = multihost.initialize(f"127.0.0.1:{port}", 1, 0,
+                                   timeout_s=MP_GROUP_TIMEOUT_S)
+        _check(dist.get_backend() == "nccl" and got == 0,
+               f"backend {dist.get_backend()}, rank {got}")
+        t = torch.arange(8.0, device="cuda")
+        back = mm._exchange(None, t)
+        _check(len(back) == 1 and back[0].is_cuda
+               and torch.equal(back[0], t), "the NCCL exchange")
+        print(f"multiproc child nccl1: an NCCL world of 1 initialized; one "
+              f"exchange of a card tensor {tuple(t.shape)} on "
+              f"{back[0].device}", flush=True)
+    elif kind == "nccl2":
+        try:
+            multihost.initialize(f"127.0.0.1:{port}", 2, rank,
+                                 timeout_s=MP_GROUP_TIMEOUT_S)
+        except Exception as exc:  # noqa: BLE001 - the refusal is the point
+            words = " ".join(str(exc).split())
+            _check(not dist.is_initialized(), "a refused group stays up")
+            print(f"multiproc child nccl2 {rank}: NCCL refused: "
+                  f"{type(exc).__name__}: {words}", flush=True)
+            return 0
+        print(f"multiproc child nccl2 {rank}: NCCL took two ranks on one "
+              "card", flush=True)
+        return 1
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return 0
+
+
+def _free_port() -> str:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return str(sk.getsockname()[1])
+
+
+def _children(kind: str, ranks, workdir: Path) -> list[str]:
+    """Run ``--multiproc-child`` for ``ranks`` at once; their outputs.
+    Fails unless each exits 0 within MP_TIMEOUT_S; none outlives this."""
+    port = _free_port()
+    env = dict(os.environ, CLIENT_TPU_BLACKBOX="off")
+    for key in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        env.pop(key, None)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--multiproc-child",
+         kind, str(r), port, str(workdir)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, env=env) for r in ranks]
+    outs = []
+    try:
+        for p in procs:
+            try:
+                text, _ = p.communicate(timeout=MP_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                text, _ = p.communicate()
+                text += f"\n(killed after {MP_TIMEOUT_S} s)"
+            outs.append(text)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, p, text in zip(ranks, procs, outs):
+        _check(p.returncode == 0, f"multiproc {kind} child {r} exited "
+               f"{p.returncode}:\n{text[-4000:]}")
+    return outs
+
+
+def multiproc_phase(torch, smi: str) -> dict:
+    """Serving and training across processes on the one card: two children
+    over gloo run :func:`_mp_sequence` (the JAX multihost worker's steps
+    with dp, pp and ep across the two, then ``moe_gpt_mc`` at the zoo's
+    widths with ep across them); this process runs the same sequence on a
+    one-process mesh of 8 shards. Token streams equal in both children and
+    to the one-process mesh's, losses, gradients and logits within their
+    tolerances (bit for bit printed). Then one NCCL world of size 1 with
+    an exchange of card tensors, and two NCCL ranks on the card, which
+    must be refused (their words printed)."""
+    import tempfile
+
+    t_phase = time.monotonic()
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_multiproc_"))
+    try:
+        t0 = time.monotonic()
+        logs = _children("gloo", (0, 1), workdir)
+        children_s = time.monotonic() - t0
+        for text in logs:
+            print("\n".join(line for line in text.splitlines()
+                            if line.startswith("multiproc child")),
+                  flush=True)
+        precision = torch.get_float32_matmul_precision()
+        torch.set_float32_matmul_precision("highest")
+        try:
+            _mp_sequence(torch, "single", workdir)
+        finally:
+            torch.set_float32_matmul_precision(precision)
+        saved = [dict(np.load(workdir / f"{n}.npz"))
+                 for n in ("proc0", "proc1", "single0")]
+        info = [json.loads((workdir / f"{n}.json").read_text())
+                for n in ("proc0", "proc1")]
+        p0, p1, single = saved
+        exact, worst = {}, {}
+        for key, want in single.items():
+            for got in (p0, p1):
+                if key.endswith("tokens") or "/tokens" in key:
+                    _check(np.array_equal(got[key], want),
+                           f"{key}: {got[key].tolist()} != {want.tolist()}")
+                    continue
+                scale = max(float(np.abs(want).max()), 1e-30)
+                err = float(np.abs(got[key] - want).max()) / scale
+                tol = SERVED_ATOL if key.startswith("bert") else \
+                    TRAIN_CARD_REL
+                _check(err <= tol, f"{key}: {err} relative against the "
+                       f"one-process mesh (tolerance {tol})")
+                worst[key.split("/")[0]] = max(worst.get(key.split("/")[0],
+                                                         0.0), err)
+                exact[key] = exact.get(key, True) and bool(
+                    np.array_equal(got[key], want))
+        streams = {k: single[k].tolist() for k in single if "/tokens" in k}
+        shares = [i["exchange_share"] for i in info]
+        print(f"multiproc: two gloo children on the card in {children_s:.1f}"
+              f" s; every stream equal in both and to the one-process mesh "
+              f"{streams}; worst relative error against it {worst}; bit for "
+              f"bit: losses "
+              f"{ {k: v for k, v in exact.items() if k.endswith('loss')} }, "
+              f"BERT logits {exact['bert/logits']}, gradients "
+              f"{all(v for k, v in exact.items() if '/grad' in k)}; K2 per "
+              f"child {[i['k2'] for i in info]} ({info[0]['per_wave']} a "
+              f"wave); dp-across train step ms {info[0]['train_step_ms']}, "
+              f"of which exchanges {info[0]['exchange_ms']} ms (median share "
+              f"of steps 2-4: {shares})", flush=True)
+        nccl1 = _children("nccl1", (0,), workdir)
+        print(nccl1[0].strip().splitlines()[-1], flush=True)
+        refused = _children("nccl2", (0, 1), workdir)
+        words = [next((ln for ln in text.splitlines()
+                       if "NCCL refused" in ln), text[-500:])
+                 for text in refused]
+        _check(all("NCCL refused" in w for w in words),
+               f"two NCCL ranks on one card: {words}")
+        for w in words:
+            print(w, flush=True)
+        print(f"multiproc: phase {time.monotonic() - t_phase:.1f} s; {smi}",
+              flush=True)
+        return {"k2": [i["k2"] for i in info], "exchange_share": shares}
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 def _infer_request(model: str, inputs: dict):
     from client_tpu_torch.engine import InferRequest
 
@@ -8726,6 +9308,20 @@ def wave_phase(torch, smi: str) -> None:
         _wave_split(torch, backend, smi)
 
 
+def _train_and_multiproc(torch, smi: str, small: list[dict]) -> None:
+    """Steps 19 and 20; K2's head-dim-8 and 16 entries take the dry run's
+    launches (and the multiproc children's, as their own key)."""
+    trained = train_phase(torch, smi)
+    for entry in small:
+        entry["launches"] = trained[f"hd{entry['head_dim']}"]
+        entry["http_launches"] = 0  # the dry run serves in process
+    torch.cuda.empty_cache()
+    multi = multiproc_phase(torch, smi)
+    small[1]["multiproc_child_launches"] = [
+        k["moe_gpt_mh"] for k in multi["k2"]]
+    small[1]["exchange_share_of_train_step"] = multi["exchange_share"]
+
+
 def main(argv: list[str]) -> int:
     if argv[:1] == ["--clients-child"]:  # the clients phase's other process
         return clients_child(argv[1:])
@@ -8733,12 +9329,15 @@ def main(argv: list[str]) -> int:
         return incident_child(argv[1:])
     if argv[:1] == ["--replica-child"]:  # a router phase replica
         return replica_child(argv[1:])
+    if argv[:1] == ["--multiproc-child"]:  # a multiproc phase process
+        return multiproc_child(argv[1:])
     import torch
 
     kernels_only = argv == ["--kernels"]
     mc_only = argv == ["--mc"]
-    if argv and not (kernels_only or mc_only):
-        print("usage: python3 chip_smoke.py [--kernels | --mc]",
+    train_only = argv == ["--train"]
+    if argv and not (kernels_only or mc_only or train_only):
+        print("usage: python3 chip_smoke.py [--kernels | --mc | --train]",
               file=sys.stderr)
         return 2
 
@@ -8766,6 +9365,12 @@ def main(argv: list[str]) -> int:
           flush=True)
     census = _sass_census(cuda_build)
 
+    if train_only:
+        small = kernel_phase_decode_small(torch, cuda_build)
+        _train_and_multiproc(torch, smi, small)
+        print(json.dumps({"kernels": small}), flush=True)
+        print(smi, flush=True)
+        return 0
     if mc_only:
         hd32 = kernel_phase_decode_hd32(torch, cuda_build)
         mc = mc_phase(torch, smi)
@@ -8780,6 +9385,8 @@ def main(argv: list[str]) -> int:
     kernels[0]["sass"], kernels[1]["sass"] = census["bf16"], census["fp32"]
     # K2's head-dim-32 instantiation, its own entry of the kernels line.
     hd32 = kernel_phase_decode_hd32(torch, cuda_build)
+    # And its head-dim-8 and head-dim-16 ones (the multi-chip dry run's).
+    small = kernel_phase_decode_small(torch, cuda_build)
     torch.cuda.empty_cache()
     if kernels_only:
         wave_phase(torch, smi)
@@ -8877,6 +9484,11 @@ def main(argv: list[str]) -> int:
     hd32["launches"] = mc["decode_wave_attention_hd32"]
     hd32["http_launches"] = mc["http_launches"]
     kernels.append(hd32)
+    torch.cuda.empty_cache()
+    # The train steps and the dry run (K2 at head dims 8 and 16), then
+    # training and serving across two processes on the card.
+    _train_and_multiproc(torch, smi, small)
+    kernels += small
     for kernel in kernels:
         # Shorter aliases of the two keys above.
         kernel["launched"] = kernel["launches"]

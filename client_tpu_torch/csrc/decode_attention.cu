@@ -62,12 +62,20 @@
 // their concurrent stores to one junk slot race harmlessly, since no lane
 // ever reads the dummy row.
 //
-// Head dim. D is a template parameter, instantiated for 32 and 64 (the
-// served GPTs' head dims: tiny_gpt and tiny_gpt_long at 64; tiny_gpt_mc
-// and moe_gpt_mc at 32); the entry point refuses any other. D fixes the
-// shared-memory tiles, the float4s each lane holds (D / 32), the TMA box
-// and the DSMEM partials; the 8-lane key groups and the 32-key tiles stay,
-// so at D = 32 a stage is 8 KB and each lane reads one float4 of a key.
+// Head dim. D is a template parameter, instantiated for 8, 16, 32 and 64
+// (the served GPTs' head dims: tiny_gpt and tiny_gpt_long at 64;
+// tiny_gpt_mc and moe_gpt_mc at 32; the dry run's tp8 tiny GPT at 8 and
+// its ep x tp MoE GPT at 16); the entry point refuses any other. D fixes
+// the shared-memory tiles, the lanes of a key group, the float4s each lane
+// holds, the TMA box and the DSMEM partials. A key group is min(8, D / 4)
+// lanes, each holding float4s 4 * lanes apart, so a key's row is read
+// whole by its group: at D >= 32 8 lanes and 256 / 8 = 32-key tiles (one
+// float4 a lane at 32), at D = 16 4 lanes and 64-key tiles, at D = 8 2
+// lanes and 128-key tiles. A stage is 8 KB at D = 8, 16 and 32. The TMA
+// box's inner extent is D * 4 bytes (32 at D = 8), above TMA's 16-byte
+// minimum, and a share is whole tiles of the head dim's size, so the
+// split plan (whose 256-key shares are a multiple of every tile) covers a
+// short row the same way: ranks past the row's end take no tile.
 
 #include <cooperative_groups.h>
 #include <cuda.h>
@@ -83,16 +91,19 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kGroupLanes = 8;                   // lanes sharing one key
-constexpr int kTileKeys = kThreads / kGroupLanes;  // one key per group
+// Lanes sharing one key, and keys of a tile (one per group).
+template <int kHeadDim>
+constexpr int kGroupLanes = kHeadDim >= 32 ? 8 : kHeadDim / 4;
+template <int kHeadDim>
+constexpr int kTileKeys = kThreads / kGroupLanes<kHeadDim>;
 constexpr int kStages = 2;
 constexpr int kMaxSplit = 8;                     // the portable cluster size
 constexpr float kNegInf = -1e30f;                // the TPU kernel's mask
 
 template <int kHeadDim>
 struct Smem {  // at a 128-byte boundary, as TMA's destination needs
-  float k[kStages][kTileKeys][kHeadDim];
-  float v[kStages][kTileKeys][kHeadDim];
+  float k[kStages][kTileKeys<kHeadDim>][kHeadDim];
+  float v[kStages][kTileKeys<kHeadDim>][kHeadDim];
   float warp_acc[kWarps][kHeadDim];
   float warp_m[kWarps];
   float warp_l[kWarps];
@@ -220,8 +231,13 @@ __global__ void __launch_bounds__(kThreads)
                        const int* __restrict__ lens, float* __restrict__ o,
                        int layer, int n_rows, int seq, int heads,
                        float sm_scale) {
-  constexpr int kVecs = kHeadDim / 32;  // float4s a lane holds of a key
+  constexpr int kLanes = kGroupLanes<kHeadDim>;
+  constexpr int kTile = kTileKeys<kHeadDim>;
+  constexpr int kSpan = 4 * kLanes;        // dims a group covers per float4
+  constexpr int kVecs = kHeadDim / kSpan;  // float4s a lane holds of a key
   constexpr int kVec4s = kHeadDim / 4;  // float4s of one position
+  // Dims of q . k_new a lane of warp 2 sums (lanes past D / kDots idle).
+  constexpr int kDots = kHeadDim >= 32 ? kHeadDim / 32 : 1;
   constexpr uint32_t kRowBytes = kHeadDim * 4;  // one position of one head
   extern __shared__ unsigned char smem_raw[];
   Smem<kHeadDim>& sm = *reinterpret_cast<Smem<kHeadDim>*>(
@@ -235,9 +251,9 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int group = tid / kGroupLanes;
-  // Dims 32 * j + d0 .. 32 * j + d0 + 3 for j < kVecs.
-  const int d0 = (tid % kGroupLanes) * 4;
+  const int group = tid / kLanes;
+  // Dims kSpan * j + d0 .. kSpan * j + d0 + 3 for j < kVecs.
+  const int d0 = (tid % kLanes) * 4;
 
   const int64_t lane_off = ((int64_t)b * heads + h) * kHeadDim;
   float* ob = o + lane_off;
@@ -248,13 +264,13 @@ __global__ void __launch_bounds__(kThreads)
   // Loads that do not depend on the lane's row are issued before it is
   // known, so their latency overlaps that of rows[b] and lens[b]. Rank 0
   // also takes the new token: thread 32 + i holds float4 i of k_new (i <
-  // D / 4) or of v_new (D / 4 <= i < D / 2) for the scatter, warp 2 D / 32
-  // dims of q and of k_new for the score, and thread d < D v_new[d] for
-  // the fold.
+  // D / 4) or of v_new (D / 4 <= i < D / 2) for the scatter, each lane of
+  // warp 2 max(1, D / 32) dims of q and of k_new for the score (lanes past
+  // D none), and thread d < D v_new[d] for the fold.
   float4 qv[kVecs];
 #pragma unroll
   for (int j = 0; j < kVecs; ++j) {
-    qv[j] = *reinterpret_cast<const float4*>(q + lane_off + 32 * j + d0);
+    qv[j] = *reinterpret_cast<const float4*>(q + lane_off + kSpan * j + d0);
   }
   float4 slot = make_float4(0.f, 0.f, 0.f, 0.f);
   float score_new = 0.0f, v_fold = 0.0f;
@@ -264,11 +280,11 @@ __global__ void __launch_bounds__(kThreads)
         slot = reinterpret_cast<const float4*>(
             lane < kVec4s ? k_new + lane_off : v_new + lane_off)[lane % kVec4s];
       }
-    } else if (warp == 2) {
-      const int64_t e0 = lane_off + kVecs * lane;
+    } else if (warp == 2 && kDots * lane < kHeadDim) {
+      const int64_t e0 = lane_off + kDots * lane;
       score_new = q[e0] * k_new[e0];
 #pragma unroll
-      for (int j = 1; j < kVecs; ++j) score_new += q[e0 + j] * k_new[e0 + j];
+      for (int j = 1; j < kDots; ++j) score_new += q[e0 + j] * k_new[e0 + j];
     }
     if (tid < kHeadDim) v_fold = v_new[lane_off + tid];
   }
@@ -284,21 +300,20 @@ __global__ void __launch_bounds__(kThreads)
   // This CTA's share of the old prefix [0, len): whole tiles, so that only
   // a lane's last share ends inside a tile and the TMA boxes fetch few
   // positions past it.
-  const int chunk =
-      ((len + n_split - 1) / n_split + kTileKeys - 1) / kTileKeys * kTileKeys;
+  const int chunk = ((len + n_split - 1) / n_split + kTile - 1) / kTile * kTile;
   const int start = min(len, rank * chunk);
   const int end = min(len, start + chunk);
-  const int n_tiles = (end - start + kTileKeys - 1) / kTileKeys;
+  const int n_tiles = (end - start + kTile - 1) / kTile;
 
-  // Thread 0 fills stage t % kStages with tile t: one TMA box of 32
+  // Thread 0 fills stage t % kStages with tile t: one TMA box of kTile
   // positions of this head from K and one from V (rows past the share are
   // read but never used).
   const int pos0 = (layer * n_rows + row) * seq + start;
   auto issue = [&](int t) {
     const int s = t % kStages;
-    mbar_arrive_expect_tx(&sm.full[s], 2u * kTileKeys * kRowBytes);
-    tma_load(sm.k[s], &tm_k, &sm.full[s], h * kHeadDim, pos0 + t * kTileKeys);
-    tma_load(sm.v[s], &tm_v, &sm.full[s], h * kHeadDim, pos0 + t * kTileKeys);
+    mbar_arrive_expect_tx(&sm.full[s], 2u * kTile * kRowBytes);
+    tma_load(sm.k[s], &tm_k, &sm.full[s], h * kHeadDim, pos0 + t * kTile);
+    tma_load(sm.v[s], &tm_v, &sm.full[s], h * kHeadDim, pos0 + t * kTile);
   };
   if (tid == 0) {
     for (int t = 0; t < min(kStages, n_tiles); ++t) issue(t);
@@ -336,7 +351,7 @@ __global__ void __launch_bounds__(kThreads)
     mbar_wait(&sm.full[s], (t / kStages) & 1);
     // A group past the share's last key reads nothing and computes nothing:
     // its stage row holds positions at or past the share's end.
-    const bool valid = group < min(kTileKeys, end - start - t * kTileKeys);
+    const bool valid = group < min(kTile, end - start - t * kTile);
     float score = 0.0f;
     float4 vv[kVecs];
     if (valid) {
@@ -345,17 +360,18 @@ __global__ void __launch_bounds__(kThreads)
       float4 kv[kVecs];
 #pragma unroll
       for (int j = 0; j < kVecs; ++j) {
-        kv[j] = *reinterpret_cast<const float4*>(kr + 32 * j + d0);
+        kv[j] = *reinterpret_cast<const float4*>(kr + kSpan * j + d0);
       }
       score = dot<kVecs>(qv, kv);
 #pragma unroll
       for (int j = 0; j < kVecs; ++j) {
-        vv[j] = *reinterpret_cast<const float4*>(vr + 32 * j + d0);
+        vv[j] = *reinterpret_cast<const float4*>(vr + kSpan * j + d0);
       }
     }
-    score += __shfl_xor_sync(0xffffffffu, score, 1);
-    score += __shfl_xor_sync(0xffffffffu, score, 2);
-    score += __shfl_xor_sync(0xffffffffu, score, 4);
+#pragma unroll
+    for (int off = 1; off < kLanes; off *= 2) {
+      score += __shfl_xor_sync(0xffffffffu, score, off);
+    }
     if (valid) {
       score *= sm_scale;
       float corr, p;
@@ -375,20 +391,30 @@ __global__ void __launch_bounds__(kThreads)
     if (tid == 0 && t + kStages < n_tiles) issue(t + kStages);
   }
 
-  // Merge the warp's four groups (lanes 8 and 16 apart hold the same dims).
-  float mw = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 8));
-  mw = fmaxf(mw, __shfl_xor_sync(0xffffffffu, mw, 16));
+  // Merge the warp's 32 / kLanes groups (lanes kLanes, 2 kLanes, ... 16
+  // apart hold the same dims).
+  float mw = m;
+#pragma unroll
+  for (int off = kLanes; off < 32; off *= 2) {
+    mw = fmaxf(mw, __shfl_xor_sync(0xffffffffu, mw, off));
+  }
   const float c = m <= kNegInf ? 0.0f : expf(m - mw);
   l *= c;
-  l += __shfl_xor_sync(0xffffffffu, l, 8);
-  l += __shfl_xor_sync(0xffffffffu, l, 16);
+#pragma unroll
+  for (int off = kLanes; off < 32; off *= 2) {
+    l += __shfl_xor_sync(0xffffffffu, l, off);
+  }
 #pragma unroll
   for (int j = 0; j < kVecs; ++j) {
-    acc[j] = shfl_add(shfl_add(scale(acc[j], c), 8), 16);
-  }
-  if (lane < kGroupLanes) {
+    acc[j] = scale(acc[j], c);
 #pragma unroll
-    for (int j = 0; j < kVecs; ++j) store4(&sm.warp_acc[warp][32 * j + d0], acc[j]);
+    for (int off = kLanes; off < 32; off *= 2) acc[j] = shfl_add(acc[j], off);
+  }
+  if (lane < kLanes) {
+#pragma unroll
+    for (int j = 0; j < kVecs; ++j) {
+      store4(&sm.warp_acc[warp][kSpan * j + d0], acc[j]);
+    }
   }
   if (lane == 0) {
     sm.warp_m[warp] = mw;
@@ -465,13 +491,13 @@ PFN_cuTensorMapEncodeTiled tensor_map_encoder() {
 }
 
 // The arena [L, R, S, H, D] fp32 as a 2-D [L * R * S, H * D] tensor,
-// boxes of 32 positions of one head, no swizzle.
+// boxes of one tile's positions (32, 64 or 128) of one head, no swizzle.
 template <int kHeadDim>
 bool encode_arena_map(CUtensorMap* map, const void* base, int64_t positions,
                       int heads) {
   cuuint64_t dims[2] = {(cuuint64_t)heads * kHeadDim, (cuuint64_t)positions};
   cuuint64_t strides[1] = {(cuuint64_t)heads * kHeadDim * 4};
-  cuuint32_t box[2] = {kHeadDim, kTileKeys};
+  cuuint32_t box[2] = {kHeadDim, kTileKeys<kHeadDim>};
   cuuint32_t elem_strides[2] = {1, 1};
   return tensor_map_encoder()(
              map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base),
@@ -561,7 +587,7 @@ int occupancy(int batch, int heads, int n_split, int* smem_bytes,
 // Launch on `stream` as B * H clusters of n_split CTAs; returns 0 when
 // launched, else the runtime's error (a cluster size the card refuses
 // included) or one of this file's codes (client_tpu_cuda_error_string
-// names both; a head dim other than 32 or 64 is one). The arena is [L, R,
+// names both; a head dim other than 8, 16, 32 or 64 is one). The arena is [L, R,
 // S, H, D] fp32 at a 16-byte aligned address with L * R * S < 2^31, q /
 // k_new / v_new / o [B, H, D] fp32, rows and lens [B] int32, all
 // contiguous on the card (the Python wrapper checks).
@@ -571,6 +597,14 @@ extern "C" int client_tpu_decode_wave_fwd(
     int batch, int heads, int head_dim, int n_layers, int layer, int n_rows,
     int seq, int n_split, float sm_scale, void* stream) {
   switch (head_dim) {
+    case 8:
+      return launch<8>(k_arena, v_arena, q, k_new, v_new, rows, lens, o,
+                       batch, heads, n_layers, layer, n_rows, seq, n_split,
+                       sm_scale, stream);
+    case 16:
+      return launch<16>(k_arena, v_arena, q, k_new, v_new, rows, lens, o,
+                        batch, heads, n_layers, layer, n_rows, seq, n_split,
+                        sm_scale, stream);
     case 32:
       return launch<32>(k_arena, v_arena, q, k_new, v_new, rows, lens, o,
                         batch, heads, n_layers, layer, n_rows, seq, n_split,
@@ -591,6 +625,10 @@ extern "C" int client_tpu_decode_wave_occupancy(int batch, int heads,
                                                 int* smem_bytes,
                                                 int* max_clusters) {
   switch (head_dim) {
+    case 8:
+      return occupancy<8>(batch, heads, n_split, smem_bytes, max_clusters);
+    case 16:
+      return occupancy<16>(batch, heads, n_split, smem_bytes, max_clusters);
     case 32:
       return occupancy<32>(batch, heads, n_split, smem_bytes, max_clusters);
     case 64:
@@ -608,7 +646,7 @@ extern "C" const char* client_tpu_cuda_error_string(int code) {
     return "cuTensorMapEncodeTiled refused a KV arena tensor map";
   }
   if (code == kErrHeadDim) {
-    return "the decode kernel is built for head dims 32 and 64 only";
+    return "the decode kernel is built for head dims 8, 16, 32 and 64 only";
   }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -10,10 +10,12 @@ place, as the JAX version's donated, aliased arena is.
 :func:`decode_wave_attention` launches the CUDA kernel in
 ``client_tpu_torch/csrc/decode_attention.cu`` for tensors on the card and
 takes :func:`decode_wave_attention_plain` only for tensors on the CPU. The
-kernel is built for head dims 32 and 64 (``HEAD_DIMS``) and raises on any
-other. ``launches`` counts kernel launches, and ``launches_by_head_dim``
-each instantiation's. Each call reports its work (:func:`work`) to a
-roofline capture running on its thread.
+kernel is built for head dims 8, 16, 32 and 64 (``HEAD_DIMS``: 64 for
+``tiny_gpt``, 32 for the ``*_mc`` GPTs, 16 and 8 for the multi-chip dry
+run's MoE and tp8 GPTs) and raises on any other, with no fallback to the
+plain version. ``launches`` counts kernel launches, and
+``launches_by_head_dim`` each instantiation's. Each call reports its work
+(:func:`work`) to a roofline capture running on its thread.
 
 A wave's ``rows`` and ``lens`` come as a :class:`WaveIndex`: checked on the
 host, where the scheduler holds them as numpy, then staged to the device
@@ -35,7 +37,7 @@ from client_tpu_torch.ops import cuda_build
 from client_tpu_torch.utils import lockdep
 
 _NEG_INF = -1e30
-HEAD_DIMS = (32, 64)  # the head dims the kernel is instantiated for
+HEAD_DIMS = (8, 16, 32, 64)  # the head dims the kernel is instantiated for
 _SPLIT_KEYS = 256  # keys per CTA the split plan aims at
 _MAX_SPLIT = 8     # CTAs per (lane, head): the portable cluster size
 

@@ -1,12 +1,14 @@
 """Sharding across devices for serving.
 
 Counterpart of ``client_tpu/parallel/__init__.py``: the mesh and its
-collectives (``mesh``), ring attention over a sequence axis
-(``ring_attention``), expert-parallel MoE (``moe``), pipeline stages
-(``pipeline``), the training LM's forward (``training``; the train steps
-are not ported yet), the six sharded serving families (``serving``), the
-row-sharded KV arena of the generative engine (``kv_shard``) and DLRM's
-row-sharded embedding tables (``emb_shard``).
+collectives, within a process and across processes (``mesh``), the
+process group and global meshes (``multihost``), ring attention over a
+sequence axis (``ring_attention``), expert-parallel MoE and its train
+step (``moe``), pipeline stages and their train step (``pipeline``), the
+training LM, AdamW and its train step (``training``), the six sharded
+serving families (``serving``), the row-sharded KV arena of the
+generative engine (``kv_shard``) and DLRM's row-sharded embedding tables
+(``emb_shard``).
 """
 
 from client_tpu_torch.parallel.emb_shard import (  # noqa: F401

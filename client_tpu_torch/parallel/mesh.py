@@ -9,13 +9,39 @@ Counterpart of ``client_tpu/parallel/mesh.py``. Axis vocabulary:
 - ``ep`` — expert parallel (MoE experts)
 
 JAX runs one program per device and lets GSPMD or ``shard_map`` insert the
-collectives. The port drives every shard from the one calling thread, as
-``parallel/kv_shard.py`` does: a sharded value is a list of per-shard
-tensors along an axis, and :func:`psum`, :func:`all_gather` and
-:func:`ppermute` are plain torch over that list. A mesh may repeat one
-device (the counterpart of JAX's virtual CPU devices): the CPU tests put
-eight shards on ``cpu``, and one card can hold every shard. A mesh over
-distinct devices is not built yet (:func:`make_mesh` raises).
+collectives. The port drives every shard of a process from the one calling
+thread, as ``parallel/kv_shard.py`` does: a sharded value is a list of
+per-shard tensors along an axis, and :func:`psum`, :func:`all_gather` and
+:func:`ppermute` are plain torch over that list. Within a process a mesh
+repeats one device (the counterpart of JAX's virtual CPU devices): the CPU
+tests put eight shards on ``cpu``, and one card can hold every shard. A
+mesh over distinct devices of one process is not built yet
+(:func:`make_mesh` raises).
+
+A mesh may span processes (``parallel/multihost.py`` ``global_mesh``):
+its ``ranks`` grid says which process owns each shard, and the ranks may
+vary along one axis only, the process axis (``process_axis``), each
+process holding a contiguous run of its indices. Along that axis a shard
+list holds this process's shards only (:meth:`Mesh.local`), and the
+collectives exchange the rest over the ``torch.distributed`` process
+group: every process gathers every shard and sums in shard order
+(:func:`sum_in_order`), so a forward gives the same bits in every process
+and on the one-process mesh. Under gloo, card tensors are staged through
+the host by an explicit copy at the exchange; the compute stays on the
+card.
+
+The exchanges are autograd functions, so a train step differentiates
+through them. A value replicated over the processes holds
+its whole cotangent in every process (as a GSPMD array is one value):
+the backward of :func:`all_gather` and :func:`psum` takes this process's
+slice of it, and a replicated value that per-process work reads first
+passes :func:`vary`, whose backward is the sum over the processes. So
+an all-gather read per process transposes to a reduce-scatter,
+:func:`ppermute` to the inverse permutation, and no gradient is scaled by
+the process count. Every process must build a graph of the same shape,
+so that autograd runs the backward exchanges in the same order in each
+(so a pipeline whose ``pp`` spans processes computes every stage on
+every tick).
 
 :func:`place_with_specs` splits a params tree by per-leaf specs (tuples of
 axis names, :func:`P`), as ``jax.device_put`` with ``NamedSharding`` does:
@@ -71,19 +97,56 @@ def drop_absent(mesh, axis):
 class Mesh:
     """Named axes over a grid of torch devices. ``shape`` is ``{axis:
     size}`` in axis order, as JAX's ``mesh.shape``; ``devices`` is the grid
-    (an object array). Every shard is on one device (:attr:`device`)."""
+    (an object array). Every shard of this process is on one device
+    (:attr:`device`).
 
-    def __init__(self, devices: np.ndarray, axis_names: Sequence[str]):
+    ``ranks`` (an int grid of the same shape; None: every shard is this
+    process's) says which process owns each shard, ``rank`` is this
+    process's. The ranks may vary along one axis only (``process_axis``),
+    in contiguous runs; any other layout raises NotImplementedError."""
+
+    def __init__(self, devices: np.ndarray, axis_names: Sequence[str],
+                 ranks: np.ndarray | None = None, rank: int = 0):
         self.devices = devices
         self.axis_names = tuple(axis_names)
         if devices.ndim != len(self.axis_names):
             raise ValueError(f"a {devices.ndim}-d device grid cannot carry "
                              f"the axes {self.axis_names}")
-        distinct = {str(d) for d in devices.flat}
+        if ranks is None:
+            ranks = np.zeros(devices.shape, dtype=np.int64)
+        self.ranks = np.asarray(ranks, dtype=np.int64)
+        self.rank = int(rank)
+        if self.ranks.shape != devices.shape:
+            raise ValueError(f"ranks {self.ranks.shape} and devices "
+                             f"{devices.shape} differ in shape")
+        mine = self.ranks == self.rank
+        if not mine.any():
+            raise ValueError(f"process {self.rank} owns no shard of the mesh")
+        distinct = {str(d) for d in devices[mine].flat}
         if len(distinct) > 1:
             raise NotImplementedError(
                 f"a mesh over distinct devices {sorted(distinct)} is not "
                 "built yet; place every shard on one device")
+        self.device = devices[mine].flat[0]
+        self.process_axis = None
+        self._local = {}
+        varying = [i for i in range(devices.ndim)
+                   if (np.diff(self.ranks, axis=i) != 0).any()]
+        if len(varying) > 1 or (varying and (np.diff(
+                self.ranks, axis=varying[0]) < 0).any()):
+            raise NotImplementedError(
+                f"ranks {self.ranks.tolist()}: a mesh may span processes "
+                "along one axis only, each process a contiguous run of it")
+        if varying:
+            self.process_axis = self.axis_names[varying[0]]
+            along = np.moveaxis(self.ranks, varying[0], 0).reshape(
+                devices.shape[varying[0]], -1)[:, 0]
+            idx = np.flatnonzero(along == self.rank)
+            self._local[self.process_axis] = range(int(idx[0]),
+                                                   int(idx[-1]) + 1)
+            self.n_processes = len(set(along.tolist()))
+        else:
+            self.n_processes = 1
 
     @property
     def shape(self) -> dict[str, int]:
@@ -93,16 +156,32 @@ class Mesh:
     def size(self) -> int:
         return int(self.devices.size)
 
-    @property
-    def device(self) -> torch.device:
-        return self.devices.flat[0]
-
     def axis_size(self, axis: str) -> int:
         """The axis's size, 1 for an axis this mesh does not carry."""
         return int(self.shape.get(axis, 1))
 
+    def local(self, axis: str) -> range:
+        """The indices along ``axis`` whose shards this process holds:
+        every index, but a run of them along the process axis."""
+        return self._local.get(axis, range(self.axis_size(axis)))
+
+    def crosses(self, axis: str) -> bool:
+        """Whether ``axis`` spans processes."""
+        return axis == self.process_axis
+
+    def check_crossing(self, allowed: tuple[str, ...], what: str) -> None:
+        """Raise NotImplementedError when the mesh spans processes along
+        an axis ``what`` does not exchange over."""
+        if self.process_axis is not None and \
+                self.process_axis not in allowed:
+            raise NotImplementedError(
+                f"{what} across processes is built along {allowed or 'no'} "
+                f"axis, not '{self.process_axis}'")
+
     def __repr__(self) -> str:
-        return f"Mesh({self.shape}, device={self.device})"
+        spans = (f", {self.n_processes} processes along "
+                 f"'{self.process_axis}'" if self.process_axis else "")
+        return f"Mesh({self.shape}, device={self.device}{spans})"
 
 
 def make_mesh(n_devices: int | None = None,
@@ -142,26 +221,27 @@ def make_mesh(n_devices: int | None = None,
     return Mesh(grid.reshape(shape), axes)
 
 
-# -- the collectives -----------------------------------------------------------
+# -- the collectives ----------------------------------------------------------
 
 
 def _check_parts(mesh: Mesh, parts: Sequence[torch.Tensor], axis: str):
-    if len(parts) != mesh.axis_size(axis):
+    if len(parts) != len(mesh.local(axis)):
         raise ValueError(f"{len(parts)} shards along '{axis}', the mesh has "
-                         f"{mesh.axis_size(axis)}")
+                         f"{len(mesh.local(axis))} here")
 
 
 def split(mesh: Mesh, x: torch.Tensor, dim: int, axis: str
           ) -> list[torch.Tensor]:
-    """``x`` split evenly along ``dim`` over ``axis``: one view per shard,
-    in shard order (one shard, ``x`` itself, when the mesh lacks the axis).
-    Raises ValueError when the dim does not divide."""
+    """``x`` split evenly along ``dim`` over ``axis``: one view per shard
+    this process holds, in shard order (one shard, ``x`` itself, when the
+    mesh lacks the axis). Raises ValueError when the dim does not divide."""
     n = mesh.axis_size(axis)
     if x.shape[dim] % n:
         raise ValueError(f"dim {dim} of {tuple(x.shape)} does not divide "
                          f"over '{axis}' ({n})")
     size = x.shape[dim] // n
-    return [x.narrow(dim, i * size, size).to(mesh.device) for i in range(n)]
+    return [x.narrow(dim, i * size, size).to(mesh.device)
+            for i in mesh.local(axis)]
 
 
 def sum_in_order(parts: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -172,42 +252,112 @@ def sum_in_order(parts: Sequence[torch.Tensor]) -> torch.Tensor:
     return out
 
 
+def _exchange(mesh: Mesh, t: torch.Tensor) -> list[torch.Tensor]:
+    """``t`` from every process of the mesh, in process order (an
+    all-gather over the default process group). Under gloo a card tensor
+    goes through the host: an explicit copy out and one back."""
+    import torch.distributed as dist
+
+    staged = t.device.type == "cuda" and dist.get_backend() == "gloo"
+    send = (t.detach().cpu() if staged else t.detach()).contiguous()
+    got = [torch.empty_like(send) for _ in range(dist.get_world_size())]
+    dist.all_gather(got, send)
+    return [g.to(t.device) for g in got] if staged else got
+
+
+class _AllGather(torch.autograd.Function):
+    """This process's stacked shards ``[L, ...]`` along the process axis ->
+    every shard ``[n, ...]``, the same in every process. Backward: this
+    process's slice of the (replicated) cotangent."""
+
+    @staticmethod
+    def forward(ctx, mesh: Mesh, local: torch.Tensor) -> torch.Tensor:
+        ctx.span = mesh.local(mesh.process_axis)
+        return torch.cat(_exchange(mesh, local))
+
+    @staticmethod
+    def backward(ctx, ct: torch.Tensor):
+        return None, ct[ctx.span.start:ctx.span.stop]
+
+
+class _Vary(torch.autograd.Function):
+    """A replicated value read by per-process work: the identity forward;
+    backward, each process's cotangent summed over the processes in
+    process order (the transpose of the replication)."""
+
+    @staticmethod
+    def forward(ctx, mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
+        ctx.mesh = mesh
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, ct: torch.Tensor):
+        return None, sum_in_order(_exchange(ctx.mesh, ct))
+
+
+def vary(mesh: Mesh, x: torch.Tensor, axis: str) -> torch.Tensor:
+    """``x``, replicated over ``axis``, as per-shard work along it reads it:
+    itself unless ``axis`` spans processes and ``x`` carries a gradient,
+    then :class:`_Vary` (backward: the sum over the processes)."""
+    if mesh.crosses(axis) and torch.is_grad_enabled() and x.requires_grad:
+        return _Vary.apply(mesh, x)
+    return x
+
+
+def _gather_all(mesh: Mesh, parts: Sequence[torch.Tensor], axis: str
+                ) -> list[torch.Tensor]:
+    """Every shard along ``axis`` in shard order: ``parts`` itself, or, when
+    the axis spans processes, every process's (:class:`_AllGather`)."""
+    _check_parts(mesh, parts, axis)
+    if not mesh.crosses(axis):
+        return list(parts)
+    return list(_AllGather.apply(mesh, torch.stack(list(parts))).unbind(0))
+
+
 def psum(mesh: Mesh, parts: Sequence[torch.Tensor], axis: str
          ) -> torch.Tensor:
     """The sum of one partial per shard along ``axis``, added in shard
     order: the value every shard holds after ``jax.lax.psum``."""
-    _check_parts(mesh, parts, axis)
-    return sum_in_order(parts)
+    return sum_in_order(_gather_all(mesh, parts, axis))
 
 
 def all_gather(mesh: Mesh, parts: Sequence[torch.Tensor], axis: str,
                dim: int = 0) -> torch.Tensor:
     """The shards along ``axis`` joined along ``dim`` in shard order (a
     tiled ``jax.lax.all_gather``)."""
-    _check_parts(mesh, parts, axis)
-    return parts[0] if len(parts) == 1 else torch.cat(list(parts), dim=dim)
+    full = _gather_all(mesh, parts, axis)
+    return full[0] if len(full) == 1 else torch.cat(full, dim=dim)
 
 
 def ppermute(mesh: Mesh, parts: Sequence, axis: str) -> list:
     """One hop right around the ring along ``axis``: shard ``j`` sends to
-    ``(j + 1) % n``, so shard ``j`` then holds what shard ``j - 1`` had."""
+    ``(j + 1) % n``, so shard ``j`` then holds what shard ``j - 1`` had.
+    Across processes the shards are gathered (:class:`_AllGather`) and
+    each process takes its own (:class:`_Vary`): backward, the inverse
+    permutation."""
     _check_parts(mesh, parts, axis)
-    n = len(parts)
-    return [parts[(j - 1) % n] for j in range(n)]
+    n = mesh.axis_size(axis)
+    if not mesh.crosses(axis):
+        return [parts[(j - 1) % n] for j in range(n)]
+    full = _AllGather.apply(mesh, torch.stack(list(parts)))
+    full = vary(mesh, full, axis)
+    return [full[(j - 1) % n] for j in mesh.local(axis)]
 
 
-# -- placement -----------------------------------------------------------------
+# -- placement ----------------------------------------------------------------
 
 
 class Shards:
     """One leaf placed by a spec: ``axes`` are the mesh axes it is split
     over, in dim order, and ``parts`` an object array of per-shard tensors
-    indexed by those axes' coordinates. A leaf split over no axis
-    (replicated) has one part."""
+    indexed by those axes' coordinates (None at a shard another process
+    holds). A leaf split over no axis (replicated) has one part."""
 
-    def __init__(self, axes: tuple[str, ...], parts: np.ndarray):
+    def __init__(self, axes: tuple[str, ...], parts: np.ndarray,
+                 mesh: Mesh | None = None):
         self.axes = axes
         self.parts = parts
+        self.mesh = mesh
 
     def part(self, **coords: int) -> torch.Tensor:
         """The shard at ``coords`` (axis=index); axes the leaf is not split
@@ -215,17 +365,20 @@ class Shards:
         return self.parts[tuple(coords.get(a, 0) for a in self.axes)]
 
     def along(self, axis: str, **coords: int) -> list[torch.Tensor]:
-        """The shards along ``axis`` in order, at ``coords`` on the other
-        axes (one shard when the leaf is not split over ``axis``)."""
+        """This process's shards along ``axis`` in order, at ``coords`` on
+        the other axes (one shard when the leaf is not split over
+        ``axis``)."""
         if axis not in self.axes:
             return [self.part(**coords)]
         n = self.parts.shape[self.axes.index(axis)]
-        return [self.part(**{**coords, axis: i}) for i in range(n)]
+        got = [self.part(**{**coords, axis: i}) for i in range(n)]
+        return [p for p in got if p is not None]
 
 
 def place(mesh: Mesh, x: torch.Tensor, spec: tuple) -> Shards:
     """``x`` split by ``spec`` (one axis name or None per leading dim),
-    mesh-absent axes dropped, into per-shard views on the mesh's device."""
+    mesh-absent axes dropped, into per-shard views on the mesh's device;
+    only this process's shards along the process axis."""
     spec = tuple(drop_absent(mesh, a) for a in spec)
     dims = []
     for dim, axis in enumerate(spec):
@@ -237,12 +390,20 @@ def place(mesh: Mesh, x: torch.Tensor, spec: tuple) -> Shards:
             dims.append((dim, axis))
     axes = tuple(a for _, a in dims)
     parts = np.empty(tuple(mesh.axis_size(a) for a in axes), dtype=object)
+    for dim, axis in dims:
+        if x.shape[dim] % mesh.axis_size(axis):
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not "
+                             f"divide over '{axis}' "
+                             f"({mesh.axis_size(axis)})")
     for idx in np.ndindex(*parts.shape):
+        if any(i not in mesh.local(axis) for (_, axis), i in zip(dims, idx)):
+            continue  # another process's shard
         t = x
         for (dim, axis), i in zip(dims, idx):
-            t = split(mesh, t, dim, axis)[i]
+            size = x.shape[dim] // mesh.axis_size(axis)
+            t = t.narrow(dim, i * size, size)
         parts[idx] = t.to(mesh.device)
-    return Shards(axes, parts)
+    return Shards(axes, parts, mesh)
 
 
 def place_with_specs(mesh: Mesh, params, specs):
@@ -259,7 +420,8 @@ def place_with_specs(mesh: Mesh, params, specs):
 
 def dp_map(mesh: Mesh | None, fn, *xs: torch.Tensor) -> torch.Tensor:
     """``fn`` applied to each ``dp`` shard of the batch (dim 0) of ``xs``,
-    the outputs joined in shard order; one call when there is no ``dp``."""
+    the outputs joined in shard order (across processes when ``dp`` spans
+    them); one call when there is no ``dp``."""
     if mesh is None or mesh.axis_size("dp") == 1:
         return fn(*xs)
     shards = [split(mesh, x, 0, "dp") for x in xs]

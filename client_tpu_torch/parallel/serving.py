@@ -28,10 +28,13 @@ Every mesh is a :class:`~client_tpu_torch.parallel.mesh.Mesh` of torch
 devices: by default every CUDA device (one on a one-card machine, a
 degree-1 mesh), or, for a backend on ``device="cpu"``, the CPU. The CPU
 tests use ``["cpu"] * 8``, one card can hold every shard, and a mesh over
-distinct cards raises ``NotImplementedError``. Weights stay in the
-module's parameters; the per-shard tensors are views of them, split by
-the JAX package's partition specs (:func:`place_with_specs`). Dynamic
-batches pad to buckets that are ``dp`` multiples.
+distinct cards raises ``NotImplementedError``. A mesh may span processes
+(``parallel/multihost.py``) along ``dp`` for ``bert_base_mc`` and along
+``ep`` for ``moe_gpt_mc``; the other families raise
+``NotImplementedError`` for it. Weights stay in the module's
+parameters; the per-shard tensors are views of them, split by the JAX
+package's partition specs (:func:`place_with_specs`). Dynamic batches pad
+to buckets that are ``dp`` multiples.
 """
 
 from __future__ import annotations
@@ -68,6 +71,7 @@ from client_tpu_torch.ops import decode_attention as _decode
 from client_tpu_torch.parallel.mesh import (
     Mesh,
     P,
+    all_gather,
     make_mesh,
     place_with_specs,
     psum,
@@ -256,14 +260,16 @@ def bert_param_specs(P, n_layers: int):
 
 
 def _split_batch(mesh: Mesh, inputs: dict) -> list[dict]:
-    """The batch's ``dp`` shards, each a dict of per-shard inputs."""
+    """The batch's ``dp`` shards this process holds, each a dict of
+    per-shard inputs."""
     parts = {k: split(mesh, v, 0, "dp") for k, v in inputs.items()}
     return [dict(zip(parts, vals)) for vals in zip(*parts.values())]
 
 
-def _join_batch(outs: list[dict]) -> dict:
-    return {k: torch.cat([o[k] for o in outs]) if len(outs) > 1 else outs[0][k]
-            for k in outs[0]}
+def _join_batch(mesh: Mesh, outs: list[dict]) -> dict:
+    """The ``dp`` shards' outputs joined in shard order (gathered from
+    every process when ``dp`` spans them)."""
+    return {k: all_gather(mesh, [o[k] for o in outs], "dp") for k in outs[0]}
 
 
 class ShardedBertBackend(BertBackend):
@@ -275,11 +281,18 @@ class ShardedBertBackend(BertBackend):
     :meth:`params_to_jax` and :meth:`load_jax_params` speak the canonical
     qkv-major layout, so both modes are one function of one checkpoint.
     ``n_heads`` and ``ffn`` must divide by tp (whole heads per shard).
+
+    ``dp`` may span processes (``multihost.global_mesh``): each process's
+    engine runs its own dp shards of the whole batch and gathers the
+    others' outputs, so every process answers the whole request. Every
+    process must then dispatch the same executions in the same order: one
+    request at a time, the same in each.
     """
 
     def __init__(self, mesh: Mesh | None = None, name: str = "bert_base_mc",
                  max_batch_size: int = 16, device=None, **kw):
         mesh, device = _mesh_for(mesh, ("dp", "tp"), device)
+        mesh.check_crossing(("dp",), "ShardedBertBackend")
         tp = mesh.axis_size("tp")
         n_heads, ffn = kw.get("n_heads", 12), kw.get("ffn", 3072)
         if n_heads % tp or ffn % tp:
@@ -342,8 +355,9 @@ class ShardedBertBackend(BertBackend):
         return self._placed.get(self.tok_embed.data_ptr(), build)
 
     def forward(self, inputs: dict[str, torch.Tensor]) -> dict:
-        return _join_batch([self.encode(part, self.attend)
-                            for part in _split_batch(self.mesh, inputs)])
+        return _join_batch(self.mesh, [
+            self.encode(part, self.attend)
+            for part in _split_batch(self.mesh, inputs)])
 
     def _tp(self) -> range:
         return range(self.mesh.axis_size("tp"))
@@ -386,6 +400,7 @@ class LongContextBertBackend(BertBackend):
                  seq_len: int = 2048, max_batch_size: int = 4, device=None,
                  **kw):
         mesh, device = _mesh_for(mesh, ("dp", "sp"), device)
+        mesh.check_crossing((), "LongContextBertBackend")
         sp = mesh.axis_size("sp")
         if seq_len % sp:
             raise ValueError(
@@ -443,10 +458,12 @@ class ShardedTinyGptBackend(TinyGptBackend):
     Requires ``n_heads`` and ``d_ff`` divisible by tp."""
 
     _default_axes: tuple[str, ...] = ("tp",)
+    _crossing: tuple[str, ...] = ()  # the axes that may span processes
 
     def __init__(self, mesh: Mesh | None = None, name: str = "tiny_gpt_mc",
                  n_heads: int = 8, device=None, **kw):
         mesh, device = _mesh_for(mesh, self._default_axes, device)
+        mesh.check_crossing(self._crossing, type(self).__name__)
         tp = mesh.axis_size("tp")
         if n_heads % tp:
             raise ValueError(
@@ -615,9 +632,17 @@ class MoeGptBackend(ShardedTinyGptBackend):
     The seeded weights equal the JAX package's bit for bit: the base init
     draws (and drops) the dense ``w1`` / ``w2``, then
     ``default_rng(seed + 1)`` draws each layer's ``router``, ``w1e`` and
-    ``w2e``."""
+    ``w2e``.
+
+    ``ep`` may span processes (``multihost.global_mesh``): each process runs
+    attention (K2 on its tp shards) for every lane and its own experts,
+    and the expert outputs are gathered across the processes. Every
+    process must then dispatch the same executions in the same order: one
+    stream with a fixed token budget and greedy decoding (or one request
+    at a time), the same in each, as the JAX multihost test serves it."""
 
     _default_axes = ("ep", "tp")
+    _crossing = ("ep",)
 
     def __init__(self, mesh: Mesh | None = None, name: str = "moe_gpt_mc",
                  n_layers: int = 2, d_model: int = 128, n_heads: int = 4,
@@ -782,6 +807,7 @@ class MoeLmBackend(_ServedLm):
                  device=None):
         super().__init__()
         mesh, device = _mesh_for(mesh, ("dp", "ep", "tp"), device)
+        mesh.check_crossing((), "MoeLmBackend")
         self.mesh = mesh
         self.seq_len, self.d_model, self.d_ff = seq_len, d_model, d_ff
         self.n_layers, self.n_heads = n_layers, n_heads
@@ -842,6 +868,7 @@ class PipelinedLmBackend(_ServedLm):
                  device=None):
         super().__init__()
         mesh, device = _mesh_for(mesh, ("dp", "pp"), device)
+        mesh.check_crossing((), "PipelinedLmBackend")
         if "pp" not in mesh.shape:
             raise ValueError(
                 "PipelinedLmBackend requires a mesh with a 'pp' axis; got "

@@ -349,6 +349,64 @@ def test_decode_wave_head_dim_32_repeats_bit_for_bit(card):
     assert torch.equal(again, o)
 
 
+def _small_head_arena(card, heads, dim, seed=0, shape=(2, 5, 32)):
+    """An arena at head dim 8 or 16: the multi-chip dry run's shards,
+    ``gpt_tiny_mc`` on tp8 ([2, 5, 32, 1, 8]: 4 streams + the dummy row)
+    and ``moe_gpt_dry`` on ep2 x tp4 ([2, 5, 32, 1, 16]), by default."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    full = (*shape, heads, dim)
+    return (torch.randn(full, device=card, generator=gen),
+            torch.randn(full, device=card, generator=gen), gen)
+
+
+@pytest.mark.parametrize("dim", [8, 16])
+@pytest.mark.parametrize("heads", [1, 4])
+def test_decode_wave_small_head_dims_match_plain(card, dim, heads):
+    """K2 at head dims 8 and 16 on the dry runs' shard arenas (one head)
+    and with 4 heads: padded lanes, lens 0, the tile edges (128 and 64
+    keys a tile) of a 32-long row."""
+    k_a, v_a, gen = _small_head_arena(card, heads, dim, seed=dim + heads)
+    before = da.launches_by_head_dim[dim]
+    _decode_against_plain(k_a, v_a, gen, [0, 4, 1, 2, 3, 4],
+                          [0, 0, 31, 1, 15, 0], 1, 5)
+    _decode_against_plain(k_a, v_a, gen, [3], [16], 0, 5)
+    assert da.launches_by_head_dim[dim] == before + 2
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 127, 128, 129, 255, 256, 257,
+                               511, 512, 513, 1791, 1792, 1793, 2047])
+@pytest.mark.parametrize("dim", [8, 16])
+def test_decode_wave_small_head_dims_split_edges(card, dim, n):
+    """Head dims 8 and 16 at their 128- and 64-key tile edges and the split
+    plan's 256-key steps (n_split 1 to 8), one head."""
+    k_a, v_a, gen = _small_head_arena(card, 1, dim, seed=n,
+                                      shape=(2, 5, 2048))
+    _decode_against_plain(k_a, v_a, gen, [2, 4], [n, 0], 1, 5)
+
+
+@pytest.mark.parametrize("dim", [8, 16])
+def test_decode_wave_small_head_dims_repeat_bit_for_bit(card, dim):
+    k_a, v_a, gen = _small_head_arena(card, 2, dim, seed=7,
+                                      shape=(3, 9, 640))
+    o, (q, kn, vn, index) = _decode_against_plain(
+        k_a, v_a, gen, list(range(8)), [639, 300, 257, 7, 0, 1, 128, 600], 2,
+        9)
+    again = da.decode_wave_attention(k_a, v_a, q, kn, vn, index, layer=2)
+    assert torch.equal(again, o)
+
+
+def test_decode_wave_head_dim_12_raises_on_the_card(card):
+    """Head dim 12 (between the instantiations) raises on a CUDA tensor,
+    counts no launch and does not fall back to the plain version."""
+    k_a = torch.zeros(1, 3, 8, 1, 12, device=card)
+    q = torch.zeros(1, 1, 12, device=card)
+    index = da.WaveIndex([0], [1], 3, 8, card)
+    before = da.launches
+    with pytest.raises(ValueError, match=r"head dims \(8, 16, 32, 64\)"):
+        da.decode_wave_attention(k_a, k_a, q, q, q, index, layer=0)
+    assert da.launches == before
+
+
 def test_decode_wave_refused_cluster_raises(card):
     """A cluster of 16 CTAs (above the portable 8, not opted in) is refused
     by the runtime: the wrapper raises with its message, counts no launch
@@ -364,7 +422,7 @@ def test_decode_wave_refused_cluster_raises(card):
 
 
 def test_decode_wave_refuses_what_it_was_not_built_for(card):
-    # Built for head dims 32 and 64 only.
+    # Built for head dims 8, 16, 32 and 64 only.
     k_a = torch.zeros(1, 3, 8, 2, 48, device=card)
     q = torch.zeros(1, 2, 48, device=card)
     index = da.WaveIndex([0], [1], 3, 8, card)
