@@ -6,6 +6,8 @@
     python3 chip_smoke.py --mc       # steps 1, 2, K2 at head dim 32 and 18
     python3 chip_smoke.py --train    # steps 1, 2, K2 at head dims 8, 16, 19, 20
     python3 chip_smoke.py --capi     # steps 1, 2, K1 bf16, K2 and 21
+    python3 chip_smoke.py --headdims # steps 1, 2 and 22
+    python3 chip_smoke.py --versus DIR  # K1, K2, K3 against an older tree's
 
 1. Prints the card (``torch.cuda.get_device_name``) and its power limit.
 2. Builds every kernel of the path from ``client_tpu_torch/csrc`` with
@@ -461,7 +463,39 @@
    ``bert_long`` from 2 native threads; its K1 launches, read in the
    child, must be 12 x its executions, its answers within ``SERVED_ATOL``
    of this process's.
-22. Prints one ``{"kernels": [...]}`` line (each kernel's ``launches`` over
+22. Headdims phase: the three kernels across the range of inputs the
+   reference kernels take. Head dims 257 and 272 refused on the card
+   before a launch (K1, K2), naming the range. K1 bf16 and fp32 against
+   their plain versions at every head dim of ``HD_LIST`` (8 to 256: the
+   instantiations 32, 64, 128 and 256 and head dims between them, run by
+   the next larger one zero-padded; bf16 at 100 through one padded copy):
+   bf16 at ``bert_long``'s B4 S2048 with H = 768 // D, fp32 at
+   ``tiny_gpt_long``'s prefill B8 S2048 H4, tail-masked and causal, the
+   tile edges with a fully masked row (exactly 0), and the reference
+   tests' own shapes (head dim 32 at B1 S512 H2 and S128 H2, head dim 16
+   causal at S128 H4). K2 at the same head dims and at 6, 50 and 130 (not
+   multiples of 4: ordinary loads instead of TMA) against its plain
+   version, split and tile edges up to 2,047 keys, padded lanes, repeated
+   calls bit for bit (:func:`_decode_case`). K3 at n = 2 to 64 bit for bit
+   at [16, 4, 64] and [832, 128], n = 65 refused. Each new instantiation
+   timed as its kernel phase times it (K1: 50 launches in turns with
+   ``scaled_dot_product_attention``; K2 and K3: queued device time in
+   turns with their library calls) beside its bound, and the padded copy
+   a bf16 head dim of 100 pays. Then a ``TinyGptBackend`` at
+   Cerebras-GPT-1.3B's widths (24 layers, d_model 2048, 16 heads of 128,
+   d_ff 8192, vocab 50257, seq 2048, 16 streams; the family's seeded
+   fill), registered with ``register_backend`` (not in the zoo), served
+   over SSE, ``/generate`` and one gRPC stream: 4 greedy prompts of 16 to
+   1,024 tokens, 32 tokens each, every stream token for token the same
+   weights on the card with ``attention_impl="einsum"``,
+   ``attn_impl="reference"`` (no kernel); K1 fp32 at head dim 128 once a
+   prompt and layer, K2 at head dim 128 once a wave and layer (the waves
+   from ``/v2/profile``), no other head dim; its prefill and wave device
+   ms and tokens/s. Last, ``tiny_gpt_long`` over 16 shards and
+   ``tiny_gpt`` over 64 on the card, served the same way against the
+   unsharded plain path: K3 at n = 16 and 64 once a wave and layer.
+   ``--headdims`` runs this phase alone after the build.
+23. Prints one ``{"kernels": [...]}`` line (each kernel's ``launches`` over
    HTTP and gRPC, beside ``http_launches`` over HTTP alone, which must be
    fewer; the ring all-reduce's include the stateful phase's, and its
    entry carries ``dlrm_shape``, its times at [832, 128]; flash
@@ -476,8 +510,15 @@
    K2's at head dim 64 its ``attn_impl_launches`` and
    ``schedulers_launches``; K2's head-dim-32 entry counts the mc phase's,
    and its head-dim-8 and head-dim-16 entries, last, the train phase's
-   ``dryrun_multichip``), the ``nvidia-smi`` name and power limit line,
-   and last
+   ``dryrun_multichip``; then the headdims phase's entries, one per new
+   instantiation: ``flash_attention_hd{32,80,128,256}``,
+   ``flash_attention_fp32_hd{32,80,128,256}``,
+   ``decode_wave_attention_hd{128,256,50}`` and ``ring_all_reduce_n{16,
+   64}``, each with its head dim and the instantiation that ran it, the
+   launches of the served paths of step 22: K1 fp32 and K2 at head dim
+   128 the Cerebras-width GPT's, K3 the 16- and 64-shard GPTs', the bf16
+   and other instantiations 0, no served model using them), the
+   ``nvidia-smi`` name and power limit line, and last
    ``{"ok": true, "device": {...}}``.
 
 The gRPC client code of steps 4 to 9, 11 to 15 and 18 is the script's own
@@ -495,7 +536,13 @@ be compared in one call. ``--mc`` builds the kernels, runs K2 at head dim
 32 and the mc phase (step 18), then prints the ``{"kernels": [...]}`` line
 with that one entry and the ``nvidia-smi`` line, and no ``ok`` line.
 ``--train`` does the same with K2 at head dims 8 and 16 and steps 19 and
-20, ``--capi`` with K1 bf16, K2 at head dim 64 and step 21.
+20, ``--capi`` with K1 bf16, K2 at head dim 64 and step 21, ``--headdims``
+with step 22 alone. ``--versus DIR`` builds K1, K2 and K3 from the sources
+of an older checkout at DIR (``git archive`` of the parent under
+``build/``) beside this one's and times K1 bf16 at head dim 64, K2 at head
+dims 64 and 32 and K3 at 8, 16 and 64 shards (those the older tree takes)
+against them in turns in one process (parent, change, change, parent), and
+prints how far their outputs differ (0: bit for bit).
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It exits non-zero as well without CUDA, or outside a checkout of the repo.
@@ -673,7 +720,7 @@ def _resource_usage(cuda_build, name: str) -> str:
     for line in out.splitlines():
         found = re.search(r"Function (\S+):", line)
         if found:
-            short = re.search(r"\d+([a-z][a-z0-9_]*_kernel)(?:ILi(\d+)E)?",
+            short = re.search(r"\d+([a-z][a-z0-9_]*_kernel)(?:I\S*?Li(\d+)E)?",
                               found.group(1))
             kernel = (short.group(1) + (f"<{short.group(2)}>"
                                         if short.group(2) else "")
@@ -687,42 +734,57 @@ def _resource_usage(cuda_build, name: str) -> str:
 
 
 def _sass_census(cuda_build) -> dict:
-    """Instruction counts of the two flash-attention kernels in the built
+    """Instruction counts of the flash-attention kernels in the built
     library, from ``cuobjdump -sass``: wgmma (HGMMA), TMA loads (UTMALDG)
-    and mma.sync (HMMA, and those with TF32 operands). Fails unless the
-    bf16 kernel runs its products on wgmma, loads with TMA and has no
-    mma.sync, and every HMMA of the fp32 kernel is TF32."""
+    and mma.sync (HMMA, and those with TF32 operands), for each head-dim
+    instantiation and summed by kind. Fails unless every bf16
+    instantiation runs its products on wgmma, loads with TMA and has no
+    mma.sync, and every HMMA of every fp32 one is TF32. Returns the sums
+    by kind ("bf16", "fp32") and each instantiation's ("by_head_dim")."""
     tool = Path(cuda_build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run(
         [str(tool), "-sass", str(cuda_build.library_path("flash_attention"))],
         capture_output=True, text=True, timeout=120, check=True).stdout
-    census, kernel = {}, None
+    empty = {"HGMMA": 0, "UTMALDG": 0, "HMMA": 0, "HMMA_TF32": 0}
+    by_fn, key = {}, None
     for line in sass.splitlines():
         found = re.search(
-            r"Function : \S*(flash_fwd_f32_kernel|flash_fwd_kernel)", line)
+            r"Function : \S*(flash_fwd_f32_kernel|flash_fwd_kernel)(\S*)",
+            line)
         if found:
-            kernel = "fp32" if "f32" in found.group(1) else "bf16"
-            census[kernel] = collections.Counter(
-                {"HGMMA": 0, "UTMALDG": 0, "HMMA": 0, "HMMA_TF32": 0})
+            kind = "fp32" if "f32" in found.group(1) else "bf16"
+            dim = re.search(r"Li(\d+)E", found.group(2))
+            key = (kind, int(dim.group(1)) if dim else 0)
+            by_fn[key] = collections.Counter(empty)
             continue
         op = re.search(
-            r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]+)", line)
-        if kernel is None or op is None:
+            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]+)",
+            line)
+        if key is None or op is None:
             continue
         for family in ("HGMMA", "UTMALDG", "HMMA"):
             if op.group(1).startswith(family):
-                census[kernel][family] += 1
+                by_fn[key][family] += 1
         if op.group(1).startswith("HMMA") and "TF32" in op.group(1):
-            census[kernel]["HMMA_TF32"] += 1
-    census = {k: dict(c) for k, c in census.items()}
+            by_fn[key]["HMMA_TF32"] += 1
+    census = {kind: dict(sum((c for (k, _), c in by_fn.items() if k == kind),
+                             collections.Counter(empty)))
+              for kind in ("bf16", "fp32")}
+    census["by_head_dim"] = {f"{k} {d}": dict(c)
+                             for (k, d), c in sorted(by_fn.items())}
     print(f"set-up: SASS census of flash_attention (cuobjdump -sass): "
           f"{census}", flush=True)
-    _check(set(census) == {"bf16", "fp32"}, f"kernels in the library: {census}")
-    bf16, fp32 = census["bf16"], census["fp32"]
-    _check(bf16["HGMMA"] > 0 and bf16["UTMALDG"] > 0 and bf16["HMMA"] == 0,
-           f"bf16 kernel is not wgmma fed by TMA: {bf16}")
-    _check(fp32["HMMA_TF32"] > 0 and fp32["HMMA_TF32"] == fp32["HMMA"],
-           f"fp32 kernel is not TF32 mma.sync: {fp32}")
+    _check({k for k, _ in by_fn} == {"bf16", "fp32"},
+           f"kernels in the library: {sorted(by_fn)}")
+    for (kind, dim), c in by_fn.items():
+        if kind == "bf16":
+            _check(c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["HMMA"] == 0,
+                   f"bf16 kernel at head dim {dim} is not wgmma fed by TMA: "
+                   f"{dict(c)}")
+        else:
+            _check(c["HMMA_TF32"] > 0 and c["HMMA_TF32"] == c["HMMA"],
+                   f"fp32 kernel at head dim {dim} is not TF32 mma.sync: "
+                   f"{dict(c)}")
     return census
 
 
@@ -9001,7 +9063,7 @@ def train_phase(torch, smi: str) -> dict:
             da.launches_by_head_dim[dim] = 0
         t0 = time.monotonic()
         dry = dryrun_multichip(8)
-        by_dim = dict(da.launches_by_head_dim)
+        by_dim = da.launches_by_head_dim.copy()  # a Counter: 0 if unseen
         _check(by_dim[8] > 0 and by_dim[16] > 0 and by_dim[32] == 0
                and by_dim[64] == 0, f"dryrun_multichip: K2 by head dim "
                f"{by_dim}, want launches at 8 and 16 alone")
@@ -9010,7 +9072,7 @@ def train_phase(torch, smi: str) -> dict:
                "head dim 8, 8 at 16)")
         print(f"train: dryrun_multichip(8) on the card in "
               f"{time.monotonic() - t0:.1f} s: {dry}; K2 launches by head "
-              f"dim {by_dim}; phase {time.monotonic() - t_phase:.1f} s",
+              f"dim {dict(by_dim)}; phase {time.monotonic() - t_phase:.1f} s",
               flush=True)
         return {"hd8": by_dim[8], "hd16": by_dim[16]}
     finally:
@@ -10194,6 +10256,749 @@ def _engine_stream(engine, model: str, prompt: list, n: int) -> list[int]:
     return toks
 
 
+# -- headdims phase ---------------------------------------------------------
+# K1, K2 and K3 across the range of inputs the reference kernels take (every
+# head dim up to 256, any shard count up to 64), and a GPT served at
+# Cerebras-GPT-1.3B's widths (head dim 128) through the new instantiations.
+
+# K1 and K2 are held against their plain versions at each of these head
+# dims: every instantiation (K1 32, 64, 128, 256; K2 also 8 and 16) and head
+# dims between them, which run the next larger one with the head dim
+# zero-padded (100 in bf16 through one padded copy: 200-byte rows).
+HD_LIST = (8, 16, 24, 32, 40, 48, 64, 80, 96, 100, 112, 128, 160, 192, 256)
+# K2 only: head dims that are not a multiple of 4 (no TMA: ordinary loads).
+HD_DECODE_ODD = (6, 50, 130)
+# K1's new instantiations and one padded head dim (80 runs 128), timed.
+HD_K1_TIMED = (32, 80, 128, 256)
+# K2's new instantiations and a head dim off the TMA path, timed.
+HD_K2_TIMED = (128, 256, 50)
+HD_RING_N = (2, 3, 4, 8, 9, 12, 16, 32, 64)
+HD_RING_TIMED = (16, 64)
+# Cerebras-GPT-1.3B's published widths (arXiv 2304.03208, Table 1; the
+# cerebras/Cerebras-GPT-1.3B config.json), in the family's seeded fill.
+CEREBRAS_1P3B = dict(n_layers=24, d_model=2048, n_heads=16, d_ff=8192,
+                     vocab=50257, max_seq_len=2048, max_streams=16)
+HD_PROMPTS = (16, 130, 500, 1024)   # four prompt buckets: 16, 256, 512, 1024
+HD_TOKENS = 32
+HD_MODEL = "cerebras_gpt_1p3b_widths"
+# tiny_gpt_long over 16 shards and tiny_gpt over 64, on the one card: K3 at
+# n = 16 and 64 on a served path.
+HD_SHARDED = {16: dict(name="tiny_gpt_long_kv16", max_seq_len=2048,
+                       max_streams=16, attention_impl="flash"),
+              64: dict(name="tiny_gpt_kv64", max_seq_len=128,
+                       max_streams=64)}
+HD_SHARDED_PROMPTS = {16: (3, 60, 700, 1500), 64: (2, 9, 30, 90)}
+HD_SHARDED_TOKENS = 16
+
+
+def _k1_case(torch, fa, label: str, q, k, v, bias, causal: bool) -> float:
+    """One K1 call against its plain version: shape, dtype, finite values,
+    max error within the dtype's tolerance, and a fully masked row (batch
+    row 1 where the bias drops every key) exactly 0."""
+    out = fa.flash_attention(q, k, v, bias, causal=causal)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_plain(q, k, v, bias, causal=causal)
+    tol = KERNEL_ATOL if q.dtype == torch.bfloat16 else FP32_ATOL
+    _check(out.shape == q.shape and out.dtype == q.dtype,
+           f"{label}: output {out.dtype} {tuple(out.shape)}")
+    _check(bool(torch.isfinite(out).all()), f"{label}: non-finite output")
+    err = float((out.float() - ref.float()).abs().max())
+    _check(err <= tol, f"{label}: max_abs_err {err} (tolerance {tol})")
+    if bias is not None and bias.shape[0] > 1 \
+            and bool((bias[1] == -math.inf).all()):
+        _check(bool((out[1] == 0).all()), f"{label}: masked row is not 0")
+    return err
+
+
+def _hd_qkv(torch, gen, dtype, b, s, h, d):
+    """bf16 as BERT hands them over (slices of one fused [b, s, 3, h, d]);
+    fp32 as the GPT prefill does (three tensors)."""
+    if dtype == torch.bfloat16:
+        fused = torch.randn(b, s, 3, h, d, device="cuda",
+                            generator=gen).to(dtype)
+        return fused[:, :, 0], fused[:, :, 1], fused[:, :, 2]
+    return [torch.randn(b, s, h, d, device="cuda", generator=gen)
+            for _ in range(3)]
+
+
+def _hd_bias(torch, b, s, fully_masked_row: bool):
+    bias = torch.zeros(b, s, device="cuda")
+    bias[0, s - s // 4:] = -1e9  # BERT's padding mask
+    if fully_masked_row:
+        bias[1] = -math.inf
+    return bias
+
+
+def _k1_head_dims(torch, fa) -> dict:
+    """K1 bf16 and fp32 at every head dim of HD_LIST against the plain
+    version: bert_long's B4 S2048 (H = 768 // D, tail-masked and causal)
+    in bf16, tiny_gpt_long's prefill B8 S2048 H4 (causal, and tail-masked)
+    in fp32, the tile edges of both kernels with a fully masked row, and
+    the reference tests' own shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(2304)
+    errors = {torch.bfloat16: {}, torch.float32: {}}
+    for d in HD_LIST:
+        for dtype in (torch.bfloat16, torch.float32):
+            errs = []
+            if dtype == torch.bfloat16:
+                b, s, h = 4, 2048, 768 // d
+            else:
+                b, s, h = 8, 2048, 4
+            q, k, v = _hd_qkv(torch, gen, dtype, b, s, h, d)
+            tail = _hd_bias(torch, b, s, False)
+            name = "bf16" if dtype == torch.bfloat16 else "fp32"
+            errs.append(_k1_case(torch, fa, f"{name} D{d} B{b} S{s} H{h} "
+                                 "tail-masked", q, k, v, tail, False))
+            errs.append(_k1_case(torch, fa, f"{name} D{d} B{b} S{s} H{h} "
+                                 "causal", q, k, v, None, True))
+            del q, k, v
+            # Tile edges: 192 / 128 query rows a CTA (bf16), 64 (fp32);
+            # 128 or 64 keys a stage (bf16), 64 or 32 (fp32).
+            for s_edge, causal in ((1, False), (63, True), (129, False),
+                                   (193, True), (200, False)):
+                q, k, v = _hd_qkv(torch, gen, dtype, 2, s_edge, 3, d)
+                errs.append(_k1_case(
+                    torch, fa, f"{name} D{d} S{s_edge}", q, k, v,
+                    _hd_bias(torch, 2, s_edge, True), causal))
+            errors[dtype][d] = max(errs)
+        torch.cuda.empty_cache()
+    # The reference tests' shapes: tests/test_ops.py (head dim 32, fp32,
+    # B1 S512 H2 without a bias and B1 S128 H2 fully masked by -1e9) and
+    # tests/test_generative.py's flash prefill (head dim 16, fp32, causal,
+    # a 100-token prompt in its 128 bucket, 4 heads).
+    ref_errs = []
+    for label, (b, s, h, d), bias_kind, causal in (
+            ("test_ops no bias", (1, 512, 2, 32), None, False),
+            ("test_ops masked", (1, 128, 2, 32), "masked", False),
+            ("test_ops tail", (2, 256, 4, 32), "tail", False),
+            ("test_generative prefill", (1, 128, 4, 16), None, True)):
+        q, k, v = _hd_qkv(torch, gen, torch.float32, b, s, h, d)
+        bias = None
+        if bias_kind == "masked":
+            bias = torch.full((b, s), -1e9, device="cuda")
+        elif bias_kind == "tail":
+            bias = torch.zeros(b, s, device="cuda")
+            bias[:, -37:] = -1e9
+        ref_errs.append(_k1_case(torch, fa, f"fp32 {label}", q, k, v, bias,
+                                 causal))
+    for dtype, errs in errors.items():
+        print(f"headdims: K1 {'bf16' if dtype == torch.bfloat16 else 'fp32'}"
+              f" against its plain version at head dims {list(errs)}: "
+              f"max_abs_err by head dim {errs} (tolerance "
+              f"{KERNEL_ATOL if dtype == torch.bfloat16 else FP32_ATOL}; "
+              "tail-masked, causal, tile edges, a fully masked row exactly "
+              "0)", flush=True)
+    print(f"headdims: K1 fp32 at the reference tests' shapes: max_abs_err "
+          f"{max(ref_errs)} (tolerance {FP32_ATOL})", flush=True)
+    return {"bf16": errors[torch.bfloat16], "fp32": errors[torch.float32],
+            "reference_tests": max(ref_errs)}
+
+
+def _k1_timed(torch, fa, errors: dict, smi: str) -> list[dict]:
+    """K1's new instantiations (and head dim 80, run by the 128 one),
+    median of 50 launches in turns with scaled_dot_product_attention: bf16
+    at B4 S2048 H = 768 // D tail-masked, fp32 at B8 S2048 H4 causal. Also
+    the one zero-padded copy a bf16 head dim of 100 pays."""
+    gen = torch.Generator(device="cuda").manual_seed(2305)
+    entries = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in HD_K1_TIMED:
+            bf16 = dtype == torch.bfloat16
+            b, s, h = (4, 2048, 768 // d) if bf16 else (8, 2048, 4)
+            q, k, v = _hd_qkv(torch, gen, dtype, b, s, h, d)
+            bias = _hd_bias(torch, b, s, False) if bf16 else None
+            causal = not bf16
+
+            def kernel():
+                return fa.flash_attention(q, k, v, bias, causal=causal)
+
+            def library():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    attn_mask=(bias[:, None, None, :].to(dtype) if bf16
+                               else None), is_causal=causal)
+
+            ms, library_ms = _time_turns(torch, kernel, library)
+            plain_ms = _time_ms(torch, lambda: fa.flash_attention_plain(
+                q, k, v, bias, causal=causal))
+            pairs = s * (s + 1) / 2 if causal else s * s
+            flops = 4.0 * b * h * d * pairs
+            nbytes = 4 * b * s * h * d * q.element_size() + (
+                b * s * 4 if bias is not None else 0)
+            if bf16:
+                flop_ms = flops / PEAK_BF16_FLOPS * 1e3
+            else:
+                flop_ms = min(flops / PEAK_FP32_FLOPS,
+                              3 * flops / PEAK_TF32_FLOPS) * 1e3
+            byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+            name = ("flash_attention" if bf16 else "flash_attention_fp32") \
+                + f"_hd{d}"
+            entries.append({
+                "name": name,
+                "route": "cuda",
+                "source": "client_tpu_torch/csrc/flash_attention.cu",
+                "replaces": "client_tpu/ops/flash_attention.py:31",
+                "launches": 0,  # the served path's, set by the phase
+                "max_abs_err": errors["bf16" if bf16 else "fp32"][d],
+                "ms": ms,
+                "plain_ms": plain_ms,
+                "bound_ms": max(flop_ms, byte_ms),
+                "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+                "library_ms": library_ms,
+                "library_call": "scaled_dot_product_attention, "
+                                + ("float mask" if bf16 else "is_causal"),
+                "head_dim": d,
+                "instantiation": fa.kernel_head_dim(d),
+                "shape": [b, s, h, d],
+            })
+            print(f"headdims: {name} (instantiation "
+                  f"{fa.kernel_head_dim(d)}) at B{b} S{s} H{h} D{d}"
+                  f"{' causal' if causal else ' tail-masked'}: kernel {ms} ms"
+                  f" ({flops / ms / 1e9:.1f} TFLOP/s), "
+                  f"scaled_dot_product_attention {library_ms} ms (in turns), "
+                  f"plain {plain_ms} ms, bound {max(flop_ms, byte_ms)} ms "
+                  f"({flops:.3e} FLOP, {nbytes} bytes); {smi}", flush=True)
+            del q, k, v
+    # The padded copy: bf16 rows of 100 elements are 200 bytes, not a
+    # multiple of 16, so the wrapper pads q/k/v to 104 first.
+    b, s, h, d = 4, 2048, 768 // 100, 100
+    q, k, v = _hd_qkv(torch, gen, torch.bfloat16, b, s, h, d)
+    bias = _hd_bias(torch, b, s, False)
+    copy_ms = _time_ms(torch, lambda: [fa.pad_head_dim(t, 104)
+                                       for t in (q, k, v)])
+    call_ms = _time_ms(torch, lambda: fa.flash_attention(q, k, v, bias))
+    print(f"headdims: bf16 head dim 100 at B{b} S{s} H{h}: the zero-padded "
+          f"copy of q/k/v to 104 columns {copy_ms} ms, the whole call "
+          f"(copy and kernel) {call_ms} ms; {smi}", flush=True)
+    by_name = {e["name"]: e for e in entries}
+    by_name[f"flash_attention_hd{fa.kernel_head_dim(d)}"]["padded_copy"] = {
+        "head_dim": d, "shape": [b, s, h, d], "copy_ms": copy_ms,
+        "call_ms": call_ms}
+    return entries
+
+
+def _k2_head_dims(torch, cuda_build, da, smi: str) -> list[dict]:
+    """K2 at every head dim of HD_LIST and HD_DECODE_ODD against its plain
+    version (:func:`_decode_case`: padded lanes, lens 0, untouched rows,
+    repeated calls bit for bit) at the tile and split edges of a 2048-long
+    row; then the new instantiations timed queued over 4 layers at B=16,
+    in turns with scaled_dot_product_attention on gathered rows."""
+    gen = torch.Generator(device="cuda").manual_seed(2306)
+    errors = {}
+    for d in HD_LIST + HD_DECODE_ODD:
+        k_a, v_a = (torch.randn(2, 5, 2048, 2, d, device="cuda",
+                                generator=gen) for _ in range(2))
+        errs = [_decode_case(torch, da, k_a, v_a, gen, [0, 4, 2, 4],
+                             [300, 0, 31, 0], 0, "padded lanes")]
+        for n in (1, 31, 32, 33, 127, 128, 129, 255, 256, 257, 511, 513,
+                  1792, 1793, 2047):
+            errs.append(_decode_case(torch, da, k_a, v_a, gen, [1, 4],
+                                     [n, 0], 1, f"split n={n}"))
+        errors[d] = max(errs)
+        del k_a, v_a
+    print(f"headdims: K2 against its plain version at head dims "
+          f"{list(errors)}: max_abs_err by head dim {errors} (tolerance "
+          f"{DECODE_ATOL}; tile and split edges up to 2,047 keys, padded "
+          "lanes, lens 0 exactly v_new, untouched rows and repeated calls "
+          "bit for bit)", flush=True)
+    rng = np.random.default_rng(2)
+    rows_np = np.asarray(list(range(12)) + [16] * 4, np.int32)
+    lens_np = np.asarray([0, 1, 2047] + rng.integers(2, 1600, 9).tolist()
+                         + [0] * 4, np.int32)  # tiny_gpt_long's B16 wave
+    entries = []
+    for d in HD_K2_TIMED:
+        h = 2048 // d  # a d_model of 2048 (Cerebras-GPT-1.3B: 16 x 128)
+        k_a, v_a = (torch.randn(4, 17, 2048, h, d, device="cuda",
+                                generator=gen) for _ in range(2))
+        index = da.WaveIndex(rows_np, lens_np, 17, 2048, "cuda")
+        q, kn, vn = (torch.randn(16, h, d, device="cuda", generator=gen)
+                     for _ in range(3))
+        rows_t, lens_t = index.rows.long(), index.lens.long()
+        gathered = [(k_a[layer, rows_t].transpose(1, 2),
+                     v_a[layer, rows_t].transpose(1, 2)) for layer in range(4)]
+        mask = torch.arange(2048, device="cuda")[None, :] <= lens_t[:, None]
+        times = _queued_turns(torch, {
+            "kernel": [lambda layer=layer: da.decode_wave_attention(
+                k_a, v_a, q, kn, vn, index, layer=layer)
+                for layer in range(4)],
+            "library": [lambda ck=ck, cv=cv: torch.nn.functional
+                        .scaled_dot_product_attention(
+                            q[:, :, None], ck, cv,
+                            attn_mask=mask[:, None, None, :])
+                        for ck, cv in gathered]})
+        del gathered
+        plain_ms = _queued_ms(torch, lambda: da.decode_wave_attention_plain(
+            k_a, v_a, q, kn, vn, index, layer=0), reps=5)
+        alone_ms = _time_ms(torch, lambda: da.decode_wave_attention(
+            k_a, v_a, q, kn, vn, index, layer=0))
+        bound_ms, bound_by, nbytes = _decode_bound(lens_np, 16, h, d)
+        occupancy = _decode_occupancy(cuda_build, 16, h, index.n_split, d)
+        entries.append({
+            "name": f"decode_wave_attention_hd{d}",
+            "route": "cuda",
+            "source": "client_tpu_torch/csrc/decode_attention.cu",
+            "replaces": "client_tpu/ops/decode_kernel.py:58",
+            "launches": 0,  # the served path's, set by the phase
+            "max_abs_err": errors[d],
+            "ms": times["kernel"],
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": times["library"],
+            "library_call": "scaled_dot_product_attention over rows gathered "
+                            "beforehand, boolean mask; no scatter, no gather",
+            "head_dim": d,
+            "instantiation": da.kernel_head_dim(d),
+            "tma": d % 4 == 0,
+            "shape": [4, 17, 2048, h, d],
+            "alone_ms": alone_ms,
+        })
+        print(f"headdims: decode_wave_attention_hd{d} (instantiation "
+              f"{da.kernel_head_dim(d)}, {'TMA' if d % 4 == 0 else 'ordinary loads'}"
+              f") at B16 on [4, 17, 2048, {h}, {d}] (sum of lens "
+              f"{int(lens_np.sum())}), device ms per call queued over 4 "
+              f"layers in turns: kernel {times['kernel']} ms "
+              f"({nbytes / times['kernel'] / 1e6:.1f} GB/s, "
+              f"{100 * bound_ms / times['kernel']:.1f}% of the bound "
+              f"{bound_ms} ms), scaled_dot_product_attention on gathered "
+              f"rows {times['library']} ms; one call alone {alone_ms} ms; "
+              f"plain {plain_ms} ms; {occupancy}; {smi}", flush=True)
+        del k_a, v_a
+        torch.cuda.empty_cache()
+    return entries
+
+
+def _k3_shard_counts(torch, ks, smi: str) -> list[dict]:
+    """K3 at every n of HD_RING_N, bit for bit against its plain version at
+    the decode wave's [16, 4, 64] and DLRM's [832, 128]; n = 65 refused
+    before a launch; n = 16 and 64 timed queued in turns with
+    torch.stack(...).sum(0)."""
+    gen = torch.Generator(device="cuda").manual_seed(2307)
+    for n in HD_RING_N:
+        for shape in (RING_SHAPES[-1], DLRM_POOLED):
+            parts = [torch.randn(shape, device="cuda", generator=gen) * 4
+                     for _ in range(n)]
+            got = ks.ring_all_reduce(parts)
+            torch.cuda.synchronize()
+            for i, (g, w) in enumerate(zip(got,
+                                           ks.ring_all_reduce_plain(parts))):
+                _check(bool(torch.equal(g, w)),
+                       f"ring n={n} {list(shape)} shard {i} differs from the "
+                       f"plain version by {float((g - w).abs().max())}")
+    before = ks.launches
+    try:
+        ks.ring_all_reduce([torch.zeros(4, device="cuda")] * 65)
+        _check(False, "ring n=65 launched")
+    except ValueError as exc:
+        _check("1 to 64" in str(exc) and ks.launches == before,
+               f"ring n=65: {exc}")
+    print(f"headdims: K3 at n = {list(HD_RING_N)}, [16, 4, 64] and [832, "
+          "128]: every shard's sum equals the plain version bit for bit; "
+          "n = 65 refused before a launch", flush=True)
+    entries = []
+    shape = RING_SHAPES[-1]
+    for n in HD_RING_TIMED:
+        parts = [torch.randn(shape, device="cuda", generator=gen)
+                 for _ in range(n)]
+        turns = _queued_turns(torch, {
+            "kernel": [lambda: ks.ring_all_reduce(parts)],
+            "library": [lambda: torch.stack(parts).sum(0)]})
+        # The plain version's n - 1 hops are n * (n - 1) launches a call,
+        # too many to queue: a call alone, host included.
+        plain_ms = _time_ms(torch, lambda: ks.ring_all_reduce_plain(parts))
+        bound_ms, bound_by = _ring_bound(n, math.prod(shape))
+        entries.append({
+            "name": f"ring_all_reduce_n{n}",
+            "route": "cuda",
+            "source": "client_tpu_torch/csrc/ring_all_reduce.cu",
+            "replaces": "client_tpu/parallel/kv_shard.py:84",
+            "launches": 0,  # the served path's, set by the phase
+            "max_abs_err": 0.0,  # checked bit for bit above
+            "ms": turns["kernel"],
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": turns["library"],
+            "library_call": "torch.stack(partials).sum(0) on the one card",
+            "shards": n,
+            "shape": list(shape),
+        })
+        print(f"headdims: ring_all_reduce n={n} at {list(shape)}: device ms "
+              f"per call queued, in turns: kernel {turns['kernel']}, "
+              f"torch.stack(...).sum(0) {turns['library']}; plain (a call "
+              f"alone, host included) {plain_ms}; bound {bound_ms} ms "
+              f"({bound_by}); {smi}", flush=True)
+    return entries
+
+
+def _hd_generate(port: int, model: str, prompt: list, n: int) -> list[int]:
+    body = {"inputs": [{"name": "INPUT_IDS", "datatype": "INT32",
+                        "shape": [len(prompt)], "data": prompt}],
+            "parameters": {"max_tokens": n}}
+    status, _, data = _post(port, f"/v2/models/{model}/generate",
+                            json.dumps(body).encode())
+    _check(status == 200, f"{model} /generate HTTP {status}: {data[:200]!r}")
+    return [{o["name"]: o["data"] for o in r["outputs"]}["TOKEN"][0]
+            for r in json.loads(data)["responses"]]
+
+
+def _hd_serve(torch, engine, server, grpc_server, model: str, prompts: list,
+              n: int) -> dict:
+    """The prompts at once over SSE, then over /generate, then on one gRPC
+    stream RPC; every stream's tokens, the SSE pass's wall time."""
+    def sse(prompt):
+        return _stream(server.port, model, {
+            "inputs": [{"name": "INPUT_IDS", "datatype": "INT32",
+                        "shape": [len(prompt)], "data": prompt}],
+            "parameters": {"max_tokens": n}})[0]
+
+    t0 = time.monotonic()
+    with concurrent.futures.ThreadPoolExecutor(len(prompts)) as pool:
+        streamed = list(pool.map(sse, prompts))
+    wall = time.monotonic() - t0
+    with concurrent.futures.ThreadPoolExecutor(len(prompts)) as pool:
+        collected = list(pool.map(
+            lambda p: _hd_generate(server.port, model, p, n), prompts))
+    got = _grpc_streams(grpc_server.url, [
+        (f"h{i}", model, p, {"max_tokens": n}) for i, p in enumerate(prompts)])
+    over_grpc = [got[f"h{i}"][0] for i in range(len(prompts))]
+    status, snap = _get(server.port, f"/v2/profile?model={model}")
+    _check(status == 200, f"/v2/profile HTTP {status}")
+    waves = sum(w["waves"] for w in snap["models"][f"{model}:1"]
+                ["decode_waves"])
+    return {"sse": streamed, "generate": collected, "grpc": over_grpc,
+            "wall_s": wall, "waves": waves}
+
+
+def _hd_cerebras(torch, fa, da, smi: str) -> dict:
+    """A TinyGptBackend at Cerebras-GPT-1.3B's widths (head dim 128),
+    registered with register_backend (not added to the zoo), served over
+    HTTP and gRPC: K1 fp32 at head dim 128 once per prompt and layer, K2
+    at head dim 128 once per wave and layer; every stream token for token
+    the same model's with attention_impl="einsum", attn_impl="reference"
+    (no kernel) run directly on the card."""
+    cfg = CEREBRAS_1P3B
+    dim = cfg["d_model"] // cfg["n_heads"]
+    from client_tpu_torch.engine import TorchEngine
+    from client_tpu_torch.engine.repository import ModelRepository
+    from client_tpu_torch.models.generate import TinyGptBackend
+    from client_tpu_torch.server import GrpcInferenceServer, HttpInferenceServer
+
+    t0 = time.monotonic()
+    backend = TinyGptBackend(name=HD_MODEL, attention_impl="flash",
+                             attn_impl="fused", device="cuda", **cfg)
+    n_params = sum(p.numel() for p in backend.parameters())
+    built_s = time.monotonic() - t0
+    repo = ModelRepository()
+    repo.register_backend(backend)
+    engine = TorchEngine(repo)
+    server = HttpInferenceServer(engine, port=0).start()
+    grpc_server = GrpcInferenceServer(engine, port=0).start()
+    print(f"headdims: {HD_MODEL} ({n_params} parameters, "
+          f"{4 * n_params / 1e9:.2f} GB fp32, head dim {dim}) built in "
+          f"{built_s:.1f} s, served with its arena; "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated on the "
+          f"card; {smi}", flush=True)
+    rng = np.random.default_rng(2308)
+    prompts = [rng.integers(0, cfg["vocab"], n).tolist() for n in HD_PROMPTS]
+    L = cfg["n_layers"]
+    try:
+        fa.launches_fp32_by_head_dim.clear()
+        da.launches_by_head_dim.clear()
+        fa.launches_fp32 = 0
+        da.launches = 0
+        served = _hd_serve(torch, engine, server, grpc_server, HD_MODEL,
+                           prompts, HD_TOKENS)
+        k1, k2 = fa.launches_fp32_by_head_dim[dim], da.launches_by_head_dim[dim]
+        _check(served["waves"] >= 3 * (HD_TOKENS - 1),
+               f"{served['waves']} decode waves")
+        _check(dict(fa.launches_fp32_by_head_dim) == {dim: k1}
+               and dict(da.launches_by_head_dim) == {dim: k2},
+               f"other head dims launched: "
+               f"{dict(fa.launches_fp32_by_head_dim)} "
+               f"{dict(da.launches_by_head_dim)}")
+        # Three passes of four prompts, each in its own prompt bucket: one
+        # prefill a prompt and layer; K2 once a wave and layer.
+        _check(k1 == 3 * len(prompts) * L,
+               f"K1 fp32 at head dim {dim}: {k1} launches, want "
+               f"{3 * len(prompts) * L}")
+        _check(k2 == served["waves"] * L,
+               f"K2 at head dim {dim}: {k2} launches, {served['waves']} "
+               f"waves x {L} layers")
+        n_tok = sum(len(t) for t in served["sse"])
+        print(f"headdims: {HD_MODEL} served {len(prompts)} greedy streams "
+              f"(prompts {list(HD_PROMPTS)}, {HD_TOKENS} tokens each) over "
+              f"SSE, /generate and a gRPC stream; K1 fp32 at head dim {dim} "
+              f"{k1} launches = 3 passes x {len(prompts)} prompts x {L} "
+              f"layers, K2 at head dim {dim} {k2} = {served['waves']} waves "
+              f"x {L} layers; SSE pass {n_tok} tokens in {served['wall_s']:.3f}"
+              f" s ({n_tok / served['wall_s']:.1f} tokens/s); {smi}",
+              flush=True)
+    finally:
+        grpc_server.stop()
+        server.stop()
+        engine.shutdown()
+    del engine, repo, server, grpc_server
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    # Prefill and wave device time, the kernels on, one stream in a
+    # two-row arena.
+    arena = backend.init_arena(1)
+    lanes = backend.lane_params([0], [0.0], [0], [1.0])
+    n = len(prompts[-1])
+    times = {}
+    for label, fn in (
+            (f"prefill of {n} tokens", lambda: backend.prefill(
+                arena, backend.wave_index(arena, [0], [n]),
+                torch.tensor([prompts[-1]], dtype=torch.int32,
+                             device="cuda"), lanes, False)),
+            (f"decode wave of 1 lane at {n}",
+             lambda: backend.decode(arena, backend.wave_index(
+                 arena, [0], [n]), lanes, False))):
+        times[label] = _time_ms(torch, fn)
+    print(f"headdims: {HD_MODEL} device ms, kernels on: {times} (CUDA "
+          f"events, median of {N_TIMED}); {smi}", flush=True)
+    # The plain path: the same weights with einsum prefill and reference
+    # decode, which launch no kernel.
+    backend.attention_impl, backend.attn_impl = "einsum", "reference"
+    before = (fa.launches_fp32, da.launches)
+    t0 = time.monotonic()
+    for i, prompt in enumerate(prompts):
+        want = _direct_stream(torch, backend, arena, prompt, HD_TOKENS, {})
+        for via in ("sse", "generate", "grpc"):
+            _check(served[via][i] == want,
+                   f"{HD_MODEL} prompt of {len(prompt)} over {via}: "
+                   f"{served[via][i]} != plain path {want}")
+    _check((fa.launches_fp32, da.launches) == before,
+           "the plain path launched a kernel")
+    print(f"headdims: {HD_MODEL}: all {3 * len(prompts)} streams equal the "
+          f"plain path (einsum prefill, reference decode) run directly on "
+          f"the card, token for token ({time.monotonic() - t0:.1f} s)",
+          flush=True)
+    del backend, arena
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"k1": k1, "k2": k2, "waves": served["waves"],
+            "tokens_per_s": n_tok / served["wall_s"], "device_ms": times}
+
+
+def _hd_sharded(torch, ks, n: int) -> int:
+    """HD_SHARDED[n] (kv_shards = n, every shard on the one card) served
+    over HTTP and gRPC: K3 at n shards once per wave and layer, each
+    stream token for token the unsharded plain path's. Returns K3's
+    launches."""
+    from client_tpu_torch.engine import TorchEngine
+    from client_tpu_torch.engine.repository import ModelRepository
+    from client_tpu_torch.models.generate import TinyGptBackend
+    from client_tpu_torch.server import GrpcInferenceServer, HttpInferenceServer
+
+    cfg = HD_SHARDED[n]
+    backend = TinyGptBackend(attn_impl="fused", kv_shards=n, device="cuda",
+                             **cfg)
+    backend._kv_mesh = ks.kv_mesh(n, ["cuda"] * n)
+    repo = ModelRepository()
+    repo.register_backend(backend)
+    engine = TorchEngine(repo)
+    server = HttpInferenceServer(engine, port=0).start()
+    grpc_server = GrpcInferenceServer(engine, port=0).start()
+    rng = np.random.default_rng(2309 + n)
+    prompts = [rng.integers(0, 512, p).tolist()
+               for p in HD_SHARDED_PROMPTS[n]]
+    try:
+        ks.launches = 0
+        served = _hd_serve(torch, engine, server, grpc_server, cfg["name"],
+                           prompts, HD_SHARDED_TOKENS)
+        k3 = ks.launches
+        _check(k3 == served["waves"] * backend.n_layers > 0,
+               f"K3 at n={n}: {k3} launches, {served['waves']} waves")
+    finally:
+        grpc_server.stop()
+        server.stop()
+        engine.shutdown()
+    plain = TinyGptBackend(attn_impl="reference", device="cuda", **{
+        **cfg, "name": "plain", "attention_impl": "einsum"})
+    arena = plain.init_arena(1)
+    for i, prompt in enumerate(prompts):
+        want = _direct_stream(torch, plain, arena, prompt, HD_SHARDED_TOKENS,
+                              {})
+        for via in ("sse", "generate", "grpc"):
+            _check(served[via][i] == want,
+                   f"{cfg['name']} prompt of {len(prompt)} over {via}: "
+                   f"{served[via][i]} != plain path {want}")
+    print(f"headdims: {cfg['name']} (kv_shards={n} on the one card) served "
+          f"{len(prompts)} streams over SSE, /generate and gRPC, token for "
+          f"token the unsharded plain path's; K3 at n={n} {k3} launches = "
+          f"{served['waves']} waves x {backend.n_layers} layers", flush=True)
+    return k3
+
+
+def headdims_phase(torch, cuda_build, smi: str) -> list[dict]:
+    """Step 22: K1, K2 and K3 across the input range of the reference
+    kernels, then the served paths through the new instantiations. Returns
+    the kernels-line entries of the new instantiations."""
+    from client_tpu_torch.ops import decode_attention as da
+    from client_tpu_torch.ops import flash_attention as fa
+    from client_tpu_torch.parallel import kv_shard as ks
+
+    t_phase = time.monotonic()
+    _check(not torch.backends.cuda.matmul.allow_tf32,
+           "TF32 matmuls are on: fp32 parity needs them off")
+    for d in (272, 257):
+        for label, call in (
+                ("K1", lambda d=d: fa.flash_attention(*[torch.zeros(
+                    1, 8, 1, d, device="cuda")] * 3)),
+                ("K2", lambda d=d: da.decode_wave_attention(
+                    *[torch.zeros(1, 3, 8, 1, d, device="cuda")] * 2,
+                    *[torch.zeros(1, 1, d, device="cuda")] * 3,
+                    da.WaveIndex([0], [1], 3, 8, "cuda"), layer=0))):
+            before = (fa.launches_fp32, da.launches)
+            try:
+                call()
+                _check(False, f"{label} took head dim {d}")
+            except ValueError as exc:
+                _check("head dims 1 to 256" in str(exc)
+                       and (fa.launches_fp32, da.launches) == before,
+                       f"{label} at head dim {d}: {exc}")
+    print("headdims: head dims 257 and 272 refused on the card before a "
+          "launch (K1 and K2), naming the range", flush=True)
+    k1_errors = _k1_head_dims(torch, fa)
+    entries = _k1_timed(torch, fa, k1_errors, smi)
+    torch.cuda.empty_cache()
+    entries += _k2_head_dims(torch, cuda_build, da, smi)
+    entries += _k3_shard_counts(torch, ks, smi)
+    torch.cuda.empty_cache()
+    by_name = {e["name"]: e for e in entries}
+    gpt = _hd_cerebras(torch, fa, da, smi)
+    by_name["flash_attention_fp32_hd128"]["launches"] = gpt["k1"]
+    by_name["decode_wave_attention_hd128"]["launches"] = gpt["k2"]
+    by_name["decode_wave_attention_hd128"]["served_tokens_per_s"] = \
+        gpt["tokens_per_s"]
+    by_name["flash_attention_fp32_hd128"]["served_device_ms"] = \
+        gpt["device_ms"]
+    for n in HD_RING_TIMED:
+        by_name[f"ring_all_reduce_n{n}"]["launches"] = _hd_sharded(
+            torch, ks, n)
+        torch.cuda.empty_cache()
+    print(f"headdims: phase passed in {time.monotonic() - t_phase:.1f} s",
+          flush=True)
+    return entries
+
+
+def _parent_module(torch, parent: Path, name: str):
+    """The older checkout's ``client_tpu_torch/<name>.py`` (``ops/...`` or
+    ``parallel/...``) loaded under another module name, its kernel built
+    from that checkout's ``csrc/<library>.cu`` (same nvcc flags) into
+    ``build/versus/``, so that its own wrapper, with its own C signature,
+    launches it."""
+    import ctypes
+    import hashlib
+    import importlib.util
+
+    from client_tpu_torch.ops import cuda_build
+
+    class Build:  # the parent's kernel in place of the checkout's
+        @staticmethod
+        def load(lib_name: str):
+            src = parent / "client_tpu_torch" / "csrc" / f"{lib_name}.cu"
+            digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+            out = cuda_build.BUILD_DIR.parent / "versus" / \
+                f"{lib_name}-{digest}.so"
+            if not out.exists():
+                out.parent.mkdir(parents=True, exist_ok=True)
+                subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS,
+                                "-o", str(out), str(src)], check=True,
+                               capture_output=True, timeout=900)
+            return ctypes.CDLL(str(out))
+
+    spec = importlib.util.spec_from_file_location(
+        f"versus_{name.replace('/', '_')}",
+        parent / "client_tpu_torch" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = module  # for its dataclasses
+    spec.loader.exec_module(module)
+    module.cuda_build = Build
+    return module
+
+
+def versus_phase(torch, parent: Path, smi: str) -> dict:
+    """``--versus DIR``: K1 bf16 at ``bert_long``'s B4 S2048 H12 D64, K2 at
+    head dim 64 (``tiny_gpt_long``'s B16 wave over its 4 layers) and 32
+    (``tiny_gpt_mc``'s [4, 65, 128, 8, 32] at B16), and K3 at the decode
+    wave's [16, 4, 64] over 8, 16 and 64 shards (those the older tree
+    takes), each timed in this one process in turns (parent, change,
+    change, parent) against the same kernel built from the older checkout
+    at DIR, on the same inputs. K1: median of 50 launches a side between
+    CUDA events; K2 and K3: queued device time (:func:`_queued_turns`).
+    Prints the outputs' largest difference from the parent's on the same
+    inputs (0: bit for bit)."""
+    from client_tpu_torch.ops import decode_attention as da
+    from client_tpu_torch.ops import flash_attention as fa
+    from client_tpu_torch.parallel import kv_shard as ks
+
+    t0 = time.monotonic()
+    old_fa = _parent_module(torch, parent, "ops/flash_attention")
+    old_da = _parent_module(torch, parent, "ops/decode_attention")
+    old_ks = _parent_module(torch, parent, "parallel/kv_shard")
+    gen = torch.Generator(device="cuda").manual_seed(64)
+    fused = torch.randn(4, 2048, 3, 12, 64, device="cuda",
+                        generator=gen).to(torch.bfloat16)
+    q, k, v = fused[:, :, 0], fused[:, :, 1], fused[:, :, 2]
+    bias = _hd_bias(torch, 4, 2048, False)
+    out, equal = {}, {}
+    calls = {"parent": lambda: old_fa.flash_attention(q, k, v, bias),
+             "change": lambda: fa.flash_attention(q, k, v, bias)}
+    equal["k1_bf16_hd64"] = float(
+        (calls["parent"]().float() - calls["change"]().float()).abs().max())
+    samples = {"parent": [], "change": []}
+    for name in ("parent", "change", "change", "parent"):
+        samples[name] += _samples_ms(torch, calls[name])
+    out["k1_bf16_hd64"] = {k: float(np.median(v)) for k, v in
+                           samples.items()}
+    rng = np.random.default_rng(2)
+    for dim, (L, R, S, H), rows, lens in (
+            (64, (4, 17, 2048, 4), list(range(12)) + [16] * 4,
+             [0, 1, 2047] + rng.integers(2, 1600, 9).tolist() + [0] * 4),
+            (32, (4, 65, 128, 8), list(range(12)) + [64] * 4,
+             [0, 1, 127] + rng.integers(2, 120, 9).tolist() + [0] * 4)):
+        k_a, v_a = (torch.randn(L, R, S, H, dim, device="cuda",
+                                generator=gen) for _ in range(2))
+        qd, kn, vn = (torch.randn(16, H, dim, device="cuda", generator=gen)
+                      for _ in range(3))
+        index = da.WaveIndex(rows, lens, R, S, "cuda")
+        a = old_da.decode_wave_attention(k_a, v_a, qd, kn, vn, index,
+                                         layer=1)
+        b = da.decode_wave_attention(k_a, v_a, qd, kn, vn, index, layer=1)
+        equal[f"k2_hd{dim}"] = float((a - b).abs().max())
+        out[f"k2_hd{dim}"] = _queued_turns(torch, {
+            "parent": [lambda layer=layer: old_da.decode_wave_attention(
+                k_a, v_a, qd, kn, vn, index, layer=layer)
+                for layer in range(L)],
+            "change": [lambda layer=layer: da.decode_wave_attention(
+                k_a, v_a, qd, kn, vn, index, layer=layer)
+                for layer in range(L)]})
+        del k_a, v_a
+    for n in (8, 16, 64):
+        if n > old_ks._MAX_SHARDS:
+            continue
+        parts = [torch.randn(RING_SHAPES[-1], device="cuda", generator=gen)
+                 for _ in range(n)]
+        equal[f"k3_n{n}"] = max(
+            float((a - b).abs().max()) for a, b in
+            zip(old_ks.ring_all_reduce(parts), ks.ring_all_reduce(parts)))
+        out[f"k3_n{n}"] = _queued_turns(torch, {
+            "parent": [lambda: old_ks.ring_all_reduce(parts)],
+            "change": [lambda: ks.ring_all_reduce(parts)]})
+    for key, t in out.items():
+        t["change_over_parent"] = t["change"] / t["parent"]
+    print(f"versus: in turns (parent, change, change, parent) in one "
+          f"process against {parent}'s kernels: {json.dumps(out)}; the "
+          f"outputs' max abs difference (0: bit for bit) {equal} "
+          f"({time.monotonic() - t0:.1f} s); {smi}", flush=True)
+    return out
+
+
 def wave_phase(torch, smi: str) -> None:
     """``--kernels``: the per-wave host/device split (:func:`_wave_split`)
     of ``tiny_gpt_long`` at its registered size, built directly, over one
@@ -10263,9 +11068,13 @@ def main(argv: list[str]) -> int:
     mc_only = argv == ["--mc"]
     train_only = argv == ["--train"]
     capi_only = argv == ["--capi"]
-    if argv and not (kernels_only or mc_only or train_only or capi_only):
+    headdims_only = argv == ["--headdims"]
+    versus = argv[1] if len(argv) == 2 and argv[0] == "--versus" else None
+    if argv and not (kernels_only or mc_only or train_only or capi_only
+                     or headdims_only or versus):
         print("usage: python3 chip_smoke.py [--kernels | --mc | --train | "
-              "--capi]", file=sys.stderr)
+              "--capi | --headdims | --versus OLDER_CHECKOUT]",
+              file=sys.stderr)
         return 2
 
     if not torch.cuda.is_available():
@@ -10292,6 +11101,15 @@ def main(argv: list[str]) -> int:
           flush=True)
     census = _sass_census(cuda_build)
 
+    if versus:
+        versus_phase(torch, Path(versus).resolve(), smi)
+        print(smi, flush=True)
+        return 0
+    if headdims_only:
+        print(json.dumps({"kernels": headdims_phase(torch, cuda_build, smi)}),
+              flush=True)
+        print(smi, flush=True)
+        return 0
     if train_only:
         small = kernel_phase_decode_small(torch, cuda_build)
         _train_and_multiproc(torch, smi, small)
@@ -10431,6 +11249,10 @@ def main(argv: list[str]) -> int:
     capi = capi_phase(torch, smi)
     _capi_counts(kernels[0], kernels[2], capi)
     kernels += small
+    torch.cuda.empty_cache()
+    # Every head dim up to 256 and shard count up to 64, and a GPT at
+    # Cerebras-GPT-1.3B's widths served through K1 and K2 at head dim 128.
+    kernels += headdims_phase(torch, cuda_build, smi)
     for kernel in kernels:
         # Shorter aliases of the two keys above.
         kernel["launched"] = kernel["launches"]

@@ -1,13 +1,15 @@
 // Flash attention forward for Hopper (sm_90a): a bf16 kernel (the BERTs)
-// and an fp32 kernel (the generative models' prefill), head dim 64.
+// and an fp32 kernel (the generative models' prefill), every head dim from
+// 1 to 256.
 //
 // Both replace the Pallas TPU kernel `_fa_kernel` / `flash_attention` in
-// client_tpu/ops/flash_attention.py. Same function: tiled online-softmax
-// attention over q/k/v laid out [B, S, H, D], an additive per-key fp32 bias
-// [B, S] (or none) and an optional causal mask. Scores at or below -1e30
-// get probability exactly 0, and a row whose denominator is 0 outputs 0,
-// never NaN. In bf16, P is rounded to bf16 before the P.V product, as the
-// TPU kernel rounds it to v's dtype.
+// client_tpu/ops/flash_attention.py, which reads the head dim from the
+// shape. Same function: tiled online-softmax attention over q/k/v laid out
+// [B, S, H, D], an additive per-key fp32 bias [B, S] (or none) and an
+// optional causal mask. Scores at or below -1e30 get probability exactly 0,
+// and a row whose denominator is 0 outputs 0, never NaN. In bf16, P is
+// rounded to bf16 before the P.V product, as the TPU kernel rounds it to
+// v's dtype.
 //
 // The Pallas grid carried the softmax state across key blocks in VMEM
 // scratch, because a TPU grid runs in order on one core. Here blocks run
@@ -15,69 +17,106 @@
 // key tiles itself, with the running max, denominator and output
 // accumulator in fp32 registers. Keys past S get bias -inf. Under the
 // causal flag, key tiles wholly above the diagonal are skipped and only the
-// diagonal tile is masked element by element; the grid's second dimension
-// runs the query tiles in reverse, so the CTAs with the most key tiles (the
-// last query tiles) start first and the light ones fill the tail.
+// tiles that cross the diagonal are masked element by element; the grid's
+// second dimension runs the query tiles in reverse, so the CTAs with the
+// most key tiles (the last query tiles) start first and the light ones
+// fill the tail.
 //
-// bf16 kernel (flash_fwd_kernel). What bounds it: at bert_long's shape
-// (B=4, S=2048, H=12, D=64) one call does 4*B*H*S*S*D = 5.2e10 FLOP on
-// 50 MB: about 1000 FLOP per byte, above the card's ~295 bf16 FLOP/byte
+// Head dims. The head dim is a template parameter of both kernels,
+// instantiated at 32, 64, 128 and 256. Any other D up to 256 runs the next
+// larger instantiation with the head dim zero-padded inside the kernel:
+// the loads fill the columns past D with zeros (TMA's out-of-bounds fill in
+// bf16, zero-filled cp.async copies in fp32), the zeros add nothing to
+// q.k, and the output columns past D are never stored. sm_scale is
+// 1/sqrt(D) of the real D (the caller's). The loads need D times the
+// element size and every stride to be multiples of 16 bytes; the Python
+// wrapper makes one zero-padded copy of q/k/v where they are not.
+//
+// bf16 kernel (flash_fwd_kernel<Config>). What bounds it: at bert_long's
+// shape (B=4, S=2048, H=12, D=64) one call does 4*B*H*S*S*D = 5.2e10 FLOP
+// on 50 MB: about 1000 FLOP per byte, above the card's ~295 bf16 FLOP/byte
 // ridge, so the bound is the tensor cores' 989 TFLOP/s, which only wgmma
 // reaches; at head dim 64 the softmax's exponentials (16 a clock on an
 // SM's MUFU units) take about as long as the products, so they have to
-// overlap. Design: a CTA of four warpgroups owns 192 query rows.
-// Warpgroups 0 to 2 are consumers of 64 rows each; warpgroup 3 is the
+// overlap. Design: a CTA of kConsumers + 1 warpgroups owns 64 * kConsumers
+// query rows. The consumers own 64 rows each; the last warpgroup is the
 // producer, one warp of which issues every load, and gives its registers
-// to the consumers (setmaxnreg: 24 for it, 160 for them). Three consumers
-// put three warps on each of the SM's schedulers to hide the softmax's
-// latencies; two ran measurably slower. The producer loads the Q tile once
-// and 128-key K and V tiles into a ring of kStages stages with TMA (4-D
+// to the consumers (setmaxnreg). The producer loads the Q tile once and
+// kBlockN-key K and V tiles into a ring of kStages stages with TMA (4-D
 // tensor maps over the strided [B, S, H, D] views, so BERT's fused-QKV
-// slices need no copy; rows past S arrive as zeros), and the stage's 128 bias
-// values with ordinary loads, all signalled on the stage's full mbarrier;
-// consumers free a stage on its empty mbarrier. The 128-byte swizzle that
-// TMA writes (a 64-element bf16 row is exactly 128 bytes) is the layout
-// wgmma reads without bank conflicts. S = Q.K^T is 4 wgmma m64n128k16 with
-// both operands in shared memory; O += P.V is 8 wgmma m64n64k16 with P as
-// the register A operand: the fp32 accumulator of a 16-key slice of S,
-// packed pairwise to bf16x2, is exactly the A fragment, so P never touches
-// shared memory. V is stored [key][d], which makes it the MN-major B
-// operand (transpose bit set). Each consumer issues S of tile j together
-// with P.V of tile j - 1 and runs the online softmax of tile j (in
-// registers, two rows a thread, in the log2 domain so that each
-// exponential is one ex2) while P.V of j - 1 is still on the tensor
-// cores; the consumers run independently, so one's softmax also overlaps
-// another's products. The output goes through the consumer's own Q rows
-// in shared memory to 16-byte stores.
+// slices need no copy; rows past S and columns past D arrive as zeros), and
+// the stage's kBlockN bias values with ordinary loads, all signalled on the
+// stage's full mbarrier; consumers free a stage on its empty mbarrier. A
+// tile is stored as D / kBoxCols column blocks, each one TMA box of
+// kBoxCols columns whose rows are one swizzle atom wide (128 bytes, 64
+// columns, with the 128-byte swizzle; 64 bytes, 32 columns, with the
+// 64-byte swizzle at head dim 32): the layout wgmma reads without bank
+// conflicts. S = Q.K^T is wgmma m64nNk16 (N = kBlockN) with both operands
+// in shared memory, D / 16 k-steps that step through the column blocks;
+// O += P.V is, for each column block, kBlockN / 16 wgmma m64nCk16 (C =
+// kBoxCols) with P as the register A operand: the fp32 accumulator of a
+// 16-key slice of S, packed pairwise to bf16x2, is exactly the A fragment,
+// so P never touches shared memory. V is stored [key][d], which makes it
+// the MN-major B operand (transpose bit set). Each consumer issues S of
+// tile j together with P.V of tile j - 1 and runs the online softmax of
+// tile j (in registers, two rows a thread, in the log2 domain so that each
+// exponential is one ex2) while P.V of j - 1 is still on the tensor cores;
+// the consumers run independently, so one's softmax also overlaps
+// another's products. The output goes through the consumer's own Q rows in
+// shared memory to 16-byte stores (element stores where D is not a
+// multiple of 8). The instantiations, per CTA (registers a consumer thread
+// after setmaxnreg; the producer keeps 24):
+//   D = 32:  3 consumers (192 rows), 128-key tiles, 4 stages, 64-byte
+//            swizzle, one 32-column block; O 16 + S 64 fp32 registers a
+//            thread, 160 registers; Q 12 KB + 4 x 16 KB of K and V.
+//   D = 64:  3 consumers (192 rows), 128-key tiles, 4 stages, 128-byte
+//            swizzle, one block; O 32 + S 64, 160 registers; Q 24 KB + 4 x
+//            32 KB. Three consumers put three warps on each of the SM's
+//            schedulers to hide the softmax's latencies; two ran measurably
+//            slower.
+//   D = 128: 2 consumers (128 rows), 128-key tiles, 2 stages, 128-byte
+//            swizzle, two blocks; O 64 + S 64 + packed P 32, 240 registers
+//            (three consumers at 160 would not hold them); Q 32 KB + 2 x 64
+//            KB (a third stage would not fit the 227 KB).
+//   D = 256: 2 consumers (128 rows), 64-key tiles, 2 stages, 128-byte
+//            swizzle, four blocks; O 128 + S 32 + packed P 16, 240
+//            registers; Q 64 KB + 2 x 64 KB.
 //
-// fp32 kernel (flash_fwd_f32_kernel). What bounds it: at tiny_gpt_long's
-// prefill (B=8, S=2048, H=4, D=64, causal) one call does 1.7e10 FLOP on
-// 34 MB. Computed in plain fp32 that is bound by the 67 TFLOP/s of SIMT
-// FMAs (0.257 ms); on the tensor cores through the 3xTF32 split below it
-// takes three TF32 products per product at 495 TFLOP/s (0.104 ms), the
-// lesser of the two. Plain TF32 (10 mantissa bits) can flip greedy tokens
-// of the fp32 generative models; the split keeps fp32 accuracy. Each fp32
-// operand x becomes big = rna_tf32(x) and small = rna_tf32(x - big), and
-// each product is a_small*b_big + a_big*b_small + a_big*b_big into one fp32
-// accumulator (small*small, about 2^-22 relative, is dropped), with
-// mma.sync m16n8k8 tf32. TF32 wgmma takes only K-major operands, and V, the
-// B operand of P.V, is [key][d]: MN-major, so wgmma would need a
-// transposing pass over V first; this kernel stays on mma.sync. A CTA of
-// four warps owns 64 query rows (16 a warp). The Q tile sits in shared
-// memory and each 8-wide step of it is split once for the 8 key slices it
-// meets. 64-key K and V tiles are double-buffered with cp.async in dynamic
-// shared memory, rows padded to 68 floats so that every fragment load of
-// Q and K (rows g, columns t) and of V (rows 2t and 2t+1, columns g) hits
-// 32 distinct banks. The tensor cores' fp32 accumulation truncates, so
-// each key tile's P.V starts from zero and joins the running output in one
-// rounded fp32 add: the bias of truncation then does not grow with S.
-// Each of the three products is issued for all 8 slices that share an A
-// fragment before the next, so products into one accumulator are not back
-// to back. P needs no shuffle into the A fragment: the accumulator holds
-// P(g, 2t) and P(g, 2t+1) of each 8-key slice, and the P.V product reads
-// them as A columns t and t+4 with V's rows permuted to match (row 2t as
-// B row t, row 2t+1 as B row t+4), which leaves the sum over keys
-// unchanged. expf, not __expf.
+// fp32 kernel (flash_fwd_f32_kernel<D, kBlockN>). What bounds it: at
+// tiny_gpt_long's prefill (B=8, S=2048, H=4, D=64, causal) one call does
+// 1.7e10 FLOP on 34 MB. Computed in plain fp32 that is bound by the 67
+// TFLOP/s of SIMT FMAs (0.257 ms); on the tensor cores through the 3xTF32
+// split below it takes three TF32 products per product at 495 TFLOP/s
+// (0.104 ms), the lesser of the two. Plain TF32 (10 mantissa bits) can flip
+// greedy tokens of the fp32 generative models; the split keeps fp32
+// accuracy. Each fp32 operand x becomes big = rna_tf32(x) and small =
+// rna_tf32(x - big), and each product is a_small*b_big + a_big*b_small +
+// a_big*b_big into one fp32 accumulator (small*small, about 2^-22
+// relative, is dropped), with mma.sync m16n8k8 tf32. TF32 wgmma takes only
+// K-major operands, and V, the B operand of P.V, is [key][d]: MN-major, so
+// wgmma would need a transposing pass over V first; this kernel stays on
+// mma.sync. A CTA of four warps owns 64 query rows (16 a warp). The Q tile
+// sits in shared memory and each 8-wide step of it is split once for the
+// key slices it meets. kBlockN-key K and V tiles are double-buffered with
+// cp.async in dynamic shared memory, rows padded to D + 4 floats so that
+// every fragment load of Q and K (rows g, columns t) and of V (rows 2t and
+// 2t+1, columns g) hits 32 distinct banks. The tensor cores' fp32
+// accumulation truncates, so each key tile's P.V starts from zero and
+// joins the running output in one rounded fp32 add: the bias of truncation
+// then does not grow with S. That product runs over 64 output columns at a
+// time, so its zeroed accumulator is 32 registers at any D. Each of the
+// three products is issued for all slices that share an A fragment before
+// the next, so products into one accumulator are not back to back. P needs
+// no shuffle into the A fragment: the accumulator holds P(g, 2t) and P(g,
+// 2t+1) of each 8-key slice, and the P.V product reads them as A columns t
+// and t+4 with V's rows permuted to match (row 2t as B row t, row 2t+1 as
+// B row t+4), which leaves the sum over keys unchanged. expf, not __expf.
+// The instantiations (the output accumulator is D / 2 fp32 registers a
+// thread): D = 32, 64 and 128 with 64-key tiles (46, 86 and 166 KB of
+// shared memory); D = 256 with 32-key tiles (195 KB; double-buffered
+// 64-key K and V tiles alone would take 266 KB). At 128 a thread takes
+// the 255 registers it may have; at 256 it also spills (ptxas: 120 bytes
+// of stack).
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
@@ -89,9 +128,9 @@
 
 namespace {
 
-constexpr int kHeadDim = 64;
 constexpr float kNegInf = -1e30f;  // the TPU kernel's mask value
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kMaxHeadDim = 256;
 
 typedef __nv_bfloat16 bf16;
 
@@ -118,29 +157,48 @@ __device__ __forceinline__ float quad_sum(float x) {
 
 namespace sm90 {
 
-constexpr int kBlockN = 128;    // keys per stage
-constexpr int kStages = 4;
-constexpr int kConsumers = 3;   // warpgroups of 64 query rows
-constexpr int kBlockM = kConsumers * 64;  // query rows per CTA
-constexpr int kThreads = (kConsumers + 1) * 128;
-// Registers a thread after setmaxnreg: the producer warpgroup gives up
-// what the consumers take, within the SM's 65,536.
-constexpr int kProducerRegs = 24;
-constexpr int kConsumerRegs = 160;
-static_assert(128 * kProducerRegs + 128 * kConsumers * kConsumerRegs <= 65536,
-              "register split exceeds the SM");
-constexpr int kTileBytes = kBlockN * kHeadDim * 2;  // 16 KB
-
-struct Smem {  // at a 1024-byte boundary, as the 128-byte swizzle needs
-  bf16 q[kBlockM * kHeadDim];
-  bf16 k[kStages][kBlockN * kHeadDim];
-  bf16 v[kStages][kBlockN * kHeadDim];
-  float bias[kStages][kBlockN];
-  uint64_t q_full;
-  uint64_t full[kStages];
-  uint64_t empty[kStages];
+// One instantiation: head dim, keys per stage, stages, consumer
+// warpgroups and their registers (see the header comment).
+template <int D, int BlockN, int Stages, int Consumers, int ConsumerRegs>
+struct Config {
+  static constexpr int kHeadDim = D;
+  static constexpr int kBlockN = BlockN;
+  static constexpr int kStages = Stages;
+  static constexpr int kConsumers = Consumers;  // warpgroups of 64 rows
+  static constexpr int kBlockM = Consumers * 64;  // query rows per CTA
+  static constexpr int kThreads = (Consumers + 1) * 128;
+  // Registers a thread after setmaxnreg: the producer warpgroup gives up
+  // what the consumers take, within the SM's 65,536.
+  static constexpr int kProducerRegs = 24;
+  static constexpr int kConsumerRegs = ConsumerRegs;
+  static_assert(128 * kProducerRegs + 128 * Consumers * ConsumerRegs <= 65536,
+                "register split exceeds the SM");
+  // A column block: one swizzle atom's width of the head dim.
+  static constexpr int kBoxCols = D < 64 ? D : 64;
+  static constexpr int kRowBytes = kBoxCols * 2;   // 64 or 128
+  static constexpr int kChunks = kRowBytes / 16;   // 16-byte chunks a row
+  static constexpr int kColBlocks = D / kBoxCols;
+  static_assert(kRowBytes == 64 || kRowBytes == 128, "swizzle width");
+  static_assert(BlockN % 32 == 0 && BlockN <= 256, "key tile");
 };
-constexpr int kSmemBytes = sizeof(Smem) + 1024;  // + room to align
+
+typedef Config<32, 128, 4, 3, 160> Config32;
+typedef Config<64, 128, 4, 3, 160> Config64;
+typedef Config<128, 128, 2, 2, 240> Config128;
+typedef Config<256, 64, 2, 2, 240> Config256;
+
+template <class C>
+struct Smem {  // at a 1024-byte boundary, as the swizzle needs
+  bf16 q[C::kColBlocks][C::kBlockM * C::kBoxCols];
+  bf16 k[C::kStages][C::kColBlocks][C::kBlockN * C::kBoxCols];
+  bf16 v[C::kStages][C::kColBlocks][C::kBlockN * C::kBoxCols];
+  float bias[C::kStages][C::kBlockN];
+  uint64_t q_full;
+  uint64_t full[C::kStages];
+  uint64_t empty[C::kStages];
+};
+template <class C>
+constexpr int kSmemBytes = sizeof(Smem<C>) + 1024;  // + room to align
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
@@ -187,21 +245,27 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
 
 // One box of a 4-D tensor map, coordinates (d, s, h, b), into `dst`.
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int s, int h, int b) {
+                                         uint64_t* bar, int d, int s, int h,
+                                         int b) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
       "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0), "r"(s),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(d), "r"(s),
       "r"(h), "r"(b)
       : "memory");
 }
 
-// Shared-memory matrix descriptor of a tile written by TMA with the 128-byte
-// swizzle: 8-row groups of 128-byte rows, 1024 bytes apart (the stride byte
-// offset); the leading byte offset is unused for these layouts.
-__device__ __forceinline__ uint64_t sw128_desc(const void* smem) {
+// Shared-memory matrix descriptor of a tile written by TMA with the 128-
+// or 64-byte swizzle (kRowBytes): 8-row groups of kRowBytes-byte rows,
+// 8 * kRowBytes apart (the stride byte offset); the leading byte offset is
+// unused for these layouts.
+template <int kRowBytes>
+__device__ __forceinline__ uint64_t smem_desc(const void* smem) {
   const uint64_t addr = smem_u32(smem);
-  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+  constexpr uint64_t kStride = (8 * kRowBytes) >> 4;
+  constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : 2;  // 128B / 64B
+  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (kStride << 32) |
+         (kLayout << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -226,12 +290,21 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
-// d[64 x 128] (+)= A[64 x 16] * B[16 x 128]: A and B K-major in shared
-// memory, fp32 accumulator in registers.
-__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
-                                                    uint64_t desc_a,
-                                                    uint64_t desc_b,
-                                                    int scale_d) {
+template <int B, int N>
+__device__ __forceinline__ void fence_regs(float (&r)[B][N]) {
+#pragma unroll
+  for (int c = 0; c < B; ++c) fence_regs(r[c]);
+}
+
+// d[64 x N] (+)= A[64 x 16] * B[16 x N]: A and B K-major in shared
+// memory, fp32 accumulator in registers (N / 2 a thread).
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t desc_a,
+                                              uint64_t desc_b, int scale_d) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -259,11 +332,39 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
-// d[64 x 64] += A[64 x 16] * B[16 x 64]: A in registers (bf16x2 pairs in
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d[64 x N] += A[64 x 16] * B[16 x N]: A in registers (bf16x2 pairs in
 // the accumulator's row layout), B MN-major in shared memory.
-__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
-                                                   const uint32_t (&a)[4],
-                                                   uint64_t desc_b) {
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -283,6 +384,25 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 // 2^x in one MUFU op; 2^-inf and anything below 2^-126 give exactly 0.
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;
@@ -295,16 +415,29 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
+// `d_out`: the caller's head dim, the output columns stored (<= D);
+// `vec_out`: o's rows take 16-byte stores (d_out a multiple of 8 and o
+// 16-byte aligned), else element stores.
+template <class C>
+__global__ void __launch_bounds__(C::kThreads, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v,
                      const float* __restrict__ bias, bf16* __restrict__ o,
-                     int seq, int heads, int64_t o_sb, int64_t o_ss,
-                     int64_t o_sh, int64_t bias_sb, float sm_scale,
-                     int causal) {
+                     int seq, int heads, int d_out, int64_t o_sb,
+                     int64_t o_ss, int64_t o_sh, int64_t bias_sb,
+                     float sm_scale, int causal, int vec_out) {
+  constexpr int kHeadDim = C::kHeadDim;
+  constexpr int kBlockN = C::kBlockN;
+  constexpr int kBlockM = C::kBlockM;
+  constexpr int kStages = C::kStages;
+  constexpr int kConsumers = C::kConsumers;
+  constexpr int kBoxCols = C::kBoxCols;
+  constexpr int kRowBytes = C::kRowBytes;
+  constexpr int kChunks = C::kChunks;
+  constexpr int kColBlocks = C::kColBlocks;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(
+  Smem<C>& sm = *reinterpret_cast<Smem<C>*>(
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
 
   const int tid = threadIdx.x;
@@ -329,22 +462,31 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (wg == kConsumers) {
     // Producer. One warp issues everything; the others only hand over
     // their registers.
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        C::kProducerRegs));
     if (tid % 128 < 32) {
       const int lane = tid % 32;
       const float* biasb = bias != nullptr ? bias + b * bias_sb : nullptr;
       if (lane == 0) {
         mbar_arrive_expect_tx(&sm.q_full, kBlockM * kHeadDim * 2);
-        tma_load(sm.q, &tm_q, &sm.q_full, q0, h, b);
+#pragma unroll
+        for (int c = 0; c < kColBlocks; ++c) {
+          tma_load(sm.q[c], &tm_q, &sm.q_full, c * kBoxCols, q0, h, b);
+        }
       }
       for (int j = 0; j < n_tiles; ++j) {
         const int stage = j % kStages;
         mbar_wait(&sm.empty[stage], ((j / kStages) & 1) ^ 1);
         const int key0 = j * kBlockN;
         if (lane == 0) {
-          mbar_expect_tx(&sm.full[stage], 2 * kTileBytes);
-          tma_load(sm.k[stage], &tm_k, &sm.full[stage], key0, h, b);
-          tma_load(sm.v[stage], &tm_v, &sm.full[stage], key0, h, b);
+          mbar_expect_tx(&sm.full[stage], 2 * kBlockN * kHeadDim * 2);
+#pragma unroll
+          for (int c = 0; c < kColBlocks; ++c) {
+            tma_load(sm.k[stage][c], &tm_k, &sm.full[stage], c * kBoxCols,
+                     key0, h, b);
+            tma_load(sm.v[stage][c], &tm_v, &sm.full[stage], c * kBoxCols,
+                     key0, h, b);
+          }
         }
 #pragma unroll
         for (int e = 0; e < kBlockN / 32; ++e) {
@@ -359,7 +501,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   } else {
     // Consumer warpgroup `wg`: query rows q0 + 64 * wg ... + 63. Scores
     // are kept in the log2 domain (exp2 is one MUFU op): x2 = log2(e) * x.
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        C::kConsumerRegs));
     const int wtid = tid % 128;
     const int warp = wtid / 32;
     const int lane = tid % 32;
@@ -370,42 +513,58 @@ __global__ void __launch_bounds__(kThreads, 1)
     const float scale2 = sm_scale * kLog2e;
     const float neg_inf2 = kNegInf * kLog2e;    // the mask value, log2 domain
 
-    float acc[32];  // O: 8 n8 slices over D, rows row0 / row0 + 8
+    // O: per column block, kBoxCols / 8 n8 slices, rows row0 / row0 + 8.
+    float acc[kColBlocks][kBoxCols / 2];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+    for (int c = 0; c < kColBlocks; ++c) {
+#pragma unroll
+      for (int i = 0; i < kBoxCols / 2; ++i) acc[c][i] = 0.0f;
+    }
     float row_max[2] = {neg_inf2, neg_inf2};
     float row_sum[2] = {0.0f, 0.0f};
-    float s[64];                 // S of one key tile, then its P in fp32
+    float s[kBlockN / 2];          // S of one key tile, then its P in fp32
     uint32_t pa[kBlockN / 16][4];  // P of the previous tile, bf16 A fragments
-    const uint64_t desc_q = sw128_desc(sm.q + 64 * wg * kHeadDim);
+    uint64_t desc_q[kColBlocks];   // this warpgroup's Q rows, per block
+#pragma unroll
+    for (int c = 0; c < kColBlocks; ++c) {
+      desc_q[c] = smem_desc<kRowBytes>(sm.q[c] + 64 * wg * kBoxCols);
+    }
 
-    // S = Q K^T of tile j: 64 rows x 128 keys, 4 k-steps of 16 over D (32
-    // bytes along the swizzled 128-byte rows each).
+    // S = Q K^T of tile j: 64 rows x kBlockN keys, D / 16 k-steps of 16
+    // (32 bytes along the swizzled rows of each column block).
     auto issue_s = [&](int stage) {
-      const uint64_t desc_k = sw128_desc(sm.k[stage]);
 #pragma unroll
-      for (int kk = 0; kk < kHeadDim / 16; ++kk) {
-        wgmma_m64n128k16_ss(s, desc_q + 2 * kk, desc_k + 2 * kk, kk > 0);
+      for (int c = 0; c < kColBlocks; ++c) {
+        const uint64_t desc_k = smem_desc<kRowBytes>(sm.k[stage][c]);
+#pragma unroll
+        for (int kk = 0; kk < kBoxCols / 16; ++kk) {
+          wgmma_ss<kBlockN>(s, desc_q[c] + 2 * kk, desc_k + 2 * kk,
+                            c > 0 || kk > 0);
+        }
       }
       wgmma_commit();
     };
-    // O += P V of the tile in `stage`: 8 k-steps of 16 keys, each 16 V rows
-    // of 128 bytes further on.
+    // O += P V of the tile in `stage`: for each column block, kBlockN / 16
+    // k-steps of 16 keys, each 16 V rows further on.
     auto issue_pv = [&](int stage) {
-      const uint64_t desc_v = sw128_desc(sm.v[stage]);
 #pragma unroll
-      for (int kk = 0; kk < kBlockN / 16; ++kk) {
-        wgmma_m64n64k16_rs(acc, pa[kk], desc_v + kk * (16 * 128 >> 4));
+      for (int c = 0; c < kColBlocks; ++c) {
+        const uint64_t desc_v = smem_desc<kRowBytes>(sm.v[stage][c]);
+#pragma unroll
+        for (int kk = 0; kk < kBlockN / 16; ++kk) {
+          wgmma_rs<kBoxCols>(acc[c], pa[kk],
+                             desc_v + kk * (16 * kRowBytes >> 4));
+        }
       }
       wgmma_commit();
     };
-    // Scale, bias (stored times log2(e)), causal mask on the diagonal tile;
-    // the online-softmax update of the row statistics; s becomes P. A score
-    // at or below -1e30 needs no test: exp2 of it minus a finite max is
-    // exactly 0. Maxima and sums run in 4 independent chains (a scheduler
-    // holds only three consumer warps to hide their latency), and each
-    // thread keeps its own part of the row sum until the epilogue. Returns
-    // the rescale factors of O through `corr`.
+    // Scale, bias (stored times log2(e)), causal mask on the tiles that
+    // cross the diagonal; the online-softmax update of the row statistics;
+    // s becomes P. A score at or below -1e30 needs no test: exp2 of it
+    // minus a finite max is exactly 0. Maxima and sums run in 4 independent
+    // chains (a scheduler holds only three consumer warps to hide their
+    // latency), and each thread keeps its own part of the row sum until the
+    // epilogue. Returns the rescale factors of O through `corr`.
     auto softmax = [&](int j, float (&corr)[2]) {
       const int stage = j % kStages;
       const int key0 = j * kBlockN;
@@ -418,7 +577,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           s[4 * jn + e] = fmaf(s[4 * jn + e], scale2, (e & 1) ? bv.y : bv.x);
         }
       }
-      if (causal && key0 + kBlockN - 1 > q0) {  // the diagonal tile
+      if (causal && key0 + kBlockN - 1 > q0) {  // crosses the diagonal
 #pragma unroll
         for (int jn = 0; jn < kBlockN / 8; ++jn) {
 #pragma unroll
@@ -463,9 +622,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     // 2kk + 1, packed pairwise, is the A fragment of P.V step kk.
     auto rescale_and_pack = [&](const float (&corr)[2]) {
 #pragma unroll
-      for (int dn = 0; dn < kHeadDim / 8; ++dn) {
+      for (int c = 0; c < kColBlocks; ++c) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[4 * dn + e] *= corr[e >> 1];
+        for (int dn = 0; dn < kBoxCols / 8; ++dn) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[c][4 * dn + e] *= corr[e >> 1];
+        }
       }
 #pragma unroll
       for (int kk = 0; kk < kBlockN / 16; ++kk) {
@@ -513,35 +675,48 @@ __global__ void __launch_bounds__(kThreads, 1)
     mbar_arrive(&sm.empty[last]);
 
     // Epilogue: normalise, round to bf16, stage through this warpgroup's
-    // own Q rows (read by no one now) with the same 16-byte-chunk swizzle,
-    // then 16-byte stores of whole 128-byte rows.
-    unsigned char* stage_o =
-        reinterpret_cast<unsigned char*>(sm.q + 64 * wg * kHeadDim);
+    // own Q rows of each column block (read by no one now) with a 16-byte-
+    // chunk swizzle, then 16-byte stores of whole chunks (element stores
+    // where d_out is not a multiple of 8); columns past d_out are dropped.
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const float sum = quad_sum(row_sum[r]);
       const float denom = sum == 0.0f ? 1.0f : sum;
       const int row = row0 + 8 * r;
 #pragma unroll
-      for (int dn = 0; dn < kHeadDim / 8; ++dn) {
-        *reinterpret_cast<uint32_t*>(stage_o + row * 128 +
-                                     ((dn ^ (row & 7)) * 16) + 4 * t) =
-            pack_bf16(acc[4 * dn + 2 * r] / denom,
-                      acc[4 * dn + 2 * r + 1] / denom);
+      for (int c = 0; c < kColBlocks; ++c) {
+        unsigned char* stage_o =
+            reinterpret_cast<unsigned char*>(sm.q[c] + 64 * wg * kBoxCols);
+#pragma unroll
+        for (int dn = 0; dn < kBoxCols / 8; ++dn) {
+          *reinterpret_cast<uint32_t*>(
+              stage_o + row * kRowBytes + ((dn ^ (row & (kChunks - 1))) * 16) +
+              4 * t) = pack_bf16(acc[c][4 * dn + 2 * r] / denom,
+                                 acc[c][4 * dn + 2 * r + 1] / denom);
+        }
       }
     }
     asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
     bf16* ob = o + b * o_sb + h * o_sh;
 #pragma unroll
-    for (int i = 0; i < 64 * 8 / 128; ++i) {
-      const int c = wtid + 128 * i;
-      const int row = c / 8;
-      const int chunk = c % 8;
+    for (int i = 0; i < 64 * (kHeadDim / 8) / 128; ++i) {
+      const int idx = wtid + 128 * i;
+      const int row = idx / (kHeadDim / 8);
+      const int chunk = idx % (kHeadDim / 8);
       const int srow = q0 + 64 * wg + row;
-      if (srow < seq) {
-        *reinterpret_cast<uint4*>(ob + srow * o_ss + chunk * 8) =
-            *reinterpret_cast<const uint4*>(stage_o + row * 128 +
-                                            ((chunk ^ (row & 7)) * 16));
+      if (srow < seq && chunk * 8 < d_out) {
+        const int c = chunk / kChunks;
+        const unsigned char* src =
+            reinterpret_cast<const unsigned char*>(sm.q[c] +
+                                                   64 * wg * kBoxCols) +
+            row * kRowBytes + (((chunk % kChunks) ^ (row & (kChunks - 1))) * 16);
+        bf16* dst = ob + srow * o_ss + chunk * 8;
+        if (vec_out) {
+          *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+        } else {
+          const bf16* vals = reinterpret_cast<const bf16*>(src);
+          for (int e = 0; e < 8 && chunk * 8 + e < d_out; ++e) dst[e] = vals[e];
+        }
       }
     }
   }
@@ -555,17 +730,18 @@ __global__ void __launch_bounds__(kThreads, 1)
 namespace f32 {
 
 constexpr int kBlockM = 64;   // query rows per CTA, 16 a warp
-constexpr int kBlockN = 64;   // keys per tile
 constexpr int kThreads = 128;
-constexpr int kPitch = 68;    // K and V rows in shared memory, in floats
 
+// kPitch: K and V rows in shared memory, in floats. kChunk: output columns
+// of one zeroed P.V accumulator.
+template <int D, int BlockN>
 struct Smem {
+  static constexpr int kPitch = D + 4;
   float q[kBlockM][kPitch];
-  float k[2][kBlockN][kPitch];
-  float v[2][kBlockN][kPitch];
-  float bias[2][kBlockN];
+  float k[2][BlockN][kPitch];
+  float v[2][BlockN][kPitch];
+  float bias[2][BlockN];
 };
-constexpr int kSmemBytes = sizeof(Smem);
 
 __device__ __forceinline__ void cp_async_16(void* smem, const void* gmem,
                                             bool valid) {
@@ -585,21 +761,21 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Rows [row0, row0 + kRows) of a [S, *] fp32 view into a padded tile; rows
-// at or past `seq` are zero-filled.
-template <int kRows>
+// at or past `seq` and columns at or past `d_in` are zero-filled.
+template <int kRows, int D, int kPitch>
 __device__ __forceinline__ void load_tile(float (*dst)[kPitch],
                                           const float* base,
                                           int64_t row_stride, int row0,
-                                          int seq, int tid) {
+                                          int seq, int d_in, int tid) {
 #pragma unroll
-  for (int i = 0; i < kRows * (kHeadDim / 4) / kThreads; ++i) {
+  for (int i = 0; i < kRows * (D / 4) / kThreads; ++i) {
     const int chunk = tid + i * kThreads;
-    const int r = chunk / (kHeadDim / 4);
-    const int col = (chunk % (kHeadDim / 4)) * 4;
+    const int r = chunk / (D / 4);
+    const int col = (chunk % (D / 4)) * 4;
     const int row = row0 + r;
-    const bool valid = row < seq;
+    const bool valid = row < seq && col < d_in;
     cp_async_16(&dst[r][col],
-                base + (int64_t)(valid ? row : 0) * row_stride + col, valid);
+                base + (valid ? (int64_t)row * row_stride + col : 0), valid);
   }
 }
 
@@ -651,19 +827,28 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[N][4],
   for (int n = 0; n < N; ++n) mma_tf32(c[n], a_big, b_big[n][0], b_big[n][1]);
 }
 
+// `d_in`: the head dim q/k/v hold (columns past it load as zeros);
+// `d_out`: the output columns stored; `vec_out`: o's rows take 8-byte
+// stores (d_out even, o 8-byte aligned), else element stores.
+template <int D, int kBlockN>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_f32_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v,
                          const float* __restrict__ bias,
                          float* __restrict__ o, int seq, int heads,
+                         int d_in, int d_out,
                          int64_t q_sb, int64_t q_ss, int64_t q_sh,
                          int64_t k_sb, int64_t k_ss, int64_t k_sh,
                          int64_t v_sb, int64_t v_ss, int64_t v_sh,
                          int64_t o_sb, int64_t o_ss, int64_t o_sh,
-                         int64_t bias_sb, float sm_scale, int causal) {
+                         int64_t bias_sb, float sm_scale, int causal,
+                         int vec_out) {
+  typedef Smem<D, kBlockN> S;
+  constexpr int kPitch = S::kPitch;
+  constexpr int kChunk = D < 64 ? D : 64;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  S& sm = *reinterpret_cast<S*>(smem_raw);
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
@@ -691,9 +876,9 @@ __global__ void __launch_bounds__(kThreads)
     }
   };
 
-  load_tile<kBlockM>(sm.q, qb, q_ss, q0, seq, tid);
-  load_tile<kBlockN>(sm.k[0], kb, k_ss, 0, seq, tid);
-  load_tile<kBlockN>(sm.v[0], vb, v_ss, 0, seq, tid);
+  load_tile<kBlockM, D, kPitch>(sm.q, qb, q_ss, q0, seq, d_in, tid);
+  load_tile<kBlockN, D, kPitch>(sm.k[0], kb, k_ss, 0, seq, d_in, tid);
+  load_tile<kBlockN, D, kPitch>(sm.v[0], vb, v_ss, 0, seq, d_in, tid);
   cp_async_commit();
   load_bias(0, 0);
 
@@ -701,9 +886,9 @@ __global__ void __launch_bounds__(kThreads)
   const float* q_g = sm.q[16 * warp + g];
   const float* q_g8 = sm.q[16 * warp + g + 8];
 
-  float acc[kHeadDim / 8][4];  // O: 8 n8 slices over D
+  float acc[D / 8][4];  // O: D / 8 n8 slices
 #pragma unroll
-  for (int i = 0; i < kHeadDim / 8; ++i) {
+  for (int i = 0; i < D / 8; ++i) {
     acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
   }
   float row_max[2] = {kNegInf, kNegInf};  // rows g and g + 8
@@ -712,8 +897,10 @@ __global__ void __launch_bounds__(kThreads)
   for (int j = 0; j < n_tiles; ++j) {
     const int cur = j & 1;
     if (j + 1 < n_tiles) {
-      load_tile<kBlockN>(sm.k[cur ^ 1], kb, k_ss, (j + 1) * kBlockN, seq, tid);
-      load_tile<kBlockN>(sm.v[cur ^ 1], vb, v_ss, (j + 1) * kBlockN, seq, tid);
+      load_tile<kBlockN, D, kPitch>(sm.k[cur ^ 1], kb, k_ss,
+                                    (j + 1) * kBlockN, seq, d_in, tid);
+      load_tile<kBlockN, D, kPitch>(sm.v[cur ^ 1], vb, v_ss,
+                                    (j + 1) * kBlockN, seq, d_in, tid);
       cp_async_commit();
       load_bias(cur ^ 1, (j + 1) * kBlockN);
       cp_async_wait<1>();
@@ -722,16 +909,16 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
 
-    // S = Q K^T for 16 rows x 64 keys: 8 k-steps over D, 8 n8 slices. Q's
-    // A fragment of step kk: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4),
-    // a3 (g + 8, t + 4), split once for the 8 slices.
+    // S = Q K^T for 16 rows x kBlockN keys: D / 8 k-steps, kBlockN / 8 n8
+    // slices. Q's A fragment of step kk: a0 (g, t), a1 (g + 8, t), a2 (g,
+    // t + 4), a3 (g + 8, t + 4), split once for the slices.
     float s[kBlockN / 8][4];
 #pragma unroll
     for (int nt = 0; nt < kBlockN / 8; ++nt) {
       s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.0f;
     }
 #pragma unroll
-    for (int kk = 0; kk < kHeadDim / 8; ++kk) {
+    for (int kk = 0; kk < D / 8; ++kk) {
       uint32_t qa_big[4], qa_small[4];
       split(q_g[kk * 8 + t], qa_big[0], qa_small[0]);
       split(q_g8[kk * 8 + t], qa_big[1], qa_small[1]);
@@ -746,8 +933,8 @@ __global__ void __launch_bounds__(kThreads)
       mma_3xtf32(s, qa_big, qa_small, kf);
     }
 
-    // Scale, bias, causal mask (the diagonal tile only); then the
-    // online-softmax update per row.
+    // Scale, bias, causal mask (the tiles that cross the diagonal only);
+    // then the online-softmax update per row.
     const int key0 = j * kBlockN;
     float row_corr[2];
 #pragma unroll
@@ -757,7 +944,7 @@ __global__ void __launch_bounds__(kThreads)
         s[nt][e] = s[nt][e] * sm_scale + sm.bias[cur][nt * 8 + 2 * t + (e & 1)];
       }
     }
-    if (causal && key0 + kBlockN - 1 > q0) {  // the diagonal tile
+    if (causal && key0 + kBlockN - 1 > q0) {  // crosses the diagonal
 #pragma unroll
       for (int nt = 0; nt < kBlockN / 8; ++nt) {
 #pragma unroll
@@ -801,38 +988,43 @@ __global__ void __launch_bounds__(kThreads)
       row_corr[r] = corr;
     }
 
-    // O = O * corr + P V, 8 k-steps of 8 keys. The tensor cores' fp32
-    // accumulation truncates; summed into the running O across all key
-    // tiles that bias would grow with S, so each tile's P V starts from 0
-    // and joins O in one rounded add. Step kk's A fragment is the
-    // accumulator of key slice kk as it lies: P(g, 2t) and P(g + 8, 2t) as
-    // columns t, P(g, 2t + 1) and P(g + 8, 2t + 1) as columns t + 4; the B
-    // fragment reads V rows 2t and 2t + 1 to match.
-    float pv[kHeadDim / 8][4];
+    // O = O * corr + P V, kBlockN / 8 k-steps of 8 keys, kChunk output
+    // columns at a time. The tensor cores' fp32 accumulation truncates;
+    // summed into the running O across all key tiles that bias would grow
+    // with S, so each tile's P V starts from 0 and joins O in one rounded
+    // add. Step kk's A fragment is the accumulator of key slice kk as it
+    // lies: P(g, 2t) and P(g + 8, 2t) as columns t, P(g, 2t + 1) and
+    // P(g + 8, 2t + 1) as columns t + 4; the B fragment reads V rows 2t
+    // and 2t + 1 to match.
 #pragma unroll
-    for (int dn = 0; dn < kHeadDim / 8; ++dn) {
-      pv[dn][0] = pv[dn][1] = pv[dn][2] = pv[dn][3] = 0.0f;
-    }
+    for (int c = 0; c < D / kChunk; ++c) {
+      float pv[kChunk / 8][4];
 #pragma unroll
-    for (int kk = 0; kk < kBlockN / 8; ++kk) {
-      uint32_t pa_big[4], pa_small[4];
-      split(s[kk][0], pa_big[0], pa_small[0]);
-      split(s[kk][2], pa_big[1], pa_small[1]);
-      split(s[kk][1], pa_big[2], pa_small[2]);
-      split(s[kk][3], pa_big[3], pa_small[3]);
-      float vf[kHeadDim / 8][2];  // B fragments: V rows 2t, 2t + 1
-#pragma unroll
-      for (int dn = 0; dn < kHeadDim / 8; ++dn) {
-        vf[dn][0] = sm.v[cur][kk * 8 + 2 * t][dn * 8 + g];
-        vf[dn][1] = sm.v[cur][kk * 8 + 2 * t + 1][dn * 8 + g];
+      for (int dn = 0; dn < kChunk / 8; ++dn) {
+        pv[dn][0] = pv[dn][1] = pv[dn][2] = pv[dn][3] = 0.0f;
       }
-      mma_3xtf32(pv, pa_big, pa_small, vf);
-    }
 #pragma unroll
-    for (int dn = 0; dn < kHeadDim / 8; ++dn) {
+      for (int kk = 0; kk < kBlockN / 8; ++kk) {
+        uint32_t pa_big[4], pa_small[4];
+        split(s[kk][0], pa_big[0], pa_small[0]);
+        split(s[kk][2], pa_big[1], pa_small[1]);
+        split(s[kk][1], pa_big[2], pa_small[2]);
+        split(s[kk][3], pa_big[3], pa_small[3]);
+        float vf[kChunk / 8][2];  // B fragments: V rows 2t, 2t + 1
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        acc[dn][e] = acc[dn][e] * row_corr[e >> 1] + pv[dn][e];
+        for (int dn = 0; dn < kChunk / 8; ++dn) {
+          vf[dn][0] = sm.v[cur][kk * 8 + 2 * t][c * kChunk + dn * 8 + g];
+          vf[dn][1] = sm.v[cur][kk * 8 + 2 * t + 1][c * kChunk + dn * 8 + g];
+        }
+        mma_3xtf32(pv, pa_big, pa_small, vf);
+      }
+#pragma unroll
+      for (int dn = 0; dn < kChunk / 8; ++dn) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[c * (kChunk / 8) + dn][e] =
+              acc[c * (kChunk / 8) + dn][e] * row_corr[e >> 1] + pv[dn][e];
+        }
       }
     }
     __syncthreads();  // this tile's buffers are refilled next iteration
@@ -847,9 +1039,18 @@ __global__ void __launch_bounds__(kThreads)
     const float denom = sum == 0.0f ? 1.0f : sum;
     float* orow = ob + row * o_ss;
 #pragma unroll
-    for (int dn = 0; dn < kHeadDim / 8; ++dn) {
-      *reinterpret_cast<float2*>(orow + dn * 8 + 2 * t) = make_float2(
-          acc[dn][2 * r] / denom, acc[dn][2 * r + 1] / denom);
+    for (int dn = 0; dn < D / 8; ++dn) {
+      const int col = dn * 8 + 2 * t;
+      const float x = acc[dn][2 * r] / denom;
+      const float y = acc[dn][2 * r + 1] / denom;
+      if (vec_out) {
+        if (col < d_out) {
+          *reinterpret_cast<float2*>(orow + col) = make_float2(x, y);
+        }
+      } else {
+        if (col < d_out) orow[col] = x;
+        if (col + 1 < d_out) orow[col + 1] = y;
+      }
     }
   }
 }
@@ -859,6 +1060,7 @@ __global__ void __launch_bounds__(kThreads)
 // Error codes of this file beyond cudaError_t's range.
 constexpr int kErrNoEncoder = 100001;  // no cuTensorMapEncodeTiled
 constexpr int kErrTensorMap = 100002;  // it refused a tensor map
+constexpr int kErrHeadDim = 100003;    // a head dim outside 1 .. 256
 
 PFN_cuTensorMapEncodeTiled tensor_map_encoder() {
   static PFN_cuTensorMapEncodeTiled fn = []() -> PFN_cuTensorMapEncodeTiled {
@@ -874,29 +1076,33 @@ PFN_cuTensorMapEncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// A 4-D (d, s, h, b) bf16 map over a strided [B, S, H, 64] view (strides in
-// elements), boxes of `box_rows` rows of one head, 128-byte swizzle.
+// A 4-D (d, s, h, b) bf16 map over a strided [B, S, H, d_in] view (strides
+// in elements), boxes of `box_cols` columns (one swizzle atom wide: 128
+// bytes with the 128-byte swizzle, 64 with the 64-byte one) by `box_rows`
+// rows of one head. Columns past d_in and rows past S arrive as zeros.
 bool encode_qkv_map(CUtensorMap* map, const void* base, int batch, int seq,
-                    int heads, int64_t sb, int64_t ss, int64_t sh,
-                    cuuint32_t box_rows) {
+                    int heads, int d_in, int64_t sb, int64_t ss, int64_t sh,
+                    cuuint32_t box_cols, cuuint32_t box_rows) {
   // The stride of a dimension of size 1 is never stepped: any valid one.
-  const cuuint64_t row_bytes = kHeadDim * sizeof(bf16);
-  cuuint64_t dims[4] = {kHeadDim, (cuuint64_t)seq, (cuuint64_t)heads,
+  const cuuint64_t row_bytes = (cuuint64_t)d_in * sizeof(bf16);
+  cuuint64_t dims[4] = {(cuuint64_t)d_in, (cuuint64_t)seq, (cuuint64_t)heads,
                         (cuuint64_t)batch};
   cuuint64_t strides[3] = {
       seq > 1 ? (cuuint64_t)ss * sizeof(bf16) : row_bytes,
       heads > 1 ? (cuuint64_t)sh * sizeof(bf16) : row_bytes,
       batch > 1 ? (cuuint64_t)sb * sizeof(bf16) : row_bytes};
-  cuuint32_t box[4] = {kHeadDim, box_rows, 1, 1};
+  cuuint32_t box[4] = {box_cols, box_rows, 1, 1};
   cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   return tensor_map_encoder()(
              map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
              dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             box_cols * sizeof(bf16) == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                            : CU_TENSOR_MAP_SWIZZLE_64B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// Opt the kernel in to its dynamic shared memory, once per device (two
+// Opt a kernel in to its dynamic shared memory, once per device (two
 // threads may both do it; that is harmless).
 template <typename Kernel>
 cudaError_t opt_in(Kernel kernel, int bytes, std::atomic<bool> (&done)[64]) {
@@ -909,61 +1115,119 @@ cudaError_t opt_in(Kernel kernel, int bytes, std::atomic<bool> (&done)[64]) {
   return err;
 }
 
-}  // namespace
+bool aligned(const void* p, int64_t s0, int64_t s1, int64_t s2,
+             int elems_per_16_bytes) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 &&
+         s0 % elems_per_16_bytes == 0 && s1 % elems_per_16_bytes == 0 &&
+         s2 % elems_per_16_bytes == 0;
+}
 
-// Launch the fp32 kernel; arguments and return as for the bf16 one below,
-// with fp32 q/k/v/o whose rows are 16-byte aligned.
-extern "C" int client_tpu_flash_attention_fwd_f32(
-    const void* q, const void* k, const void* v, const void* bias, void* o,
-    int batch, int seq, int heads, int64_t q_sb, int64_t q_ss, int64_t q_sh,
-    int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
-    int64_t v_sh, int64_t o_sb, int64_t o_ss, int64_t o_sh, int64_t bias_sb,
-    float sm_scale, int causal, void* stream) {
+template <int D, int kBlockN>
+int launch_f32(const void* q, const void* k, const void* v, const void* bias,
+               void* o, int batch, int seq, int heads, int d_in, int d_out,
+               int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
+               int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
+               int64_t v_sh, int64_t o_sb, int64_t o_ss, int64_t o_sh,
+               int64_t bias_sb, float sm_scale, int causal, void* stream) {
   static std::atomic<bool> opted_in[64];
+  constexpr int kBytes = sizeof(f32::Smem<D, kBlockN>);
   cudaError_t err =
-      opt_in(f32::flash_fwd_f32_kernel, f32::kSmemBytes, opted_in);
+      opt_in(f32::flash_fwd_f32_kernel<D, kBlockN>, kBytes, opted_in);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const int vec_out = d_out % 2 == 0 &&
+                      reinterpret_cast<uintptr_t>(o) % 8 == 0 &&
+                      o_sb % 2 == 0 && o_ss % 2 == 0 && o_sh % 2 == 0;
   dim3 grid(batch * heads, (seq + f32::kBlockM - 1) / f32::kBlockM);
-  f32::flash_fwd_f32_kernel<<<grid, f32::kThreads, f32::kSmemBytes,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(bias),
-      static_cast<float*>(o), seq, heads, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
-      v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, bias_sb, sm_scale, causal);
+  f32::flash_fwd_f32_kernel<D, kBlockN>
+      <<<grid, f32::kThreads, kBytes, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<const float*>(bias),
+          static_cast<float*>(o), seq, heads, d_in, d_out, q_sb, q_ss, q_sh,
+          k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, bias_sb,
+          sm_scale, causal, vec_out);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launch on `stream`; returns 0 when launched, else a cudaError_t or one of
-// this file's codes (client_tpu_cuda_error_string names both). Strides are
-// in elements; each of q/k/v/o has unit stride along D, rows 16-byte
-// aligned (the Python wrapper checks both). `bias` may be null.
-extern "C" int client_tpu_flash_attention_fwd(
-    const void* q, const void* k, const void* v, const void* bias, void* o,
-    int batch, int seq, int heads, int64_t q_sb, int64_t q_ss, int64_t q_sh,
-    int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
-    int64_t v_sh, int64_t o_sb, int64_t o_ss, int64_t o_sh, int64_t bias_sb,
-    float sm_scale, int causal, void* stream) {
+template <class C>
+int launch_bf16(const void* q, const void* k, const void* v, const void* bias,
+                void* o, int batch, int seq, int heads, int d_in, int d_out,
+                int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
+                int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
+                int64_t v_sh, int64_t o_sb, int64_t o_ss, int64_t o_sh,
+                int64_t bias_sb, float sm_scale, int causal, void* stream) {
   if (tensor_map_encoder() == nullptr) return kErrNoEncoder;
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!encode_qkv_map(&tm_q, q, batch, seq, heads, q_sb, q_ss, q_sh,
-                      sm90::kBlockM) ||
-      !encode_qkv_map(&tm_k, k, batch, seq, heads, k_sb, k_ss, k_sh,
-                      sm90::kBlockN) ||
-      !encode_qkv_map(&tm_v, v, batch, seq, heads, v_sb, v_ss, v_sh,
-                      sm90::kBlockN)) {
+  if (!encode_qkv_map(&tm_q, q, batch, seq, heads, d_in, q_sb, q_ss, q_sh,
+                      C::kBoxCols, C::kBlockM) ||
+      !encode_qkv_map(&tm_k, k, batch, seq, heads, d_in, k_sb, k_ss, k_sh,
+                      C::kBoxCols, C::kBlockN) ||
+      !encode_qkv_map(&tm_v, v, batch, seq, heads, d_in, v_sb, v_ss, v_sh,
+                      C::kBoxCols, C::kBlockN)) {
     return kErrTensorMap;
   }
   static std::atomic<bool> opted_in[64];
-  cudaError_t err =
-      opt_in(sm90::flash_fwd_kernel, sm90::kSmemBytes, opted_in);
+  cudaError_t err = opt_in(sm90::flash_fwd_kernel<C>,
+                           sm90::kSmemBytes<C>, opted_in);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(batch * heads, (seq + sm90::kBlockM - 1) / sm90::kBlockM);
-  sm90::flash_fwd_kernel<<<grid, sm90::kThreads, sm90::kSmemBytes,
-                           static_cast<cudaStream_t>(stream)>>>(
+  const int vec_out = d_out % 8 == 0 && aligned(o, o_sb, o_ss, o_sh, 8);
+  dim3 grid(batch * heads, (seq + C::kBlockM - 1) / C::kBlockM);
+  sm90::flash_fwd_kernel<C><<<grid, C::kThreads, sm90::kSmemBytes<C>,
+                              static_cast<cudaStream_t>(stream)>>>(
       tm_q, tm_k, tm_v, static_cast<const float*>(bias),
-      static_cast<bf16*>(o), seq, heads, o_sb, o_ss, o_sh, bias_sb, sm_scale,
-      causal);
+      static_cast<bf16*>(o), seq, heads, d_out, o_sb, o_ss, o_sh, bias_sb,
+      sm_scale, causal, vec_out);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The arguments of both entry points: q/k/v strided [B, S, H, d_in] views
+// with unit stride along the head dim, 16-byte aligned rows and strides
+// (in elements) that are multiples of 16 bytes, d_in * element size a
+// multiple of 16 bytes (the Python wrapper checks, and pads a copy where
+// they are not); o [B, S, H, d_out] (d_out <= d_in <= 256: the columns
+// past d_out, zeros the caller padded, are dropped); `bias` may be null.
+// The instantiation is the smallest head dim of 32, 64, 128 and 256 that
+// holds d_in. Launch on `stream`; returns 0 when launched, else a
+// cudaError_t or one of this file's codes (client_tpu_cuda_error_string
+// names both).
+
+// fp32 q/k/v/o.
+extern "C" int client_tpu_flash_attention_fwd_f32(
+    const void* q, const void* k, const void* v, const void* bias, void* o,
+    int batch, int seq, int heads, int d_in, int d_out, int64_t q_sb,
+    int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
+    int64_t v_sb, int64_t v_ss, int64_t v_sh, int64_t o_sb, int64_t o_ss,
+    int64_t o_sh, int64_t bias_sb, float sm_scale, int causal, void* stream) {
+  if (d_out < 1 || d_out > d_in || d_in > kMaxHeadDim) return kErrHeadDim;
+#define CLIENT_TPU_F32_ARGS                                                   \
+  q, k, v, bias, o, batch, seq, heads, d_in, d_out, q_sb, q_ss, q_sh, k_sb,   \
+      k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, bias_sb, sm_scale,      \
+      causal, stream
+  if (d_in <= 32) return launch_f32<32, 64>(CLIENT_TPU_F32_ARGS);
+  if (d_in <= 64) return launch_f32<64, 64>(CLIENT_TPU_F32_ARGS);
+  if (d_in <= 128) return launch_f32<128, 64>(CLIENT_TPU_F32_ARGS);
+  return launch_f32<256, 32>(CLIENT_TPU_F32_ARGS);
+#undef CLIENT_TPU_F32_ARGS
+}
+
+// bf16 q/k/v/o.
+extern "C" int client_tpu_flash_attention_fwd(
+    const void* q, const void* k, const void* v, const void* bias, void* o,
+    int batch, int seq, int heads, int d_in, int d_out, int64_t q_sb,
+    int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
+    int64_t v_sb, int64_t v_ss, int64_t v_sh, int64_t o_sb, int64_t o_ss,
+    int64_t o_sh, int64_t bias_sb, float sm_scale, int causal, void* stream) {
+  if (d_out < 1 || d_out > d_in || d_in > kMaxHeadDim) return kErrHeadDim;
+#define CLIENT_TPU_BF16_ARGS                                                  \
+  q, k, v, bias, o, batch, seq, heads, d_in, d_out, q_sb, q_ss, q_sh, k_sb,   \
+      k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, bias_sb, sm_scale,      \
+      causal, stream
+  if (d_in <= 32) return launch_bf16<sm90::Config32>(CLIENT_TPU_BF16_ARGS);
+  if (d_in <= 64) return launch_bf16<sm90::Config64>(CLIENT_TPU_BF16_ARGS);
+  if (d_in <= 128) return launch_bf16<sm90::Config128>(CLIENT_TPU_BF16_ARGS);
+  return launch_bf16<sm90::Config256>(CLIENT_TPU_BF16_ARGS);
+#undef CLIENT_TPU_BF16_ARGS
 }
 
 extern "C" const char* client_tpu_cuda_error_string(int code) {
@@ -972,6 +1236,9 @@ extern "C" const char* client_tpu_cuda_error_string(int code) {
   }
   if (code == kErrTensorMap) {
     return "cuTensorMapEncodeTiled refused a q/k/v tensor map";
+  }
+  if (code == kErrHeadDim) {
+    return "the flash attention kernel takes head dims 1 to 256";
   }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -113,6 +113,12 @@ class ModelRepository:
             self._builders.setdefault(name, {})[version] = builder
             self._state.setdefault(name, ("UNAVAILABLE", "unloaded"))
 
+    def register_backend(self, backend: ModelBackend) -> None:
+        """Register a backend built beforehand (a custom width, say) under
+        its ``config.name``, as the JAX package's ``register_backend``
+        does: the load takes it as it is, on the device it was built on."""
+        self.register(backend.config.name, lambda device: backend)
+
     def _set_builders(self, name: str,
                       mapping: dict[int | None, Builder]) -> None:
         """Replace ``name``'s builders wholesale (the re-scan path): a

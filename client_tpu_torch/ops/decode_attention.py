@@ -10,12 +10,17 @@ place, as the JAX version's donated, aliased arena is.
 :func:`decode_wave_attention` launches the CUDA kernel in
 ``client_tpu_torch/csrc/decode_attention.cu`` for tensors on the card and
 takes :func:`decode_wave_attention_plain` only for tensors on the CPU. The
-kernel is built for head dims 8, 16, 32 and 64 (``HEAD_DIMS``: 64 for
-``tiny_gpt``, 32 for the ``*_mc`` GPTs, 16 and 8 for the multi-chip dry
-run's MoE and tp8 GPTs) and raises on any other, with no fallback to the
-plain version. ``launches`` counts kernel launches, and
-``launches_by_head_dim`` each instantiation's. Each call reports its work
-(:func:`work`) to a roofline capture running on its thread.
+kernel takes every head dim from 1 to 256, as the Pallas
+kernel takes any: it is instantiated at ``KERNEL_HEAD_DIMS`` (8, 16, 32,
+64, 128, 256; 64 for ``tiny_gpt``, 32 for the ``*_mc`` GPTs, 16 and 8 for
+the multi-chip dry run's MoE and tp8 GPTs, 128 for a GPT at
+Cerebras-GPT-1.3B's widths), and any other head dim runs the next larger
+instantiation with the real head dim at run time (:func:`kernel_head_dim`):
+the arena is updated in place, so it is never padded by a copy. It raises
+above 256, with no fallback to the plain version. ``launches`` counts
+kernel launches, and ``launches_by_head_dim`` them by the head dim
+requested. Each call reports its work (:func:`work`) to a roofline capture
+running on its thread.
 
 A wave's ``rows`` and ``lens`` come as a :class:`WaveIndex`: checked on the
 host, where the scheduler holds them as numpy, then staged to the device
@@ -26,26 +31,35 @@ from the host's lengths so that no launch waits on a device read.
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import functools
 import math
 
 import numpy as np
 import torch
 
 from client_tpu_torch.observability import roofline
-from client_tpu_torch.ops import cuda_build
+from client_tpu_torch.ops import cuda_build, head_dims
 from client_tpu_torch.utils import lockdep
 
 _NEG_INF = -1e30
-HEAD_DIMS = (8, 16, 32, 64)  # the head dims the kernel is instantiated for
+KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128, 256)  # the kernel's instantiations
 _SPLIT_KEYS = 256  # keys per CTA the split plan aims at
 _MAX_SPLIT = 8     # CTAs per (lane, head): the portable cluster size
 
 launches = 0
-launches_by_head_dim = dict.fromkeys(HEAD_DIMS, 0)
+launches_by_head_dim = collections.Counter()  # by requested head dim
 _count_lock = lockdep.Lock("ops.decode_attention.count")
 _fwd = None
 _bind_lock = lockdep.Lock("ops.decode_attention.bind")
+
+
+# The instantiation that runs head dim ``d`` (with ``d`` passed at run
+# time); ValueError outside 1 to 256.
+kernel_head_dim = functools.partial(head_dims.kernel_head_dim,
+                                    instantiations=KERNEL_HEAD_DIMS,
+                                    kernel="decode kernel")
 
 
 def stage(host: np.ndarray, device: torch.device
@@ -193,10 +207,10 @@ def check_kernel_args(k_arena: torch.Tensor, v_arena: torch.Tensor,
                       v_new: torch.Tensor, index: WaveIndex,
                       layer: int) -> None:
     """Raise ValueError for what the kernel does not take: anything but
-    contiguous fp32 ``[L, R, S, H, D]`` arenas, D in ``HEAD_DIMS``, at
+    contiguous fp32 ``[L, R, S, H, D]`` arenas, D from 1 to 256, at
     16-byte aligned addresses (the kernel's TMA loads need it) and ``[B, H,
-    D]`` lanes on one
-    device, an index checked for another arena, or a layer out of range."""
+    D]`` lanes on one device, an index checked for another arena, or a
+    layer out of range."""
     if k_arena.dim() != 5 or k_arena.shape != v_arena.shape:
         raise ValueError(f"k/v arenas must share one [L, R, S, H, D] shape, "
                          f"got {tuple(k_arena.shape)}, {tuple(v_arena.shape)}")
@@ -212,9 +226,7 @@ def check_kernel_args(k_arena: torch.Tensor, v_arena: torch.Tensor,
             raise ValueError(f"{name} must be float32, got {t.dtype}")
         if t.device != k_arena.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {k_arena.device}")
-    if dim not in HEAD_DIMS:
-        raise ValueError(
-            f"the kernel is built for head dims {HEAD_DIMS}, got {dim}")
+    kernel_head_dim(dim)
     for name, t in (("k_arena", k_arena), ("v_arena", v_arena)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start at a 16-byte aligned address")

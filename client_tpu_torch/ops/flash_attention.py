@@ -9,44 +9,73 @@ exactly 0 and a row with nothing to attend to outputs 0, never NaN.
 :func:`flash_attention` launches the CUDA kernel in
 ``client_tpu_torch/csrc/flash_attention.cu`` for tensors on the card and
 takes :func:`flash_attention_plain` only for tensors on the CPU. The kernel
-has a bf16 instantiation (the BERTs) and an fp32 one (the generative
-models' prefill), both with head dim 64, and raises on anything else.
-``launches`` counts bf16 launches and ``launches_fp32`` fp32 ones, so a
-run can show that its path went through the kernel. Each call reports
-its work (:func:`work`) to a roofline capture running on its thread:
-the ``ctypes`` launch is invisible to the FLOP counter.
+runs in bf16 (the BERTs) and in fp32 (the generative models' prefill), at
+every head dim from 1 to 256, as the Pallas kernel
+takes any: it is instantiated at ``KERNEL_HEAD_DIMS`` (32, 64, 128, 256),
+and any other head dim runs the next larger instantiation with the head
+dim zero-padded (:func:`kernel_head_dim`; :func:`flash_attention_padded_plain`
+is that rule in plain PyTorch). It raises above 256 and on anything else
+it does not take. ``launches`` counts bf16 launches and ``launches_fp32``
+fp32 ones, so a run can show that its path went through the kernel;
+``launches_by_head_dim`` and ``launches_fp32_by_head_dim`` count them by
+the head dim requested. Each call reports its work (:func:`work`, at the
+real head dim) to a roofline capture running on its thread: the
+``ctypes`` launch is invisible to the FLOP counter.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import functools
 import math
 
 import torch
 
 from client_tpu_torch.observability import roofline
-from client_tpu_torch.ops import cuda_build
+from client_tpu_torch.ops import cuda_build, head_dims
 from client_tpu_torch.utils import lockdep
 
 _NEG_INF = -1e30
-_HEAD_DIM = 64  # the only head dim the kernel is built for
+KERNEL_HEAD_DIMS = (32, 64, 128, 256)  # the kernel's instantiations
 
 launches = 0
 launches_fp32 = 0
+launches_by_head_dim = collections.Counter()       # bf16, by requested D
+launches_fp32_by_head_dim = collections.Counter()  # fp32, by requested D
 _count_lock = lockdep.Lock("ops.flash_attention.count")
 _fwd = None
 _bind_lock = lockdep.Lock("ops.flash_attention.bind")
 
 
+# The instantiation that runs head dim ``d`` (zero-padded to it); ValueError
+# outside 1 to 256.
+kernel_head_dim = functools.partial(head_dims.kernel_head_dim,
+                                    instantiations=KERNEL_HEAD_DIMS,
+                                    kernel="flash attention kernel")
+
+
+def pad_head_dim(x: torch.Tensor, width: int) -> torch.Tensor:
+    """A contiguous copy of ``x`` with its last dim zero-padded to
+    ``width``."""
+    out = x.new_zeros((*x.shape[:-1], width))
+    out[..., :x.shape[-1]] = x
+    return out
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           bias: torch.Tensor | None = None,
-                          causal: bool = False) -> torch.Tensor:
+                          causal: bool = False,
+                          sm_scale: float | None = None) -> torch.Tensor:
     """The kernel's function in plain PyTorch: fp32 scores, the same
     -1e30 and empty-row guards, P rounded to v's dtype before P.V, and the
-    output in q's dtype. Holds the whole ``[B, H, S, S]`` score tensor."""
+    output in q's dtype. Scores are scaled by ``sm_scale``, 1/sqrt(D) when
+    None. Holds the whole ``[B, H, S, S]`` score tensor."""
     s = q.shape[1]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
-    scores = scores * (1.0 / math.sqrt(q.shape[-1]))
+    scores = scores * sm_scale
     if bias is not None:
         scores = scores + bias[:, None, None, :].float()
     if causal:
@@ -61,9 +90,27 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (out / denom.transpose(1, 2)).to(q.dtype)
 
 
+def flash_attention_padded_plain(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor,
+                                 bias: torch.Tensor | None = None,
+                                 causal: bool = False) -> torch.Tensor:
+    """The kernel's padding rule in plain PyTorch: q/k/v zero-padded to
+    the instantiation's head dim (:func:`kernel_head_dim`), scores scaled
+    by 1/sqrt(D) of the real D, and only the first D output columns kept.
+    The zeros add nothing to q.k, and the padded columns of the output
+    (zeros of v) are dropped, so it equals :func:`flash_attention_plain`."""
+    d = q.shape[-1]
+    width = kernel_head_dim(d)
+    out = flash_attention_plain(
+        *(pad_head_dim(t, width) for t in (q, k, v)), bias, causal,
+        sm_scale=1.0 / math.sqrt(d))
+    return out[..., :d]
+
+
 def work(q: torch.Tensor, bias: torch.Tensor | None,
          causal: bool) -> tuple[float, int]:
-    """(FLOPs, bytes) of one call: QK^T and PV at 2 FLOP per MAC over
+    """(FLOPs, bytes) of one call at the real head dim (not the padded
+    one the kernel computes with): QK^T and PV at 2 FLOP per MAC over
     every (query, key) pair it attends (those on or below the diagonal
     when causal), and q, k, v read, the output written and the bias
     read once."""
@@ -87,7 +134,7 @@ def load_kernel():
                                (torch.float32,
                                 "client_tpu_flash_attention_fwd_f32")):
                 fn = getattr(lib, sym)
-                fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                                + [ctypes.c_int64] * 13
                                + [ctypes.c_float, ctypes.c_int,
                                   ctypes.c_void_p])
@@ -99,36 +146,39 @@ def load_kernel():
         return _fwd
 
 
+def _direct(t: torch.Tensor) -> bool:
+    """Whether the kernel reads ``[B, S, H, D]`` ``t`` as it lies: unit
+    stride along D, and D, every other stride and the address multiples of
+    16 bytes."""
+    per_16_bytes = 16 // t.element_size()
+    sb, ss, sh, sd = t.stride()
+    return (sd == 1 and t.shape[3] % per_16_bytes == 0
+            and sb % per_16_bytes == 0 and ss % per_16_bytes == 0
+            and sh % per_16_bytes == 0 and t.data_ptr() % 16 == 0)
+
+
 def check_kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       bias: torch.Tensor | None) -> None:
     """Raise ValueError for inputs the kernel does not take: anything but
-    bf16 or fp32 ``[B, S, H, 64]`` q/k/v of one shape and one dtype with
-    unit stride along D and 16-byte aligned rows, and an fp32 contiguous
-    ``[B, S]`` bias."""
+    bf16 or fp32 ``[B, S, H, D]`` q/k/v of one shape, one dtype and one
+    device, D from 1 to 256, and an fp32 contiguous ``[B, S]`` bias. Any
+    layout is taken: :func:`flash_attention` pads a copy of q/k/v where
+    the kernel cannot read them as they lie (:func:`_direct`)."""
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(
             f"q/k/v must share one [B, S, H, D] shape, got {tuple(q.shape)}, "
             f"{tuple(k.shape)}, {tuple(v.shape)}")
-    if q.shape[-1] != _HEAD_DIM:
-        raise ValueError(
-            f"the kernel is built for head dim {_HEAD_DIM}, got {q.shape[-1]}")
+    kernel_head_dim(q.shape[-1])
     if q.shape[0] > 65535 or q.shape[2] > 65535:
         raise ValueError(f"batch and heads map to grid dims of at most 65535, "
                          f"got {tuple(q.shape)}")
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"q must be bfloat16 or float32, got {q.dtype}")
-    per_16_bytes = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != q.dtype:
             raise ValueError(f"{name} is {t.dtype}, q {q.dtype}")
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if t.stride(-1) != 1 \
-                or any(st % per_16_bytes for st in t.stride()[:-1]) \
-                or t.data_ptr() % 16:
-            raise ValueError(
-                f"{name} needs unit stride along D and 16-byte aligned rows, "
-                f"got strides {t.stride()}")
     if bias is not None:
         if bias.shape != q.shape[:2] or bias.dtype != torch.float32 \
                 or not bias.is_contiguous() or bias.device != q.device:
@@ -152,8 +202,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     check_kernel_args(q, k, v, bias)
-    b, s, h, _ = q.shape
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    cost = work(q, bias, causal)
+    d = q.shape[3]
+    if not (_direct(q) and _direct(k) and _direct(v)):
+        # The kernel's loads need 16-byte rows: one zero-padded copy of
+        # q/k/v, D rounded up to 16 bytes (the kernel pads the rest of the
+        # way to its instantiation itself, and stores only D columns).
+        per_16_bytes = 16 // q.element_size()
+        width = -(-d // per_16_bytes) * per_16_bytes
+        q, k, v = (pad_head_dim(t, width) for t in (q, k, v))
+    b, s, h, d_in = q.shape
+    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     fns, err_str = load_kernel()
@@ -162,19 +221,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   bias.data_ptr() if bias is not None else None,
-                  out.data_ptr(), b, s, h,
+                  out.data_ptr(), b, s, h, d_in, d,
                   *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                   *out.stride()[:3],
                   bias.stride(0) if bias is not None else 0,
-                  1.0 / math.sqrt(q.shape[-1]), int(causal), stream)
+                  1.0 / math.sqrt(d), int(causal), stream)
     if err != 0:
         raise RuntimeError(
             f"flash attention kernel launch failed: {err_str(err).decode()}")
-    roofline.kernel_work(*work(q, bias, causal))
+    roofline.kernel_work(*cost)
     global launches, launches_fp32
     with _count_lock:
         if q.dtype == torch.float32:
             launches_fp32 += 1
+            launches_fp32_by_head_dim[d] += 1
         else:
             launches += 1
+            launches_by_head_dim[d] += 1
     return out

@@ -37,7 +37,7 @@ from client_tpu_torch.ops.decode_attention import (
 )
 from client_tpu_torch.utils import lockdep
 
-_MAX_SHARDS = 8  # the kernel's pointer tables
+_MAX_SHARDS = 64  # the kernel's pointer tables
 
 launches = 0
 _count_lock = lockdep.Lock("parallel.kv_shard.count")
@@ -222,7 +222,7 @@ def ring_all_reduce(partials: Sequence[torch.Tensor]) -> list[torch.Tensor]:
     the ``n`` sums (replicated), each in the ring's order of additions.
     ``n == 1`` returns the input without a launch. On the card this
     launches K3, one-shot (or raises): every partial contiguous fp32 on
-    one card, at most 8 of them. On the CPU it is the plain version."""
+    one card, at most 64 of them. On the CPU it is the plain version."""
     parts = list(partials)
     _check_partials(parts)
     n = len(parts)
@@ -242,7 +242,8 @@ def ring_all_reduce(partials: Sequence[torch.Tensor]) -> list[torch.Tensor]:
             raise ValueError(f"partial {i} must be contiguous float32, got "
                              f"{p.dtype}")
     if n > _MAX_SHARDS:
-        raise ValueError(f"at most {_MAX_SHARDS} shards, got {n}")
+        raise ValueError(f"the ring all-reduce kernel takes 1 to "
+                         f"{_MAX_SHARDS} shards, got {n}")
     numel = parts[0].numel()
     out = torch.empty((n, *parts[0].shape), dtype=torch.float32,
                       device=device)

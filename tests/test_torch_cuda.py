@@ -78,9 +78,47 @@ def test_kernel_matches_plain(card, causal):
 
 
 def test_kernel_refuses_what_it_was_not_built_for(card):
-    q = torch.zeros(1, 64, 2, 32, dtype=torch.bfloat16, device=card)
-    with pytest.raises(ValueError, match="head dim"):
-        fa.flash_attention(q, q, q)
+    """Head dims above 256 raise on a CUDA tensor, naming the range, count
+    no launch and do not fall back to the plain version (every head dim
+    from 1 to 256 runs: test_kernel_head_dims_match_plain)."""
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.zeros(1, 64, 2, 272, dtype=dtype, device=card)
+        before = (fa.launches, fa.launches_fp32)
+        with pytest.raises(ValueError, match="head dims 1 to 256"):
+            fa.flash_attention(q, q, q)
+        assert (fa.launches, fa.launches_fp32) == before
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("d", [8, 16, 24, 32, 40, 80, 96, 100, 128, 160,
+                               256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_kernel_head_dims_match_plain(card, dtype, d, causal):
+    """Both kernels at every instantiation (32, 64, 128, 256) and at head
+    dims between them (run by the next larger one, zero-padded; bf16 at
+    100 through one padded copy), on strided slices of one fused [B, S, 3,
+    H, D] tensor, at tile edges, with batch row 1 fully masked (exactly
+    0). One launch each, counted under the head dim requested."""
+    gen = torch.Generator(device=card).manual_seed(d)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for s in (1, 129, 200):
+        fused = torch.randn(2, s, 3, 3, d, device=card,
+                            generator=gen).to(dtype)
+        q, k, v = fused[:, :, 0], fused[:, :, 1], fused[:, :, 2]
+        bias = torch.zeros(2, s, device=card)
+        bias[0, s - s // 4:] = -1e9
+        bias[1] = -math.inf
+        counts = (fa.launches_by_head_dim if dtype == torch.bfloat16
+                  else fa.launches_fp32_by_head_dim)
+        before = counts[d]
+        out = fa.flash_attention(q, k, v, bias, causal=causal)
+        torch.cuda.synchronize()
+        assert counts[d] == before + 1
+        ref = fa.flash_attention_plain(q, k, v, bias, causal=causal)
+        assert out.shape == q.shape and out.dtype == dtype
+        assert (out[1] == 0).all()
+        assert float((out.float() - ref.float()).abs().max()) <= tol
 
 
 def test_bert_flash_serves_through_the_kernel(card):
@@ -350,9 +388,10 @@ def test_decode_wave_head_dim_32_repeats_bit_for_bit(card):
 
 
 def _small_head_arena(card, heads, dim, seed=0, shape=(2, 5, 32)):
-    """An arena at head dim 8 or 16: the multi-chip dry run's shards,
-    ``gpt_tiny_mc`` on tp8 ([2, 5, 32, 1, 8]: 4 streams + the dummy row)
-    and ``moe_gpt_dry`` on ep2 x tp4 ([2, 5, 32, 1, 16]), by default."""
+    """An arena at head dim ``dim``, by default the multi-chip dry run's
+    shards at head dims 8 and 16: ``gpt_tiny_mc`` on tp8 ([2, 5, 32, 1,
+    8]: 4 streams + the dummy row) and ``moe_gpt_dry`` on ep2 x tp4 ([2,
+    5, 32, 1, 16])."""
     gen = torch.Generator(device=card).manual_seed(seed)
     full = (*shape, heads, dim)
     return (torch.randn(full, device=card, generator=gen),
@@ -396,15 +435,37 @@ def test_decode_wave_small_head_dims_repeat_bit_for_bit(card, dim):
 
 
 def test_decode_wave_head_dim_12_raises_on_the_card(card):
-    """Head dim 12 (between the instantiations) raises on a CUDA tensor,
+    """The name is kept on purpose from when the kernel refused head dim
+    12; the case now accepts 12 and refuses 272. Head dim 12 (between the
+    instantiations) runs the 16 one with the real head dim and matches the
+    plain version; head dim 272 (above the range) raises on a CUDA tensor,
     counts no launch and does not fall back to the plain version."""
-    k_a = torch.zeros(1, 3, 8, 1, 12, device=card)
-    q = torch.zeros(1, 1, 12, device=card)
+    k_a, v_a, gen = _small_head_arena(card, 2, 12, seed=12)
+    before = da.launches_by_head_dim[12]
+    _decode_against_plain(k_a, v_a, gen, [0, 4, 3], [31, 0, 7], 1, 5)
+    assert da.launches_by_head_dim[12] == before + 1
+    k_a = torch.zeros(1, 3, 8, 1, 272, device=card)
+    q = torch.zeros(1, 1, 272, device=card)
     index = da.WaveIndex([0], [1], 3, 8, card)
     before = da.launches
-    with pytest.raises(ValueError, match=r"head dims \(8, 16, 32, 64\)"):
+    with pytest.raises(ValueError, match="head dims 1 to 256"):
         da.decode_wave_attention(k_a, k_a, q, q, q, index, layer=0)
     assert da.launches == before
+
+
+@pytest.mark.parametrize("d", [6, 48, 50, 80, 128, 130, 256])
+def test_decode_wave_head_dims_match_plain(card, d):
+    """K2 at its new instantiations (128, 256) and at head dims between
+    them (run by the next larger one with the real head dim; 6, 50 and 130
+    not multiples of 4, filled by ordinary loads instead of TMA): padded
+    lanes, lens 0, the tile and split edges of a 2048-long row, repeated
+    calls bit for bit."""
+    k_a, v_a, gen = _small_head_arena(card, 2, d, seed=d, shape=(2, 5, 2048))
+    for n in (1, 31, 32, 33, 255, 257, 1793, 2047):
+        o, (q, kn, vn, index) = _decode_against_plain(
+            k_a, v_a, gen, [1, 4, 2], [n, 0, 100], 1, 5)
+    again = da.decode_wave_attention(k_a, v_a, q, kn, vn, index, layer=1)
+    assert torch.equal(again, o)
 
 
 def test_decode_wave_refused_cluster_raises(card):
@@ -422,9 +483,9 @@ def test_decode_wave_refused_cluster_raises(card):
 
 
 def test_decode_wave_refuses_what_it_was_not_built_for(card):
-    # Built for head dims 8, 16, 32 and 64 only.
-    k_a = torch.zeros(1, 3, 8, 2, 48, device=card)
-    q = torch.zeros(1, 2, 48, device=card)
+    # Head dims 1 to 256 only (48 runs: test_decode_wave_head_dims_match_plain).
+    k_a = torch.zeros(1, 3, 8, 2, 272, device=card)
+    q = torch.zeros(1, 2, 272, device=card)
     index = da.WaveIndex([0], [1], 3, 8, card)
     with pytest.raises(ValueError, match="head dim"):
         da.decode_wave_attention(k_a, k_a, q, q, q, index, layer=0)
@@ -458,7 +519,7 @@ def test_tiny_gpt_long_fused_stream_equals_reference(card):
     assert fused == stream("einsum", "reference")
 
 
-@pytest.mark.parametrize("n", [2, 3, 4, 8])
+@pytest.mark.parametrize("n", [2, 3, 4, 8, 9, 16, 64])
 @pytest.mark.parametrize("shape", [(1, 4, 64), (3, 4, 64), (16, 4, 64), (5,),
                                    (832, 128)])
 def test_ring_all_reduce_equals_plain_bit_for_bit(card, n, shape):
@@ -477,8 +538,10 @@ def test_ring_all_reduce_refuses_what_it_was_not_built_for(card):
     x = torch.zeros(4, device=card)
     with pytest.raises(ValueError, match="float32"):
         ks.ring_all_reduce([x.half(), x.half()])
-    with pytest.raises(ValueError, match="at most 8"):
-        ks.ring_all_reduce([x] * 9)
+    before = ks.launches
+    with pytest.raises(ValueError, match="1 to 64"):
+        ks.ring_all_reduce([x] * 65)
+    assert ks.launches == before
     with pytest.raises(ValueError, match="one card"):
         ks.ring_all_reduce([x, x.cpu()])
 

@@ -134,15 +134,16 @@ def _head_dim(d: int) -> dict:
 @pytest.mark.parametrize("case", [
     "float64_arena", "float64_q", "head_dim_32", "head_dim_48",
     "head_dim_128", "lane_shape", "index_for_another_arena", "layer",
-    "not_contiguous",
+    "not_contiguous", "head_dim_272",
 ])
 def test_kernel_argument_checks(case):
     """What the kernel wrapper refuses before a launch (checked on CPU
     tensors: the checks read only shapes, dtypes and strides). The kernel
-    is instantiated for head dims 32 and 64, so head dim 32 passes the
-    checks and any other head dim is refused."""
-    if case == "head_dim_32":
-        args = _kernel_args(**_head_dim(32))
+    takes every head dim from 1 to 256 (instantiated at 8, 16, 32, 64, 128
+    and 256, the real head dim passed at run time), so head dims 32, 48
+    and 128 pass the checks and head dim 272 is refused."""
+    if case in ("head_dim_32", "head_dim_48", "head_dim_128"):
+        args = _kernel_args(**_head_dim(int(case.rsplit("_", 1)[1])))
         da.check_kernel_args(args["k_arena"], args["v_arena"], args["q"],
                              args["k_new"], args["v_new"], args["index"], 0)
         return
@@ -150,13 +151,12 @@ def test_kernel_argument_checks(case):
         "float64_arena": dict(k_arena=torch.zeros(L, R, S, H, 64,
                                                   dtype=torch.float64)),
         "float64_q": dict(q=torch.zeros(2, H, 64, dtype=torch.float64)),
-        "head_dim_48": _head_dim(48),
-        "head_dim_128": _head_dim(128),
         "lane_shape": dict(q=torch.zeros(3, H, 64)),
         "index_for_another_arena": dict(
             index=da.WaveIndex([0, 1], [3, 4], R, S + 1)),
         "layer": dict(layer=L),
         "not_contiguous": dict(q=torch.zeros(2, 64, H).transpose(1, 2)),
+        "head_dim_272": _head_dim(272),
     }[case]
     args = _kernel_args(**change)
     with pytest.raises(ValueError):

@@ -136,16 +136,29 @@ def _bf16(*shape):
 
 @pytest.mark.parametrize("case", [
     "head_dim_32", "float32", "shape_mismatch", "bias_float16",
-    "bias_shape", "d_stride",
+    "bias_shape", "d_stride", "head_dim_272",
 ])
 def test_kernel_argument_checks(case):
     """What the kernel wrapper refuses before a launch (checked on CPU
-    tensors: the checks read only shapes, dtypes and strides)."""
+    tensors: the checks read only shapes, dtypes and strides). The kernel
+    takes every head dim from 1 to 256, as the Pallas kernel does, so
+    head dim 32 passes the checks and head dim 272 is refused. It takes
+    any layout too: a view with a non-unit stride along D (``d_stride``)
+    passes the checks, and the wrapper pads a copy of it because the
+    kernel cannot read it as it lies."""
     q = k = v = _bf16(2, 64, 4, 64)
     bias = torch.zeros(2, 64)
     if case == "head_dim_32":
         q = k = v = _bf16(2, 64, 4, 32)
-    elif case == "float32":
+        fa.check_kernel_args(q, k, v, bias)
+        return
+    if case == "d_stride":
+        q = _bf16(2, 64, 64, 4).transpose(2, 3)
+        assert q.stride(3) == 4 and not fa._direct(q)
+        assert fa._direct(k) and fa._direct(v)
+        fa.check_kernel_args(q, k, v, bias)
+        return
+    if case == "float32":
         q = torch.zeros(2, 64, 4, 64)
     elif case == "shape_mismatch":
         k = _bf16(2, 32, 4, 64)
@@ -153,8 +166,8 @@ def test_kernel_argument_checks(case):
         bias = bias.half()
     elif case == "bias_shape":
         bias = torch.zeros(2, 63)
-    elif case == "d_stride":
-        q = _bf16(2, 64, 64, 4).transpose(2, 3)
+    elif case == "head_dim_272":
+        q = k = v = _bf16(2, 64, 4, 272)
     with pytest.raises(ValueError):
         fa.check_kernel_args(q, k, v, bias)
 
