@@ -13,8 +13,9 @@
 2. Builds every kernel of the path from ``client_tpu_torch/csrc`` with
    ``nvcc`` (one process per source, all at once) and prints the seconds.
    Counts the flash-attention kernels' instructions (``cuobjdump -sass``)
-   and fails unless the bf16 kernel runs on wgmma fed by TMA and the fp32
-   one on TF32 mma.sync.
+   and fails unless the bf16 kernel runs on wgmma fed by TMA, the fp32 one
+   at head dims 32 and 64 on TF32 mma.sync, and the fp32 one at 128 and
+   256 on TF32 wgmma fed by TMA.
 3. Kernel phases: hold each kernel against its plain PyTorch version on the
    card at the shapes the main path gives it, plus its edge cases, with the
    tolerance stated below; then time kernel, plain version and the one
@@ -314,7 +315,8 @@
    staged descriptors into one registered dataset, each score byte for
    byte the binary HTTP one and within ``DLRM_ATOL`` of the plain path
    (the whole table's bag sums without K3, then the MLPs). A producer process killed with 2 slots in
-   flight (the worker held): the slots are failed in its segment, its
+   flight (the workers held on a gate, so the slots stay queued however
+   long the process takes to start): the slots are failed in its segment, its
    ring detached, ``shm_ring.producer_dead`` and ``detach_inflight`` in
    the journal. A burst of ``storm_count`` expired ``bert_long``
    requests while 4 ``tiny_gpt_long`` streams run: exactly one
@@ -481,7 +483,11 @@
    timed as its kernel phase times it (K1: 50 launches in turns with
    ``scaled_dot_product_attention``; K2 and K3: queued device time in
    turns with their library calls) beside its bound, and the padded copy
-   a bf16 head dim of 100 pays. Then a ``TinyGptBackend`` at
+   a bf16 head dim of 100 pays; K1 fp32 also at the served prefill's
+   shape (B1 S1024 H16 D128), its pre-pass (``split_kv``) bit for bit
+   against its plain version and timed, and the fp32 instantiations'
+   registers, shared memory and local bytes (no spill above 64). Then a
+   ``TinyGptBackend`` at
    Cerebras-GPT-1.3B's widths (24 layers, d_model 2048, 16 heads of 128,
    d_ff 8192, vocab 50257, seq 2048, 16 streams; the family's seeded
    fill), registered with ``register_backend`` (not in the zoo), served
@@ -489,7 +495,8 @@
    1,024 tokens, 32 tokens each, every stream token for token the same
    weights on the card with ``attention_impl="einsum"``,
    ``attn_impl="reference"`` (no kernel); K1 fp32 at head dim 128 once a
-   prompt and layer, K2 at head dim 128 once a wave and layer (the waves
+   prompt and layer (its pre-pass as often), K2 at head dim 128 once a
+   wave and layer (the waves
    from ``/v2/profile``), no other head dim; its prefill and wave device
    ms and tokens/s. Last, ``tiny_gpt_long`` over 16 shards and
    ``tiny_gpt`` over 64 on the card, served the same way against the
@@ -513,10 +520,12 @@
    ``dryrun_multichip``; then the headdims phase's entries, one per new
    instantiation: ``flash_attention_hd{32,80,128,256}``,
    ``flash_attention_fp32_hd{32,80,128,256}``,
+   ``split_kv_fp32`` (K1 fp32's pre-pass above head dim 64),
    ``decode_wave_attention_hd{128,256,50}`` and ``ring_all_reduce_n{16,
    64}``, each with its head dim and the instantiation that ran it, the
-   launches of the served paths of step 22: K1 fp32 and K2 at head dim
-   128 the Cerebras-width GPT's, K3 the 16- and 64-shard GPTs', the bf16
+   launches of the served paths of step 22: K1 fp32, its pre-pass and K2
+   at head dim 128 the Cerebras-width GPT's, K3 the 16- and 64-shard
+   GPTs', the bf16
    and other instantiations 0, no served model using them), the
    ``nvidia-smi`` name and power limit line, and last
    ``{"ok": true, "device": {...}}``.
@@ -539,8 +548,9 @@ with that one entry and the ``nvidia-smi`` line, and no ``ok`` line.
 20, ``--capi`` with K1 bf16, K2 at head dim 64 and step 21, ``--headdims``
 with step 22 alone. ``--versus DIR`` builds K1, K2 and K3 from the sources
 of an older checkout at DIR (``git archive`` of the parent under
-``build/``) beside this one's and times K1 bf16 at head dim 64, K2 at head
-dims 64 and 32 and K3 at 8, 16 and 64 shards (those the older tree takes)
+``build/``) beside this one's and times K1 bf16 at head dim 64, K1 fp32 at
+64, 80, 128 and 256 (64 must be bit for bit), K2 at head dims 64 and 32
+and K3 at 8, 16 and 64 shards (those the older tree takes)
 against them in turns in one process (parent, change, change, parent), and
 prints how far their outputs differ (0: bit for bit).
 
@@ -552,6 +562,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import itertools
 import json
 import math
@@ -708,65 +719,94 @@ def _queued_turns(torch, calls: dict[str, list]) -> dict[str, float]:
     return {name: float(np.median(s)) for name, s in samples.items()}
 
 
-def _resource_usage(cuda_build, name: str) -> str:
-    """Registers, static shared memory and local memory of each kernel in
-    the library built from ``csrc/<name>.cu`` (``cuobjdump -res-usage``,
-    the figures ``ptxas`` reports)."""
+def _kernel_name(mangled: str) -> str:
+    """A kernel's name from its mangled one: the last ``*_kernel`` of its
+    nested name, with its first integer template argument (the head dim or
+    shard count) in brackets."""
+    i = mangled.find("_ZN") + 3 if "_ZN" in mangled else mangled.find("_Z") + 2
+    names = []
+    while 2 <= i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        names.append(mangled[j:j + int(mangled[i:j])])
+        i = j + int(mangled[i:j])
+    kernel = next((n for n in reversed(names) if n.endswith("_kernel")), None)
+    if kernel is None:
+        return mangled
+    arg = re.match(r"I\S*?Li(\d+)E", mangled[i:])
+    return kernel + (f"<{arg.group(1)}>" if arg else "")
+
+
+def _resource_figures(cuda_build, name: str) -> list[tuple[str, dict]]:
+    """(kernel, {REG, SHARED, LOCAL, STACK}) for each kernel in the library
+    built from ``csrc/<name>.cu`` (``cuobjdump -res-usage``, the figures
+    ``ptxas`` reports; SHARED is the static shared memory)."""
     tool = Path(cuda_build._nvcc()).parent / "cuobjdump"
     out = subprocess.run(
         [str(tool), "-res-usage", str(cuda_build.library_path(name))],
         capture_output=True, text=True, timeout=120, check=True).stdout
-    usage, kernel = [], None
+    figures, kernel = [], None
     for line in out.splitlines():
         found = re.search(r"Function (\S+):", line)
         if found:
-            short = re.search(r"\d+([a-z][a-z0-9_]*_kernel)(?:I\S*?Li(\d+)E)?",
-                              found.group(1))
-            kernel = (short.group(1) + (f"<{short.group(2)}>"
-                                        if short.group(2) else "")
-                      if short else found.group(1))
+            kernel = _kernel_name(found.group(1))
             continue
         fields = re.findall(r"(REG|SHARED|LOCAL|STACK):(\d+)", line)
         if kernel and fields:
-            usage.append(f"{kernel} " + " ".join(f"{k}:{v}" for k, v in fields))
+            figures.append((kernel, {k: int(v) for k, v in fields}))
             kernel = None
+    return figures
+
+
+def _resource_usage(cuda_build, name: str) -> str:
+    """:func:`_resource_figures` as one line."""
+    usage = [f"{kernel} " + " ".join(f"{k}:{v}" for k, v in fields.items())
+             for kernel, fields in _resource_figures(cuda_build, name)]
     return "; ".join(usage) or "no resource usage found"
 
 
 def _sass_census(cuda_build) -> dict:
     """Instruction counts of the flash-attention kernels in the built
-    library, from ``cuobjdump -sass``: wgmma (HGMMA), TMA loads (UTMALDG)
-    and mma.sync (HMMA, and those with TF32 operands), for each head-dim
-    instantiation and summed by kind. Fails unless every bf16
-    instantiation runs its products on wgmma, loads with TMA and has no
-    mma.sync, and every HMMA of every fp32 one is TF32. Returns the sums
-    by kind ("bf16", "fp32") and each instantiation's ("by_head_dim")."""
+    library, from ``cuobjdump -sass``: wgmma (HGMMA, and those with TF32
+    operands), TMA loads (UTMALDG) and mma.sync (HMMA, and those with TF32
+    operands), for each head-dim instantiation and summed by kind. Fails
+    unless every bf16 instantiation runs its products on wgmma, loads with
+    TMA and has no mma.sync; the fp32 ones at head dims 32 and 64
+    (``flash_fwd_f32_kernel``) run every product on TF32 mma.sync; and
+    those at 128 and 256 (``flash_fwd_tf32_kernel``) run every product on
+    TF32 wgmma, load with TMA and have no mma.sync. Returns the sums by
+    kind ("bf16", "fp32") and each instantiation's ("by_head_dim")."""
     tool = Path(cuda_build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run(
         [str(tool), "-sass", str(cuda_build.library_path("flash_attention"))],
         capture_output=True, text=True, timeout=120, check=True).stdout
-    empty = {"HGMMA": 0, "UTMALDG": 0, "HMMA": 0, "HMMA_TF32": 0}
+    empty = {"HGMMA": 0, "HGMMA_TF32": 0, "UTMALDG": 0, "HMMA": 0,
+             "HMMA_TF32": 0}
     by_fn, key = {}, None
     for line in sass.splitlines():
-        found = re.search(
-            r"Function : \S*(flash_fwd_f32_kernel|flash_fwd_kernel)(\S*)",
-            line)
-        if found:
-            kind = "fp32" if "f32" in found.group(1) else "bf16"
-            dim = re.search(r"Li(\d+)E", found.group(2))
-            key = (kind, int(dim.group(1)) if dim else 0)
-            by_fn[key] = collections.Counter(empty)
+        if "Function : " in line:
+            found = re.search(r"Function : \S*?(flash_fwd_tf32_kernel|"
+                              r"flash_fwd_f32_kernel|flash_fwd_kernel)(\S*)",
+                              line)
+            key = None  # another kernel (the fp32 pre-pass): not counted
+            if found:
+                kind = "bf16" if found.group(1) == "flash_fwd_kernel" \
+                    else "fp32"
+                dim = re.search(r"Li(\d+)E", found.group(2))
+                key = (kind, int(dim.group(1)) if dim else 0)
+                by_fn[key] = collections.Counter(empty)
             continue
         op = re.search(
-            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]+)",
+            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Za-z0-9_.]+)",
             line)
         if key is None or op is None:
             continue
         for family in ("HGMMA", "UTMALDG", "HMMA"):
             if op.group(1).startswith(family):
                 by_fn[key][family] += 1
-        if op.group(1).startswith("HMMA") and "TF32" in op.group(1):
-            by_fn[key]["HMMA_TF32"] += 1
+                if "TF32" in op.group(1) and family != "UTMALDG":
+                    by_fn[key][family + "_TF32"] += 1
     census = {kind: dict(sum((c for (k, _), c in by_fn.items() if k == kind),
                              collections.Counter(empty)))
               for kind in ("bf16", "fp32")}
@@ -774,17 +814,23 @@ def _sass_census(cuda_build) -> dict:
                              for (k, d), c in sorted(by_fn.items())}
     print(f"set-up: SASS census of flash_attention (cuobjdump -sass): "
           f"{census}", flush=True)
-    _check({k for k, _ in by_fn} == {"bf16", "fp32"},
+    _check(set(by_fn) == {(k, d) for k in ("bf16", "fp32")
+                          for d in (32, 64, 128, 256)},
            f"kernels in the library: {sorted(by_fn)}")
     for (kind, dim), c in by_fn.items():
         if kind == "bf16":
             _check(c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["HMMA"] == 0,
                    f"bf16 kernel at head dim {dim} is not wgmma fed by TMA: "
                    f"{dict(c)}")
-        else:
+        elif dim <= 64:
             _check(c["HMMA_TF32"] > 0 and c["HMMA_TF32"] == c["HMMA"],
                    f"fp32 kernel at head dim {dim} is not TF32 mma.sync: "
                    f"{dict(c)}")
+        else:
+            _check(c["HGMMA_TF32"] > 0 and c["HGMMA_TF32"] == c["HGMMA"]
+                   and c["UTMALDG"] > 0 and c["HMMA"] == 0,
+                   f"fp32 kernel at head dim {dim} is not TF32 wgmma fed by "
+                   f"TMA: {dict(c)}")
     return census
 
 
@@ -6159,6 +6205,30 @@ OVER_SLO = '{"availability": 0.999}'
 OVER_RECONCILE = (0.95, 1.05)
 
 
+@contextlib.contextmanager
+def _gated(model, timeout_s: float = 300.0):
+    """Hold every execution of ``model`` on a gate until the caller calls
+    the function this yields (or the block ends): a wrapper over
+    ``Model.execute_timed`` set as an instance attribute and deleted
+    after. Unlike a ``model.execute`` latency fault, the hold cannot lapse
+    while something slower than it (a producer process starting) gets
+    ready."""
+    gate = threading.Event()
+    inner = model.execute_timed
+
+    def gated(*args, **kwargs):
+        _check(gate.wait(timeout_s),
+               f"an execution held on the gate past {timeout_s} s")
+        return inner(*args, **kwargs)
+
+    model.execute_timed = gated
+    try:
+        yield gate.set
+    finally:
+        gate.set()
+        del model.execute_timed
+
+
 def _wait_for(cond, what: str, timeout_s: float = 120.0) -> None:
     end = time.monotonic() + timeout_s
     while not cond():
@@ -7270,7 +7340,6 @@ INC_BLACKBOX = {"triggers": ["deadline.burst"], "storm_count": INC_STORM,
 INC_ONE = 4             # bert_long spans of one slot, wires alternating
 INC_SPAN = 4            # bert_long slots of the held span (max_batch_size)
 INC_TIMED = 16          # sequential requests of each path, timed
-INC_HOLD_MS = 1500      # model.execute latency that holds bert_long's worker
 INC_DLRM = 8            # dlrm_mlperf requests through the reaped ring
 INC_STREAMS = (5, 60, 300, 900)  # tiny_gpt_long prompt lengths in the burst
 INC_TOKENS = 96
@@ -7309,7 +7378,6 @@ def _inc_ring(torch, engine, port: int, hc, gc, backend, seq: int,
     behind a held worker; every answer byte for byte the same request's
     over binary HTTP and within ``SERVED_ATOL`` of the plain path; then
     the paths timed, one request at a time."""
-    from client_tpu_torch import faults
     from client_tpu_torch.utils.shm_ring import RingProducer
 
     sched = engine.scheduler_for("bert_long")
@@ -7335,23 +7403,20 @@ def _inc_ring(torch, engine, port: int, hc, gc, backend, seq: int,
         through ``submit_queued`` (in order), release: the first worker
         free takes the ``n`` as one batch. Returns their answers."""
         workers = len(sched.workers)
-        faults.configure({"model.execute": {"latency_ms": INC_HOLD_MS}})
-        try:
-            with concurrent.futures.ThreadPoolExecutor(n + workers) as pool:
-                holds = []
-                for w in range(workers):
-                    holds.append(pool.submit(over_http, 0))
-                    _wait_for(lambda: sched.active_batches == w + 1,
-                              f"bert_long worker {w} held")
-                answers = submit_queued(pool)
-                _wait_for(lambda: sched.queue.qsize() == n,
-                          f"{n} bert_long requests queued")
-                faults.reset()
-                for h in holds:
-                    h.result()
-                return [a() for a in answers]
-        finally:
-            faults.reset()
+        with _gated(sched.model) as release, \
+                concurrent.futures.ThreadPoolExecutor(n + workers) as pool:
+            holds = []
+            for w in range(workers):
+                holds.append(pool.submit(over_http, 0))
+                _wait_for(lambda: sched.active_batches == w + 1,
+                          f"bert_long worker {w} held")
+            answers = submit_queued(pool)
+            _wait_for(lambda: sched.queue.qsize() == n,
+                      f"{n} bert_long requests queued")
+            release()
+            for h in holds:
+                h.result()
+            return [a() for a in answers]
 
     tag = os.getpid()
     slot_bytes = 8 * seq
@@ -7548,9 +7613,10 @@ def _inc_staged(torch, engine, port: int, hc) -> dict:
 
 def _inc_dead_producer(engine, server, seq: int) -> dict:
     """A producer process killed with two slots of its reaped ring in
-    flight (the worker held): the slots are failed in the segment, the
-    ring detached, both edges in the journal."""
-    from client_tpu_torch import faults
+    flight (the workers held on a gate, not a timed fault, so the slots
+    stay queued however long the process takes to fill them): the slots
+    are failed in the segment, the ring detached, both edges in the
+    journal."""
     from client_tpu_torch.utils.shm_ring import SLOT_DONE, RingBuffer
 
     sched = engine.scheduler_for("bert_long")
@@ -7558,10 +7624,10 @@ def _inc_dead_producer(engine, server, seq: int) -> dict:
     root = Path(__file__).resolve().parent
     cursor = engine.events_export(limit=0)["next_seq"]
     workers = len(sched.workers)
-    faults.configure({"model.execute": {"latency_ms": INC_HOLD_MS}})
     proc = None
     try:
-        with concurrent.futures.ThreadPoolExecutor(workers) as pool:
+        with _gated(sched.model) as release, \
+                concurrent.futures.ThreadPoolExecutor(workers) as pool:
             ids, mask = _obs_bert_inputs(seq, 300)
             holds = []
             for w in range(workers):
@@ -7583,7 +7649,7 @@ def _inc_dead_producer(engine, server, seq: int) -> dict:
             proc.wait(timeout=30)
             _wait_for(lambda: "inc_dead" not in engine.ring_shm.status(),
                       "the dead producer's ring reclaimed", timeout_s=30)
-            faults.reset()
+            release()
             statuses = [h.result()[0] for h in holds]
             _check(statuses == [200] * workers,
                    f"the held requests: HTTP {statuses}")
@@ -7594,7 +7660,6 @@ def _inc_dead_producer(engine, server, seq: int) -> dict:
         finally:
             seg.close()
     finally:
-        faults.reset()
         if proc is not None and proc.poll() is None:
             proc.kill()
             proc.wait(timeout=30)
@@ -10279,6 +10344,7 @@ HD_RING_TIMED = (16, 64)
 CEREBRAS_1P3B = dict(n_layers=24, d_model=2048, n_heads=16, d_ff=8192,
                      vocab=50257, max_seq_len=2048, max_streams=16)
 HD_PROMPTS = (16, 130, 500, 1024)   # four prompt buckets: 16, 256, 512, 1024
+HD_SERVED_PREFILL = (1, 1024, 16, 128)  # K1 fp32 on its 1,024-token prefill
 HD_TOKENS = 32
 HD_MODEL = "cerebras_gpt_1p3b_widths"
 # tiny_gpt_long over 16 shards and tiny_gpt over 64, on the one card: K3 at
@@ -10352,8 +10418,9 @@ def _k1_head_dims(torch, fa) -> dict:
             errs.append(_k1_case(torch, fa, f"{name} D{d} B{b} S{s} H{h} "
                                  "causal", q, k, v, None, True))
             del q, k, v
-            # Tile edges: 192 / 128 query rows a CTA (bf16), 64 (fp32);
-            # 128 or 64 keys a stage (bf16), 64 or 32 (fp32).
+            # Tile edges: 192 / 128 query rows a CTA (bf16), 64 (fp32 to
+            # 64) or 128 / 64 (fp32 at 128 / 256); 128 or 64 keys a stage
+            # (bf16), 64 (fp32 to 64) or 32 / 16 (fp32 at 128 / 256).
             for s_edge, causal in ((1, False), (63, True), (129, False),
                                    (193, True), (200, False)):
                 q, k, v = _hd_qkv(torch, gen, dtype, 2, s_edge, 3, d)
@@ -10459,6 +10526,27 @@ def _k1_timed(torch, fa, errors: dict, smi: str) -> list[dict]:
                   f"plain {plain_ms} ms, bound {max(flop_ms, byte_ms)} ms "
                   f"({flops:.3e} FLOP, {nbytes} bytes); {smi}", flush=True)
             del q, k, v
+    # The Cerebras-width GPT's 1,024-token prefill: one stream, 16 heads.
+    b, s, h, d = HD_SERVED_PREFILL
+    q, k, v = _hd_qkv(torch, gen, torch.float32, b, s, h, d)
+    ms, library_ms = _time_turns(
+        torch, lambda: fa.flash_attention(q, k, v, causal=True),
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True))
+    flops = 4.0 * b * h * d * s * (s + 1) / 2
+    bound = max(3 * flops / PEAK_TF32_FLOPS,
+                4 * b * s * h * d * 4 / PEAK_BYTES_PER_S) * 1e3
+    served = {"shape": [b, s, h, d], "ms": ms, "library_ms": library_ms,
+              "bound_ms": bound}
+    print(f"headdims: flash_attention_fp32 at the served prefill's shape B{b}"
+          f" S{s} H{h} D{d} causal: kernel {ms} ms (pre-pass included), "
+          f"scaled_dot_product_attention {library_ms} ms (in turns), bound "
+          f"{bound} ms; {smi}", flush=True)
+    by_name = {e["name"]: e for e in entries}
+    by_name[f"flash_attention_fp32_hd{d}"]["served_prefill"] = served
+    entries.append(_k1_split(torch, fa, gen, smi))
+    del q, k, v
     # The padded copy: bf16 rows of 100 elements are 200 bytes, not a
     # multiple of 16, so the wrapper pads q/k/v to 104 first.
     b, s, h, d = 4, 2048, 768 // 100, 100
@@ -10470,11 +10558,84 @@ def _k1_timed(torch, fa, errors: dict, smi: str) -> list[dict]:
     print(f"headdims: bf16 head dim 100 at B{b} S{s} H{h}: the zero-padded "
           f"copy of q/k/v to 104 columns {copy_ms} ms, the whole call "
           f"(copy and kernel) {call_ms} ms; {smi}", flush=True)
-    by_name = {e["name"]: e for e in entries}
     by_name[f"flash_attention_hd{fa.kernel_head_dim(d)}"]["padded_copy"] = {
         "head_dim": d, "shape": [b, s, h, d], "copy_ms": copy_ms,
         "call_ms": call_ms}
     return entries
+
+
+def _k1_split(torch, fa, gen, smi: str) -> dict:
+    """The fp32 kernel's pre-pass (K and V into their TF32 halves, V
+    transposed) against its plain version, bit for bit, at the tile edges
+    and both instantiations; timed at B8 S2048 H4 D128 and at the served
+    prefill's shape. Its entry of the kernels line (launches: the served
+    path's, set by the phase)."""
+    for b, s, h, d in ((2, 1, 3, 80), (2, 33, 3, 128), (2, 200, 3, 160),
+                       (1, 1024, 16, 128), (8, 2048, 4, 256)):
+        k, v = _hd_qkv(torch, gen, torch.float32, b, s, h, d)[:2]
+        width = fa.kernel_head_dim(d)
+        kh, vt = fa.split_kv(k, v, width)
+        torch.cuda.synchronize()
+        want = fa.split_kv_plain(k, v, width)
+        _check(torch.equal(kh, want[0]) and torch.equal(vt, want[1]),
+               f"split_kv at B{b} S{s} H{h} D{d}: not bit for bit its plain "
+               f"version")
+    times = {}
+    for b, s, h, d in ((8, 2048, 4, 128), HD_SERVED_PREFILL):
+        k, v = _hd_qkv(torch, gen, torch.float32, b, s, h, d)[:2]
+        ms = _time_ms(torch, lambda: fa.split_kv(k, v, d))
+        plain_ms = _time_ms(torch, lambda: fa.split_kv_plain(k, v, d))
+        s_pad = -(-s // fa.SPLIT_KEYS) * fa.SPLIT_KEYS
+        nbytes = 2 * b * s * h * d * 4 + 4 * b * h * s_pad * d * 4
+        times[(b, s, h, d)] = (ms, plain_ms, nbytes / PEAK_BYTES_PER_S * 1e3)
+    (ms, plain_ms, bound), served = times[(8, 2048, 4, 128)], \
+        times[HD_SERVED_PREFILL]
+    print(f"headdims: split_kv (the fp32 pre-pass) bit for bit its plain "
+          f"version at 5 shapes; at B8 S2048 H4 D128 {ms} ms (plain "
+          f"{plain_ms}, bound {bound} ms: bytes), at the served prefill's "
+          f"shape {served[0]} ms (bound {served[2]}); {smi}", flush=True)
+    return {
+        "name": "split_kv_fp32",
+        "route": "cuda",
+        "source": "client_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "client_tpu/ops/flash_attention.py:31",
+        "part_of": "flash_attention_fp32 above head dim 64",
+        "launches": 0,  # the served path's, set by the phase
+        "max_abs_err": 0.0,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": "bytes",
+        "library_ms": None,
+        "shape": [8, 2048, 4, 128],
+        "served_prefill": {"shape": list(HD_SERVED_PREFILL),
+                           "ms": served[0], "plain_ms": served[1],
+                           "bound_ms": served[2]},
+    }
+
+
+def _k1_fp32_resources(cuda_build) -> None:
+    """Registers, shared memory and local/stack bytes of every fp32
+    instantiation and the pre-pass (``cuobjdump -res-usage``; the TF32
+    kernels' shared memory is dynamic: their launch's bytes beside it).
+    Fails if a kernel above head dim 64 keeps local or stack bytes (a
+    spill)."""
+    figures = [(k, f) for k, f in _resource_figures(cuda_build,
+                                                    "flash_attention")
+               if k.startswith(("flash_fwd_f32_kernel",
+                                "flash_fwd_tf32_kernel", "split_kv_kernel"))]
+    smem = cuda_build.load("flash_attention")\
+        .client_tpu_flash_attention_f32_smem_bytes
+    dynamic = {d: smem(d) for d in (32, 64, 128, 256)}
+    print(f"headdims: K1 fp32 resources (cuobjdump -res-usage): "
+          + "; ".join(f"{k} " + " ".join(f"{n}:{v}" for n, v in f.items())
+                      for k, f in figures)
+          + f"; dynamic shared memory a launch by head dim {dynamic}",
+          flush=True)
+    tf32 = [f for k, f in figures if k.startswith("flash_fwd_tf32_kernel")]
+    _check(len(tf32) == 2 and all(f["LOCAL"] == 0 and f["STACK"] == 0
+                                  for f in tf32),
+           f"the TF32 kernels spill: {figures}")
 
 
 def _k2_head_dims(torch, cuda_build, da, smi: str) -> list[dict]:
@@ -10706,10 +10867,12 @@ def _hd_cerebras(torch, fa, da, smi: str) -> dict:
         fa.launches_fp32_by_head_dim.clear()
         da.launches_by_head_dim.clear()
         fa.launches_fp32 = 0
+        fa.launches_split = 0
         da.launches = 0
         served = _hd_serve(torch, engine, server, grpc_server, HD_MODEL,
                            prompts, HD_TOKENS)
         k1, k2 = fa.launches_fp32_by_head_dim[dim], da.launches_by_head_dim[dim]
+        split = fa.launches_split
         _check(served["waves"] >= 3 * (HD_TOKENS - 1),
                f"{served['waves']} decode waves")
         _check(dict(fa.launches_fp32_by_head_dim) == {dim: k1}
@@ -10722,6 +10885,7 @@ def _hd_cerebras(torch, fa, da, smi: str) -> dict:
         _check(k1 == 3 * len(prompts) * L,
                f"K1 fp32 at head dim {dim}: {k1} launches, want "
                f"{3 * len(prompts) * L}")
+        _check(split == k1, f"the fp32 pre-pass: {split} launches, K1 {k1}")
         _check(k2 == served["waves"] * L,
                f"K2 at head dim {dim}: {k2} launches, {served['waves']} "
                f"waves x {L} layers")
@@ -10730,7 +10894,8 @@ def _hd_cerebras(torch, fa, da, smi: str) -> dict:
               f"(prompts {list(HD_PROMPTS)}, {HD_TOKENS} tokens each) over "
               f"SSE, /generate and a gRPC stream; K1 fp32 at head dim {dim} "
               f"{k1} launches = 3 passes x {len(prompts)} prompts x {L} "
-              f"layers, K2 at head dim {dim} {k2} = {served['waves']} waves "
+              f"layers (and the pre-pass {split}), K2 at head dim {dim} {k2} = "
+              f"{served['waves']} waves "
               f"x {L} layers; SSE pass {n_tok} tokens in {served['wall_s']:.3f}"
               f" s ({n_tok / served['wall_s']:.1f} tokens/s); {smi}",
               flush=True)
@@ -10763,7 +10928,7 @@ def _hd_cerebras(torch, fa, da, smi: str) -> dict:
     # The plain path: the same weights with einsum prefill and reference
     # decode, which launch no kernel.
     backend.attention_impl, backend.attn_impl = "einsum", "reference"
-    before = (fa.launches_fp32, da.launches)
+    before = (fa.launches_fp32, fa.launches_split, da.launches)
     t0 = time.monotonic()
     for i, prompt in enumerate(prompts):
         want = _direct_stream(torch, backend, arena, prompt, HD_TOKENS, {})
@@ -10771,7 +10936,7 @@ def _hd_cerebras(torch, fa, da, smi: str) -> dict:
             _check(served[via][i] == want,
                    f"{HD_MODEL} prompt of {len(prompt)} over {via}: "
                    f"{served[via][i]} != plain path {want}")
-    _check((fa.launches_fp32, da.launches) == before,
+    _check((fa.launches_fp32, fa.launches_split, da.launches) == before,
            "the plain path launched a kernel")
     print(f"headdims: {HD_MODEL}: all {3 * len(prompts)} streams equal the "
           f"plain path (einsum prefill, reference decode) run directly on "
@@ -10780,7 +10945,7 @@ def _hd_cerebras(torch, fa, da, smi: str) -> dict:
     del backend, arena
     gc.collect()
     torch.cuda.empty_cache()
-    return {"k1": k1, "k2": k2, "waves": served["waves"],
+    return {"k1": k1, "k2": k2, "split": split, "waves": served["waves"],
             "tokens_per_s": n_tok / served["wall_s"], "device_ms": times}
 
 
@@ -10863,6 +11028,7 @@ def headdims_phase(torch, cuda_build, smi: str) -> list[dict]:
                        f"{label} at head dim {d}: {exc}")
     print("headdims: head dims 257 and 272 refused on the card before a "
           "launch (K1 and K2), naming the range", flush=True)
+    _k1_fp32_resources(cuda_build)
     k1_errors = _k1_head_dims(torch, fa)
     entries = _k1_timed(torch, fa, k1_errors, smi)
     torch.cuda.empty_cache()
@@ -10872,6 +11038,7 @@ def headdims_phase(torch, cuda_build, smi: str) -> list[dict]:
     by_name = {e["name"]: e for e in entries}
     gpt = _hd_cerebras(torch, fa, da, smi)
     by_name["flash_attention_fp32_hd128"]["launches"] = gpt["k1"]
+    by_name["split_kv_fp32"]["launches"] = gpt["split"]
     by_name["decode_wave_attention_hd128"]["launches"] = gpt["k2"]
     by_name["decode_wave_attention_hd128"]["served_tokens_per_s"] = \
         gpt["tokens_per_s"]
@@ -10922,8 +11089,14 @@ def _parent_module(torch, parent: Path, name: str):
     return module
 
 
+# K1 fp32's head dims in --versus: 64 (the kernel both trees share) and the
+# redesigned kernel at 80 (run by its 128 instantiation), 128 and 256.
+VERSUS_K1_FP32 = (64, 80, 128, 256)
+
+
 def versus_phase(torch, parent: Path, smi: str) -> dict:
-    """``--versus DIR``: K1 bf16 at ``bert_long``'s B4 S2048 H12 D64, K2 at
+    """``--versus DIR``: K1 bf16 at ``bert_long``'s B4 S2048 H12 D64, K1
+    fp32 at B8 S2048 H4 causal at head dims VERSUS_K1_FP32, K2 at
     head dim 64 (``tiny_gpt_long``'s B16 wave over its 4 layers) and 32
     (``tiny_gpt_mc``'s [4, 65, 128, 8, 32] at B16), and K3 at the decode
     wave's [16, 4, 64] over 8, 16 and 64 shards (those the older tree
@@ -10956,6 +11129,25 @@ def versus_phase(torch, parent: Path, smi: str) -> dict:
         samples[name] += _samples_ms(torch, calls[name])
     out["k1_bf16_hd64"] = {k: float(np.median(v)) for k, v in
                            samples.items()}
+    del fused, q, k, v
+    # K1 fp32 at B8 S2048 H4 causal: 64 is the kernel both trees share
+    # (bit for bit), 80, 128 and 256 the redesigned one against the
+    # parent's.
+    for dim in VERSUS_K1_FP32:
+        q, k, v = (torch.randn(8, 2048, 4, dim, device="cuda", generator=gen)
+                   for _ in range(3))
+        calls = {"parent": lambda: old_fa.flash_attention(q, k, v,
+                                                          causal=True),
+                 "change": lambda: fa.flash_attention(q, k, v, causal=True)}
+        equal[f"k1_fp32_hd{dim}"] = float(
+            (calls["parent"]() - calls["change"]()).abs().max())
+        samples = {"parent": [], "change": []}
+        for name in ("parent", "change", "change", "parent"):
+            samples[name] += _samples_ms(torch, calls[name])
+        out[f"k1_fp32_hd{dim}"] = {k: float(np.median(v)) for k, v in
+                                   samples.items()}
+        del q, k, v
+    torch.cuda.empty_cache()
     rng = np.random.default_rng(2)
     for dim, (L, R, S, H), rows, lens in (
             (64, (4, 17, 2048, 4), list(range(12)) + [16] * 4,
@@ -10992,6 +11184,9 @@ def versus_phase(torch, parent: Path, smi: str) -> dict:
             "change": [lambda: ks.ring_all_reduce(parts)]})
     for key, t in out.items():
         t["change_over_parent"] = t["change"] / t["parent"]
+    _check(equal["k1_fp32_hd64"] == 0.0,
+           f"K1 fp32 at head dim 64 differs from the parent's: "
+           f"{equal['k1_fp32_hd64']}")
     print(f"versus: in turns (parent, change, change, parent) in one "
           f"process against {parent}'s kernels: {json.dumps(out)}; the "
           f"outputs' max abs difference (0: bit for bit) {equal} "

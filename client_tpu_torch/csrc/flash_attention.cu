@@ -22,12 +22,13 @@
 // most key tiles (the last query tiles) start first and the light ones
 // fill the tail.
 //
-// Head dims. The head dim is a template parameter of both kernels,
+// Head dims. The head dim is a template parameter of the kernels,
 // instantiated at 32, 64, 128 and 256. Any other D up to 256 runs the next
 // larger instantiation with the head dim zero-padded inside the kernel:
 // the loads fill the columns past D with zeros (TMA's out-of-bounds fill in
-// bf16, zero-filled cp.async copies in fp32), the zeros add nothing to
-// q.k, and the output columns past D are never stored. sm_scale is
+// bf16 and for fp32 Q above 64, zero-filled cp.async copies in fp32 to 64,
+// the fp32 pre-pass's zeros for K and V above 64), the zeros add nothing
+// to q.k, and the output columns past D are never stored. sm_scale is
 // 1/sqrt(D) of the real D (the caller's). The loads need D times the
 // element size and every stride to be multiples of 16 bytes; the Python
 // wrapper makes one zero-padded copy of q/k/v where they are not.
@@ -82,41 +83,82 @@
 //            swizzle, four blocks; O 128 + S 32 + packed P 16, 240
 //            registers; Q 64 KB + 2 x 64 KB.
 //
-// fp32 kernel (flash_fwd_f32_kernel<D, kBlockN>). What bounds it: at
-// tiny_gpt_long's prefill (B=8, S=2048, H=4, D=64, causal) one call does
-// 1.7e10 FLOP on 34 MB. Computed in plain fp32 that is bound by the 67
-// TFLOP/s of SIMT FMAs (0.257 ms); on the tensor cores through the 3xTF32
-// split below it takes three TF32 products per product at 495 TFLOP/s
-// (0.104 ms), the lesser of the two. Plain TF32 (10 mantissa bits) can flip
-// greedy tokens of the fp32 generative models; the split keeps fp32
-// accuracy. Each fp32 operand x becomes big = rna_tf32(x) and small =
-// rna_tf32(x - big), and each product is a_small*b_big + a_big*b_small +
-// a_big*b_big into one fp32 accumulator (small*small, about 2^-22
-// relative, is dropped), with mma.sync m16n8k8 tf32. TF32 wgmma takes only
-// K-major operands, and V, the B operand of P.V, is [key][d]: MN-major, so
-// wgmma would need a transposing pass over V first; this kernel stays on
-// mma.sync. A CTA of four warps owns 64 query rows (16 a warp). The Q tile
+// fp32 kernels. What bounds them: at tiny_gpt_long's prefill (B=8, S=2048,
+// H=4, D=64, causal) one call does 1.7e10 FLOP on 34 MB; at the
+// Cerebras-width GPT's head dim 128 (B8 S2048 H4) 3.4e10 on 67 MB.
+// Computed in plain fp32 that is bound by the 67 TFLOP/s of SIMT FMAs; on
+// the tensor cores through the 3xTF32 split below it takes three TF32
+// products per product at 495 TFLOP/s (0.104 and 0.208 ms), the lesser.
+// Plain TF32 (10 mantissa bits) can flip greedy tokens of the fp32
+// generative models; the split keeps fp32 accuracy. Each fp32 operand x
+// becomes big = rna_tf32(x) and small = rna_tf32(x - big), and each
+// product is a_small*b_big + a_big*b_small + a_big*b_big (small*small,
+// about 2^-22 relative, is dropped). The tensor cores' fp32 accumulation
+// truncates, so each key tile's P.V starts from zero and joins the running
+// output in one rounded fp32 add: the bias of truncation then does not
+// grow with S. P needs no shuffle into an A fragment: a thread's S
+// accumulator holds P(g, 2t) and P(g, 2t+1) of each 8-key slice, and the
+// P.V product reads them as A columns t and t+4 with V's keys permuted to
+// match (key 2t as B row t, key 2t+1 as B row t+4), which leaves the sum
+// over keys unchanged. expf, not __expf. Two kernels:
+//
+// Head dims 32 and 64: flash_fwd_f32_kernel<D, 64>, on mma.sync m16n8k8
+// tf32. A CTA of four warps owns 64 query rows (16 a warp). The Q tile
 // sits in shared memory and each 8-wide step of it is split once for the
-// key slices it meets. kBlockN-key K and V tiles are double-buffered with
+// key slices it meets. 64-key K and V tiles are double-buffered with
 // cp.async in dynamic shared memory, rows padded to D + 4 floats so that
 // every fragment load of Q and K (rows g, columns t) and of V (rows 2t and
-// 2t+1, columns g) hits 32 distinct banks. The tensor cores' fp32
-// accumulation truncates, so each key tile's P.V starts from zero and
-// joins the running output in one rounded fp32 add: the bias of truncation
-// then does not grow with S. That product runs over 64 output columns at a
-// time, so its zeroed accumulator is 32 registers at any D. Each of the
-// three products is issued for all slices that share an A fragment before
-// the next, so products into one accumulator are not back to back. P needs
-// no shuffle into the A fragment: the accumulator holds P(g, 2t) and P(g,
-// 2t+1) of each 8-key slice, and the P.V product reads them as A columns t
-// and t+4 with V's rows permuted to match (row 2t as B row t, row 2t+1 as
-// B row t+4), which leaves the sum over keys unchanged. expf, not __expf.
-// The instantiations (the output accumulator is D / 2 fp32 registers a
-// thread): D = 32, 64 and 128 with 64-key tiles (46, 86 and 166 KB of
-// shared memory); D = 256 with 32-key tiles (195 KB; double-buffered
-// 64-key K and V tiles alone would take 266 KB). At 128 a thread takes
-// the 255 registers it may have; at 256 it also spills (ptxas: 120 bytes
-// of stack).
+// 2t+1, columns g) hits 32 distinct banks; 46 and 86 KB, two CTAs an SM at
+// 64. Each of the three products is issued for all slices that share an A
+// fragment before the next, so products into one accumulator are not back
+// to back; P.V runs over 64 output columns at a time.
+//
+// Head dims 128 and 256 (any D from 65): flash_fwd_tf32_kernel<Config>,
+// on wgmma m64nNk8 tf32 fed by TMA, after a pre-pass (split_kv_kernel).
+// At these widths the mma.sync kernel held one CTA of four warps an SM
+// (its tiles took 166 and 195 KB) at 255 registers a thread (spilling at
+// 256), re-split every K and V tile in each warp, and reached only
+// mma.sync's share of the tensor cores; only wgmma reaches their full
+// rate. TF32 wgmma takes K-major operands only, which Q and K are and V,
+// the B operand of P.V, is not. So the pre-pass, once a call, writes K's
+// big and small halves [2, B, H, S_pad, D] and V's transposed [2, B, H,
+// D, S_pad], the keys of each 8-key group in the permuted order above, to
+// scratch the wrapper allocates: K and V are split once a call, not once a
+// warp, and V^T is K-major (reading 2 x 4 and writing 4 x 4 bytes an
+// element, 0.06 ms at B8 S2048 H4 D128). The kernel is the bf16 kernel's
+// shape: a producer warp loads the Q tile once (raw fp32, 4-D tensor map
+// over the strided view, zeros past D and S) and, into rings of stages
+// guarded by full / empty mbarriers, kBlockN-key tiles of K's halves (D /
+// 32 boxes of 32 columns, one 128-byte swizzle atom each) with the
+// stage's bias (ordinary loads), and V^T's halves (one box of D rows by
+// kBlockN keys); K's and V's rings are separate, so V's may be shallower.
+// Each consumer warpgroup owns 64 query rows. It splits its Q rows once:
+// each thread reads the elements of its own A fragments, writes the big
+// half back in place and keeps the small half in registers (128) or in
+// shared memory (256). S = Q K^T is D / 8 k-steps of three wgmma
+// m64nNk8 (N = kBlockN) with B = K's halves and A = Q_big from shared
+// memory or Q_small from registers; big x big accumulates in one
+// register set, the two correction products in another, joined by one
+// add (else every product would truncate at S's own scale: against
+// float64 with x8 inputs one accumulator missed 2e-3 at D 256). The
+// online softmax runs in registers (two rows a thread); P, split into big
+// and small in registers, is the register A operand of P.V, kChunk = 64
+// output columns at a time into a zeroed accumulator, with B = V^T's
+// halves. Key tiles wholly above a warpgroup's diagonal are skipped (the
+// warpgroup hands their stages on), only the tiles that cross it are
+// masked, and query tiles run heaviest first. With two consumers, one's
+// softmax overlaps the other's products. The output is stored from the
+// accumulators as 8-byte pairs. The instantiations, per CTA:
+//   D    rows  keys/stage  K,V stages  consumers  registers   shared  CTAs/SM
+//   128  128   32          2, 2        2          240 (set-   199 KB  1
+//                                                 maxnreg; producer 24)
+//   256   64   16          2, 1        1          229 (ptxas) 231 KB  1
+// At 128 Q's big half is 64 KB, each stage of K's halves 32 KB and of
+// V^T's 32 KB; O 64 + Q_small 64 + S and its corrections 32 + P's halves
+// 32 + one P.V chunk 32 registers. At 256 Q's halves take 128 KB, so one
+// consumer of 64 rows and 16-key stages (K 2 x 32 KB, V^T 1 x 32 KB) are
+// what fits 227 KB; one CTA an SM, as before, but its products are
+// wgmma's and no thread spills. A third K stage at 128 would not fit.
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
@@ -1057,10 +1099,608 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace f32
 
+// ---------------------------------------------------------------------------
+// fp32 above head dim 64: 3xTF32 on wgmma fed by TMA, and its pre-pass.
+
+namespace tf32 {
+
+using sm90::fence_regs;
+using sm90::mbar_arrive;
+using sm90::mbar_arrive_expect_tx;
+using sm90::mbar_expect_tx;
+using sm90::mbar_init;
+using sm90::mbar_wait;
+using sm90::smem_desc;
+using sm90::wgmma_commit;
+using sm90::wgmma_fence;
+using sm90::wgmma_wait;
+
+// One instantiation (see the header comment): head dim, keys a stage, K
+// and V stages, consumer warpgroups and their registers, and whether Q's
+// small half lives in registers (the A operand of one product) or in
+// shared memory.
+template <int D, int BlockN, int KStages, int VStages, int Consumers,
+          int ConsumerRegs, bool QSmallInRegs>
+struct Config {
+  static constexpr int kHeadDim = D;
+  static constexpr int kBlockN = BlockN;
+  static constexpr int kKStages = KStages;
+  static constexpr int kVStages = VStages;
+  static constexpr int kConsumers = Consumers;    // warpgroups of 64 rows
+  static constexpr int kBlockM = Consumers * 64;  // query rows per CTA
+  static constexpr int kThreads = (Consumers + 1) * 128;
+  // Registers a thread after setmaxnreg: with two or more consumers the
+  // producer warpgroup gives up what they take; with one (ConsumerRegs 0)
+  // every thread keeps up to 255 and nothing is handed over.
+  static constexpr int kProducerRegs = 24;
+  static constexpr int kConsumerRegs = ConsumerRegs;
+  static_assert(Consumers == 1
+                    ? kConsumerRegs == 0
+                    : 128 * kProducerRegs + 128 * Consumers * kConsumerRegs <=
+                          65536,
+                "register split exceeds the SM");
+  static constexpr bool kQSmallInRegs = QSmallInRegs;
+  // Q and K: column blocks of 32 fp32 columns, one 128-byte swizzle atom.
+  static constexpr int kColBlocks = D / 32;
+  // V^T: rows of kBlockN keys, one swizzle atom (128 or 64 bytes) wide.
+  static constexpr int kVtRowBytes = BlockN * 4;
+  static_assert(kVtRowBytes == 128 || kVtRowBytes == 64, "swizzle width");
+  static constexpr int kChunk = 64;  // output columns of one P.V product
+  static_assert(D % kChunk == 0, "head dim");
+};
+
+typedef Config<128, 32, 2, 2, 2, 240, true> Config128;
+typedef Config<256, 16, 2, 1, 1, 0, false> Config256;
+
+template <class C>
+struct Smem {  // at a 1024-byte boundary, as the swizzle needs
+  float q_big[C::kColBlocks][C::kBlockM * 32];
+  // Where Q's small half is held in registers, 1 KB that keeps the rest
+  // aligned.
+  float q_small[C::kQSmallInRegs ? 256 : C::kColBlocks * C::kBlockM * 32];
+  float k_big[C::kKStages][C::kColBlocks][C::kBlockN * 32];
+  float k_small[C::kKStages][C::kColBlocks][C::kBlockN * 32];
+  float vt_big[C::kVStages][C::kHeadDim * C::kBlockN];
+  float vt_small[C::kVStages][C::kHeadDim * C::kBlockN];
+  float bias[C::kKStages][C::kBlockN];
+  uint64_t q_full;
+  uint64_t k_full[C::kKStages];
+  uint64_t k_empty[C::kKStages];
+  uint64_t v_full[C::kVStages];
+  uint64_t v_empty[C::kVStages];
+};
+template <class C>
+constexpr int kSmemBytes = sizeof(Smem<C>) + 1024;  // + room to align
+
+// One box of a 3-D tensor map, coordinates (x, y, z), into `dst`.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int x, int y,
+                                            int z) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x), "r"(y),
+      "r"(z)
+      : "memory");
+}
+
+// d[64 x N] (+)= A[64 x 8] * B[8 x N] in TF32, A and B K-major in shared
+// memory, fp32 accumulator in registers (N / 2 a thread). scale_d = 0
+// starts from zero.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<16>(float (&d)[8], uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d[64 x N] (+)= A[64 x 8] * B[8 x N] in TF32, A in registers (a0 row g
+// column t, a1 row g + 8 column t, a2 row g column t + 4, a3 row g + 8
+// column t + 4 of the warp's 16 rows), B K-major in shared memory.
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+// Keeps register A fragments alive, unmoved, until the asynchronous
+// products that read them have completed (after the wait).
+template <int N>
+__device__ __forceinline__ void fence_a(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
+  }
+}
+
+// The key that position p of an 8-key group of V^T holds: positions t and
+// t + 4 take keys 2t and 2t + 1, the order in which a thread's S
+// accumulator holds P (see the header comment).
+__host__ __device__ __forceinline__ int permuted_key(int p) {
+  const int e = p & 7;
+  return (p & ~7) + (e < 4 ? 2 * e : 2 * (e - 4) + 1);
+}
+
+constexpr int kSplitKeys = 32;    // keys a pre-pass CTA splits
+constexpr int kSplitThreads = 256;
+
+// The pre-pass: K's and V's TF32 halves, once a call. `kh` is [2, B, H,
+// s_pad, dk] (big, then small), `vt` [2, B, H, dk, s_pad] with the keys of
+// each 8-key group in permuted_key order; columns at or past d_in and keys
+// at or past seq are zeros. One CTA splits 32 keys of one (batch, head):
+// grid (key blocks, heads, batch).
+__global__ void __launch_bounds__(kSplitThreads)
+    split_kv_kernel(const float* __restrict__ k, const float* __restrict__ v,
+                    float* __restrict__ kh, float* __restrict__ vt,
+                    int batch, int seq, int heads, int d_in, int dk,
+                    int s_pad, int64_t k_sb, int64_t k_ss, int64_t k_sh,
+                    int64_t v_sb, int64_t v_ss, int64_t v_sh) {
+  __shared__ float tile[kSplitKeys][kMaxHeadDim + 1];
+  const int key0 = blockIdx.x * kSplitKeys;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int bh = b * heads + h;
+  const int64_t half = (int64_t)batch * heads * s_pad * dk;
+  float* kout = kh + ((int64_t)bh * s_pad + key0) * dk;
+  const int quads = dk / 4;
+  for (int i = threadIdx.x; i < kSplitKeys * quads; i += kSplitThreads) {
+    const int r = i / quads;
+    const int c = (i % quads) * 4;
+    const int key = key0 + r;
+    float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    float4 y = x;
+    if (key < seq && c < d_in) {
+      x = *reinterpret_cast<const float4*>(k + b * k_sb + key * k_ss +
+                                           h * k_sh + c);
+      y = *reinterpret_cast<const float4*>(v + b * v_sb + key * v_ss +
+                                           h * v_sh + c);
+    }
+    float4 big, small;
+    uint32_t hi, lo;
+    f32::split(x.x, hi, lo);
+    big.x = __uint_as_float(hi);
+    small.x = __uint_as_float(lo);
+    f32::split(x.y, hi, lo);
+    big.y = __uint_as_float(hi);
+    small.y = __uint_as_float(lo);
+    f32::split(x.z, hi, lo);
+    big.z = __uint_as_float(hi);
+    small.z = __uint_as_float(lo);
+    f32::split(x.w, hi, lo);
+    big.w = __uint_as_float(hi);
+    small.w = __uint_as_float(lo);
+    *reinterpret_cast<float4*>(kout + r * dk + c) = big;
+    *reinterpret_cast<float4*>(kout + half + r * dk + c) = small;
+    tile[r][c] = y.x;
+    tile[r][c + 1] = y.y;
+    tile[r][c + 2] = y.z;
+    tile[r][c + 3] = y.w;
+  }
+  __syncthreads();
+  float* vout = vt + (int64_t)bh * dk * s_pad + key0;
+  for (int i = threadIdx.x; i < dk * kSplitKeys; i += kSplitThreads) {
+    const int d = i / kSplitKeys;
+    const int p = i % kSplitKeys;
+    uint32_t hi, lo;
+    f32::split(tile[permuted_key(p)][d], hi, lo);
+    vout[(int64_t)d * s_pad + p] = __uint_as_float(hi);
+    vout[half + (int64_t)d * s_pad + p] = __uint_as_float(lo);
+  }
+}
+
+// `d_out`: the caller's head dim, the output columns stored (<= D);
+// `vec_out`: o's rows take 8-byte stores (d_out even, o 8-byte aligned),
+// else element stores. tm_k and tm_vt read the pre-pass's halves: the big
+// half of (b, h) at z = b * heads + h, its small half batch * heads on.
+template <class C>
+__global__ void __launch_bounds__(C::kThreads, 1)
+    flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_vt,
+                          const float* __restrict__ bias,
+                          float* __restrict__ o, int batch, int seq,
+                          int heads, int d_out, int64_t o_sb, int64_t o_ss,
+                          int64_t o_sh, int64_t bias_sb, float sm_scale,
+                          int causal, int vec_out) {
+  constexpr int kHeadDim = C::kHeadDim;
+  constexpr int kBlockN = C::kBlockN;
+  constexpr int kBlockM = C::kBlockM;
+  constexpr int kKStages = C::kKStages;
+  constexpr int kVStages = C::kVStages;
+  constexpr int kConsumers = C::kConsumers;
+  constexpr int kColBlocks = C::kColBlocks;
+  constexpr int kVtRowBytes = C::kVtRowBytes;
+  constexpr int kChunk = C::kChunk;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem<C>& sm = *reinterpret_cast<Smem<C>*>(
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int h = blockIdx.x % heads;
+  const int b = blockIdx.x / heads;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockM;  // heaviest first
+  int n_tiles = (seq + kBlockN - 1) / kBlockN;
+  if (causal) n_tiles = min(n_tiles, (q0 + kBlockM - 1) / kBlockN + 1);
+
+  if (tid == 0) {
+    mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < kKStages; ++s) {
+      mbar_init(&sm.k_full[s], 32);                  // the producer warp
+      mbar_init(&sm.k_empty[s], kConsumers * 128);   // every consumer thread
+    }
+    for (int s = 0; s < kVStages; ++s) {
+      mbar_init(&sm.v_full[s], 1);
+      mbar_init(&sm.v_empty[s], kConsumers * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    // Producer: one warp issues everything.
+    if constexpr (C::kConsumerRegs > 0) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+          C::kProducerRegs));
+    }
+    if (tid % 128 < 32) {
+      const int lane = tid % 32;
+      const float* biasb = bias != nullptr ? bias + b * bias_sb : nullptr;
+      const int z_big = b * heads + h;
+      const int z_small = z_big + batch * heads;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&sm.q_full, kBlockM * kHeadDim * 4);
+#pragma unroll
+        for (int c = 0; c < kColBlocks; ++c) {
+          sm90::tma_load(sm.q_big[c], &tm_q, &sm.q_full, c * 32, q0, h, b);
+        }
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int key0 = j * kBlockN;
+        const int ks = j % kKStages;
+        mbar_wait(&sm.k_empty[ks], ((j / kKStages) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(&sm.k_full[ks], 2 * kBlockN * kHeadDim * 4);
+#pragma unroll
+          for (int c = 0; c < kColBlocks; ++c) {
+            tma_load_3d(sm.k_big[ks][c], &tm_k, &sm.k_full[ks], c * 32, key0,
+                        z_big);
+            tma_load_3d(sm.k_small[ks][c], &tm_k, &sm.k_full[ks], c * 32,
+                        key0, z_small);
+          }
+        }
+        if (lane < kBlockN) {
+          const int key = key0 + lane;
+          float x = neg_inf();  // past the sequence end
+          if (key < seq) x = biasb != nullptr ? biasb[key] : 0.0f;
+          sm.bias[ks][lane] = x;
+        }
+        mbar_arrive(&sm.k_full[ks]);
+        const int vs = j % kVStages;
+        mbar_wait(&sm.v_empty[vs], ((j / kVStages) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&sm.v_full[vs], 2 * kBlockN * kHeadDim * 4);
+          tma_load_3d(sm.vt_big[vs], &tm_vt, &sm.v_full[vs], key0, 0, z_big);
+          tma_load_3d(sm.vt_small[vs], &tm_vt, &sm.v_full[vs], key0, 0,
+                      z_small);
+        }
+      }
+    }
+  } else {
+    if constexpr (C::kConsumerRegs > 0) {
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+          C::kConsumerRegs));
+    }
+    const int wtid = tid % 128;
+    const int warp = wtid / 32;
+    const int lane = tid % 32;
+    const int g = lane / 4;
+    const int t = lane % 4;
+    const int row0 = 64 * wg + 16 * warp + g;  // rows row0, row0 + 8
+    const int qrow = q0 + row0;                // absolute query row
+    const int first_row = q0 + 64 * wg;        // this warpgroup's first row
+    // Key tiles wholly above this warpgroup's diagonal are skipped.
+    int my_tiles = n_tiles;
+    if (causal) my_tiles = min(n_tiles, (first_row + 63) / kBlockN + 1);
+
+    // Split Q once: each thread reads the elements of its own A fragments
+    // (k-step kk of column block c: rows row0 / row0 + 8, columns 8 kk + t
+    // / + 4), writes the big half back in place and keeps the small half
+    // in registers (or writes it to q_small). Element (r, col) of a
+    // column block sits at 16-byte chunk (col / 4) ^ (r % 8) of row r.
+    constexpr int kQsRegs = C::kQSmallInRegs ? kColBlocks * 4 : 1;
+    uint32_t qs[kQsRegs][4];
+    mbar_wait(&sm.q_full, 0);
+#pragma unroll
+    for (int c = 0; c < kColBlocks; ++c) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = row0 + 8 * (e & 1);
+          const int col = 8 * kk + t + 4 * (e >> 1);
+          const int off = r * 32 + (((col >> 2) ^ (r & 7)) << 2) + (col & 3);
+          uint32_t big, small;
+          f32::split(sm.q_big[c][off], big, small);
+          sm.q_big[c][off] = __uint_as_float(big);
+          if constexpr (C::kQSmallInRegs) {
+            qs[c * 4 + kk][e] = small;
+          } else {
+            sm.q_small[c * kBlockM * 32 + off] = __uint_as_float(small);
+          }
+        }
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+
+    float acc[kHeadDim / kChunk][kChunk / 2];  // O, per 64-column chunk
+#pragma unroll
+    for (int ch = 0; ch < kHeadDim / kChunk; ++ch) {
+#pragma unroll
+      for (int i = 0; i < kChunk / 2; ++i) acc[ch][i] = 0.0f;
+    }
+    float row_max[2] = {kNegInf, kNegInf};  // rows row0 and row0 + 8
+    float row_sum[2] = {0.0f, 0.0f};
+    uint64_t desc_q[kColBlocks], desc_qs[kColBlocks];  // its Q rows
+#pragma unroll
+    for (int c = 0; c < kColBlocks; ++c) {
+      desc_q[c] = smem_desc<128>(sm.q_big[c] + 64 * wg * 32);
+      if constexpr (!C::kQSmallInRegs) {
+        desc_qs[c] =
+            smem_desc<128>(sm.q_small + c * kBlockM * 32 + 64 * wg * 32);
+      }
+    }
+
+    for (int j = 0; j < n_tiles; ++j) {
+      const int ks = j % kKStages;
+      const int vs = j % kVStages;
+      if (j >= my_tiles) {  // wholly above the diagonal: hand the stages on
+        mbar_wait(&sm.k_full[ks], (j / kKStages) & 1);
+        mbar_arrive(&sm.k_empty[ks]);
+        mbar_wait(&sm.v_full[vs], (j / kVStages) & 1);
+        mbar_arrive(&sm.v_empty[vs]);
+        continue;
+      }
+      // S = Q K^T: 64 rows x kBlockN keys, D / 8 k-steps, each three TF32
+      // products. big x big goes into s; small x big and big x small, about
+      // 2^-11 of it, into s_corr, and the two join in one rounded add: the
+      // tensor cores' accumulation truncates at the accumulator's scale, so
+      // only the big x big chain rounds at S's own.
+      float s[kBlockN / 2], s_corr[kBlockN / 2];
+      mbar_wait(&sm.k_full[ks], (j / kKStages) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < kColBlocks; ++c) {
+        const uint64_t desc_kb = smem_desc<128>(sm.k_big[ks][c]);
+        const uint64_t desc_ks = smem_desc<128>(sm.k_small[ks][c]);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const int acc_s = c > 0 || kk > 0;
+          if constexpr (C::kQSmallInRegs) {
+            wgmma_rs<kBlockN>(s_corr, qs[c * 4 + kk], desc_kb + 2 * kk,
+                              acc_s);
+          } else {
+            wgmma_ss<kBlockN>(s_corr, desc_qs[c] + 2 * kk, desc_kb + 2 * kk,
+                              acc_s);
+          }
+          wgmma_ss<kBlockN>(s, desc_q[c] + 2 * kk, desc_kb + 2 * kk, acc_s);
+          wgmma_ss<kBlockN>(s_corr, desc_q[c] + 2 * kk, desc_ks + 2 * kk, 1);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(s_corr);
+#pragma unroll
+      for (int i = 0; i < kBlockN / 2; ++i) s[i] += s_corr[i];
+
+      // Scale, bias, causal mask on the tiles that cross this warpgroup's
+      // diagonal; the online-softmax update. s[4 jn + e] is row row0 +
+      // 8 (e >> 1), key key0 + 8 jn + 2t + (e & 1). As in the other
+      // kernels: a score at or below -1e30 needs no test (expf of it
+      // minus a finite max is exactly 0), and each thread keeps its own
+      // part of the row sum until the end.
+      const int key0 = j * kBlockN;
+#pragma unroll
+      for (int jn = 0; jn < kBlockN / 8; ++jn) {
+        const float2 bv =
+            *reinterpret_cast<const float2*>(&sm.bias[ks][jn * 8 + 2 * t]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[4 * jn + e] = s[4 * jn + e] * sm_scale + ((e & 1) ? bv.y : bv.x);
+        }
+      }
+      mbar_arrive(&sm.k_empty[ks]);  // K and the bias are read
+      if (causal && key0 + kBlockN - 1 > first_row) {
+#pragma unroll
+        for (int jn = 0; jn < kBlockN / 8; ++jn) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (key0 + jn * 8 + 2 * t + (e & 1) > qrow + (e >> 1) * 8) {
+              s[4 * jn + e] = kNegInf;
+            }
+          }
+        }
+      }
+      float corr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float m = kNegInf;
+#pragma unroll
+        for (int jn = 0; jn < kBlockN / 8; ++jn) {
+          m = fmaxf(m, fmaxf(s[4 * jn + 2 * r], s[4 * jn + 2 * r + 1]));
+        }
+        const float m_new = fmaxf(row_max[r], quad_max(m));
+        // Nothing attended yet: keep the max finite (0) so no NaN appears.
+        const float safe_m = m_new <= kNegInf ? 0.0f : m_new;
+        corr[r] = row_max[r] <= kNegInf ? 0.0f : expf(row_max[r] - safe_m);
+        float part = 0.0f;
+#pragma unroll
+        for (int jn = 0; jn < kBlockN / 8; ++jn) {
+#pragma unroll
+          for (int e = 2 * r; e < 2 * r + 2; ++e) {
+            const float p = expf(s[4 * jn + e] - safe_m);
+            s[4 * jn + e] = p;
+            part += p;
+          }
+        }
+        row_sum[r] = row_sum[r] * corr[r] + part;
+        row_max[r] = m_new;
+      }
+      // P's A fragments, split: key slice kk's accumulator as it lies,
+      // P(g, 2t) and P(g + 8, 2t) as columns t, P(g, 2t + 1) and P(g + 8,
+      // 2t + 1) as columns t + 4, which V^T's permuted keys match.
+      uint32_t pb[kBlockN / 8][4], ps[kBlockN / 8][4];
+#pragma unroll
+      for (int kk = 0; kk < kBlockN / 8; ++kk) {
+        f32::split(s[4 * kk + 0], pb[kk][0], ps[kk][0]);
+        f32::split(s[4 * kk + 2], pb[kk][1], ps[kk][1]);
+        f32::split(s[4 * kk + 1], pb[kk][2], ps[kk][2]);
+        f32::split(s[4 * kk + 3], pb[kk][3], ps[kk][3]);
+      }
+
+      // O = O * corr + P V, kChunk output columns at a time. The tensor
+      // cores' fp32 accumulation truncates, so each tile's P V starts from
+      // zero and joins O in one rounded add.
+      mbar_wait(&sm.v_full[vs], (j / kVStages) & 1);
+#pragma unroll
+      for (int ch = 0; ch < kHeadDim / kChunk; ++ch) {
+        float pv[kChunk / 2];
+        const uint64_t desc_vb = smem_desc<kVtRowBytes>(
+            sm.vt_big[vs] + ch * kChunk * kBlockN);
+        const uint64_t desc_vs = smem_desc<kVtRowBytes>(
+            sm.vt_small[vs] + ch * kChunk * kBlockN);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBlockN / 8; ++kk) {
+          wgmma_rs<kChunk>(pv, ps[kk], desc_vb + 2 * kk, kk > 0);
+          wgmma_rs<kChunk>(pv, pb[kk], desc_vs + 2 * kk, 1);
+          wgmma_rs<kChunk>(pv, pb[kk], desc_vb + 2 * kk, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(pv);
+        fence_a(pb);
+        fence_a(ps);
+#pragma unroll
+        for (int i = 0; i < kChunk / 2; ++i) {
+          acc[ch][i] = acc[ch][i] * corr[(i >> 1) & 1] + pv[i];
+        }
+      }
+      mbar_arrive(&sm.v_empty[vs]);
+    }
+
+    float* ob = o + b * o_sb + h * o_sh;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float sum = quad_sum(row_sum[r]);
+      const int row = qrow + r * 8;
+      if (row >= seq) continue;
+      const float denom = sum == 0.0f ? 1.0f : sum;
+      float* orow = ob + row * o_ss;
+#pragma unroll
+      for (int ch = 0; ch < kHeadDim / kChunk; ++ch) {
+#pragma unroll
+        for (int dn = 0; dn < kChunk / 8; ++dn) {
+          const int col = ch * kChunk + dn * 8 + 2 * t;
+          const float x = acc[ch][4 * dn + 2 * r] / denom;
+          const float y = acc[ch][4 * dn + 2 * r + 1] / denom;
+          if (vec_out) {
+            if (col < d_out) {
+              *reinterpret_cast<float2*>(orow + col) = make_float2(x, y);
+            }
+          } else {
+            if (col < d_out) orow[col] = x;
+            if (col + 1 < d_out) orow[col + 1] = y;
+          }
+        }
+      }
+    }
+  }
+}
+
+}  // namespace tf32
+
 // Error codes of this file beyond cudaError_t's range.
 constexpr int kErrNoEncoder = 100001;  // no cuTensorMapEncodeTiled
 constexpr int kErrTensorMap = 100002;  // it refused a tensor map
 constexpr int kErrHeadDim = 100003;    // a head dim outside 1 .. 256
+constexpr int kErrSplit = 100004;      // no pre-pass halves, or bad ones
 
 PFN_cuTensorMapEncodeTiled tensor_map_encoder() {
   static PFN_cuTensorMapEncodeTiled fn = []() -> PFN_cuTensorMapEncodeTiled {
@@ -1076,28 +1716,47 @@ PFN_cuTensorMapEncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// A 4-D (d, s, h, b) bf16 map over a strided [B, S, H, d_in] view (strides
-// in elements), boxes of `box_cols` columns (one swizzle atom wide: 128
-// bytes with the 128-byte swizzle, 64 with the 64-byte one) by `box_rows`
-// rows of one head. Columns past d_in and rows past S arrive as zeros.
-bool encode_qkv_map(CUtensorMap* map, const void* base, int batch, int seq,
-                    int heads, int d_in, int64_t sb, int64_t ss, int64_t sh,
-                    cuuint32_t box_cols, cuuint32_t box_rows) {
+// A 4-D (d, s, h, b) map over a strided [B, S, H, d_in] view of bf16 or
+// fp32 elements (strides in elements), boxes of `box_cols` columns (one
+// swizzle atom wide: 128 bytes with the 128-byte swizzle, 64 with the
+// 64-byte one) by `box_rows` rows of one head. Columns past d_in and rows
+// past S arrive as zeros.
+bool encode_qkv_map(CUtensorMap* map, const void* base,
+                    CUtensorMapDataType type, int elem_bytes, int batch,
+                    int seq, int heads, int d_in, int64_t sb, int64_t ss,
+                    int64_t sh, cuuint32_t box_cols, cuuint32_t box_rows) {
   // The stride of a dimension of size 1 is never stepped: any valid one.
-  const cuuint64_t row_bytes = (cuuint64_t)d_in * sizeof(bf16);
+  const cuuint64_t row_bytes = (cuuint64_t)d_in * elem_bytes;
   cuuint64_t dims[4] = {(cuuint64_t)d_in, (cuuint64_t)seq, (cuuint64_t)heads,
                         (cuuint64_t)batch};
   cuuint64_t strides[3] = {
-      seq > 1 ? (cuuint64_t)ss * sizeof(bf16) : row_bytes,
-      heads > 1 ? (cuuint64_t)sh * sizeof(bf16) : row_bytes,
-      batch > 1 ? (cuuint64_t)sb * sizeof(bf16) : row_bytes};
+      seq > 1 ? (cuuint64_t)ss * elem_bytes : row_bytes,
+      heads > 1 ? (cuuint64_t)sh * elem_bytes : row_bytes,
+      batch > 1 ? (cuuint64_t)sb * elem_bytes : row_bytes};
   cuuint32_t box[4] = {box_cols, box_rows, 1, 1};
   cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   return tensor_map_encoder()(
-             map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+             map, type, 4, const_cast<void*>(base), dims, strides, box,
+             elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             box_cols * elem_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                          : CU_TENSOR_MAP_SWIZZLE_64B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 3-D fp32 map over a contiguous [z, y, x] array of the pre-pass, boxes
+// of box_x by box_y (box_x one swizzle atom wide: 128 or 64 bytes).
+bool encode_split_map(CUtensorMap* map, const void* base, int x, int y, int z,
+                      cuuint32_t box_x, cuuint32_t box_y) {
+  cuuint64_t dims[3] = {(cuuint64_t)x, (cuuint64_t)y, (cuuint64_t)z};
+  cuuint64_t strides[2] = {(cuuint64_t)x * 4, (cuuint64_t)x * y * 4};
+  cuuint32_t box[3] = {box_x, box_y, 1};
+  cuuint32_t elem_strides[3] = {1, 1, 1};
+  return tensor_map_encoder()(
+             map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(base),
              dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             box_cols * sizeof(bf16) == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                            : CU_TENSOR_MAP_SWIZZLE_64B,
+             box_x * 4 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                              : CU_TENSOR_MAP_SWIZZLE_64B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -1157,12 +1816,13 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* bias,
                 int64_t bias_sb, float sm_scale, int causal, void* stream) {
   if (tensor_map_encoder() == nullptr) return kErrNoEncoder;
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!encode_qkv_map(&tm_q, q, batch, seq, heads, d_in, q_sb, q_ss, q_sh,
-                      C::kBoxCols, C::kBlockM) ||
-      !encode_qkv_map(&tm_k, k, batch, seq, heads, d_in, k_sb, k_ss, k_sh,
-                      C::kBoxCols, C::kBlockN) ||
-      !encode_qkv_map(&tm_v, v, batch, seq, heads, d_in, v_sb, v_ss, v_sh,
-                      C::kBoxCols, C::kBlockN)) {
+  constexpr CUtensorMapDataType kBf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  if (!encode_qkv_map(&tm_q, q, kBf16, 2, batch, seq, heads, d_in, q_sb,
+                      q_ss, q_sh, C::kBoxCols, C::kBlockM) ||
+      !encode_qkv_map(&tm_k, k, kBf16, 2, batch, seq, heads, d_in, k_sb,
+                      k_ss, k_sh, C::kBoxCols, C::kBlockN) ||
+      !encode_qkv_map(&tm_v, v, kBf16, 2, batch, seq, heads, d_in, v_sb,
+                      v_ss, v_sh, C::kBoxCols, C::kBlockN)) {
     return kErrTensorMap;
   }
   static std::atomic<bool> opted_in[64];
@@ -1179,6 +1839,45 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* bias,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// `kh` / `vt`: the pre-pass's halves of k and v (client_tpu_split_kv_f32 at
+// dk = C::kHeadDim), s_pad keys a row.
+template <class C>
+int launch_tf32(const void* q, const void* bias, void* o, int batch, int seq,
+                int heads, int d_in, int d_out, int64_t q_sb, int64_t q_ss,
+                int64_t q_sh, int64_t o_sb, int64_t o_ss, int64_t o_sh,
+                int64_t bias_sb, float sm_scale, int causal, const void* kh,
+                const void* vt, int s_pad, void* stream) {
+  if (kh == nullptr || vt == nullptr || s_pad < seq ||
+      s_pad % tf32::kSplitKeys != 0) {
+    return kErrSplit;
+  }
+  if (tensor_map_encoder() == nullptr) return kErrNoEncoder;
+  CUtensorMap tm_q, tm_k, tm_vt;
+  const int z = 2 * batch * heads;  // big halves, then small
+  if (!encode_qkv_map(&tm_q, q, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, batch,
+                      seq, heads, d_in, q_sb, q_ss, q_sh, 32, C::kBlockM) ||
+      !encode_split_map(&tm_k, kh, C::kHeadDim, s_pad, z, 32, C::kBlockN) ||
+      !encode_split_map(&tm_vt, vt, s_pad, C::kHeadDim, z, C::kBlockN,
+                        C::kHeadDim)) {
+    return kErrTensorMap;
+  }
+  static std::atomic<bool> opted_in[64];
+  cudaError_t err = opt_in(tf32::flash_fwd_tf32_kernel<C>,
+                           tf32::kSmemBytes<C>, opted_in);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int vec_out = d_out % 2 == 0 &&
+                      reinterpret_cast<uintptr_t>(o) % 8 == 0 &&
+                      o_sb % 2 == 0 && o_ss % 2 == 0 && o_sh % 2 == 0;
+  dim3 grid(batch * heads, (seq + C::kBlockM - 1) / C::kBlockM);
+  tf32::flash_fwd_tf32_kernel<C><<<grid, C::kThreads, tf32::kSmemBytes<C>,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      tm_q, tm_k, tm_vt, static_cast<const float*>(bias),
+      static_cast<float*>(o), batch, seq, heads, d_out, o_sb, o_ss, o_sh,
+      bias_sb, sm_scale, causal, vec_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // The arguments of both entry points: q/k/v strided [B, S, H, d_in] views
@@ -1192,23 +1891,61 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* bias,
 // cudaError_t or one of this file's codes (client_tpu_cuda_error_string
 // names both).
 
-// fp32 q/k/v/o.
+// fp32 q/k/v/o. Above head dim 64 the kernel reads k and v only through
+// `kh` and `vt`, the pre-pass's halves of them (client_tpu_split_kv_f32 at
+// dk 128 or 256, the instantiation), with s_pad keys a row.
 extern "C" int client_tpu_flash_attention_fwd_f32(
     const void* q, const void* k, const void* v, const void* bias, void* o,
     int batch, int seq, int heads, int d_in, int d_out, int64_t q_sb,
     int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
     int64_t v_sb, int64_t v_ss, int64_t v_sh, int64_t o_sb, int64_t o_ss,
-    int64_t o_sh, int64_t bias_sb, float sm_scale, int causal, void* stream) {
+    int64_t o_sh, int64_t bias_sb, float sm_scale, int causal,
+    const void* kh, const void* vt, int s_pad, void* stream) {
   if (d_out < 1 || d_out > d_in || d_in > kMaxHeadDim) return kErrHeadDim;
 #define CLIENT_TPU_F32_ARGS                                                   \
   q, k, v, bias, o, batch, seq, heads, d_in, d_out, q_sb, q_ss, q_sh, k_sb,   \
       k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, bias_sb, sm_scale,      \
       causal, stream
+#define CLIENT_TPU_TF32_ARGS                                                  \
+  q, bias, o, batch, seq, heads, d_in, d_out, q_sb, q_ss, q_sh, o_sb, o_ss,   \
+      o_sh, bias_sb, sm_scale, causal, kh, vt, s_pad, stream
   if (d_in <= 32) return launch_f32<32, 64>(CLIENT_TPU_F32_ARGS);
   if (d_in <= 64) return launch_f32<64, 64>(CLIENT_TPU_F32_ARGS);
-  if (d_in <= 128) return launch_f32<128, 64>(CLIENT_TPU_F32_ARGS);
-  return launch_f32<256, 32>(CLIENT_TPU_F32_ARGS);
+  if (d_in <= 128) return launch_tf32<tf32::Config128>(CLIENT_TPU_TF32_ARGS);
+  return launch_tf32<tf32::Config256>(CLIENT_TPU_TF32_ARGS);
 #undef CLIENT_TPU_F32_ARGS
+#undef CLIENT_TPU_TF32_ARGS
+}
+
+// The fp32 kernel's pre-pass: k and v (strided [B, S, H, d_in] views as
+// above) into kh [2, B, H, s_pad, dk] and vt [2, B, H, dk, s_pad], their
+// TF32 big and small halves, V transposed with its keys permuted in groups
+// of 8 (d_in <= dk <= 256, both multiples of 4; s_pad a multiple of 32 and
+// at least S).
+extern "C" int client_tpu_split_kv_f32(
+    const void* k, const void* v, void* kh, void* vt, int batch, int seq,
+    int heads, int d_in, int dk, int s_pad, int64_t k_sb, int64_t k_ss,
+    int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh, void* stream) {
+  if (d_in < 1 || d_in > dk || dk > kMaxHeadDim || d_in % 4 != 0 ||
+      dk % 4 != 0) {
+    return kErrHeadDim;
+  }
+  if (s_pad < seq || s_pad % tf32::kSplitKeys != 0) return kErrSplit;
+  dim3 grid(s_pad / tf32::kSplitKeys, heads, batch);
+  tf32::split_kv_kernel<<<grid, tf32::kSplitThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(kh), static_cast<float*>(vt), batch, seq, heads,
+      d_in, dk, s_pad, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The dynamic shared memory of an fp32 launch at head dim d_in (<= 256).
+extern "C" int client_tpu_flash_attention_f32_smem_bytes(int d_in) {
+  if (d_in <= 32) return sizeof(f32::Smem<32, 64>);
+  if (d_in <= 64) return sizeof(f32::Smem<64, 64>);
+  if (d_in <= 128) return tf32::kSmemBytes<tf32::Config128>;
+  return tf32::kSmemBytes<tf32::Config256>;
 }
 
 // bf16 q/k/v/o.
@@ -1239,6 +1976,10 @@ extern "C" const char* client_tpu_cuda_error_string(int code) {
   }
   if (code == kErrHeadDim) {
     return "the flash attention kernel takes head dims 1 to 256";
+  }
+  if (code == kErrSplit) {
+    return "the fp32 kernel above head dim 64 needs the pre-pass's halves "
+           "of k and v (s_pad a multiple of 32, at least S)";
   }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

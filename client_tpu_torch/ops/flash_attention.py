@@ -15,11 +15,16 @@ takes any: it is instantiated at ``KERNEL_HEAD_DIMS`` (32, 64, 128, 256),
 and any other head dim runs the next larger instantiation with the head
 dim zero-padded (:func:`kernel_head_dim`; :func:`flash_attention_padded_plain`
 is that rule in plain PyTorch). It raises above 256 and on anything else
-it does not take. ``launches`` counts bf16 launches and ``launches_fp32``
-fp32 ones, so a run can show that its path went through the kernel;
-``launches_by_head_dim`` and ``launches_fp32_by_head_dim`` count them by
-the head dim requested. Each call reports its work (:func:`work`, at the
-real head dim) to a roofline capture running on its thread: the
+it does not take. In fp32 above head dim 64 the kernel runs 3xTF32 on
+``wgmma`` and reads K and V through a pre-pass, :func:`split_kv`, launched
+first by the same call: K's and V's TF32 halves, once a call, into scratch
+the wrapper allocates (V transposed, its keys permuted;
+:func:`split_kv_plain` is its plain version). ``launches`` counts bf16
+launches, ``launches_fp32`` fp32 ones and ``launches_split`` the
+pre-pass's, so a run can show that its path went through the kernels;
+``launches_by_head_dim`` and ``launches_fp32_by_head_dim`` count the first
+two by the head dim requested. Each call reports its work (:func:`work`,
+at the real head dim) to a roofline capture running on its thread: the
 ``ctypes`` launch is invisible to the FLOP counter.
 """
 
@@ -41,10 +46,12 @@ KERNEL_HEAD_DIMS = (32, 64, 128, 256)  # the kernel's instantiations
 
 launches = 0
 launches_fp32 = 0
+launches_split = 0                                 # the fp32 pre-pass
 launches_by_head_dim = collections.Counter()       # bf16, by requested D
 launches_fp32_by_head_dim = collections.Counter()  # fp32, by requested D
 _count_lock = lockdep.Lock("ops.flash_attention.count")
 _fwd = None
+_split = None
 _bind_lock = lockdep.Lock("ops.flash_attention.bind")
 
 
@@ -61,6 +68,54 @@ def pad_head_dim(x: torch.Tensor, width: int) -> torch.Tensor:
     out = x.new_zeros((*x.shape[:-1], width))
     out[..., :x.shape[-1]] = x
     return out
+
+
+# The pre-pass splits keys in groups of SPLIT_KEYS: its outputs hold the
+# sequence padded to a multiple of it. Above SPLIT_HEAD_DIM (the fp32
+# instantiations at 128 and 256) the fp32 kernel reads K and V through it.
+SPLIT_KEYS = 32
+SPLIT_HEAD_DIM = 64
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to
+    nearest on the low 13 mantissa bits, ties away from zero (the low 13
+    bits of the result are 0)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``x`` as big + small, both TF32: x = big + small to about 2^-22
+    relative."""
+    big = tf32_round(x)
+    return big, tf32_round(x - big)
+
+
+def permuted_keys(n: int) -> torch.Tensor:
+    """The key that each position of V^T's rows holds, for ``n`` keys (a
+    multiple of 8): in each group of 8, positions t and t + 4 take keys 2t
+    and 2t + 1, the order in which a thread of the kernel holds P."""
+    pos = torch.arange(n)
+    e = pos % 8
+    return pos - e + torch.where(e < 4, 2 * e, 2 * (e - 4) + 1)
+
+
+def split_kv_plain(k: torch.Tensor, v: torch.Tensor,
+                   width: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The pre-pass in plain PyTorch: fp32 ``[B, S, H, D]`` k and v into
+    ``kh`` ``[2, B, H, S_pad, width]`` (K's big half, then its small half)
+    and ``vt`` ``[2, B, H, width, S_pad]`` (V's, transposed, the keys of
+    each 8-key group in :func:`permuted_keys` order), zero past D and past
+    S; S_pad is S rounded up to SPLIT_KEYS."""
+    b, s, h, d = k.shape
+    s_pad = -(-s // SPLIT_KEYS) * SPLIT_KEYS
+    kp = k.new_zeros((b, h, s_pad, width))
+    vp = v.new_zeros((b, h, s_pad, width))
+    kp[:, :, :s, :d] = k.transpose(1, 2)
+    vp[:, :, :s, :d] = v.transpose(1, 2)
+    vp = vp[:, :, permuted_keys(s_pad).to(v.device)].transpose(2, 3)
+    return (torch.stack(tf32_split(kp)), torch.stack(tf32_split(vp)))
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -134,15 +189,22 @@ def load_kernel():
                                (torch.float32,
                                 "client_tpu_flash_attention_fwd_f32")):
                 fn = getattr(lib, sym)
+                # fp32 also takes the pre-pass's halves and their row length.
+                split_args = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
+                              if dtype == torch.float32 else [])
                 fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                                + [ctypes.c_int64] * 13
-                               + [ctypes.c_float, ctypes.c_int,
-                                  ctypes.c_void_p])
+                               + [ctypes.c_float, ctypes.c_int] + split_args
+                               + [ctypes.c_void_p])
                 fn.restype = ctypes.c_int
                 fns[dtype] = fn
             lib.client_tpu_cuda_error_string.argtypes = [ctypes.c_int]
             lib.client_tpu_cuda_error_string.restype = ctypes.c_char_p
-            _fwd = (fns, lib.client_tpu_cuda_error_string)
+            split = lib.client_tpu_split_kv_f32
+            split.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                              + [ctypes.c_int64] * 6 + [ctypes.c_void_p])
+            split.restype = ctypes.c_int
+            _fwd = (fns, lib.client_tpu_cuda_error_string, split)
         return _fwd
 
 
@@ -188,13 +250,63 @@ def check_kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 f"{bias.device}")
 
 
+def _launch_split(split, k: torch.Tensor, v: torch.Tensor, width: int,
+                  stream: int) -> tuple[torch.Tensor, int, int]:
+    """Allocate the pre-pass's outputs for ``[B, S, H, D]`` k and v in one
+    buffer (``kh`` ``[2, B, H, S_pad, width]``, then ``vt`` ``[2, B, H,
+    width, S_pad]``) and launch it. Returns the buffer, S_pad and the
+    launch's error code."""
+    b, s, h, d = k.shape
+    s_pad = -(-s // SPLIT_KEYS) * SPLIT_KEYS
+    n = 2 * b * h * s_pad * width
+    buf = torch.empty(2 * n, device=k.device)
+    err = split(k.data_ptr(), v.data_ptr(), buf.data_ptr(),
+                buf.data_ptr() + 4 * n, b, s, h, d, width, s_pad,
+                *k.stride()[:3], *v.stride()[:3], stream)
+    return buf, s_pad, err
+
+
+def split_kv(k: torch.Tensor, v: torch.Tensor,
+             width: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fp32 kernel's pre-pass alone (:func:`split_kv_plain`'s
+    function; :func:`flash_attention` launches it itself): launches its
+    kernel for fp32 ``[B, S, H, D]`` k and v on the card that the kernel
+    reads as they lie (:func:`_direct`), D <= ``width`` <= 256, ``width`` a
+    multiple of 4, or raises; on the CPU it is the plain version."""
+    if k.device.type == "cpu":
+        return split_kv_plain(k, v, width)
+    if k.dtype != torch.float32 or v.dtype != torch.float32 \
+            or k.shape != v.shape or k.dim() != 4 \
+            or not (_direct(k) and _direct(v)) or width % 4 \
+            or not k.shape[3] <= width <= 256:
+        raise ValueError(
+            f"split_kv takes fp32 [B, S, H, D] k and v with 16-byte rows "
+            f"and strides and D <= width <= 256 (width a multiple of 4), got "
+            f"{k.dtype} {tuple(k.shape)}, {v.dtype} {tuple(v.shape)}, width "
+            f"{width}")
+    _, err_str, split = load_kernel()
+    with torch.cuda.device(k.device):
+        buf, s_pad, err = _launch_split(
+            split, k, v, width,
+            torch.cuda.current_stream(k.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"split_kv kernel launch failed: {err_str(err).decode()}")
+    global launches_split
+    with _count_lock:
+        launches_split += 1
+    b, _, h, _ = k.shape
+    kh, vt = buf.view(2, 2, b, h, -1)
+    return (kh.view(2, b, h, s_pad, width), vt.view(2, b, h, width, s_pad))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: torch.Tensor | None = None,
                     causal: bool = False) -> torch.Tensor:
     """Attention over ``[B, S, H, D]`` q/k/v with an additive ``[B, S]``
     key bias; returns ``[B, S, H, D]`` in q's dtype. On the card this
-    launches the Hopper kernel (or raises); on the CPU it is the plain
-    version."""
+    launches the Hopper kernel (in fp32 above head dim 64, the pre-pass
+    first) or raises; on the CPU it is the plain version."""
     if q.device.type == "cpu":
         # The plain version's torch ops count their own FLOPs.
         roofline.kernel_work(0.0, work(q, bias, causal)[1])
@@ -215,22 +327,36 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    fns, err_str = load_kernel()
+    fns, err_str, split = load_kernel()
     fwd = fns[q.dtype]
+    # fp32 takes the pre-pass's halves (none at or below SPLIT_HEAD_DIM).
+    halves = (None, None, 0) if q.dtype == torch.float32 else ()
+    global launches, launches_fp32, launches_split
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        if q.dtype == torch.float32 and \
+                kernel_head_dim(d_in) > SPLIT_HEAD_DIM:
+            # The pre-pass first, on the same stream.
+            buf, s_pad, err = _launch_split(split, k, v,
+                                            kernel_head_dim(d_in), stream)
+            if err != 0:
+                raise RuntimeError(f"split_kv kernel launch failed: "
+                                   f"{err_str(err).decode()}")
+            with _count_lock:
+                launches_split += 1
+            kh_bytes = buf.numel() // 2 * 4  # vt follows kh
+            halves = (buf.data_ptr(), buf.data_ptr() + kh_bytes, s_pad)
         err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   bias.data_ptr() if bias is not None else None,
                   out.data_ptr(), b, s, h, d_in, d,
                   *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                   *out.stride()[:3],
                   bias.stride(0) if bias is not None else 0,
-                  1.0 / math.sqrt(d), int(causal), stream)
+                  1.0 / math.sqrt(d), int(causal), *halves, stream)
     if err != 0:
         raise RuntimeError(
             f"flash attention kernel launch failed: {err_str(err).decode()}")
     roofline.kernel_work(*cost)
-    global launches, launches_fp32
     with _count_lock:
         if q.dtype == torch.float32:
             launches_fp32 += 1

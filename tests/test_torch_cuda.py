@@ -145,33 +145,64 @@ def test_bert_flash_serves_through_the_kernel(card):
                                    atol=6e-2, rtol=0)
 
 
+# K1 fp32's head dims on the card: 64 (3xTF32 mma.sync) and the wgmma
+# kernel's 128 and 256 instantiations, with 80 and 160 run by them.
+FP32_HEAD_DIMS = [64, 80, 128, 160, 256]
+
+
+@pytest.mark.parametrize("d", FP32_HEAD_DIMS)
 @pytest.mark.parametrize("s", [2048, 200])
-def test_fp32_causal_kernel_matches_plain(card, s):
+def test_fp32_causal_kernel_matches_plain(card, s, d):
     gen = torch.Generator(device=card).manual_seed(1)
-    q, k, v = (torch.randn(8 if s == 2048 else 3, s, 4, 64, device=card,
+    q, k, v = (torch.randn(8 if s == 2048 else 3, s, 4, d, device=card,
                            generator=gen) for _ in range(3))
-    before = fa.launches_fp32
+    before = (fa.launches_fp32, fa.launches_split)
     out = fa.flash_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
-    assert fa.launches_fp32 == before + 1
+    assert (fa.launches_fp32, fa.launches_split) == (before[0] + 1,
+                                                     before[1] + (d > 64))
     ref = fa.flash_attention_plain(q, k, v, causal=True)
     assert out.dtype == torch.float32
     assert float((out - ref).abs().max()) <= 1e-4
 
 
+@pytest.mark.parametrize("b, s, h, d", [(2, 1, 3, 80), (2, 33, 3, 128),
+                                        (3, 200, 4, 160), (1, 1024, 16, 128),
+                                        (8, 2048, 4, 256)])
+def test_split_kv_kernel_matches_plain(card, b, s, h, d):
+    """The fp32 kernel's pre-pass bit for bit against its plain version
+    (K's and V's TF32 halves, V transposed with its keys permuted; zeros
+    past D and S), on strided slices of one fused [B, S, 3, H, D] tensor;
+    one launch counted."""
+    gen = torch.Generator(device=card).manual_seed(d)
+    fused = torch.randn(b, s, 3, h, d, device=card, generator=gen)
+    k, v = fused[:, :, 1], fused[:, :, 2]
+    width = fa.kernel_head_dim(d)
+    before = fa.launches_split
+    kh, vt = fa.split_kv(k, v, width)
+    torch.cuda.synchronize()
+    assert fa.launches_split == before + 1
+    want = fa.split_kv_plain(k, v, width)
+    assert torch.equal(kh, want[0]) and torch.equal(vt, want[1])
+
+
 @pytest.mark.parametrize("with_bias", [False, True], ids=["nobias", "bias"])
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-@pytest.mark.parametrize("s", [1, 63, 127, 128, 129, 191, 192, 193, 200,
-                               2048])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
-                         ids=["bf16", "fp32"])
-def test_kernel_tile_edges(card, dtype, s, causal, with_bias):
+@pytest.mark.parametrize("s", [1, 15, 17, 33, 63, 127, 128, 129, 191, 192,
+                               193, 200, 2048])
+@pytest.mark.parametrize("dtype, d", [(torch.bfloat16, 64)] + [
+    (torch.float32, d) for d in FP32_HEAD_DIMS],
+    ids=["bf16"] + [f"fp32-hd{d}" if d != 64 else "fp32"
+                    for d in FP32_HEAD_DIMS])
+def test_kernel_tile_edges(card, dtype, d, s, causal, with_bias):
     """Both kernels against the plain version at the edges of their tiles
-    (bf16: 192 query rows a CTA, 128 keys a stage; fp32: 64 and 64), on
-    strided slices of one fused [B, S, 3, H, 64] tensor as BERT hands them
-    over. With a bias, batch row 1 masks every key and must be exactly 0."""
+    (bf16: 192 query rows a CTA, 128 keys a stage; fp32 at head dim 64: 64
+    and 64; fp32 at 128 and 80: 128 and 32; at 256 and 160: 64 and 16), on
+    strided slices of one fused [B, S, 3, H, D] tensor as BERT hands them
+    over. With a bias, batch row 1 masks every key and must be exactly
+    0."""
     gen = torch.Generator(device=card).manual_seed(s)
-    fused = torch.randn(2, s, 3, 3, 64, device=card, generator=gen).to(dtype)
+    fused = torch.randn(2, s, 3, 3, d, device=card, generator=gen).to(dtype)
     q, k, v = fused[:, :, 0], fused[:, :, 1], fused[:, :, 2]
     bias = None
     if with_bias:
@@ -204,17 +235,21 @@ def _attention_float64(q, k, v, causal):
     return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(scores, dim=-1), v)
 
 
+@pytest.mark.parametrize("d", FP32_HEAD_DIMS)
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-def test_fp32_kernel_keeps_fp32_accuracy(card, causal):
+def test_fp32_kernel_keeps_fp32_accuracy(card, causal, d):
     """Inputs scaled x8 make the scores ~64x larger (up to a few hundred),
     so the rounding of each product shows in the softmax. Tolerance 2e-3
-    against float64, outputs reaching ~35: on an H100 the fp32 plain
-    version (cuBLAS, TF32 off) lands 5.6e-4 to 5.8e-4 away and the kernel
-    6.8e-4 to 7.2e-4, while plain TF32 products (10-bit mantissas) miss by
-    0.53 to 0.63, as would a split that lost a term (chip_smoke.py prints
-    all four for these inputs)."""
+    against float64, outputs reaching ~35: on an H100 at head dim 64 the
+    fp32 plain version (cuBLAS, TF32 off) lands 5.6e-4 to 5.8e-4 away and
+    the kernel 6.8e-4 to 7.2e-4; at 128 and 256 the plain version 5.7e-4
+    to 1.7e-3 and the wgmma kernel 5.3e-4 to 1.0e-3; plain TF32 products
+    (10-bit mantissas) miss by 0.53 to 0.63, as would a split that lost a
+    term (chip_smoke.py prints all four for these inputs at 64;
+    tests/test_torch_tf32_split.py shows a dropped term missing on the
+    CPU)."""
     gen = torch.Generator(device=card).manual_seed(7)
-    fused = torch.randn(2, 512, 3, 2, 64, device=card, generator=gen) * 8
+    fused = torch.randn(2, 512, 3, 2, d, device=card, generator=gen) * 8
     q, k, v = fused[:, :, 0], fused[:, :, 1], fused[:, :, 2]
     out = fa.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
@@ -222,19 +257,26 @@ def test_fp32_kernel_keeps_fp32_accuracy(card, causal):
     assert float((out.double() - ref).abs().max()) <= 2e-3
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
-                         ids=["bf16", "fp32"])
-def test_refused_launch_raises(card, dtype):
-    """A grid the card cannot launch (65,536 query tiles in the grid's
-    second dimension, whose limit is 65,535) is refused by the runtime:
-    the wrapper raises with the runtime's message, counts no launch and
-    does not fall back to the plain version."""
-    rows = 192 if dtype == torch.bfloat16 else 64  # query rows a CTA
-    q = torch.zeros(1, 65535 * rows + 1, 1, 64, dtype=dtype, device=card)
+@pytest.mark.parametrize("dtype, d, rows", [
+    (torch.bfloat16, 64, 192), (torch.float32, 64, 64),
+    (torch.float32, 128, 128), (torch.float32, 256, 64)],
+    ids=["bf16", "fp32", "fp32-hd128", "fp32-hd256"])
+def test_refused_launch_raises(card, dtype, d, rows):
+    """A grid the card cannot launch (65,536 query tiles of the kernel's
+    rows a CTA in the grid's second dimension, whose limit is 65,535) is
+    refused by the runtime: the wrapper raises with the runtime's message,
+    counts no launch of the kernel and does not fall back to the plain
+    version. Above head dim 64 the fp32 pre-pass has launched first, and
+    counts."""
+    q = torch.zeros(1, 65535 * rows + 1, 1, d, dtype=dtype, device=card)
     counts = (fa.launches, fa.launches_fp32)
+    split = fa.launches_split
     with pytest.raises(RuntimeError, match="launch failed: invalid config"):
         fa.flash_attention(q, q, q)
     assert (fa.launches, fa.launches_fp32) == counts
+    assert fa.launches_split == split + (dtype == torch.float32 and d > 64)
+    del q
+    torch.cuda.empty_cache()
 
 
 def _tiny_gpt_long_arena(card, seed=0):
