@@ -649,6 +649,11 @@ DLRM_POOLED = (832, 128)  # 32 rows x 26 tables of 128: the DLRM partials
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (data sheet)
 PEAK_TF32_FLOPS = 495e12   # H100 SXM dense TF32 on the tensor cores
 PEAK_FP32_FLOPS = 67e12    # H100 SXM fp32 outside the tensor cores
+# Additions a second, outside the tensor cores: one FADD a lane a clock
+# (132 SMs x 128 lanes x 1.98 GHz), and packed bf16 / fp16 pairs (HADD2,
+# two a lane a clock).
+PEAK_FP32_ADDS = 33.45e12
+PEAK_HALF2_ADDS = 66.9e12
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 
 N_TIMED = 25
@@ -808,6 +813,25 @@ def _kernel_turns(torch, calls: dict, sessions: int = 3) -> dict:
     return {name: float(np.median(s)) for name, s in samples.items()}
 
 
+def _kernel_ms_or_none(torch, fn) -> float | None:
+    """:func:`_kernel_ms`, or None where the profiler recorded no kernel
+    (as it may for kernels launched from a ctypes library after the
+    served phases)."""
+    try:
+        return _kernel_ms(torch, fn)
+    except AssertionError:
+        return None
+
+
+def _kernel_turns_or_none(torch, calls: dict) -> dict | None:
+    """:func:`_kernel_turns`, or None where the profiler recorded no
+    kernel of some call."""
+    try:
+        return _kernel_turns(torch, calls)
+    except AssertionError:
+        return None
+
+
 def _kernel_name(mangled: str) -> str:
     """A kernel's name from its mangled one: the last ``*_kernel`` of its
     nested name, with its first integer template argument (the head dim or
@@ -923,6 +947,79 @@ def _sass_census(cuda_build) -> dict:
                    f"fp32 kernel at head dim {dim} is not TF32 wgmma fed by "
                    f"TMA: {dict(c)}")
     return census
+
+
+def _ring_sass(cuda_build, library: Path) -> dict:
+    """Each kernel of a built ``ring_all_reduce`` library (``cuobjdump
+    -sass``), by (kernel, dtype, the rest of its mangled template
+    arguments): its instructions as text, without addresses."""
+    tool = Path(cuda_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(library)],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    dtypes = (("f", "float32"), ("13__nv_bfloat16", "bfloat16"),
+              ("6__half", "float16"))
+    by_fn, key = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            found = re.search(r"(one_shot_kernel|walk_kernel|direct_kernel)"
+                              r"I(\S*)", line)
+            key = None
+            if found:
+                args = found.group(2)
+                dt = next(name for code, name in dtypes
+                          if args.startswith(code))
+                key = (found.group(1), dt, args)
+                by_fn[key] = []
+            continue
+        op = re.search(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", line)
+        if key is not None and op:
+            by_fn[key].append(op.group(1).strip())
+    return by_fn
+
+
+def _ring_census(cuda_build) -> dict:
+    """The adds of K3's kernels in the built library: for each kernel kind
+    and dtype, its instantiations and the instructions that add (HADD2,
+    and HFMA2 with the BF16_V2 suffix, which ptxas issues for some bf16
+    pairs on the FMA pipe as a * 1 + b, the same rounding) beside FADD and
+    the conversions of the widen-and-round add it replaced (F2F, F2FP).
+    Fails unless every 2-byte kernel adds with HADD2 (``.BF16_V2`` in
+    bf16) and converts nothing. Returns the fp32 one-shot kernels'
+    instructions by shard count, for ``--versus`` to hold against the
+    parent's."""
+    by_fn = _ring_sass(cuda_build,
+                       cuda_build.library_path("ring_all_reduce"))
+    census = {}
+    for (kind, dt, args), text in by_fn.items():
+        ops = collections.Counter(t.split()[0] for t in text
+                                  if not t.startswith("@"))
+        ops += collections.Counter(t.split()[1] for t in text
+                                   if t.startswith("@"))
+        row = census.setdefault(f"{kind} {dt}", collections.Counter())
+        row["instantiations"] += 1
+        for op, count in ops.items():
+            if op.startswith(("HADD2", "FADD", "F2F")) or (
+                    op.startswith("HFMA2") and "BF16_V2" in op):
+                row[op] += count
+        if dt == "float32":
+            continue
+        hadd = [op for op in ops if op.startswith("HADD2")]
+        _check(bool(hadd) and set(hadd) == {
+            "HADD2.BF16_V2" if dt == "bfloat16" else "HADD2"},
+               f"K3 {kind} {dt} ({args}) adds without HADD2 in its type: "
+               f"{dict(ops)}")
+        _check(not any(op.startswith("F2F") for op in ops),
+               f"K3 {kind} {dt} ({args}) converts: {dict(ops)}")
+    print(f"set-up: SASS census of ring_all_reduce (cuobjdump -sass): "
+          f"{ {k: dict(v) for k, v in sorted(census.items())} }", flush=True)
+    _check({k.split()[0] for k in census} >= {"one_shot_kernel",
+                                              "walk_kernel",
+                                              "direct_kernel"},
+           f"K3 kernels in the library: {sorted(census)}")
+    return {int(re.search(r"Li(\d+)E", args).group(1)): text
+            for (kind, dt, args), text in by_fn.items()
+            if kind == "one_shot_kernel" and dt == "float32"}
 
 
 # -- kernel phase -----------------------------------------------------------
@@ -1648,18 +1745,14 @@ def kernel_phase_ring(torch, cuda_build) -> dict:
                   "torch.stack(...).sum(0)": turns["torch.stack(...).sum(0)"]}
         alone = {k: _time_ms(torch, f) for k, f in calls.items()}
         timed[n] = tuple(queued.values())
-        nbytes = 2 * n * numel * 4  # n partials read, n sums written
-        flops = (n - 1) * n * numel
         print(f"ring_all_reduce n={n} at {list(RING_SHAPES[-1])} fp32, device "
               f"ms per call queued back to back {queued}, one call alone "
-              f"{alone}; bound "
-              f"{max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOPS) * 1e3}"
-              f" ms ({nbytes} bytes, {flops} additions)", flush=True)
+              f"{alone}; bound {_ring_bound(n, numel)[0]} ms "
+              f"({2 * n * numel * 4} bytes, {(n - 1) * n * numel} "
+              "additions)", flush=True)
     dlrm_shape = _ring_dlrm_shape(torch, ks, partials)
     ms, plain_ms, library_ms = timed[2]  # the main path: 2 shards
-    nbytes, flops = 2 * 2 * numel * 4, 2 * numel
-    byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    flop_ms = flops / PEAK_FP32_FLOPS * 1e3
+    bound_ms, bound_by = _ring_bound(2, numel)
     return {
         "name": "ring_all_reduce",
         "route": "cuda",
@@ -1669,8 +1762,8 @@ def kernel_phase_ring(torch, cuda_build) -> dict:
         "max_abs_err": 0.0,  # checked bit for bit above
         "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(byte_ms, flop_ms),
-        "bound_by": "bytes" if byte_ms >= flop_ms else "operations",
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
         "library_ms": library_ms,
         "library_call": "torch.stack(partials).sum(0) on the one card",
         # The second call site: the pooled bags of the row-sharded DLRM
@@ -1679,17 +1772,19 @@ def kernel_phase_ring(torch, cuda_build) -> dict:
     }
 
 
-def _ring_bound(n: int, numel: int, elem_bytes: int = 4
+def _ring_bound(n: int, numel: int, dtype: str = "float32"
                 ) -> tuple[float, str]:
     """(ms, what bounds it) for an all-reduce of ``n`` partials of
-    ``numel`` elements of ``elem_bytes``: each partial read once and each
-    of the ``n`` sums written once, against ``(n - 1) * n * numel``
-    additions (fp32 adds outside the tensor cores in every dtype)."""
-    nbytes, flops = 2 * n * numel * elem_bytes, (n - 1) * n * numel
+    ``numel`` elements of ``dtype`` ("float32", "bfloat16" or "float16"):
+    each partial read once and each of the ``n`` sums written once, against
+    ``(n - 1) * n * numel`` additions, at PEAK_FP32_ADDS in fp32 and
+    PEAK_HALF2_ADDS (packed pairs) in bf16 and fp16."""
+    fp32 = dtype == "float32"
+    nbytes, adds = 2 * n * numel * (4 if fp32 else 2), (n - 1) * n * numel
     byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    flop_ms = flops / PEAK_FP32_FLOPS * 1e3
-    return max(byte_ms, flop_ms), ("bytes" if byte_ms >= flop_ms
-                                   else "operations")
+    add_ms = adds / (PEAK_FP32_ADDS if fp32 else PEAK_HALF2_ADDS) * 1e3
+    return max(byte_ms, add_ms), ("bytes" if byte_ms >= add_ms
+                                  else "operations")
 
 
 def _ring_dlrm_shape(torch, ks, partials) -> dict:
@@ -10929,8 +11024,11 @@ def _k3_shard_counts(torch, ks, smi: str, dtype, counts,
         # The plain version's n - 1 adds, timed as a call alone, host
         # included.
         plain_ms = _time_ms(torch, lambda: ks.ring_all_reduce_plain(parts))
-        bound_ms, bound_by = _ring_bound(n, math.prod(shape),
-                                         parts[0].element_size())
+        bound_ms, bound_by = _ring_bound(n, math.prod(shape), name_dt)
+        kernel_ms = (_kernel_ms_or_none(torch,
+                                        lambda: ks.ring_all_reduce(parts))
+                     if n in DT_RING_DURATIONS else None)
+        plan = ks.ring_plan(n, math.prod(shape), dtype)
         name = (f"ring_all_reduce_n{n}" if fp32
                 else f"ring_all_reduce_{name_dt}_n{n}")
         entries.append({
@@ -10950,12 +11048,15 @@ def _k3_shard_counts(torch, ks, smi: str, dtype, counts,
             "dtype": name_dt,
             "shards": n,
             "shape": list(shape),
+            "kernel_ms": kernel_ms,  # torch.profiler's durations
+            "plan": plan,
         })
         print(f"ring: {name} at {list(shape)}: device ms per call queued, "
               f"in turns: kernel {turns['kernel']}, "
-              f"torch.stack(...).sum(0) {turns['library']}; plain (a call "
+              f"torch.stack(...).sum(0) {turns['library']}; kernel "
+              f"durations {kernel_ms or 'not measured'}; plain (a call "
               f"alone, host included) {plain_ms}; bound {bound_ms} ms "
-              f"({bound_by}); {smi}", flush=True)
+              f"({bound_by}); plan {plan}; {smi}", flush=True)
         del parts
     return entries
 
@@ -11236,9 +11337,16 @@ def headdims_phase(torch, cuda_build, smi: str) -> list[dict]:
 FP16_ATOL = 5e-3
 # K2 over 2-byte arenas: DECODE_TOL, above.
 DT_K1_CAUSAL = (32, 64, 80, 128, 256)    # B8 S2048 H4 causal
+# K1 fp16 causal timed by kernel durations too, in turns with SDPA's own
+# kernels: no wrapper host time in either reading.
+DT_K1_DURATIONS = (64, 80, 128, 256)
 DT_K2_DIMS = (8, 16, 32, 50, 128, 256)   # on [4, 17, 2048, 2048 / D, D]
-DT_RING_N = (2, 4, 8, 16, 64, 65, 128, 1024)
-DT_RING_FP32_N = (65, 128, 1024)         # fp32 above the old cap of 64
+DT_RING_N = (2, 4, 8, 9, 16, 64, 65, 128, 256, 1024)
+# fp32 at 9 and past 64 (the headdims phase times 16 and 64).
+DT_RING_FP32_N = (9, 65, 128, 256, 1024)
+# K3's shard counts timed by kernel durations too: those bound by their
+# additions.
+DT_RING_DURATIONS = (256, 1024)
 DT_PATH_KV_SHARDS = (2, 16)
 DT_PATH_EMB_SHARDS = (2, 4)
 
@@ -11344,6 +11452,10 @@ def _dt_k1(torch, fa, smi: str) -> list[dict]:
                            if bias is not None else None), is_causal=causal)
 
         ms, library_ms = _time_turns(torch, kernel, library)
+        durations = None
+        if causal and (d in DT_K1_DURATIONS or name.endswith("prefill")):
+            durations = _kernel_turns_or_none(
+                torch, {"kernel": kernel, "library": library})
         plain_ms = _time_ms(torch, lambda: fa.flash_attention_plain(
             q, k, v, bias, causal=causal))
         pairs = s * (s + 1) / 2 if causal else s * s
@@ -11373,6 +11485,10 @@ def _dt_k1(torch, fa, smi: str) -> list[dict]:
             "shape": [b, s, h, d],
             "causal": causal,
         }
+        if durations is not None:
+            # torch.profiler's kernel durations, in turns with SDPA's.
+            entry["kernel_ms"] = durations["kernel"]
+            entry["library_kernel_ms"] = durations["library"]
         if bias is not None:
             entry["fp16_bias_ms"] = _time_ms(
                 torch, lambda: fa.flash_attention(q, k, v, bias16))
@@ -11382,7 +11498,11 @@ def _dt_k1(torch, fa, smi: str) -> list[dict]:
               f": kernel {ms} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
               f"scaled_dot_product_attention {library_ms} ms (in turns), "
               f"plain {plain_ms} ms, bound {max(flop_ms, byte_ms)} ms; "
-              f"max_abs_err {entry['max_abs_err']} (tolerance {FP16_ATOL})"
+              + (f"kernel durations (torch.profiler, in turns): kernel "
+                 f"{durations['kernel']} ms, SDPA {durations['library']} "
+                 f"ms ({durations['kernel'] / durations['library']:.3f}x); "
+                 if durations else "")
+              + f"max_abs_err {entry['max_abs_err']} (tolerance {FP16_ATOL})"
               + (f"; with the fp16 bias (cast by the wrapper) "
                  f"{entry['fp16_bias_ms']} ms" if bias is not None else "")
               + f"; {smi}", flush=True)
@@ -11658,6 +11778,24 @@ def dtypes_phase(torch, cuda_build, smi: str, served: dict) -> list[dict]:
     return entries
 
 
+def _parent_library(parent: Path, lib_name: str) -> Path:
+    """The older checkout's ``csrc/<lib_name>.cu`` built (same nvcc flags)
+    into ``build/versus/``, once per source."""
+    import hashlib
+
+    from client_tpu_torch.ops import cuda_build
+
+    src = parent / "client_tpu_torch" / "csrc" / f"{lib_name}.cu"
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    out = cuda_build.BUILD_DIR.parent / "versus" / f"{lib_name}-{digest}.so"
+    if not out.exists():
+        out.parent.mkdir(parents=True, exist_ok=True)
+        subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o",
+                        str(out), str(src)], check=True, capture_output=True,
+                       timeout=900)
+    return out
+
+
 def _parent_module(torch, parent: Path, name: str):
     """The older checkout's ``client_tpu_torch/<name>.py`` (``ops/...`` or
     ``parallel/...``) loaded under another module name, its kernel built
@@ -11665,24 +11803,12 @@ def _parent_module(torch, parent: Path, name: str):
     ``build/versus/``, so that its own wrapper, with its own C signature,
     launches it."""
     import ctypes
-    import hashlib
     import importlib.util
-
-    from client_tpu_torch.ops import cuda_build
 
     class Build:  # the parent's kernel in place of the checkout's
         @staticmethod
         def load(lib_name: str):
-            src = parent / "client_tpu_torch" / "csrc" / f"{lib_name}.cu"
-            digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-            out = cuda_build.BUILD_DIR.parent / "versus" / \
-                f"{lib_name}-{digest}.so"
-            if not out.exists():
-                out.parent.mkdir(parents=True, exist_ok=True)
-                subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS,
-                                "-o", str(out), str(src)], check=True,
-                               capture_output=True, timeout=900)
-            return ctypes.CDLL(str(out))
+            return ctypes.CDLL(str(_parent_library(parent, lib_name)))
 
     spec = importlib.util.spec_from_file_location(
         f"versus_{name.replace('/', '_')}",
@@ -11698,7 +11824,7 @@ def _parent_module(torch, parent: Path, name: str):
 # kernels both trees share; K2's head dims and K3's shard counts.
 VERSUS_K1_FP32 = (64, 128)
 VERSUS_K2 = (64, 32, 128)
-VERSUS_K3 = (2, 16, 64, 65, 128, 1024)
+VERSUS_K3 = (2, 4, 8, 9, 16, 64, 65, 128, 1024)
 
 
 def _versus_k1(torch, calls: dict) -> dict:
@@ -11713,7 +11839,8 @@ def _versus_k1(torch, calls: dict) -> dict:
     return out
 
 
-def versus_phase(torch, parent: Path, smi: str) -> dict:
+def versus_phase(torch, parent: Path, smi: str,
+                 one_shot_fp32: dict) -> dict:
     """``--versus DIR``: K1 bf16 at ``bert_long``'s B4 S2048 H12 D64, K1
     fp32 at B8 S2048 H4 causal at head dims VERSUS_K1_FP32, K2 at
     head dim 64 (``tiny_gpt_long``'s B16 wave over its 4 layers), 32
@@ -11725,15 +11852,32 @@ def versus_phase(torch, parent: Path, smi: str) -> dict:
     kernel built from the older checkout at DIR, on the same inputs. K1
     and K3: their kernels' durations (:func:`_kernel_turns`), and beside
     them K1's median of 50 launches a side between CUDA events and K3's
-    queued device time; K2: queued device time (:func:`_queued_turns`).
-    Fails unless every
-    output equals the parent's bit for bit; prints each time's change over
-    the parent's."""
+    queued device time; K2: queued device time (:func:`_queued_turns`);
+    K3 also at DLRM's [832, 128] over 2 and 4 shards. Fails unless every
+    output equals the parent's bit for bit, and unless K3's fp32 one-shot
+    kernels (2 to 8 shards, ``one_shot_fp32`` from :func:`_ring_census`)
+    are the parent's instruction for instruction; prints each time's
+    change over the parent's."""
     from client_tpu_torch.ops import decode_attention as da
     from client_tpu_torch.ops import flash_attention as fa
     from client_tpu_torch.parallel import kv_shard as ks
 
+    from client_tpu_torch.ops import cuda_build
+
     t0 = time.monotonic()
+    old_one_shot = {
+        n: text for (kind, dt, args), text in _ring_sass(
+            cuda_build, _parent_library(parent, "ring_all_reduce")).items()
+        for n in [int(re.search(r"Li(\d+)E", args).group(1))]
+        if kind == "one_shot_kernel" and dt == "float32"}
+    print("versus: K3 fp32 one_shot_kernel<float, n> instructions, change / "
+          "parent: " + ", ".join(
+              f"n {n} {len(one_shot_fp32.get(n, []))} / {len(text)}"
+              for n, text in sorted(old_one_shot.items())), flush=True)
+    differ = [n for n, text in old_one_shot.items()
+              if one_shot_fp32.get(n) != text]
+    _check(not differ and set(one_shot_fp32) == set(old_one_shot),
+           f"K3's fp32 one-shot kernels differ from the parent's: n {differ}")
     old_fa = _parent_module(torch, parent, "ops/flash_attention")
     old_da = _parent_module(torch, parent, "ops/decode_attention")
     old_ks = _parent_module(torch, parent, "parallel/kv_shard")
@@ -11788,20 +11932,21 @@ def versus_phase(torch, parent: Path, smi: str) -> dict:
                 for layer in range(L)]})
         del k_a, v_a
         torch.cuda.empty_cache()
-    for n in VERSUS_K3:
-        if n > old_ks._MAX_SHARDS:
-            continue  # more shards than the older kernel takes
-        parts = [torch.randn(RING_SHAPES[-1], device="cuda", generator=gen)
+    k3_cases = [(n, RING_SHAPES[-1], f"k3_n{n}") for n in VERSUS_K3
+                if n <= old_ks._MAX_SHARDS]  # those the older kernel takes
+    k3_cases += [(n, DLRM_POOLED, f"k3_dlrm_n{n}") for n in (2, 4)]
+    for n, shape, key in k3_cases:
+        parts = [torch.randn(shape, device="cuda", generator=gen)
                  for _ in range(n)]
-        equal[f"k3_n{n}"] = max(
+        equal[key] = max(
             float((a - b).abs().max()) for a, b in
             zip(old_ks.ring_all_reduce(parts), ks.ring_all_reduce(parts)))
-        out[f"k3_n{n}"] = _kernel_turns(torch, {
+        out[key] = _kernel_turns(torch, {
             "parent": lambda: old_ks.ring_all_reduce(parts),
             "change": lambda: ks.ring_all_reduce(parts)})
         # The same calls queued behind the sleep: host time that the queue
         # cannot hide shows as the difference.
-        out[f"k3_n{n}"]["queued"] = _queued_turns(torch, {
+        out[key]["queued"] = _queued_turns(torch, {
             "parent": [lambda: old_ks.ring_all_reduce(parts)],
             "change": [lambda: ks.ring_all_reduce(parts)]})
     for t in out.values():
@@ -11919,9 +12064,10 @@ def main(argv: list[str]) -> int:
     print(f"set-up: kernels built in {time.monotonic() - t0:.1f} s {built}",
           flush=True)
     census = _sass_census(cuda_build)
+    one_shot_fp32 = _ring_census(cuda_build)
 
     if versus:
-        versus_phase(torch, Path(versus).resolve(), smi)
+        versus_phase(torch, Path(versus).resolve(), smi, one_shot_fp32)
         print(smi, flush=True)
         return 0
     if headdims_only:

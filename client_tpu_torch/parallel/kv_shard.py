@@ -38,8 +38,10 @@ from client_tpu_torch.ops.decode_attention import (
 )
 from client_tpu_torch.utils import lockdep
 
-# The kernel's staged tile holds 8 16-byte groups of every partial in one
-# block's 227 KB of shared memory: 232,448 / 128 shards.
+# The range the kernel takes, the one the staged kernel it replaced took
+# (8 16-byte groups of every partial in a block's 227 KB of shared memory).
+# What holds it there now is the launch: the pointer tables go by value, 2 x
+# 1,816 pointers (29 KB) of the 32,764 bytes of parameters CUDA allows.
 _MAX_SHARDS = 1816
 # The partials' dtypes the kernel sums, by its C code.
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -202,7 +204,8 @@ def ring_all_reduce_plain(partials: Sequence[torch.Tensor]
 
 
 def load_kernel():
-    """Build (on first use) and bind the kernel's C entry point."""
+    """Build (on first use) and bind the kernel's C entry points: the
+    launch, the error string, and the walk's plan (:func:`ring_plan`)."""
     global _fwd
     with _bind_lock:
         if _fwd is None:
@@ -213,8 +216,39 @@ def load_kernel():
             fn.restype = ctypes.c_int
             lib.client_tpu_cuda_error_string.argtypes = [ctypes.c_int]
             lib.client_tpu_cuda_error_string.restype = ctypes.c_char_p
-            _fwd = (fn, lib.client_tpu_cuda_error_string)
+            plan = lib.client_tpu_ring_all_reduce_plan
+            plan.argtypes = [ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+                             ctypes.c_int, ctypes.c_void_p]
+            plan.restype = ctypes.c_int
+            _fwd = (fn, lib.client_tpu_cuda_error_string, plan)
         return _fwd
+
+
+_PLAN_FIELDS = ("lane_bytes", "r", "warps", "blocks", "ring_rows", "whole",
+                "staged")
+
+
+def ring_plan(n: int, numel: int, dtype: torch.dtype,
+              align: int = 16) -> dict | None:
+    """How the kernel runs ``n`` partials of ``numel`` elements of
+    ``dtype`` whose pointers are all ``align``-byte aligned: None for
+    ``n <= 8`` (one launch of the unrolled kernel), else the walk's two
+    passes, ``{"main": ..., "tail": ...}``, each a dict of its lane bytes
+    (4, 8 or 16; 2 for one bf16/fp16 element; 0: no pass), chains a thread
+    ``r``, ``warps`` a CTA, shard ``blocks``, ``ring_rows``, ``whole``
+    (every row staged at once) and ``staged`` (0: the direct walk, which
+    reads every partial into registers, up to 16 shards). Builds the
+    kernel on first use."""
+    if n <= 8:
+        return None
+    out = (ctypes.c_int * 14)()
+    _, err_str, plan = load_kernel()
+    err = plan(n, numel, _DTYPES[dtype], align, out)
+    if err != 0:
+        raise ValueError(f"no plan for {n} shards of {numel} {dtype}: "
+                         f"{err_str(err).decode()}")
+    return {"main": dict(zip(_PLAN_FIELDS, out[:7])),
+            "tail": dict(zip(_PLAN_FIELDS, out[7:]))}
 
 
 def ring_work(n: int, numel: int, elem_bytes: int = 4) -> tuple[float, int]:
@@ -229,9 +263,10 @@ def ring_all_reduce(partials: Sequence[torch.Tensor]) -> list[torch.Tensor]:
     """All-reduce-sum of ``n`` same-shaped partials, one per shard; returns
     the ``n`` sums (replicated) in the partials' dtype, each in the ring's
     order of additions, every hop's sum rounded to that dtype. ``n == 1``
-    returns the input without a launch. On the card this launches K3,
-    one-shot (or raises): every partial contiguous fp32, bf16 or fp16 on
-    one card, at most 1,816 of them. On the CPU it is the plain version.
+    returns the input without a launch. On the card this launches K3 once
+    (or raises): every partial contiguous fp32, bf16 or fp16 on one card,
+    at most 1,816 of them; past 8 the register-blocked walk
+    (:func:`ring_plan`). On the CPU it is the plain version.
     ``launches`` counts the launches, ``launches_by_dtype`` them by the
     partials' dtype and ``launches_by_shards`` by (dtype, shard count)."""
     parts = list(partials)
@@ -257,8 +292,8 @@ def ring_all_reduce(partials: Sequence[torch.Tensor]) -> list[torch.Tensor]:
             raise ValueError(f"partial {i} must be contiguous")
     if n > _MAX_SHARDS:
         raise ValueError(f"the ring all-reduce kernel takes 1 to "
-                         f"{_MAX_SHARDS} shards (its staged tile, 128 bytes "
-                         f"a shard, fills a block's shared memory), got {n}")
+                         f"{_MAX_SHARDS} shards (their pointer tables go by "
+                         f"value with the launch), got {n}")
     numel = parts[0].numel()
     out = torch.empty((n, *parts[0].shape), dtype=dtype, device=device)
     if numel == 0:
@@ -268,7 +303,7 @@ def ring_all_reduce(partials: Sequence[torch.Tensor]) -> list[torch.Tensor]:
     def ptrs(tensors):
         return (ctypes.c_void_p * n)(*[t.data_ptr() for t in tensors])
 
-    fwd, err_str = load_kernel()
+    fwd, err_str, _ = load_kernel()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fwd(ptrs(parts), ptrs(sums), n, numel, _DTYPES[dtype],

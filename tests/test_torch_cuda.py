@@ -563,7 +563,15 @@ def test_tiny_gpt_long_fused_stream_equals_reference(card):
     assert fused == stream("einsum", "reference")
 
 
-@pytest.mark.parametrize("n", [2, 3, 4, 8, 9, 16, 64, 65, 128, 1024])
+# K3's shard counts: the unrolled kernels (2 to 8), the direct walk (9 to
+# 16) and its edge, and the staged walk around its R of 2, 4, 8 and 16
+# chains a thread (R - 1, R, R + 1, a multiple of R plus 1), to the top of
+# the range.
+RING_N = [2, 3, 4, 8, 9, 10, 15, 16, 17, 31, 32, 33, 64, 65, 128, 129, 255,
+          256, 257, 1024, 1816]
+
+
+@pytest.mark.parametrize("n", RING_N)
 @pytest.mark.parametrize("shape", [(1, 4, 64), (3, 4, 64), (16, 4, 64), (5,),
                                    (832, 128)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
@@ -582,9 +590,133 @@ def test_ring_all_reduce_equals_plain_bit_for_bit(card, dtype, n, shape):
         assert g.dtype == dtype and torch.equal(g, w)
 
 
+def _ring_bits(t: torch.Tensor) -> torch.Tensor:
+    """Bit patterns, every NaN as -1."""
+    bits = t.view({2: torch.int16, 4: torch.int32}[t.element_size()]).long()
+    return torch.where(torch.isnan(t.float()), -1, bits)
+
+
+def _ring_equal_bits(got, want) -> None:
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and torch.equal(_ring_bits(g),
+                                                  _ring_bits(w)), i
+
+
+@pytest.mark.parametrize("n", [2, 9, 16, 17, 64, 65, 257])
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=["fp32", "bf16",
+                                                        "fp16"])
+def test_ring_all_reduce_unaligned_pointers(card, dtype, n, offset):
+    """Partials and sums that start ``offset`` elements into their buffers:
+    pointers aligned to the element (or two) only take narrower lanes and
+    the one-element tail, bit for bit all the same."""
+    numel = 1000
+    gen = torch.Generator(device=card).manual_seed(offset)
+    buf = (torch.randn(n, numel + 8, device=card, generator=gen) * 4).to(
+        dtype)
+    parts = [buf[i, offset:offset + numel] for i in range(n)]
+    assert all(p.data_ptr() % 16 for p in parts)
+    if n > 8:
+        align = (parts[0].element_size() * offset) & -(
+            parts[0].element_size() * offset)
+        plan = ks.ring_plan(n, numel, dtype, align)
+        assert plan["main"]["lane_bytes"] <= align
+    before = ks.launches
+    got = ks.ring_all_reduce(parts)
+    torch.cuda.synchronize()
+    assert ks.launches == before + 1
+    _ring_equal_bits(got, ks.ring_all_reduce_plain(parts))
+
+
+def _ring_adversarial(n: int, numel: int, dtype: torch.dtype,
+                      seed: int) -> list[torch.Tensor]:
+    """Partials of edge values (as tests/test_torch_ring_order.py draws
+    them): ties at half an ulp, exponent spreads, subnormals, +-0, sums
+    that overflow, infinities, cancellation."""
+    fi = torch.finfo(dtype)
+    eps, tiny, big = fi.eps, fi.tiny, fi.max
+    sub = tiny * eps
+    far = min(2.0 ** 30, big / 4)
+    pool = np.array([0.0, -0.0, 1.0, -1.0, 1 + eps, -(1 + eps), eps / 2,
+                     -eps / 2, 1.5 * eps, eps / 4, 1.5, -1.5, tiny, -tiny,
+                     sub, -sub, 3 * sub, tiny - sub, big, -big, big / 2,
+                     -big / 2, far, -far, 1 / far, -1 / far, 1000.0,
+                     -1000.0])
+    rng = np.random.default_rng(seed)
+    mode = rng.integers(0, 3, numel)
+    x = pool[rng.integers(0, len(pool), (n, numel))]
+    ties = rng.choice([eps / 2, -eps / 2, 0.0, -0.0], (n, numel))
+    ties[rng.integers(0, n, numel), np.arange(numel)] = rng.choice(
+        [1.0, 1 + eps, -1.0], numel)
+    large = rng.choice([big, big / 2, -big / 2, big / 4, -big, np.inf,
+                        -np.inf], (n, numel), p=[.2, .2, .2, .15, .2, .025,
+                                                 .025])
+    x = np.where(mode == 1, ties, np.where(mode == 2, large, x))
+    # float32 holds every value exactly; the cast to the dtype rounds.
+    return list(torch.from_numpy(x.astype(np.float32)).to(dtype).unbind(0))
+
+
+@pytest.mark.parametrize("n", [2, 8, 9, 16, 17, 64, 65, 256, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=["fp32", "bf16",
+                                                        "fp16"])
+def test_ring_all_reduce_adversarial_values(card, dtype, n):
+    """Edge values, bit for bit (NaN where, and only where, the plain
+    version has NaN): the kernel keeps subnormals as the plain version
+    does (no flush: the build has no fast-math flag)."""
+    parts = [p.to(card) for p in _ring_adversarial(n, 4096, dtype, n)]
+    got = ks.ring_all_reduce(parts)
+    torch.cuda.synchronize()
+    want = ks.ring_all_reduce_plain(parts)
+    _ring_equal_bits(got, want)
+    assert any(bool(torch.isnan(w.float()).any()) for w in want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
+def test_ring_all_reduce_every_pair_of_two_byte_values(card, dtype):
+    """The packed add against the plain version's (fp32, rounded once) for
+    all 2^32 pairs of bit patterns, through K3 at 9 shards: x_0 = a,
+    x_8 = b and the other seven -0.0, so every shard's sum is a + b, each
+    in its own order of -0s. Bit for bit, NaN where the plain version has
+    NaN; in chunks of 2^26 pairs."""
+    chunk = 1 << 26
+    idx = torch.arange(chunk, device=card, dtype=torch.int32)
+    zero = torch.full((chunk,), -0.0, dtype=dtype, device=card)
+    def pattern(u16):  # 0..65535 as the int16 of the same bits
+        return torch.where(u16 >= 1 << 15, u16 - (1 << 16), u16).to(
+            torch.int16).view(dtype)
+
+    for start in range(0, 1 << 32, chunk):
+        pair = idx.long() + start
+        parts = [pattern(pair >> 16)] + [zero] * 7 + [pattern(pair & 0xFFFF)]
+        got = ks.ring_all_reduce(parts)
+        want = ks.ring_all_reduce_plain(parts)
+        _ring_equal_bits(got, want)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("n", [9, 16, 17, 64, 65, 128, 256, 1024, 1816])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=["fp32", "bf16",
+                                                        "fp16"])
+def test_ring_plan_covers_the_card(card, dtype, n):
+    """At the decode wave's [16, 4, 64] the staged walk spreads over at
+    least as many CTAs as the card has SMs (132), whatever the dtype. The
+    direct walk (up to 16 shards) takes about one load's latency and
+    keeps four warps a CTA rather than spreading thinner: it is held to
+    128 (bf16's 4-byte lanes, 64 tiles x 2 shard blocks)."""
+    plan = ks.ring_plan(n, 16 * 4 * 64, dtype)["main"]
+    tiles = -(-(16 * 4 * 64 * torch.finfo(dtype).bits // 8)
+              // plan["lane_bytes"] // 32)
+    assert tiles * plan["blocks"] >= (132 if plan["staged"] else 128), plan
+
+
 def test_ring_all_reduce_refuses_what_it_was_not_built_for(card):
     """fp32, bf16 and fp16 partials are summed (int32, which the reference
-    also sums, is still to port), up to the staged tile's 1,816 shards."""
+    also sums, is still to port), up to 1,816 shards (its pointer tables
+    by value)."""
     x = torch.zeros(4, device=card)
     with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
         ks.ring_all_reduce([x.int(), x.int()])
