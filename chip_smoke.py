@@ -14,9 +14,12 @@
 2. Builds every kernel of the path from ``client_tpu_torch/csrc`` with
    ``nvcc`` (one process per source, all at once) and prints the seconds.
    Counts the flash-attention kernels' instructions (``cuobjdump -sass``)
-   and fails unless the bf16 kernel runs on wgmma fed by TMA, the fp32 one
-   at head dims 32 and 64 on TF32 mma.sync, and the fp32 one at 128 and
-   256 on TF32 wgmma fed by TMA.
+   and fails unless the bf16 and fp16 kernel runs on wgmma fed by TMA at
+   every instantiation (32, 64, 96, 128, 256), with named-barrier
+   ``BAR.SYNC`` and ``BAR.ARV`` where its consumers take turns
+   (``K1_PING_PONG_DIMS``) and no local memory (``cuobjdump -res-usage``),
+   the fp32 one at head dims 32 and 64 on TF32 mma.sync, and the fp32 one
+   at 128 and 256 on TF32 wgmma fed by TMA.
 3. Kernel phases: hold each kernel against its plain PyTorch version on the
    card at the shapes the main path gives it, plus its edge cases, with the
    tolerance stated below; then time kernel, plain version and the one
@@ -507,7 +510,9 @@
    (the bf16 kernel on f16 ``wgmma``) at ``bert_long``'s B4 S2048 H12 D64
    with an fp32 and with an fp16 bias, at B8 S2048 H4 causal at head dims
    32, 64, 80, 128 and 256, at the served prefill's B1 S1024 H16 D128 and
-   at tile edges with a fully masked row (5e-3); K2 over bf16 and fp16
+   at tile and diagonal edges with a fully masked row (5e-3); K1 bf16 at
+   the same causal shapes and edges (2e-2), timed against SDPA in bf16;
+   K2 over bf16 and fp16
    arenas at ``tiny_gpt_long``'s [4, 17, 2048, 4, 64] and at [4, 17, 2048,
    2048 / D, D] for D = 8, 16, 32, 50, 128 and 256, split and tile edges
    up to 2,047 keys and padded lanes, arenas bit for bit, o within two
@@ -517,7 +522,9 @@
    bit for bit. Each call checks that its kernel's launch count rose and
    that no plain version ran; each new instantiation is timed beside its
    bound (K1: 50 launches in turns with ``scaled_dot_product_attention``
-   in fp16; K2 and K3: queued device time in turns with SDPA on gathered
+   in the dtype, and causal at head dims 64 to 256 and the prefill's shape
+   by kernel durations too; K2 and K3: queued device time in turns with
+   SDPA on gathered
    rows and with ``torch.stack(...).sum(0)`` in the dtype). Then
    ``sharded_decode_attention`` over a bf16 arena on 2 and 16 shards of
    the card against the unsharded K2 in bf16 (``DECODE_TOL``), and
@@ -526,8 +533,10 @@
    against ``ring_all_reduce_plain`` on the same partials; and float64,
    mixed dtypes and 1,817 shards refused before a launch. Each entry's
    ``launches`` is read after the headdims phase from counts set to 0
-   before the served phases (K1 fp16 by head dim, K2 by dtype and head
-   dim, K3 by dtype and shard count): the run fails unless each is 0.
+   before the served phases (K1 fp16 by head dim, K1 bf16 causal by head
+   dim (read before the headdims phase, whose checks launch it), K2 by
+   dtype and head dim, K3 by dtype and shard count): the run fails unless
+   each is 0.
    ``--dtypes`` runs this phase alone after the build.
 24. Prints one ``{"kernels": [...]}`` line (each kernel's ``launches`` over
    HTTP and gRPC, beside ``http_launches`` over HTTP alone, which must be
@@ -555,8 +564,8 @@
    GPTs', the bf16
    and other instantiations 0, no served model using them); then the
    dtypes phase's entries, ``flash_attention_fp16_hd64`` and
-   ``flash_attention_fp16_hd{32,64,80,128,256}_causal`` and
-   ``flash_attention_fp16_hd128_prefill``,
+   ``flash_attention_{fp16,bf16}_hd{32,64,80,128,256}_causal`` and
+   ``flash_attention_{fp16,bf16}_hd128_prefill``,
    ``decode_wave_attention_{bfloat16,float16}_hd{64,8,16,32,50,128,256}``,
    ``ring_all_reduce_{bfloat16,float16}_n{2,4,8,16,64,65,128,1024}`` and
    ``ring_all_reduce_n{65,128,1024}`` (launches 0: no served model runs
@@ -583,10 +592,13 @@ with that one entry and the ``nvidia-smi`` line, and no ``ok`` line.
 with step 22 alone, ``--dtypes`` with step 23 alone. ``--versus DIR``
 builds K1, K2 and K3 from the sources of an older checkout at DIR (``git
 archive`` of the parent under ``build/``) beside this one's and times K1
-bf16 at head dim 64, K1 fp32 at 64 and 128, K2 at head dims 64, 32 and
+bf16 at head dim 64, K1 bf16 and fp16 causal at B8 S2048 H4 (head dims
+64, 80, 128, 256) and at the prefill's B1 S1024 H16 D128, K1 fp16 at
+``bert_long``'s shape, K1 fp32 at 64 and 128, K2 at head dims 64, 32 and
 128 and K3 at 2, 16 and 64 shards against them in turns in one process
 (parent, change, change, parent), and fails unless every output equals
-the older tree's bit for bit.
+the older tree's bit for bit. ``tools/k1_ablation.py DIR`` times K1's
+2-byte kernel with parts of its design switched off against DIR's.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It exits non-zero as well without CUDA, or outside a checkout of the repo.
@@ -645,6 +657,11 @@ DECODE_TOL = {"float32": (0.0, DECODE_ATOL), "bfloat16": (2.0 ** -6, 1e-4),
 # every shard's sum must be equal bit for bit.
 RING_SHAPES = ((1, 4, 64), (3, 4, 64), (16, 4, 64))  # decode wave buckets
 DLRM_POOLED = (832, 128)  # 32 rows x 26 tables of 128: the DLRM partials
+
+# K1's 2-byte instantiations whose consumer warpgroups take turns on named
+# barriers (the SASS census requires BAR.SYNC and BAR.ARV there): two
+# ping-ponged from 96, three in turn at 64.
+K1_PING_PONG_DIMS = (64, 96, 128, 256)
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (data sheet)
 PEAK_TF32_FLOPS = 495e12   # H100 SXM dense TF32 on the tensor cores
@@ -896,7 +913,7 @@ def _sass_census(cuda_build) -> dict:
         [str(tool), "-sass", str(cuda_build.library_path("flash_attention"))],
         capture_output=True, text=True, timeout=120, check=True).stdout
     empty = {"HGMMA": 0, "HGMMA_TF32": 0, "UTMALDG": 0, "HMMA": 0,
-             "HMMA_TF32": 0}
+             "HMMA_TF32": 0, "BAR_SYNC_NAMED": 0, "BAR_ARV": 0}
     by_fn, key = {}, None
     for line in sass.splitlines():
         if "Function : " in line:
@@ -913,8 +930,8 @@ def _sass_census(cuda_build) -> dict:
                 by_fn[key] = collections.Counter(empty)
             continue
         op = re.search(
-            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Za-z0-9_.]+)",
-            line)
+            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Za-z0-9_.]+)"
+            r"\s*([^;]*);", line)
         if key is None or op is None:
             continue
         for family in ("HGMMA", "UTMALDG", "HMMA"):
@@ -922,6 +939,13 @@ def _sass_census(cuda_build) -> dict:
                 by_fn[key][family] += 1
                 if "TF32" in op.group(1) and family != "UTMALDG":
                     by_fn[key][family + "_TF32"] += 1
+        # Named barriers: every BAR.ARV, and each BAR.SYNC but
+        # __syncthreads' (barrier 0).
+        if op.group(1).startswith("BAR.ARV"):
+            by_fn[key]["BAR_ARV"] += 1
+        elif op.group(1).startswith("BAR.SYNC") \
+                and op.group(2).split(",")[0].strip() != "0x0":
+            by_fn[key]["BAR_SYNC_NAMED"] += 1
     census = {kind: dict(sum((c for (k, _), c in by_fn.items() if k == kind),
                              collections.Counter(empty)))
               for kind in ("bf16", "fp16", "fp32")}
@@ -929,14 +953,28 @@ def _sass_census(cuda_build) -> dict:
                              for (k, d), c in sorted(by_fn.items())}
     print(f"set-up: SASS census of flash_attention (cuobjdump -sass): "
           f"{census}", flush=True)
-    _check(set(by_fn) == {(k, d) for k in ("bf16", "fp16", "fp32")
-                          for d in (32, 64, 128, 256)},
+    usage = [(name, fields) for name, fields in _resource_figures(
+        cuda_build, "flash_attention") if name.startswith("flash_fwd_kernel")]
+    print("set-up: the 2-byte flash kernel's resources (cuobjdump "
+          "-res-usage, bf16 and fp16): " + "; ".join(
+              f"{name} " + " ".join(f"{k}:{v}" for k, v in fields.items())
+              for name, fields in usage), flush=True)
+    _check(len(usage) == sum(k in ("bf16", "fp16") for k, _ in by_fn)
+           and all(f.get("LOCAL", 0) == 0 for _, f in usage),
+           f"the 2-byte flash kernel uses local memory: {usage}")
+    _check(set(by_fn) == {(k, d) for k in ("bf16", "fp16")
+                          for d in (32, 64, 96, 128, 256)}
+           | {("fp32", d) for d in (32, 64, 128, 256)},
            f"kernels in the library: {sorted(by_fn)}")
     for (kind, dim), c in by_fn.items():
         if kind in ("bf16", "fp16"):
             _check(c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["HMMA"] == 0,
                    f"{kind} kernel at head dim {dim} is not wgmma fed by "
                    f"TMA: {dict(c)}")
+            _check(dim not in K1_PING_PONG_DIMS
+                   or (c["BAR_SYNC_NAMED"] > 0 and c["BAR_ARV"] > 0),
+                   f"{kind} kernel at head dim {dim} has no ping-pong "
+                   f"(named BAR.SYNC and BAR.ARV): {dict(c)}")
         elif dim <= 64:
             _check(c["HMMA_TF32"] > 0 and c["HMMA_TF32"] == c["HMMA"],
                    f"fp32 kernel at head dim {dim} is not TF32 mma.sync: "
@@ -10699,6 +10737,7 @@ def _k1_timed(torch, fa, errors: dict, smi: str) -> list[dict]:
             byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
             name = ("flash_attention" if bf16 else "flash_attention_fp32") \
                 + f"_hd{d}"
+            width = (fa.two_byte_head_dim if bf16 else fa.kernel_head_dim)(d)
             entries.append({
                 "name": name,
                 "route": "cuda",
@@ -10714,11 +10753,11 @@ def _k1_timed(torch, fa, errors: dict, smi: str) -> list[dict]:
                 "library_call": "scaled_dot_product_attention, "
                                 + ("float mask" if bf16 else "is_causal"),
                 "head_dim": d,
-                "instantiation": fa.kernel_head_dim(d),
+                "instantiation": width,
                 "shape": [b, s, h, d],
             })
             print(f"headdims: {name} (instantiation "
-                  f"{fa.kernel_head_dim(d)}) at B{b} S{s} H{h} D{d}"
+                  f"{width}) at B{b} S{s} H{h} D{d}"
                   f"{' causal' if causal else ' tail-masked'}: kernel {ms} ms"
                   f" ({flops / ms / 1e9:.1f} TFLOP/s), "
                   f"scaled_dot_product_attention {library_ms} ms (in turns), "
@@ -11374,70 +11413,82 @@ def _no_plain(module, name: str):
     _check(not calls, f"{name} ran {len(calls)} time(s) inside a card call")
 
 
-def _dt_k1(torch, fa, smi: str) -> list[dict]:
-    """K1 in fp16 against its plain version: bert_long's B4 S2048 H12 D64
-    tail-masked with an fp32 bias and with an fp16 one, B8 S2048 H4 causal
-    at DT_K1_CAUSAL, the served prefill's B1 S1024 H16 D128 causal, and
-    tile edges at every instantiation with a fully masked row; then each
-    timed in turns with scaled_dot_product_attention in fp16 (float
-    mask)."""
+def _dt_k1(torch, fa, smi: str, dtype) -> list[dict]:
+    """K1 in a 2-byte dtype against its plain version: B8 S2048 H4 causal
+    at DT_K1_CAUSAL, the served prefill's B1 S1024 H16 D128 causal, tile
+    and diagonal edges at every instantiation with a fully masked row and,
+    in fp16, bert_long's B4 S2048 H12 D64 tail-masked with an fp32 bias and
+    with an fp16 one (bf16's is the kernel phase's); then each timed in
+    turns with scaled_dot_product_attention in the dtype (float mask or
+    is_causal), and by kernel durations at DT_K1_DURATIONS and the
+    prefill. fp16 at FP16_ATOL, bf16 at KERNEL_ATOL."""
     gen = torch.Generator(device="cuda").manual_seed(2501)
-    half = torch.float16
+    fp16 = dtype == torch.float16
+    tag = "fp16" if fp16 else "bf16"
+    tol = FP16_ATOL if fp16 else KERNEL_ATOL
 
     def qkv(b, s, h, d):
-        return [torch.randn(b, s, h, d, device="cuda", generator=gen).to(half)
-                for _ in range(3)]
+        return [torch.randn(b, s, h, d, device="cuda", generator=gen)
+                .to(dtype) for _ in range(3)]
+
+    def counts(d):
+        if fp16:
+            return fa.launches_fp16, fa.launches_fp16_by_head_dim[d]
+        return fa.launches, fa.launches_by_head_dim[d]
 
     def case(label, q, k, v, bias, causal):
-        before = (fa.launches_fp16, fa.launches_fp16_by_head_dim[q.shape[3]])
+        before = counts(q.shape[3])
         with _no_plain(fa, "flash_attention_plain"):
             out = fa.flash_attention(q, k, v, bias, causal=causal)
         torch.cuda.synchronize()
-        _check((fa.launches_fp16, fa.launches_fp16_by_head_dim[q.shape[3]])
-               == (before[0] + 1, before[1] + 1),
-               f"K1 fp16 {label}: launches_fp16 did not rise by one")
+        _check(counts(q.shape[3]) == (before[0] + 1, before[1] + 1),
+               f"K1 {tag} {label}: its launch count did not rise by one")
         ref = fa.flash_attention_plain(q, k, v, bias, causal=causal)
-        _check(out.shape == q.shape and out.dtype == half,
-               f"K1 fp16 {label}: output {out.dtype} {tuple(out.shape)}")
+        _check(out.shape == q.shape and out.dtype == dtype,
+               f"K1 {tag} {label}: output {out.dtype} {tuple(out.shape)}")
         _check(bool(torch.isfinite(out).all()),
-               f"K1 fp16 {label}: non-finite output")
+               f"K1 {tag} {label}: non-finite output")
         err = float((out.float() - ref.float()).abs().max())
-        _check(err <= FP16_ATOL,
-               f"K1 fp16 {label}: max_abs_err {err} (tolerance {FP16_ATOL})")
+        _check(err <= tol,
+               f"K1 {tag} {label}: max_abs_err {err} (tolerance {tol})")
         if bias is not None and bias.shape[0] > 1 \
                 and bool((bias[1] == -math.inf).all()):
             _check(bool((out[1] == 0).all()),
-                   f"K1 fp16 {label}: masked row is not 0")
+                   f"K1 {tag} {label}: masked row is not 0")
         return err
 
     errors = {}
     for d in (32, 64, 80, 100, 128, 256):
-        for s_edge, causal in ((1, False), (63, True), (129, False),
-                               (193, True), (200, False)):
+        # The tiles' edges, and a warpgroup's diagonal at each of them.
+        for s_edge, causal in ((1, False), (63, True), (64, True),
+                               (65, True), (127, True), (129, False),
+                               (191, True), (193, True), (200, False)):
             q, k, v = qkv(2, s_edge, 3, d)
             bias = _hd_bias(torch, 2, s_edge, True)
             errors[f"edges D{d}"] = max(
                 errors.get(f"edges D{d}", 0.0),
                 case(f"D{d} S{s_edge} fp32 bias", q, k, v, bias, causal),
-                case(f"D{d} S{s_edge} fp16 bias", q, k, v, bias.to(half),
+                case(f"D{d} S{s_edge} {tag} bias", q, k, v, bias.to(dtype),
                      causal))
     entries = []
-    b, s, h, d = 4, 2048, 12, 64  # bert_long
-    q, k, v = qkv(b, s, h, d)
-    bias32 = _hd_bias(torch, b, s, False)
-    bias16 = bias32.to(half)  # -1e9 is -inf in fp16: the same mask
-    err32 = case("bert_long fp32 bias", q, k, v, bias32, False)
-    err16 = case("bert_long fp16 bias", q, k, v, bias16, False)
-    shapes = [("flash_attention_fp16_hd64", (b, s, h, d), q, k, v, bias32,
-               False, max(err32, err16))]
+    shapes = []
+    if fp16:
+        b, s, h, d = 4, 2048, 12, 64  # bert_long
+        q, k, v = qkv(b, s, h, d)
+        bias32 = _hd_bias(torch, b, s, False)
+        bias16 = bias32.to(dtype)  # -1e9 is -inf in fp16: the same mask
+        err32 = case("bert_long fp32 bias", q, k, v, bias32, False)
+        err16 = case("bert_long fp16 bias", q, k, v, bias16, False)
+        shapes.append(("flash_attention_fp16_hd64", (b, s, h, d), q, k, v,
+                       bias32, False, max(err32, err16)))
     for d in DT_K1_CAUSAL:
         qc, kc, vc = qkv(8, 2048, 4, d)
-        shapes.append((f"flash_attention_fp16_hd{d}_causal", (8, 2048, 4, d),
-                       qc, kc, vc, None, True,
+        shapes.append((f"flash_attention_{tag}_hd{d}_causal",
+                       (8, 2048, 4, d), qc, kc, vc, None, True,
                        case(f"B8 S2048 H4 D{d} causal", qc, kc, vc, None,
                             True)))
     qs, ks_, vs = qkv(*HD_SERVED_PREFILL)
-    shapes.append(("flash_attention_fp16_hd128_prefill",
+    shapes.append((f"flash_attention_{tag}_hd128_prefill",
                    HD_SERVED_PREFILL, qs, ks_, vs, None, True,
                    case("B1 S1024 H16 D128 causal", qs, ks_, vs, None,
                         True)))
@@ -11448,7 +11499,7 @@ def _dt_k1(torch, fa, smi: str) -> list[dict]:
         def library():
             return torch.nn.functional.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                attn_mask=(bias[:, None, None, :].to(half)
+                attn_mask=(bias[:, None, None, :].to(dtype)
                            if bias is not None else None), is_causal=causal)
 
         ms, library_ms = _time_turns(torch, kernel, library)
@@ -11476,12 +11527,12 @@ def _dt_k1(torch, fa, smi: str) -> list[dict]:
             "bound_ms": max(flop_ms, byte_ms),
             "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
             "library_ms": library_ms,
-            "library_call": "scaled_dot_product_attention in fp16, "
+            "library_call": f"scaled_dot_product_attention in {tag}, "
                             + ("float mask" if bias is not None
                                else "is_causal"),
-            "dtype": "float16",
+            "dtype": _dt_name(torch, dtype),
             "head_dim": d,
-            "instantiation": fa.kernel_head_dim(d),
+            "instantiation": fa.two_byte_head_dim(d),
             "shape": [b, s, h, d],
             "causal": causal,
         }
@@ -11493,7 +11544,7 @@ def _dt_k1(torch, fa, smi: str) -> list[dict]:
             entry["fp16_bias_ms"] = _time_ms(
                 torch, lambda: fa.flash_attention(q, k, v, bias16))
         entries.append(entry)
-        print(f"dtypes: {name} (instantiation {fa.kernel_head_dim(d)}) at "
+        print(f"dtypes: {name} (instantiation {fa.two_byte_head_dim(d)}) at "
               f"B{b} S{s} H{h} D{d}{' causal' if causal else ' tail-masked'}"
               f": kernel {ms} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
               f"scaled_dot_product_attention {library_ms} ms (in turns), "
@@ -11502,13 +11553,13 @@ def _dt_k1(torch, fa, smi: str) -> list[dict]:
                  f"{durations['kernel']} ms, SDPA {durations['library']} "
                  f"ms ({durations['kernel'] / durations['library']:.3f}x); "
                  if durations else "")
-              + f"max_abs_err {entry['max_abs_err']} (tolerance {FP16_ATOL})"
+              + f"max_abs_err {entry['max_abs_err']} (tolerance {tol})"
               + (f"; with the fp16 bias (cast by the wrapper) "
                  f"{entry['fp16_bias_ms']} ms" if bias is not None else "")
               + f"; {smi}", flush=True)
-    print(f"dtypes: K1 fp16 tile edges at head dims 32 to 256 with fp32 and "
-          f"fp16 biases: max_abs_err {errors} (tolerance {FP16_ATOL}, a "
-          f"fully masked row exactly 0)", flush=True)
+    print(f"dtypes: K1 {tag} tile and diagonal edges at head dims 32 to 256 "
+          f"with fp32 and {tag} biases: max_abs_err {errors} (tolerance "
+          f"{tol}, a fully masked row exactly 0)", flush=True)
     return entries
 
 
@@ -11693,21 +11744,36 @@ def _dt_refusals(torch, fa, da, ks) -> None:
 def _zero_dtype_counts(fa, da, ks) -> None:
     """Set to 0 the counts that :func:`_served_dtype_counts` reads."""
     fa.launches_fp16 = 0
-    for counter in (fa.launches_fp16_by_head_dim, da.launches_by_dtype,
+    for counter in (fa.launches_fp16_by_head_dim,
+                    fa.launches_causal_by_dtype_head_dim, da.launches_by_dtype,
                     da.launches_by_dtype_head_dim, ks.launches_by_dtype,
                     ks.launches_by_shards):
         counter.clear()
 
 
-def _served_dtype_counts(torch, fa, da, ks) -> dict:
+def _k1_bf16_causal(torch, fa) -> collections.Counter:
+    """K1 bf16's causal launches by head dim since
+    :func:`_zero_dtype_counts`."""
+    return collections.Counter({
+        d: c for (dt, d), c in fa.launches_causal_by_dtype_head_dim.items()
+        if dt == torch.bfloat16})
+
+
+def _served_dtype_counts(torch, fa, da, ks,
+                         k1_bf16_causal: collections.Counter | None = None
+                         ) -> dict:
     """The launches since :func:`_zero_dtype_counts` of every kernel of
-    the dtypes phase's entries: K1 in fp16 by head dim, K2 over a 2-byte
-    arena by (dtype, head dim), K3 on 2-byte partials or past 64 shards by
+    the dtypes phase's entries: K1 in fp16 by head dim, K1 bf16 causal by
+    head dim (``k1_bf16_causal`` when given: the full run reads it before
+    the headdims phase, whose own checks launch it), K2 over a 2-byte arena
+    by (dtype, head dim), K3 on 2-byte partials or past 64 shards by
     (dtype, shard count). No served model runs them, so the run fails
     unless every count is 0; the dtypes phase writes these readings into
     its entries."""
     served = {
         "k1": collections.Counter(fa.launches_fp16_by_head_dim),
+        "k1_bf16_causal": (k1_bf16_causal if k1_bf16_causal is not None
+                           else _k1_bf16_causal(torch, fa)),
         "k2": collections.Counter({
             (_dt_name(torch, dt), d): c for (dt, d), c
             in da.launches_by_dtype_head_dim.items()
@@ -11722,11 +11788,14 @@ def _served_dtype_counts(torch, fa, da, ks) -> dict:
     }
     _check(served["k1_fp16"] == 0 and served["k2_two_byte"] == 0
            and not any(served["k1"].values())
+           and not any(served["k1_bf16_causal"].values())
            and not any(served["k2"].values())
            and not any(served["k3"].values()),
            f"a served path launched a kernel no served model uses: {served}")
     print(f"dtypes: on the served paths K1 fp16 {served['k1_fp16']} "
-          f"launches, K2 over bf16 or fp16 arenas {served['k2_two_byte']}, "
+          f"launches, K1 bf16 causal "
+          f"{sum(served['k1_bf16_causal'].values())}, "
+          f"K2 over bf16 or fp16 arenas {served['k2_two_byte']}, "
           f"K3 on bf16 or fp16 partials or past 64 shards "
           f"{sum(served['k3'].values())}", flush=True)
     return served
@@ -11745,7 +11814,8 @@ def dtypes_phase(torch, cuda_build, smi: str, served: dict) -> list[dict]:
 
     t_phase = time.monotonic()
     _dt_refusals(torch, fa, da, ks)
-    entries = _dt_k1(torch, fa, smi)
+    entries = _dt_k1(torch, fa, smi, torch.float16)
+    entries += _dt_k1(torch, fa, smi, torch.bfloat16)
     torch.cuda.empty_cache()
     for dtype in (torch.bfloat16, torch.float16):
         entries += _k2_head_dims(torch, cuda_build, da, smi, dtype,
@@ -11760,6 +11830,8 @@ def dtypes_phase(torch, cuda_build, smi: str, served: dict) -> list[dict]:
     for entry in entries:
         if entry["name"].startswith("flash_attention_fp16"):
             entry["launches"] = served["k1"][entry["head_dim"]]
+        elif entry["name"].startswith("flash_attention_bf16"):
+            entry["launches"] = served["k1_bf16_causal"][entry["head_dim"]]
         elif entry["name"].startswith("decode_wave"):
             entry["launches"] = served["k2"][entry["dtype"],
                                              entry["head_dim"]]
@@ -11823,6 +11895,7 @@ def _parent_module(torch, parent: Path, name: str):
 # K1 fp32's head dims in --versus: 64 (mma.sync) and 128 (wgmma), the
 # kernels both trees share; K2's head dims and K3's shard counts.
 VERSUS_K1_FP32 = (64, 128)
+VERSUS_K1_CAUSAL = (64, 80, 128, 256)  # K1 bf16 and fp16, B8 S2048 H4
 VERSUS_K2 = (64, 32, 128)
 VERSUS_K3 = (2, 4, 8, 9, 16, 64, 65, 128, 1024)
 
@@ -11842,7 +11915,9 @@ def _versus_k1(torch, calls: dict) -> dict:
 def versus_phase(torch, parent: Path, smi: str,
                  one_shot_fp32: dict) -> dict:
     """``--versus DIR``: K1 bf16 at ``bert_long``'s B4 S2048 H12 D64, K1
-    fp32 at B8 S2048 H4 causal at head dims VERSUS_K1_FP32, K2 at
+    bf16 and fp16 causal at B8 S2048 H4 at head dims VERSUS_K1_CAUSAL and
+    at the served prefill's B1 S1024 H16 D128, K1 fp16 at ``bert_long``'s
+    shape, K1 fp32 at B8 S2048 H4 causal at head dims VERSUS_K1_FP32, K2 at
     head dim 64 (``tiny_gpt_long``'s B16 wave over its 4 layers), 32
     (``tiny_gpt_mc``'s [4, 65, 128, 8, 32] at B16) and 128 (the
     Cerebras-width GPT's [4, 17, 2048, 16, 128] at B16), and K3 at the
@@ -11893,6 +11968,28 @@ def versus_phase(torch, parent: Path, smi: str,
         (calls["parent"]().float() - calls["change"]().float()).abs().max())
     out["k1_bf16_hd64"] = _versus_k1(torch, calls)
     del fused, q, k, v
+    # K1 bf16 and fp16 causal at B8 S2048 H4 and the served prefill's
+    # shape; bert_long's shape (tail-masked, fp32 bias) in fp16.
+    for dtype in (torch.bfloat16, torch.float16):
+        name = "bf16" if dtype == torch.bfloat16 else "fp16"
+        shapes = [(f"k1_{name}_hd{d}_causal", (8, 2048, 4, d), True)
+                  for d in VERSUS_K1_CAUSAL]
+        shapes.append((f"k1_{name}_hd128_prefill", HD_SERVED_PREFILL, True))
+        if dtype == torch.float16:
+            shapes.append(("k1_fp16_hd64", (4, 2048, 12, 64), False))
+        for key, shape, causal in shapes:
+            q, k, v = (torch.randn(shape, device="cuda", generator=gen)
+                       .to(dtype) for _ in range(3))
+            mask = None if causal else _hd_bias(torch, shape[0], shape[1],
+                                                False)
+            calls = {"parent": lambda: old_fa.flash_attention(
+                         q, k, v, mask, causal=causal),
+                     "change": lambda: fa.flash_attention(
+                         q, k, v, mask, causal=causal)}
+            equal[key] = float((calls["parent"]().float()
+                                - calls["change"]().float()).abs().max())
+            out[key] = _versus_k1(torch, calls)
+            del q, k, v
     # K1 fp32 at B8 S2048 H4 causal: mma.sync at 64, wgmma at 128.
     for dim in VERSUS_K1_FP32:
         q, k, v = (torch.randn(8, 2048, 4, dim, device="cuda", generator=gen)
@@ -12229,11 +12326,14 @@ def main(argv: list[str]) -> int:
     _capi_counts(kernels[0], kernels[2], capi)
     kernels += small
     torch.cuda.empty_cache()
+    # K1 bf16 causal on the served paths, read before the headdims phase,
+    # whose checks launch it at every head dim (its served GPTs are fp32).
+    bf16_causal = _k1_bf16_causal(torch, fa)
     # Every head dim up to 256 and shard count up to 64, and a GPT at
     # Cerebras-GPT-1.3B's widths served through K1 and K2 at head dim 128.
     kernels += headdims_phase(torch, cuda_build, smi)
     torch.cuda.empty_cache()
-    dtype_counts = _served_dtype_counts(torch, fa, da, ks)
+    dtype_counts = _served_dtype_counts(torch, fa, da, ks, bf16_causal)
     # K1 in fp16, K2 over bf16 and fp16 arenas, K3 on bf16 and fp16 partials
     # and past 64 shards, and the two sharded paths in bf16.
     kernels += dtypes_phase(torch, cuda_build, smi, dtype_counts)

@@ -13,17 +13,18 @@
 //
 // The Pallas grid carried the softmax state across key blocks in VMEM
 // scratch, because a TPU grid runs in order on one core. Here blocks run
-// in parallel, so one CTA owns one (batch, head, query tile) and loops over
-// key tiles itself, with the running max, denominator and output
-// accumulator in fp32 registers. Keys past S get bias -inf. Under the
-// causal flag, key tiles wholly above the diagonal are skipped and only the
-// tiles that cross the diagonal are masked element by element; the grid's
-// second dimension runs the query tiles in reverse, so the CTAs with the
-// most key tiles (the last query tiles) start first and the light ones
-// fill the tail.
+// in parallel, so a CTA owns a (batch, head, query tile) at a time (the
+// 2-byte kernel walks several, persistently) and loops over key tiles
+// itself, with the running max, denominator and output accumulator in
+// fp32 registers. Keys past S get bias -inf. Under the causal flag, key
+// tiles wholly above the diagonal are skipped and only the tiles that
+// cross the diagonal are masked element by element; the query tiles with
+// the most key tiles (the last ones) start first and the light ones fill
+// the tail.
 //
 // Head dims. The head dim is a template parameter of the kernels,
-// instantiated at 32, 64, 128 and 256. Any other D up to 256 runs the next
+// instantiated at 32, 64, 128 and 256 (bf16 and fp16 also at 96). Any
+// other D up to 256 runs the next
 // larger instantiation with the head dim zero-padded inside the kernel:
 // the loads fill the columns past D with zeros (TMA's out-of-bounds fill in
 // bf16 and for fp32 Q above 64, zero-filled cp.async copies in fp32 to 64,
@@ -39,53 +40,109 @@
 // cast by the Python wrapper where the caller's is not). What bounds it:
 // at bert_long's shape (B=4, S=2048, H=12, D=64) one call does
 // 4*B*H*S*S*D = 5.2e10 FLOP on 50 MB: about 1000 FLOP per byte, above the
-// card's ~295 bf16 (and fp16) FLOP/byte
-// ridge, so the bound is the tensor cores' 989 TFLOP/s, which only wgmma
-// reaches; at head dim 64 the softmax's exponentials (16 a clock on an
-// SM's MUFU units) take about as long as the products, so they have to
-// overlap. Design: a CTA of kConsumers + 1 warpgroups owns 64 * kConsumers
-// query rows. The consumers own 64 rows each; the last warpgroup is the
-// producer, one warp of which issues every load, and gives its registers
-// to the consumers (setmaxnreg). The producer loads the Q tile once and
-// kBlockN-key K and V tiles into a ring of kStages stages with TMA (4-D
-// tensor maps over the strided [B, S, H, D] views, so BERT's fused-QKV
-// slices need no copy; rows past S and columns past D arrive as zeros), and
-// the stage's kBlockN bias values with ordinary loads, all signalled on the
-// stage's full mbarrier; consumers free a stage on its empty mbarrier. A
-// tile is stored as D / kBoxCols column blocks, each one TMA box of
-// kBoxCols columns whose rows are one swizzle atom wide (128 bytes, 64
-// columns, with the 128-byte swizzle; 64 bytes, 32 columns, with the
-// 64-byte swizzle at head dim 32): the layout wgmma reads without bank
-// conflicts. S = Q.K^T is wgmma m64nNk16 (N = kBlockN) with both operands
-// in shared memory, D / 16 k-steps that step through the column blocks;
-// O += P.V is, for each column block, kBlockN / 16 wgmma m64nCk16 (C =
-// kBoxCols) with P as the register A operand: the fp32 accumulator of a
-// 16-key slice of S, packed pairwise to bf16x2, is exactly the A fragment,
-// so P never touches shared memory. V is stored [key][d], which makes it
-// the MN-major B operand (transpose bit set). Each consumer issues S of
-// tile j together with P.V of tile j - 1 and runs the online softmax of
-// tile j (in registers, two rows a thread, in the log2 domain so that each
-// exponential is one ex2) while P.V of j - 1 is still on the tensor cores;
-// the consumers run independently, so one's softmax also overlaps
-// another's products. The output goes through the consumer's own Q rows in
-// shared memory to 16-byte stores (element stores where D is not a
-// multiple of 8). The instantiations, per CTA (registers a consumer thread
-// after setmaxnreg; the producer keeps 24):
-//   D = 32:  3 consumers (192 rows), 128-key tiles, 4 stages, 64-byte
-//            swizzle, one 32-column block; O 16 + S 64 fp32 registers a
-//            thread, 160 registers; Q 12 KB + 4 x 16 KB of K and V.
-//   D = 64:  3 consumers (192 rows), 128-key tiles, 4 stages, 128-byte
-//            swizzle, one block; O 32 + S 64, 160 registers; Q 24 KB + 4 x
-//            32 KB. Three consumers put three warps on each of the SM's
-//            schedulers to hide the softmax's latencies; two ran measurably
-//            slower.
-//   D = 128: 2 consumers (128 rows), 128-key tiles, 2 stages, 128-byte
-//            swizzle, two blocks; O 64 + S 64 + packed P 32, 240 registers
-//            (three consumers at 160 would not hold them); Q 32 KB + 2 x 64
-//            KB (a third stage would not fit the 227 KB).
-//   D = 256: 2 consumers (128 rows), 64-key tiles, 2 stages, 128-byte
-//            swizzle, four blocks; O 128 + S 32 + packed P 16, 240
-//            registers; Q 64 KB + 2 x 64 KB.
+// card's ~295 bf16 (and fp16) FLOP/byte ridge, so the bound is the tensor
+// cores' 989 TFLOP/s, which only wgmma reaches; causal calls do half the
+// pairs on the same bytes. At head dim 64 the softmax's exponentials (16 a
+// clock on an SM's MUFU units) take about as long as the products, so the
+// two have to overlap, and the instructions a tile issues count.
+//
+// Roles. A CTA of kConsumers + 1 warpgroups owns kBlockM = 64 * kConsumers
+// query rows of one (batch, head) at a time. Each consumer warpgroup owns
+// 64 of them; the last warpgroup is the producer, which gives its
+// registers to the consumers (setmaxnreg) and of which three warps issue
+// every load: warp 0 the K tiles and their kBlockN bias values (ordinary
+// loads, stored times log2(e)), warp 1 the V tiles, warp 2 each consumer's
+// 64 Q rows. Loads are TMA boxes of 4-D tensor maps over the strided [B,
+// S, H, D] views (BERT's fused-QKV slices need no copy; rows past S and
+// columns past D arrive as zeros). A tile is stored as D / kBoxCols column
+// blocks, each one box of kBoxCols columns whose rows are one swizzle atom
+// wide (128 bytes, 64 columns, with the 128-byte swizzle; 64 bytes, 32
+// columns, with the 64-byte swizzle at head dims 32 and 96): the layout
+// wgmma reads without bank conflicts. The warpgroup index is taken through
+// a shuffle, so that the compiler sees it warp-uniform and keeps the
+// descriptors and stage indices in uniform registers.
+//
+// Rings and barriers (mbarriers in shared memory). K (with its bias) and V
+// have rings of their own, kKStages and kVStages deep, each stage with a
+// full barrier (TMA's transaction bytes; K's also the 32 bias lanes) and
+// an empty one (every consumer thread arrives). A consumer frees K's stage
+// as soon as S of the tile is in its registers and the bias read, and V's
+// once P.V of the tile is done, so the next tiles' loads are in flight
+// while a tile is still being used. Each consumer's Q rows have a full and
+// an empty barrier: a consumer frees its rows after the last S it computes
+// from them, so the next unit's Q arrives during this unit's last P.V and
+// stores.
+//
+// Products. S = Q.K^T is wgmma m64nNk16 (N = kBlockN) with both operands
+// in shared memory, D / 16 k-steps that step through the column blocks.
+// O += P.V is kBlockN / 16 wgmma m64nDk16, one a 16-key step over all D
+// columns: P is the register A operand (the fp32 accumulator of a 16-key
+// slice of S, packed pairwise to T x 2, is exactly the A fragment, so P
+// never touches shared memory), and V, stored [key][d], is the MN-major B
+// operand (transpose bit set) whose column blocks, kBlockN * kRowBytes
+// bytes apart, the descriptor's leading byte offset joins. Within a
+// consumer, S of tile j goes to the tensor cores together with P.V of tile
+// j - 1, and the online softmax of tile j (in registers, two rows a
+// thread, in the log2 domain so that each exponential is one ex2) starts
+// while P.V of j - 1 is still in flight (ptxas places the wait for it
+// before the exponentials; pinning them ahead of it bought nothing).
+//
+// Turns (FA3's ping-pong between two consumers from head dim 96; a round
+// of three at head dim 64). Named barriers 1 to kConsumers (0 is
+// __syncthreads), one per consumer, pass a turn around: a consumer waits
+// on its own (bar.sync, 256 threads) before it issues its products of a
+// tile and arrives on the next one's (bar.arrive) once they are issued, so
+// the warpgroups' products go to the tensor cores in turn, one's softmax
+// running while another's products do. Consumer 0 arrives on its own
+// barrier once at the start to take the first turn, and takes the last
+// consumer's last arrival at the end. A consumer takes one turn per key
+// tile of the unit, also for the tiles it skips, so the turns stay in step
+// across units. At head dim 32 three consumers run independently (taking
+// turns there was not reliably faster); two ping-ponged consumers
+// measured slower at 32 and 64.
+//
+// Causal calls. Each consumer stops at its own diagonal: key tiles wholly
+// above its 64 rows are not computed (it waits for their stages and frees
+// them, as another consumer may need them), and only the tiles that cross
+// its own rows are masked element by element. A skipped tile would have
+// added exactly nothing (its scores are all masked: the rescale factor is
+// 1 and every p is 0), so every row's arithmetic, tile by tile in the same
+// order, is that of a kernel that computes every tile. The producer
+// loads up to the CTA's heaviest consumer's last tile. A causal call
+// without a bias reads none: its scores are only scaled (the keys past S
+// lie above every real row's diagonal, so the mask drops them).
+//
+// Schedule. The grid is persistent: min(units, SMs) CTAs, one an SM, for
+// the call's units of (batch, head, kBlockM query rows), counted heaviest
+// first (the last query tiles, with the most key tiles under the causal
+// flag) and dealt to the CTAs in rounds of gridDim.x, each round in the
+// other direction (CTA i takes unit i of round 0, the (G - 1 - i)th of
+// round 1, and so on), which evens out the heavy and the light. Each role
+// walks the same units in the same order, so the producer's loads for the
+// next unit go out while the consumers finish this one. A causal call
+// whose units fit one round (the served prefill's B1 S1024 H16: 128 units)
+// is balanced instead: its 64-row blocks are dealt to the units heaviest
+// first, consumer w's round in direction w & 1, so that the heaviest
+// blocks share a CTA with the lightest and the longest CTA is not a whole
+// heavy query tile's.
+//
+// Output. Each consumer normalises its rows and stores them from its
+// accumulators, two T a thread per 8-column slice (4-byte stores; element
+// stores where d_out is odd or o is not 4-byte aligned); columns past
+// d_out and rows past S are not stored.
+//
+// The instantiations, per CTA (registers a consumer thread after
+// setmaxnreg; the producer keeps 24; shared memory with the bias):
+//   D    rows  keys/tile  K, V stages  consumers          registers  shared
+//   32   192   128        4, 4         3, independent     160        78 KB
+//   64   192   128        4, 4         3, taking turns    160        154 KB
+//   96   128   128        4, 3         2, ping-pong       240        194 KB
+//   128  128   128        3, 2         2, ping-pong       240        194 KB
+//   256  128   64         3, 2         2, ping-pong       240        225 KB
+// At 128, O 64 + S 64 + packed P 32 registers a thread; Q 32 KB and 32 KB
+// a K or V stage (a fourth K stage would not fit the 227 KB, and two K
+// with three V stages measured no faster). At 256, O 128 + S 32 + P 16; Q
+// 64 KB and 32 KB a stage of 64 keys. 96 runs head dims 65 to 96.
 //
 // fp32 kernels. What bounds them: at tiny_gpt_long's prefill (B=8, S=2048,
 // H=4, D=64, causal) one call does 1.7e10 FLOP on 34 MB; at the
@@ -205,14 +262,18 @@ __device__ __forceinline__ float quad_sum(float x) {
 
 namespace sm90 {
 
-// One instantiation: head dim, keys per stage, stages, consumer
-// warpgroups and their registers (see the header comment).
-template <int D, int BlockN, int Stages, int Consumers, int ConsumerRegs>
+// One instantiation: head dim, keys per tile, K and V stages, consumer
+// warpgroups, their registers, and whether they take turns (see the
+// header comment).
+template <int D, int BlockN, int KStages, int VStages, int Consumers,
+          int ConsumerRegs, bool Turns>
 struct Config {
   static constexpr int kHeadDim = D;
   static constexpr int kBlockN = BlockN;
-  static constexpr int kStages = Stages;
+  static constexpr int kKStages = KStages;
+  static constexpr int kVStages = VStages;
   static constexpr int kConsumers = Consumers;  // warpgroups of 64 rows
+  static constexpr bool kTurns = Turns;
   static constexpr int kBlockM = Consumers * 64;  // query rows per CTA
   static constexpr int kThreads = (Consumers + 1) * 128;
   // Registers a thread after setmaxnreg: the producer warpgroup gives up
@@ -221,30 +282,35 @@ struct Config {
   static constexpr int kConsumerRegs = ConsumerRegs;
   static_assert(128 * kProducerRegs + 128 * Consumers * ConsumerRegs <= 65536,
                 "register split exceeds the SM");
-  // A column block: one swizzle atom's width of the head dim.
-  static constexpr int kBoxCols = D < 64 ? D : 64;
+  // A column block: one swizzle atom's width of the head dim (64
+  // columns, 128 bytes; 32 columns, 64 bytes, at head dims 32 and 96).
+  static constexpr int kBoxCols = D % 64 == 0 ? 64 : 32;
   static constexpr int kRowBytes = kBoxCols * 2;   // 64 or 128
-  static constexpr int kChunks = kRowBytes / 16;   // 16-byte chunks a row
   static constexpr int kColBlocks = D / kBoxCols;
   static_assert(kRowBytes == 64 || kRowBytes == 128, "swizzle width");
   static_assert(BlockN % 32 == 0 && BlockN <= 256, "key tile");
+  static_assert(Consumers == 2 || Consumers == 3, "consumer warpgroups");
 };
 
-typedef Config<32, 128, 4, 3, 160> Config32;
-typedef Config<64, 128, 4, 3, 160> Config64;
-typedef Config<128, 128, 2, 2, 240> Config128;
-typedef Config<256, 64, 2, 2, 240> Config256;
+typedef Config<32, 128, 4, 4, 3, 160, false> Config32;
+typedef Config<64, 128, 4, 4, 3, 160, true> Config64;
+typedef Config<96, 128, 4, 3, 2, 240, true> Config96;
+typedef Config<128, 128, 3, 2, 2, 240, true> Config128;
+typedef Config<256, 64, 3, 2, 2, 240, true> Config256;
 
 // T: bf16 or __half, the same bytes.
 template <class C, typename T>
 struct Smem {  // at a 1024-byte boundary, as the swizzle needs
   T q[C::kColBlocks][C::kBlockM * C::kBoxCols];
-  T k[C::kStages][C::kColBlocks][C::kBlockN * C::kBoxCols];
-  T v[C::kStages][C::kColBlocks][C::kBlockN * C::kBoxCols];
-  float bias[C::kStages][C::kBlockN];
-  uint64_t q_full;
-  uint64_t full[C::kStages];
-  uint64_t empty[C::kStages];
+  T k[C::kKStages][C::kColBlocks][C::kBlockN * C::kBoxCols];
+  T v[C::kVStages][C::kColBlocks][C::kBlockN * C::kBoxCols];
+  float bias[C::kKStages][C::kBlockN];  // travels with K
+  uint64_t q_full[C::kConsumers];
+  uint64_t q_empty[C::kConsumers];
+  uint64_t k_full[C::kKStages];
+  uint64_t k_empty[C::kKStages];
+  uint64_t v_full[C::kVStages];
+  uint64_t v_empty[C::kVStages];
 };
 template <class C>
 constexpr int kSmemBytes = sizeof(Smem<C, bf16>) + 1024;  // + room to align
@@ -306,15 +372,18 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
 
 // Shared-memory matrix descriptor of a tile written by TMA with the 128-
 // or 64-byte swizzle (kRowBytes): 8-row groups of kRowBytes-byte rows,
-// 8 * kRowBytes apart (the stride byte offset); the leading byte offset is
-// unused for these layouts.
+// 8 * kRowBytes apart (the stride byte offset). The leading byte offset is
+// unused for K-major operands; for an MN-major one (V as P.V's B) it is
+// the distance between its column blocks, each one swizzle atom wide along
+// N, so that one product spans them all.
 template <int kRowBytes>
-__device__ __forceinline__ uint64_t smem_desc(const void* smem) {
+__device__ __forceinline__ uint64_t smem_desc(const void* smem,
+                                              uint32_t lead_bytes = 16) {
   const uint64_t addr = smem_u32(smem);
   constexpr uint64_t kStride = (8 * kRowBytes) >> 4;
   constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : 2;  // 128B / 64B
-  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (kStride << 32) |
-         (kLayout << 62);
+  return ((addr & 0x3FFFF) >> 4) | (uint64_t(lead_bytes >> 4) << 16) |
+         (kStride << 32) | (kLayout << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -337,12 +406,6 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-template <int B, int N>
-__device__ __forceinline__ void fence_regs(float (&r)[B][N]) {
-#pragma unroll
-  for (int c = 0; c < B; ++c) fence_regs(r[c]);
 }
 
 // d[64 x N] (+)= A[64 x 16] * B[16 x N]: A and B K-major in shared
@@ -468,6 +531,127 @@ CLIENT_TPU_WGMMA_RS_32(false, "bf16")
 CLIENT_TPU_WGMMA_RS_32(true, "f16")
 #undef CLIENT_TPU_WGMMA_RS_32
 
+#define CLIENT_TPU_WGMMA_RS_96(KF16, TY)                                       \
+template <>                                                                    \
+__device__ __forceinline__ void wgmma_rs<96, KF16>(                            \
+    float (&d)[48], const uint32_t (&a)[4], uint64_t desc_b) {                 \
+  asm volatile(                                                                \
+      "{\n"                                                                    \
+      ".reg .pred p;\n"                                                        \
+      "setp.ne.b32 p, %53, 0;\n"                                               \
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32." TY "." TY " {"             \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14,"       \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"       \
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40,"       \
+      "%41, %42, %43, %44, %45, %46, %47}, "                                   \
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n"                               \
+      "}\n"                                                                    \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),            \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),            \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),       \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),       \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),       \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),       \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),       \
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),       \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),       \
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])                                  \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));      \
+}
+CLIENT_TPU_WGMMA_RS_96(false, "bf16")
+CLIENT_TPU_WGMMA_RS_96(true, "f16")
+#undef CLIENT_TPU_WGMMA_RS_96
+
+#define CLIENT_TPU_WGMMA_RS_128(KF16, TY)                                      \
+template <>                                                                    \
+__device__ __forceinline__ void wgmma_rs<128, KF16>(                           \
+    float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b) {                 \
+  asm volatile(                                                                \
+      "{\n"                                                                    \
+      ".reg .pred p;\n"                                                        \
+      "setp.ne.b32 p, %69, 0;\n"                                               \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"            \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14,"       \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"       \
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40,"       \
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53,"       \
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "                    \
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"                               \
+      "}\n"                                                                    \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),            \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),            \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),       \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),       \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),       \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),       \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),       \
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),       \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),       \
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),       \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),       \
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),       \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                     \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));      \
+}
+CLIENT_TPU_WGMMA_RS_128(false, "bf16")
+CLIENT_TPU_WGMMA_RS_128(true, "f16")
+#undef CLIENT_TPU_WGMMA_RS_128
+
+#define CLIENT_TPU_WGMMA_RS_256(KF16, TY)                                      \
+template <>                                                                    \
+__device__ __forceinline__ void wgmma_rs<256, KF16>(                           \
+    float (&d)[128], const uint32_t (&a)[4], uint64_t desc_b) {                \
+  asm volatile(                                                                \
+      "{\n"                                                                    \
+      ".reg .pred p;\n"                                                        \
+      "setp.ne.b32 p, %133, 0;\n"                                              \
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " {"            \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14,"       \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"       \
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40,"       \
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53,"       \
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66,"       \
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"       \
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92,"       \
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104,"       \
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114,"            \
+      "%115, %116, %117, %118, %119, %120, %121, %122, %123, %124,"            \
+      "%125, %126, %127}, "                                                    \
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n"                          \
+      "}\n"                                                                    \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),            \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),            \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),       \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),       \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),       \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),       \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),       \
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),       \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),       \
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),       \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),       \
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),       \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),       \
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),       \
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),       \
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),       \
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),       \
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),       \
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),       \
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),       \
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),                \
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),                \
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),                \
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),                \
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),                \
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),                \
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])                 \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));      \
+}
+CLIENT_TPU_WGMMA_RS_256(false, "bf16")
+CLIENT_TPU_WGMMA_RS_256(true, "f16")
+#undef CLIENT_TPU_WGMMA_RS_256
+
 // 2^x in one MUFU op; 2^-inf and anything below 2^-126 give exactly 0.
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;
@@ -491,27 +675,61 @@ __device__ __forceinline__ uint32_t pack<__half>(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// Named barrier `id` (1 to 15; 0 is __syncthreads) of `count` threads:
+// wait for it, or arrive on it without waiting.
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// The turns' barriers: consumer w waits on kTurnBar + w.
+constexpr int kTurnBar = 1;
+
+// The CTA's unit of round `round` (its round-th unit), or a value at or
+// past `units` when it has no more: units are counted heaviest first and
+// dealt in rounds of gridDim.x, each round in the other direction.
+__device__ __forceinline__ int unit_of_round(int round) {
+  const int g = gridDim.x;
+  const int cta = static_cast<int>(blockIdx.x);
+  return round * g + ((round & 1) ? g - 1 - cta : cta);
+}
+
+// One unit: a (batch, head) and its rank p among that head's query tiles
+// (0 the heaviest); unit u is (u % (batch * heads), p = u / (batch *
+// heads)).
+struct Unit {
+  int b, h, p;
+};
+
+__device__ __forceinline__ Unit unit_at(int u, int heads, int bh) {
+  const int i = u % bh;
+  return {i / heads, i % heads, u / bh};
+}
+
 // `d_out`: the caller's head dim, the output columns stored (<= D);
-// `vec_out`: o's rows take 16-byte stores (d_out a multiple of 8 and o
-// 16-byte aligned), else element stores. T: q's, k's, v's and o's element,
-// bf16 or __half (fp16); P is rounded to T before P.V.
+// `vec_out`: o's rows take 4-byte stores of two T (d_out even and o 4-byte
+// aligned), else element stores. T: q's, k's, v's and o's element, bf16 or
+// __half (fp16); P is rounded to T before P.V.
 template <class C, typename T>
 __global__ void __launch_bounds__(C::kThreads, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v,
                      const float* __restrict__ bias, T* __restrict__ o,
-                     int seq, int heads, int d_out, int64_t o_sb,
+                     int batch, int seq, int heads, int d_out, int64_t o_sb,
                      int64_t o_ss, int64_t o_sh, int64_t bias_sb,
                      float sm_scale, int causal, int vec_out) {
   constexpr int kHeadDim = C::kHeadDim;
   constexpr int kBlockN = C::kBlockN;
   constexpr int kBlockM = C::kBlockM;
-  constexpr int kStages = C::kStages;
+  constexpr int kKStages = C::kKStages;
+  constexpr int kVStages = C::kVStages;
   constexpr int kConsumers = C::kConsumers;
   constexpr int kBoxCols = C::kBoxCols;
   constexpr int kRowBytes = C::kRowBytes;
-  constexpr int kChunks = C::kChunks;
   constexpr int kColBlocks = C::kColBlocks;
   constexpr bool kF16 = std::is_same<T, __half>::value;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -519,66 +737,150 @@ __global__ void __launch_bounds__(C::kThreads, 1)
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
 
   const int tid = threadIdx.x;
-  const int wg = tid / 128;
-  const int h = blockIdx.x % heads;
-  const int b = blockIdx.x / heads;
-  const int q_tile = gridDim.y - 1 - blockIdx.y;  // heaviest first
-  const int q0 = q_tile * kBlockM;
-  int n_tiles = (seq + kBlockN - 1) / kBlockN;
-  if (causal) n_tiles = min(n_tiles, (q0 + kBlockM - 1) / kBlockN + 1);
+  // Warp-uniform as the compiler sees it (a shuffle from lane 0), so that
+  // the descriptors and stage indices derived from it stay in uniform
+  // registers.
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int bh = batch * heads;
+  const int q_tiles = (seq + kBlockM - 1) / kBlockM;
+  const int units = bh * q_tiles;
+  const int seq_tiles = (seq + kBlockN - 1) / kBlockN;
+  // A causal call without a bias only scales its scores: the keys past S,
+  // which the bias (-inf there) drops otherwise, lie above the diagonal of
+  // every row before S, so the causal mask drops them (rows past S are not
+  // stored). fmaf(x, c, 0) and x * c differ at most in an exact zero's
+  // sign, which neither the max nor exp2 of a difference sees.
+  const bool plain_scores = causal && bias == nullptr;
+  // Key tiles that rows up to `last_row` attend.
+  auto tiles_to = [&](int last_row) {
+    return causal ? min(seq_tiles, last_row / kBlockN + 1) : seq_tiles;
+  };
+  // The first of consumer w's 64 rows in unit `un` (at or past seq:
+  // none). As a rule, query tile q_tiles - 1 - p, its consumers' rows in
+  // order: the last tiles, heaviest under the causal flag, first. A causal
+  // call whose units fit one round (a CTA each) is balanced instead: the
+  // 64-row blocks are dealt to the units heaviest first, consumer w's round
+  // in direction w & 1, so that the heaviest blocks share their CTAs with
+  // the lightest and no CTA's path is a whole heavy tile's.
+  const bool balanced = causal && units <= static_cast<int>(gridDim.x);
+  const int blocks = (seq + 63) / 64;
+  auto first_row = [&](const Unit& un, int w) {
+    if (!balanced) return (q_tiles - 1 - un.p) * kBlockM + 64 * w;
+    const int rank = w * q_tiles + ((w & 1) ? q_tiles - 1 - un.p : un.p);
+    const int block = blocks - 1 - rank;
+    return block >= 0 ? 64 * block : seq;
+  };
+  // Key tiles the unit's CTA loads: those its heaviest consumer attends.
+  auto unit_tiles = [&](const Unit& un) {
+    int last = 0;
+    for (int w = 0; w < kConsumers; ++w) {
+      const int row = first_row(un, w);
+      if (row < seq) last = max(last, row + 63);
+    }
+    return tiles_to(last);
+  };
 
   if (tid == 0) {
-    mbar_init(&sm.q_full, 1);
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(&sm.full[s], 32);                   // the producer warp
-      mbar_init(&sm.empty[s], kConsumers * 128);    // every consumer thread
+    for (int w = 0; w < kConsumers; ++w) {
+      mbar_init(&sm.q_full[w], 1);       // the Q warp
+      mbar_init(&sm.q_empty[w], 128);    // the consumer's threads
+    }
+    for (int s = 0; s < kKStages; ++s) {
+      mbar_init(&sm.k_full[s], 32);                 // the K warp
+      mbar_init(&sm.k_empty[s], kConsumers * 128);  // every consumer thread
+    }
+    for (int s = 0; s < kVStages; ++s) {
+      mbar_init(&sm.v_full[s], 1);                  // the V warp
+      mbar_init(&sm.v_empty[s], kConsumers * 128);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   if (wg == kConsumers) {
-    // Producer. One warp issues everything; the others only hand over
-    // their registers.
+    // Producer. Warps 0, 1 and 2 issue K (and the bias), V and Q; the
+    // fourth only hands over its registers.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
         C::kProducerRegs));
-    if (tid % 128 < 32) {
-      const int lane = tid % 32;
-      const float* biasb = bias != nullptr ? bias + b * bias_sb : nullptr;
-      if (lane == 0) {
-        mbar_arrive_expect_tx(&sm.q_full, kBlockM * kHeadDim * 2);
+    const int warp = (tid % 128) / 32;
+    const int lane = tid % 32;
+    if (warp == 0) {
+      for (int r = 0, it = 0;; ++r) {
+        const int u = unit_of_round(r);
+        if (u >= units) break;
+        const Unit un = unit_at(u, heads, bh);
+        const float* biasb =
+            bias != nullptr ? bias + un.b * bias_sb : nullptr;
+        const int n_tiles = unit_tiles(un);
+        for (int j = 0; j < n_tiles; ++j, ++it) {
+          const int stage = it % kKStages;
+          mbar_wait(&sm.k_empty[stage], ((it / kKStages) & 1) ^ 1);
+          const int key0 = j * kBlockN;
+          if (lane == 0) {
+            mbar_expect_tx(&sm.k_full[stage], kBlockN * kHeadDim * 2);
 #pragma unroll
-        for (int c = 0; c < kColBlocks; ++c) {
-          tma_load(sm.q[c], &tm_q, &sm.q_full, c * kBoxCols, q0, h, b);
+            for (int c = 0; c < kColBlocks; ++c) {
+              tma_load(sm.k[stage][c], &tm_k, &sm.k_full[stage],
+                       c * kBoxCols, key0, un.h, un.b);
+            }
+          }
+          if (!plain_scores) {
+#pragma unroll
+            for (int e = 0; e < kBlockN / 32; ++e) {
+              const int key = key0 + lane + 32 * e;
+              float x = neg_inf();  // past the sequence end
+              if (key < seq) {
+                x = biasb != nullptr ? biasb[key] * kLog2e : 0.0f;
+              }
+              sm.bias[stage][lane + 32 * e] = x;
+            }
+          }
+          mbar_arrive(&sm.k_full[stage]);
         }
       }
-      for (int j = 0; j < n_tiles; ++j) {
-        const int stage = j % kStages;
-        mbar_wait(&sm.empty[stage], ((j / kStages) & 1) ^ 1);
-        const int key0 = j * kBlockN;
-        if (lane == 0) {
-          mbar_expect_tx(&sm.full[stage], 2 * kBlockN * kHeadDim * 2);
+    } else if (warp == 1 && lane == 0) {
+      for (int r = 0, it = 0;; ++r) {
+        const int u = unit_of_round(r);
+        if (u >= units) break;
+        const Unit un = unit_at(u, heads, bh);
+        const int n_tiles = unit_tiles(un);
+        for (int j = 0; j < n_tiles; ++j, ++it) {
+          const int stage = it % kVStages;
+          mbar_wait(&sm.v_empty[stage], ((it / kVStages) & 1) ^ 1);
+          mbar_arrive_expect_tx(&sm.v_full[stage], kBlockN * kHeadDim * 2);
 #pragma unroll
           for (int c = 0; c < kColBlocks; ++c) {
-            tma_load(sm.k[stage][c], &tm_k, &sm.full[stage], c * kBoxCols,
-                     key0, h, b);
-            tma_load(sm.v[stage][c], &tm_v, &sm.full[stage], c * kBoxCols,
-                     key0, h, b);
+            tma_load(sm.v[stage][c], &tm_v, &sm.v_full[stage], c * kBoxCols,
+                     j * kBlockN, un.h, un.b);
           }
         }
+      }
+    } else if (warp == 2 && lane == 0) {
+      for (int r = 0;; ++r) {
+        const int u = unit_of_round(r);
+        if (u >= units) break;
+        const Unit un = unit_at(u, heads, bh);
+        for (int w = 0; w < kConsumers; ++w) {
+          mbar_wait(&sm.q_empty[w], (r & 1) ^ 1);
+          const int row = first_row(un, w);
+          if (row >= seq) {  // no row to load: the consumer computes nothing
+            mbar_arrive(&sm.q_full[w]);
+            continue;
+          }
+          mbar_arrive_expect_tx(&sm.q_full[w], 64 * kHeadDim * 2);
 #pragma unroll
-        for (int e = 0; e < kBlockN / 32; ++e) {
-          const int key = key0 + lane + 32 * e;
-          float x = neg_inf();  // past the sequence end
-          if (key < seq) x = biasb != nullptr ? biasb[key] * kLog2e : 0.0f;
-          sm.bias[stage][lane + 32 * e] = x;
+          for (int c = 0; c < kColBlocks; ++c) {
+            tma_load(sm.q[c] + 64 * w * kBoxCols, &tm_q, &sm.q_full[w],
+                     c * kBoxCols, row, un.h, un.b);
+          }
         }
-        mbar_arrive(&sm.full[stage]);
       }
     }
   } else {
-    // Consumer warpgroup `wg`: query rows q0 + 64 * wg ... + 63. Scores
-    // are kept in the log2 domain (exp2 is one MUFU op): x2 = log2(e) * x.
+    // Consumer warpgroup `wg`: rows first_row(unit, wg) ... + 63 of each
+    // unit.
+    // Scores are kept in the log2 domain (exp2 is one MUFU op): x2 =
+    // log2(e) * x.
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
         C::kConsumerRegs));
     const int wtid = tid % 128;
@@ -587,19 +889,13 @@ __global__ void __launch_bounds__(C::kThreads, 1)
     const int g = lane / 4;
     const int t = lane % 4;
     const int row0 = 16 * warp + g;             // rows row0 and row0 + 8
-    const int qrow = q0 + 64 * wg + row0;       // absolute query row
     const float scale2 = sm_scale * kLog2e;
     const float neg_inf2 = kNegInf * kLog2e;    // the mask value, log2 domain
 
-    // O: per column block, kBoxCols / 8 n8 slices, rows row0 / row0 + 8.
-    float acc[kColBlocks][kBoxCols / 2];
-#pragma unroll
-    for (int c = 0; c < kColBlocks; ++c) {
-#pragma unroll
-      for (int i = 0; i < kBoxCols / 2; ++i) acc[c][i] = 0.0f;
-    }
-    float row_max[2] = {neg_inf2, neg_inf2};
-    float row_sum[2] = {0.0f, 0.0f};
+    // O: D / 8 n8 slices (column block c's from c * kBoxCols / 2), rows
+    // row0 / row0 + 8.
+    float acc[kHeadDim / 2];
+    float row_max[2], row_sum[2];
     float s[kBlockN / 2];          // S of one key tile, then its P in fp32
     uint32_t pa[kBlockN / 16][4];  // P of the previous tile, T A fragments
     uint64_t desc_q[kColBlocks];   // this warpgroup's Q rows, per block
@@ -608,8 +904,9 @@ __global__ void __launch_bounds__(C::kThreads, 1)
       desc_q[c] = smem_desc<kRowBytes>(sm.q[c] + 64 * wg * kBoxCols);
     }
 
-    // S = Q K^T of tile j: 64 rows x kBlockN keys, D / 16 k-steps of 16
-    // (32 bytes along the swizzled rows of each column block).
+    // S = Q K^T of the tile in K's `stage`: 64 rows x kBlockN keys, D / 16
+    // k-steps of 16 (32 bytes along the swizzled rows of each column
+    // block).
     auto issue_s = [&](int stage) {
 #pragma unroll
       for (int c = 0; c < kColBlocks; ++c) {
@@ -622,30 +919,26 @@ __global__ void __launch_bounds__(C::kThreads, 1)
       }
       wgmma_commit();
     };
-    // O += P V of the tile in `stage`: for each column block, kBlockN / 16
-    // k-steps of 16 keys, each 16 V rows further on.
+    // O += P V of the tile in V's `stage`: kBlockN / 16 k-steps of 16
+    // keys, each 16 V rows further on, every one a single product over all
+    // D columns (the column blocks kBlockN * kRowBytes bytes apart).
     auto issue_pv = [&](int stage) {
+      const uint64_t desc_v =
+          smem_desc<kRowBytes>(sm.v[stage][0], kBlockN * kRowBytes);
 #pragma unroll
-      for (int c = 0; c < kColBlocks; ++c) {
-        const uint64_t desc_v = smem_desc<kRowBytes>(sm.v[stage][c]);
-#pragma unroll
-        for (int kk = 0; kk < kBlockN / 16; ++kk) {
-          wgmma_rs<kBoxCols, kF16>(acc[c], pa[kk],
-                                   desc_v + kk * (16 * kRowBytes >> 4));
-        }
+      for (int kk = 0; kk < kBlockN / 16; ++kk) {
+        wgmma_rs<kHeadDim, kF16>(acc, pa[kk],
+                                 desc_v + kk * (16 * kRowBytes >> 4));
       }
       wgmma_commit();
     };
-    // Scale, bias (stored times log2(e)), causal mask on the tiles that
-    // cross the diagonal; the online-softmax update of the row statistics;
-    // s becomes P. A score at or below -1e30 needs no test: exp2 of it
-    // minus a finite max is exactly 0. Maxima and sums run in 4 independent
-    // chains (a scheduler holds only three consumer warps to hide their
-    // latency), and each thread keeps its own part of the row sum until the
-    // epilogue. Returns the rescale factors of O through `corr`.
-    auto softmax = [&](int j, float (&corr)[2]) {
-      const int stage = j % kStages;
-      const int key0 = j * kBlockN;
+    // Scale, and add the bias (stored times log2(e)) of K's `stage`.
+    auto scale_bias = [&](int stage) {
+      if (plain_scores) {
+#pragma unroll
+        for (int i = 0; i < kBlockN / 2; ++i) s[i] *= scale2;
+        return;
+      }
 #pragma unroll
       for (int jn = 0; jn < kBlockN / 8; ++jn) {
         const float2 bv =
@@ -655,7 +948,16 @@ __global__ void __launch_bounds__(C::kThreads, 1)
           s[4 * jn + e] = fmaf(s[4 * jn + e], scale2, (e & 1) ? bv.y : bv.x);
         }
       }
-      if (causal && key0 + kBlockN - 1 > q0) {  // crosses the diagonal
+    };
+    // The causal mask, on a tile that crosses the diagonal of this
+    // warpgroup's rows (`masked`); the online-softmax update of the row
+    // statistics; s becomes P. A score at or below -1e30 needs no test:
+    // exp2 of it minus a finite max is exactly 0. Maxima and sums run in 4
+    // independent chains, and each thread keeps its own part of the row
+    // sum until the epilogue. Returns the rescale factors of O through
+    // `corr`.
+    auto softmax = [&](bool masked, int key0, int qrow, float (&corr)[2]) {
+      if (masked) {
 #pragma unroll
         for (int jn = 0; jn < kBlockN / 8; ++jn) {
 #pragma unroll
@@ -700,13 +1002,7 @@ __global__ void __launch_bounds__(C::kThreads, 1)
     // 2kk + 1, packed pairwise, is the A fragment of P.V step kk.
     auto rescale_and_pack = [&](const float (&corr)[2]) {
 #pragma unroll
-      for (int c = 0; c < kColBlocks; ++c) {
-#pragma unroll
-        for (int dn = 0; dn < kBoxCols / 8; ++dn) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[c][4 * dn + e] *= corr[e >> 1];
-        }
-      }
+      for (int i = 0; i < kHeadDim / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
 #pragma unroll
       for (int kk = 0; kk < kBlockN / 16; ++kk) {
         pa[kk][0] = pack<T>(s[8 * kk + 0], s[8 * kk + 1]);
@@ -715,87 +1011,137 @@ __global__ void __launch_bounds__(C::kThreads, 1)
         pa[kk][3] = pack<T>(s[8 * kk + 6], s[8 * kk + 7]);
       }
     };
-
-    // Tile 0 alone; then, for each further tile j, S of j and P.V of j - 1
-    // go to the tensor cores together, and the softmax of j runs while
-    // P.V of j - 1 is still in flight.
-    float corr[2];
-    mbar_wait(&sm.q_full, 0);
-    mbar_wait(&sm.full[0], 0);
-    wgmma_fence();
-    issue_s(0);
-    wgmma_wait<0>();
-    fence_regs(s);
-    softmax(0, corr);
-    rescale_and_pack(corr);
-    for (int j = 1; j < n_tiles; ++j) {
-      const int stage = j % kStages;
-      const int prev = (j - 1) % kStages;
-      mbar_wait(&sm.full[stage], (j / kStages) & 1);
-      fence_regs(acc);
-      wgmma_fence();
-      issue_s(stage);
-      issue_pv(prev);
-      wgmma_wait<1>();  // S of j is in; P.V of j - 1 may still run
-      fence_regs(s);
-      softmax(j, corr);
-      wgmma_wait<0>();
-      fence_regs(acc);
-      mbar_arrive(&sm.empty[prev]);
-      rescale_and_pack(corr);
+    // The turns: wait for this warpgroup's; pass it to the next one (no
+    // branch between a product's issue and its wait).
+    const int my_turn = kTurnBar + wg;
+    const int next_turn = kTurnBar + (wg + 1) % kConsumers;
+    auto turn_begin = [&]() {
+      if constexpr (C::kTurns) named_sync(my_turn, 256);
+    };
+    auto turn_end = [&]() {
+      if constexpr (C::kTurns) named_arrive(next_turn, 256);
+    };
+    if constexpr (C::kTurns) {
+      if (wg == 0) named_arrive(my_turn, 256);  // the first turn
     }
-    const int last = (n_tiles - 1) % kStages;
-    fence_regs(acc);
-    wgmma_fence();
-    issue_pv(last);
-    wgmma_wait<0>();
-    fence_regs(acc);
-    mbar_arrive(&sm.empty[last]);
 
-    // Epilogue: normalise, round to T, stage through this warpgroup's
-    // own Q rows of each column block (read by no one now) with a 16-byte-
-    // chunk swizzle, then 16-byte stores of whole chunks (element stores
-    // where d_out is not a multiple of 8); columns past d_out are dropped.
+    int k_it = 0, v_it = 0;  // tiles of K's and V's rings taken so far
+    for (int r = 0;; ++r) {
+      const int u = unit_of_round(r);
+      if (u >= units) break;
+      const Unit un = unit_at(u, heads, bh);
+      const int row_a = first_row(un, wg);  // this warpgroup's first row
+      const int qrow = row_a + row0;        // absolute query row
+      const int n_tiles = unit_tiles(un);
+      // This warpgroup's tiles: none past the sequence, and under the
+      // causal flag none wholly above its own diagonal.
+      const int my_tiles = row_a < seq ? tiles_to(row_a + 63) : 0;
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float sum = quad_sum(row_sum[r]);
-      const float denom = sum == 0.0f ? 1.0f : sum;
-      const int row = row0 + 8 * r;
+      for (int i = 0; i < kHeadDim / 2; ++i) acc[i] = 0.0f;
+      row_max[0] = row_max[1] = neg_inf2;
+      row_sum[0] = row_sum[1] = 0.0f;
+
+      mbar_wait(&sm.q_full[wg], r & 1);
+      if (my_tiles > 0) {
+        // Tile 0 alone; then, for each further tile j, S of j and P.V of
+        // j - 1 go to the tensor cores together, and the softmax of j runs
+        // while P.V of j - 1 is still in flight. Tiles before `unmasked`
+        // lie wholly below this warpgroup's diagonal.
+        const int unmasked =
+            causal ? min(my_tiles, (row_a + 1) / kBlockN) : my_tiles;
+        float corr[2];
+        const int ks0 = k_it % kKStages;
+        mbar_wait(&sm.k_full[ks0], (k_it / kKStages) & 1);
+        turn_begin();
+        wgmma_fence();
+        issue_s(ks0);
+        turn_end();
+        wgmma_wait<0>();
+        fence_regs(s);
+        scale_bias(ks0);
+        mbar_arrive(&sm.k_empty[ks0]);
+        softmax(unmasked == 0, 0, qrow, corr);
+        rescale_and_pack(corr);
+        for (int j = 1; j < my_tiles; ++j) {
+          const int ks = (k_it + j) % kKStages;
+          const int vs = (v_it + j - 1) % kVStages;  // tile j - 1
+          mbar_wait(&sm.k_full[ks], ((k_it + j) / kKStages) & 1);
+          mbar_wait(&sm.v_full[vs], ((v_it + j - 1) / kVStages) & 1);
+          turn_begin();
+          fence_regs(acc);
+          wgmma_fence();
+          issue_s(ks);
+          issue_pv(vs);
+          turn_end();
+          wgmma_wait<1>();  // S of j is in; P.V of j - 1 may still run
+          fence_regs(s);
+          scale_bias(ks);
+          mbar_arrive(&sm.k_empty[ks]);  // K and its bias are read
+          softmax(j >= unmasked, j * kBlockN, qrow, corr);
+          wgmma_wait<0>();
+          fence_regs(acc);
+          mbar_arrive(&sm.v_empty[vs]);
+          rescale_and_pack(corr);
+        }
+        mbar_arrive(&sm.q_empty[wg]);  // its Q rows are read
+        const int it = v_it + my_tiles - 1;
+        const int vs = it % kVStages;
+        mbar_wait(&sm.v_full[vs], (it / kVStages) & 1);
+        fence_regs(acc);
+        wgmma_fence();
+        issue_pv(vs);
+        wgmma_wait<0>();
+        fence_regs(acc);
+        mbar_arrive(&sm.v_empty[vs]);
+      } else {
+        mbar_arrive(&sm.q_empty[wg]);
+      }
+      // The CTA's tiles past this warpgroup's own: a turn each, to keep
+      // the turns in step, and their stages handed on.
+      for (int j = my_tiles; j < n_tiles; ++j) {
+        turn_begin();
+        turn_end();
+        const int ki = k_it + j, vi = v_it + j;
+        mbar_wait(&sm.k_full[ki % kKStages], (ki / kKStages) & 1);
+        mbar_arrive(&sm.k_empty[ki % kKStages]);
+        mbar_wait(&sm.v_full[vi % kVStages], (vi / kVStages) & 1);
+        mbar_arrive(&sm.v_empty[vi % kVStages]);
+      }
+      k_it += n_tiles;
+      v_it += n_tiles;
+
+      // Epilogue: normalise, round to T, and store pairs of T straight
+      // from the accumulators; rows past the sequence and columns past
+      // d_out are not stored.
+      T* ob = o + un.b * o_sb + un.h * o_sh;
 #pragma unroll
-      for (int c = 0; c < kColBlocks; ++c) {
-        unsigned char* stage_o =
-            reinterpret_cast<unsigned char*>(sm.q[c] + 64 * wg * kBoxCols);
+      for (int r2 = 0; r2 < 2; ++r2) {
+        const float sum = quad_sum(row_sum[r2]);
+        const float denom = sum == 0.0f ? 1.0f : sum;
+        const int row = qrow + 8 * r2;
+        if (row >= seq) continue;
+        T* orow = ob + row * o_ss;
 #pragma unroll
-        for (int dn = 0; dn < kBoxCols / 8; ++dn) {
-          *reinterpret_cast<uint32_t*>(
-              stage_o + row * kRowBytes + ((dn ^ (row & (kChunks - 1))) * 16) +
-              4 * t) = pack<T>(acc[c][4 * dn + 2 * r] / denom,
-                               acc[c][4 * dn + 2 * r + 1] / denom);
+        for (int dn = 0; dn < kHeadDim / 8; ++dn) {
+          const int col = dn * 8 + 2 * t;
+          const uint32_t pair = pack<T>(acc[4 * dn + 2 * r2] / denom,
+                                        acc[4 * dn + 2 * r2 + 1] / denom);
+          if (vec_out) {
+            if (col < d_out) *reinterpret_cast<uint32_t*>(orow + col) = pair;
+          } else {
+            uint16_t* out16 = reinterpret_cast<uint16_t*>(orow);
+            if (col < d_out) out16[col] = static_cast<uint16_t>(pair);
+            if (col + 1 < d_out) {
+              out16[col + 1] = static_cast<uint16_t>(pair >> 16);
+            }
+          }
         }
       }
     }
-    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
-    T* ob = o + b * o_sb + h * o_sh;
-#pragma unroll
-    for (int i = 0; i < 64 * (kHeadDim / 8) / 128; ++i) {
-      const int idx = wtid + 128 * i;
-      const int row = idx / (kHeadDim / 8);
-      const int chunk = idx % (kHeadDim / 8);
-      const int srow = q0 + 64 * wg + row;
-      if (srow < seq && chunk * 8 < d_out) {
-        const int c = chunk / kChunks;
-        const unsigned char* src =
-            reinterpret_cast<const unsigned char*>(sm.q[c] +
-                                                   64 * wg * kBoxCols) +
-            row * kRowBytes + (((chunk % kChunks) ^ (row & (kChunks - 1))) * 16);
-        T* dst = ob + srow * o_ss + chunk * 8;
-        if (vec_out) {
-          *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
-        } else {
-          const T* vals = reinterpret_cast<const T*>(src);
-          for (int e = 0; e < 8 && chunk * 8 + e < d_out; ++e) dst[e] = vals[e];
-        }
-      }
+    // The last consumer's last turn_end arrived on consumer 0's barrier:
+    // take it, so that no barrier is left with arrivals pending.
+    if constexpr (C::kTurns) {
+      if (wg == 0) named_sync(my_turn, 256);
     }
   }
 }
@@ -1810,11 +2156,16 @@ cudaError_t opt_in(Kernel kernel, int bytes, std::atomic<bool> (&done)[64]) {
   return err;
 }
 
-bool aligned(const void* p, int64_t s0, int64_t s1, int64_t s2,
-             int elems_per_16_bytes) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 &&
-         s0 % elems_per_16_bytes == 0 && s1 % elems_per_16_bytes == 0 &&
-         s2 % elems_per_16_bytes == 0;
+// The current device's SM count, read once per device.
+cudaError_t sm_count(int* count) {
+  static std::atomic<int> counts[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && (*count = counts[dev].load()) > 0) return cudaSuccess;
+  err = cudaDeviceGetAttribute(count, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && dev < 64) counts[dev].store(*count);
+  return err;
 }
 
 template <int D, int kBlockN>
@@ -1857,7 +2208,7 @@ int launch_16(const void* q, const void* k, const void* v, const void* bias,
                                             ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                                             : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   if (!encode_qkv_map(&tm_q, q, kType, 2, batch, seq, heads, d_in, q_sb,
-                      q_ss, q_sh, C::kBoxCols, C::kBlockM) ||
+                      q_ss, q_sh, C::kBoxCols, 64) ||  // a consumer's rows
       !encode_qkv_map(&tm_k, k, kType, 2, batch, seq, heads, d_in, k_sb,
                       k_ss, k_sh, C::kBoxCols, C::kBlockN) ||
       !encode_qkv_map(&tm_v, v, kType, 2, batch, seq, heads, d_in, v_sb,
@@ -1868,12 +2219,20 @@ int launch_16(const void* q, const void* k, const void* v, const void* bias,
   cudaError_t err = opt_in(sm90::flash_fwd_kernel<C, T>,
                            sm90::kSmemBytes<C>, opted_in);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int vec_out = d_out % 8 == 0 && aligned(o, o_sb, o_ss, o_sh, 8);
-  dim3 grid(batch * heads, (seq + C::kBlockM - 1) / C::kBlockM);
+  const int vec_out = d_out % 2 == 0 &&
+                      reinterpret_cast<uintptr_t>(o) % 4 == 0 &&
+                      o_sb % 2 == 0 && o_ss % 2 == 0 && o_sh % 2 == 0;
+  int sms = 0;
+  err = sm_count(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // Persistent: one CTA an SM at most, each walking its units.
+  const int64_t units = static_cast<int64_t>(batch) * heads *
+                        ((seq + C::kBlockM - 1) / C::kBlockM);
+  const int grid = static_cast<int>(units < sms ? units : sms);
   sm90::flash_fwd_kernel<C, T><<<grid, C::kThreads, sm90::kSmemBytes<C>,
                                  static_cast<cudaStream_t>(stream)>>>(
       tm_q, tm_k, tm_v, static_cast<const float*>(bias), static_cast<T*>(o),
-      seq, heads, d_out, o_sb, o_ss, o_sh, bias_sb, sm_scale, causal,
+      batch, seq, heads, d_out, o_sb, o_ss, o_sh, bias_sb, sm_scale, causal,
       vec_out);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1925,8 +2284,8 @@ int launch_tf32(const void* q, const void* bias, void* o, int batch, int seq,
 // multiple of 16 bytes (the Python wrapper checks, and pads a copy where
 // they are not); o [B, S, H, d_out] (d_out <= d_in <= 256: the columns
 // past d_out, zeros the caller padded, are dropped); `bias` may be null.
-// The instantiation is the smallest head dim of 32, 64, 128 and 256 that
-// holds d_in. Launch on `stream`; returns 0 when launched, else a
+// The instantiation is the smallest head dim of 32, 64, 128 and 256 (bf16
+// and fp16 also 96) that holds d_in. Launch on `stream`; returns 0 when launched, else a
 // cudaError_t or one of this file's codes (client_tpu_cuda_error_string
 // names both).
 
@@ -2005,6 +2364,7 @@ int launch_16_head_dim(CLIENT_TPU_16_PARAMS) {
   if (d_out < 1 || d_out > d_in || d_in > kMaxHeadDim) return kErrHeadDim;
   if (d_in <= 32) return launch_16<sm90::Config32, T>(CLIENT_TPU_16_ARGS);
   if (d_in <= 64) return launch_16<sm90::Config64, T>(CLIENT_TPU_16_ARGS);
+  if (d_in <= 96) return launch_16<sm90::Config96, T>(CLIENT_TPU_16_ARGS);
   if (d_in <= 128) return launch_16<sm90::Config128, T>(CLIENT_TPU_16_ARGS);
   return launch_16<sm90::Config256, T>(CLIENT_TPU_16_ARGS);
 }

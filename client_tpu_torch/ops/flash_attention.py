@@ -12,21 +12,23 @@ exactly 0 and a row with nothing to attend to outputs 0, never NaN.
 takes :func:`flash_attention_plain` only for tensors on the CPU. The kernel
 runs in bf16 (the BERTs), in fp16 (the bf16 kernel on f16 ``wgmma``; no
 served model) and in fp32 (the generative models' prefill), at every head
-dim from 1 to 256, as the Pallas kernel
-takes any: it is instantiated at ``KERNEL_HEAD_DIMS`` (32, 64, 128, 256),
-and any other head dim runs the next larger instantiation with the head
-dim zero-padded (:func:`kernel_head_dim`; :func:`flash_attention_padded_plain`
-is that rule in plain PyTorch). It raises above 256 and on anything else
-it does not take. In fp32 above head dim 64 the kernel runs 3xTF32 on
-``wgmma`` and reads K and V through a pre-pass, :func:`split_kv`, launched
-first by the same call: K's and V's TF32 halves, once a call, into scratch
-the wrapper allocates (V transposed, its keys permuted;
-:func:`split_kv_plain` is its plain version). ``launches`` counts bf16
-launches, ``launches_fp32`` fp32 ones and ``launches_split`` the
-pre-pass's and ``launches_fp16`` fp16 ones, so a run can show that its path
-went through the kernels; ``launches_by_head_dim``,
+dim from 1 to 256, as the Pallas kernel takes any: it is instantiated at
+``KERNEL_HEAD_DIMS`` (32, 64, 128, 256; in bf16 and fp16
+``TWO_BYTE_HEAD_DIMS``, which adds 96), and any other head dim runs the
+next larger instantiation with the head dim zero-padded
+(:func:`kernel_head_dim`, :func:`two_byte_head_dim`;
+:func:`flash_attention_padded_plain` is that rule in plain PyTorch). It
+raises above 256 and on anything else it does not take. In fp32 above head
+dim 64 the kernel runs 3xTF32 on ``wgmma`` and reads K and V through a
+pre-pass, :func:`split_kv`, launched first by the same call: K's and V's
+TF32 halves, once a call, into scratch the wrapper allocates (V transposed,
+its keys permuted; :func:`split_kv_plain` is its plain version).
+``launches`` counts bf16 launches, ``launches_fp32`` fp32 ones and
+``launches_split`` the pre-pass's and ``launches_fp16`` fp16 ones, so a run
+can show that its path went through the kernels; ``launches_by_head_dim``,
 ``launches_fp32_by_head_dim`` and ``launches_fp16_by_head_dim`` count them
-by the head dim requested. Each call reports its work (:func:`work`,
+by the head dim requested, and ``launches_causal_by_dtype_head_dim`` the
+causal ones by (dtype, head dim). Each call reports its work (:func:`work`,
 at the real head dim) to a roofline capture running on its thread: the
 ``ctypes`` launch is invisible to the FLOP counter.
 """
@@ -46,6 +48,7 @@ from client_tpu_torch.utils import lockdep
 
 _NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (32, 64, 128, 256)  # the kernel's instantiations
+TWO_BYTE_HEAD_DIMS = (32, 64, 96, 128, 256)  # bf16's and fp16's
 
 launches = 0
 launches_fp32 = 0
@@ -54,6 +57,8 @@ launches_fp16 = 0
 launches_by_head_dim = collections.Counter()       # bf16, by requested D
 launches_fp32_by_head_dim = collections.Counter()  # fp32, by requested D
 launches_fp16_by_head_dim = collections.Counter()  # fp16, by requested D
+# Causal launches in every dtype, by (dtype, requested D).
+launches_causal_by_dtype_head_dim = collections.Counter()
 _count_lock = lockdep.Lock("ops.flash_attention.count")
 _fwd = None
 _split = None
@@ -61,10 +66,14 @@ _bind_lock = lockdep.Lock("ops.flash_attention.bind")
 
 
 # The instantiation that runs head dim ``d`` (zero-padded to it); ValueError
-# outside 1 to 256.
+# outside 1 to 256. In fp32 ``kernel_head_dim``, in bf16 and fp16
+# ``two_byte_head_dim`` (which also has 96).
 kernel_head_dim = functools.partial(head_dims.kernel_head_dim,
                                     instantiations=KERNEL_HEAD_DIMS,
                                     kernel="flash attention kernel")
+two_byte_head_dim = functools.partial(head_dims.kernel_head_dim,
+                                      instantiations=TWO_BYTE_HEAD_DIMS,
+                                      kernel="flash attention kernel")
 
 
 def pad_head_dim(x: torch.Tensor, width: int) -> torch.Tensor:
@@ -155,12 +164,14 @@ def flash_attention_padded_plain(q: torch.Tensor, k: torch.Tensor,
                                  bias: torch.Tensor | None = None,
                                  causal: bool = False) -> torch.Tensor:
     """The kernel's padding rule in plain PyTorch: q/k/v zero-padded to
-    the instantiation's head dim (:func:`kernel_head_dim`), scores scaled
-    by 1/sqrt(D) of the real D, and only the first D output columns kept.
-    The zeros add nothing to q.k, and the padded columns of the output
-    (zeros of v) are dropped, so it equals :func:`flash_attention_plain`."""
+    the instantiation's head dim (:func:`kernel_head_dim` in fp32,
+    :func:`two_byte_head_dim` in bf16 and fp16), scores scaled by 1/sqrt(D)
+    of the real D, and only the first D output columns kept. The zeros add
+    nothing to q.k, and the padded columns of the output (zeros of v) are
+    dropped, so it equals :func:`flash_attention_plain`."""
     d = q.shape[-1]
-    width = kernel_head_dim(d)
+    width = (kernel_head_dim(d) if q.dtype == torch.float32
+             else two_byte_head_dim(d))
     out = flash_attention_plain(
         *(pad_head_dim(t, width) for t in (q, k, v)), bias, causal,
         sm_scale=1.0 / math.sqrt(d))
@@ -383,4 +394,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         else:
             launches += 1
             launches_by_head_dim[d] += 1
+        if causal:
+            launches_causal_by_dtype_head_dim[q.dtype, d] += 1
     return out

@@ -198,7 +198,7 @@ def test_split_kv_kernel_matches_plain(card, b, s, h, d):
                     for d in FP32_HEAD_DIMS])
 def test_kernel_tile_edges(card, dtype, d, s, causal, with_bias):
     """Both kernels against the plain version at the edges of their tiles
-    (bf16: 192 query rows a CTA, 128 keys a stage; fp32 at head dim 64: 64
+    (bf16: 128 query rows a CTA, 128 keys a tile; fp32 at head dim 64: 64
     and 64; fp32 at 128 and 80: 128 and 32; at 256 and 160: 64 and 16), on
     strided slices of one fused [B, S, 3, H, D] tensor as BERT hands them
     over. With a bias, batch row 1 masks every key and must be exactly
@@ -260,16 +260,16 @@ def test_fp32_kernel_keeps_fp32_accuracy(card, causal, d):
 
 
 @pytest.mark.parametrize("dtype, d, rows", [
-    (torch.bfloat16, 64, 192), (torch.float32, 64, 64),
-    (torch.float32, 128, 128), (torch.float32, 256, 64)],
-    ids=["bf16", "fp32", "fp32-hd128", "fp32-hd256"])
+    (torch.float32, 64, 64), (torch.float32, 128, 128),
+    (torch.float32, 256, 64)], ids=["fp32", "fp32-hd128", "fp32-hd256"])
 def test_refused_launch_raises(card, dtype, d, rows):
     """A grid the card cannot launch (65,536 query tiles of the kernel's
     rows a CTA in the grid's second dimension, whose limit is 65,535) is
     refused by the runtime: the wrapper raises with the runtime's message,
     counts no launch of the kernel and does not fall back to the plain
     version. Above head dim 64 the fp32 pre-pass has launched first, and
-    counts."""
+    counts. (The bf16 and fp16 kernel's grid is persistent, at most one
+    CTA an SM, and has no such limit.)"""
     q = torch.zeros(1, 65535 * rows + 1, 1, d, dtype=dtype, device=card)
     counts = (fa.launches, fa.launches_fp32)
     split = fa.launches_split
@@ -1659,3 +1659,81 @@ def test_sharded_decode_over_a_bf16_arena_equals_unsharded(card, n):
     want = da.decode_wave_attention(k_a, v_a, q, kn, vn, index, layer=1)
     assert o.dtype == torch.bfloat16
     assert _k2_within(o[:3], want[:3], torch.bfloat16)
+
+
+# -- K1's 2-byte schedule: diagonals, persistent units, ping-pong ------------
+# Two consumer warpgroups of 64 rows a CTA, each stopping at its own
+# diagonal, over a persistent grid of min(units, SMs) CTAs; bf16 at 2e-2
+# and fp16 at 5e-3 against the plain version, as above.
+
+TWO_BYTE_TOL = {torch.bfloat16: 2e-2, torch.float16: 5e-3}
+
+
+def _two_byte_case(card, dtype, b, s, h, d, causal, seed, masked_row=True):
+    """One 2-byte call against the plain version on strided slices of a
+    fused [B, S, 3, H, D] tensor; with ``masked_row`` a bias whose batch
+    row 1 drops every key (its output must be exactly 0) and row 0 a tail
+    of -1e9. Returns the output."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    fused = torch.randn(b, s, 3, h, d, device=card, generator=gen).to(dtype)
+    q, k, v = fused[:, :, 0], fused[:, :, 1], fused[:, :, 2]
+    bias = None
+    if masked_row:
+        bias = torch.zeros(b, s, device=card)
+        bias[0, s * 3 // 4 + 1:] = -1e9
+        bias[1] = -math.inf
+    out = fa.flash_attention(q, k, v, bias, causal=causal)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_plain(q, k, v, bias, causal=causal)
+    assert out.dtype == dtype and out.shape == q.shape
+    assert bool(torch.isfinite(out).all())
+    err = float((out.float() - ref.float()).abs().max())
+    assert err <= TWO_BYTE_TOL[dtype], err
+    if masked_row:
+        assert bool((out[1] == 0).all())
+    return out
+
+
+@pytest.mark.parametrize("with_bias", [True, False], ids=["bias", "nobias"])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 129, 191, 193, 2047])
+@pytest.mark.parametrize("d", [32, 64, 80, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
+def test_flash_two_byte_causal_diagonals(card, dtype, d, s, with_bias):
+    """Causal calls whose lengths put a warpgroup's 64-row diagonal at
+    every edge of the 128-key tiles (64-key at head dim 256) and of the
+    128- and 192-row CTA tiles: with a bias, a fully masked batch row among
+    them; without one, the keys past S in the last tile are dropped by the
+    causal mask alone (the kernel then reads no bias)."""
+    _two_byte_case(card, dtype, 2, s, 3, d, True, seed=s + d,
+                   masked_row=with_bias)
+
+
+@pytest.mark.parametrize("load", ["below", "at", "above"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
+def test_flash_two_byte_persistent_units(card, dtype, d, causal, load):
+    """(batch, head, 128-row query tile) units below, at and above the
+    card's SM count, so that a persistent CTA walks no unit, one and
+    several (units dealt heaviest first, each round in the other
+    direction)."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    b, s, h = {"below": (2, 256, max(1, sms // 8)),  # about sms / 2 units
+               "at": (1, 128, sms),                  # sms units
+               "above": (3, 1024, sms // 8 + 1)}[load]  # about 3 a CTA
+    _two_byte_case(card, dtype, b, s, h, d, causal, seed=b * s + h,
+                   masked_row=b > 1)
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
+def test_flash_two_byte_repeats_bit_for_bit(card, dtype, d, causal):
+    """Two calls on the same inputs give the same bits: every row's tiles
+    are added in one order, whichever CTA and round take its unit."""
+    first = _two_byte_case(card, dtype, 3, 700, 5, d, causal, seed=d)
+    second = _two_byte_case(card, dtype, 3, 700, 5, d, causal, seed=d)
+    assert torch.equal(first, second)

@@ -224,6 +224,31 @@ def test_flash_fp16_plain_matches_pallas_kernel(d, variant):
                                rtol=0)
 
 
+@pytest.mark.parametrize("s, block", [(96, 32), (192, 64)])
+@pytest.mark.parametrize("d", [64, 80, 128, 256])
+def test_flash_fp16_causal_plain_matches_pallas_kernel(d, s, block):
+    """K1 fp16 causal at the head dims whose schedule the card's kernel
+    redesigned (64, 128, 256 and 80, run there by the 96 instantiation),
+    at lengths the Pallas kernel takes in blocks of 32 and 64, with
+    BERT's padding mask and a row of dropped keys."""
+    b, h = 2, 2
+    rng = np.random.default_rng(d + s)
+    q, k, v = (_round(rng.standard_normal((b, s, h, d)), "float16")
+               for _ in range(3))
+    bias = np.zeros((b, s), np.float32)
+    bias[0, s - s // 4:] = -1e9
+    bias[1, 1::5] = -np.inf
+    want = jax_flash(*[jnp.asarray(x) for x in (q, k, v)], jnp.asarray(bias),
+                     causal=True, block_q=block, block_k=block,
+                     interpret=True)
+    got = fa.flash_attention(*[_torch(x) for x in (q, k, v)], _torch(bias),
+                             causal=True)
+    assert got.dtype == torch.float16 and got.shape == q.shape
+    assert np.isfinite(_f32(got)).all()
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=K1_FP16_ATOL,
+                               rtol=0)
+
+
 # -- the sharded paths in bf16 -------------------------------------------------
 
 CAP, SL, SH, SD = 8, 16, 2, 8
